@@ -1,0 +1,144 @@
+"""Carry GSR-Net weights between the JAX package and the port.
+
+Three layouts, all plain numpy here (the torch boundary is
+``torch.from_numpy`` on the caller's side):
+
+* the JAX package's flax tree ``{"params": {"net": ..., "layer": ...}}``
+  whose Dense kernels are (in, out);
+* the port's ``state_dict`` names — the reference's torch names::
+
+      layer.weights                      (hr, lr)
+      net.{start,bottom,end}_gcn.proj.{weight,bias}   Linear: (out, in)
+      net.{down_gcns,up_gcns,pools}.{i}.proj.{weight,bias}
+      gc1.weight, gc2.weight             (in, out), no bias
+
+* the training kernels' leaf order (``models/fused_step.py::leaf_specs``):
+  15 Linear kernels as (in, out) with ``end_gcn`` split into its two
+  (hr, hr) halves, then 15 biases staged (1, out), then the tail's
+  ``layer.weights``, ``gc1.weight``, ``gc2.weight``; flattened leaf after
+  leaf into one (P,) vector per fold.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping
+
+import numpy as np
+
+__all__ = ["lin_names", "flax_to_state", "state_to_flax", "state_to_leaves",
+           "leaves_to_state", "leaves_to_flat", "flat_to_leaves",
+           "state_to_flat", "flat_to_state"]
+
+
+def lin_names(n_levels: int) -> List[str]:
+    """The U-Net's 15 Linear modules in kernel order (flax names)."""
+    return (["start_gcn"]
+            + [f"down_gcns_{i}" for i in range(n_levels)]
+            + [f"pools_{i}" for i in range(n_levels)]
+            + ["bottom_gcn"]
+            + [f"up_gcns_{i}" for i in range(n_levels)]
+            + ["end_gcn"])
+
+
+def _torch_prefix(flax_name: str) -> str:
+    """``down_gcns_3`` -> ``net.down_gcns.3.proj``."""
+    head, _, tail = flax_name.rpartition("_")
+    if tail.isdigit() and head in ("down_gcns", "up_gcns", "pools"):
+        return f"net.{head}.{tail}.proj"
+    return f"net.{flax_name}.proj"
+
+
+def _n_levels(keys) -> int:
+    return sum(1 for k in keys
+               if k.startswith("net.down_gcns.") and k.endswith(".bias"))
+
+
+def flax_to_state(params) -> Dict[str, np.ndarray]:
+    """Flax GSR-Net param tree (numpy or array-like leaves) -> state_dict
+    mapping of float32 numpy arrays."""
+    p = params["params"]
+    net = p["net"]
+    n_levels = sum(1 for k in net if k.startswith("down_gcns_"))
+    out = {"layer.weights": np.asarray(p["layer"]["weights"], np.float32),
+           "gc1.weight": np.asarray(p["gc1"]["weight"], np.float32),
+           "gc2.weight": np.asarray(p["gc2"]["weight"], np.float32)}
+    for name in lin_names(n_levels):
+        dense = net[name]["proj"]
+        prefix = _torch_prefix(name)
+        out[f"{prefix}.weight"] = np.ascontiguousarray(
+            np.asarray(dense["kernel"], np.float32).T)
+        out[f"{prefix}.bias"] = np.asarray(dense["bias"], np.float32)
+    return out
+
+
+def state_to_flax(state: Mapping[str, np.ndarray]):
+    """Inverse of ``flax_to_state``."""
+    net = {}
+    for name in lin_names(_n_levels(state)):
+        prefix = _torch_prefix(name)
+        net[name] = {"proj": {
+            "kernel": np.ascontiguousarray(np.asarray(state[f"{prefix}.weight"],
+                                                      np.float32).T),
+            "bias": np.asarray(state[f"{prefix}.bias"], np.float32)}}
+    return {"params": {
+        "layer": {"weights": np.asarray(state["layer.weights"], np.float32)},
+        "net": net,
+        "gc1": {"weight": np.asarray(state["gc1.weight"], np.float32)},
+        "gc2": {"weight": np.asarray(state["gc2.weight"], np.float32)}}}
+
+
+def state_to_leaves(state: Mapping[str, np.ndarray]) -> List[np.ndarray]:
+    """state_dict -> the training kernels' 34-leaf list (at 4 levels)."""
+    names = lin_names(_n_levels(state))
+    ws = [np.asarray(state[f"{_torch_prefix(n)}.weight"], np.float32).T
+          for n in names]
+    w_end = ws.pop()
+    half = w_end.shape[1]
+    ws += [w_end[:half], w_end[half:]]
+    bs = [np.asarray(state[f"{_torch_prefix(n)}.bias"], np.float32)[None, :]
+          for n in names]
+    tail = [np.asarray(state[k], np.float32)
+            for k in ("layer.weights", "gc1.weight", "gc2.weight")]
+    return [np.ascontiguousarray(a) for a in ws + bs + tail]
+
+
+def leaves_to_state(leaves: List[np.ndarray]) -> Dict[str, np.ndarray]:
+    """Inverse of ``state_to_leaves``."""
+    n_mod = (len(leaves) - 4) // 2
+    names = lin_names((n_mod - 3) // 3)
+    ws, bs = leaves[:n_mod + 1], leaves[n_mod + 1:2 * n_mod + 1]
+    ws = ws[:n_mod - 1] + [np.concatenate([ws[n_mod - 1], ws[n_mod]], 0)]
+    out = {}
+    for name, w, b in zip(names, ws, bs):
+        prefix = _torch_prefix(name)
+        out[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(w).T)
+        out[f"{prefix}.bias"] = np.asarray(b).reshape(-1)
+    for key, a in zip(("layer.weights", "gc1.weight", "gc2.weight"),
+                      leaves[2 * n_mod + 1:]):
+        out[key] = np.asarray(a)
+    return out
+
+
+def leaves_to_flat(leaves: List[np.ndarray]) -> np.ndarray:
+    return np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                           for a in leaves])
+
+
+def flat_to_leaves(flat: np.ndarray, shapes) -> List[np.ndarray]:
+    out, off = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape))
+        out.append(np.asarray(flat[off:off + size]).reshape(shape))
+        off += size
+    if off != flat.shape[-1]:
+        raise ValueError(f"flat vector has {flat.shape[-1]} values, the "
+                         f"leaf shapes {off}")
+    return out
+
+
+def state_to_flat(state: Mapping[str, np.ndarray]) -> np.ndarray:
+    return leaves_to_flat(state_to_leaves(state))
+
+
+def flat_to_state(flat: np.ndarray, shapes) -> Dict[str, np.ndarray]:
+    return leaves_to_state(flat_to_leaves(flat, shapes))

@@ -1,0 +1,106 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` compiles on its own into a shared library with a plain
+C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``),
+all sources at once in parallel, into ``build/fcsr_tpu_torch/<key>/`` at
+the repository root. ``<key>`` hashes the sources and the flags, so an
+edited source rebuilds and an unchanged one loads what is there. Nothing
+is built at import time: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "build_dir", "load_library", "build_all", "BUILD_INFO"]
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+SOURCES = ("bgemm", "rank_select", "tail", "adam")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# filled by build_all: seconds spent, per-source ptxas reports
+BUILD_INFO: Dict[str, object] = {}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _key() -> str:
+    h = hashlib.blake2b(digest_size=8)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def build_dir() -> Path:
+    """``<repo>/build/fcsr_tpu_torch/<source hash>``."""
+    return CSRC.parents[2] / "build" / "fcsr_tpu_torch" / _key()
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+            "kernels are built from fcsr_tpu_torch/kernels/csrc at first use")
+    return nvcc
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every missing library, all sources in parallel; returns the
+    library paths by source name. Raises with nvcc's output on failure."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {name: out_dir / f"libfcsr_{name}.so" for name in SOURCES}
+    todo = [name for name, path in libs.items() if not path.exists()]
+    if not todo:
+        return libs
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        tmp = out_dir / f"libfcsr_{name}.so.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    reports = {}
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failures.append(f"--- {name}.cu (rc {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, libs[name])
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    BUILD_INFO["ptxas"] = reports
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return libs
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The ctypes handle of source ``name``, building all sources first if
+    any library is missing."""
+    with _LOCK:
+        if name not in _LIBS:
+            paths = build_all()
+            for src, path in paths.items():
+                if src not in _LIBS:
+                    lib = ctypes.CDLL(str(path))
+                    lib.fcsr_error_string.argtypes = [ctypes.c_int]
+                    lib.fcsr_error_string.restype = ctypes.c_char_p
+                    _LIBS[src] = lib
+        return _LIBS[name]

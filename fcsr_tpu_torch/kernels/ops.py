@@ -1,0 +1,537 @@
+"""Python wrappers of the hand-written CUDA kernels, each beside its plain
+PyTorch version.
+
+A wrapper takes its plain version only when the tensors it is given lie
+on the CPU; for CUDA tensors it launches its kernel (on the current stream)
+or raises — there is no fallback. Each kernel counts its launches
+(``launch_counts``), so a run can show that it went through the kernels.
+
+All tensors are float32 (int32 for indices) with a leading fold axis F.
+Shapes use n for a node count entering a pooling level, k for the nodes it
+keeps, m for the feature width.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from types import SimpleNamespace
+from typing import Dict, Optional
+
+import torch
+
+from fcsr_tpu_torch.kernels.build import load_library
+
+__all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "launch_counts",
+           "reset_launch_counts"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+
+class Kernel:
+    """One CUDA entry point: its library, C signature and launch count."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes,
+                 replaces: str):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.replaces = replaces
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            lib = load_library(self.source)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = list(self.argtypes) + [_P]
+            fn.restype = _I
+            self._fn = fn
+            self._err = lib.fcsr_error_string
+        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"{self._err(err).decode()}")
+        self.launches += 1
+
+
+# the TPU kernel these replace: train_step_fused's pallas_call
+_STEP = "fcsr_tpu/models/fused_step.py:925"
+KERNELS: Dict[str, Kernel] = {k.name: k for k in (
+    Kernel("bgemm_f32", "bgemm", "fcsr_bgemm_f32",
+           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _LL, _I, _LL, _I, _LL, _LL, _I, _LL, _I], _STEP),
+    Kernel("rank_select", "rank_select", "fcsr_rank_select",
+           [_P, _P, _P, _P, _P, _I, _I, _I], _STEP),
+    Kernel("gather_rows", "rank_select", "fcsr_gather_rows",
+           [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
+    Kernel("scatter_rows", "rank_select", "fcsr_scatter_rows",
+           [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
+    Kernel("pool_logits_bwd", "rank_select", "fcsr_pool_logits_bwd",
+           [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
+    Kernel("add_bias", "rank_select", "fcsr_add_bias",
+           [_P, _LL, _P, _LL, _P, _I, _I, _I], _STEP),
+    Kernel("tail_normalize", "tail", "fcsr_tail_normalize",
+           [_P, _P, _P, _I, _I], _STEP),
+    Kernel("tail_normalize_bwd", "tail", "fcsr_tail_normalize_bwd",
+           [_P, _P, _P, _P, _I, _I], _STEP),
+    Kernel("sym_abs_fill", "tail", "fcsr_sym_abs_fill",
+           [_P, _P, _I, _I], _STEP),
+    Kernel("sym_sign_grad", "tail", "fcsr_sym_sign_grad",
+           [_P, _P, _F, _P, _I, _I], _STEP),
+    Kernel("l1_term", "tail", "fcsr_l1_term",
+           [_P, _LL, _P, _LL, _I, _F, _F, _I, _P, _I, _P, _P, _I], _STEP),
+    Kernel("adam_masked", "adam", "fcsr_adam_masked",
+           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL,
+            _F, _F, _F, _F, _F, _F], _STEP),
+)}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# argument checks
+# ---------------------------------------------------------------------------
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(device, *tensors, dtype=torch.float32):
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"tensor of {t.dtype}, expected {dtype}")
+
+
+def _contig(*tensors):
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError("kernel operand must be contiguous")
+
+
+def _rows_contig(t: torch.Tensor):
+    """(F, r, c) with unit column stride and row stride c (any batch
+    stride): a view into a flat (F, P) buffer qualifies."""
+    if t.dim() != 3 or t.stride(2) != 1 or (t.shape[1] > 1
+                                            and t.stride(1) != t.shape[2]):
+        raise ValueError("operand rows must be contiguous")
+
+
+def _asign(x):
+    """Adjoint sign of |x| as the reference differentiates it (+1 at 0)."""
+    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
+def _eye_mask(m, device):
+    return torch.eye(m, dtype=torch.bool, device=device)
+
+
+def _take_rows(src, index):
+    """src[f, index[f, r], :] for int32 ``index`` (F, r)."""
+    return torch.take_along_dim(src, index.long()[..., None], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# bgemm_f32
+# ---------------------------------------------------------------------------
+
+def bgemm_plain(a, b, ta=False, tb=False, bias=None, add=None, out=None):
+    """op(a) @ op(b) [+ bias row] [+ add]; ``a=None`` is a row of ones
+    (a column sum of op(b))."""
+    B = b.transpose(-1, -2) if tb else b
+    if a is None:
+        A = torch.ones(B.shape[0], 1, B.shape[1], dtype=B.dtype,
+                       device=B.device)
+    else:
+        A = a.transpose(-1, -2) if ta else a
+    c = torch.matmul(A, B)
+    if bias is not None:
+        c = c + bias.reshape(c.shape[0], 1, c.shape[2])
+    if add is not None:
+        c = c + add
+    if out is None:
+        return c
+    out.copy_(c)
+    return out
+
+
+def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None):
+    """Batched fp32 product ``op(a) @ op(b) [+ bias] [+ add]`` over the
+    leading fold axis. Operands are (F, rows, cols) with contiguous rows
+    and any batch stride; ``a=None`` is a row of ones; ``bias`` is (F, 1, N)
+    or (F, N); ``add`` may be ``out`` (accumulate)."""
+    if not b.is_cuda:
+        return bgemm_plain(a, b, ta, tb, bias, add, out)
+    F = b.shape[0]
+    K, N = (b.shape[2], b.shape[1]) if tb else (b.shape[1], b.shape[2])
+    if a is None:
+        M = 1
+    else:
+        M, Ka = (a.shape[2], a.shape[1]) if ta else (a.shape[1], a.shape[2])
+        if Ka != K or a.shape[0] != F:
+            raise ValueError(f"bgemm shape mismatch {tuple(a.shape)} "
+                             f"{tuple(b.shape)} ta={ta} tb={tb}")
+    if out is None:
+        out = torch.empty(F, M, N, dtype=torch.float32, device=b.device)
+    if bias is not None:
+        bias = bias.reshape(F, 1, N) if bias.dim() == 2 else bias
+    _check(b.device, a, b, bias, add, out)
+    for t in (a, b, add, out):
+        if t is not None:
+            _rows_contig(t)
+    if tuple(out.shape) != (F, M, N) or (add is not None
+                                         and tuple(add.shape) != (F, M, N)):
+        raise ValueError("bgemm output shape mismatch")
+    if bias is not None and (bias.shape[-1] != N or bias.stride(2) != 1):
+        raise ValueError("bgemm bias must be a contiguous row of length N")
+    KERNELS["bgemm_f32"](
+        _ptr(a), _ptr(b), _ptr(bias), _ptr(add), _ptr(out),
+        F, M, N, K, int(ta), int(tb),
+        0 if a is None else a.stride(0), 0 if a is None else a.stride(1),
+        b.stride(0), b.stride(1),
+        0 if bias is None else bias.stride(0),
+        0 if add is None else add.stride(0),
+        0 if add is None else add.stride(1),
+        out.stride(0), out.stride(1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rank_select and the row helpers of pooling / unpooling
+# ---------------------------------------------------------------------------
+
+def rank_select_plain(logits, k):
+    """(s, idx, vals, slot): s = sigmoid(logits / 100) (F, n); idx (F, k)
+    int32 of the top-k scores in descending order with ties to the lower
+    index; vals = s[idx]; slot (F, n) int32 = rank if kept else -1."""
+    s = torch.sigmoid(logits / 100.0)
+    key = torch.where(torch.isnan(s), float("-inf"), s)
+    order = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    idx = order[:, :k].to(torch.int32)
+    vals = torch.gather(s, 1, idx.long())
+    slot = torch.full(s.shape, -1, dtype=torch.int32, device=s.device)
+    ranks = torch.arange(k, dtype=torch.int32, device=s.device)
+    slot.scatter_(1, idx.long(), ranks.expand(s.shape[0], k).contiguous())
+    return s, idx, vals, slot
+
+
+def rank_select(logits, k):
+    if not logits.is_cuda:
+        return rank_select_plain(logits, k)
+    _check(logits.device, logits)
+    _contig(logits)
+    F, n = logits.shape
+    if not 0 < k <= n <= 1024:
+        raise ValueError(f"rank_select needs 0 < k <= n <= 1024 (n={n}, "
+                         f"k={k})")
+    dev = logits.device
+    s = torch.empty(F, n, dtype=torch.float32, device=dev)
+    idx = torch.empty(F, k, dtype=torch.int32, device=dev)
+    vals = torch.empty(F, k, dtype=torch.float32, device=dev)
+    slot = torch.empty(F, n, dtype=torch.int32, device=dev)
+    KERNELS["rank_select"](_ptr(logits), _ptr(s), _ptr(idx), _ptr(vals),
+                           _ptr(slot), F, n, k)
+    return s, idx, vals, slot
+
+
+def gather_rows_plain(src, idx, scale=None):
+    out = _take_rows(src, idx)
+    if scale is None:
+        return out
+    return out, out * scale[..., None]
+
+
+def gather_rows(src, idx, scale=None):
+    """Pooling as a gather: ``src[f, idx[f, r], :]`` (F, k, m); with
+    ``scale`` (F, k) also returns the rows scaled by it."""
+    if not src.is_cuda:
+        return gather_rows_plain(src, idx, scale)
+    _check(src.device, src, scale)
+    _check(src.device, idx, dtype=torch.int32)
+    _contig(src, idx, scale)
+    F, n, m = src.shape
+    k = idx.shape[1]
+    out = torch.empty(F, k, m, dtype=torch.float32, device=src.device)
+    scaled = None if scale is None else torch.empty_like(out)
+    KERNELS["gather_rows"](_ptr(src), _ptr(idx), _ptr(scale), _ptr(out),
+                           _ptr(scaled), F, n, k, m)
+    return out if scale is None else (out, scaled)
+
+
+def scatter_rows_plain(src, slot, scale=None, add=None):
+    sel = (slot >= 0)[..., None]
+    at = slot.clamp(min=0)
+    rows = _take_rows(src, at)
+    if scale is not None:
+        rows = rows * torch.take_along_dim(scale, at.long(), dim=1)[..., None]
+    out = torch.where(sel, rows, torch.zeros((), dtype=src.dtype,
+                                             device=src.device))
+    return out if add is None else out + add
+
+
+def scatter_rows(src, slot, scale=None, add=None):
+    """Unpooling as a scatter: row p of the (F, n, m) result is
+    ``src[f, slot[f, p]] * scale[f, slot]`` where ``slot >= 0``, else 0,
+    plus ``add[f, p]``."""
+    if not src.is_cuda:
+        return scatter_rows_plain(src, slot, scale, add)
+    _check(src.device, src, scale, add)
+    _check(src.device, slot, dtype=torch.int32)
+    _contig(src, slot, scale, add)
+    F, k, m = src.shape
+    n = slot.shape[1]
+    out = torch.empty(F, n, m, dtype=torch.float32, device=src.device)
+    KERNELS["scatter_rows"](_ptr(src), _ptr(slot), _ptr(scale), _ptr(add),
+                            _ptr(out), F, n, k, m)
+    return out
+
+
+def pool_logits_bwd_plain(g, pre, slot, s):
+    dot = (g * pre).sum(-1)
+    g_s = torch.where(slot >= 0,
+                      torch.take_along_dim(dot, slot.clamp(min=0).long(), 1),
+                      torch.zeros((), dtype=g.dtype, device=g.device))
+    return g_s * s * (1.0 - s) * (1.0 / 100.0)
+
+
+def pool_logits_bwd(g, pre, slot, s):
+    """Adjoint of the pooled rows ``pre * s[idx]`` w.r.t. the pooling
+    logits: (F, n), ``<g, pre>`` of the node's kept row times
+    ``s (1 - s) / 100``, 0 for dropped nodes."""
+    if not g.is_cuda:
+        return pool_logits_bwd_plain(g, pre, slot, s)
+    _check(g.device, g, pre, s)
+    _check(g.device, slot, dtype=torch.int32)
+    _contig(g, pre, slot, s)
+    F, k, m = g.shape
+    n = slot.shape[1]
+    out = torch.empty(F, n, dtype=torch.float32, device=g.device)
+    KERNELS["pool_logits_bwd"](_ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
+                               _ptr(out), F, n, k, m)
+    return out
+
+
+def add_bias_plain(x, bias):
+    return x + bias.reshape(x.shape[0], 1, x.shape[2])
+
+
+def add_bias(x, bias):
+    """``x + bias`` row-broadcast: x (F, r, c), bias (F, 1, c); both may
+    be views into a flat buffer."""
+    if not x.is_cuda:
+        return add_bias_plain(x, bias)
+    _check(x.device, x, bias)
+    _rows_contig(x)
+    F, r, c = x.shape
+    bias = bias.reshape(F, 1, c) if bias.dim() == 2 else bias
+    if bias.stride(2) != 1:
+        raise ValueError("bias row must be contiguous")
+    out = torch.empty(F, r, c, dtype=torch.float32, device=x.device)
+    KERNELS["add_bias"](_ptr(x), x.stride(0), _ptr(bias), bias.stride(0),
+                        _ptr(out), F, r, c)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tail_elementwise
+# ---------------------------------------------------------------------------
+
+def _fill_diag_abs(t):
+    eye = _eye_mask(t.shape[-1], t.device)
+    return torch.where(eye, torch.ones((), dtype=t.dtype, device=t.device),
+                       t.abs())
+
+
+def tail_normalize_plain(t):
+    fd = _fill_diag_abs(t)
+    r = fd.sum(-1).pow(-0.5)
+    r = torch.where(torch.isinf(r), torch.zeros_like(r), r)
+    adj = (fd * r[:, None, :]).transpose(-1, -2) * r[:, None, :]
+    return adj, r
+
+
+def tail_normalize(t):
+    """(adj, r) for T (F, m, m): f_d = fill_diag(|T|, 1),
+    r = rowsum(f_d)^-1/2 with inf -> 0, adj = D^-1/2 f_d^T D^-1/2."""
+    if not t.is_cuda:
+        return tail_normalize_plain(t)
+    _check(t.device, t)
+    _contig(t)
+    F, m, _ = t.shape
+    if m > 12 * 1024:
+        raise ValueError("tail_normalize: m too large for shared memory")
+    adj = torch.empty_like(t)
+    r = torch.empty(F, m, dtype=torch.float32, device=t.device)
+    KERNELS["tail_normalize"](_ptr(t), _ptr(adj), _ptr(r), F, m)
+    return adj, r
+
+
+def tail_normalize_bwd_plain(g_adj, t, r):
+    fd = _fill_diag_abs(t)
+    gT = g_adj.transpose(-1, -2)
+    fdT = fd.transpose(-1, -2)
+    g_r = ((gT * fd * r[:, None, :]).sum(-1)
+           + (g_adj * r[:, None, :] * fdT).sum(-1))
+    g_rs = g_r * -0.5 * (r * r * r)
+    g_fd = gT * r[:, :, None] * r[:, None, :] + g_rs[:, :, None]
+    eye = _eye_mask(t.shape[-1], t.device)
+    return torch.where(eye, torch.zeros((), dtype=t.dtype, device=t.device),
+                       g_fd * _asign(t))
+
+
+def tail_normalize_bwd(g_adj, t, r):
+    """dT for ``tail_normalize`` given d adj."""
+    if not t.is_cuda:
+        return tail_normalize_bwd_plain(g_adj, t, r)
+    _check(t.device, g_adj, t, r)
+    _contig(g_adj, t, r)
+    F, m, _ = t.shape
+    if m > 6 * 1024:
+        raise ValueError("tail_normalize_bwd: m too large for shared memory")
+    g_t = torch.empty_like(t)
+    KERNELS["tail_normalize_bwd"](_ptr(g_adj), _ptr(t), _ptr(r), _ptr(g_t),
+                                  F, m)
+    return g_t
+
+
+def _sym(x):
+    return (x + x.transpose(-1, -2)) / 2
+
+
+def sym_abs_fill_plain(x):
+    return _fill_diag_abs(_sym(x))
+
+
+def sym_abs_fill(x):
+    """|fill_diag((X + X^T) / 2, 1)| over (F, m, m)."""
+    if not x.is_cuda:
+        return sym_abs_fill_plain(x)
+    _check(x.device, x)
+    _contig(x)
+    F, m, _ = x.shape
+    out = torch.empty_like(x)
+    KERNELS["sym_abs_fill"](_ptr(x), _ptr(out), F, m)
+    return out
+
+
+def sym_sign_grad_plain(g, x, c):
+    eye = _eye_mask(x.shape[-1], x.device)
+    G = torch.where(eye, torch.zeros((), dtype=x.dtype, device=x.device),
+                    g * _asign(_sym(x)))
+    return c * G + c * G.transpose(-1, -2)
+
+
+def sym_sign_grad(g, x, c):
+    """Adjoint of ``sym_abs_fill`` at X given d out, times ``2c``:
+    ``c (G + G^T)`` with ``G = g * sign(sym X)``, zero diagonal
+    (c = 1/2 is the exact adjoint)."""
+    if not x.is_cuda:
+        return sym_sign_grad_plain(g, x, c)
+    _check(x.device, g, x)
+    _contig(g, x)
+    F, m, _ = x.shape
+    out = torch.empty_like(x)
+    KERNELS["sym_sign_grad"](_ptr(g), _ptr(x), float(c), _ptr(out), F, m)
+    return out
+
+
+def l1_term_plain(a, b, vals, slot, value_scale, grad_scale, zero_sign,
+                  neg=False):
+    d = (a - b).reshape(a.shape[0], -1)
+    vals[:, slot] = value_scale * d.abs().mean(-1)
+    sgn = torch.sign(d) if zero_sign else _asign(d)
+    grad = (sgn * grad_scale).reshape(a.shape)
+    return (grad, -grad) if neg else grad
+
+
+def l1_term(a, b, vals, slot, value_scale, grad_scale, zero_sign,
+            neg=False):
+    """Writes ``vals[:, slot] = value_scale * mean|a - b|`` per fold and
+    returns its adjoint ``sign(a - b) * grad_scale`` (and its negation when
+    ``neg``); ``zero_sign`` picks sign(0) = 0 over the |.| adjoint's +1.
+    a and b may have any batch stride but contiguous fold slices."""
+    if not a.is_cuda:
+        return l1_term_plain(a, b, vals, slot, value_scale, grad_scale,
+                             zero_sign, neg)
+    _check(a.device, a, b, vals)
+    _contig(vals)
+    F = a.shape[0]
+    n = a[0].numel()
+    for t in (a, b):
+        if not t[0].is_contiguous() or t.shape != a.shape:
+            raise ValueError("l1_term operands need contiguous fold slices")
+    if vals.shape != (F, 3):
+        raise ValueError("vals must be (F, 3)")
+    grad = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    ng = torch.empty_like(grad) if neg else None
+    KERNELS["l1_term"](_ptr(a), a.stride(0), _ptr(b), b.stride(0), n,
+                       float(value_scale), float(grad_scale), int(zero_sign),
+                       vals.data_ptr() + 4 * slot, 3, _ptr(grad), _ptr(ng),
+                       F)
+    return (grad, ng) if neg else grad
+
+
+# ---------------------------------------------------------------------------
+# adam_masked
+# ---------------------------------------------------------------------------
+
+def adam_masked_plain(p, m, v, g, scal, vals, lr, b1, b2, eps):
+    ok, d1, d2 = (scal[:, j:j + 1] for j in range(3))
+    m_new = b1 * m + (1.0 - b1) * g
+    v_new = b2 * v + (1.0 - b2) * (g * g)
+    mhat = m_new / d1
+    vhat = v_new / d2
+    step = lr * mhat / (torch.sqrt(vhat) + eps)
+    on = ok > 0
+    loss = (vals[:, 0] + (vals[:, 1] + vals[:, 2])) * scal[:, 0]
+    recon = vals[:, 1] * scal[:, 0]
+    return (torch.where(on, p - step, p), torch.where(on, m_new, m),
+            torch.where(on, v_new, v), loss, recon)
+
+
+def adam_masked(p, m, v, g, scal, vals, lr, b1, b2, eps):
+    """Masked Adam on flat (F, P) buffers with per-fold scalars
+    ``scal[f] = [ok, 1 - b1^t, 1 - b2^t]``; returns (p', m', v', loss,
+    recon) where loss/recon are the per-fold step values from ``vals``
+    (F, 3) = [lmbda * L1(net, start), recon, spectral], times ok."""
+    if not p.is_cuda:
+        return adam_masked_plain(p, m, v, g, scal, vals, lr, b1, b2, eps)
+    _check(p.device, p, m, v, g, scal, vals)
+    _contig(p, m, v, g, scal, vals)
+    F, P = p.shape
+    if m.shape != p.shape or v.shape != p.shape or g.shape != p.shape:
+        raise ValueError("adam_masked buffers must share one (F, P) shape")
+    p2, m2, v2 = (torch.empty_like(p) for _ in range(3))
+    loss = torch.empty(F, dtype=torch.float32, device=p.device)
+    recon = torch.empty_like(loss)
+    KERNELS["adam_masked"](_ptr(p), _ptr(m), _ptr(v), _ptr(g), _ptr(scal),
+                           _ptr(vals), _ptr(p2), _ptr(m2), _ptr(v2),
+                           _ptr(loss), _ptr(recon), F, P, float(lr),
+                           float(b1), float(1.0 - b1), float(b2),
+                           float(1.0 - b2), float(eps))
+    return p2, m2, v2, loss, recon
+
+
+_OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
+        "pool_logits_bwd", "add_bias", "tail_normalize",
+        "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
+        "adam_masked")
+# launch the kernel for CUDA tensors, the plain version for CPU tensors
+KERNEL_OPS = SimpleNamespace(**{name: globals()[name] for name in _OPS})
+# always the plain PyTorch version (the reference the kernels are held to)
+PLAIN_OPS = SimpleNamespace(**{name: globals()[name + "_plain"]
+                               for name in _OPS})

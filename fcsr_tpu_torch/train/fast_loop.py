@@ -1,0 +1,222 @@
+"""Fold-parallel GSR-Net trainer on the whole-step kernels.
+
+Counterpart of the ``fused_adam`` path of
+``fcsr_tpu/train/fast_loop.py::GSRFoldRunner``: k-fold CV trains one fresh
+model per fold, all folds together as one fold-batched step
+(``models/fused_step.py::train_step_fused``) per sample. Shorter folds pad
+their per-epoch sample sequence with masked no-op steps, so each fold's
+update sequence is exactly its own.
+
+Layout: p, m and v are one flat float32 (F, P) buffer each, leaf after
+leaf in the kernels' order. The per-step data (u_lr, u_hr, hr of each
+fold's sample) is gathered once at staging into (S, F, ...) stacks, and
+the per-fold Adam scalars of a whole chunk are planned on the host, so a
+training step launches nothing but the step's own kernels.
+
+Not ported yet: the unfused and other fused trainer paths, multi-device
+fold sharding, and the checkpoint / resume branch.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from fcsr_tpu_torch.core.normalize import fill_diagonal, normalize_adj_np
+from fcsr_tpu_torch.iox.weights import flat_to_state, state_to_flat
+from fcsr_tpu_torch.models.fused_step import (FlatLayout, adam_scalars,
+                                              train_step_fused)
+from fcsr_tpu_torch.models.gsr import GSRNet
+from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig, precompute_spectral
+from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["adam_flat_update", "stage_dataset", "GSRFoldRunner"]
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def adam_flat_update(g, m, v, t, lr, b1=B1, b2=B2, eps=EPS):
+    """torch.optim.Adam update on a flat parameter vector: returns
+    (step, m', v') with ``p' = p - step``."""
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * (g * g)
+    mhat = m / (1 - b1 ** t)
+    vhat = v / (1 - b2 ** t)
+    step = lr * mhat / (torch.sqrt(vhat) + eps)
+    return step, m, v
+
+
+def _pad_plans(folds, which: int, pad_to: int = None):
+    """(F, L) padded index + validity arrays for fold element ``which``
+    (0 = train indices, 1 = val indices)."""
+    sets = [np.asarray(f[which], dtype=np.int32) for f in folds]
+    max_len = pad_to or max(len(s) for s in sets)
+    idxs, valids = [], []
+    for s in sets:
+        pad = max_len - len(s)
+        idxs.append(np.concatenate([s, np.zeros(pad, np.int32)]))
+        valids.append(np.concatenate([np.ones(len(s), np.float32),
+                                      np.zeros(pad, np.float32)]))
+    return np.stack(idxs), np.stack(valids)
+
+
+def stage_dataset(cfg: GSRTrainConfig, lr_all, hr_all, device):
+    """Host precompute (normalized adjacency + spectral bases) and one
+    transfer to ``device``: returns float32 tensors (a_norm, hr, u_lr,
+    u_hr_reduced)."""
+    lr_np = np.asarray(lr_all, dtype=np.float32)
+    hr_np = np.asarray(hr_all, dtype=np.float32)
+    a_norm = normalize_adj_np(lr_np).astype(np.float32)
+    u_lr, u_hr = precompute_spectral(lr_np, hr_np, lr_dim=cfg.lr_dim,
+                                     padding=cfg.padding, a_norm=a_norm)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                 .to(device)
+                 for a in (a_norm, hr_np, u_lr, u_hr))
+
+
+class GSRFoldRunner:
+    """Stage once, train/evaluate all folds together on one device.
+
+    ``flat0`` optionally gives the initial parameters, (F, P) in the
+    kernels' flat order (``iox/weights.py``); by default fold j starts
+    from ``GSRNet(seed=init_seed + j)``. ``device`` defaults to CUDA and
+    raises without a card unless the caller passes ``device="cpu"``."""
+
+    def __init__(self, cfg: GSRTrainConfig, lr_all, hr_all, folds,
+                 init_seed: int = 0, flat0=None, device=DEFAULT_DEVICE):
+        if not cfg.fused_adam:
+            raise NotImplementedError(
+                "the port's GSRFoldRunner runs the fused_adam path only; "
+                "the unfused trainer comes with a later slice")
+        if cfg.padding:
+            raise ValueError(
+                "padding != 0 is not supported by the fused kernel path "
+                "(the kernels compute the loss at hr_dim without the unpad "
+                "crop)")
+        if cfg.hidden_dim != cfg.hr_dim:
+            raise ValueError("the fused step needs hidden_dim == hr_dim")
+        self.cfg = cfg
+        self.folds = folds
+        self.n_folds = len(folds)
+        self.device = resolve_device(device)
+        self.layout = FlatLayout(cfg.lr_dim, cfg.hr_dim, len(cfg.ks))
+        self.data = stage_dataset(cfg, lr_all, hr_all, self.device)
+        self.tr_idx, self.tr_valid = _pad_plans(folds, 0)
+        self.va_idx, self.va_valid = _pad_plans(folds, 1)
+        # per-step (S, F, ...) stacks: step s of fold f trains on sample
+        # tr_idx[f, s]; a view per step, no gather inside the loop
+        plan = torch.from_numpy(self.tr_idx.T.astype(np.int64)).to(
+            self.device)
+        _, hr, u_lr, u_hr = self.data
+        self._steps = tuple(x[plan] for x in (u_lr, u_hr, hr))
+        if flat0 is None:
+            flat0 = np.stack([self._init_flat(init_seed + j)
+                              for j in range(self.n_folds)])
+        flat0 = torch.as_tensor(np.asarray(flat0, np.float32))
+        if tuple(flat0.shape) != (self.n_folds, self.layout.size):
+            raise ValueError(f"flat0 must be ({self.n_folds}, "
+                             f"{self.layout.size}), got {tuple(flat0.shape)}")
+        self.flat0 = flat0.to(self.device).contiguous()
+        self.flat_trained = None
+
+    def _model(self, seed: int = 0, device="cpu") -> GSRNet:
+        cfg = self.cfg
+        return GSRNet(cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.hidden_dim,
+                      device=device, seed=seed)
+
+    def _init_flat(self, seed: int) -> np.ndarray:
+        state = {k: t.numpy() for k, t in
+                 self._model(seed).state_dict().items()}
+        return state_to_flat(state)
+
+    def fresh_state(self):
+        """(params, adam_m, adam_v, step counts) over folds; the counts
+        stay on the host, where the chunk's Adam scalars are planned."""
+        z = torch.zeros_like(self.flat0)
+        return (self.flat0.clone(), z, z.clone(),
+                np.zeros(self.n_folds, np.float32))
+
+    def _run_chunk(self, state, epochs: int):
+        cfg = self.cfg
+        p, m, v, t = state
+        n_steps = self.tr_idx.shape[1]
+        scal = np.empty((epochs, n_steps, self.n_folds, 3), np.float32)
+        for e in range(epochs):
+            for s in range(n_steps):
+                scal[e, s], t = adam_scalars(t, self.tr_valid[:, s], B1, B2)
+        scal = torch.from_numpy(scal).to(self.device)
+        u_lr, u_hr, hr = self._steps
+        losses, errs = [], []
+        for e in range(epochs):
+            for s in range(n_steps):
+                loss, err, p, m, v = train_step_fused(
+                    p, m, v, u_lr[s], u_hr[s], hr[s], scal[e, s], cfg.ks,
+                    cfg.lr_dim, cfg.hr_dim, cfg.lmbda, cfg.lr, B1, B2, EPS,
+                    device=self.device)
+                losses.append(loss)
+                errs.append(err)
+        denom = np.maximum(self.tr_valid.sum(axis=1), 1.0)
+
+        def epoch_means(xs):
+            sums = torch.stack(xs).view(epochs, n_steps, -1).sum(1)
+            return sums.cpu().numpy().T / denom[:, None]
+
+        return (p, m, v, t), epoch_means(losses), epoch_means(errs)
+
+    def train(self, chunk_epochs: int = None):
+        """Full training run, as repeated launches of ``chunk_epochs``
+        epochs (default: one chunk of ``cfg.epochs``); trajectory-identical
+        either way. Returns (trained flat params (F, P), loss_hist (F, E),
+        err_hist (F, E))."""
+        chunk = chunk_epochs or self.cfg.epochs
+        state = self.fresh_state()
+        losses, errs = [], []
+        done = 0
+        while done < self.cfg.epochs:
+            n = min(chunk, self.cfg.epochs - done)
+            state, lh, eh = self._run_chunk(state, n)
+            losses.append(lh)
+            errs.append(eh)
+            done += n
+        self.flat_trained = state[0]
+        return (state[0], np.concatenate(losses, axis=1).astype(np.float32),
+                np.concatenate(errs, axis=1).astype(np.float32))
+
+    def evaluate(self, flat=None):
+        """Validation MAE per fold (the label's diagonal set to 1), and the
+        (F, V, hr, hr) predictions over the padded val plan."""
+        if flat is None:
+            if self.flat_trained is None:
+                raise RuntimeError(
+                    "GSRFoldRunner.evaluate() called before train(); pass "
+                    "params explicitly (e.g. runner.flat0) or train first")
+            flat = self.flat_trained
+        a_norm, hr, u_lr, _ = self.data
+        model = self._model(device=self.device)
+        maes, preds = [], []
+        for j in range(self.n_folds):
+            state = flat_to_state(flat[j].detach().cpu().numpy(),
+                                  self.layout.shapes)
+            model.load_state_dict({k: torch.from_numpy(a)
+                                   for k, a in state.items()})
+            idx = torch.from_numpy(self.va_idx[j].astype(np.int64)).to(
+                self.device)
+            with torch.no_grad():
+                pred = model(a_norm[idx], u_lr=u_lr[idx],
+                             a_norm=a_norm[idx])[0]
+            gt = fill_diagonal(hr[idx], 1.0)
+            per = (pred - gt).abs().mean(dim=(1, 2))
+            valid = torch.from_numpy(self.va_valid[j]).to(self.device)
+            maes.append(float((per * valid).sum())
+                        / max(float(valid.sum()), 1.0))
+            preds.append(pred)
+        return np.asarray(maes, np.float32), torch.stack(preds)
+
+    def params_per_fold(self) -> List[dict]:
+        """The trained parameters of each fold as a state_dict of numpy
+        arrays."""
+        return [flat_to_state(self.flat_trained[j].cpu().numpy(),
+                              self.layout.shapes)
+                for j in range(self.n_folds)]

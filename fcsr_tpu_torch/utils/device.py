@@ -1,0 +1,25 @@
+"""Device selection for the port's entry points.
+
+Entry points (``GSRNet``, ``GSRFoldRunner``, ``train_step_fused``) run on
+the card unless the caller asks for the CPU. There is no silent fallback:
+asking for CUDA on a machine without a card raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
+    """``torch.device`` for ``device``; raises if it names CUDA and no card
+    is visible (pass ``device="cpu"`` for the plain PyTorch path)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run the plain PyTorch path on the host")
+    return dev
