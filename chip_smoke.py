@@ -17,11 +17,18 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    p', m' and v' (one fold masked: it must come through bit-unchanged),
    counts the step's FLOPs, bytes and launches, and profiles 10 steps
    (per-kernel device time into ``chiprun_out/profile_step.txt``);
-4. drives the main path: the seeded 167-subject teacher dataset, 3 folds,
-   ``GSRFoldRunner(GSRTrainConfig(fused_adam=True))`` at full width for 4
-   epochs (two ``chunk_epochs=2`` launches) and ``evaluate()``, with every
-   kernel's launch count read from that run; and a tiny 2-fold run on the
-   card against the same run on the host.
+4. drives the trainer path: the seeded 167-subject teacher dataset, 3
+   folds, ``GSRFoldRunner(GSRTrainConfig(fused_adam=True))`` at full width
+   for 4 epochs (two ``chunk_epochs=2`` launches) and ``evaluate()``, with
+   every step kernel's launch count read from that run; and a tiny 2-fold
+   run on the card against the same run on the host;
+5. drives the CSV-to-submission path at full width through the command
+   line: the teacher set written as the three Kaggle CSVs (NaN cells
+   included), ``train gsr --fused`` (2 epochs, 3 folds, a checkpoint) and
+   ``predict --ordering colmajor`` in-process on the card, with the
+   launch counts of that run; then checks the ingested stacks, the device
+   ingest, both submission files and an interrupted-and-resumed run
+   against the straight one, and prints the path's stage times.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -42,12 +50,17 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
+# phase 5's CSVs and submissions (a few hundred MB), removed when it ends
+WORK_DIR = os.path.join(OUT_DIR, "smoke_csv_path")
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W):
 PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # HBM3
 F, LR, HR, KS = 3, 160, 268, (0.9, 0.7, 0.6, 0.5)
-EPOCHS = 4                   # main-path epochs, run as two chunks of 2
+EPOCHS = 4                   # trainer-path epochs, run as two chunks of 2
+N_TRAIN, N_TEST = 167, 112   # subjects of the challenge's train / test set
+TRIU = ("anti_vectorize_normalize", "vectorize_colmajor",
+        "normalize_adj_batch")
 
 
 def fail(msg: str):
@@ -219,7 +232,111 @@ def kernel_cases(dev):
     cases.append(("adam_masked", lambda: K.adam_masked(*args),
                   lambda: P.adam_masked(*args), 0.0,
                   12.0 * F * n_p, f4 * 7 * n_p, None))
+
+    # the data-path kernels at the CSV path's shapes: ingest of the 167
+    # HR training vectors, and the 112 test subjects' predictions / LR
+    # stack. Bytes: what the function must move (the vector entries it
+    # reads or writes, the dense stack once).
+    L = HR * (HR - 1) // 2
+    vec = rnd(N_TRAIN, L).abs()
+    cases.append(("anti_vectorize_normalize",
+                  lambda: K.anti_vectorize_normalize(vec, HR, False),
+                  lambda: P.anti_vectorize_normalize(vec, HR, False), 0.0,
+                  0.0, 4.0 * N_TRAIN * (L + HR * HR), None))
+    preds = rnd(N_TEST, HR, HR)
+    col_idx = _colmajor_flat_index(HR, dev)
+    cases.append(("vectorize_colmajor",
+                  lambda: K.vectorize_colmajor(preds),
+                  lambda: P.vectorize_colmajor(preds), 0.0,
+                  0.0, 4.0 * N_TEST * 2 * L,
+                  lambda: preds.flatten(1).index_select(1, col_idx)))
+    lr = rnd(N_TEST, LR, LR).abs()
+    cases.append(("normalize_adj_batch",
+                  lambda: K.normalize_adj_batch(lr),
+                  lambda: P.normalize_adj_batch(lr), 1e-6,
+                  3.0 * N_TEST * LR * LR, 4.0 * N_TEST * 2 * LR * LR, None))
     return cases
+
+
+def _colmajor_flat_index(n, dev):
+    """Flat index i * n + j of the strict upper triangle walked column by
+    column: the one-call equivalent of ``vectorize_colmajor`` is
+    ``m.flatten(1).index_select(1, idx)``."""
+    j, i = np.tril_indices(n, -1)
+    return torch.from_numpy((i * n + j).astype(np.int64)).to(dev)
+
+
+def check_triu_kernels(dev):
+    """The data-path kernels beyond their main record: every main-path
+    shape with and without normalisation (timed), small odd sizes,
+    trailing vector entries, a diagonal fill, and the guard (a zero row
+    sum gives 0, a negative one NaN, on both sides)."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+
+    def same(name, got, want, tol):
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            fail(f"{name}: NaN pattern differs from the plain version")
+        err = max_err(torch.nan_to_num(got), torch.nan_to_num(want))
+        limit = tol * scale_of(torch.nan_to_num(want))
+        if not err <= limit:
+            fail(f"{name}: max|err| {err:.3e} above {limit:.1e}")
+        return err
+
+    for B, n in ((N_TRAIN, LR), (N_TRAIN, HR), (N_TEST, LR)):
+        m = n * (n - 1) // 2
+        v = torch.rand(B, m, generator=g).to(dev)
+        for norm in (False, True):
+            err = same(f"anti_vectorize_normalize B={B} n={n} norm={norm}",
+                       K.anti_vectorize_normalize(v, n, norm),
+                       P.anti_vectorize_normalize(v, n, norm),
+                       1e-6 if norm else 0.0)
+            k_ms = device_ms(lambda: K.anti_vectorize_normalize(v, n, norm))
+            p_ms = device_ms(lambda: P.anti_vectorize_normalize(v, n, norm))
+            b_ms, _ = bound(3.0 * B * n * n if norm else 0.0,
+                            4.0 * B * (m + n * n))
+            print(f"    anti_vectorize_normalize B={B} n={n} normalize="
+                  f"{int(norm)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms, max|err| {err:.2e}")
+    for n in (2, 3, 33, LR, HR):
+        m = n * (n - 1) // 2
+        mats = torch.randn(5, n, n, generator=g).to(dev)
+        same(f"vectorize_colmajor n={n}", K.vectorize_colmajor(mats),
+             P.vectorize_colmajor(mats), 0.0)
+        v = torch.rand(5, m + 7, generator=g).to(dev)      # trailing entries
+        same(f"anti_vectorize n={n} trailing", K.anti_vectorize_normalize(
+            v, n, False), P.anti_vectorize_normalize(v, n, False), 0.0)
+        same(f"anti_vectorize n={n} fill", K.anti_vectorize_normalize(
+            v, n, True, 1.0), P.anti_vectorize_normalize(v, n, True, 1.0),
+            1e-6)
+        a = torch.rand(5, n, n, generator=g).to(dev)
+        same(f"normalize_adj_batch n={n}", K.normalize_adj_batch(a),
+             P.normalize_adj_batch(a), 1e-6)
+    # the guard: row 1 sums to zero, row 2 to a negative number
+    n = 33
+    v = torch.rand(3, n * (n - 1) // 2, generator=g)
+    dense = P.anti_vectorize_normalize(v, n, False)
+    dense[:, 1, :] = 0.0
+    dense[:, :, 1] = 0.0
+    dense[:, 2, 5] = dense[:, 5, 2] = -40.0
+    rows, cols = np.triu_indices(n, 1)
+    v = dense[:, rows, cols].contiguous().to(dev)
+    dense = dense.to(dev)
+    for name, got, want in (
+            ("anti_vectorize_normalize",
+             K.anti_vectorize_normalize(v, n, True),
+             P.anti_vectorize_normalize(v, n, True)),
+            ("normalize_adj_batch", K.normalize_adj_batch(dense),
+             P.normalize_adj_batch(dense))):
+        same(f"{name} guard", got, want, 1e-6)
+        if not (bool((got[:, 1, 3] == 0).all())
+                and bool(torch.isnan(got[:, 2]).all())
+                and bool(torch.isfinite(got[:, 3, 4]).all())):
+            fail(f"{name}: zero row sum must give 0, a negative one NaN")
+    print("  data-path kernels: shapes, odd sizes, trailing entries, "
+          "diagonal fill and the zero / negative row-sum guard ok")
 
 
 def check_kernels(dev):
@@ -280,6 +397,7 @@ def check_kernels(dev):
                       f"tb={int(tb)}: kernel {k_ms:.4f} ms, torch.matmul "
                       f"{t_ms:.4f} ms, max|err| {err:.2e}")
     print(f"  bgemm_f32 transpose/shape sweep ok ({len(shapes) * 4} cases)")
+    check_triu_kernels(dev)
     return records
 
 
@@ -456,7 +574,8 @@ def run_main_path(dev, data, epochs: int):
               f"recon {err_hist[j].tolist()}")
     print(f"  val MAE untrained {untrained.tolist()} trained "
           f"{maes.tolist()}")
-    print(f"  launches on the main path: {counts}")
+    counts = {k: c for k, c in counts.items() if k not in TRIU}
+    print(f"  launches on the trainer path: {counts}")
     if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()
             and bool(torch.isfinite(preds).all())):
         fail("non-finite loss, MAE or prediction")
@@ -464,7 +583,7 @@ def run_main_path(dev, data, epochs: int):
         fail(f"prediction shape {tuple(preds.shape)}")
     missing = [k for k, c in counts.items() if c == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the trainer path: {missing}")
     return counts
 
 
@@ -491,6 +610,199 @@ def check_tiny_trainer(dev, data):
           f"(limit 1e-4), max|d MAE| {d_mae:.2e} (limit 1e-5)")
     if not (d_loss <= 1e-4 and d_mae <= 1e-5):
         fail("tiny trainer on the card disagrees with the host run")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: Kaggle CSVs in, submission.csv out, through the command line
+# ---------------------------------------------------------------------------
+
+def _expected_stacks(data, nan_frac, seed):
+    """What ``load_dataset`` must return for ``write_kaggle_csvs(data,
+    nan_frac, seed)``: the teacher stacks with both mirror entries of every
+    NaN cell at 0 (the writer's mask, drawn again), and the cell count."""
+    rng = np.random.default_rng(seed)
+    out, n_nan = {}, 0
+    for name in ("lr_train", "hr_train", "lr_test"):
+        mats = np.asarray(data[name], np.float32)
+        n = mats.shape[-1]
+        iu = np.triu_indices(n, k=1)
+        vecs = mats[:, iu[0], iu[1]]
+        mask = rng.random(vecs.shape) < nan_frac
+        n_nan += int(mask.sum())
+        vecs[mask] = 0.0
+        dense = np.zeros_like(mats)
+        dense[:, iu[0], iu[1]] = vecs
+        out[name] = dense + dense.transpose(0, 2, 1)
+    return out, n_nan
+
+
+def _read_submission(path, n_rows):
+    """The ``Predicted`` column of a submission file as float32, after
+    checking its header, line count and 1-based IDs."""
+    with open(path) as f:
+        header = f.readline().strip()
+    if header != "ID,Predicted":
+        fail(f"{path}: header {header!r}")
+    table = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float64)
+    if table.shape != (n_rows, 2):
+        fail(f"{path}: {table.shape[0]} rows after the header, expected "
+             f"{n_rows}")
+    if not np.array_equal(table[:, 0], np.arange(1, n_rows + 1)):
+        fail(f"{path}: IDs are not 1..{n_rows}")
+    return table[:, 1].astype(np.float32)
+
+
+def run_csv_path(dev, data):
+    """Phase 5; returns the launch counts of the two command-line runs."""
+    from fcsr_tpu_torch import cli
+    from fcsr_tpu_torch.data import (ingest_vectors_to_device,
+                                     kfold_indices, load_csv_vectors,
+                                     load_dataset, load_dataset_device,
+                                     matrix_size_for, write_kaggle_csvs)
+    from fcsr_tpu_torch.iox import load_arrays, load_params, save_prediction
+    from fcsr_tpu_torch.kernels import (PLAIN_OPS, launch_counts,
+                                        reset_launch_counts)
+    from fcsr_tpu_torch.models import GSRNet
+    from fcsr_tpu_torch.train import (GSRFoldRunner, GSRTrainConfig,
+                                      predict_gsr)
+
+    csv_dir = os.path.join(WORK_DIR, "data")
+    out_dir = os.path.join(WORK_DIR, "out")
+    ck = os.path.join(WORK_DIR, "ck.npz")
+    sub_col = os.path.join(WORK_DIR, "sub_colmajor.csv")
+    nan_frac, nan_seed = 0.001, 0
+    t0 = time.perf_counter()
+    write_kaggle_csvs(data, csv_dir, nan_frac=nan_frac, seed=nan_seed)
+    sizes = {n: os.path.getsize(os.path.join(csv_dir, n)) / 1e6
+             for n in sorted(os.listdir(csv_dir))}
+    print(f"  teacher set written as Kaggle CSVs in "
+          f"{time.perf_counter() - t0:.1f} s: {sizes} MB", flush=True)
+
+    # the path itself, through the entry points a user calls
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "gsr", "--fused", "--epochs", "2", "--splits",
+                   "3", "--data-dir", csv_dir, "--out-dir", out_dir,
+                   "--checkpoint", ck])
+    torch.cuda.synchronize()
+    t_train_cli = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc2 = cli.main(["predict", "--params", ck, "--data-dir", csv_dir,
+                    "--out", sub_col, "--ordering", "colmajor"])
+    torch.cuda.synchronize()
+    t_predict_cli = time.perf_counter() - t0
+    counts = launch_counts()
+    if rc != 0 or rc2 != 0:
+        fail(f"command line returned {rc} (train), {rc2} (predict)")
+    print(f"  `train gsr --fused` {t_train_cli:.1f} s, `predict` "
+          f"{t_predict_cli:.1f} s; launches on the CSV path: {counts}",
+          flush=True)
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        fail(f"kernels never launched on the CSV path: {missing}")
+
+    # ingest: exact where no NaN was written, 0 where one was
+    want, n_nan = _expected_stacks(data, nan_frac, nan_seed)
+    if n_nan == 0:
+        fail("no NaN cell was written")
+    cached = load_dataset(csv_dir, device=dev)          # the CLI's npz cache
+    t0 = time.perf_counter()
+    fresh = load_dataset(csv_dir, cache=False, device=dev)
+    t_load = time.perf_counter() - t0
+    for name, arr in want.items():
+        for what, got in (("cached", cached), ("parsed", fresh)):
+            if got[name].dtype != np.float32 \
+                    or not np.array_equal(got[name], arr):
+                fail(f"load_dataset ({what}) {name} differs from the teacher "
+                     "set with its NaN cells at 0")
+    print(f"  load_dataset: 3 stacks equal the teacher set exactly, "
+          f"{n_nan} NaN cells hold 0 ({t_load:.2f} s uncached)")
+
+    # stage times of the path, each ending in a synchronize
+    t_parse, t_ingest = 0.0, 0.0
+    for name in ("lr_train", "hr_train", "lr_test"):
+        t0 = time.perf_counter()
+        vecs = load_csv_vectors(os.path.join(csv_dir, f"{name}.csv"))
+        t1 = time.perf_counter()
+        dense = ingest_vectors_to_device(vecs, matrix_size_for(
+            vecs.shape[1]), device=dev)
+        torch.cuda.synchronize()
+        t_parse += t1 - t0
+        t_ingest += time.perf_counter() - t1
+        if not np.array_equal(dense.cpu().numpy(), want[name]):
+            fail(f"ingest_vectors_to_device {name} differs")
+    on_card = load_dataset_device(csv_dir, device=dev)
+    on_card_n = load_dataset_device(csv_dir, normalize_lr=True, device=dev)
+    for name, arr in want.items():
+        if not np.array_equal(on_card[name].cpu().numpy(), arr):
+            fail(f"load_dataset_device {name} differs from load_dataset")
+    for name in ("lr_train", "lr_test"):
+        ref = PLAIN_OPS.normalize_adj_batch(torch.from_numpy(want[name]))
+        err = max_err(on_card_n[name].cpu(), ref)
+        if not err <= 1e-6:
+            fail(f"load_dataset_device(normalize_lr) {name}: err {err:.2e}")
+    if not np.array_equal(on_card_n["hr_train"].cpu().numpy(),
+                          want["hr_train"]):
+        fail("load_dataset_device(normalize_lr) changed hr_train")
+
+    # both submission files against the plain vectorization of the same
+    # predictions (the checkpoint's last fold on the ingested test set)
+    cfg = GSRTrainConfig(fused_adam=True, epochs=2, lr_dim=LR, hr_dim=HR,
+                         hidden_dim=HR)
+    model = GSRNet(cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.hidden_dim,
+                   device=dev)
+    params = load_params(ck)
+    t0 = time.perf_counter()
+    preds = predict_gsr(params, model, cfg, fresh["lr_test"])
+    torch.cuda.synchronize()
+    t_predict = time.perf_counter() - t0
+    if tuple(preds.shape) != (N_TEST, HR, HR) \
+            or not bool(torch.isfinite(preds).all()):
+        fail(f"test predictions: shape {tuple(preds.shape)} or non-finite")
+    t0 = time.perf_counter()
+    save_prediction(preds, os.path.join(WORK_DIR, "sub_timed.csv"),
+                    ordering="colmajor")
+    t_write = time.perf_counter() - t0
+    n_rows = N_TEST * HR * (HR - 1) // 2
+    rows, cols = np.triu_indices(HR, 1)
+    plain = {"colmajor": PLAIN_OPS.vectorize_colmajor(preds.cpu()),
+             "rowmajor": preds.cpu()[:, rows, cols]}
+    for path, ordering in ((sub_col, "colmajor"),
+                           (os.path.join(out_dir, "submission.csv"),
+                            "rowmajor")):
+        got = _read_submission(path, n_rows)
+        ref = plain[ordering].reshape(-1).numpy()
+        err = float(np.abs(got.astype(np.float64) - ref).max())
+        print(f"  {os.path.basename(path)} ({ordering}): 1 + {n_rows} "
+              f"lines, max|parsed - plain vectorization| {err:.1e}")
+        if err != 0.0:
+            fail(f"{path} does not parse back to the plain {ordering} "
+                 "vectorization of the predictions")
+    print(f"  stage times at full width ({N_TRAIN} train + {N_TEST} test "
+          f"subjects): CSV parse {t_parse:.2f} s, ingest (copy + kernel) "
+          f"{t_ingest:.3f} s, predict {N_TEST} subjects {t_predict:.2f} s, "
+          f"write submission {t_write:.2f} s")
+
+    # a run interrupted after epoch 1 and resumed must end bit-equal to
+    # the command line's straight 2-epoch run
+    folds = kfold_indices(N_TRAIN, 3, seed=42)
+    first = GSRFoldRunner(cfg, fresh["lr_train"], fresh["hr_train"], folds,
+                          device=dev)
+    state, lh, eh = first._run_chunk(first.fresh_state(), 1)
+    ck2 = os.path.join(WORK_DIR, "ck_resume.npz")
+    first.save_checkpoint(ck2, state, 1, lh, eh)
+    second = GSRFoldRunner(cfg, fresh["lr_train"], fresh["hr_train"], folds,
+                           device=dev)
+    p_resumed, loss_resumed, _ = second.train(checkpoint_path=ck2,
+                                              checkpoint_every=1)
+    straight = load_arrays(ck)
+    if int(straight["epoch"]) != 2 or not np.array_equal(
+            p_resumed.cpu().numpy(), straight["p"]) or not np.array_equal(
+            loss_resumed, straight["loss_hist"]):
+        fail("resumed run (1 + 1 epochs) differs from the 2-epoch run")
+    print("  resume: 1 + 1 epochs end bit-equal to the straight 2-epoch run "
+          f"(loss {loss_resumed[:, -1].tolist()})")
+    return counts
 
 
 def main():
@@ -523,7 +835,7 @@ def main():
 
     t0 = time.perf_counter()
     from fcsr_tpu_torch.data import load_or_synthesize
-    data = load_or_synthesize(None, n_train=167, n_test=112, seed=42)
+    data = load_or_synthesize(None, n_train=N_TRAIN, n_test=N_TEST, seed=42)
     print(f"teacher dataset synthesized in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -533,9 +845,16 @@ def main():
     step_args, eager_ms = check_step(dev, data)
     profile_steps(step_args, dev, eager_ms,
                   os.path.join(OUT_DIR, "profile_step.txt"))
-    print("phase 4: main path", flush=True)
+    print("phase 4: trainer path", flush=True)
     counts = run_main_path(dev, data, EPOCHS)
     check_tiny_trainer(dev, data)
+    print("phase 5: Kaggle CSVs to submission.csv through the command line",
+          flush=True)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    try:
+        csv_counts = run_csv_path(dev, data)
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     if "jax" in sys.modules or any(k == "fcsr_tpu" or k.startswith("fcsr_tpu.")
                                    for k in sys.modules):
@@ -544,7 +863,8 @@ def main():
     for name, k in KERNELS.items():
         rec = {"name": name, "route": "cuda",
                "source": f"fcsr_tpu_torch/kernels/csrc/{k.source}.cu",
-               "replaces": k.replaces, "launches": counts.get(name, 0)}
+               "replaces": k.replaces,
+               "launches": counts.get(name, 0) + csv_counts[name]}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,238 @@
+"""Command-line interface of the port.
+
+The parser of ``fcsr_tpu/cli.py`` plus ``--device``:
+
+    python -m fcsr_tpu_torch train gsr --fused --data-dir data --splits 3
+    python -m fcsr_tpu_torch predict --params ck.npz --out sub.csv
+    python -m fcsr_tpu_torch submit  --csv submission.csv -m "message"
+
+Commands run on the card; ``--device cpu`` runs the kernels' plain PyTorch
+versions on the host. Synthetic data is substituted when the Kaggle CSVs
+are not in ``--data-dir``. A subcommand or flag whose module is not ported
+yet exits with a message naming what is missing; none is dropped silently.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+__all__ = ["main", "build_parser"]
+
+PARAMS_FILE = "gsr_params.npz"
+
+
+def _add_common(p):
+    p.add_argument("--data-dir", default="data")
+    p.add_argument("--out-dir", default="outputs")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--full-metrics", action="store_true")
+    p.add_argument("--eval-backend", default="device",
+                   choices=["device", "networkx"])
+    p.add_argument("--verbose", action="store_true")
+    _add_device(p)
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch version "
+                        "of every kernel on the host")
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(prog="fcsr_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    tr = sub.add_parser("train", help="train a model family with CV")
+    trs = tr.add_subparsers(dest="family", required=True)
+
+    g = trs.add_parser("gsr")
+    _add_common(g)
+    g.add_argument("--splits", type=int, default=5)
+    g.add_argument("--epochs", type=int, default=200)
+    g.add_argument("--lr", type=float, default=1e-4)
+    g.add_argument("--lmbda", type=float, default=16.0)
+    g.add_argument("--multichip", action="store_true",
+                   help="shard the fold axis over all local devices "
+                        "(not ported yet)")
+    g.add_argument("--fast", action="store_true",
+                   help="fold-parallel clean-CV trainer (implied by "
+                        "--fused)")
+    g.add_argument("--reset-per-fold", action="store_true",
+                   help="fresh model per fold (what --fused always does)")
+    g.add_argument("--checkpoint", default=None,
+                   help="npz checkpoint file for exact mid-training "
+                        "save/resume; `predict --params` reads it too")
+    g.add_argument("--checkpoint-every", type=int, default=None)
+    g.add_argument("--fused-tail", action="store_true",
+                   help="the standalone fused spectral-tail kernel "
+                        "(not ported yet)")
+    g.add_argument("--fused", action="store_true",
+                   help="run the whole training step (forward, backward "
+                        "and Adam) on the hand-written CUDA kernels, all "
+                        "folds together — the one trainer path ported so "
+                        "far")
+
+    m = trs.add_parser("mlp")
+    _add_common(m)
+    m.add_argument("--k-folds", type=int, default=3)
+    m.add_argument("--p-val", type=float, default=0.33)
+    m.add_argument("--epochs", type=int, default=100)
+    m.add_argument("--lr", type=float, default=0.01)
+    m.add_argument("--n-layers", type=int, default=0)
+    m.add_argument("--batch-size", type=int, default=32)
+    m.add_argument("--variant", default="v2", choices=["v1", "v2"])
+
+    a = trs.add_parser("gat")
+    _add_common(a)
+    a.add_argument("--fast", action="store_true")
+    a.add_argument("--fused", action="store_true")
+    a.add_argument("--multichip", action="store_true")
+    a.add_argument("--splits", type=int, default=3)
+    a.add_argument("--epochs", type=int, default=100)
+    a.add_argument("--lr", type=float, default=1e-3)
+    a.add_argument("--dim", type=int, default=16)
+
+    ev = sub.add_parser("evaluate", help="run the metric suite on npz stacks")
+    ev.add_argument("--gt", required=True)
+    ev.add_argument("--pred", required=True)
+    ev.add_argument("--fold", type=int, default=0)
+    ev.add_argument("--backend", default="device",
+                    choices=["device", "networkx"])
+    ev.add_argument("--out-dir", default=".")
+
+    pr = sub.add_parser("predict",
+                        help="load GSR-Net weights and write a submission")
+    pr.add_argument("--params", required=True,
+                    help="npz file: a model state (as `train gsr` writes "
+                         f"to <out-dir>/{PARAMS_FILE}) or a trainer "
+                         "checkpoint (its last fold's weights)")
+    pr.add_argument("--data-dir", default="data")
+    pr.add_argument("--out", default="submission.csv")
+    pr.add_argument("--ordering", default="rowmajor",
+                    choices=["rowmajor", "colmajor"])
+    pr.add_argument("--seed", type=int, default=42)
+    _add_device(pr)
+
+    from fcsr_tpu_torch.iox.submission import DEFAULT_COMPETITION
+    sm = sub.add_parser("submit",
+                        help="submit a written CSV to the Kaggle challenge")
+    sm.add_argument("--csv", default="submission.csv")
+    sm.add_argument("--message", "-m", default="fcsr_tpu_torch submission")
+    sm.add_argument("--competition", default=DEFAULT_COMPETITION)
+    sm.add_argument("--dry-run", action="store_true",
+                    help="print the kaggle CLI command instead of running it")
+
+    return ap
+
+
+def _refuse(ap, what: str, missing: str):
+    ap.error(f"{what} is not available in fcsr_tpu_torch yet: it needs the "
+             f"port of {missing} (use `python -m fcsr_tpu` meanwhile)")
+
+
+def _refuse_unported(ap, args):
+    """Exit for every subcommand or flag whose module is not ported."""
+    if args.cmd == "evaluate":
+        _refuse(ap, "`evaluate`", "fcsr_tpu/evalx (the metric suite)")
+    if args.cmd != "train":
+        return
+    if args.family == "mlp":
+        _refuse(ap, "`train mlp`", "fcsr_tpu/models/mlp.py and "
+                                   "train/generic_loop.py")
+    if args.family == "gat":
+        _refuse(ap, "`train gat`", "fcsr_tpu/models/gat_unet.py and "
+                                   "train/gat_loop.py")
+    if args.full_metrics:
+        _refuse(ap, "--full-metrics", "fcsr_tpu/evalx (the metric suite)")
+    if args.eval_backend != "device":
+        _refuse(ap, "--eval-backend networkx",
+                "fcsr_tpu/evalx (the metric suite)")
+    if args.multichip:
+        _refuse(ap, "--multichip", "fcsr_tpu/parallel (fold sharding)")
+    if args.fused_tail:
+        _refuse(ap, "--fused-tail", "fcsr_tpu/models/fused_tail.py::"
+                                    "tail_loss_fused (the standalone tail "
+                                    "kernel)")
+    if not args.fused:
+        _refuse(ap, "`train gsr` without --fused",
+                "the unfused trainers of fcsr_tpu/train/gsr_loop.py and "
+                "fast_loop.py; pass --fused")
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    _refuse_unported(ap, args)
+
+    if args.cmd == "train":
+        from fcsr_tpu_torch.data import load_or_synthesize
+        from fcsr_tpu_torch.iox import save_prediction, save_state
+        from fcsr_tpu_torch.pipelines import run_gsr_cv_fast
+        from fcsr_tpu_torch.train import GSRTrainConfig
+        from fcsr_tpu_torch.utils.reproducibility import set_seed
+
+        set_seed(args.seed)
+        for flag, on in (("--verbose", args.verbose),
+                         ("--reset-per-fold", args.reset_per_fold)):
+            if on:
+                print(f"note: {flag} changes nothing on the --fused path "
+                      "(every fold trains a fresh model, and the epoch "
+                      "histories are in the result)", file=sys.stderr)
+        data = load_or_synthesize(args.data_dir, seed=args.seed,
+                                  device=args.device)
+        cfg = GSRTrainConfig(epochs=args.epochs, lr=args.lr,
+                             lmbda=args.lmbda, fused_adam=True)
+        result = run_gsr_cv_fast(
+            data, cfg, splits=args.splits, seed=args.seed,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every, device=args.device)
+        print(json.dumps({"fold_maes": result["fold_maes"],
+                          "mean_mae": result["mean_mae"],
+                          "timings": result["timings"]}))
+        os.makedirs(args.out_dir, exist_ok=True)
+        path = os.path.join(args.out_dir, PARAMS_FILE)
+        save_state(result["params"], path)
+        print(f"params written: {path}")
+        if result["test_preds"] is not None:
+            # the GSR notebook emits the row-major submission ordering
+            path = os.path.join(args.out_dir, "submission.csv")
+            save_prediction(result["test_preds"], path, ordering="rowmajor")
+            print(f"submission written: {path}")
+        return 0
+
+    if args.cmd == "predict":
+        from fcsr_tpu_torch.data import load_or_synthesize
+        from fcsr_tpu_torch.iox import load_params, save_prediction
+        from fcsr_tpu_torch.models import GSRNet
+        from fcsr_tpu_torch.train import GSRTrainConfig, predict_gsr
+
+        params = load_params(args.params)
+        hr_dim, lr_dim = params["layer.weights"].shape
+        cfg = GSRTrainConfig(lr_dim=lr_dim, hr_dim=hr_dim, hidden_dim=hr_dim)
+        model = GSRNet(cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.hidden_dim,
+                       device=args.device)
+        data = load_or_synthesize(args.data_dir, seed=args.seed,
+                                  device=args.device)
+        preds = predict_gsr(params, model, cfg, data["lr_test"])
+        save_prediction(preds, args.out, ordering=args.ordering)
+        print(f"submission written: {args.out} "
+              f"({preds.shape[0]} subjects, {args.ordering})")
+        return 0
+
+    if args.cmd == "submit":
+        from fcsr_tpu_torch.iox.submission import kaggle_submit
+        if not os.path.exists(args.csv):
+            print(f"no such file: {args.csv}", file=sys.stderr)
+            return 2
+        return kaggle_submit(args.csv, args.message,
+                             competition=args.competition,
+                             dry_run=args.dry_run)
+
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

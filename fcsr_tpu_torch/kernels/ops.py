@@ -6,9 +6,11 @@ on the CPU; for CUDA tensors it launches its kernel (on the current stream)
 or raises — there is no fallback. Each kernel counts its launches
 (``launch_counts``), so a run can show that it went through the kernels.
 
-All tensors are float32 (int32 for indices) with a leading fold axis F.
-Shapes use n for a node count entering a pooling level, k for the nodes it
-keeps, m for the feature width.
+All tensors are float32 (int32 for indices). The training-step kernels
+carry a leading fold axis F; shapes use n for a node count entering a
+pooling level, k for the nodes it keeps, m for the feature width. The
+data-path kernels (``triu.cu``) carry a leading subject axis B over n x n
+adjacencies and their strict-upper-triangle vectors.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ class Kernel:
 
 # the TPU kernel these replace: train_step_fused's pallas_call
 _STEP = "fcsr_tpu/models/fused_step.py:925"
+# the three data-path TPU kernels, by their pallas_call lines
+_TRIU = "fcsr_tpu/core/pallas_kernels.py"
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("bgemm_f32", "bgemm", "fcsr_bgemm_f32",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -87,6 +91,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("adam_masked", "adam", "fcsr_adam_masked",
            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL,
             _F, _F, _F, _F, _F, _F], _STEP),
+    Kernel("anti_vectorize_normalize", "triu",
+           "fcsr_anti_vectorize_normalize",
+           [_P, _LL, _P, _I, _I, _F, _I], _TRIU + ":113"),
+    Kernel("vectorize_colmajor", "triu", "fcsr_vectorize_colmajor",
+           [_P, _P, _I, _I], _TRIU + ":166"),
+    Kernel("normalize_adj_batch", "triu", "fcsr_normalize_adj_batch",
+           [_P, _P, _I, _I], _TRIU + ":191"),
 )}
 
 
@@ -526,10 +537,116 @@ def adam_masked(p, m, v, g, scal, vals, lr, b1, b2, eps):
     return p2, m2, v2, loss, recon
 
 
+# ---------------------------------------------------------------------------
+# triu: vectorized connectomes <-> dense adjacency stacks
+# ---------------------------------------------------------------------------
+
+def _degree_normalize(a):
+    """``(a r_i) r_j`` with ``r = rowsum^-1/2``; only the infinite r of a
+    zero row sum becomes 0, a negative row sum's NaN propagates."""
+    rowsum = a.sum(-1, keepdim=True)
+    r = torch.where(rowsum == 0, torch.zeros_like(rowsum),
+                    torch.rsqrt(rowsum))
+    return (a * r) * r.transpose(-1, -2)
+
+
+def _check_batch(t, what):
+    if t.dim() != 3 or t.shape[1] != t.shape[2] or t.shape[1] < 2:
+        raise ValueError(f"{what} needs a (B, n, n) stack with n >= 2, got "
+                         f"{tuple(t.shape)}")
+    if not 0 < t.shape[0] <= 65535:
+        raise ValueError(f"{what} takes 1 to 65535 matrices per call, got "
+                         f"{t.shape[0]}")
+
+
+def anti_vectorize_normalize_plain(v, n, normalize=True, fill_diag=0.0):
+    m = n * (n - 1) // 2
+    rows, cols = torch.triu_indices(n, n, 1, device=v.device)
+    out = torch.zeros(v.shape[0], n, n, dtype=v.dtype, device=v.device)
+    out[:, rows, cols] = v[:, :m]
+    out = out + out.transpose(-1, -2)
+    if fill_diag != 0.0:
+        out = torch.where(_eye_mask(n, v.device),
+                          torch.full((), fill_diag, dtype=v.dtype,
+                                     device=v.device), out)
+    return _degree_normalize(out) if normalize else out
+
+
+def anti_vectorize_normalize(v, n, normalize=True, fill_diag=0.0):
+    """(B, V) row-major strict-upper vectors, V >= n(n-1)/2 (trailing
+    entries ignored) -> (B, n, n) symmetric; the diagonal is 0, or
+    ``fill_diag`` when that is not 0; with ``normalize`` the result is
+    ``(a r_i) r_j``, r from the row sums."""
+    m = n * (n - 1) // 2
+    if v.dim() != 2 or n < 2 or v.shape[1] < m:
+        raise ValueError(f"anti_vectorize_normalize needs (B, V >= {m}) "
+                         f"vectors for n={n}, got {tuple(v.shape)}")
+    if not v.is_cuda:
+        return anti_vectorize_normalize_plain(v, n, normalize, fill_diag)
+    _check(v.device, v)
+    if v.stride(1) != 1 or not 0 < v.shape[0] <= 2 ** 31 - 1:
+        raise ValueError("anti_vectorize_normalize needs a non-empty batch "
+                         "of vectors with unit element stride")
+    if n > 12 * 1024:
+        raise ValueError("anti_vectorize_normalize: n too large for shared "
+                         "memory")
+    out = torch.empty(v.shape[0], n, n, dtype=torch.float32, device=v.device)
+    KERNELS["anti_vectorize_normalize"](_ptr(v), v.stride(0), _ptr(out),
+                                        v.shape[0], n, float(fill_diag),
+                                        int(bool(normalize)))
+    return out
+
+
+def vectorize_colmajor_plain(m):
+    # strict-lower pairs in row-major order are (j, i), i < j, sorted by
+    # (j, i): swapped, the column-major walk of the strict upper triangle
+    j, i = torch.tril_indices(m.shape[-1], m.shape[-1], -1, device=m.device)
+    return m[:, i, j]
+
+
+def vectorize_colmajor(m):
+    """(B, n, n) -> (B, n(n-1)/2): entry ``p = j(j-1)/2 + i`` is
+    ``m[:, i, j]``, i < j (columns in order, rows above the diagonal within
+    each column). A copy: exact."""
+    _check_batch(m, "vectorize_colmajor")
+    if not m.is_cuda:
+        return vectorize_colmajor_plain(m)
+    _check(m.device, m)
+    _contig(m)
+    B, n, _ = m.shape
+    out = torch.empty(B, n * (n - 1) // 2, dtype=torch.float32,
+                      device=m.device)
+    KERNELS["vectorize_colmajor"](_ptr(m), _ptr(out), B, n)
+    return out
+
+
+def normalize_adj_batch_plain(a):
+    return _degree_normalize(a)
+
+
+def normalize_adj_batch(a):
+    """(B, n, n) -> ``(a r_i) r_j`` with ``r = rowsum^-1/2`` (0 for a zero
+    row sum, NaN for a negative one). No transpose: equal to
+    ``core.normalize.normalize_adj`` on symmetric input up to the order of
+    the two multiplications."""
+    _check_batch(a, "normalize_adj_batch")
+    if not a.is_cuda:
+        return normalize_adj_batch_plain(a)
+    _check(a.device, a)
+    _contig(a)
+    B, n, _ = a.shape
+    if n > 12 * 1024:
+        raise ValueError("normalize_adj_batch: n too large for shared memory")
+    out = torch.empty_like(a)
+    KERNELS["normalize_adj_batch"](_ptr(a), _ptr(out), B, n)
+    return out
+
+
 _OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
         "pool_logits_bwd", "add_bias", "tail_normalize",
         "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
-        "adam_masked")
+        "adam_masked", "anti_vectorize_normalize", "vectorize_colmajor",
+        "normalize_adj_batch")
 # launch the kernel for CUDA tensors, the plain version for CPU tensors
 KERNEL_OPS = SimpleNamespace(**{name: globals()[name] for name in _OPS})
 # always the plain PyTorch version (the reference the kernels are held to)

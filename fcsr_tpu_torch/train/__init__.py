@@ -1,6 +1,12 @@
-from fcsr_tpu_torch.train.fast_loop import GSRFoldRunner, stage_dataset
-from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig, precompute_spectral
+from fcsr_tpu_torch.train.fast_loop import (GSRFoldRunner,
+                                            evaluate_gsr_folds,
+                                            stage_dataset,
+                                            train_gsr_folds_parallel)
+from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, evaluate_gsr,
+                                           precompute_spectral, predict_gsr)
 from fcsr_tpu_torch.train.losses import gsr_composite_loss, l1
 
-__all__ = ["GSRFoldRunner", "GSRTrainConfig", "gsr_composite_loss", "l1",
-           "precompute_spectral", "stage_dataset"]
+__all__ = ["GSRFoldRunner", "GSRTrainConfig", "evaluate_gsr",
+           "evaluate_gsr_folds", "gsr_composite_loss", "l1",
+           "precompute_spectral", "predict_gsr", "stage_dataset",
+           "train_gsr_folds_parallel"]

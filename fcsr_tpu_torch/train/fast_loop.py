@@ -13,18 +13,26 @@ fold's sample) is gathered once at staging into (S, F, ...) stacks, and
 the per-fold Adam scalars of a whole chunk are planned on the host, so a
 training step launches nothing but the step's own kernels.
 
-Not ported yet: the unfused and other fused trainer paths, multi-device
-fold sharding, and the checkpoint / resume branch.
+With a checkpoint path the chunked state (p, m, v, step counts, epoch,
+histories) is written as an ``.npz`` resume blob between chunks and a later
+run of the same configuration, folds and data resumes from it exactly.
+
+Not ported yet: the unfused and other fused trainer paths and multi-device
+fold sharding.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import warnings
 from typing import List
 
 import numpy as np
 import torch
 
 from fcsr_tpu_torch.core.normalize import fill_diagonal, normalize_adj_np
+from fcsr_tpu_torch.iox.checkpoint import load_arrays, save_arrays
 from fcsr_tpu_torch.iox.weights import flat_to_state, state_to_flat
 from fcsr_tpu_torch.models.fused_step import (FlatLayout, adam_scalars,
                                               train_step_fused)
@@ -32,7 +40,8 @@ from fcsr_tpu_torch.models.gsr import GSRNet
 from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig, precompute_spectral
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["adam_flat_update", "stage_dataset", "GSRFoldRunner"]
+__all__ = ["adam_flat_update", "stage_dataset", "GSRFoldRunner",
+           "train_gsr_folds_parallel", "evaluate_gsr_folds"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -120,6 +129,23 @@ class GSRFoldRunner:
                              f"{self.layout.size}), got {tuple(flat0.shape)}")
         self.flat0 = flat0.to(self.device).contiguous()
         self.flat_trained = None
+        self.fingerprint = self._fingerprint(lr_all, hr_all, flat0)
+
+    def _fingerprint(self, lr_all, hr_all, flat0) -> str:
+        """Hash of config + fold plan + initial weights + dataset content.
+        Stored in resume blobs, so a file from another run at the same
+        path (other epochs, folds, seed or data) is detected and discarded
+        instead of restored."""
+        h = hashlib.blake2b(digest_size=8)
+        h.update(repr(self.cfg).encode())
+        for tr, va in self.folds:
+            h.update(np.asarray(tr, np.int64).tobytes())
+            h.update(np.asarray(va, np.int64).tobytes())
+        for a in (lr_all, hr_all, flat0):
+            a = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
+            h.update(str(a.shape).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
 
     def _model(self, seed: int = 0, device="cpu") -> GSRNet:
         cfg = self.cfg
@@ -165,21 +191,71 @@ class GSRFoldRunner:
 
         return (p, m, v, t), epoch_means(losses), epoch_means(errs)
 
-    def train(self, chunk_epochs: int = None):
+    def save_checkpoint(self, path: str, state, epoch: int, loss_hist,
+                        err_hist) -> None:
+        """Write the resume blob of ``state`` after ``epoch`` epochs."""
+        p, m, v, t = state
+        save_arrays(path, p=p.cpu().numpy(), m=m.cpu().numpy(),
+                    v=v.cpu().numpy(), t=np.asarray(t, np.float32),
+                    epoch=np.int64(epoch),
+                    fingerprint=np.str_(self.fingerprint),
+                    loss_hist=np.asarray(loss_hist, np.float32),
+                    err_hist=np.asarray(err_hist, np.float32),
+                    lr_dim=np.int64(self.layout.lr_dim),
+                    hr_dim=np.int64(self.layout.hr_dim),
+                    n_levels=np.int64(self.layout.n_levels))
+
+    def _restore(self, path: str):
+        """(state, epochs done, loss_hist, err_hist) from this run's blob
+        at ``path``, or None after discarding another run's."""
+        blob = load_arrays(path)
+        if (str(blob.get("fingerprint")) == self.fingerprint
+                and int(blob["epoch"]) <= self.cfg.epochs):
+            state = tuple(torch.from_numpy(blob[k]).to(self.device)
+                          for k in ("p", "m", "v")) + (blob["t"],)
+            return (state, int(blob["epoch"]), blob["loss_hist"],
+                    blob["err_hist"])
+        warnings.warn(
+            f"checkpoint {path} is from a different run (config/folds/"
+            "dataset fingerprint mismatch) — discarding it and training "
+            "from scratch")
+        os.remove(path)
+        return None
+
+    def train(self, checkpoint_path: str = None,
+              checkpoint_every: int = None, chunk_epochs: int = None):
         """Full training run, as repeated launches of ``chunk_epochs``
         epochs (default: one chunk of ``cfg.epochs``); trajectory-identical
         either way. Returns (trained flat params (F, P), loss_hist (F, E),
-        err_hist (F, E))."""
+        err_hist (F, E)).
+
+        With ``checkpoint_path`` the state is written there every
+        ``checkpoint_every`` epochs (default ``chunk_epochs``, else a tenth
+        of the run) and the run resumes from the file if it holds this
+        run's fingerprint; another run's file is discarded with a
+        warning."""
         chunk = chunk_epochs or self.cfg.epochs
+        if checkpoint_path is not None:
+            chunk = checkpoint_every or chunk_epochs or \
+                max(1, self.cfg.epochs // 10)
         state = self.fresh_state()
         losses, errs = [], []
         done = 0
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            restored = self._restore(checkpoint_path)
+            if restored is not None:
+                state, done, lh, eh = restored
+                losses, errs = [lh], [eh]
         while done < self.cfg.epochs:
             n = min(chunk, self.cfg.epochs - done)
             state, lh, eh = self._run_chunk(state, n)
             losses.append(lh)
             errs.append(eh)
             done += n
+            if checkpoint_path is not None:
+                self.save_checkpoint(checkpoint_path, state, done,
+                                     np.concatenate(losses, axis=1),
+                                     np.concatenate(errs, axis=1))
         self.flat_trained = state[0]
         return (state[0], np.concatenate(losses, axis=1).astype(np.float32),
                 np.concatenate(errs, axis=1).astype(np.float32))
@@ -220,3 +296,41 @@ class GSRFoldRunner:
         return [flat_to_state(self.flat_trained[j].cpu().numpy(),
                               self.layout.shapes)
                 for j in range(self.n_folds)]
+
+
+def train_gsr_folds_parallel(cfg: GSRTrainConfig, lr_all, hr_all, folds,
+                             init_seed: int = 0,
+                             checkpoint_path: str = None,
+                             checkpoint_every: int = None, flat0=None,
+                             device=DEFAULT_DEVICE):
+    """Train one fresh GSR-Net per fold, all folds together. Returns
+    (model, per-fold state_dict list, loss_hist (F, epochs), err_hist
+    (F, epochs), runner); the runner keeps the staged data on the device
+    for the evaluation that follows, and ``model`` is a GSRNet of the
+    run's shape on the run's device to load any fold's state into."""
+    runner = GSRFoldRunner(cfg, lr_all, hr_all, folds, init_seed=init_seed,
+                           flat0=flat0, device=device)
+    _, loss_hist, err_hist = runner.train(
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
+    return (runner._model(device=runner.device), runner.params_per_fold(),
+            loss_hist, err_hist, runner)
+
+
+def evaluate_gsr_folds(cfg: GSRTrainConfig, runner: GSRFoldRunner,
+                       pull_preds: bool = True):
+    """All folds' validation passes. Returns (fold_maes, per-fold
+    (preds, gts) numpy pairs over each fold's own validation subjects —
+    empty unless ``pull_preds``); the labels' diagonal is set to 1, as the
+    reference's test() compares them."""
+    maes, preds_d = runner.evaluate()
+    fold_maes = [float(m) for m in maes]
+    outs = []
+    if pull_preds:
+        preds_np = preds_d.cpu().numpy()
+        hr_np = runner.data[1].cpu().numpy()
+        for j, (_, va) in enumerate(runner.folds):
+            gts = hr_np[np.asarray(va)].copy()
+            for m in gts:
+                np.fill_diagonal(m, 1.0)
+            outs.append((preds_np[j, :len(va)], gts))
+    return fold_maes, outs

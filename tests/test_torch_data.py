@@ -61,9 +61,13 @@ def test_load_or_synthesize_caches(tmp_path):
 
 def test_real_csvs_raise_not_implemented(tmp_path):
     (tmp_path / "lr_train.csv").write_text("ID,v0\n1,0.5\n")
+    """A directory with the CSVs is ingested now, not refused: a partial
+    set names the files it lacks (the whole set is read in
+    tests/test_torch_io.py)."""
     assert has_real_csvs(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_or_synthesize(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="missing hr_train.csv, "
+                                                "lr_test.csv"):
+        load_or_synthesize(str(tmp_path), device="cpu")
 
 
 def test_precompute_spectral_equals_jax(monkeypatch, tmp_path):

@@ -121,10 +121,13 @@ def test_port_imports_no_jax_and_no_fcsr_tpu():
         "import sys, torch\n"
         "import fcsr_tpu_torch, fcsr_tpu_torch.kernels.build\n"
         "import fcsr_tpu_torch.iox, fcsr_tpu_torch.train.fast_loop\n"
+        "import fcsr_tpu_torch.cli, fcsr_tpu_torch.pipelines\n"
+        "import fcsr_tpu_torch.native, fcsr_tpu_torch.data.device_pipeline\n"
         "import chip_smoke\n"
         "chip_smoke.kernel_cases(torch.device('cpu'))\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'fcsr_tpu' or m.startswith('fcsr_tpu.')]\n"
+        "fcsr_tpu_torch.cli.build_parser()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'pandas', 'sklearn', 'fcsr_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
