@@ -19,7 +19,7 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    (per-kernel device time into ``chiprun_out/profile_step.txt``);
 4. drives the trainer path: the seeded 167-subject teacher dataset, 3
    folds, ``GSRFoldRunner(GSRTrainConfig(fused_adam=True))`` at full width
-   for 4 epochs (two ``chunk_epochs=2`` launches) and ``evaluate()``, with
+   for 2 epochs (two ``chunk_epochs=1`` launches) and ``evaluate()``, with
    every step kernel's launch count read from that run; and a tiny 2-fold
    run on the card against the same run on the host;
 5. drives the CSV-to-submission path at full width through the command
@@ -28,7 +28,18 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``predict --ordering colmajor`` in-process on the card, with the
    launch counts of that run; then checks the ingested stacks, the device
    ingest, both submission files and an interrupted-and-resumed run
-   against the straight one, and prints the path's stage times.
+   against the straight one, and prints the path's stage times;
+6. drives every other way of training GSR-Net at full width: each fused
+   entry point (``tail_loss_fused``, ``unet_fused``, ``unet_fused_fwdonly``,
+   ``unet_fused_fwdbwd``, ``gsr_step_loss_fused``,
+   ``step_value_and_grad_fused``) at F = 3 against autograd over its plain
+   PyTorch version (value and gradients), with its launches and times;
+   one epoch over 3 folds of ``GSRFoldRunner`` in each mode (unfused,
+   ``fused_tail``, ``+ fused_unet``, ``+ fused_unet_bwd``, ``fused_step``)
+   with the launch counts of each run, ``fused_step`` bit-equal to
+   ``fused_adam`` from the same weights; and the parity trainer
+   (``train gsr`` with no flag, 2 folds x 1 epoch) through the command
+   line on phase 5's CSVs.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -57,10 +68,12 @@ WORK_DIR = os.path.join(OUT_DIR, "smoke_csv_path")
 PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # HBM3
 F, LR, HR, KS = 3, 160, 268, (0.9, 0.7, 0.6, 0.5)
-EPOCHS = 4                   # trainer-path epochs, run as two chunks of 2
+EPOCHS = 2                   # trainer-path epochs, run as two chunks of 1
 N_TRAIN, N_TEST = 167, 112   # subjects of the challenge's train / test set
 TRIU = ("anti_vectorize_normalize", "vectorize_colmajor",
         "normalize_adj_batch")
+# launched by the loss entry points (phase 6), not by train_step_fused
+ENTRY_ONLY = ("loss_terms",)
 
 
 def fail(msg: str):
@@ -219,6 +232,10 @@ def kernel_cases(dev):
                   lambda: (P.l1_term(pred, hr, vp, 1, 1.0, 1.0 / (m * m),
                                      False), vp[:, 1]), 1e-6,
                   3.0 * F * m * m, f4 * (3 * m * m + 1), None))
+
+    lk = rnd(F, 3).abs()
+    cases.append(("loss_terms", lambda: K.loss_terms(lk),
+                  lambda: P.loss_terms(lk), 0.0, 2.0 * F, f4 * 5, None))
 
     from fcsr_tpu_torch.models.fused_step import FlatLayout
     n_p = FlatLayout(LR, HR, len(KS)).size
@@ -558,7 +575,7 @@ def run_main_path(dev, data, epochs: int):
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    _, loss_hist, err_hist = runner.train(chunk_epochs=2)
+    _, loss_hist, err_hist = runner.train(chunk_epochs=1)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     counts = launch_counts()
@@ -574,7 +591,8 @@ def run_main_path(dev, data, epochs: int):
               f"recon {err_hist[j].tolist()}")
     print(f"  val MAE untrained {untrained.tolist()} trained "
           f"{maes.tolist()}")
-    counts = {k: c for k, c in counts.items() if k not in TRIU}
+    counts = {k: c for k, c in counts.items()
+              if k not in TRIU + ENTRY_ONLY}
     print(f"  launches on the trainer path: {counts}")
     if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()
             and bool(torch.isfinite(preds).all())):
@@ -697,7 +715,8 @@ def run_csv_path(dev, data):
     print(f"  `train gsr --fused` {t_train_cli:.1f} s, `predict` "
           f"{t_predict_cli:.1f} s; launches on the CSV path: {counts}",
           flush=True)
-    missing = [k for k, c in counts.items() if c == 0]
+    missing = [k for k, c in counts.items()
+               if c == 0 and k not in ENTRY_ONLY]
     if missing:
         fail(f"kernels never launched on the CSV path: {missing}")
 
@@ -805,6 +824,285 @@ def run_csv_path(dev, data):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the fused entry points and every other trainer mode
+# ---------------------------------------------------------------------------
+
+STEP_KERNELS = ("bgemm_f32", "rank_select", "gather_rows", "scatter_rows",
+                "pool_logits_bwd", "add_bias", "tail_normalize",
+                "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad",
+                "l1_term", "loss_terms", "adam_masked")
+TAIL_KERNELS = ("bgemm_f32", "tail_normalize", "tail_normalize_bwd",
+                "sym_abs_fill", "sym_sign_grad", "l1_term", "loss_terms")
+UNET_FWD_KERNELS = ("bgemm_f32", "rank_select", "gather_rows",
+                    "scatter_rows", "add_bias")
+# the kernels each trainer mode must launch (the flat Adam of every mode is
+# one adam_masked launch)
+MODE_KERNELS = {
+    "unfused": ("adam_masked",),
+    "fused_tail": TAIL_KERNELS + ("adam_masked",),
+    "fused_tail_unet": tuple(dict.fromkeys(
+        TAIL_KERNELS + UNET_FWD_KERNELS + ("adam_masked",))),
+    "fused_tail_unet_bwd": STEP_KERNELS,
+    "fused_step": STEP_KERNELS,
+}
+MODE_FLAGS = {
+    "unfused": {},
+    "fused_tail": dict(fused_tail=True),
+    "fused_tail_unet": dict(fused_tail=True, fused_unet=True),
+    "fused_tail_unet_bwd": dict(fused_tail=True, fused_unet=True,
+                                fused_unet_bwd=True),
+    "fused_step": dict(fused_step=True),
+    "fused_adam": dict(fused_adam=True),
+}
+
+
+def _nonzero(counts):
+    return {k: c for k, c in counts.items() if c}
+
+
+def check_entry_points(dev, step_args):
+    """Each fused entry point at F = 3 and full width against autograd over
+    its plain PyTorch version: values to 1e-5 relative, every gradient to
+    1e-4 of the plain gradient's largest entry (fp32 sums in another order
+    than cuBLAS's through ~20 chained products); launches and times of the
+    forward and of forward + backward."""
+    from fcsr_tpu_torch.iox.weights import (leaf_names,
+                                            leaf_tensors_to_state)
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.models import fused_step as fs
+    from fcsr_tpu_torch.models.fused_tail import (_tail_loss,
+                                                  tail_loss_fused)
+
+    p, _, _, u_lr, u_hr, hr = step_args[:6]
+    layout = fs.FlatLayout(LR, HR, len(KS))
+    net_names = leaf_names(len(KS), tail=False)
+    tail_names = ("layer.weights", "gc1.weight", "gc2.weight")
+    g = torch.Generator(device="cpu").manual_seed(6)
+    ct = torch.tensor([2.5, 1.0, -0.5], device=dev)
+    ct_net = torch.randn(F, LR, HR, generator=g).to(dev)
+    ct_start = torch.randn(F, LR, HR, generator=g).to(dev)
+    with torch.no_grad():
+        f0, _ = fs.unet_forward_rankselect(layout.views(p), KS, LR)
+
+    def leaves():
+        """Leaf views of a fresh copy of the flat weights, as the trainer
+        hands them over, each an autograd leaf."""
+        return {k: t.requires_grad_()
+                for k, t in layout.views(p.clone()).items()}
+
+    def unet_case(fn):
+        def fused(P):
+            net, start = fn({k: P[k] for k in net_names}, KS, LR, HR,
+                            device=dev)
+            return (net, start), (net * ct_net).sum() + (start
+                                                         * ct_start).sum()
+
+        def plain(P):
+            net, start = fs.unet_forward_rankselect(P, KS, LR)
+            return (net, start), (net * ct_net).sum() + (start
+                                                         * ct_start).sum()
+        return fused, plain, net_names
+
+    def tail_fused(P):
+        loss = tail_loss_fused(*[P[k] for k in tail_names], P["f"], u_lr,
+                               u_hr, hr, device=dev)
+        return (loss,), (ct * loss).sum()
+
+    def tail_plain(P):
+        loss, _ = _tail_loss(*[P[k] for k in tail_names], P["f"], u_lr, u_hr,
+                             hr)
+        return (loss,), (ct * loss).sum()
+
+    def step_fused(P):
+        loss, recon = fs.gsr_step_loss_fused(
+            {k: P[k] for k in net_names}, *[P[k] for k in tail_names], u_lr,
+            u_hr, hr, KS, LR, HR, 16.0, device=dev)
+        if recon.requires_grad:
+            fail("gsr_step_loss_fused: recon carries a gradient")
+        return (loss, recon), (ct * loss).sum()
+
+    def step_plain(P):
+        loss, recon = fs.step_loss_pure(P, None, hr, u_lr, u_hr, KS, LR,
+                                        16.0)
+        return (loss, recon.detach()), (ct * loss).sum()
+
+    cases = [("tail_loss_fused", tail_fused, tail_plain,
+              tail_names + ("f",)),
+             ("unet_fused", *unet_case(fs.unet_fused)),
+             ("unet_fused_fwdonly", *unet_case(fs.unet_fused_fwdonly)),
+             ("unet_fused_fwdbwd", *unet_case(fs.unet_fused_fwdbwd)),
+             ("gsr_step_loss_fused", step_fused, step_plain,
+              tuple(leaf_names(len(KS))))]
+    for name, fused, plain, wrt in cases:
+        def run(fn, backward=True):
+            P = leaves()
+            P["f"] = f0.clone().requires_grad_()
+            outs, objective = fn(P)
+            grads = torch.autograd.grad(objective, [P[k] for k in wrt]) \
+                if backward else ()
+            return [o.detach() for o in outs], grads
+
+        reset_launch_counts()
+        run(fused, backward=False)
+        fwd_counts = _nonzero(launch_counts())
+        reset_launch_counts()
+        outs, grads = run(fused)
+        all_counts = _nonzero(launch_counts())
+        w_outs, w_grads = run(plain)
+        torch.cuda.synchronize()
+        v_err = max(max_err(a, b) / scale_of(b) for a, b in zip(outs, w_outs))
+        g_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-3)
+                    for a, b in zip(grads, w_grads))
+        ms = [device_ms(lambda: run(fused, backward=False), reps=3),
+              device_ms(lambda: run(fused), reps=3),
+              device_ms(lambda: run(plain), reps=3),
+              cuda_ms(lambda: run(fused), reps=3)]
+        print(f"  {name:20s} value rel err {v_err:.2e} (limit 1e-5), worst "
+              f"gradient err / max {g_err:.2e} (limit 1e-4, {len(grads)} "
+              f"gradients); device ms fwd {ms[0]:.3f}, fwd+bwd {ms[1]:.3f} "
+              f"(eager {ms[3]:.3f}), plain fwd+bwd {ms[2]:.3f}; launches "
+              f"fwd {sum(fwd_counts.values())} {fwd_counts}, fwd+bwd "
+              f"{sum(all_counts.values())} {all_counts}", flush=True)
+        if not (v_err <= 1e-5 and g_err <= 1e-4):
+            fail(f"{name} disagrees with autograd over its plain version")
+        if not all_counts:
+            fail(f"{name} launched no kernel")
+
+    # step_value_and_grad_fused: the same launches over a state_dict
+    with torch.no_grad():
+        state = leaf_tensors_to_state(layout.views(p.clone()))
+        state = {k: t.contiguous() for k, t in state.items()}
+    reset_launch_counts()
+    loss, recon, grads = fs.step_value_and_grad_fused(
+        state, u_lr, u_hr, hr, KS, LR, HR, HR, 16.0, device=dev)
+    counts = _nonzero(launch_counts())
+    P = leaves()
+    w_loss, w_recon = fs.step_loss_pure(P, None, hr, u_lr, u_hr, KS, LR, 16.0)
+    w_grads = leaf_tensors_to_state(dict(zip(P, torch.autograd.grad(
+        w_loss.sum(), list(P.values())))))
+    torch.cuda.synchronize()
+    v_err = max(max_err(loss, w_loss.detach()) / scale_of(w_loss.detach()),
+                max_err(recon, w_recon.detach()))
+    g_err = max(max_err(grads[k], w) / max(float(w.abs().max()), 1e-3)
+                for k, w in w_grads.items())
+    ms = device_ms(lambda: fs.step_value_and_grad_fused(
+        state, u_lr, u_hr, hr, KS, LR, HR, HR, 16.0, device=dev), reps=3)
+    print(f"  step_value_and_grad_fused value err {v_err:.2e} (limit 1e-5), "
+          f"worst gradient err / max {g_err:.2e} (limit 1e-4, {len(grads)} "
+          f"state_dict gradients); device ms {ms:.3f}; launches "
+          f"{sum(counts.values())} {counts}", flush=True)
+    if not (v_err <= 1e-5 and g_err <= 1e-4) or sorted(grads) != sorted(
+            state):
+        fail("step_value_and_grad_fused disagrees with its plain version")
+
+
+def run_trainer_modes(dev, data):
+    """One full-width epoch over 3 folds in every fold-parallel mode, all
+    from the same initial weights. Returns the launch counts summed over
+    the five new modes."""
+    from fcsr_tpu_torch import (GSRFoldRunner, GSRTrainConfig,
+                                kfold_indices)
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    folds = kfold_indices(len(data["lr_train"]), 3, seed=42)
+    total, runs = {}, {}
+    scal = torch.tensor([[1.0, 1 - 0.9, 1 - 0.999]] * len(folds), device=dev)
+    for mode, flags in MODE_FLAGS.items():
+        runner = GSRFoldRunner(GSRTrainConfig(epochs=1, **flags),
+                               data["lr_train"], data["hr_train"], folds,
+                               device=dev)
+        if runner.mode != mode:
+            fail(f"config {flags} runs mode {runner.mode}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        p, loss_hist, err_hist = runner.train()
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        counts = _nonzero(launch_counts())
+        maes, _ = runner.evaluate()
+        steps = runner.tr_idx.shape[1]
+        runs[mode] = (p, loss_hist, err_hist, maes)
+        per_step = {k: round(c / steps, 2) for k, c in counts.items()}
+        # the step alone, without the host's gaps: one CUDA graph of it
+        p0, m0, v0, _ = runner.fresh_state()
+        dev_ms = device_ms(lambda: runner._step(p0, m0, v0, 0, scal), reps=3)
+        print(f"  {mode:20s} {t_train:.3f} s/epoch, "
+              f"{1e3 * t_train / steps:.3f} ms/step in the loop, "
+              f"{dev_ms:.3f} ms/step device; loss "
+              f"{loss_hist[:, 0].tolist()} recon {err_hist[:, 0].tolist()} "
+              f"val MAE {maes.tolist()}; {sum(counts.values()) / steps:.1f} "
+              f"launches/step {per_step}", flush=True)
+        if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()):
+            fail(f"{mode}: non-finite loss or MAE")
+        if mode == "fused_adam":
+            continue
+        missing = [k for k in MODE_KERNELS[mode] if not counts.get(k)]
+        if missing:
+            fail(f"{mode}: kernels of its path never launched: {missing}")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+
+    ref = runs["fused_adam"]
+    got = runs["fused_step"]
+    if not (torch.equal(got[0], ref[0])
+            and np.array_equal(got[1], ref[1])
+            and np.array_equal(got[2], ref[2])):
+        fail("fused_step is not bit-equal to fused_adam")
+    print("  fused_step == fused_adam bit for bit (parameters, loss and "
+          f"recon histories after {steps} steps)")
+    # the other modes reach the same gradient by sums in another order;
+    # Adam's first steps are lr * g / |g|, so a near-zero gradient entry of
+    # either sign moves a parameter by up to 2 lr per step: the parameters
+    # are reported, the epoch's loss and the val MAE are held to 1e-3
+    for mode in ("fused_tail_unet_bwd", "fused_tail_unet", "fused_tail",
+                 "unfused"):
+        got = runs[mode]
+        d_p = float((got[0] - ref[0]).abs().max())
+        d_loss = float(np.abs(got[1] - ref[1]).max())
+        d_mae = float(np.abs(got[3] - ref[3]).max())
+        print(f"  {mode:20s} vs fused_adam: max|d loss| {d_loss:.2e} (limit "
+              f"1e-3), max|d MAE| {d_mae:.2e} (limit 1e-3), max|d p| "
+              f"{d_p:.2e}")
+        if not (d_loss <= 1e-3 and d_mae <= 1e-3):
+            fail(f"{mode} disagrees with fused_adam after one epoch")
+    return total
+
+
+def run_parity_cli(dev, csv_dir):
+    """The reference-faithful trainer through the command line: `train gsr`
+    with no flag, 2 folds x 1 epoch on the CSVs of phase 5 (one model
+    carried across the folds, per-sample Adam). Returns its launch
+    counts."""
+    from fcsr_tpu_torch import cli
+    from fcsr_tpu_torch.iox import load_state
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    out_dir = os.path.join(WORK_DIR, "out_parity")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "gsr", "--epochs", "1", "--splits", "2",
+                   "--data-dir", csv_dir, "--out-dir", out_dir])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    counts = _nonzero(launch_counts())
+    if rc != 0:
+        fail(f"`train gsr` returned {rc}")
+    state = load_state(os.path.join(out_dir, "gsr_params.npz"))
+    sub = _read_submission(os.path.join(out_dir, "submission.csv"),
+                           N_TEST * HR * (HR - 1) // 2)
+    if tuple(state["layer.weights"].shape) != (HR, LR) \
+            or not all(np.isfinite(v).all() for v in state.values()) \
+            or not np.isfinite(sub).all():
+        fail("`train gsr`: parameters or submission malformed")
+    print(f"  `train gsr` (parity trainer, {N_TRAIN} per-sample steps) "
+          f"{t_cli:.1f} s; launches {counts}", flush=True)
+    if not counts.get("normalize_adj_batch"):
+        fail("the parity path never launched normalize_adj_batch")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -853,6 +1151,11 @@ def main():
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     try:
         csv_counts = run_csv_path(dev, data)
+        print("phase 6: fused entry points and every other trainer mode",
+              flush=True)
+        check_entry_points(dev, step_args)
+        mode_counts = run_trainer_modes(dev, data)
+        parity_counts = run_parity_cli(dev, os.path.join(WORK_DIR, "data"))
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -864,7 +1167,8 @@ def main():
         rec = {"name": name, "route": "cuda",
                "source": f"fcsr_tpu_torch/kernels/csrc/{k.source}.cu",
                "replaces": k.replaces,
-               "launches": counts.get(name, 0) + csv_counts[name]}
+               "launches": sum(c.get(name, 0) for c in (
+                   counts, csv_counts, mode_counts, parity_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

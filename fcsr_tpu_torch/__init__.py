@@ -7,26 +7,37 @@ JAX and nothing of ``fcsr_tpu``. Entry points run on the card by default
 
 Ported so far, from the Kaggle CSVs to ``submission.csv``: CSV ingest
 through the anti-vectorize kernel (``data``), the seeded teacher dataset,
-k-fold plans, the host spectral precompute, the fold-parallel GSR-Net
-trainer whose training step (``models.fused_step.train_step_fused``) runs
-on hand-written CUDA kernels (``kernels/csrc``) with checkpoint / resume,
-the GSRNet evaluation and test-set forward, the submission writer in both
-orderings (``iox``), ``pipelines.run_gsr_cv_fast`` and the command line
-(``python -m fcsr_tpu_torch train gsr --fused | predict | submit``).
+k-fold plans, the host spectral precompute, every GSR-Net trainer of the
+JAX package — the parity trainer (``train.train_gsr_fold``,
+``pipelines.run_gsr_cv``) and the fold-parallel ``GSRFoldRunner`` in its
+unfused, ``fused_tail``, ``fused_unet``, ``fused_step`` and ``fused_adam``
+modes, whose fused entry points (``models.tail_loss_fused``,
+``unet_fused_fwdbwd``, ``gsr_step_loss_fused``, ``train_step_fused``, ...)
+run on hand-written CUDA kernels (``kernels/csrc``) — with checkpoint /
+resume, the GSRNet evaluation and test-set forward, the submission writer
+in both orderings (``iox``), ``pipelines.run_gsr_cv_fast`` and the command
+line (``python -m fcsr_tpu_torch train gsr [--fast] [--fused-tail]
+[--fused] | predict | submit``).
 """
 
 from fcsr_tpu_torch.data import (kfold_indices, load_dataset,
                                  load_dataset_device, load_or_synthesize,
                                  write_kaggle_csvs)
 from fcsr_tpu_torch.iox import save_prediction
-from fcsr_tpu_torch.models import GSRNet, train_step_fused
-from fcsr_tpu_torch.pipelines import run_gsr_cv_fast
+from fcsr_tpu_torch.models import (GSRNet, gsr_step_loss_fused,
+                                   tail_loss_fused, train_step_fused,
+                                   unet_fused_fwdbwd, unet_fused_fwdonly)
+from fcsr_tpu_torch.pipelines import run_gsr_cv, run_gsr_cv_fast
 from fcsr_tpu_torch.train import (GSRFoldRunner, GSRTrainConfig,
-                                  evaluate_gsr, predict_gsr)
+                                  evaluate_gsr, init_gsr, make_train_fn,
+                                  predict_gsr, train_gsr_fold)
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["DEFAULT_DEVICE", "GSRFoldRunner", "GSRNet", "GSRTrainConfig",
-           "evaluate_gsr", "kfold_indices", "load_dataset",
-           "load_dataset_device", "load_or_synthesize", "predict_gsr",
-           "resolve_device", "run_gsr_cv_fast", "save_prediction",
-           "train_step_fused", "write_kaggle_csvs"]
+           "evaluate_gsr", "gsr_step_loss_fused", "init_gsr",
+           "kfold_indices", "load_dataset", "load_dataset_device",
+           "load_or_synthesize", "make_train_fn", "predict_gsr",
+           "resolve_device", "run_gsr_cv", "run_gsr_cv_fast",
+           "save_prediction", "tail_loss_fused", "train_gsr_fold",
+           "train_step_fused", "unet_fused_fwdbwd", "unet_fused_fwdonly",
+           "write_kaggle_csvs"]

@@ -2,6 +2,8 @@
 
 The parser of ``fcsr_tpu/cli.py`` plus ``--device``:
 
+    python -m fcsr_tpu_torch train gsr --data-dir data     # parity trainer
+    python -m fcsr_tpu_torch train gsr --fast [--fused-tail] --splits 3
     python -m fcsr_tpu_torch train gsr --fused --data-dir data --splits 3
     python -m fcsr_tpu_torch predict --params ck.npz --out sub.csv
     python -m fcsr_tpu_torch submit  --csv submission.csv -m "message"
@@ -58,22 +60,26 @@ def build_parser():
                    help="shard the fold axis over all local devices "
                         "(not ported yet)")
     g.add_argument("--fast", action="store_true",
-                   help="fold-parallel clean-CV trainer (implied by "
-                        "--fused)")
+                   help="fold-parallel clean-CV trainer: a fresh model per "
+                        "fold, all folds trained together")
     g.add_argument("--reset-per-fold", action="store_true",
-                   help="fresh model per fold (what --fused always does)")
+                   help="fresh model per fold (the reference keeps "
+                        "training one model across folds; --fast and "
+                        "--fused always start fresh)")
     g.add_argument("--checkpoint", default=None,
-                   help="npz checkpoint file for exact mid-training "
-                        "save/resume; `predict --params` reads it too")
+                   help="(--fast / --fused) npz checkpoint file for exact "
+                        "mid-training save/resume; `predict --params` "
+                        "reads it too")
     g.add_argument("--checkpoint-every", type=int, default=None)
     g.add_argument("--fused-tail", action="store_true",
-                   help="the standalone fused spectral-tail kernel "
-                        "(not ported yet)")
+                   help="with --fast: the spectral layer, decoder and loss "
+                        "segment, value and gradients, on the hand-written "
+                        "CUDA kernels (identical math)")
     g.add_argument("--fused", action="store_true",
                    help="run the whole training step (forward, backward "
-                        "and Adam) on the hand-written CUDA kernels, all "
-                        "folds together — the one trainer path ported so "
-                        "far")
+                        "and Adam) on the hand-written CUDA kernels "
+                        "(implies --fast; identical math up to float "
+                        "reassociation)")
 
     m = trs.add_parser("mlp")
     _add_common(m)
@@ -152,14 +158,6 @@ def _refuse_unported(ap, args):
                 "fcsr_tpu/evalx (the metric suite)")
     if args.multichip:
         _refuse(ap, "--multichip", "fcsr_tpu/parallel (fold sharding)")
-    if args.fused_tail:
-        _refuse(ap, "--fused-tail", "fcsr_tpu/models/fused_tail.py::"
-                                    "tail_loss_fused (the standalone tail "
-                                    "kernel)")
-    if not args.fused:
-        _refuse(ap, "`train gsr` without --fused",
-                "the unfused trainers of fcsr_tpu/train/gsr_loop.py and "
-                "fast_loop.py; pass --fused")
 
 
 def main(argv=None):
@@ -170,25 +168,42 @@ def main(argv=None):
     if args.cmd == "train":
         from fcsr_tpu_torch.data import load_or_synthesize
         from fcsr_tpu_torch.iox import save_prediction, save_state
-        from fcsr_tpu_torch.pipelines import run_gsr_cv_fast
+        from fcsr_tpu_torch.pipelines import run_gsr_cv, run_gsr_cv_fast
         from fcsr_tpu_torch.train import GSRTrainConfig
         from fcsr_tpu_torch.utils.reproducibility import set_seed
 
         set_seed(args.seed)
-        for flag, on in (("--verbose", args.verbose),
-                         ("--reset-per-fold", args.reset_per_fold)):
+        fast = args.fast or args.fused
+        # no silent flag drop
+        notes = [("--verbose", args.verbose and fast,
+                  "the fast / fused path (the epoch histories are in the "
+                  "result)"),
+                 ("--reset-per-fold", args.reset_per_fold and fast,
+                  "the fast / fused path (every fold trains a fresh "
+                  "model)"),
+                 ("--checkpoint", args.checkpoint and not fast,
+                  "the parity trainer (pass --fast or --fused)"),
+                 ("--fused-tail", args.fused_tail and not fast,
+                  "the parity trainer (pass --fast)")]
+        for flag, on, where in notes:
             if on:
-                print(f"note: {flag} changes nothing on the --fused path "
-                      "(every fold trains a fresh model, and the epoch "
-                      "histories are in the result)", file=sys.stderr)
+                print(f"note: {flag} changes nothing on {where}",
+                      file=sys.stderr)
         data = load_or_synthesize(args.data_dir, seed=args.seed,
                                   device=args.device)
         cfg = GSRTrainConfig(epochs=args.epochs, lr=args.lr,
-                             lmbda=args.lmbda, fused_adam=True)
-        result = run_gsr_cv_fast(
-            data, cfg, splits=args.splits, seed=args.seed,
-            checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every, device=args.device)
+                             lmbda=args.lmbda, fused_tail=args.fused_tail,
+                             fused_adam=args.fused)
+        if fast:
+            result = run_gsr_cv_fast(
+                data, cfg, splits=args.splits, seed=args.seed,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, device=args.device)
+        else:
+            result = run_gsr_cv(data, cfg, splits=args.splits,
+                                seed=args.seed,
+                                reset_per_fold=args.reset_per_fold,
+                                verbose=args.verbose, device=args.device)
         print(json.dumps({"fold_maes": result["fold_maes"],
                           "mean_mae": result["mean_mae"],
                           "timings": result["timings"]}))

@@ -41,10 +41,8 @@ def normalize_adj(mx: torch.Tensor) -> torch.Tensor:
 
 def fill_diagonal(m: torch.Tensor, value: float) -> torch.Tensor:
     """Out-of-place fill of the diagonal of the trailing two axes."""
-    n = m.shape[-1]
-    eye = torch.eye(n, dtype=torch.bool, device=m.device)
-    return torch.where(eye, torch.as_tensor(value, dtype=m.dtype,
-                                            device=m.device), m)
+    eye = torch.eye(m.shape[-1], dtype=torch.bool, device=m.device)
+    return m.masked_fill(eye, value)
 
 
 def symmetrize(m: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """Carry GSR-Net weights between the JAX package and the port.
 
-Three layouts, all plain numpy here (the torch boundary is
-``torch.from_numpy`` on the caller's side):
+Three layouts, as plain numpy arrays (the torch boundary is
+``torch.from_numpy`` on the caller's side), and for the last two also as
+torch tensors under autograd (``state_to_leaf_tensors`` /
+``leaf_tensors_to_state``, which the loss entry points and the unfused
+trainer use):
 
 * the JAX package's flax tree ``{"params": {"net": ..., "layer": ...}}``
   whose Dense kernels are (in, out);
@@ -25,9 +28,12 @@ from typing import Dict, List, Mapping
 
 import numpy as np
 
-__all__ = ["lin_names", "flax_to_state", "state_to_flax", "state_to_leaves",
-           "leaves_to_state", "leaves_to_flat", "flat_to_leaves",
-           "state_to_flat", "flat_to_state"]
+__all__ = ["lin_names", "leaf_names", "flax_to_state", "state_to_flax",
+           "state_to_leaves", "leaves_to_state", "leaves_to_flat",
+           "flat_to_leaves", "state_to_flat", "flat_to_state",
+           "state_to_leaf_tensors", "leaf_tensors_to_state", "TAIL_NAMES"]
+
+TAIL_NAMES = ("layer.weights", "gc1.weight", "gc2.weight")
 
 
 def lin_names(n_levels: int) -> List[str]:
@@ -38,6 +44,16 @@ def lin_names(n_levels: int) -> List[str]:
             + ["bottom_gcn"]
             + [f"up_gcns_{i}" for i in range(n_levels)]
             + ["end_gcn"])
+
+
+def leaf_names(n_levels: int, tail: bool = True) -> List[str]:
+    """Names of the training kernels' leaves in their order: ``w:<module>``
+    for the 16 Linear kernels (``end_gcn`` as ``_a`` / ``_b`` halves),
+    ``b:<module>`` for the 15 biases, then (with ``tail``) the three tail
+    weights under their state_dict names."""
+    names = lin_names(n_levels)
+    return ([f"w:{n}" for n in names[:-1]] + ["w:end_gcn_a", "w:end_gcn_b"]
+            + [f"b:{n}" for n in names] + (list(TAIL_NAMES) if tail else []))
 
 
 def _torch_prefix(flax_name: str) -> str:
@@ -142,3 +158,45 @@ def state_to_flat(state: Mapping[str, np.ndarray]) -> np.ndarray:
 
 def flat_to_state(flat: np.ndarray, shapes) -> Dict[str, np.ndarray]:
     return leaves_to_state(flat_to_leaves(flat, shapes))
+
+
+def state_to_leaf_tensors(state: Mapping[str, "torch.Tensor"]):
+    """state_dict-named tensors -> {leaf name: tensor} in ``leaf_names``
+    order, differentiably: Linear weights transposed to (in, out) and made
+    contiguous (a copy), ``end_gcn`` split in halves, biases as (1, out).
+    A leading fold axis on every tensor is carried through."""
+    names = lin_names(_n_levels(state))
+    out = {}
+    for n in names:
+        w = state[f"{_torch_prefix(n)}.weight"].transpose(-1, -2).contiguous()
+        if n == "end_gcn":
+            half = w.shape[-2] // 2
+            out["w:end_gcn_a"] = w[..., :half, :]
+            out["w:end_gcn_b"] = w[..., half:, :]
+        else:
+            out[f"w:{n}"] = w
+    for n in names:
+        out[f"b:{n}"] = state[f"{_torch_prefix(n)}.bias"].unsqueeze(-2)
+    for key in TAIL_NAMES:
+        out[key] = state[key]
+    return out
+
+
+def leaf_tensors_to_state(leaves: Mapping[str, "torch.Tensor"]):
+    """Inverse of ``state_to_leaf_tensors``, differentiably and without a
+    copy but for ``end_gcn`` (its halves are concatenated): Linear weights
+    are transposed views of the leaves."""
+    import torch
+    n_levels = sum(1 for k in leaves if k.startswith("b:down_gcns_"))
+    out = {}
+    for n in lin_names(n_levels):
+        if n == "end_gcn":
+            w = torch.cat([leaves["w:end_gcn_a"], leaves["w:end_gcn_b"]], -2)
+        else:
+            w = leaves[f"w:{n}"]
+        prefix = _torch_prefix(n)
+        out[f"{prefix}.weight"] = w.transpose(-1, -2)
+        out[f"{prefix}.bias"] = leaves[f"b:{n}"].squeeze(-2)
+    for key in TAIL_NAMES:
+        out[key] = leaves[key]
+    return out

@@ -13,6 +13,11 @@
 //   sym_sign_grad       the adjoint of sym_abs_fill: c (G + G^T), with
 //                       G = g * sign(sym X), zero diagonal
 //   l1_term             value_scale * mean|a - b| and its sign adjoint
+//   loss_terms          the (loss, recon) scalars of a loss entry point from
+//                       the three loss terms; it stands where the TPU kernels
+//                       of tail_loss_fused (fused_tail.py:73-84) and
+//                       gsr_step_loss_fused (fused_step.py:721-722) store
+//                       their two (1, 1) outputs. 2F + 3F floats: latency
 // Each matrix is 268 x 268 (288 KB) per fold: these kernels are bound by
 // bytes moved (a few hundred KB each) and, at this size, by launch latency.
 // The normalisation passes need every row sum before any output, so they
@@ -157,6 +162,24 @@ __global__ void l1_term_kernel(const float* __restrict__ a, long long sa,
   if (threadIdx.x == 0) vals[(long long)f * vstride] = value_scale * (acc / (float)n);
 }
 
+// The scalars a loss entry point returns, from the per-fold loss terms
+// vals[f] = [lmbda * L1(net, start), recon, spectral]: recon[f] = vals[f][1]
+// and loss[f] = recon + spectral, plus the L1 term when with_l1 (the whole
+// step's loss; without it, the tail's). The sum is taken in the order of
+// adam_masked's, so the step's loss is the same bits with or without the
+// Adam launch.
+__global__ void loss_terms_kernel(const float* __restrict__ vals,
+                                  float* __restrict__ loss,
+                                  float* __restrict__ recon, int batch,
+                                  int with_l1) {
+  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < batch;
+       f += gridDim.x * blockDim.x) {
+    const float tail = __fadd_rn(vals[f * 3 + 1], vals[f * 3 + 2]);
+    loss[f] = with_l1 ? __fadd_rn(vals[f * 3], tail) : tail;
+    recon[f] = vals[f * 3 + 1];
+  }
+}
+
 }  // namespace
 
 extern "C" int fcsr_tail_normalize(const float* t, float* adj, float* r,
@@ -199,5 +222,12 @@ extern "C" int fcsr_l1_term(const float* a, long long sa, const float* b,
   l1_term_kernel<<<batch, 1024, 0, (cudaStream_t)stream>>>(
       a, sa, b, sb, n, value_scale, grad_scale, zero_sign, vals, vstride,
       grad, neg);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fcsr_loss_terms(const float* vals, float* loss, float* recon,
+                               int batch, int with_l1, void* stream) {
+  loss_terms_kernel<<<grid_for(batch, 128), 128, 0, (cudaStream_t)stream>>>(
+      vals, loss, recon, batch, with_l1);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ import torch
 from fcsr_tpu_torch.kernels.build import load_library
 
 __all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "rows_contiguous"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,6 +88,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            [_P, _P, _F, _P, _I, _I], _STEP),
     Kernel("l1_term", "tail", "fcsr_l1_term",
            [_P, _LL, _P, _LL, _I, _F, _F, _I, _P, _I, _P, _P, _I], _STEP),
+    Kernel("loss_terms", "tail", "fcsr_loss_terms",
+           [_P, _P, _P, _I, _I], "fcsr_tpu/models/fused_step.py:742"),
     Kernel("adam_masked", "adam", "fcsr_adam_masked",
            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL,
             _F, _F, _F, _F, _F, _F], _STEP),
@@ -137,9 +139,19 @@ def _contig(*tensors):
 def _rows_contig(t: torch.Tensor):
     """(F, r, c) with unit column stride and row stride c (any batch
     stride): a view into a flat (F, P) buffer qualifies."""
-    if t.dim() != 3 or t.stride(2) != 1 or (t.shape[1] > 1
-                                            and t.stride(1) != t.shape[2]):
+    if t.dim() != 3 or (t.shape[2] > 1 and t.stride(2) != 1) \
+            or (t.shape[1] > 1 and t.stride(1) != t.shape[2]):
         raise ValueError("operand rows must be contiguous")
+
+
+def rows_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the product kernel takes it — unit column stride and dense
+    rows over the trailing two axes — copied only if it is not (a leaf view
+    of a flat buffer passes through)."""
+    if (t.shape[-1] == 1 or t.stride(-1) == 1) \
+            and (t.shape[-2] == 1 or t.stride(-2) == t.shape[-1]):
+        return t
+    return t.contiguous()
 
 
 def _asign(x):
@@ -496,6 +508,30 @@ def l1_term(a, b, vals, slot, value_scale, grad_scale, zero_sign,
     return (grad, ng) if neg else grad
 
 
+def loss_terms_plain(vals, with_l1=True):
+    tail = vals[:, 1] + vals[:, 2]
+    return (vals[:, 0] + tail) if with_l1 else tail, vals[:, 1].clone()
+
+
+def loss_terms(vals, with_l1=True):
+    """(loss, recon), each (F,), from the per-fold loss terms ``vals``
+    (F, 3) = [lmbda * L1(net, start), recon, spectral]: the whole step's
+    loss ``vals[0] + (vals[1] + vals[2])`` (``adam_masked``'s order, so the
+    same bits), or without ``with_l1`` the tail's ``vals[1] + vals[2]``."""
+    if not vals.is_cuda:
+        return loss_terms_plain(vals, with_l1)
+    _check(vals.device, vals)
+    _contig(vals)
+    if vals.dim() != 2 or vals.shape[1] != 3:
+        raise ValueError("vals must be (F, 3)")
+    loss = torch.empty(vals.shape[0], dtype=torch.float32,
+                       device=vals.device)
+    recon = torch.empty_like(loss)
+    KERNELS["loss_terms"](_ptr(vals), _ptr(loss), _ptr(recon),
+                          vals.shape[0], int(bool(with_l1)))
+    return loss, recon
+
+
 # ---------------------------------------------------------------------------
 # adam_masked
 # ---------------------------------------------------------------------------
@@ -645,7 +681,7 @@ def normalize_adj_batch(a):
 _OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
         "pool_logits_bwd", "add_bias", "tail_normalize",
         "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
-        "adam_masked", "anti_vectorize_normalize", "vectorize_colmajor",
+        "loss_terms", "adam_masked", "anti_vectorize_normalize", "vectorize_colmajor",
         "normalize_adj_batch")
 # launch the kernel for CUDA tensors, the plain version for CPU tensors
 KERNEL_OPS = SimpleNamespace(**{name: globals()[name] for name in _OPS})

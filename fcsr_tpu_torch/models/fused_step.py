@@ -19,6 +19,24 @@ The step is written once over an ``ops`` namespace: ``train_step_fused``
 uses ``kernels.KERNEL_OPS`` (kernels for CUDA tensors, the plain version
 for CPU tensors), ``train_step_plain`` always uses ``kernels.PLAIN_OPS``
 (the reference the kernels are held to on the card).
+
+The JAX package's other fused entry points are the same launches behind
+their own signatures and gradient contracts (``jax.custom_vjp`` there,
+``torch.autograd.Function`` here): ``unet_fused_fwdbwd`` (forward keeping
+the residuals, hand-written adjoints), ``unet_fused_fwdonly`` (the forward
+kernels, backward by autograd over a rematerialised plain forward),
+``unet_fused`` (the backward launches the forward again, then the
+adjoints), ``gsr_step_loss_fused`` (the step without its Adam launch; value
+and every gradient in the forward, scaled in the backward) and
+``step_value_and_grad_fused`` (the same over a ``state_dict``).
+``unet_forward_rankselect`` and ``step_loss_pure`` are their oracle in
+ordinary differentiable PyTorch.
+
+Entry points take the U-Net's parameters as a mapping of leaf tensors
+under ``iox.weights.leaf_names`` — Linear kernels (in, out) with
+``end_gcn`` in halves, biases (1, out) — which is what
+``FlatLayout.views`` gives for a flat buffer, uncopied. 2-D leaves are one
+model, a leading axis F a fold batch.
 """
 
 from __future__ import annotations
@@ -29,15 +47,21 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from fcsr_tpu_torch.iox.weights import lin_names
-from fcsr_tpu_torch.kernels.ops import KERNEL_OPS, PLAIN_OPS
-from fcsr_tpu_torch.models.fused_tail import tail_value_and_grad
-from fcsr_tpu_torch.models.gsr import pool_sizes
-from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from fcsr_tpu_torch.iox.weights import (TAIL_NAMES, leaf_names,
+                                        leaf_tensors_to_state,
+                                        state_to_leaf_tensors)
+from fcsr_tpu_torch.kernels.ops import (KERNEL_OPS, PLAIN_OPS,
+                                        rows_contiguous)
+from fcsr_tpu_torch.models.fused_tail import _tail_loss, tail_value_and_grad
+from fcsr_tpu_torch.models.gsr import pool_sizes, topk_desc
+from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, check_on_device
 
 __all__ = ["leaf_specs", "FlatLayout", "unet_forward", "unet_backward",
-           "step_with_ops", "train_step_fused", "train_step_plain",
-           "adam_scalars"]
+           "step_value_and_grads", "step_with_ops", "train_step_fused",
+           "train_step_plain", "adam_scalars", "unet_forward_rankselect",
+           "step_loss_pure", "unet_fused", "unet_fused_fwdonly",
+           "unet_fused_fwdbwd", "gsr_step_loss_fused",
+           "step_value_and_grad_fused"]
 
 
 def leaf_specs(lr_dim: int, hr_dim: int, n_levels: int
@@ -46,21 +70,18 @@ def leaf_specs(lr_dim: int, hr_dim: int, n_levels: int
     the JAX kernel's order (``_unet_leaf_shapes(tail=True)``): Linear
     kernels as (in, out) with ``end_gcn`` split in halves, biases staged
     (1, out), then the tail's w_gsr, w1, w2."""
-    n, m, L = lr_dim, hr_dim, n_levels
-    names = lin_names(L)
-    wshape = {"start_gcn": (n, m), "bottom_gcn": (m, m)}
-    specs = []
-    for name in names[:-1]:
-        shape = wshape.get(name, (m, 1) if name.startswith("pools_")
-                           else (m, m))
-        specs.append((f"w:{name}", shape))
-    specs += [("w:end_gcn_a", (m, m)), ("w:end_gcn_b", (m, m))]
-    for name in names:
-        specs.append((f"b:{name}", (1, 1) if name.startswith("pools_")
-                      else (1, m)))
-    specs += [("layer.weights", (m, n)), ("gc1.weight", (m, m)),
-              ("gc2.weight", (m, m))]
-    return specs
+    n, m = lr_dim, hr_dim
+
+    def shape(name):
+        kind, _, module = name.partition(":")
+        pool = module.startswith("pools_")
+        if kind == "w":
+            return (n, m) if module == "start_gcn" else (m, 1 if pool else m)
+        if kind == "b":
+            return (1, 1 if pool else m)
+        return (m, n) if name == "layer.weights" else (m, m)
+
+    return [(name, shape(name)) for name in leaf_names(n_levels)]
 
 
 @dataclass(frozen=True)
@@ -169,6 +190,27 @@ def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start):
     bg(None, GW["w:start_gcn"], out=GB["b:start_gcn"])
 
 
+def step_value_and_grads(ops, P, G, u_lr, u_hr, hr, sizes, lmbda):
+    """Value and every gradient of the step's loss over the op namespace
+    ``ops``: U-Net forward, lmbda * L1(net, start), the tail's value and
+    gradients, the U-Net adjoints. ``P`` and ``G`` map leaf names to
+    (F, r, c) tensors; every gradient is written into its ``G`` tensor.
+    Returns the loss terms (F, 3) = [lmbda * L1, recon, spectral]."""
+    w_start = P["w:start_gcn"]
+    F, lr_dim, hr_dim = w_start.shape
+    vals = torch.empty(F, 3, dtype=torch.float32, device=w_start.device)
+    net, x0, res = unet_forward(ops, P, P, sizes)
+    # lmbda * L1(net, start): value into vals[:, 0], sign adjoints
+    g_l1, neg_g_l1 = ops.l1_term(net, x0, vals, 0, lmbda,
+                                 lmbda / (lr_dim * hr_dim), True, neg=True)
+    _, _, _, ct_net = tail_value_and_grad(
+        ops, P["layer.weights"], P["gc1.weight"], P["gc2.weight"], net,
+        u_lr, u_hr, hr, vals, g_wgsr=G["layer.weights"],
+        g_w1=G["gc1.weight"], g_w2=G["gc2.weight"], g_f_add=g_l1)
+    unet_backward(ops, P, G, G, x0, res, ct_net, neg_g_l1)
+    return vals
+
+
 def step_with_ops(ops, p, m, v, u_lr, u_hr, hr, scalars, ks, lr_dim,
                   hr_dim, lmbda, lr, b1, b2, eps):
     """The training step over the op namespace ``ops`` (see the module
@@ -179,30 +221,25 @@ def step_with_ops(ops, p, m, v, u_lr, u_hr, hr, scalars, ks, lr_dim,
         if t.shape != p.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, p has "
                              f"{tuple(p.shape)}")
-    for name, t, shape in (("u_lr", u_lr, (lr_dim, lr_dim)),
-                           ("u_hr", u_hr, (hr_dim, lr_dim)),
-                           ("hr", hr, (hr_dim, hr_dim)),
-                           ("scalars", scalars, (3,))):
-        if tuple(t.shape) != (F,) + shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{(F,) + shape}")
-    P = layout.views(p)
+    _check_data(F, lr_dim, hr_dim, u_lr, u_hr, hr)
+    if tuple(scalars.shape) != (F, 3):
+        raise ValueError(f"scalars has shape {tuple(scalars.shape)}, "
+                         f"expected {(F, 3)}")
     g = torch.empty_like(p)
-    G = layout.views(g)
-    vals = torch.empty(F, 3, dtype=torch.float32, device=p.device)
-
-    net, x0, res = unet_forward(ops, P, P, pool_sizes(lr_dim, ks))
-    # lmbda * L1(net, start): value into vals[:, 0], sign adjoints
-    g_l1, neg_g_l1 = ops.l1_term(net, x0, vals, 0, lmbda,
-                                 lmbda / (lr_dim * hr_dim), True, neg=True)
-    _, _, _, ct_net = tail_value_and_grad(
-        ops, P["layer.weights"], P["gc1.weight"], P["gc2.weight"], net,
-        u_lr, u_hr, hr, vals, g_wgsr=G["layer.weights"],
-        g_w1=G["gc1.weight"], g_w2=G["gc2.weight"], g_f_add=g_l1)
-    unet_backward(ops, P, G, G, x0, res, ct_net, neg_g_l1)
+    vals = step_value_and_grads(ops, layout.views(p), layout.views(g), u_lr,
+                                u_hr, hr, pool_sizes(lr_dim, ks), lmbda)
     p2, m2, v2, loss, recon = ops.adam_masked(p, m, v, g, scalars, vals, lr,
                                               b1, b2, eps)
     return loss, recon, p2, m2, v2
+
+
+def _check_data(F, lr_dim, hr_dim, u_lr, u_hr, hr):
+    for name, t, shape in (("u_lr", u_lr, (lr_dim, lr_dim)),
+                           ("u_hr", u_hr, (hr_dim, lr_dim)),
+                           ("hr", hr, (hr_dim, hr_dim))):
+        if tuple(t.shape) != (F,) + shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(F,) + shape}")
 
 
 def train_step_fused(p, m, v, u_lr, u_hr, hr, scalars, ks: Sequence[float],
@@ -221,11 +258,8 @@ def train_step_fused(p, m, v, u_lr, u_hr, hr, scalars, ks: Sequence[float],
     On ``device="cuda"`` (the default) every tensor must be on the card
     and the step launches only the hand-written kernels; ``device="cpu"``
     runs their plain versions."""
-    dev = resolve_device(device)
-    for t in (p, m, v, u_lr, u_hr, hr, scalars):
-        if t.device.type != dev.type:
-            raise ValueError(f"train_step_fused(device={device!r}) got a "
-                             f"tensor on {t.device}")
+    check_on_device("train_step_fused", device, p, m, v, u_lr, u_hr, hr,
+                    scalars)
     return step_with_ops(KERNEL_OPS, p, m, v, u_lr, u_hr, hr, scalars,
                          tuple(ks), lr_dim, hr_dim, lmbda, lr, b1, b2, eps)
 
@@ -251,3 +285,299 @@ def adam_scalars(t: np.ndarray, ok: np.ndarray, b1: float = 0.9,
     scal = np.stack([ok, np.float32(1.0) - np.float32(b1) ** t_eff,
                      np.float32(1.0) - np.float32(b2) ** t_eff], axis=1)
     return scal.astype(np.float32), t_new
+
+
+# ---------------------------------------------------------------------------
+# the plain oracle: the rank-select U-Net and the step's loss as ordinary
+# differentiable PyTorch
+# ---------------------------------------------------------------------------
+
+def unet_forward_rankselect(net_params, ks: Sequence[float], lr_dim: int,
+                            idx=None):
+    """Graph U-Net forward on identity features as differentiable PyTorch
+    (``torch.matmul``, top-k as a stable sort with ties to the lower index,
+    pooling a gather, unpooling a scatter): (net_outs, start_gcn_outs) for
+    2-D leaves or a fold batch. The kept indices carry no gradient; the
+    kept scores do. ``idx`` (one (F, k) index tensor per level) replaces
+    the selection, so a backward can differentiate the selection a forward
+    made."""
+    W = net_params
+    sizes = pool_sizes(lr_dim, ks)
+    L = len(sizes)
+    x0 = W["w:start_gcn"] + W["b:start_gcn"]                  # I W + b
+    x = x0
+    downs, kept = [], []
+    for i in range(L):
+        d = torch.matmul(x, W[f"w:down_gcns_{i}"]) + W[f"b:down_gcns_{i}"]
+        logits = torch.matmul(d, W[f"w:pools_{i}"]) + W[f"b:pools_{i}"]
+        scores = torch.sigmoid(logits.squeeze(-1) / 100.0)
+        if idx is None:
+            vals, ix = topk_desc(scores, sizes[i])
+        else:
+            ix = idx[i].long().reshape(scores.shape[:-1] + (sizes[i],))
+            vals = torch.gather(scores, -1, ix)
+        x = torch.take_along_dim(d, ix[..., None], dim=-2) * vals[..., None]
+        downs.append(d)
+        kept.append(ix)
+    x = torch.matmul(x, W["w:bottom_gcn"]) + W["b:bottom_gcn"]
+    for i in range(L):
+        up = L - i - 1
+        xu = torch.zeros_like(downs[up]).scatter(
+            -2, kept[up][..., None].expand_as(x), x)
+        x = (torch.matmul(xu, W[f"w:up_gcns_{i}"]) + W[f"b:up_gcns_{i}"]
+             + downs[up])
+    net = (torch.matmul(x, W["w:end_gcn_a"])
+           + torch.matmul(x0, W["w:end_gcn_b"]) + W["b:end_gcn"])
+    return net, x0
+
+
+def step_loss_pure(params, a_norm, hr, u_lr, u_hr, ks: Sequence[float],
+                   lr_dim: int, lmbda: float):
+    """The step's loss as differentiable PyTorch of the leaf mapping
+    ``params`` (``leaf_names`` with the tail): (loss, recon), per fold for
+    a batch. ``a_norm`` is unused (the U-Net never consumes it)."""
+    del a_norm
+    net, start = unet_forward_rankselect(params, ks, lr_dim)
+    tail, recon = _tail_loss(params["layer.weights"], params["gc1.weight"],
+                             params["gc2.weight"], net, u_lr, u_hr, hr)
+    loss = lmbda * (net - start).abs().mean(dim=(-2, -1)) + tail
+    return loss, recon
+
+
+# ---------------------------------------------------------------------------
+# the fused entry points
+# ---------------------------------------------------------------------------
+
+_RES_LISTS = ("d", "s", "idx", "vals", "slot", "pre", "pooled", "xu")
+
+
+def _pack_res(x0, res):
+    return [x0, res["xf"]] + [t for key in _RES_LISTS for t in res[key]]
+
+
+def _unpack_res(tensors, L):
+    x0, xf, rest = tensors[0], tensors[1], tensors[2:]
+    res = {key: list(rest[j * L:(j + 1) * L])
+           for j, key in enumerate(_RES_LISTS)}
+    res["xf"] = xf
+    return x0, res
+
+
+def _stage(what, device, params, names, data=()):
+    """The leaves ``names`` of ``params`` and the ``data`` tensors as the
+    kernels take them: on ``device``, with a leading fold axis and dense
+    rows. Returns (leaves, data, squeeze) where ``squeeze`` says the inputs
+    were one 2-D model."""
+    missing = [n for n in names if n not in params]
+    if missing:
+        raise KeyError(f"{what}: parameter leaves missing: {missing}")
+    leaves = [params[n] for n in names]
+    check_on_device(what, device, *leaves, *data)
+    squeeze = params[names[0]].dim() == 2
+    out = []
+    for t in leaves + list(data):
+        if squeeze:
+            t = t[None] if t.dim() == 2 else t.reshape(1, 1, -1)
+        elif t.dim() == 2:                                   # (F, out) bias
+            t = t[:, None, :]
+        out.append(rows_contiguous(t))
+    return out[:len(leaves)], out[len(leaves):], squeeze
+
+
+def _unet_grads(leaves, names, x0, res, ct_net, ct_start):
+    """The hand-written adjoints into a fresh flat buffer; returns its leaf
+    views in ``names`` order."""
+    W = dict(zip(names, leaves))
+    F, lr_dim, hr_dim = W["w:start_gcn"].shape
+    layout = FlatLayout(lr_dim, hr_dim, len(res["d"]))
+    G = layout.views(torch.empty(F, layout.size, dtype=torch.float32,
+                                 device=x0.device))
+    unet_backward(KERNEL_OPS, W, G, G, x0, res, ct_net.contiguous(),
+                  ct_start.contiguous())
+    return tuple(G[n] for n in names)
+
+
+class _UnetFused(torch.autograd.Function):
+    """(net, start) by the forward kernels; the backward runs the
+    hand-written adjoints against the forward's residuals — kept
+    (``unet_fused_fwdbwd``) or, with ``keep=False``, recomputed by
+    launching the forward again (``unet_fused``)."""
+
+    @staticmethod
+    def forward(ctx, sizes, keep, *leaves):
+        names = leaf_names(len(sizes), tail=False)
+        W = dict(zip(names, leaves))
+        net, x0, res = unet_forward(KERNEL_OPS, W, W, sizes)
+        ctx.sizes, ctx.keep, ctx.n_leaves = sizes, keep, len(leaves)
+        ctx.save_for_backward(*leaves, *(_pack_res(x0, res) if keep else ()))
+        return net, x0
+
+    @staticmethod
+    def backward(ctx, ct_net, ct_start):
+        saved = ctx.saved_tensors
+        leaves = saved[:ctx.n_leaves]
+        names = leaf_names(len(ctx.sizes), tail=False)
+        if ctx.keep:
+            x0, res = _unpack_res(saved[ctx.n_leaves:], len(ctx.sizes))
+        else:
+            W = dict(zip(names, leaves))
+            _, x0, res = unet_forward(KERNEL_OPS, W, W, ctx.sizes)
+        return (None, None) + _unet_grads(leaves, names, x0, res, ct_net,
+                                          ct_start)
+
+
+class _UnetFusedFwdOnly(torch.autograd.Function):
+    """(net, start) by the forward kernels; the backward is autograd over
+    the plain forward, rematerialised on the rows the kernels kept."""
+
+    @staticmethod
+    def forward(ctx, ks, sizes, *leaves):
+        names = leaf_names(len(sizes), tail=False)
+        W = dict(zip(names, leaves))
+        net, x0, res = unet_forward(KERNEL_OPS, W, W, sizes)
+        ctx.ks, ctx.n_leaves = ks, len(leaves)
+        ctx.save_for_backward(*leaves, *res["idx"])
+        return net, x0
+
+    @staticmethod
+    def backward(ctx, ct_net, ct_start):
+        saved = ctx.saved_tensors
+        names = leaf_names(len(ctx.ks), tail=False)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_()
+                      for t in saved[:ctx.n_leaves]]
+            W = dict(zip(names, leaves))
+            outs = unet_forward_rankselect(W, ctx.ks,
+                                           W["w:start_gcn"].shape[-2],
+                                           idx=saved[ctx.n_leaves:])
+            grads = torch.autograd.grad(outs, leaves, (ct_net, ct_start))
+        return (None, None) + grads
+
+
+def _unet_entry(what, fn, head, net_params, ks, lr_dim, hr_dim, device):
+    ks = tuple(ks)
+    names = leaf_names(len(ks), tail=False)
+    leaves, _, squeeze = _stage(what, device, net_params, names)
+    if tuple(leaves[0].shape[1:]) != (lr_dim, hr_dim):
+        raise ValueError(f"{what}: w:start_gcn is {tuple(leaves[0].shape)}, "
+                         f"expected (..., {lr_dim}, {hr_dim})")
+    net, start = fn.apply(*head, *leaves)
+    return (net[0], start[0]) if squeeze else (net, start)
+
+
+def unet_fused_fwdbwd(net_params, ks: Sequence[float], lr_dim: int,
+                      hr_dim: int, device=DEFAULT_DEVICE):
+    """Differentiable U-Net (net_outs, start_gcn_outs) whose forward and
+    backward both run on the hand-written kernels: the forward keeps each
+    level's residuals, the backward is the hand-written adjoints.
+
+    On ``device="cuda"`` (the default) every leaf must be on the card;
+    ``device="cpu"`` runs the kernels' plain versions."""
+    sizes = pool_sizes(lr_dim, ks)
+    return _unet_entry("unet_fused_fwdbwd", _UnetFused, (sizes, True),
+                       net_params, ks, lr_dim, hr_dim, device)
+
+
+def unet_fused(net_params, ks: Sequence[float], lr_dim: int, hr_dim: int,
+               device=DEFAULT_DEVICE):
+    """As ``unet_fused_fwdbwd`` but keeping only the leaves: the backward
+    launches the forward kernels again for the residuals, then the
+    adjoints (the rematerialising backward kernel of the JAX package)."""
+    sizes = pool_sizes(lr_dim, ks)
+    return _unet_entry("unet_fused", _UnetFused, (sizes, False), net_params,
+                       ks, lr_dim, hr_dim, device)
+
+
+def unet_fused_fwdonly(net_params, ks: Sequence[float], lr_dim: int,
+                       hr_dim: int, device=DEFAULT_DEVICE):
+    """Differentiable U-Net whose forward runs on the hand-written kernels
+    and whose backward is autograd over ``unet_forward_rankselect``.
+
+    The kernels' products and ``torch.matmul`` may round a pooling score
+    differently, so at an exact tie the two could keep different rows.
+    The backward therefore does not select again: it differentiates the
+    plain forward on the rows the forward kernels kept."""
+    sizes = pool_sizes(lr_dim, ks)
+    return _unet_entry("unet_fused_fwdonly", _UnetFusedFwdOnly,
+                       (tuple(ks), sizes), net_params, ks, lr_dim, hr_dim,
+                       device)
+
+
+class _StepLossFused(torch.autograd.Function):
+    """(loss, recon), each (F,), of the whole step; the forward computes
+    and keeps the flat gradient, the backward scales it."""
+
+    @staticmethod
+    def forward(ctx, sizes, lmbda, u_lr, u_hr, hr, *leaves):
+        names = leaf_names(len(sizes))
+        P = dict(zip(names, leaves))
+        F, lr_dim, hr_dim = P["w:start_gcn"].shape
+        layout = FlatLayout(lr_dim, hr_dim, len(sizes))
+        g = torch.empty(F, layout.size, dtype=torch.float32, device=hr.device)
+        vals = step_value_and_grads(KERNEL_OPS, P, layout.views(g), u_lr,
+                                    u_hr, hr, sizes, lmbda)
+        loss, recon = KERNEL_OPS.loss_terms(vals)
+        ctx.mark_non_differentiable(recon)
+        ctx.save_for_backward(g)
+        ctx.layout = layout
+        return loss, recon
+
+    @staticmethod
+    def backward(ctx, ct_loss, ct_recon):
+        (g,) = ctx.saved_tensors
+        scaled = ctx.layout.views(g * ct_loss[:, None])
+        return (None,) * 5 + tuple(scaled.values())
+
+
+def gsr_step_loss_fused(net_params, w_gsr, w1, w2, u_lr, u_hr, hr,
+                        ks: Sequence[float], lr_dim: int, hr_dim: int,
+                        lmbda: float, device=DEFAULT_DEVICE):
+    """(loss, recon) of the full GSR training step — U-Net, spectral tail,
+    decoder and all three loss terms — with the value and every gradient
+    computed by the step's kernels in the forward (the training step
+    without its Adam launch). Differentiable in (net_params, w_gsr, w1,
+    w2); u_lr, u_hr and hr are data; ``recon`` is a metric and carries no
+    gradient. 2-D inputs give scalars, a fold batch one value per fold.
+
+    On ``device="cuda"`` (the default) every tensor must be on the card;
+    ``device="cpu"`` runs the kernels' plain versions."""
+    ks = tuple(ks)
+    params = dict(net_params)
+    params.update(zip(TAIL_NAMES, (w_gsr, w1, w2)))
+    leaves, data, squeeze = _stage("gsr_step_loss_fused", device, params,
+                                   leaf_names(len(ks)), (u_lr, u_hr, hr))
+    _check_data(leaves[0].shape[0], lr_dim, hr_dim, *data)
+    loss, recon = _StepLossFused.apply(pool_sizes(lr_dim, ks), float(lmbda),
+                                       *data, *leaves)
+    return (loss[0], recon[0]) if squeeze else (loss, recon)
+
+
+def step_value_and_grad_fused(params, u_lr, u_hr, hr, ks: Sequence[float],
+                              lr_dim: int, hr_dim: int, hidden_dim: int,
+                              lmbda: float, device=DEFAULT_DEVICE):
+    """(loss, recon, grads) of the whole step over a GSR-Net ``state_dict``
+    mapping of tensors (one model, or every tensor with a leading fold
+    axis); ``grads`` carries the same names and shapes. The same launches
+    as ``gsr_step_loss_fused``; the parameters are copied into the
+    kernels' layout first, so this is an entry point for checks, not for a
+    training loop."""
+    if hidden_dim != hr_dim:
+        raise ValueError("the fused step needs hidden_dim == hr_dim")
+    ks = tuple(ks)
+    names = leaf_names(len(ks))
+    with torch.no_grad():
+        leaves, data, squeeze = _stage(
+            "step_value_and_grad_fused", device,
+            state_to_leaf_tensors(params), names, (u_lr, u_hr, hr))
+        F = leaves[0].shape[0]
+        _check_data(F, lr_dim, hr_dim, *data)
+        layout = FlatLayout(lr_dim, hr_dim, len(ks))
+        G = layout.views(torch.empty(F, layout.size, dtype=torch.float32,
+                                     device=leaves[0].device))
+        vals = step_value_and_grads(KERNEL_OPS, dict(zip(names, leaves)), G,
+                                    *data, pool_sizes(lr_dim, ks), lmbda)
+        loss, recon = KERNEL_OPS.loss_terms(vals)
+        grads = leaf_tensors_to_state(G)
+    if squeeze:
+        return loss[0], recon[0], {k: g[0] for k, g in grads.items()}
+    return loss, recon, grads

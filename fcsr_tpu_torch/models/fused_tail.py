@@ -12,15 +12,28 @@ transposing ``normalize_adj`` through its row-sum rsqrt.
 ``kernels.KERNEL_OPS`` it launches the CUDA kernels for CUDA tensors (the
 training step's path), with ``kernels.PLAIN_OPS`` it is the plain PyTorch
 version. Every tensor carries a leading fold axis F.
+
+``tail_loss_fused`` is the tail as an entry point of its own (counterpart
+of ``fcsr_tpu/models/fused_tail.py::tail_loss_fused``, a ``custom_vjp``
+around one TPU kernel): a ``torch.autograd.Function`` whose forward
+launches the tail's kernels once for the value and all four gradients and
+whose backward scales the kept gradients by the upstream cotangent.
+``tail_loss_reference`` is its oracle: autograd over the tail written as
+ordinary differentiable PyTorch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fcsr_tpu_torch.kernels.ops import PLAIN_OPS
+from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj,
+                                           symmetrize)
+from fcsr_tpu_torch.kernels.ops import (KERNEL_OPS, PLAIN_OPS,
+                                        rows_contiguous)
+from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, check_on_device
 
-__all__ = ["tail_value_and_grad", "tail_loss", "tail_loss_grads"]
+__all__ = ["tail_value_and_grad", "tail_loss", "tail_loss_grads",
+           "tail_loss_fused", "tail_loss_reference"]
 
 
 def tail_value_and_grad(ops, w_gsr, w1, w2, f, u_lr, u_hr, hr, vals,
@@ -91,3 +104,67 @@ def tail_loss(w_gsr, w1, w2, f, u_lr, u_hr, hr):
     """Plain PyTorch (loss, recon) of the tail."""
     loss, recon, _ = tail_loss_grads(w_gsr, w1, w2, f, u_lr, u_hr, hr)
     return loss, recon
+
+
+def _tail_loss(w_gsr, w1, w2, f, u_lr, u_hr, hr):
+    """The tail as ordinary differentiable PyTorch (``torch.matmul``), over
+    2-D inputs or a fold batch: (loss, recon), per fold for a batch."""
+    b_small = torch.matmul(w_gsr, u_lr.transpose(-1, -2))
+    f_d = fill_diagonal(torch.matmul(b_small, f).abs(), 1.0)
+    adj = normalize_adj(f_d)
+    x_out = torch.matmul(adj, adj.transpose(-1, -2))
+    x_out = fill_diagonal(symmetrize(x_out), 1.0).abs()
+    h1 = torch.matmul(adj, torch.matmul(x_out, w1))
+    h2 = torch.matmul(adj, torch.matmul(h1, w2))
+    pred = fill_diagonal(symmetrize(h2), 1.0).abs()
+    recon = (pred - hr).abs().mean(dim=(-2, -1))
+    spectral = (w_gsr - u_hr).abs().mean(dim=(-2, -1))
+    return recon + spectral, recon
+
+
+def tail_loss_reference(w_gsr, w1, w2, f, u_lr, u_hr, hr):
+    """(loss, recon, (g_wgsr, g_w1, g_w2, g_f)) by autograd over the plain
+    tail — the oracle the hand-written adjoints are held to. For a fold
+    batch the gradients are those of each fold's own loss."""
+    leaves = [t.detach().requires_grad_() for t in (w_gsr, w1, w2, f)]
+    loss, recon = _tail_loss(*leaves, u_lr, u_hr, hr)
+    grads = torch.autograd.grad(loss.sum(), leaves)
+    return loss.detach(), recon.detach(), grads
+
+
+class _TailLossFused(torch.autograd.Function):
+    """loss (F,) of the tail; the forward computes and keeps the four
+    gradients, the backward scales them."""
+
+    @staticmethod
+    def forward(ctx, w_gsr, w1, w2, f, u_lr, u_hr, hr):
+        vals = torch.empty(w_gsr.shape[0], 3, dtype=torch.float32,
+                           device=w_gsr.device)
+        grads = tail_value_and_grad(KERNEL_OPS, w_gsr, w1, w2, f, u_lr, u_hr,
+                                    hr, vals)
+        loss, _ = KERNEL_OPS.loss_terms(vals, with_l1=False)
+        ctx.save_for_backward(*grads)
+        return loss
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct[:, None, None]
+        return tuple(ct * g for g in ctx.saved_tensors) + (None, None, None)
+
+
+def tail_loss_fused(w_gsr, w1, w2, f, u_lr, u_hr, hr,
+                    device=DEFAULT_DEVICE):
+    """Tail loss ``recon + spectral`` whose value and gradients come from
+    one pass over the tail's kernels. Differentiable in (w_gsr, w1, w2, f);
+    u_lr, u_hr and hr are data. 2-D inputs give a scalar, a fold batch
+    (F, ...) one loss per fold.
+
+    On ``device="cuda"`` (the default) every tensor must be on the card and
+    only the hand-written kernels run; ``device="cpu"`` runs their plain
+    versions."""
+    args = (w_gsr, w1, w2, f, u_lr, u_hr, hr)
+    check_on_device("tail_loss_fused", device, *args)
+    squeeze = w_gsr.dim() == 2
+    args = [rows_contiguous(t) for t in _batched(*args)]
+    loss = _TailLossFused.apply(*args)
+    return loss[0] if squeeze else loss

@@ -1,24 +1,39 @@
-"""Fold-parallel GSR-Net trainer on the whole-step kernels.
+"""Fold-parallel GSR-Net trainer, in every mode of the JAX package's.
 
-Counterpart of the ``fused_adam`` path of
-``fcsr_tpu/train/fast_loop.py::GSRFoldRunner``: k-fold CV trains one fresh
-model per fold, all folds together as one fold-batched step
-(``models/fused_step.py::train_step_fused``) per sample. Shorter folds pad
-their per-epoch sample sequence with masked no-op steps, so each fold's
-update sequence is exactly its own.
+Counterpart of ``fcsr_tpu/train/fast_loop.py::GSRFoldRunner``: k-fold CV
+trains one fresh model per fold, all folds together as one fold-batched
+step per sample. Shorter folds pad their per-epoch sample sequence with
+masked no-op steps, so each fold's update sequence is exactly its own.
+
+The configuration picks the step (``trainer_mode``):
+
+* ``fused_adam``: ``models/fused_step.py::train_step_fused``, forward,
+  backward and the masked Adam on the hand-written kernels;
+* ``fused_step``: ``gsr_step_loss_fused`` for the loss and the gradient,
+  then the flat Adam;
+* ``fused_tail`` with ``fused_unet`` and ``fused_unet_bwd``:
+  ``unet_fused_fwdbwd`` and ``tail_loss_fused`` — with ``fused_unet``
+  alone ``unet_fused_fwdonly``, with neither the plain U-Net — joined by
+  ``lmbda * L1(net, start)`` in plain PyTorch;
+* no flag: the unfused model (``models/gsr.py::GSRNet``, ``torch.matmul``)
+  under autograd, one fold after the other inside a step.
+
+All but ``fused_adam`` take the gradient by autograd through the entry
+point's own backward and end in one ``adam_masked`` launch on the flat
+buffers (its plain version on the CPU), so ``fused_step`` and
+``fused_adam`` give the same bits.
 
 Layout: p, m and v are one flat float32 (F, P) buffer each, leaf after
-leaf in the kernels' order. The per-step data (u_lr, u_hr, hr of each
-fold's sample) is gathered once at staging into (S, F, ...) stacks, and
-the per-fold Adam scalars of a whole chunk are planned on the host, so a
-training step launches nothing but the step's own kernels.
+leaf in the kernels' order, in every mode. The per-step data (a_norm,
+u_lr, u_hr, hr of each fold's sample) is gathered once at staging into
+(S, F, ...) stacks, and the per-fold Adam scalars of a whole chunk are
+planned on the host.
 
 With a checkpoint path the chunked state (p, m, v, step counts, epoch,
 histories) is written as an ``.npz`` resume blob between chunks and a later
 run of the same configuration, folds and data resumes from it exactly.
 
-Not ported yet: the unfused and other fused trainer paths and multi-device
-fold sharding.
+Not ported yet: multi-device fold sharding.
 """
 
 from __future__ import annotations
@@ -31,17 +46,26 @@ from typing import List
 import numpy as np
 import torch
 
-from fcsr_tpu_torch.core.normalize import fill_diagonal, normalize_adj_np
+from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj_np,
+                                           unpad)
 from fcsr_tpu_torch.iox.checkpoint import load_arrays, save_arrays
-from fcsr_tpu_torch.iox.weights import flat_to_state, state_to_flat
+from fcsr_tpu_torch.iox.weights import (flat_to_state,
+                                        leaf_tensors_to_state, state_to_flat)
+from fcsr_tpu_torch.kernels.ops import KERNEL_OPS
 from fcsr_tpu_torch.models.fused_step import (FlatLayout, adam_scalars,
-                                              train_step_fused)
+                                              gsr_step_loss_fused,
+                                              train_step_fused,
+                                              unet_forward_rankselect,
+                                              unet_fused_fwdbwd,
+                                              unet_fused_fwdonly)
+from fcsr_tpu_torch.models.fused_tail import tail_loss_fused
 from fcsr_tpu_torch.models.gsr import GSRNet
 from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig, precompute_spectral
+from fcsr_tpu_torch.train.losses import gsr_composite_loss
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["adam_flat_update", "stage_dataset", "GSRFoldRunner",
-           "train_gsr_folds_parallel", "evaluate_gsr_folds"]
+__all__ = ["adam_flat_update", "trainer_mode", "stage_dataset",
+           "GSRFoldRunner", "train_gsr_folds_parallel", "evaluate_gsr_folds"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -55,6 +79,24 @@ def adam_flat_update(g, m, v, t, lr, b1=B1, b2=B2, eps=EPS):
     vhat = v / (1 - b2 ** t)
     step = lr * mhat / (torch.sqrt(vhat) + eps)
     return step, m, v
+
+
+def trainer_mode(cfg: GSRTrainConfig) -> str:
+    """The step the fold-parallel trainer runs for ``cfg``, by the JAX
+    package's precedence: ``fused_adam`` over ``fused_step`` over the
+    ``fused_tail`` family (``fused_unet_bwd`` counts only with
+    ``fused_unet``, ``fused_unet`` only with ``fused_tail``) over
+    ``unfused``."""
+    if cfg.fused_adam:
+        return "fused_adam"
+    if cfg.fused_step:
+        return "fused_step"
+    if cfg.fused_tail:
+        if cfg.fused_unet:
+            return ("fused_tail_unet_bwd" if cfg.fused_unet_bwd
+                    else "fused_tail_unet")
+        return "fused_tail"
+    return "unfused"
 
 
 def _pad_plans(folds, which: int, pad_to: int = None):
@@ -95,17 +137,17 @@ class GSRFoldRunner:
 
     def __init__(self, cfg: GSRTrainConfig, lr_all, hr_all, folds,
                  init_seed: int = 0, flat0=None, device=DEFAULT_DEVICE):
-        if not cfg.fused_adam:
-            raise NotImplementedError(
-                "the port's GSRFoldRunner runs the fused_adam path only; "
-                "the unfused trainer comes with a later slice")
-        if cfg.padding:
+        self.mode = trainer_mode(cfg)
+        if cfg.padding and self.mode != "unfused":
+            # the fused kernels compute the loss at hr_dim without the
+            # unfused branch's unpad() crop
             raise ValueError(
-                "padding != 0 is not supported by the fused kernel path "
-                "(the kernels compute the loss at hr_dim without the unpad "
-                "crop)")
+                "padding != 0 is not supported by the fused kernel paths "
+                "(fused_step/fused_tail/fused_adam); use the unfused "
+                "trainer (all fused flags False) for padded configs")
         if cfg.hidden_dim != cfg.hr_dim:
-            raise ValueError("the fused step needs hidden_dim == hr_dim")
+            raise ValueError("the fold-parallel trainer's flat layout needs "
+                             "hidden_dim == hr_dim")
         self.cfg = cfg
         self.folds = folds
         self.n_folds = len(folds)
@@ -118,8 +160,15 @@ class GSRFoldRunner:
         # tr_idx[f, s]; a view per step, no gather inside the loop
         plan = torch.from_numpy(self.tr_idx.T.astype(np.int64)).to(
             self.device)
-        _, hr, u_lr, u_hr = self.data
+        a_norm, hr, u_lr, u_hr = self.data
         self._steps = tuple(x[plan] for x in (u_lr, u_hr, hr))
+        # only the unfused model is handed the adjacency (and ignores it);
+        # the folds' parameters are swapped into one module per call
+        unfused = self.mode == "unfused"
+        self._a_norm_steps = a_norm[plan] if unfused else None
+        self._unfused = self._model(device=self.device) if unfused else None
+        self._no_vals = torch.zeros(self.n_folds, 3, dtype=torch.float32,
+                                    device=self.device)
         if flat0 is None:
             flat0 = np.stack([self._init_flat(init_seed + j)
                               for j in range(self.n_folds)])
@@ -164,8 +213,68 @@ class GSRFoldRunner:
         return (self.flat0.clone(), z, z.clone(),
                 np.zeros(self.n_folds, np.float32))
 
-    def _run_chunk(self, state, epochs: int):
+    def _loss(self, P, s: int):
+        """(loss, err), each (F,), of step ``s`` for the leaf mapping ``P``
+        in this runner's mode, differentiable in the leaves."""
         cfg = self.cfg
+        u_lr, u_hr, hr = (x[s] for x in self._steps)
+        if self.mode == "fused_step":
+            return gsr_step_loss_fused(
+                P, P["layer.weights"], P["gc1.weight"], P["gc2.weight"],
+                u_lr, u_hr, hr, cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.lmbda,
+                device=self.device)
+        if self.mode == "unfused":
+            state = leaf_tensors_to_state(P)
+            a_norm = self._a_norm_steps[s]
+            out = []
+            for j in range(self.n_folds):
+                pred, net, start, _ = torch.func.functional_call(
+                    self._unfused, {k: t[j] for k, t in state.items()},
+                    (a_norm[j],), {"u_lr": u_lr[j], "a_norm": a_norm[j]})
+                out.append(gsr_composite_loss(
+                    unpad(pred, cfg.padding), net, start,
+                    state["layer.weights"][j], u_hr[j], hr[j], cfg.lmbda))
+            return (torch.stack([loss for loss, _ in out]),
+                    torch.stack([err for _, err in out]))
+        if self.mode == "fused_tail_unet_bwd":
+            net, start = unet_fused_fwdbwd(P, cfg.ks, cfg.lr_dim, cfg.hr_dim,
+                                           device=self.device)
+        elif self.mode == "fused_tail_unet":
+            net, start = unet_fused_fwdonly(P, cfg.ks, cfg.lr_dim,
+                                            cfg.hr_dim, device=self.device)
+        else:
+            net, start = unet_forward_rankselect(P, cfg.ks, cfg.lr_dim)
+        w = P["layer.weights"]
+        tail = tail_loss_fused(w, P["gc1.weight"], P["gc2.weight"], net,
+                               u_lr, u_hr, hr, device=self.device)
+        loss = cfg.lmbda * (net - start).abs().mean(dim=(1, 2)) + tail
+        # reconstruction error = tail minus the spectral term
+        err = tail - (w - u_hr).abs().mean(dim=(1, 2))
+        return loss, err
+
+    def _step(self, p, m, v, s: int, scal):
+        """One fold-batched step on sample slot ``s``: (loss, err, p', m',
+        v') with loss and err multiplied by the folds' validity."""
+        cfg = self.cfg
+        if self.mode == "fused_adam":
+            u_lr, u_hr, hr = (x[s] for x in self._steps)
+            return train_step_fused(
+                p, m, v, u_lr, u_hr, hr, scal, cfg.ks, cfg.lr_dim,
+                cfg.hr_dim, cfg.lmbda, cfg.lr, B1, B2, EPS,
+                device=self.device)
+        # the leaf views of p are the autograd leaves: the gradient comes
+        # back leaf by leaf and is laid out flat for the one Adam launch
+        P = {k: t.requires_grad_() for k, t in self.layout.views(p).items()}
+        loss, err = self._loss(P, s)
+        grads = torch.autograd.grad(loss.sum(), list(P.values()))
+        g = torch.cat([x.reshape(self.n_folds, -1) for x in grads], dim=1)
+        p, m, v, _, _ = KERNEL_OPS.adam_masked(p, m, v, g, scal,
+                                               self._no_vals, cfg.lr, B1,
+                                               B2, EPS)
+        ok = scal[:, 0]
+        return loss.detach() * ok, err.detach() * ok, p, m, v
+
+    def _run_chunk(self, state, epochs: int):
         p, m, v, t = state
         n_steps = self.tr_idx.shape[1]
         scal = np.empty((epochs, n_steps, self.n_folds, 3), np.float32)
@@ -173,14 +282,10 @@ class GSRFoldRunner:
             for s in range(n_steps):
                 scal[e, s], t = adam_scalars(t, self.tr_valid[:, s], B1, B2)
         scal = torch.from_numpy(scal).to(self.device)
-        u_lr, u_hr, hr = self._steps
         losses, errs = [], []
         for e in range(epochs):
             for s in range(n_steps):
-                loss, err, p, m, v = train_step_fused(
-                    p, m, v, u_lr[s], u_hr[s], hr[s], scal[e, s], cfg.ks,
-                    cfg.lr_dim, cfg.hr_dim, cfg.lmbda, cfg.lr, B1, B2, EPS,
-                    device=self.device)
+                loss, err, p, m, v = self._step(p, m, v, s, scal[e, s])
                 losses.append(loss)
                 errs.append(err)
         denom = np.maximum(self.tr_valid.sum(axis=1), 1.0)
@@ -280,8 +385,8 @@ class GSRFoldRunner:
             idx = torch.from_numpy(self.va_idx[j].astype(np.int64)).to(
                 self.device)
             with torch.no_grad():
-                pred = model(a_norm[idx], u_lr=u_lr[idx],
-                             a_norm=a_norm[idx])[0]
+                pred = unpad(model(a_norm[idx], u_lr=u_lr[idx],
+                                   a_norm=a_norm[idx])[0], self.cfg.padding)
             gt = fill_diagonal(hr[idx], 1.0)
             per = (pred - gt).abs().mean(dim=(1, 2))
             valid = torch.from_numpy(self.va_valid[j]).to(self.device)

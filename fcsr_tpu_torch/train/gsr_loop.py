@@ -1,5 +1,15 @@
-"""GSR-Net training configuration, the host spectral precompute, and batched
-inference / validation (counterparts of ``fcsr_tpu/train/gsr_loop.py``)."""
+"""GSR-Net training configuration, the host spectral precompute, the
+parity trainer and batched inference / validation (counterparts of
+``fcsr_tpu/train/gsr_loop.py``).
+
+The parity trainer (``init_gsr``, ``make_train_fn``, ``train_gsr_fold``)
+replicates the reference's update order exactly: one model, one
+``torch.optim.Adam``, one optimizer step per subject, subjects in fixed
+order each epoch. It is the unfused model (``torch.matmul``) under
+autograd; the fold-parallel trainers are in ``train/fast_loop.py``. Where
+the JAX package returns new parameters and optimizer state, the port
+updates the model and the optimizer in place.
+"""
 
 from __future__ import annotations
 
@@ -11,17 +21,21 @@ import torch
 
 from fcsr_tpu_torch.core.normalize import normalize_adj_np, unpad
 from fcsr_tpu_torch.core.triu_kernels import normalize_adj_batch
+from fcsr_tpu_torch.models.gsr import GSRNet
+from fcsr_tpu_torch.train.losses import gsr_composite_loss
 from fcsr_tpu_torch.utils import host_cache
+from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE
 
-__all__ = ["GSRTrainConfig", "precompute_spectral", "predict_gsr",
-           "evaluate_gsr"]
+__all__ = ["GSRTrainConfig", "init_gsr", "precompute_spectral",
+           "make_train_fn", "train_gsr_fold", "predict_gsr", "evaluate_gsr"]
 
 
 @dataclass(frozen=True)
 class GSRTrainConfig:
     """Hyperparameters of the shipped GSR-Net run (the reference notebook's
-    Args), with the JAX package's defaults. ``fused_adam`` selects the
-    whole-step kernel path, the only trainer path the port has so far."""
+    Args), with the JAX package's defaults and flags. The ``fused_*``
+    flags pick the fold-parallel trainer's step (``train/fast_loop.py``);
+    the parity trainer ignores them."""
     epochs: int = 200
     lr: float = 1e-4
     lmbda: float = 16.0
@@ -30,7 +44,47 @@ class GSRTrainConfig:
     hidden_dim: int = 268
     padding: int = 0
     ks: Tuple[float, ...] = (0.9, 0.7, 0.6, 0.5)
+    # the spectral tail's value and gradients from one pass over its
+    # kernels (models/fused_tail.py::tail_loss_fused)
+    fused_tail: bool = False
+    # with fused_tail: the U-Net forward on the kernels too, its backward
+    # by autograd (models/fused_step.py::unet_fused_fwdonly)
+    fused_unet: bool = False
+    # with fused_unet: the U-Net backward as the hand-written adjoints
+    # (unet_fused_fwdbwd); ignored without fused_unet
+    fused_unet_bwd: bool = False
+    # the whole step's value and gradients by its kernels
+    # (gsr_step_loss_fused), then the flat Adam; takes precedence over the
+    # three flags above
+    fused_step: bool = False
+    # the step including the masked Adam update (train_step_fused); takes
+    # precedence over every other flag
     fused_adam: bool = False
+    compute_dtype: str = "f32"
+
+    def __post_init__(self):
+        if self.compute_dtype == "bf16":
+            raise NotImplementedError(
+                'compute_dtype="bf16" is not ported: torch rounds a bf16 '
+                "product's output to bf16 where the JAX package keeps f32 "
+                "accumulations, so it needs its own parity study")
+        if self.compute_dtype != "f32":
+            raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got "
+                             f"{self.compute_dtype!r}")
+
+    def model(self, device=DEFAULT_DEVICE, seed: int = 0) -> GSRNet:
+        return GSRNet(ks=self.ks, lr_dim=self.lr_dim, hr_dim=self.hr_dim,
+                      hidden_dim=self.hidden_dim, device=device, seed=seed)
+
+
+def init_gsr(cfg: GSRTrainConfig, seed: int = 0, device=DEFAULT_DEVICE):
+    """(model, optimizer): a GSR-Net initialised from ``seed`` on
+    ``device`` and the reference's optimizer, Adam with b1 = 0.9,
+    b2 = 0.999, eps = 1e-8."""
+    model = cfg.model(device=device, seed=seed)
+    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    return model, optimizer
 
 
 def precompute_spectral(lr_stack, hr_stack, lr_dim: int = 160,
@@ -64,6 +118,63 @@ def precompute_spectral(lr_stack, hr_stack, lr_dim: int = 160,
     u_hr_reduced = u_hr[..., :, :lr_dim]
     host_cache.save(cache, u_lr=u_lr, u_hr_reduced=u_hr_reduced)
     return u_lr, u_hr_reduced
+
+
+def make_train_fn(model: GSRNet, optimizer: torch.optim.Optimizer,
+                  cfg: GSRTrainConfig, per_step: bool = False):
+    """The whole-run trainer ``train_fn(lr_stack, hr_stack, u_lr,
+    u_hr_red)``: ``cfg.epochs`` passes over the subjects in their given
+    order, one Adam step per subject — the reference's sequential update
+    order. It updates ``model`` and ``optimizer`` in place and returns
+    (loss_hist, err_hist) as tensors on the model's device: per-epoch
+    means (epochs,), or with ``per_step`` every step's values (epochs,
+    n_subjects)."""
+
+    def train_fn(lr_stack, hr_stack, u_lr, u_hr_red):
+        n = lr_stack.shape[0]
+        losses, errs = [], []
+        for _ in range(cfg.epochs):
+            for i in range(n):
+                pred, net_outs, start_outs, _ = model(lr_stack[i],
+                                                      u_lr=u_lr[i])
+                loss, err = gsr_composite_loss(
+                    unpad(pred, cfg.padding), net_outs, start_outs,
+                    model.layer.weights, u_hr_red[i], hr_stack[i], cfg.lmbda)
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                optimizer.step()
+                losses.append(loss.detach())
+                errs.append(err.detach())
+        loss_hist = torch.stack(losses).view(cfg.epochs, n)
+        err_hist = torch.stack(errs).view(cfg.epochs, n)
+        if per_step:
+            return loss_hist, err_hist
+        return loss_hist.mean(1), err_hist.mean(1)
+
+    return train_fn
+
+
+def train_gsr_fold(model: GSRNet, optimizer: torch.optim.Optimizer,
+                   cfg: GSRTrainConfig, lr_stack, hr_stack, spectral=None,
+                   verbose: bool = False):
+    """Train ``model`` in place on one fold's stacked arrays; returns the
+    history dict {"loss", "error"} of per-epoch means (numpy)."""
+    device = next(model.parameters()).device
+    lr_np = np.asarray(lr_stack, dtype=np.float32)
+    hr_np = np.asarray(hr_stack, dtype=np.float32)
+    if spectral is None:
+        spectral = precompute_spectral(lr_np, hr_np, lr_dim=cfg.lr_dim,
+                                       padding=cfg.padding)
+    stacks = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+              for a in (lr_np, hr_np, *spectral)]
+    loss_hist, err_hist = make_train_fn(model, optimizer, cfg)(*stacks)
+    history = {"loss": loss_hist.cpu().numpy(),
+               "error": err_hist.cpu().numpy()}
+    if verbose:
+        for e in range(cfg.epochs):
+            print(f"Epoch: {e + 1}, Loss: {history['loss'][e]:.6f}, "
+                  f"Error (MAE): {history['error'][e]:.6f}")
+    return history
 
 
 def predict_gsr(params, model, cfg: GSRTrainConfig, lr_stack) -> torch.Tensor:

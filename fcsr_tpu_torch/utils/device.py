@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "check_on_device"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -22,4 +22,15 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
         raise RuntimeError(
             f"device={device!r} requested but no CUDA device is available; "
             "pass device='cpu' to run the plain PyTorch path on the host")
+    return dev
+
+
+def check_on_device(what: str, device, *tensors) -> torch.device:
+    """Resolve ``device`` and raise unless every tensor lies on a device of
+    that type (an entry point never moves its arguments)."""
+    dev = resolve_device(device)
+    for t in tensors:
+        if t.device.type != dev.type:
+            raise ValueError(f"{what}(device={device!r}) got a tensor on "
+                             f"{t.device}")
     return dev

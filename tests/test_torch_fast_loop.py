@@ -92,8 +92,13 @@ def test_runner_refusals():
     with pytest.raises(ValueError, match="padding"):
         GSRFoldRunner(GSRTrainConfig(fused_adam=True, padding=2, **TINY),
                       lr, hr, folds, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_adam"):
-        GSRFoldRunner(GSRTrainConfig(**TINY), lr, hr, folds, device="cpu")
+    # without a fused flag the runner is the unfused trainer, no refusal
+    assert GSRFoldRunner(GSRTrainConfig(**TINY), lr, hr, folds,
+                         device="cpu").mode == "unfused"
+    with pytest.raises(ValueError, match="hidden_dim == hr_dim"):
+        GSRFoldRunner(GSRTrainConfig(lr_dim=20, hr_dim=32, hidden_dim=16,
+                                     ks=TINY["ks"]), lr, hr, folds,
+                      device="cpu")
     r = GSRFoldRunner(GSRTrainConfig(epochs=1, fused_adam=True, **TINY), lr,
                       hr, folds, device="cpu")
     with pytest.raises(RuntimeError, match="before train"):

@@ -266,9 +266,10 @@ def test_kernel_bindings_match_c_signatures():
     on the card, where nothing type-checks the call."""
     csrc = Path(__file__).resolve().parents[1] / "fcsr_tpu_torch" / \
         "kernels" / "csrc"
-    assert len(KERNELS) == 15 and {"anti_vectorize_normalize",
+    assert len(KERNELS) == 16 and {"anti_vectorize_normalize",
                                    "vectorize_colmajor",
-                                   "normalize_adj_batch"} <= set(KERNELS)
+                                   "normalize_adj_batch",
+                                   "loss_terms"} <= set(KERNELS)
     for k in KERNELS.values():
         src = (csrc / f"{k.source}.cu").read_text()
         m = re.search(r'extern "C" int ' + k.symbol + r"\((.*?)\)\s*\{",

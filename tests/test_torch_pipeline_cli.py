@@ -1,7 +1,8 @@
 """The CSV-to-submission path as a whole, at the tiny 20 -> 32 size on the
 CPU: the same CSVs and the same initial weights through the JAX package's
 ``run_gsr_cv_fast`` (``fused_adam``, Pallas interpret mode) and the
-port's; checkpoint resume; the command line and what it refuses."""
+port's; checkpoint resume; the command line and what it refuses (the
+other trainer modes' commands are in ``test_torch_gsr_trainers.py``)."""
 
 import json
 import os
@@ -272,10 +273,11 @@ def test_cli_submit_dry_run(tmp_path, capsys):
     (["train", "mlp"], "models/mlp.py"),
     (["train", "gat"], "models/gat_unet.py"),
     (["evaluate", "--gt", "a.npz", "--pred", "b.npz"], "evalx"),
-    (["train", "gsr"], "unfused trainers"),
-    (["train", "gsr", "--fast"], "unfused trainers"),
+    (["train", "gsr", "--full-metrics"], "evalx"),
+    (["train", "gsr", "--fast", "--eval-backend", "networkx"], "evalx"),
     (["train", "gsr", "--fused", "--multichip"], "fcsr_tpu/parallel"),
-    (["train", "gsr", "--fused", "--fused-tail"], "tail_loss_fused"),
+    (["train", "gsr", "--fast", "--fused-tail", "--multichip"],
+     "fcsr_tpu/parallel"),
     (["train", "gsr", "--fused", "--full-metrics"], "evalx"),
     (["train", "gsr", "--fused", "--eval-backend", "networkx"], "evalx"),
 ])
