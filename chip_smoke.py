@@ -39,7 +39,19 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    with the launch counts of each run, ``fused_step`` bit-equal to
    ``fused_adam`` from the same weights; and the parity trainer
    (``train gsr`` with no flag, 2 folds x 1 epoch) through the command
-   line on phase 5's CSVs.
+   line on phase 5's CSVs;
+7. drives the GAT U-Net family at its shipped width (n = 160, m = 268,
+   dim 16, ks (0.5, 0.5, 0.5), 4 / 2 heads, F = 3): each of its nine
+   kernels against its plain version at every shape the step uses, at
+   drop_p 0, 0.01 and 0.3 with the masks the counter-based generator draws,
+   and the generator's keep rate against a binomial bound; one fused step
+   against the plain step and against autograd over the plain loss (loss,
+   36 gradients, p', m', v'), eager and as one CUDA graph; the fused
+   validation forward; ``train_gat_folds_parallel(fused_step=True)`` on the
+   teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
+   that run), one epoch fused against one unfused; and ``train gat --fast
+   --fused``, ``--fast`` and the per-fold trainer through the command line
+   on phase 5's CSVs, each column-major submission parsed back.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -61,7 +73,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-# phase 5's CSVs and submissions (a few hundred MB), removed when it ends
+# phase 5's CSVs and submissions (a few hundred MB), removed when phase 7 ends
 WORK_DIR = os.path.join(OUT_DIR, "smoke_csv_path")
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W):
@@ -74,6 +86,10 @@ TRIU = ("anti_vectorize_normalize", "vectorize_colmajor",
         "normalize_adj_batch")
 # launched by the loss entry points (phase 6), not by train_step_fused
 ENTRY_ONLY = ("loss_terms",)
+# the GAT U-Net's kernels (phase 7): no GSR-Net path launches them
+GAT_NEW = ("gat_attention", "gat_attention_bwd", "philox_keep_mask",
+           "gat_pool_adj", "col_softmax", "col_softmax_bwd", "offdiag_mse",
+           "offdiag_mae", "adamw_masked")
 
 
 def fail(msg: str):
@@ -592,7 +608,7 @@ def run_main_path(dev, data, epochs: int):
     print(f"  val MAE untrained {untrained.tolist()} trained "
           f"{maes.tolist()}")
     counts = {k: c for k, c in counts.items()
-              if k not in TRIU + ENTRY_ONLY}
+              if k not in TRIU + ENTRY_ONLY + GAT_NEW}
     print(f"  launches on the trainer path: {counts}")
     if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()
             and bool(torch.isfinite(preds).all())):
@@ -715,6 +731,7 @@ def run_csv_path(dev, data):
     print(f"  `train gsr --fused` {t_train_cli:.1f} s, `predict` "
           f"{t_predict_cli:.1f} s; launches on the CSV path: {counts}",
           flush=True)
+    counts = {k: c for k, c in counts.items() if k not in GAT_NEW}
     missing = [k for k, c in counts.items()
                if c == 0 and k not in ENTRY_ONLY]
     if missing:
@@ -1103,6 +1120,555 @@ def run_parity_cli(dev, csv_dir):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the GAT U-Net family
+# ---------------------------------------------------------------------------
+
+GAT_KS, GAT_DIM, GAT_HEADS = (0.5, 0.5, 0.5), 16, 4
+GAT_KW = dict(dim=GAT_DIM, ks=GAT_KS, n_nodes=LR, m_nodes=HR, heads=GAT_HEADS)
+# (n, heads, d_head) of the seven GAT layers at the shipped width
+GAT_LAYER_SHAPES = ((160, 4, 8), (80, 4, 16), (40, 4, 32), (20, 2, 64),
+                    (40, 4, 16), (80, 4, 8), (160, 4, 4))
+# every kernel the fused GAT trainer must launch (training at drop_p > 0
+# and the fused validation forwards)
+GAT_PATH = GAT_NEW + ("bgemm_f32", "rank_select", "gather_rows",
+                      "scatter_rows", "pool_logits_bwd")
+
+
+def _gat_seeds(dev, n):
+    rng = np.random.default_rng(7)
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(n, 2),
+                                         dtype=np.int64).astype(np.int32)
+                            ).to(dev)
+
+
+def _sparse_adj(g, n, dev, density=0.3):
+    """(F, n, n) symmetric non-negative adjacency with real zeros, so the
+    attention mask is exercised."""
+    m = torch.rand(F, n, n, generator=g) * (torch.rand(F, n, n, generator=g)
+                                            < density)
+    m = torch.triu(m, 1)
+    return (m + m.transpose(1, 2)).to(dev)
+
+
+def gat_kernel_cases(dev):
+    """One record case per new kernel at the top level's shape (F = 3,
+    n = 160, 4 heads of 8), as ``kernel_cases``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.models.fused_gat import GATLayout
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    cases = []
+    f4 = 4.0 * F
+    n, H, d = GAT_LAYER_SHAPES[0]
+    HD = H * d
+    seeds = _gat_seeds(dev, F)
+    h, asrc, adst = rnd(F, n, HD), rnd(F, H, d), rnd(F, H, d)
+    bias, a = rnd(F, 1, HD, scale=0.1), _sparse_adj(g, n, dev)
+    p = 0.01
+    att = lambda ops: ops.gat_attention(h, asrc, adst, bias, a, seeds, 0, p)
+    cases.append(("gat_attention", lambda: att(K), lambda: att(P), 1e-5,
+                  F * H * n * (4.0 * n * d + 12.0 * n),
+                  f4 * (2 * n * HD + 3 * HD + n * n + H * n * n) + 8.0 * F,
+                  None))
+    y, alpha = att(K)
+    gy = rnd(F, n, HD)
+
+    def att_bwd(ops):
+        outs = (torch.empty(F, H, d, device=dev),
+                torch.empty(F, H, d, device=dev),
+                torch.empty(F, 1, HD, device=dev))
+        return (ops.gat_attention_bwd(gy, y, alpha, h, asrc, adst, seeds, 0,
+                                      p, *outs),) + outs
+    cases.append(("gat_attention_bwd", lambda: att_bwd(K),
+                  lambda: att_bwd(P), 1e-5,
+                  F * H * n * (8.0 * n * d + 12.0 * n),
+                  f4 * (4 * n * HD + 5 * HD + H * n * n) + 8.0 * F, None))
+    s4 = _gat_seeds(dev, 4)
+    cases.append(("philox_keep_mask",
+                  lambda: K.philox_keep_mask(s4, 0, 4, 256, 256, 0.1),
+                  lambda: P.philox_keep_mask(s4, 0, 4, 256, 256, 0.1), 0.0,
+                  60.0 * 16 * 256 * 256, 4.0 * 16 * 256 * 256 + 32.0, None))
+    k = n // 2
+    idx = torch.stack([torch.randperm(n, generator=g)[:k]
+                       for _ in range(F)]).to(torch.int32).to(dev)
+    aw = rnd(F, n, n).abs()
+    cases.append(("gat_pool_adj", lambda: K.gat_pool_adj(aw, idx),
+                  lambda: P.gat_pool_adj(aw, idx), 1e-6,
+                  3.0 * F * k * k, f4 * (2 * k * k + k), None))
+    yy = rnd(F, GAT_DIM, HR)
+    cases.append(("col_softmax", lambda: K.col_softmax(yy),
+                  lambda: P.col_softmax(yy), 1e-6, 4.0 * F * GAT_DIM * HR,
+                  f4 * 2 * GAT_DIM * HR, lambda: torch.softmax(yy, 1)))
+    q, gq = K.col_softmax(yy), rnd(F, GAT_DIM, HR)
+    cases.append(("col_softmax_bwd", lambda: K.col_softmax_bwd(gq, q),
+                  lambda: P.col_softmax_bwd(gq, q), 1e-6,
+                  4.0 * F * GAT_DIM * HR, f4 * 3 * GAT_DIM * HR, None))
+    G, T = rnd(F, HR, HR), rnd(F, HR, HR).abs()
+    vk, vp = torch.zeros(F, 4, device=dev), torch.zeros(F, 4, device=dev)
+    cases.append(("offdiag_mse",
+                  lambda: (K.offdiag_mse(G, T, vk, 0), vk[:, 0]),
+                  lambda: (P.offdiag_mse(G, T, vp, 0), vp[:, 0]), 1e-6,
+                  8.0 * F * HR * HR, f4 * (3 * HR * HR + 1), None))
+
+    def mae(ops, vals):
+        ops.offdiag_mae(G, T, vals, 1)
+        return vals[:, 1]
+    cases.append(("offdiag_mae", lambda: mae(K, vk), lambda: mae(P, vp),
+                  1e-6, 3.0 * F * HR * HR, f4 * (2 * HR * HR + 1), None))
+    n_p = GATLayout(GAT_DIM, GAT_KS, GAT_HEADS, LR, HR).size
+    pp, gg = rnd(F, n_p), rnd(F, n_p, scale=1e-2)
+    mm_, vv = rnd(F, n_p, scale=1e-3), rnd(F, n_p, scale=1e-3).abs()
+    scal = torch.tensor([[1.0, 1e-3, 1 - 0.9 ** 5, 1 - 0.999 ** 5]] * F,
+                        device=dev)
+    scal[2, 0] = 0.0
+    terms = rnd(F, 4).abs()
+    args = (pp, mm_, vv, gg, scal, terms, 0.9, 0.999, 1e-8, 0.01)
+    cases.append(("adamw_masked", lambda: K.adamw_masked(*args),
+                  lambda: P.adamw_masked(*args), 0.0, 15.0 * F * n_p,
+                  f4 * 7 * n_p, None))
+    return cases
+
+
+def check_gat_kernels(dev):
+    """Phase 7.1: records of the nine new kernels, then every shape the
+    step uses at drop_p 0, 0.01 and 0.3 (the plain versions draw the very
+    masks the kernels draw), and the generator's keep rate."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+
+    records = {}
+    for name, kern, plain, tol, flops, nbytes, lib in gat_kernel_cases(dev):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        limit = tol * scale_of(want)
+        if not err <= limit:
+            fail(f"kernel {name} disagrees with its plain version "
+                 f"(max|err| {err:.3e}, limit {limit:.1e})")
+        ms, plain_ms = device_ms(kern), device_ms(plain)
+        lib_ms = device_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"  {name:20s} max|err| {err:.3e} (limit {limit:.1e}) ok  "
+              f"kernel {ms:.4f} ms (eager from Python {cuda_ms(kern):.4f})  "
+              f"plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})"
+              + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""),
+              flush=True)
+        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms}
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    seeds = _gat_seeds(dev, F)
+    worst = 0.0
+    for li, (n, H, d) in enumerate(GAT_LAYER_SHAPES):
+        HD = H * d
+        h = torch.randn(F, n, HD, generator=g).to(dev)
+        asrc = torch.randn(F, H, d, generator=g).to(dev)
+        adst = torch.randn(F, H, d, generator=g).to(dev)
+        bias = (0.1 * torch.randn(F, 1, HD, generator=g)).to(dev)
+        a = _sparse_adj(g, n, dev)
+        gy = torch.randn(F, n, HD, generator=g).to(dev)
+        for p in (0.0, 0.01, 0.3):
+            for shift in (False, True):
+                yk, ak = K.gat_attention(h, asrc, adst, bias, a, seeds, li,
+                                         p, shift)
+                yp, ap = P.gat_attention(h, asrc, adst, bias, a, seeds, li,
+                                         p, shift)
+                err = max(max_err(yk, yp) / scale_of(yp), max_err(ak, ap))
+                worst = max(worst, err)
+                if not err <= 1e-5:
+                    fail(f"gat_attention n={n} heads={H} d={d} p={p} "
+                         f"global_shift={shift}: err {err:.2e}")
+            outs = []
+            for ops in (K, P):
+                gp = (torch.empty(F, H, d, device=dev),
+                      torch.empty(F, H, d, device=dev),
+                      torch.empty(F, 1, HD, device=dev))
+                outs.append((ops.gat_attention_bwd(gy, yp, ap, h, asrc, adst,
+                                                   seeds, li, p, *gp),) + gp)
+            for got, want in zip(*outs):
+                err = max_err(got, want) / scale_of(want)
+                worst = max(worst, err)
+                if not err <= 1e-5:
+                    fail(f"gat_attention_bwd n={n} heads={H} d={d} p={p}: "
+                         f"err {err:.2e}")
+        k_ms = device_ms(lambda: K.gat_attention(h, asrc, adst, bias, a,
+                                                 seeds, li, 0.01))
+        kb_ms = device_ms(lambda: K.gat_attention_bwd(
+            gy, yp, ap, h, asrc, adst, seeds, li, 0.01, *gp))
+        print(f"    gat_attention n={n:3d} heads={H} d_head={d:2d}: forward "
+              f"{k_ms:.4f} ms, backward {kb_ms:.4f} ms")
+    # pool: scores without GSR's / 100, square gather, its adjoint, dropout
+    for n, D in ((160, 32), (80, 64), (40, 128)):
+        k = n // 2
+        logits = torch.randn(F, n, generator=g).to(dev) * 30.0
+        logits[:, 3:6] = 40.0                    # saturated sigmoid: a tie
+        got, want = K.rank_select(logits, k, 1.0), P.rank_select(logits, k,
+                                                                 1.0)
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+                and max_err(got[0], want[0]) <= 1e-6):
+            fail(f"rank_select(div=1) n={n} disagrees")
+        s, idx, vals, slot = got
+        a = torch.rand(F, n, n, generator=g).to(dev)
+        err = max_err(K.gat_pool_adj(a, idx), P.gat_pool_adj(a, idx))
+        gx = torch.randn(F, k, D, generator=g).to(dev)
+        pre = torch.randn(F, k, D, generator=g).to(dev)
+        err = max(err, max_err(K.pool_logits_bwd(gx, pre, slot, s, 1.0),
+                               P.pool_logits_bwd(gx, pre, slot, s, 1.0)))
+        x = torch.randn(F, n, D, generator=g).to(dev)
+        for p in (0.01, 0.3):
+            if not torch.equal(
+                    K.philox_keep_mask(seeds, 1, 1, n, D, p, x, 1 / (1 - p)),
+                    P.philox_keep_mask(seeds, 1, 1, n, D, p, x, 1 / (1 - p))):
+                fail(f"philox_keep_mask applied to ({n}, {D}) differs")
+        worst = max(worst, err)
+        if not err <= 1e-5:
+            fail(f"pool kernels n={n}: err {err:.2e}")
+    for n in (268, 160, 80, 40):
+        G = torch.randn(F, n, n, generator=g).to(dev)
+        T = torch.rand(F, n, n, generator=g).to(dev)
+        vk, vp = torch.zeros(F, 4, device=dev), torch.zeros(F, 4, device=dev)
+        err = max_err(K.offdiag_mse(G, T, vk, 2), P.offdiag_mse(G, T, vp, 2))
+        K.offdiag_mae(G, T, vk, 3)
+        P.offdiag_mae(G, T, vp, 3)
+        err = max(err, max_err(vk, vp))
+        worst = max(worst, err)
+        if not err <= 1e-6:
+            fail(f"offdiag losses n={n}: err {err:.2e}")
+    print(f"  shape sweep ok: 7 attention shapes x drop_p (0, 0.01, 0.3) x "
+          f"both softmax shifts with their backward, 3 pools, 4 loss sizes; "
+          f"worst err / scale {worst:.2e}")
+    # the generator's keep rate, as the TPU experiment measured its own:
+    # (256, 256) x 4 heads x 4 seeds per p, inside a 4-sigma binomial bound
+    s4 = _gat_seeds(dev, 4)
+    for p in (0.01, 0.1, 0.5):
+        mask = K.philox_keep_mask(s4, 0, 4, 256, 256, p)
+        if not torch.equal(mask, P.philox_keep_mask(s4, 0, 4, 256, 256, p)):
+            fail(f"philox_keep_mask p={p}: kernel and plain bits differ")
+        rate = float(mask.mean())
+        sigma = (p * (1 - p) / mask.numel()) ** 0.5
+        print(f"    keep rate at drop_p={p}: {rate:.6f} (expected "
+              f"{1 - p:.2f}, 4 sigma = {4 * sigma:.6f}) over "
+              f"{mask.numel()} draws")
+        if not abs(rate - (1 - p)) < 4 * sigma + 1e-6:
+            fail(f"keep rate {rate} at drop_p={p} outside the binomial bound")
+    return records
+
+
+def _gat_step_inputs(dev, data):
+    """Full-width step inputs for F = 3 folds: three fresh models, small
+    random moments, the first three teacher subjects, one masked fold."""
+    from fcsr_tpu_torch.iox.weights import gat_state_to_flat
+    from fcsr_tpu_torch.models.gat_unet import (GATGraphUnet,
+                                                symmetric_normalize)
+    from fcsr_tpu_torch.train.gat_loop import precompute_gat_features
+
+    flat = np.stack([gat_state_to_flat({k: v.numpy() for k, v in GATGraphUnet(
+        device="cpu", seed=j).state_dict().items()}) for j in range(F)])
+    rng = np.random.default_rng(0)
+    # zero-initialised biases would leave relu kinks exactly at 0
+    p = torch.from_numpy(flat + rng.normal(0, 0.02, flat.shape).astype(
+        np.float32)).to(dev)
+    m = torch.from_numpy(
+        rng.normal(0, 1e-4, flat.shape).astype(np.float32)).to(dev)
+    v = torch.from_numpy(
+        np.abs(rng.normal(0, 1e-6, flat.shape)).astype(np.float32)).to(dev)
+    lr = np.ascontiguousarray(data["lr_train"][:F], dtype=np.float32)
+    lr_d = torch.from_numpy(lr).to(dev)
+    a0 = symmetric_normalize(lr_d + torch.eye(LR, device=dev))
+    x0 = torch.from_numpy(precompute_gat_features(lr, GAT_DIM)).to(dev)
+    hr = torch.from_numpy(np.ascontiguousarray(
+        data["hr_train"][:F], dtype=np.float32)).to(dev)
+    scal = torch.tensor([[1.0, 1e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3],
+                         [1.0, 1e-4, 1 - 0.9 ** 7, 1 - 0.999 ** 7],
+                         [0.0, 1e-3, 1 - 0.9 ** 2, 1 - 0.999 ** 2]],
+                        device=dev)
+    return p, m, v, a0, x0, hr, scal, _gat_seeds(dev, F)
+
+
+def _host_profile(fn, reps):
+    """Where the host's time per eager call goes: cProfile over ``reps``
+    calls, the six functions with the most time of their own (and
+    ``torch.cuda.current_stream``, which every launch calls)."""
+    import cProfile
+    import pstats
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    total = stats.total_tt
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:6]
+    # the launch wrapper asks PyTorch for the current stream at every call
+    rows += [kv for kv in stats.stats.items()
+             if kv[0][2] == "current_stream" and kv not in rows]
+    print(f"  host profile of the eager step: {1e3 * wall:.3f} ms per call by "
+          f"the wall clock ({reps} calls), {1e3 * total / reps:.3f} ms under "
+          f"cProfile; own time and cumulative time per call:")
+    for (path, line, name), (_, ncalls, tt, ct, _) in rows:
+        print(f"    {os.path.basename(path)}:{line}({name}): "
+              f"{1e3 * tt / reps:.3f} ms own, {1e3 * ct / reps:.3f} ms "
+              f"cumulative, {ncalls // reps} calls")
+
+
+def check_gat_step(dev, data):
+    """Phase 7.2 and 7.3: one full-width fused step on the kernels against
+    the plain step and against autograd over the plain loss, at drop_p 0,
+    0.01 and 0.3; then the fused validation forward."""
+    from fcsr_tpu_torch.kernels import (KERNEL_OPS, launch_counts,
+                                        reset_launch_counts)
+    from fcsr_tpu_torch.models import fused_gat as fg
+
+    p, m, v, a0, x0, hr, scal, seeds = _gat_step_inputs(dev, data)
+    layout = fg.GATLayout(GAT_DIM, GAT_KS, GAT_HEADS, LR, HR)
+    for drop_p in (0.0, 0.01, 0.3):
+        kw = dict(drop_p=drop_p, **GAT_KW)
+        reset_launch_counts()
+        got = fg.gat_train_step_fused(p, m, v, a0, x0, hr, scal, seeds,
+                                      device=dev, **kw)
+        counts = _nonzero(launch_counts())
+        want = fg.gat_train_step_plain(p, m, v, a0, x0, hr, scal, seeds,
+                                       **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b, tol in zip(("loss", "p'", "m'", "v'"), got, want,
+                                   (1e-5, 1e-6, 1e-5, 1e-5)):
+            err = max_err(a, b)
+            errs.append(f"{name} {err:.2e}")
+            if not err <= tol * scale_of(b):
+                fail(f"GAT step drop_p={drop_p}: {name} disagrees with the "
+                     f"plain step (err {err:.3e})")
+        for a, b in ((got[1], p), (got[2], m), (got[3], v)):
+            if not torch.equal(a[2], b[2]):
+                fail("GAT step: the masked fold's state changed")
+        # the hand-written adjoints against autograd over the plain loss,
+        # fed the masks the kernels drew
+        _, g = fg.gat_value_and_grads(KERNEL_OPS, p, a0, x0, hr, seeds, **kw)
+        masks = None if drop_p == 0 else fg.draw_masks(
+            seeds, dim=GAT_DIM, ks=GAT_KS, n_nodes=LR, heads=GAT_HEADS,
+            drop_p=drop_p)
+        pp = p.clone().requires_grad_()
+        loss = fg.gat_step_loss(list(layout.views(pp).values()), a0, x0, hr,
+                                drop_masks=masks, **kw)
+        loss.sum().backward()
+        torch.cuda.synchronize()
+        largest = float(pp.grad.abs().max())
+        g_err = max(max_err(a, b) for a, b in zip(
+            layout.views(g).values(), layout.views(pp.grad).values()))
+        v_err = max_err(got[0], loss.detach())
+        print(f"  GAT step drop_p={drop_p}: kernels vs plain step "
+              f"{', '.join(errs)}; vs autograd: loss {v_err:.2e}, worst of 36 "
+              f"gradients {g_err:.2e} = {g_err / largest:.2e} of the largest "
+              f"entry (limit 1e-4); {sum(counts.values())} launches {counts}",
+              flush=True)
+        if not (v_err <= 1e-5 and g_err <= 1e-4 * largest):
+            fail(f"GAT step drop_p={drop_p} disagrees with autograd over "
+                 "the plain loss")
+    print(f"  GAT step loss {got[0].tolist()}")
+
+    kw = dict(drop_p=0.01, **GAT_KW)
+    run_k = lambda: fg.gat_train_step_fused(p, m, v, a0, x0, hr, scal, seeds,
+                                            device=dev, **kw)
+    run_p = lambda: fg.gat_train_step_plain(p, m, v, a0, x0, hr, scal, seeds,
+                                            **kw)
+
+    def run_autograd():
+        pp = p.clone().requires_grad_()
+        fg.gat_step_loss(list(layout.views(pp).values()), a0, x0, hr,
+                         **GAT_KW).sum().backward()
+    k_dev, p_dev = device_ms(run_k, reps=5), device_ms(run_p, reps=5)
+    print(f"  full-width GAT step (F={F}, drop_p=0.01): kernels "
+          f"{cuda_ms(run_k, reps=5):.3f} ms eager, {k_dev:.3f} ms device "
+          f"(CUDA graph); plain step {cuda_ms(run_p, reps=5):.3f} ms eager, "
+          f"{p_dev:.3f} ms device; autograd over the plain loss (no dropout, "
+          f"no AdamW) {device_ms(run_autograd, reps=5):.3f} ms device")
+
+    _host_profile(run_k, 100)
+
+    # validation: one model read by a fold's 56 subjects
+    from fcsr_tpu_torch.models.gat_unet import symmetric_normalize
+    from fcsr_tpu_torch.train.gat_loop import precompute_gat_features
+    B = 56
+    lr = np.ascontiguousarray(data["lr_train"][:B], dtype=np.float32)
+    a0v = symmetric_normalize(torch.from_numpy(lr).to(dev)
+                              + torch.eye(LR, device=dev))
+    x0v = torch.from_numpy(precompute_gat_features(lr, GAT_DIM)).to(dev)
+    hrv = torch.from_numpy(np.ascontiguousarray(
+        data["hr_train"][:B], dtype=np.float32)).to(dev)
+    reset_launch_counts()
+    got = fg.gat_val_fused(p[:1], a0v, x0v, hrv, device=dev, **GAT_KW)
+    counts = _nonzero(launch_counts())
+    want = fg.gat_val_plain(p[:1], a0v, x0v, hrv, **GAT_KW)
+    torch.cuda.synchronize()
+    errs = [max_err(a, b) for a, b in zip(got, want)]
+    v_k = device_ms(lambda: fg.gat_val_fused(p[:1], a0v, x0v, hrv,
+                                             device=dev, **GAT_KW), reps=3)
+    v_p = device_ms(lambda: fg.gat_val_plain(p[:1], a0v, x0v, hrv, **GAT_KW),
+                    reps=3)
+    print(f"  gat_val_fused ({B} subjects, one model): loss err "
+          f"{errs[0]:.2e}, MAE err {errs[1]:.2e} (limit 1e-5); "
+          f"{sum(counts.values())} launches {counts}; kernels {v_k:.3f} ms "
+          f"device, plain {v_p:.3f} ms device per fold")
+    if not max(errs) <= 1e-5 or not bool(torch.isfinite(got[0]).all()):
+        fail("gat_val_fused disagrees with its plain version")
+
+
+def run_gat_trainer(dev, data):
+    """Phase 7.4: the GAT main path. ``train_gat_folds_parallel`` with the
+    fused step on the teacher set, 3 folds, 2 epochs at the shipped
+    drop_p = 0.01 (launch counts read from this run); then one epoch fused
+    against one epoch unfused at drop_p = 0 from the same weights. Returns
+    the launch counts of the main run."""
+    from fcsr_tpu_torch import kfold_indices
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.pipelines import _fold_maes_on_device
+    from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, _FoldTrainer,
+                                               train_gat_folds_parallel)
+
+    lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
+    hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
+    folds = kfold_indices(len(lr_all), 3, seed=42)
+    cfg = GATTrainConfig(epochs=2, fused_step=True)
+    model, init_vars, _ = train_gat_folds_parallel(
+        GATTrainConfig(epochs=0, fused_step=True), lr_all, hr_all, folds,
+        seed=42, device=dev)
+    untrained = _fold_maes_on_device(model, cfg, init_vars, lr_all, hr_all,
+                                     folds, dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model, best, hists = train_gat_folds_parallel(cfg, lr_all, hr_all, folds,
+                                                  seed=42, device=dev)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    counts = _nonzero(launch_counts())
+    trained = _fold_maes_on_device(model, cfg, best, lr_all, hr_all, folds,
+                                   dev)
+    steps = max(len(tr) for tr, _ in folds)
+    print(f"  train_gat_folds_parallel(fused_step) 3 folds x 2 epochs at "
+          f"drop_p=0.01: {t_train:.2f} s with staging and the SVD features, "
+          f"{steps} fold-batched steps per epoch")
+    for j, h in enumerate(hists):
+        print(f"  fold {j} train {h['train']} val {h['val']} lr {h['lr']}")
+    print(f"  val MAE untrained {untrained} trained {trained}")
+    print(f"  launches on the GAT trainer path: {counts}")
+    if not (all(np.isfinite(h["train"]).all() and np.isfinite(h["val"]).all()
+                and len(h["val"]) == 2 for h in hists)
+            and np.isfinite(trained).all()):
+        fail("GAT trainer: non-finite loss or MAE, or a short history")
+    missing = [k for k in GAT_PATH if not counts.get(k)]
+    if missing:
+        fail(f"kernels never launched on the GAT trainer path: {missing}")
+
+    # an epoch and a validation pass on their own, then fused against
+    # unfused at drop_p = 0 from the same weights
+    lr_t = torch.full((3,), 1e-3, device=dev)
+    active = torch.ones(3, device=dev)
+    res = {}
+    for mode, flags in (("fused", dict(fused_step=True)), ("unfused", {})):
+        c = GATTrainConfig(epochs=1, drop_p=0.0, **flags)
+        tr = _FoldTrainer(c, lr_all, hr_all, folds, 42, dev,
+                          fused=c.fused_step)
+        order, valid = tr.draw_epoch_plan()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tr_loss = tr.epoch(order, valid, lr_t, active)
+        torch.cuda.synchronize()
+        t_epoch = time.perf_counter() - t0
+        n_step = sum(launch_counts().values())
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        vloss, vmae = tr.validate()
+        torch.cuda.synchronize()
+        t_val = time.perf_counter() - t0
+        n_val = sum(launch_counts().values())
+        res[mode] = (tr_loss.cpu().numpy(), vloss.cpu().numpy(),
+                     vmae.cpu().numpy())
+        print(f"  {mode:8s} epoch {t_epoch:.3f} s = "
+              f"{1e3 * t_epoch / steps:.3f} ms/step in the loop "
+              f"({n_step / steps:.1f} own-kernel launches/step); validation "
+              f"pass {1e3 * t_val:.2f} ms ({n_val} own-kernel launches); "
+              f"train {res[mode][0].tolist()} val {res[mode][1].tolist()} "
+              f"val MAE {res[mode][2].tolist()}", flush=True)
+    d = [float(np.abs(a - b).max()) for a, b in zip(res["fused"],
+                                                    res["unfused"])]
+    print(f"  fused vs unfused after one epoch (drop_p=0): max|d train loss| "
+          f"{d[0]:.2e}, |d val loss| {d[1]:.2e}, |d val MAE| {d[2]:.2e} "
+          f"(limit 1e-4)")
+    if not max(d) <= 1e-4:
+        fail("the fused GAT epoch disagrees with the unfused one")
+    return counts
+
+
+def run_gat_cli(dev, csv_dir):
+    """Phase 7.5: `train gat` through the command line on phase 5's CSVs,
+    fused (the path a user runs; its launch counts are returned), then
+    --fast and the per-fold trainer; each column-major submission parsed
+    back against the plain vectorization of the written weights'
+    predictions."""
+    from fcsr_tpu_torch import cli
+    from fcsr_tpu_torch.data import load_dataset
+    from fcsr_tpu_torch.iox import load_arrays
+    from fcsr_tpu_torch.kernels import (PLAIN_OPS, launch_counts,
+                                        reset_launch_counts)
+    from fcsr_tpu_torch.train.gat_loop import GATTrainConfig, predict_gat
+
+    data = load_dataset(csv_dir, device=dev)
+    cfg = GATTrainConfig()
+    model = cfg.model(device=dev)
+    n_rows = N_TEST * HR * (HR - 1) // 2
+    main_counts = None
+    for flags, epochs, splits in ((["--fast", "--fused"], "2", "3"),
+                                  (["--fast"], "1", "3"), ([], "1", "2")):
+        out_dir = os.path.join(WORK_DIR, "out_gat" + "".join(flags))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "gat", *flags, "--epochs", epochs,
+                       "--splits", splits, "--data-dir", csv_dir,
+                       "--out-dir", out_dir])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        counts = _nonzero(launch_counts())
+        if rc != 0:
+            fail(f"`train gat {' '.join(flags)}` returned {rc}")
+        params = load_arrays(os.path.join(out_dir, "gat_params.npz"))
+        preds = predict_gat(params, model, cfg, data["lr_test"])
+        got = _read_submission(os.path.join(out_dir, "submission.csv"),
+                               n_rows)
+        ref = PLAIN_OPS.vectorize_colmajor(preds.cpu()).reshape(-1).numpy()
+        err = float(np.abs(got.astype(np.float64) - ref).max())
+        print(f"  `train gat {' '.join(flags)}` ({splits} folds x {epochs} "
+              f"epochs) {t_cli:.1f} s; submission.csv 1 + {n_rows} lines, "
+              f"max|parsed - plain column-major vectorization| {err:.1e}; "
+              f"launches {counts}", flush=True)
+        if err != 0.0 or not np.isfinite(got).all():
+            fail("`train gat`: the submission does not parse back to the "
+                 "column-major vectorization of the predictions")
+        if main_counts is None:
+            main_counts = counts
+            missing = [k for k in GAT_PATH + ("vectorize_colmajor",)
+                       if not counts.get(k)]
+            if missing:
+                fail(f"`train gat --fast --fused` never launched: {missing}")
+    return main_counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -1156,6 +1722,11 @@ def main():
         check_entry_points(dev, step_args)
         mode_counts = run_trainer_modes(dev, data)
         parity_counts = run_parity_cli(dev, os.path.join(WORK_DIR, "data"))
+        print("phase 7: the GAT U-Net family", flush=True)
+        records.update(check_gat_kernels(dev))
+        check_gat_step(dev, data)
+        gat_counts = run_gat_trainer(dev, data)
+        gat_cli_counts = run_gat_cli(dev, os.path.join(WORK_DIR, "data"))
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -1168,7 +1739,8 @@ def main():
                "source": f"fcsr_tpu_torch/kernels/csrc/{k.source}.cu",
                "replaces": k.replaces,
                "launches": sum(c.get(name, 0) for c in (
-                   counts, csv_counts, mode_counts, parity_counts))}
+                   counts, csv_counts, mode_counts, parity_counts,
+                   gat_counts, gat_cli_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

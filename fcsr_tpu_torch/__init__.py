@@ -17,24 +17,37 @@ run on hand-written CUDA kernels (``kernels/csrc``) — with checkpoint /
 resume, the GSRNet evaluation and test-set forward, the submission writer
 in both orderings (``iox``), ``pipelines.run_gsr_cv_fast`` and the command
 line (``python -m fcsr_tpu_torch train gsr [--fast] [--fused-tail]
-[--fused] | predict | submit``).
+[--fused] | predict | submit``). The GAT Graph-U-Net family is ported the
+same way: ``models.GATGraphUnet``, ``train.train_gat`` and
+``train_gat_folds_parallel`` (unfused, or ``fused_step`` / ``fused_val`` on
+the kernels of ``models.gat_train_step_fused`` / ``gat_val_fused``, under
+host or on-device control), ``pipelines.run_gat_cv`` / ``run_gat_cv_fast``
+and ``train gat [--fast] [--fused]``.
 """
 
 from fcsr_tpu_torch.data import (kfold_indices, load_dataset,
                                  load_dataset_device, load_or_synthesize,
                                  write_kaggle_csvs)
 from fcsr_tpu_torch.iox import save_prediction
-from fcsr_tpu_torch.models import (GSRNet, gsr_step_loss_fused,
-                                   tail_loss_fused, train_step_fused,
-                                   unet_fused_fwdbwd, unet_fused_fwdonly)
-from fcsr_tpu_torch.pipelines import run_gsr_cv, run_gsr_cv_fast
-from fcsr_tpu_torch.train import (GSRFoldRunner, GSRTrainConfig,
-                                  evaluate_gsr, init_gsr, make_train_fn,
-                                  predict_gsr, train_gsr_fold)
+from fcsr_tpu_torch.models import (GATGraphUnet, GSRNet,
+                                   gat_train_step_fused, gat_val_fused,
+                                   gsr_step_loss_fused, tail_loss_fused,
+                                   train_step_fused, unet_fused_fwdbwd,
+                                   unet_fused_fwdonly)
+from fcsr_tpu_torch.pipelines import (run_gat_cv, run_gat_cv_fast,
+                                      run_gsr_cv, run_gsr_cv_fast)
+from fcsr_tpu_torch.train import (GATTrainConfig, GSRFoldRunner,
+                                  GSRTrainConfig, evaluate_gsr, init_gat,
+                                  init_gsr, make_train_fn, predict_gat,
+                                  predict_gsr, train_gat,
+                                  train_gat_folds_parallel, train_gsr_fold)
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["DEFAULT_DEVICE", "GSRFoldRunner", "GSRNet", "GSRTrainConfig",
-           "evaluate_gsr", "gsr_step_loss_fused", "init_gsr",
+__all__ = ["DEFAULT_DEVICE", "GATGraphUnet", "GATTrainConfig",
+           "GSRFoldRunner", "GSRNet", "GSRTrainConfig", "evaluate_gsr",
+           "gat_train_step_fused", "gat_val_fused", "gsr_step_loss_fused",
+           "init_gat", "init_gsr", "predict_gat", "run_gat_cv",
+           "run_gat_cv_fast", "train_gat", "train_gat_folds_parallel",
            "kfold_indices", "load_dataset", "load_dataset_device",
            "load_or_synthesize", "make_train_fn", "predict_gsr",
            "resolve_device", "run_gsr_cv", "run_gsr_cv_fast",

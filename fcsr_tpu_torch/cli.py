@@ -5,6 +5,7 @@ The parser of ``fcsr_tpu/cli.py`` plus ``--device``:
     python -m fcsr_tpu_torch train gsr --data-dir data     # parity trainer
     python -m fcsr_tpu_torch train gsr --fast [--fused-tail] --splits 3
     python -m fcsr_tpu_torch train gsr --fused --data-dir data --splits 3
+    python -m fcsr_tpu_torch train gat [--fast] [--fused] --splits 3
     python -m fcsr_tpu_torch predict --params ck.npz --out sub.csv
     python -m fcsr_tpu_torch submit  --csv submission.csv -m "message"
 
@@ -24,6 +25,7 @@ import sys
 __all__ = ["main", "build_parser"]
 
 PARAMS_FILE = "gsr_params.npz"
+GAT_PARAMS_FILE = "gat_params.npz"
 
 
 def _add_common(p):
@@ -93,9 +95,15 @@ def build_parser():
 
     a = trs.add_parser("gat")
     _add_common(a)
-    a.add_argument("--fast", action="store_true")
-    a.add_argument("--fused", action="store_true")
-    a.add_argument("--multichip", action="store_true")
+    a.add_argument("--fast", action="store_true",
+                   help="fold-parallel trainer: all folds trained together, "
+                        "the plateau schedule and early stop on the device")
+    a.add_argument("--fused", action="store_true",
+                   help="run each training step and the validation forwards "
+                        "on the hand-written CUDA kernels (implies --fast)")
+    a.add_argument("--multichip", action="store_true",
+                   help="shard the fold axis over all local devices "
+                        "(not ported yet)")
     a.add_argument("--splits", type=int, default=3)
     a.add_argument("--epochs", type=int, default=100)
     a.add_argument("--lr", type=float, default=1e-3)
@@ -146,11 +154,8 @@ def _refuse_unported(ap, args):
     if args.cmd != "train":
         return
     if args.family == "mlp":
-        _refuse(ap, "`train mlp`", "fcsr_tpu/models/mlp.py and "
-                                   "train/generic_loop.py")
-    if args.family == "gat":
-        _refuse(ap, "`train gat`", "fcsr_tpu/models/gat_unet.py and "
-                                   "train/gat_loop.py")
+        _refuse(ap, "`train mlp`", "fcsr_tpu/models/mlp.py and the MLP "
+                                   "trainer of train/generic_loop.py")
     if args.full_metrics:
         _refuse(ap, "--full-metrics", "fcsr_tpu/evalx (the metric suite)")
     if args.eval_backend != "device":
@@ -160,10 +165,51 @@ def _refuse_unported(ap, args):
         _refuse(ap, "--multichip", "fcsr_tpu/parallel (fold sharding)")
 
 
+def _train_gat(args):
+    """`train gat`: the GAT U-Net's CV run, one fold after the other, or
+    with --fast / --fused all folds together; writes the last fold's best
+    weights and the column-major submission."""
+    from fcsr_tpu_torch.data import load_or_synthesize
+    from fcsr_tpu_torch.iox import save_prediction, save_state
+    from fcsr_tpu_torch.pipelines import run_gat_cv, run_gat_cv_fast
+    from fcsr_tpu_torch.train.gat_loop import GATTrainConfig
+    from fcsr_tpu_torch.utils.reproducibility import set_seed
+
+    set_seed(args.seed)
+    data = load_or_synthesize(args.data_dir, seed=args.seed,
+                              device=args.device)
+    cfg = GATTrainConfig(epochs=args.epochs, lr=args.lr, dim=args.dim,
+                         fused_step=args.fused)
+    if args.fast or args.fused:
+        result = run_gat_cv_fast(data, cfg, splits=args.splits,
+                                 seed=args.seed, verbose=args.verbose,
+                                 device=args.device)
+    else:
+        result = run_gat_cv(data, splits=args.splits, seed=args.seed,
+                            cfg=cfg, verbose=args.verbose,
+                            device=args.device)
+    print(json.dumps({"fold_maes": result["fold_maes"],
+                      "mean_mae": result["mean_mae"],
+                      "timings": result["timings"]}))
+    os.makedirs(args.out_dir, exist_ok=True)
+    path = os.path.join(args.out_dir, GAT_PARAMS_FILE)
+    save_state(result["variables"], path)
+    print(f"params written: {path}")
+    if result["test_preds"] is not None:
+        # the unet-transformer notebook emits the column-major ordering
+        path = os.path.join(args.out_dir, "submission.csv")
+        save_prediction(result["test_preds"], path, ordering="colmajor")
+        print(f"submission written: {path}")
+    return 0
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
+
+    if args.cmd == "train" and args.family == "gat":
+        return _train_gat(args)
 
     if args.cmd == "train":
         from fcsr_tpu_torch.data import load_or_synthesize

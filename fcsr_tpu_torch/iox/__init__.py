@@ -5,10 +5,15 @@ from fcsr_tpu_torch.iox.submission import (DEFAULT_COMPETITION,
                                            kaggle_submit, save_prediction,
                                            submission_frame)
 from fcsr_tpu_torch.iox.weights import (flat_to_state, flax_to_state,
-                                        leaves_to_state, state_to_flat,
-                                        state_to_flax, state_to_leaves)
+                                        gat_flat_to_state, gat_flax_to_state,
+                                        gat_state_to_flat, gat_state_to_flax,
+                                        gat_state_to_leaves, leaves_to_state,
+                                        state_to_flat, state_to_flax,
+                                        state_to_leaves)
 
 __all__ = ["DEFAULT_COMPETITION", "flat_to_state", "flax_to_state",
+           "gat_flat_to_state", "gat_flax_to_state", "gat_state_to_flat",
+           "gat_state_to_flax", "gat_state_to_leaves",
            "kaggle_submit", "leaves_to_state", "load_arrays", "load_params",
            "load_state", "save_arrays", "save_prediction", "save_state",
            "state_to_flat", "state_to_flax", "state_to_leaves",

@@ -1,4 +1,5 @@
-"""Carry GSR-Net weights between the JAX package and the port.
+"""Carry GSR-Net and GAT U-Net weights between the JAX package and the
+port (GSR-Net first; the GAT U-Net's layouts are at the end of the file).
 
 Three layouts, as plain numpy arrays (the torch boundary is
 ``torch.from_numpy`` on the caller's side), and for the last two also as
@@ -31,7 +32,11 @@ import numpy as np
 __all__ = ["lin_names", "leaf_names", "flax_to_state", "state_to_flax",
            "state_to_leaves", "leaves_to_state", "leaves_to_flat",
            "flat_to_leaves", "state_to_flat", "flat_to_state",
-           "state_to_leaf_tensors", "leaf_tensors_to_state", "TAIL_NAMES"]
+           "state_to_leaf_tensors", "leaf_tensors_to_state", "TAIL_NAMES",
+           "gat_dims", "gat_layer_specs", "gat_leaf_names",
+           "gat_leaf_shapes", "gat_flax_to_state", "gat_state_to_flax",
+           "gat_state_to_leaves", "gat_leaves_to_state", "gat_state_to_flat",
+           "gat_flat_to_state", "gat_leaf_tensors_to_state"]
 
 TAIL_NAMES = ("layer.weights", "gc1.weight", "gc2.weight")
 
@@ -199,4 +204,206 @@ def leaf_tensors_to_state(leaves: Mapping[str, "torch.Tensor"]):
         out[f"{prefix}.bias"] = leaves[f"b:{n}"].squeeze(-2)
     for key in TAIL_NAMES:
         out[key] = leaves[key]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GAT Graph-U-Net
+# ---------------------------------------------------------------------------
+# Three layouts again:
+#
+# * the JAX package's flax tree: per GAT layer ``w`` (in, heads * d_head),
+#   ``att_src`` / ``att_dst`` (heads, d_head), ``bias`` (heads * d_head,);
+#   ``pools_{i}.proj`` and ``upsampler.upsample_mlp`` Dense (kernel (in, out));
+# * the port's ``state_dict`` names - the reference's torch names, with its
+#   PyG ``GATConv`` as submodule ``gat``:
+#
+#       {down_gcns,up_gcns}.{i}.gat.lin.weight    (heads * d_head, in) = w.T
+#       ....gat.att_src / att_dst                 (1, heads, d_head)
+#       ....gat.bias                              (heads * d_head,)
+#       bottom_gcn.gat.*                          (2 heads)
+#       pools.{i}.proj.{weight,bias}              Linear(in, 1)
+#       upsampler.upsample_mlp.{weight,bias}      Linear(n_nodes, m_nodes)
+#
+#   (the reference reverses its up_gcns after construction, so ``up_gcns.{i}``
+#   is the i-th layer in execution order in both);
+# * the fused step's canonical leaf order (``gat_leaf_names``): per GAT layer
+#   in forward order (down levels, bottom, up levels) ``w, att_src, att_dst,
+#   bias (1, out)``, then per pool ``kernel (in, 1), bias (1, 1)``, then the
+#   upsampler's ``kernel (n, m), bias (1, m)``; flattened leaf after leaf
+#   into one (P,) vector per fold.
+
+_GAT_LAYER_LEAVES = ("w", "att_src", "att_dst", "bias")
+
+
+def gat_dims(dim: int, ks) -> List[int]:
+    """Per-level feature widths, ``int(width / k)`` per level: 16 -> 32 ->
+    64 -> 128 at the shipped config."""
+    dims = [dim]
+    for k in ks:
+        dims.append(int(dims[-1] / k))
+    return dims
+
+
+def gat_layer_specs(dim: int, ks, heads: int):
+    """(flax module name, in_dim, out_dim, heads) of every GAT layer in
+    forward order: down levels, bottom (always 2 heads), up levels."""
+    L = len(ks)
+    dims = gat_dims(dim, ks)
+    specs = [(f"down_gcns_{i}", dims[i], dims[i + 1], heads)
+             for i in range(L)]
+    specs.append(("bottom_gcn", dims[-1], dims[-1], 2))
+    specs += [(f"up_gcns_{i}", dims[L - i], dims[L - i - 1], heads)
+              for i in range(L)]
+    return specs
+
+
+def _gat_layer_modules(n_levels: int) -> List[str]:
+    return ([f"down_gcns_{i}" for i in range(n_levels)] + ["bottom_gcn"]
+            + [f"up_gcns_{i}" for i in range(n_levels)])
+
+
+def gat_leaf_names(n_levels: int) -> List[str]:
+    """``<flax module>.<leaf>`` of the fused step's leaves in their order
+    (36 at 3 levels)."""
+    names = [f"{mod}.{leaf}" for mod in _gat_layer_modules(n_levels)
+             for leaf in _GAT_LAYER_LEAVES]
+    for i in range(n_levels):
+        names += [f"pools_{i}.kernel", f"pools_{i}.bias"]
+    return names + ["upsampler.kernel", "upsampler.bias"]
+
+
+def gat_leaf_shapes(dim: int, ks, heads: int, n_nodes: int, m_nodes: int):
+    """Shapes of ``gat_leaf_names``'s leaves. Layer widths are
+    ``heads * (out // heads)``, as the parameters are built."""
+    shapes = []
+    for _, in_d, out_d, h in gat_layer_specs(dim, ks, heads):
+        d_head = out_d // h
+        shapes += [(in_d, h * d_head), (h, d_head), (h, d_head),
+                   (1, h * d_head)]
+    dims = gat_dims(dim, ks)
+    for i in range(len(ks)):
+        shapes += [(dims[i + 1], 1), (1, 1)]
+    return shapes + [(n_nodes, m_nodes), (1, m_nodes)]
+
+
+def _gat_torch_prefix(flax_name: str) -> str:
+    """``down_gcns_2`` -> ``down_gcns.2.gat``; ``bottom_gcn`` ->
+    ``bottom_gcn.gat``; ``pools_1`` -> ``pools.1.proj``."""
+    head, _, tail = flax_name.rpartition("_")
+    if tail.isdigit():
+        return f"{head}.{tail}." + ("proj" if head == "pools" else "gat")
+    return f"{flax_name}.gat"
+
+
+def _gat_n_levels(state) -> int:
+    return sum(1 for k in state
+               if k.startswith("pools.") and k.endswith(".proj.bias"))
+
+
+def gat_flax_to_state(params) -> Dict[str, np.ndarray]:
+    """Flax GATGraphUnet param tree (numpy or array-like leaves) ->
+    state_dict mapping of float32 numpy arrays."""
+    p = params["params"]
+    n_levels = sum(1 for k in p if k.startswith("pools_"))
+
+    def arr(a):
+        return np.ascontiguousarray(np.asarray(a, np.float32))
+
+    out = {}
+    for mod in _gat_layer_modules(n_levels):
+        prefix = _gat_torch_prefix(mod)
+        out[f"{prefix}.lin.weight"] = arr(np.asarray(p[mod]["w"]).T)
+        out[f"{prefix}.att_src"] = arr(p[mod]["att_src"])[None]
+        out[f"{prefix}.att_dst"] = arr(p[mod]["att_dst"])[None]
+        out[f"{prefix}.bias"] = arr(p[mod]["bias"])
+    for i in range(n_levels):
+        proj = p[f"pools_{i}"]["proj"]
+        out[f"pools.{i}.proj.weight"] = arr(np.asarray(proj["kernel"]).T)
+        out[f"pools.{i}.proj.bias"] = arr(proj["bias"])
+    up = p["upsampler"]["upsample_mlp"]
+    out["upsampler.upsample_mlp.weight"] = arr(np.asarray(up["kernel"]).T)
+    out["upsampler.upsample_mlp.bias"] = arr(up["bias"])
+    return out
+
+
+def gat_state_to_flax(state: Mapping[str, np.ndarray]):
+    """Inverse of ``gat_flax_to_state``."""
+    n_levels = _gat_n_levels(state)
+
+    def arr(key):
+        return np.asarray(state[key], np.float32)
+
+    tree = {}
+    for mod in _gat_layer_modules(n_levels):
+        prefix = _gat_torch_prefix(mod)
+        tree[mod] = {"w": np.ascontiguousarray(arr(f"{prefix}.lin.weight").T),
+                     "att_src": arr(f"{prefix}.att_src")[0],
+                     "att_dst": arr(f"{prefix}.att_dst")[0],
+                     "bias": arr(f"{prefix}.bias")}
+    for i in range(n_levels):
+        tree[f"pools_{i}"] = {"proj": {
+            "kernel": np.ascontiguousarray(arr(f"pools.{i}.proj.weight").T),
+            "bias": arr(f"pools.{i}.proj.bias")}}
+    tree["upsampler"] = {"upsample_mlp": {
+        "kernel": np.ascontiguousarray(
+            arr("upsampler.upsample_mlp.weight").T),
+        "bias": arr("upsampler.upsample_mlp.bias")}}
+    return {"params": tree}
+
+
+def gat_state_to_leaves(state: Mapping[str, np.ndarray]) -> List[np.ndarray]:
+    """state_dict -> the fused step's leaf list (``gat_leaf_names``)."""
+    n_levels = _gat_n_levels(state)
+
+    def arr(key):
+        return np.asarray(state[key], np.float32)
+
+    leaves = []
+    for mod in _gat_layer_modules(n_levels):
+        prefix = _gat_torch_prefix(mod)
+        leaves += [arr(f"{prefix}.lin.weight").T, arr(f"{prefix}.att_src")[0],
+                   arr(f"{prefix}.att_dst")[0], arr(f"{prefix}.bias")[None]]
+    for i in range(n_levels):
+        leaves += [arr(f"pools.{i}.proj.weight").T,
+                   arr(f"pools.{i}.proj.bias")[None]]
+    leaves += [arr("upsampler.upsample_mlp.weight").T,
+               arr("upsampler.upsample_mlp.bias")[None]]
+    return [np.ascontiguousarray(a) for a in leaves]
+
+
+def gat_leaves_to_state(leaves: List[np.ndarray]) -> Dict[str, np.ndarray]:
+    """Inverse of ``gat_state_to_leaves``."""
+    n_levels = (len(leaves) - 6) // 10
+    return {k: np.ascontiguousarray(v) for k, v in gat_leaf_tensors_to_state(
+        dict(zip(gat_leaf_names(n_levels),
+                 (np.asarray(a) for a in leaves)))).items()}
+
+
+def gat_state_to_flat(state: Mapping[str, np.ndarray]) -> np.ndarray:
+    return leaves_to_flat(gat_state_to_leaves(state))
+
+
+def gat_flat_to_state(flat: np.ndarray, shapes) -> Dict[str, np.ndarray]:
+    return gat_leaves_to_state(flat_to_leaves(flat, shapes))
+
+
+def gat_leaf_tensors_to_state(leaves: Mapping[str, "torch.Tensor"]):
+    """{leaf name: tensor or array} -> state_dict names, as views (weights
+    transposed, biases squeezed), so tensors stay differentiable: how the
+    unfused trainer reads a model out of the flat buffer. 2-D leaves only
+    (one model)."""
+    n_levels = sum(1 for k in leaves if k.startswith("pools_")) // 2
+    out = {}
+    for mod in _gat_layer_modules(n_levels):
+        prefix = _gat_torch_prefix(mod)
+        out[f"{prefix}.lin.weight"] = leaves[f"{mod}.w"].T
+        out[f"{prefix}.att_src"] = leaves[f"{mod}.att_src"][None]
+        out[f"{prefix}.att_dst"] = leaves[f"{mod}.att_dst"][None]
+        out[f"{prefix}.bias"] = leaves[f"{mod}.bias"][0]
+    for i in range(n_levels):
+        out[f"pools.{i}.proj.weight"] = leaves[f"pools_{i}.kernel"].T
+        out[f"pools.{i}.proj.bias"] = leaves[f"pools_{i}.bias"][0]
+    out["upsampler.upsample_mlp.weight"] = leaves["upsampler.kernel"].T
+    out["upsampler.upsample_mlp.bias"] = leaves["upsampler.bias"][0]
     return out

@@ -23,7 +23,7 @@ from typing import Dict
 __all__ = ["SOURCES", "build_dir", "load_library", "build_all", "BUILD_INFO"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("bgemm", "rank_select", "tail", "adam", "triu")
+SOURCES = ("bgemm", "rank_select", "tail", "adam", "triu", "gat")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,6 +8,8 @@
 // rank yields indices directly and pooling is a gather, unpooling a
 // scatter — exact, no products.
 //
+// The score is sigmoid(logits / div): div = 100 in GSR-Net's pool, 1 in the
+// GAT U-Net's.
 // Rank: rank_i = #{j : s_j > s_i} + #{j < i : s_j == s_i} (descending, ties
 // to the lower index, as lax.top_k). One block per fold, n <= 1024 scores in
 // shared memory, O(n^2) compares — ~25k at n = 160, far below any bound.
@@ -21,12 +23,13 @@ __global__ void rank_select_kernel(const float* __restrict__ logits,
                                    float* __restrict__ s_out,
                                    int* __restrict__ idx,
                                    float* __restrict__ vals,
-                                   int* __restrict__ slot, int n, int k) {
+                                   int* __restrict__ slot, int n, int k,
+                                   float div) {
   extern __shared__ float key[];
   const int f = blockIdx.x, i = threadIdx.x;
   float si = 0.f;
   if (i < n) {
-    si = 1.f / (1.f + expf(-(logits[(long long)f * n + i] / 100.f)));
+    si = 1.f / (1.f + expf(-(logits[(long long)f * n + i] / div)));
     s_out[(long long)f * n + i] = si;
     // NaN scores sort last, so the ranks stay a permutation and every
     // selected index is in range
@@ -86,14 +89,15 @@ __global__ void scatter_rows_kernel(const float* __restrict__ src,
 }
 
 // Adjoint of the pooling gate w.r.t. the pre-sigmoid logits:
-// out[f, p] = slot >= 0 ? <g[f, slot], pre[f, slot]> * s (1 - s) / 100 : 0.
+// out[f, p] = slot >= 0 ? <g[f, slot], pre[f, slot]> * s (1 - s) * scale : 0
+// (scale = 1 / div of the forward's sigmoid(logits / div)).
 // One warp per node.
 __global__ void pool_logits_bwd_kernel(const float* __restrict__ g,
                                        const float* __restrict__ pre,
                                        const int* __restrict__ slot,
                                        const float* __restrict__ s,
                                        float* __restrict__ out,
-                                       int n, int k, int cols) {
+                                       int n, int k, int cols, float scale) {
   const int f = blockIdx.y;
   const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -108,7 +112,7 @@ __global__ void pool_logits_bwd_kernel(const float* __restrict__ g,
   if (lane == 0) {
     const float sp = s[(long long)f * n + p];
     out[(long long)f * n + p] =
-        r >= 0 ? acc * sp * (1.f - sp) * (1.f / 100.f) : 0.f;
+        r >= 0 ? acc * sp * (1.f - sp) * scale : 0.f;
   }
 }
 
@@ -131,11 +135,11 @@ __global__ void add_bias_kernel(const float* __restrict__ x, long long sx,
 
 extern "C" int fcsr_rank_select(const float* logits, float* s, int* idx,
                                 float* vals, int* slot, int batch, int n,
-                                int k, void* stream) {
+                                int k, float div, void* stream) {
   const int threads = ((n + 31) / 32) * 32;
   rank_select_kernel<<<batch, threads, n * sizeof(float),
                        (cudaStream_t)stream>>>(logits, s, idx, vals, slot, n,
-                                               k);
+                                               k, div);
   return (int)cudaGetLastError();
 }
 
@@ -162,10 +166,10 @@ extern "C" int fcsr_scatter_rows(const float* src, const int* slot,
 extern "C" int fcsr_pool_logits_bwd(const float* g, const float* pre,
                                     const int* slot, const float* s,
                                     float* out, int batch, int n, int k,
-                                    int cols, void* stream) {
+                                    int cols, float scale, void* stream) {
   dim3 grid((n + 7) / 8, batch);
   pool_logits_bwd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      g, pre, slot, s, out, n, k, cols);
+      g, pre, slot, s, out, n, k, cols, scale);
   return (int)cudaGetLastError();
 }
 

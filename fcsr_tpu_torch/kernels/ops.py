@@ -24,7 +24,8 @@ import torch
 from fcsr_tpu_torch.kernels.build import load_library
 
 __all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "launch_counts",
-           "reset_launch_counts", "rows_contiguous"]
+           "reset_launch_counts", "rows_contiguous", "philox_words",
+           "bits_to_keep", "gat_attention_math"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,18 +65,20 @@ class Kernel:
 _STEP = "fcsr_tpu/models/fused_step.py:925"
 # the three data-path TPU kernels, by their pallas_call lines
 _TRIU = "fcsr_tpu/core/pallas_kernels.py"
+# gat_train_step_fused's pallas_call (gat_val_fused's is :547)
+_GAT_STEP = "fcsr_tpu/models/fused_gat.py:497"
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("bgemm_f32", "bgemm", "fcsr_bgemm_f32",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _LL, _I, _LL, _I, _LL, _LL, _I, _LL, _I], _STEP),
     Kernel("rank_select", "rank_select", "fcsr_rank_select",
-           [_P, _P, _P, _P, _P, _I, _I, _I], _STEP),
+           [_P, _P, _P, _P, _P, _I, _I, _I, _F], _STEP),
     Kernel("gather_rows", "rank_select", "fcsr_gather_rows",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
     Kernel("scatter_rows", "rank_select", "fcsr_scatter_rows",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
     Kernel("pool_logits_bwd", "rank_select", "fcsr_pool_logits_bwd",
-           [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
+           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F], _STEP),
     Kernel("add_bias", "rank_select", "fcsr_add_bias",
            [_P, _LL, _P, _LL, _P, _I, _I, _I], _STEP),
     Kernel("tail_normalize", "tail", "fcsr_tail_normalize",
@@ -100,6 +103,28 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            [_P, _P, _I, _I], _TRIU + ":166"),
     Kernel("normalize_adj_batch", "triu", "fcsr_normalize_adj_batch",
            [_P, _P, _I, _I], _TRIU + ":191"),
+    Kernel("gat_attention", "gat", "fcsr_gat_attention",
+           [_P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I,
+            _I, _F, _F, _I], _GAT_STEP),
+    Kernel("gat_attention_bwd", "gat", "fcsr_gat_attention_bwd",
+           [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _LL,
+            _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _F, _F], _GAT_STEP),
+    Kernel("philox_keep_mask", "gat", "fcsr_philox_keep_mask",
+           [_P, _P, _P, _I, _I, _LL, _I, _F, _F],
+           "tools/experiments/gat_dropout_keeprate.py:32"),
+    Kernel("gat_pool_adj", "gat", "fcsr_gat_pool_adj",
+           [_P, _P, _P, _I, _I, _I, _F], _GAT_STEP),
+    Kernel("col_softmax", "gat", "fcsr_col_softmax",
+           [_P, _P, _I, _I, _I], _GAT_STEP),
+    Kernel("col_softmax_bwd", "gat", "fcsr_col_softmax_bwd",
+           [_P, _P, _P, _I, _I, _I], _GAT_STEP),
+    Kernel("offdiag_mse", "gat", "fcsr_offdiag_mse",
+           [_P, _P, _P, _I, _I, _P, _I, _I], _GAT_STEP),
+    Kernel("offdiag_mae", "gat", "fcsr_offdiag_mae",
+           [_P, _P, _P, _I, _I, _I, _I], "fcsr_tpu/models/fused_gat.py:547"),
+    Kernel("adamw_masked", "gat", "fcsr_adamw_masked",
+           [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _LL,
+            _F, _F, _F, _F, _F, _F], _GAT_STEP),
 )}
 
 
@@ -237,11 +262,12 @@ def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None):
 # rank_select and the row helpers of pooling / unpooling
 # ---------------------------------------------------------------------------
 
-def rank_select_plain(logits, k):
-    """(s, idx, vals, slot): s = sigmoid(logits / 100) (F, n); idx (F, k)
+def rank_select_plain(logits, k, div=100.0):
+    """(s, idx, vals, slot): s = sigmoid(logits / div) (F, n); idx (F, k)
     int32 of the top-k scores in descending order with ties to the lower
-    index; vals = s[idx]; slot (F, n) int32 = rank if kept else -1."""
-    s = torch.sigmoid(logits / 100.0)
+    index; vals = s[idx]; slot (F, n) int32 = rank if kept else -1.
+    ``div`` is 100 in GSR-Net's pool and 1 in the GAT U-Net's."""
+    s = torch.sigmoid(logits / div)
     key = torch.where(torch.isnan(s), float("-inf"), s)
     order = torch.sort(key, dim=-1, descending=True, stable=True).indices
     idx = order[:, :k].to(torch.int32)
@@ -252,9 +278,9 @@ def rank_select_plain(logits, k):
     return s, idx, vals, slot
 
 
-def rank_select(logits, k):
+def rank_select(logits, k, div=100.0):
     if not logits.is_cuda:
-        return rank_select_plain(logits, k)
+        return rank_select_plain(logits, k, div)
     _check(logits.device, logits)
     _contig(logits)
     F, n = logits.shape
@@ -267,7 +293,7 @@ def rank_select(logits, k):
     vals = torch.empty(F, k, dtype=torch.float32, device=dev)
     slot = torch.empty(F, n, dtype=torch.int32, device=dev)
     KERNELS["rank_select"](_ptr(logits), _ptr(s), _ptr(idx), _ptr(vals),
-                           _ptr(slot), F, n, k)
+                           _ptr(slot), F, n, k, float(div))
     return s, idx, vals, slot
 
 
@@ -323,20 +349,21 @@ def scatter_rows(src, slot, scale=None, add=None):
     return out
 
 
-def pool_logits_bwd_plain(g, pre, slot, s):
+def pool_logits_bwd_plain(g, pre, slot, s, scale=1.0 / 100.0):
     dot = (g * pre).sum(-1)
     g_s = torch.where(slot >= 0,
                       torch.take_along_dim(dot, slot.clamp(min=0).long(), 1),
                       torch.zeros((), dtype=g.dtype, device=g.device))
-    return g_s * s * (1.0 - s) * (1.0 / 100.0)
+    return g_s * s * (1.0 - s) * scale
 
 
-def pool_logits_bwd(g, pre, slot, s):
+def pool_logits_bwd(g, pre, slot, s, scale=1.0 / 100.0):
     """Adjoint of the pooled rows ``pre * s[idx]`` w.r.t. the pooling
     logits: (F, n), ``<g, pre>`` of the node's kept row times
-    ``s (1 - s) / 100``, 0 for dropped nodes."""
+    ``s (1 - s) scale``, 0 for dropped nodes; ``scale`` is 1 / div of the
+    forward's ``rank_select``."""
     if not g.is_cuda:
-        return pool_logits_bwd_plain(g, pre, slot, s)
+        return pool_logits_bwd_plain(g, pre, slot, s, scale)
     _check(g.device, g, pre, s)
     _check(g.device, slot, dtype=torch.int32)
     _contig(g, pre, slot, s)
@@ -344,7 +371,7 @@ def pool_logits_bwd(g, pre, slot, s):
     n = slot.shape[1]
     out = torch.empty(F, n, dtype=torch.float32, device=g.device)
     KERNELS["pool_logits_bwd"](_ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
-                               _ptr(out), F, n, k, m)
+                               _ptr(out), F, n, k, m, float(scale))
     return out
 
 
@@ -678,11 +705,427 @@ def normalize_adj_batch(a):
     return out
 
 
+# ---------------------------------------------------------------------------
+# gat: masked multi-head attention and its adjoint, the counter-based
+# dropout masks, pooled adjacency, column softmax, off-diagonal losses, AdamW
+# ---------------------------------------------------------------------------
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(const, x):
+    """(high, low) 32-bit words of ``const * x`` for int64 ``x`` in
+    [0, 2^32), through 16-bit halves so that int64 never overflows."""
+    p_lo = const * (x & 0xFFFF)
+    p_hi = const * (x >> 16)
+    lo = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (lo >> 32), lo & _U32
+
+
+def philox_words(seeds, mask_id, heads, per_head):
+    """(F, heads, per_head) int64 words in [0, 2^32): word 0 of
+    Philox-4x32-10 at counter (element, head, mask_id, 0) under the key
+    ``seeds[f]`` (two int32 words per fold) — what the kernels draw."""
+    dev = seeds.device
+    F = seeds.shape[0]
+    key = seeds.to(torch.int64) & _U32
+    k0, k1 = key[:, 0].view(F, 1, 1), key[:, 1].view(F, 1, 1)
+    c0 = torch.arange(per_head, dtype=torch.int64, device=dev).view(
+        1, 1, per_head).expand(F, heads, per_head)
+    c1 = torch.arange(heads, dtype=torch.int64, device=dev).view(
+        1, heads, 1).expand(F, heads, per_head)
+    c2 = torch.full_like(c0, mask_id)
+    c3 = torch.zeros_like(c0)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W0) & _U32
+        k1 = (k1 + _PHILOX_W1) & _U32
+    return c0
+
+
+def bits_to_keep(words, drop_p):
+    """Unsigned 32-bit words (int64 values) -> float32 keep mask
+    ~ Bernoulli(1 - drop_p): ``u = (word >>> 8) / 2^24``, keep when
+    ``u >= drop_p`` (compared in float32) — the reference's transform."""
+    u = (words >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    p32 = torch.tensor(drop_p, dtype=torch.float32).item()
+    return (u >= p32).to(torch.float32)
+
+
+def _seeds_ok(seeds, F):
+    if seeds is None or seeds.dtype != torch.int32 \
+            or tuple(seeds.shape) != (F, 2) or not seeds.is_contiguous():
+        raise ValueError(f"dropout needs contiguous int32 seeds of shape "
+                         f"({F}, 2)")
+
+
+def philox_keep_mask_plain(seeds, mask_id, heads, rows, cols, drop_p,
+                           x=None, scale=1.0):
+    keep = bits_to_keep(philox_words(seeds, mask_id, heads, rows * cols),
+                        drop_p).view(seeds.shape[0], heads, rows, cols)
+    if x is None:
+        return keep * scale
+    return ((x.reshape(keep.shape) * keep) * scale).view(x.shape)
+
+
+def philox_keep_mask(seeds, mask_id, heads, rows, cols, drop_p, x=None,
+                     scale=1.0):
+    """The dropout keep-mask ``mask_id`` (its place in the step's order)
+    under the per-fold ``seeds`` (F, 2) int32: (F, heads, rows, cols) of
+    0 / 1 times ``scale``; with ``x`` of that many elements,
+    ``(x * keep) * scale`` in x's shape. The attention kernels draw the
+    same bits from the same function, so no mask is stored."""
+    F = seeds.shape[0]
+    _seeds_ok(seeds, F)
+    if not seeds.is_cuda:
+        return philox_keep_mask_plain(seeds, mask_id, heads, rows, cols,
+                                      drop_p, x, scale)
+    if rows * cols >= 2 ** 32:
+        raise ValueError("philox_keep_mask: mask too large for its counter")
+    if x is None:
+        out = torch.empty(F, heads, rows, cols, dtype=torch.float32,
+                          device=seeds.device)
+    else:
+        _check(seeds.device, x)
+        _contig(x)
+        if x.numel() != F * heads * rows * cols:
+            raise ValueError("philox_keep_mask: x does not match the mask")
+        out = torch.empty_like(x)
+    KERNELS["philox_keep_mask"](_ptr(seeds), _ptr(x), _ptr(out), F, heads,
+                                rows * cols, int(mask_id), float(drop_p),
+                                float(scale))
+    return out
+
+
+def _drop_scale(drop_p):
+    return 1.0 / (1.0 - drop_p)
+
+
+def gat_attention_math(h, att_src, att_dst, bias, a, keep_scale=None,
+                       global_shift=False):
+    """Dense masked multi-head attention (PyG GATConv semantics) as
+    differentiable PyTorch: h (F, n, H d) the projected features, att_src /
+    att_dst (F, H, d), bias (F, 1, H d), a (F, n, n). Returns
+    (relu(out + bias), alpha) with alpha (F, H, n, n) the attention before
+    dropout; ``keep_scale`` = (keep mask (F, H, n, n), 1 / (1 - p))."""
+    F, n, HD = h.shape
+    H, d = att_src.shape[-2:]
+    hh = h.reshape(F, n, H, d)
+    s = (hh * att_src[:, None]).sum(-1)                     # (F, n, H)
+    t = (hh * att_dst[:, None]).sum(-1)
+    z = s.transpose(1, 2)[:, :, None, :] + t.transpose(1, 2)[:, :, :, None]
+    z = torch.where(z >= 0, z, 0.2 * z)                     # slope 1 at 0
+    mask = ((a != 0) | _eye_mask(n, a.device))[:, None]
+    logits = z.masked_fill(~mask, -1e30)
+    zmax = logits.amax(-1, keepdim=True)
+    if global_shift:
+        zmax = zmax.amax(1, keepdim=True)
+    e = torch.exp(logits - zmax.detach()) * mask
+    alpha = e / e.sum(-1, keepdim=True)
+    ad = alpha
+    if keep_scale is not None:
+        ad = alpha * keep_scale[0] * keep_scale[1]
+    out = torch.matmul(ad, hh.permute(0, 2, 1, 3))          # (F, H, n, d)
+    out = out.permute(0, 2, 1, 3).reshape(F, n, HD)
+    return torch.relu(out + bias.reshape(F, 1, HD)), alpha
+
+
+def _keep_scale(seeds, mask_id, H, n, drop_p):
+    if not drop_p > 0:
+        return None
+    return (philox_keep_mask_plain(seeds, mask_id, H, n, n, drop_p),
+            _drop_scale(drop_p))
+
+
+def gat_attention_plain(h, att_src, att_dst, bias, a, seeds=None, mask_id=0,
+                        drop_p=0.0, global_shift=False, need_alpha=True):
+    H = att_src.shape[-2]
+    y, alpha = gat_attention_math(
+        h, att_src, att_dst, bias, a,
+        _keep_scale(seeds, mask_id, H, h.shape[1], drop_p), global_shift)
+    return y, (alpha if need_alpha else None)
+
+
+def _param_stride(t, rows, cols, what):
+    """Batch stride of a (F, rows, cols) parameter operand with dense
+    rows (a leaf view of the flat buffer, or one model's leaf expanded)."""
+    if t.dim() != 3 or tuple(t.shape[1:]) != (rows, cols):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
+                         f"(F, {rows}, {cols})")
+    _rows_contig(t)
+    return t.stride(0)
+
+
+def gat_attention(h, att_src, att_dst, bias, a, seeds=None, mask_id=0,
+                  drop_p=0.0, global_shift=False, need_alpha=True):
+    """One GAT layer after its projection: (y, alpha) with
+    ``y = relu(attend(h) + bias)`` (F, n, H d) and alpha (F, H, n, n) the
+    softmax over the existing-edge + self-loop sources before dropout
+    (None unless ``need_alpha``). With ``drop_p > 0`` the attention is
+    multiplied by keep-mask ``mask_id`` of ``seeds`` over 1 - p.
+    ``global_shift`` takes the softmax shift over all heads of a row."""
+    if not h.is_cuda:
+        return gat_attention_plain(h, att_src, att_dst, bias, a, seeds,
+                                   mask_id, drop_p, global_shift, need_alpha)
+    F, n, HD = h.shape
+    H, d = att_src.shape[-2:]
+    _check(h.device, h, att_src, att_dst, bias, a)
+    _contig(h, a)
+    if H * d != HD or tuple(a.shape) != (F, n, n) or att_src.shape[0] != F:
+        raise ValueError("gat_attention shape mismatch")
+    s_src = _param_stride(att_src, H, d, "att_src")
+    s_dst = _param_stride(att_dst, H, d, "att_dst")
+    s_bias = _param_stride(bias, 1, HD, "bias")
+    if drop_p > 0:
+        _seeds_ok(seeds, F)
+        _check(h.device, seeds, dtype=torch.int32)
+    y = torch.empty_like(h)
+    alpha = torch.empty(F, H, n, n, dtype=torch.float32, device=h.device) \
+        if need_alpha else None
+    KERNELS["gat_attention"](
+        _ptr(h), _ptr(att_src), s_src, _ptr(att_dst), s_dst, _ptr(bias),
+        s_bias, _ptr(a), _ptr(seeds) if drop_p > 0 else None, _ptr(y),
+        _ptr(alpha), F, n, H, d, int(mask_id), float(drop_p),
+        float(_drop_scale(drop_p)), int(bool(global_shift)))
+    return y, alpha
+
+
+def gat_attention_bwd_plain(g_y, y, alpha, h, att_src, att_dst, seeds,
+                            mask_id, drop_p, g_src, g_dst, g_bias):
+    F, n, HD = h.shape
+    H, d = att_src.shape[-2:]
+    go = torch.where(y > 0, g_y, torch.zeros((), dtype=g_y.dtype,
+                                             device=g_y.device))
+    goh = go.view(F, n, H, d).permute(0, 2, 1, 3)            # (F, H, n, d)
+    hh = h.view(F, n, H, d).permute(0, 2, 1, 3)
+    asrc, adst = att_src[:, :, None, :], att_dst[:, :, None, :]
+    ks = _keep_scale(seeds, mask_id, H, n, drop_p)
+    g_al = torch.matmul(goh, hh.transpose(-1, -2))           # (F, H, i, src)
+    ad = alpha
+    if ks is not None:
+        g_al = g_al * ks[0] * ks[1]
+        ad = alpha * ks[0] * ks[1]
+    g_logit = alpha * (g_al - (alpha * g_al).sum(-1, keepdim=True))
+    z = (hh * asrc).sum(-1)[:, :, None, :] + (hh * adst).sum(-1)[:, :, :, None]
+    gz = torch.where(z >= 0, g_logit, 0.2 * g_logit)
+    gs, gt = gz.sum(-2), gz.sum(-1)                          # (F, H, n)
+    g_hh = (torch.matmul(ad.transpose(-1, -2), goh)
+            + gs[..., None] * asrc + gt[..., None] * adst)
+    g_src.copy_((gs[..., None] * hh).sum(-2))
+    g_dst.copy_((gt[..., None] * hh).sum(-2))
+    g_bias.copy_(go.sum(1, keepdim=True))
+    return g_hh.permute(0, 2, 1, 3).reshape(F, n, HD)
+
+
+def gat_attention_bwd(g_y, y, alpha, h, att_src, att_dst, seeds, mask_id,
+                      drop_p, g_src, g_dst, g_bias):
+    """Adjoint of ``gat_attention`` given d y: returns d h (through the
+    values and through both attention logits) and writes d att_src,
+    d att_dst (F, H, d) and d bias (F, 1, H d) into the given views. The
+    keep-mask is drawn again from ``seeds``; alpha is the forward's."""
+    if not h.is_cuda:
+        return gat_attention_bwd_plain(g_y, y, alpha, h, att_src, att_dst,
+                                       seeds, mask_id, drop_p, g_src, g_dst,
+                                       g_bias)
+    F, n, HD = h.shape
+    H, d = att_src.shape[-2:]
+    _check(h.device, g_y, y, alpha, h, att_src, att_dst, g_src, g_dst,
+           g_bias)
+    _contig(g_y, y, alpha, h)
+    if g_y.shape != h.shape or y.shape != h.shape \
+            or tuple(alpha.shape) != (F, H, n, n):
+        raise ValueError("gat_attention_bwd shape mismatch")
+    strides = [_param_stride(t, r, c, what) for t, r, c, what in (
+        (att_src, H, d, "att_src"), (att_dst, H, d, "att_dst"),
+        (g_src, H, d, "g_src"), (g_dst, H, d, "g_dst"),
+        (g_bias, 1, HD, "g_bias"))]
+    if drop_p > 0:
+        _seeds_ok(seeds, F)
+        _check(h.device, seeds, dtype=torch.int32)
+    dev = h.device
+    gz = torch.empty(F, H, n, n, dtype=torch.float32, device=dev)
+    gs = torch.empty(F, H, n, dtype=torch.float32, device=dev)
+    gt = torch.empty_like(gs)
+    g_h = torch.empty_like(h)
+    KERNELS["gat_attention_bwd"](
+        _ptr(g_y), _ptr(y), _ptr(alpha), _ptr(h), _ptr(att_src), strides[0],
+        _ptr(att_dst), strides[1], _ptr(seeds) if drop_p > 0 else None,
+        _ptr(gz), _ptr(gs), _ptr(gt), _ptr(g_h), _ptr(g_src), strides[2],
+        _ptr(g_dst), strides[3], _ptr(g_bias), strides[4], F, n, H, d,
+        int(mask_id), float(drop_p), float(_drop_scale(drop_p)))
+    return g_h
+
+
+def gat_pool_adj_plain(a, idx, eps=1e-5):
+    ix = idx.long()
+    g = torch.take_along_dim(torch.take_along_dim(a, ix[:, :, None], 1),
+                             ix[:, None, :], 2)
+    r = torch.rsqrt(g.sum(-1) + eps)
+    return g * r[:, None, :] * r[:, :, None]
+
+
+def gat_pool_adj(a, idx, eps=1e-5):
+    """The pooled adjacency ``symnorm(a[idx][:, idx])`` (F, k, k) for a
+    (F, n, n) and int32 idx (F, k): ``(g r_col) r_row`` with
+    ``r = (rowsum(g) + eps)^-1/2``. Data and selection only: no adjoint."""
+    if not a.is_cuda:
+        return gat_pool_adj_plain(a, idx, eps)
+    _check(a.device, a)
+    _check(a.device, idx, dtype=torch.int32)
+    _contig(a, idx)
+    F, n, _ = a.shape
+    k = idx.shape[1]
+    if k > 12 * 1024:
+        raise ValueError("gat_pool_adj: k too large for shared memory")
+    out = torch.empty(F, k, k, dtype=torch.float32, device=a.device)
+    KERNELS["gat_pool_adj"](_ptr(a), _ptr(idx), _ptr(out), F, n, k,
+                            float(eps))
+    return out
+
+
+def col_softmax_plain(y):
+    e = torch.exp(y - y.amax(1, keepdim=True))
+    return e / e.sum(1, keepdim=True)
+
+
+def col_softmax(y):
+    """Softmax over the rows (axis 1) of (F, R, C), column by column."""
+    if not y.is_cuda:
+        return col_softmax_plain(y)
+    _check(y.device, y)
+    _contig(y)
+    F, R, C = y.shape
+    q = torch.empty_like(y)
+    KERNELS["col_softmax"](_ptr(y), _ptr(q), F, R, C)
+    return q
+
+
+def col_softmax_bwd_plain(g_q, q):
+    return q * (g_q - (q * g_q).sum(1, keepdim=True))
+
+
+def col_softmax_bwd(g_q, q):
+    """d y of ``q = col_softmax(y)`` given d q."""
+    if not q.is_cuda:
+        return col_softmax_bwd_plain(g_q, q)
+    _check(q.device, g_q, q)
+    _contig(g_q, q)
+    F, R, C = q.shape
+    g_y = torch.empty_like(q)
+    KERNELS["col_softmax_bwd"](_ptr(g_q), _ptr(q), _ptr(g_y), F, R, C)
+    return g_y
+
+
+def _offdiag_diff(G, T):
+    return (torch.relu(G) - T).masked_fill(_eye_mask(G.shape[-1], G.device),
+                                           0.0)
+
+
+def offdiag_mse_plain(G, T, vals, slot, grad=True):
+    n = G.shape[-1]
+    d = _offdiag_diff(G, T)
+    vals[:, slot] = (d * d).sum((-2, -1)) / (n * n)
+    if not grad:
+        return None
+    gd = torch.where(G > 0, d, torch.zeros((), dtype=G.dtype,
+                                           device=G.device))
+    return (2.0 / (n * n)) * (gd + gd.transpose(-1, -2))
+
+
+def _check_offdiag(G, T, vals, slot):
+    _check(G.device, G, T, vals)
+    _contig(G, T, vals)
+    F, n, _ = G.shape
+    if G.shape != T.shape or G.shape[1] != G.shape[2] or vals.dim() != 2 \
+            or vals.shape[0] != F or not 0 <= slot < vals.shape[1]:
+        raise ValueError("off-diagonal loss shape mismatch")
+    return F, n
+
+
+def offdiag_mse(G, T, vals, slot, grad=True):
+    """Writes ``vals[:, slot] = sum_{i != j} (relu(G) - T)^2 / n^2`` per
+    fold (the mean over all n^2 entries with the diagonal zeroed) and, with
+    ``grad``, returns the symmetrised cotangent of G,
+    ``(2 / n^2) (D + D^T)`` with ``D = (relu(G) - T) [G > 0]`` off the
+    diagonal: for ``G = X X^T`` (or ``Q^T Q``) d loss / d X is that times X."""
+    if not G.is_cuda:
+        return offdiag_mse_plain(G, T, vals, slot, grad)
+    F, n = _check_offdiag(G, T, vals, slot)
+    gsym = torch.empty_like(G) if grad else None
+    KERNELS["offdiag_mse"](_ptr(G), _ptr(T), _ptr(vals), vals.shape[1],
+                           int(slot), _ptr(gsym), F, n)
+    return gsym
+
+
+def offdiag_mae_plain(G, T, vals, slot):
+    n = G.shape[-1]
+    vals[:, slot] = _offdiag_diff(G, T).abs().sum((-2, -1)) / (n * n)
+
+
+def offdiag_mae(G, T, vals, slot):
+    """Writes ``vals[:, slot] = sum_{i != j} |relu(G) - T| / n^2``."""
+    if not G.is_cuda:
+        return offdiag_mae_plain(G, T, vals, slot)
+    F, n = _check_offdiag(G, T, vals, slot)
+    KERNELS["offdiag_mae"](_ptr(G), _ptr(T), _ptr(vals), vals.shape[1],
+                           int(slot), F, n)
+
+
+def _sum_terms(vals):
+    loss = vals[:, 0]
+    for j in range(1, vals.shape[1]):
+        loss = loss + vals[:, j]
+    return loss.clone() if vals.shape[1] == 1 else loss
+
+
+def adamw_masked_plain(p, m, v, g, scal, vals, b1, b2, eps, wd):
+    ok, lr, d1, d2 = (scal[:, j:j + 1] for j in range(4))
+    m_new = b1 * m + (1.0 - b1) * g
+    v_new = b2 * v + (1.0 - b2) * (g * g)
+    mhat = m_new / d1
+    vhat = v_new / d2
+    step = lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p)
+    on = ok > 0
+    return (torch.where(on, p - step, p), torch.where(on, m_new, m),
+            torch.where(on, v_new, v), _sum_terms(vals))
+
+
+def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd):
+    """Masked AdamW (the decay inside the step, as optax.adamw) on flat
+    (F, P) buffers with per-fold scalars ``scal[f] = [ok, lr, 1 - b1^t,
+    1 - b2^t]`` read from device memory; returns (p', m', v', loss) with
+    ``loss[f]`` the sum of the fold's loss terms ``vals[f]`` in order."""
+    if not p.is_cuda:
+        return adamw_masked_plain(p, m, v, g, scal, vals, b1, b2, eps, wd)
+    _check(p.device, p, m, v, g, scal, vals)
+    _contig(p, m, v, g, scal, vals)
+    F, P = p.shape
+    if m.shape != p.shape or v.shape != p.shape or g.shape != p.shape \
+            or tuple(scal.shape) != (F, 4) or vals.shape[0] != F:
+        raise ValueError("adamw_masked: buffers must share one (F, P) shape, "
+                         "scal be (F, 4) and vals (F, terms)")
+    p2, m2, v2 = (torch.empty_like(p) for _ in range(3))
+    loss = torch.empty(F, dtype=torch.float32, device=p.device)
+    KERNELS["adamw_masked"](_ptr(p), _ptr(m), _ptr(v), _ptr(g), _ptr(scal),
+                            _ptr(vals), vals.shape[1], _ptr(p2), _ptr(m2),
+                            _ptr(v2), _ptr(loss), F, P, float(b1),
+                            float(1.0 - b1), float(b2), float(1.0 - b2),
+                            float(eps), float(wd))
+    return p2, m2, v2, loss
+
+
 _OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
         "pool_logits_bwd", "add_bias", "tail_normalize",
         "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
-        "loss_terms", "adam_masked", "anti_vectorize_normalize", "vectorize_colmajor",
-        "normalize_adj_batch")
+        "loss_terms", "adam_masked", "anti_vectorize_normalize",
+        "vectorize_colmajor", "normalize_adj_batch", "gat_attention",
+        "gat_attention_bwd", "philox_keep_mask", "gat_pool_adj",
+        "col_softmax", "col_softmax_bwd", "offdiag_mse", "offdiag_mae",
+        "adamw_masked")
 # launch the kernel for CUDA tensors, the plain version for CPU tensors
 KERNEL_OPS = SimpleNamespace(**{name: globals()[name] for name in _OPS})
 # always the plain PyTorch version (the reference the kernels are held to)

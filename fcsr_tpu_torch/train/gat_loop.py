@@ -1,0 +1,560 @@
+"""Training loops of the GAT Graph-U-Net family. Counterpart of
+``fcsr_tpu/train/gat_loop.py``.
+
+One training step is one subject (batch size 1). The SVD node features are
+pure data and are precomputed once with host LAPACK. ``train_gat`` trains a
+single fold; ``train_gat_folds_parallel`` trains every CV fold together,
+one fold-batched step per subject position: masked no-op steps pad ragged
+fold sizes, each fold has its own plateau-decayed learning rate, step count
+and early-stop flag. With ``cfg.fused_step`` the step runs on the
+hand-written CUDA kernels (``models/fused_gat.py``), and with
+``cfg.fused_val`` the validation forwards do too; otherwise the step is
+autograd over the ``GATGraphUnet`` module and a literal flat AdamW.
+
+The control loop (plateau scheduler, best-state snapshot, early stop at
+lr < 1e-5) runs on the device by default, in float32 tensors with one
+host read per ``control_chunk_epochs`` epochs; ``host_control=True`` keeps
+the per-epoch host loop in Python floats. Both keep the BEST validation
+loss (the reference kept the worst). With ``drop_p > 0`` the card's
+generator is not the JAX package's, so trajectories are stochastically
+equivalent only; at ``drop_p = 0`` every mode agrees with its JAX
+counterpart (tested).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from fcsr_tpu_torch.iox.weights import (gat_flat_to_state,
+                                        gat_leaf_tensors_to_state,
+                                        gat_state_to_flat)
+from fcsr_tpu_torch.models.fused_gat import (ADAM_B1, ADAM_B2, GATLayout,
+                                             _check_widths,
+                                             gat_train_step_fused,
+                                             gat_val_fused)
+from fcsr_tpu_torch.models.gat_unet import GATGraphUnet, symmetric_normalize
+from fcsr_tpu_torch.train.generic_loop import PlateauScheduler
+from fcsr_tpu_torch.train.losses import (intermediate_recon_loss,
+                                         offdiag_mse_loss)
+from fcsr_tpu_torch.utils import host_cache
+from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["GATTrainConfig", "init_gat", "precompute_gat_features",
+           "train_gat", "train_gat_folds_parallel", "adamw_flat_update",
+           "predict_gat", "predict_gat_folds", "predict_gat_folds_mae",
+           "unet_loss"]
+
+STOP_LR = 1e-5   # a fold stops once its learning rate has decayed below
+_PREDICT_BATCH = 64     # subjects per forward of predict_gat (bounds the
+                        # (batch, n, n, heads) attention tensors)
+
+
+@dataclass(frozen=True)
+class GATTrainConfig:
+    """The shipped unet-transformer run."""
+    ks: Tuple[float, ...] = (0.5, 0.5, 0.5)
+    n_nodes: int = 160
+    m_nodes: int = 268
+    dim: int = 16
+    heads: int = 4
+    drop_p: float = 0.01
+    skip: bool = False
+    epochs: int = 100
+    lr: float = 1e-3
+    patience: int = 10
+    plateau_threshold: float = 1e-2
+    plateau_factor: float = 0.1
+    intermediate_losses: bool = True
+    weight_decay: float = 0.01
+    # shapes the JAX package's compiled scan only; kept so that configs
+    # carry over, without effect here (the step loop is a Python loop)
+    scan_unroll: int = 1
+    # run each training step (forward, backward, masked AdamW) on the
+    # hand-written CUDA kernels in the fold-parallel trainer. Same math as
+    # the autograd path up to float reassociation (tested at drop_p = 0);
+    # dropout comes from the kernels' own counter-based generator.
+    fused_step: bool = False
+    # take the attention softmax's shift over all heads of a row instead of
+    # per head inside the fused step (the visible effect of the JAX
+    # package's single-chain layout): identical up to reassociation
+    fused_batched_chain: bool = False
+    # with fused_step, also run the validation forwards (loss and
+    # off-diagonal MAE) on the kernels, one batch of subjects per fold
+    fused_val: bool = True
+
+    def model(self, device=DEFAULT_DEVICE, seed: int = 0) -> GATGraphUnet:
+        return GATGraphUnet(ks=self.ks, n_nodes=self.n_nodes,
+                            m_nodes=self.m_nodes, dim=self.dim,
+                            heads=self.heads, drop_p=self.drop_p,
+                            skip=self.skip, device=device, seed=seed)
+
+    @property
+    def layout(self) -> GATLayout:
+        return GATLayout(self.dim, tuple(self.ks), self.heads, self.n_nodes,
+                         self.m_nodes)
+
+    @property
+    def kernel_kwargs(self) -> dict:
+        return dict(dim=self.dim, ks=tuple(self.ks), n_nodes=self.n_nodes,
+                    m_nodes=self.m_nodes, heads=self.heads,
+                    intermediate_losses=self.intermediate_losses,
+                    batched_chain=self.fused_batched_chain)
+
+
+def init_gat(cfg: GATTrainConfig, seed: int = 0, device=DEFAULT_DEVICE):
+    """(model, opt_state): a ``GATGraphUnet`` initialised from ``seed`` on
+    ``device`` and a fresh AdamW state ``{"m", "v", "t"}`` over the flat
+    parameter vector (``GATLayout`` order). The learning rate is not part
+    of the state: the plateau schedule hands it to every step."""
+    model = cfg.model(device=device, seed=seed)
+    dev = next(model.parameters()).device
+    zeros = torch.zeros(cfg.layout.size, dtype=torch.float32, device=dev)
+    return model, {"m": zeros, "v": zeros.clone(), "t": 0.0}
+
+
+_FEATURE_CACHE: dict = {}
+
+
+def precompute_gat_features(lr_stack, dim: int) -> np.ndarray:
+    """(N, n, dim) float32 SVD node features of the normalized (A + I)
+    adjacencies: the top-``dim`` left singular vectors, by host LAPACK in
+    float64 (one-shot preprocessing; singular-vector signs are LAPACK's,
+    the same call as the JAX package makes, so the two agree). Memoized per
+    (dataset content, dim) in-process and on disk (``utils/host_cache.py``)."""
+    lr_host = np.ascontiguousarray(lr_stack)
+    h = hashlib.sha1(memoryview(lr_host).cast("B"))
+    h.update(str(lr_host.shape).encode())
+    h.update(str(lr_host.dtype).encode())
+    key = (h.hexdigest(), int(dim))
+    hit = _FEATURE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    path = host_cache.cache_path("gatfeat", (lr_host,), (int(dim),))
+    disk = host_cache.load(path, ("features",))
+    if disk is not None:
+        feats = disk[0]
+    else:
+        lr_np = np.asarray(lr_host, dtype=np.float64)
+        n = lr_np.shape[-1]
+        a = lr_np + np.eye(n)
+        d = a.sum(axis=-1) + 1e-5
+        r = d ** -0.5
+        a = a * r[..., None, :] * r[..., :, None]
+        u, _, _ = np.linalg.svd(a)
+        feats = u[..., :, :dim].astype(np.float32)
+        host_cache.save(path, features=feats)
+    if len(_FEATURE_CACHE) >= 8:
+        _FEATURE_CACHE.pop(next(iter(_FEATURE_CACHE)))
+    _FEATURE_CACHE[key] = feats
+    return feats
+
+
+def unet_loss(pred, target, a_hist, a_recon_hist,
+              intermediate_losses: bool = True):
+    """Off-diagonal MSE + the intermediate reconstruction MSEs (the up
+    path's reconstructions against the down path's adjacencies, reversed)."""
+    loss = offdiag_mse_loss(pred, target)
+    if intermediate_losses:
+        loss = loss + intermediate_recon_loss(a_hist, a_recon_hist[::-1])
+    return loss
+
+
+def adamw_flat_update(g, p, m, v, t, lr, b1=ADAM_B1, b2=ADAM_B2, eps=1e-8,
+                      wd=0.01):
+    """optax.adamw's update on a flat parameter vector: (step, m', v') with
+    the decoupled weight decay folded into the step."""
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * (g * g)
+    mhat = m / (1 - b1 ** t)
+    vhat = v / (1 - b2 ** t)
+    step = lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p)
+    return step, m, v
+
+
+def _offdiag_mae_all(pred, target):
+    """Mean over all m^2 entries of |pred - target| with the diagonal
+    zeroed (the validation metric; ``predict_gat_folds_mae`` divides by
+    m (m - 1) instead)."""
+    eye = torch.eye(pred.shape[-1], dtype=torch.bool, device=pred.device)
+    return (pred - target).abs().masked_fill(eye, 0.0).mean(dim=(-2, -1))
+
+
+def _state_to_device(variables, dev):
+    return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32).to(dev)
+            for k, v in variables.items()}
+
+
+class _FoldTrainer:
+    """State and the two device programs (one epoch of steps, one
+    validation pass) of the fold-parallel trainer."""
+
+    def __init__(self, cfg: GATTrainConfig, lr_all, hr_all, folds, seed: int,
+                 device, flat0=None, fused: bool = False):
+        _check_widths(cfg.dim, tuple(cfg.ks), cfg.heads)
+        self.cfg, self.fused = cfg, fused
+        self.dev = dev = resolve_device(device)
+        self.layout = cfg.layout
+        lr_np = np.ascontiguousarray(lr_all, dtype=np.float32)
+        hr_np = np.ascontiguousarray(hr_all, dtype=np.float32)
+        self.lr_d = torch.from_numpy(lr_np).to(dev)
+        self.hr_d = torch.from_numpy(hr_np).to(dev)
+        self.x_d = torch.from_numpy(
+            precompute_gat_features(lr_np, cfg.dim)).to(dev)
+        eye = torch.eye(cfg.n_nodes, dtype=torch.float32, device=dev)
+        self.a0_d = symmetric_normalize(self.lr_d + eye)
+        self.model = cfg.model(device=dev, seed=seed)
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.model.set_generator(self.gen)
+        self.n_folds = F = len(folds)
+        if flat0 is None:
+            flat0 = np.stack([gat_state_to_flat(
+                {k: t.numpy() for k, t in cfg.model(
+                    device="cpu", seed=seed + j).state_dict().items()})
+                for j in range(F)])
+        flat0 = np.ascontiguousarray(flat0, dtype=np.float32)
+        if flat0.shape != (F, self.layout.size):
+            raise ValueError(f"flat0 has shape {flat0.shape}, expected "
+                             f"{(F, self.layout.size)}")
+        self.p = torch.from_numpy(flat0).to(dev)
+        self.m = torch.zeros_like(self.p)
+        self.v = torch.zeros_like(self.p)
+        self.t = torch.zeros(F, dtype=torch.float32, device=dev)
+        self.tr_sets = [np.asarray(tr, dtype=np.int32) for tr, _ in folds]
+        self.va_sets = [torch.from_numpy(np.asarray(va, dtype=np.int64)
+                                         ).to(dev) for _, va in folds]
+        self.tr_len = max(max(len(s) for s in self.tr_sets), 1)
+        self.rngs = [np.random.default_rng(seed + j) for j in range(F)]
+        self.seed_rng = np.random.default_rng([seed, 0x5EED])
+
+    def draw_epoch_plan(self):
+        """One epoch's per-fold shuffled, padded index plan, from each
+        fold's own host generator (seed + j), as (order, valid) (F, L)."""
+        order = np.zeros((self.n_folds, self.tr_len), np.int32)
+        valid = np.zeros((self.n_folds, self.tr_len), np.float32)
+        for j, s in enumerate(self.tr_sets):
+            if len(s):
+                order[j, :len(s)] = s[self.rngs[j].permutation(len(s))]
+                valid[j, :len(s)] = 1.0
+        return order, valid
+
+    def _unfused_step(self, i, scal):
+        """Autograd over the module, fold by fold, then the literal flat
+        AdamW, masked by ok."""
+        cfg = self.cfg
+        p = self.p.detach().requires_grad_()
+        views = self.layout.views(p)
+        losses = []
+        for f in range(self.n_folds):
+            state = gat_leaf_tensors_to_state(
+                {k: v[f] for k, v in views.items()})
+            pred, a_hist, a_recon = functional_call(
+                self.model, state, (self.lr_d[i[f]], self.x_d[i[f]]),
+                {"train": True})
+            losses.append(unet_loss(pred, self.hr_d[i[f]], a_hist, a_recon,
+                                    cfg.intermediate_losses))
+        loss = torch.stack(losses)
+        (g,) = torch.autograd.grad(loss.sum(), p)
+        ok, lr = scal[:, 0:1], scal[:, 1:2]
+        step, m_new, v_new = adamw_flat_update(
+            g, self.p, self.m, self.v, scal[:, 2:3], lr, wd=cfg.weight_decay)
+        on = ok > 0
+        return (loss.detach(), self.p - ok * step,
+                torch.where(on, m_new, self.m), torch.where(on, v_new, self.v))
+
+    def epoch(self, order, valid, lr_t, active_t):
+        """One epoch over every fold: ``tr_len`` fold-batched steps.
+        ``lr_t`` and ``active_t`` are (F,) float32 tensors on the device;
+        returns each fold's mean training loss (F,). Nothing is read back
+        to the host."""
+        cfg, dev = self.cfg, self.dev
+        order_d = torch.from_numpy(np.ascontiguousarray(order.T)).to(
+            dev).long()                                          # (L, F)
+        ok = torch.from_numpy(np.ascontiguousarray(valid.T)).to(dev) \
+            * active_t
+        t_new = self.t + torch.cumsum(ok, dim=0)
+        te = t_new.clamp(min=1.0)
+        if self.fused:
+            # [ok, lr, 1 - b1^t, 1 - b2^t] per step and fold
+            scal = torch.stack([ok, lr_t.expand_as(ok), 1.0 - ADAM_B1 ** te,
+                                1.0 - ADAM_B2 ** te], dim=-1).contiguous()
+        else:
+            scal = torch.stack([ok, lr_t.expand_as(ok), te], dim=-1)
+        seeds = None
+        if self.fused and cfg.drop_p > 0:
+            # masked padding steps draw seeds too: the stream advances
+            seeds = torch.from_numpy(self.seed_rng.integers(
+                -2 ** 31, 2 ** 31, size=(self.tr_len, self.n_folds, 2),
+                dtype=np.int64).astype(np.int32)).to(dev)
+        losses = []
+        for s in range(self.tr_len):
+            i = order_d[s]
+            if self.fused:
+                loss, self.p, self.m, self.v = gat_train_step_fused(
+                    self.p, self.m, self.v, self.a0_d[i], self.x_d[i],
+                    self.hr_d[i], scal[s],
+                    None if seeds is None else seeds[s],
+                    drop_p=cfg.drop_p, wd=cfg.weight_decay, device=dev,
+                    **cfg.kernel_kwargs)
+            else:
+                loss, self.p, self.m, self.v = self._unfused_step(i, scal[s])
+            losses.append(loss)
+        self.t = t_new[-1]
+        return (torch.stack(losses) * ok).sum(0) / ok.sum(0).clamp(min=1.0)
+
+    @torch.no_grad()
+    def validate(self):
+        """Each fold's mean validation loss and off-diagonal MAE, (F,)
+        tensors on the device: one batch of subjects per fold."""
+        cfg = self.cfg
+        vloss, vmae = [], []
+        views = None if self.fused and cfg.fused_val \
+            else self.layout.views(self.p)
+        for f, idx in enumerate(self.va_sets):
+            if idx.numel() == 0:
+                vloss.append(self.p.new_zeros(()))
+                vmae.append(self.p.new_zeros(()))
+                continue
+            if views is None:
+                loss, mae = gat_val_fused(
+                    self.p[f:f + 1], self.a0_d[idx], self.x_d[idx],
+                    self.hr_d[idx], device=self.dev, **cfg.kernel_kwargs)
+            else:
+                state = gat_leaf_tensors_to_state(
+                    {k: v[f] for k, v in views.items()})
+                pred, a_hist, a_recon = functional_call(
+                    self.model, state, (self.lr_d[idx], self.x_d[idx]))
+                loss = unet_loss(pred, self.hr_d[idx], a_hist, a_recon,
+                                 cfg.intermediate_losses)
+                mae = _offdiag_mae_all(pred, self.hr_d[idx])
+            vloss.append(loss.mean())
+            vmae.append(mae.mean())
+        return torch.stack(vloss), torch.stack(vmae)
+
+    def states(self, flat: np.ndarray):
+        shapes = self.layout.shapes
+        return [gat_flat_to_state(row, shapes) for row in flat]
+
+
+def _run_host_control(tr: _FoldTrainer, cfg: GATTrainConfig, verbose: bool):
+    """The per-epoch host loop: scheduler, best state and early stop in
+    Python floats, one small read per epoch (and the parameters only when
+    some fold improved). Returns (best flat per fold, histories)."""
+    F = tr.n_folds
+    schedulers = [PlateauScheduler(cfg.lr, patience=cfg.patience,
+                                   factor=cfg.plateau_factor,
+                                   threshold=cfg.plateau_threshold)
+                  for _ in range(F)]
+    cur_lr = np.full(F, cfg.lr, dtype=np.float32)
+    active = np.ones(F, dtype=np.float32)
+    best_val = np.full(F, np.inf)
+    best_flat = [None] * F
+    hists = [{"train": [], "val": [], "lr": []} for _ in range(F)]
+    for epoch in range(cfg.epochs):
+        order, valid = tr.draw_epoch_plan()
+        tr_loss = tr.epoch(order, valid, torch.from_numpy(cur_lr).to(tr.dev),
+                           torch.from_numpy(active).to(tr.dev))
+        v_loss, v_mae = tr.validate()
+        packed = torch.cat([tr_loss, v_loss, v_mae]).cpu().numpy()
+        tr_loss, v_loss, v_mae = packed[:F], packed[F:2 * F], packed[2 * F:]
+        improved = [bool(active[j]) and v_loss[j] < best_val[j]
+                    for j in range(F)]
+        flat_now = tr.p.cpu().numpy() if any(improved) else None
+        for j in range(F):
+            if not active[j]:
+                continue
+            hists[j]["train"].append(float(tr_loss[j]))
+            hists[j]["val"].append(float(v_loss[j]))
+            new_lr = schedulers[j].step(float(v_loss[j]))
+            cur_lr[j] = new_lr
+            hists[j]["lr"].append(float(new_lr))
+            if improved[j]:
+                best_val[j] = v_loss[j]
+                best_flat[j] = flat_now[j].copy()
+            if new_lr < STOP_LR:
+                active[j] = 0.0
+        if verbose:
+            print(f"epoch {epoch + 1}: train {tr_loss.round(6)} val "
+                  f"{v_loss.round(6)} val_mae {v_mae.round(6)} lr {cur_lr}")
+        if not active.any():
+            break
+    final = tr.p.cpu().numpy()
+    return [final[j] if best_flat[j] is None else best_flat[j]
+            for j in range(F)], hists
+
+
+def _run_device_control(tr: _FoldTrainer, cfg: GATTrainConfig, verbose: bool,
+                        chunk_epochs: int):
+    """Scheduler, best state and early stop as float32 tensors on the
+    device, the scheduler's exact logic vectorized over the folds; one host
+    read per chunk of epochs (have all folds stopped?) and one at the end."""
+    F, dev = tr.n_folds, tr.dev
+    thr, patience, factor = (cfg.plateau_threshold, cfg.patience,
+                             cfg.plateau_factor)
+    stop_lr = float(np.float32(STOP_LR))        # compared in float32
+    lr = torch.full((F,), cfg.lr, dtype=torch.float32, device=dev)
+    active = torch.ones(F, dtype=torch.float32, device=dev)
+    sbest = torch.full((F,), float("inf"), dtype=torch.float32, device=dev)
+    nbad = torch.zeros(F, dtype=torch.int32, device=dev)
+    bval = sbest.clone()
+    bflat = tr.p.clone()
+    parts = []
+    done = 0
+    while done < cfg.epochs:
+        chunk = min(chunk_epochs, cfg.epochs - done)
+        for _ in range(chunk):
+            order, valid = tr.draw_epoch_plan()
+            tr_loss = tr.epoch(order, valid, lr, active)
+            vloss, _ = tr.validate()
+            act = active > 0
+            is_better = vloss < sbest * (1.0 - thr)
+            sbest2 = torch.where(is_better, vloss, sbest)
+            nbad2 = torch.where(is_better, torch.zeros_like(nbad), nbad + 1)
+            decay = nbad2 > patience
+            lr2 = torch.where(decay, lr * factor, lr)
+            nbad2 = torch.where(decay, torch.zeros_like(nbad), nbad2)
+            sbest = torch.where(act, sbest2, sbest)
+            nbad = torch.where(act, nbad2, nbad)
+            lr2 = torch.where(act, lr2, lr)
+            improved = act & (vloss < bval)
+            bval = torch.where(improved, vloss, bval)
+            bflat = torch.where(improved[:, None], tr.p, bflat)
+            # ``active`` at the epoch's START: exactly the epochs the host
+            # loop records for the fold
+            parts.append(torch.stack([tr_loss, vloss, lr2, active]))
+            active = torch.where(act & (lr2 < stop_lr),
+                                 torch.zeros_like(active), active)
+            lr = lr2
+        done += chunk
+        still_active = float(active.max())
+        if verbose:
+            print(f"epochs {done}: active={still_active > 0}")
+        if still_active == 0.0:
+            break
+    hist = torch.stack(parts).cpu().numpy() if parts \
+        else np.zeros((0, 4, F), np.float32)              # (E, 4, F)
+    bval_np, bflat_np = bval.cpu().numpy(), bflat.cpu().numpy()
+    final_np = tr.p.cpu().numpy()
+    hists, best = [], []
+    for j in range(F):
+        on = hist[:, 3, j] > 0
+        hists.append({"train": [float(x) for x in hist[on, 0, j]],
+                      "val": [float(x) for x in hist[on, 1, j]],
+                      "lr": [float(x) for x in hist[on, 2, j]]})
+        # a fold that never improved returns its final parameters
+        best.append(bflat_np[j] if np.isfinite(bval_np[j]) else final_np[j])
+    return best, hists
+
+
+def train_gat_folds_parallel(cfg: GATTrainConfig, lr_all, hr_all, folds,
+                             seed: int = 42, verbose: bool = False,
+                             host_control: bool = False,
+                             control_chunk_epochs: int = 25, mesh=None,
+                             flat0=None, device=DEFAULT_DEVICE):
+    """All CV folds trained together (see the module docstring), with the
+    single-fold ``train_gat`` semantics per fold and per-fold seeds
+    ``seed + j``. ``flat0`` (F, P) optionally gives the folds' initial
+    weights in ``GATLayout`` order (default: a fresh model from seed + j
+    per fold). Returns (model, best state_dict per fold as numpy arrays,
+    histories)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the fold axis sharded over devices) needs the port of "
+            "fcsr_tpu/parallel over torch.distributed, which is not ported "
+            "yet (ROADMAP.md, Queue A item 12)")
+    tr = _FoldTrainer(cfg, lr_all, hr_all, folds, seed, device,
+                      flat0=flat0, fused=cfg.fused_step)
+    if host_control:
+        best, hists = _run_host_control(tr, cfg, verbose)
+    else:
+        best, hists = _run_device_control(tr, cfg, verbose,
+                                          max(1, int(control_chunk_epochs)))
+    return tr.model, tr.states(np.stack(best)), hists
+
+
+def train_gat(model: GATGraphUnet, opt_state, cfg: GATTrainConfig, lr_train,
+              hr_train, lr_val, hr_val, seed: int = 0,
+              verbose: bool = False):
+    """One fold's full training run with per-epoch validation, plateau
+    decay, best-state restore and early stop at lr < 1e-5, under host
+    control, by autograd over the module (never the fused step). Starts
+    from ``model``'s weights and ``opt_state`` (``init_gat``), on the
+    model's device; loads the best weights into ``model``. Returns (best
+    state_dict as numpy arrays, opt_state, {"train", "val", "lr"})."""
+    dev = next(model.parameters()).device
+    n_tr, n_va = len(lr_train), len(lr_val)
+    lr_all = np.concatenate([np.asarray(lr_train, np.float32),
+                             np.asarray(lr_val, np.float32)])
+    hr_all = np.concatenate([np.asarray(hr_train, np.float32),
+                             np.asarray(hr_val, np.float32)])
+    folds = [(np.arange(n_tr), n_tr + np.arange(n_va))]
+    flat0 = gat_state_to_flat({k: t.detach().cpu().numpy()
+                               for k, t in model.state_dict().items()})[None]
+    tr = _FoldTrainer(cfg, lr_all, hr_all, folds, seed, dev, flat0=flat0,
+                      fused=False)
+    tr.m = opt_state["m"].to(dev).reshape(1, -1).clone()
+    tr.v = opt_state["v"].to(dev).reshape(1, -1).clone()
+    tr.t = torch.full((1,), float(opt_state["t"]), dtype=torch.float32,
+                      device=dev)
+    best, hists = _run_host_control(tr, cfg, verbose)
+    variables = tr.states(np.stack(best))[0]
+    model.load_state_dict(_state_to_device(variables, dev))
+    return (variables, {"m": tr.m[0], "v": tr.v[0], "t": float(tr.t[0])},
+            hists[0])
+
+
+@torch.no_grad()
+def predict_gat(variables, model: GATGraphUnet, cfg: GATTrainConfig,
+                lr_stack):
+    """(N, m, m) predictions of ``variables`` (a state_dict mapping; None
+    takes the model's own weights) for an (N, n, n) stack, on the model's
+    device."""
+    dev = next(model.parameters()).device
+    lr_np = np.ascontiguousarray(lr_stack, dtype=np.float32)
+    x = torch.from_numpy(precompute_gat_features(lr_np, cfg.dim)).to(dev)
+    lr_d = torch.from_numpy(lr_np).to(dev)
+    state = dict(model.state_dict()) if variables is None \
+        else _state_to_device(variables, dev)
+    return torch.cat([
+        functional_call(model, state, (lr_d[s:s + _PREDICT_BATCH],
+                                       x[s:s + _PREDICT_BATCH]))[0]
+        for s in range(0, len(lr_d), _PREDICT_BATCH)])
+
+
+@torch.no_grad()
+def predict_gat_folds(model: GATGraphUnet, best_vars, lr_d, x_d, va_idx):
+    """Every fold's validation predictions, (F, va_len, m, m): fold j's
+    weights on the subjects ``va_idx[j]`` (ragged folds padded by the
+    caller) of the staged stacks ``lr_d`` / ``x_d``."""
+    dev = lr_d.device
+    idx = torch.as_tensor(np.asarray(va_idx), dtype=torch.long, device=dev)
+    return torch.stack([
+        functional_call(model, _state_to_device(v, dev),
+                        (lr_d[idx[j]], x_d[idx[j]]))[0]
+        for j, v in enumerate(best_vars)])
+
+
+@torch.no_grad()
+def predict_gat_folds_mae(model: GATGraphUnet, best_vars, lr_d, x_d, va_idx,
+                          hr_d, va_len):
+    """Every fold's validation off-diagonal MAE, (F,) on the device: the
+    mean over a fold's true ``va_len[j]`` subjects of
+    ``sum |pred - gt| off / (m (m - 1))``; the predictions stay on the
+    device."""
+    preds = predict_gat_folds(model, best_vars, lr_d, x_d, va_idx)
+    idx = torch.as_tensor(np.asarray(va_idx), dtype=torch.long,
+                          device=lr_d.device)
+    m = preds.shape[-1]
+    eye = torch.eye(m, dtype=torch.bool, device=preds.device)
+    per = (preds - hr_d[idx]).abs().masked_fill(eye, 0.0).sum((-2, -1)) \
+        / (m * (m - 1))
+    lens = torch.as_tensor(np.asarray(va_len), dtype=torch.float32,
+                           device=preds.device)
+    valid = torch.arange(per.shape[1], device=preds.device)[None, :] \
+        < lens[:, None]
+    return per.masked_fill(~valid, 0.0).sum(1) / lens

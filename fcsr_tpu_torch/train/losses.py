@@ -1,10 +1,11 @@
-"""GSR-Net loss functions (torch)."""
+"""Loss functions of GSR-Net and the GAT U-Net (torch)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["l1", "gsr_composite_loss"]
+__all__ = ["l1", "gsr_composite_loss", "offdiag_mse_loss",
+           "intermediate_recon_loss"]
 
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -21,3 +22,24 @@ def gsr_composite_loss(pred, net_outs, start_gcn_outs, gsr_weights,
             + l1(gsr_weights, u_hr_reduced)
             + recon)
     return loss, recon
+
+
+def _zero_diag(m: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(m.shape[-1], dtype=torch.bool, device=m.device)
+    return m.masked_fill(eye, 0.0)
+
+
+def offdiag_mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """MSE with the diagonal zeroed in both operands: the mean runs over
+    all n^2 entries, not n (n - 1). Leading axes are kept (one value per
+    matrix)."""
+    return ((_zero_diag(pred) - _zero_diag(target)) ** 2).mean(dim=(-2, -1))
+
+
+def intermediate_recon_loss(a_hist, a_recon_hist_reversed):
+    """Sum of the off-diagonal MSEs between the down-path adjacencies and
+    the reversed up-path reconstructions."""
+    total = 0.0
+    for a, a_recon in zip(a_hist, a_recon_hist_reversed):
+        total = total + offdiag_mse_loss(a, a_recon)
+    return total

@@ -271,7 +271,7 @@ def test_cli_submit_dry_run(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,missing", [
     (["train", "mlp"], "models/mlp.py"),
-    (["train", "gat"], "models/gat_unet.py"),
+    (["train", "gat", "--fused", "--multichip"], "fcsr_tpu/parallel"),
     (["evaluate", "--gt", "a.npz", "--pred", "b.npz"], "evalx"),
     (["train", "gsr", "--full-metrics"], "evalx"),
     (["train", "gsr", "--fast", "--eval-backend", "networkx"], "evalx"),
