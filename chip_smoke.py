@@ -11,12 +11,18 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
 1. prints the environment (``nvidia-smi`` name and power limit, torch and
    CUDA versions, the build time) with TF32 switched off;
 2. holds every kernel against its plain PyTorch version on the card at the
-   shapes of the main path, and times both (CUDA events, median);
+   shapes of the main path, and times both (CUDA events, median); for
+   ``bgemm_f32`` every distinct product signature of the full-width GSR
+   and GAT steps (their census, ``kernels/census.py``), replayed with the
+   step's operand layouts: the path the kernel takes, its error, two
+   launches bit-equal, and its time beside one library call's, both in
+   CUDA graphs timed in turns, summed over each step's launches;
 3. runs one full-width fold-batched training step (F = 3) on the kernels
    and on the plain path from the same weights and compares loss, recon,
    p', m' and v' (one fold masked: it must come through bit-unchanged),
    counts the step's FLOPs, bytes and launches, and profiles 10 steps
-   (per-kernel device time into ``chiprun_out/profile_step.txt``);
+   (per-kernel device time into ``chiprun_out/profile_step.txt``; the GAT
+   step's of phase 7 into ``profile_gat_step.txt``);
 4. drives the trainer path: the seeded 167-subject teacher dataset, 3
    folds, ``GSRFoldRunner(GSRTrainConfig(fused_adam=True))`` at full width
    for 2 epochs (two ``chunk_epochs=1`` launches) and ``evaluate()``, with
@@ -127,17 +133,8 @@ def device_ms(fn, reps: int = 20) -> float:
     """Mean device ms per call with no host gaps between launches: ``reps``
     calls captured into one CUDA graph, replayed and timed by CUDA events.
     (``cuda_ms`` of the eager call includes the host's launch cost.)"""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    return cuda_ms(graph.replay, reps=5) / reps
+    from fcsr_tpu_torch.utils.timing import graph_ms
+    return graph_ms([fn], reps)[0]
 
 
 def bound(flops: float, nbytes: float):
@@ -372,6 +369,110 @@ def check_triu_kernels(dev):
           "diagonal fill and the zero / negative row-sum guard ok")
 
 
+def check_product(prod, layout, g, dev):
+    """One census signature replayed on the card: its path, the kernel
+    against the plain version (within 1e-5 x max(scale, K)), two launches
+    bit-equal, and the kernel against one library call for the same
+    function, both in CUDA graphs timed in turns. Returns (kernel ms,
+    library ms, bound ms)."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.census import replay
+    from fcsr_tpu_torch.kernels.ops import (bgemm_forced, bgemm_path,
+                                            bgemm_tiles)
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    ta, tb, F = prod.ta, prod.tb, prod.F
+    ops = replay(prod, layout, g, dev)
+    a, b, bias, add, alias = (ops[k] for k in ("a", "b", "bias", "add",
+                                                "alias"))
+
+    def launch(acc=None):
+        if alias:          # add is out: the step accumulates in place
+            return K.bgemm(a, b, ta, tb, bias=bias, add=acc, out=acc)
+        return K.bgemm(a, b, ta, tb, bias=bias, add=add)
+
+    got = [launch(None if add is None else add.clone()) for _ in range(2)]
+    want = P.bgemm(a, b, ta, tb, bias=bias, add=add)
+    torch.cuda.synchronize()
+    err = max_err(got[0], want)
+    limit = 1e-5 * max(scale_of(want), float(prod.K))
+    if not err <= limit:
+        fail(f"bgemm {prod.label()}: max|err| {err:.3e} above {limit:.1e}")
+    if not torch.equal(got[0], got[1]):
+        fail(f"bgemm {prod.label()}: two launches differ")
+    plans = 0
+    if min(prod.M, prod.N) > 1 and prod.K > 1:     # the dense path's plans
+        for tile in range(len(bgemm_tiles())):
+            for split in (1, 2, 4):
+                p_err = max_err(bgemm_forced(tile, split, a, b, ta, tb,
+                                             bias=bias, add=add), want)
+                plans += 1
+                if not p_err <= limit:
+                    fail(f"bgemm {prod.label()} tile {tile} split {split}: "
+                         f"max|err| {p_err:.3e} above {limit:.1e}")
+    op_a = torch.ones(F, 1, prod.K, device=dev) if a is None else (
+        a.transpose(1, 2) if ta else a)
+    op_b = b.transpose(1, 2) if tb else b
+    acc_k = None if add is None else add.clone()
+    acc_l = None if add is None else add.clone()
+    if add is not None:     # bias + add has no one-call form: add alone
+        lib = (lambda: acc_l.baddbmm_(op_a, op_b)) if alias else (
+            lambda: torch.baddbmm(add, op_a, op_b))
+    elif bias is not None:
+        lib = lambda: torch.baddbmm(bias, op_a, op_b)
+    else:
+        lib = lambda: torch.matmul(op_a, op_b)
+    k_ms, l_ms = graph_ms([lambda: launch(acc_k), lib])   # in turns
+    b_ms, b_by = bound(prod.flops, prod.nbytes)
+    path = bgemm_path(a, b, ta, tb, bias=bias, add=add)
+    print(f"    bgemm {prod.label():34s} {path:58s} kernel {k_ms:.4f} ms, "
+          f"library {l_ms:.4f} ms ({k_ms / l_ms:.2f}x), bound {b_ms:.5f} ms "
+          f"({b_by}), max|err| {err:.2e}, bit-equal"
+          + (f", all {plans} plans within the limit" if plans else ""),
+          flush=True)
+    return k_ms, l_ms, b_ms
+
+
+def check_products(dev):
+    """Phase 2's product sweep: every distinct ``bgemm`` signature of the
+    full-width GSR and GAT steps (their census on the card) replayed with
+    the census's operand layouts by ``check_product``. Returns the steps'
+    sums of kernel and library ms weighted by launches, for the JSON
+    line."""
+    from fcsr_tpu_torch.kernels.census import gat_step_census, gsr_step_census
+
+    from fcsr_tpu_torch.kernels.ops import bgemm_path
+
+    sq = torch.empty(F, HR, HR, device=dev)
+    print(f"  bgemm_f32 record ({HR}^3 + bias): "
+          f"{bgemm_path(sq, sq, bias=torch.empty(F, 1, HR, device=dev))}")
+    g = torch.Generator(device=dev).manual_seed(1)
+    timed, out = {}, {"signatures": 0, "worst_vs_library": 0.0}
+    for step, census in (("gsr", gsr_step_census(dev)),
+                         ("gat", gat_step_census(dev))):
+        sigs = census.signatures()
+        print(f"  bgemm_f32 over the {step.upper()} step's census: "
+              f"{len(census.products)} launches, {len(sigs)} signatures, "
+              f"{census.flops / 1e9:.4f} GFLOP", flush=True)
+        sums = [0.0, 0.0, 0.0]
+        for prod, n in sigs.items():
+            if prod not in timed:
+                timed[prod] = check_product(prod, census.layouts[prod], g,
+                                            dev)
+            for i, t in enumerate(timed[prod]):
+                sums[i] += n * t
+        print(f"  {step.upper()} step: bgemm_f32 {sums[0]:.4f} ms over its "
+              f"{len(census.products)} launches, the same library calls "
+              f"{sums[1]:.4f} ms, bound {sums[2]:.5f} ms", flush=True)
+        out[f"{step}_step_ms"], out[f"{step}_step_library_ms"] = sums[:2]
+        out[f"{step}_step_bound_ms"] = sums[2]
+    out["signatures"] = len(timed)
+    out["worst_vs_library"] = max(k / l for k, l, _ in timed.values())
+    print(f"  bgemm_f32: {len(timed)} signatures checked and timed; worst "
+          f"kernel / library {out['worst_vs_library']:.2f}x", flush=True)
+    return out
+
+
 def check_kernels(dev):
     """Phase 2; returns {name: record} for the JSON line."""
 
@@ -403,33 +504,7 @@ def check_kernels(dev):
                          "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": lib_ms}
 
-    # bgemm: every transpose combination and the step's other shapes
-    g = torch.Generator(device="cpu").manual_seed(1)
-    shapes = [(LR, HR, HR), (HR, HR, LR), (30, HR, HR), (HR, HR, 536),
-              (61, 1, HR), (HR, 1, 101), (101, HR, 1), (1, HR, 144)]
-    for (M, N, Kd) in shapes:
-        for ta in (False, True):
-            for tb in (False, True):
-                a = torch.randn(F, *((Kd, M) if ta else (M, Kd)),
-                                generator=g).to(dev)
-                b = torch.randn(F, *((N, Kd) if tb else (Kd, N)),
-                                generator=g).to(dev)
-                add = torch.randn(F, M, N, generator=g).to(dev)
-                got = K.bgemm(a, b, ta, tb, add=add)
-                want = P.bgemm(a, b, ta, tb, add=add)
-                ones = K.bgemm(None, b, tb=tb)
-                err = max(max_err(got, want),
-                          max_err(ones, P.bgemm(None, b, tb=tb)))
-                if err > 1e-5 * max(scale_of(want), float(Kd)):
-                    fail(f"bgemm {M}x{N}x{Kd} ta={ta} tb={tb}: err {err}")
-                opa = a.transpose(1, 2) if ta else a
-                opb = b.transpose(1, 2) if tb else b
-                k_ms = device_ms(lambda: K.bgemm(a, b, ta, tb))
-                t_ms = device_ms(lambda: torch.matmul(opa, opb))
-                print(f"    bgemm {M:3d}x{N:3d}x{Kd:3d} ta={int(ta)} "
-                      f"tb={int(tb)}: kernel {k_ms:.4f} ms, torch.matmul "
-                      f"{t_ms:.4f} ms, max|err| {err:.2e}")
-    print(f"  bgemm_f32 transpose/shape sweep ok ({len(shapes) * 4} cases)")
+    records["bgemm_f32"].update(check_products(dev))
     check_triu_kernels(dev)
     return records
 
@@ -505,55 +580,38 @@ def check_step(dev, data):
 
 
 def count_step(args):
-    """(flops, bytes, launches by kernel) of one kernel-path step: 2MNK
-    per product, and each kernel's inputs read once and outputs written
-    once, tallied by wrapping the step's op namespace."""
-    from types import SimpleNamespace
-
+    """(flops, bytes, launches by kernel) of one kernel-path step, by the
+    census of its op namespace (``kernels/census.py``)."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS
+    from fcsr_tpu_torch.kernels.census import census_of
     from fcsr_tpu_torch.models.fused_step import step_with_ops
 
-    tally = {"flops": 0.0, "bytes": 0.0, "launches": {}}
-
-    def nbytes(x):
-        if isinstance(x, torch.Tensor):
-            return x.numel() * x.element_size()
-        if isinstance(x, (tuple, list)):
-            return sum(nbytes(t) for t in x)
-        return 0
-
-    def wrap(name, fn):
-        def counted(*a, **kw):
-            ins = nbytes(list(a)) + nbytes([v for k, v in kw.items()
-                                            if k != "out"])
-            out = fn(*a, **kw)
-            tally["bytes"] += ins + nbytes(out)
-            tally["launches"][name] = tally["launches"].get(name, 0) + 1
-            if name == "bgemm":
-                b = a[1]
-                tb = kw.get("tb", a[3] if len(a) > 3 else False)
-                k_dim = b.shape[2] if tb else b.shape[1]
-                tally["flops"] += 2.0 * out.numel() * k_dim
-            return out
-        return counted
-
-    ops = SimpleNamespace(**{k: wrap(k, v)
-                             for k, v in vars(KERNEL_OPS).items()})
-    step_with_ops(ops, *args, 0.9, 0.999, 1e-8)
-    return tally["flops"], tally["bytes"], tally["launches"]
+    census = census_of(lambda ops: step_with_ops(ops, *args, 0.9, 0.999,
+                                                 1e-8), KERNEL_OPS)
+    return census.flops, census.bytes, census.launches
 
 
-def profile_steps(args, dev, eager_ms, path):
-    """torch.profiler over 10 eager steps: device time by kernel, written
-    to ``path``, and the device's busy share of the eager step."""
+def count_gat_step(step_args, kw):
+    """``count_step`` of one fused GAT step."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS
+    from fcsr_tpu_torch.kernels.census import census_of
+    from fcsr_tpu_torch.models.fused_gat import _step_with_ops
+
+    census = census_of(lambda ops: _step_with_ops(
+        ops, *step_args, 0.9, 0.999, 1e-8, 0.01, **kw), KERNEL_OPS)
+    return census.flops, census.bytes, census.launches
+
+
+def profile_steps(step, eager_ms, path):
+    """torch.profiler over 10 eager calls of ``step``: device time by
+    kernel, written to ``path``, and the device's busy share of the eager
+    step."""
     from torch.profiler import ProfilerActivity, profile
-
-    from fcsr_tpu_torch.models.fused_step import train_step_fused
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            train_step_fused(*args, device=dev)
+            step()
         torch.cuda.synchronize()
     averages = prof.key_averages()
     table = averages.table(sort_by="cuda_time_total", row_limit=15)
@@ -1207,7 +1265,9 @@ def gat_kernel_cases(dev):
     q, gq = K.col_softmax(yy), rnd(F, GAT_DIM, HR)
     cases.append(("col_softmax_bwd", lambda: K.col_softmax_bwd(gq, q),
                   lambda: P.col_softmax_bwd(gq, q), 1e-6,
-                  4.0 * F * GAT_DIM * HR, f4 * 3 * GAT_DIM * HR, None))
+                  4.0 * F * GAT_DIM * HR, f4 * 3 * GAT_DIM * HR,
+                  lambda: torch._softmax_backward_data(gq, q, 1,
+                                                       torch.float32)))
     G, T = rnd(F, HR, HR), rnd(F, HR, HR).abs()
     vk, vp = torch.zeros(F, 4, device=dev), torch.zeros(F, 4, device=dev)
     cases.append(("offdiag_mse",
@@ -1492,12 +1552,21 @@ def check_gat_step(dev, data):
         fg.gat_step_loss(list(layout.views(pp).values()), a0, x0, hr,
                          **GAT_KW).sum().backward()
     k_dev, p_dev = device_ms(run_k, reps=5), device_ms(run_p, reps=5)
+    k_eager = cuda_ms(run_k, reps=5)
     print(f"  full-width GAT step (F={F}, drop_p=0.01): kernels "
-          f"{cuda_ms(run_k, reps=5):.3f} ms eager, {k_dev:.3f} ms device "
+          f"{k_eager:.3f} ms eager, {k_dev:.3f} ms device "
           f"(CUDA graph); plain step {cuda_ms(run_p, reps=5):.3f} ms eager, "
           f"{p_dev:.3f} ms device; autograd over the plain loss (no dropout, "
           f"no AdamW) {device_ms(run_autograd, reps=5):.3f} ms device")
+    flops, nbytes, launches = count_gat_step((p, m, v, a0, x0, hr, scal,
+                                              seeds), kw)
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"  GAT step work: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB "
+          f"moved by its {sum(launches.values())} launches {launches}; bound "
+          f"{b_ms:.4f} ms ({b_by})")
 
+    profile_steps(run_k, k_eager, os.path.join(OUT_DIR,
+                                               "profile_gat_step.txt"))
     _host_profile(run_k, 100)
 
     # validation: one model read by a fold's 56 subjects
@@ -1707,7 +1776,8 @@ def main():
     records = check_kernels(dev)
     print("phase 3: one full-width step, kernels vs plain", flush=True)
     step_args, eager_ms = check_step(dev, data)
-    profile_steps(step_args, dev, eager_ms,
+    from fcsr_tpu_torch.models.fused_step import train_step_fused
+    profile_steps(lambda: train_step_fused(*step_args, device=dev), eager_ms,
                   os.path.join(OUT_DIR, "profile_step.txt"))
     print("phase 4: trainer path", flush=True)
     counts = run_main_path(dev, data, EPOCHS)

@@ -24,6 +24,7 @@ import torch
 from fcsr_tpu_torch.kernels.build import load_library
 
 __all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "launch_counts",
+           "bgemm_path", "bgemm_forced", "bgemm_tiles",
            "reset_launch_counts", "rows_contiguous", "philox_words",
            "bits_to_keep", "gat_attention_math"]
 
@@ -224,6 +225,14 @@ def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None):
     or (F, N); ``add`` may be ``out`` (accumulate)."""
     if not b.is_cuda:
         return bgemm_plain(a, b, ta, tb, bias, add, out)
+    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+    KERNELS["bgemm_f32"](*args)
+    return out
+
+
+def _bgemm_args(a, b, ta, tb, bias, add, out):
+    """(out, the C entry point's arguments without the stream), after the
+    wrapper's checks; allocates ``out`` when it is None."""
     F = b.shape[0]
     K, N = (b.shape[2], b.shape[1]) if tb else (b.shape[1], b.shape[2])
     if a is None:
@@ -246,7 +255,7 @@ def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None):
         raise ValueError("bgemm output shape mismatch")
     if bias is not None and (bias.shape[-1] != N or bias.stride(2) != 1):
         raise ValueError("bgemm bias must be a contiguous row of length N")
-    KERNELS["bgemm_f32"](
+    return out, (
         _ptr(a), _ptr(b), _ptr(bias), _ptr(add), _ptr(out),
         F, M, N, K, int(ta), int(tb),
         0 if a is None else a.stride(0), 0 if a is None else a.stride(1),
@@ -255,6 +264,77 @@ def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None):
         0 if add is None else add.stride(0),
         0 if add is None else add.stride(1),
         out.stride(0), out.stride(1))
+
+
+_BGEMM_CLASSES = {1: "vector, a warp per output along k",
+                  2: "vector, lanes along the outputs, k over 8 warps",
+                  3: "elementwise rank-1"}
+
+
+# the product kernel's other C entry points (plan, tile table, a launch
+# with the dense plan forced), all returning int
+BGEMM_EXTRA = {
+    "fcsr_bgemm_f32_plan": [_P, _P] + [_I] * 6 + [_LL, _I, _LL, _I],
+    "fcsr_bgemm_f32_tile": [_I],
+    "fcsr_bgemm_f32_forced": [_I] + KERNELS["bgemm_f32"].argtypes + [_P],
+}
+
+
+def _bgemm_lib():
+    lib = load_library("bgemm")
+    for symbol, argtypes in BGEMM_EXTRA.items():
+        getattr(lib, symbol).argtypes = argtypes
+        getattr(lib, symbol).restype = _I
+    return lib
+
+
+def bgemm_path(a, b, ta=False, tb=False, bias=None, add=None, out=None):
+    """The path the product kernel takes for these CUDA operands (nothing
+    launches): its shape class, and for the dense path the tile, the
+    split-K cluster size and the copy width of each operand."""
+    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+    lib = _bgemm_lib()
+    code = lib.fcsr_bgemm_f32_plan(*args[:2], *args[5:13], *args[13:15])
+    if code < 0:
+        raise RuntimeError("bgemm_f32: no CUDA device for the plan")
+    if code // 10000:
+        return _BGEMM_CLASSES[code // 10000]
+    bm, bn, tm, tn, kg = bgemm_tile(lib, (code // 10) % 10)
+    return (f"dense {bm}x{bn} ({tm}x{tn} per thread, {kg} warp groups over "
+            f"k), split-K {code % 10}, {16 if code // 1000 % 2 else 4}/"
+            f"{16 if code // 2000 % 2 else 4}-byte copies")
+
+
+def bgemm_tile(lib, t):
+    """(bm, bn, tm, tn, kg) of the dense path's tile ``t``, or None past
+    the kernel's table."""
+    code = lib.fcsr_bgemm_f32_tile(t)
+    if code < 0:
+        return None
+    return (code // 1000000, code // 1000 % 1000, code // 100 % 10,
+            code // 10 % 10, code % 10)
+
+
+def bgemm_tiles():
+    """The dense path's tiles as (bm, bn, tm, tn, kg), in table order."""
+    lib, tiles = _bgemm_lib(), []
+    while bgemm_tile(lib, len(tiles)) is not None:
+        tiles.append(bgemm_tile(lib, len(tiles)))
+    return tiles
+
+
+def bgemm_forced(tile, split, a, b, ta=False, tb=False, bias=None,
+                 add=None, out=None):
+    """``bgemm`` on the card with the dense path's tile (an index into the
+    kernel's tile table) and split-K cluster size forced, for measuring
+    every plan against the one the kernel picks. Counts no launch; shapes
+    that take another path launch as usual."""
+    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+    err = _bgemm_lib().fcsr_bgemm_f32_forced(
+        tile * 10 + split, *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bgemm_f32 (tile {tile}, split {split}) failed "
+                           f"to launch: error {err}")
     return out
 
 
