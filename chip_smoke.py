@@ -11,7 +11,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
 1. prints the environment (``nvidia-smi`` name and power limit, torch and
    CUDA versions, the build time) with TF32 switched off;
 2. holds every kernel against its plain PyTorch version on the card at the
-   shapes of the main path, and times both (CUDA events, median); for
+   shapes of the main path, and times both (CUDA graphs, in turns, with
+   the library call where there is one); ``tail_normalize_bwd`` also at
+   other widths and fold counts, bit-equal run to run and over its rows
+   per band, and ``add_bias`` on the step's views and on views 1-3 floats
+   off 16 bytes; for
    ``bgemm_f32`` every distinct product signature of the full-width GSR
    and GAT steps (their census, ``kernels/census.py``), replayed with the
    step's operand layouts: the path the kernel takes, its error, two
@@ -210,9 +214,10 @@ def kernel_cases(dev):
                   lambda: K.pool_logits_bwd(gp, pre, slot, s),
                   lambda: P.pool_logits_bwd(gp, pre, slot, s), 1e-5,
                   2.0 * F * k0 * m, f4 * (2 * k0 * m + 3 * n0), None))
-    flat = rnd(F, 2 * LR * m + m)
-    w = flat[:, :LR * m].view(F, LR, m)
-    bb = flat[:, LR * m:LR * m + m].view(F, 1, m)
+    from fcsr_tpu_torch.models.fused_step import FlatLayout
+    layout = FlatLayout(LR, HR, len(KS))
+    leaves = layout.views(rnd(F, layout.size))     # the step's own views
+    w, bb = leaves["w:start_gcn"], leaves["b:start_gcn"]
     cases.append(("add_bias", lambda: K.add_bias(w, bb),
                   lambda: P.add_bias(w, bb), 0.0,
                   float(F * LR * m), f4 * (2 * LR * m + m),
@@ -250,8 +255,7 @@ def kernel_cases(dev):
     cases.append(("loss_terms", lambda: K.loss_terms(lk),
                   lambda: P.loss_terms(lk), 0.0, 2.0 * F, f4 * 5, None))
 
-    from fcsr_tpu_torch.models.fused_step import FlatLayout
-    n_p = FlatLayout(LR, HR, len(KS)).size
+    n_p = layout.size
     pp, gg = rnd(F, n_p), rnd(F, n_p, scale=1e-2)
     mm_, vv = rnd(F, n_p, scale=1e-3), rnd(F, n_p, scale=1e-3).abs()
     scal = torch.tensor([[1.0, 1 - 0.9 ** 5, 1 - 0.999 ** 5]] * F,
@@ -369,6 +373,74 @@ def check_triu_kernels(dev):
           "diagonal fill and the zero / negative row-sum guard ok")
 
 
+# (F, m) of the tail adjoint beyond its main record: odd and wider widths,
+# one fold to five; 1000 and 3500 need more than 48 KB of shared memory per
+# band, and 3500 more than the card has at 8 and 4 rows (the kernel halves
+# its rows per band to 2)
+TAIL_BWD_SHAPES = tuple((nf, m) for m in (37, HR, 300) for nf in (1, 3, 5)) \
+    + ((1, 1000), (1, 3500))
+
+
+def check_band_kernels(dev):
+    """The two launch-floor redesigns beyond their main record.
+    ``tail_normalize_bwd`` at every ``TAIL_BWD_SHAPES`` entry against its
+    plain version (within 1e-5 of the largest entry), two launches
+    bit-equal, and the widths that need more than 48 KB of shared memory
+    timed in a CUDA graph (their launches captured, as a step's would be).
+    ``add_bias`` exact on the step's own ``FlatLayout`` views (16-byte
+    aligned: checked) and on views 1-3 floats off 16 bytes, each timed in
+    turns with ``torch.add``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.models.fused_step import FlatLayout
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for nf, m in TAIL_BWD_SHAPES:
+        t = (torch.randn(nf, m, m, generator=g) * 0.1).to(dev)
+        gadj = torch.randn(nf, m, m, generator=g).to(dev)
+        _, r = K.tail_normalize(t)
+        got = [K.tail_normalize_bwd(gadj, t, r) for _ in range(2)]
+        want = P.tail_normalize_bwd(gadj, t, r)
+        torch.cuda.synchronize()
+        err, limit = max_err(got[0], want), 1e-5 * scale_of(want)
+        if not err <= limit:
+            fail(f"tail_normalize_bwd F={nf} m={m}: max|err| {err:.3e} above "
+                 f"{limit:.1e}")
+        if not torch.equal(got[0], got[1]):
+            fail(f"tail_normalize_bwd F={nf} m={m}: two launches differ")
+        print(f"    tail_normalize_bwd F={nf} m={m}: max|err| {err:.2e} "
+              f"(limit {limit:.1e}), bit-equal", flush=True)
+        if m >= 1000:
+            ms, = graph_ms([lambda: K.tail_normalize_bwd(gadj, t, r)])
+            print(f"    tail_normalize_bwd F={nf} m={m}: {ms:.4f} ms in a "
+                  f"CUDA graph", flush=True)
+
+    layout = FlatLayout(LR, HR, len(KS))
+    flat = torch.randn(F, layout.size, generator=g).to(dev)
+    leaves = layout.views(flat)
+    views = [("FlatLayout w:start_gcn + b:start_gcn", leaves["w:start_gcn"],
+              leaves["b:start_gcn"])]
+    if any(v.data_ptr() % 16 for _, *vs in views for v in vs) \
+            or flat.stride(0) % 4:
+        fail("add_bias: the step's views are not 16-byte aligned")
+    buf = torch.randn(F, LR * HR + HR + 3, generator=g).to(dev)
+    for off in (1, 2, 3):
+        views.append((f"views {off} float(s) off 16 bytes",
+                      buf[:, off:off + LR * HR].view(F, LR, HR),
+                      buf[:, off + LR * HR:off + LR * HR + HR]
+                      .view(F, 1, HR)))
+    for label, w, b in views:
+        got = [K.add_bias(w, b) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], P.add_bias(w, b))
+                and torch.equal(got[0], got[1])):
+            fail(f"add_bias on {label}: not exact")
+        k_ms, l_ms = graph_ms([lambda: K.add_bias(w, b),
+                               lambda: torch.add(w, b)])
+        print(f"    add_bias {label}: exact, bit-equal; kernel {k_ms:.4f} ms,"
+              f" torch.add {l_ms:.4f} ms", flush=True)
+
+
 def check_product(prod, layout, g, dev):
     """One census signature replayed on the card: its path, the kernel
     against the plain version (within 1e-5 x max(scale, K)), two launches
@@ -474,9 +546,10 @@ def check_products(dev):
 
 
 def check_kernels(dev):
-    """Phase 2; returns {name: record} for the JSON line."""
+    """Phase 2; returns {name: record} for the JSON line. Kernel, plain
+    version and library call are timed in turns (CUDA graphs)."""
 
-    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
 
     records = {}
     for name, kern, plain, tol, flops, nbytes, lib in kernel_cases(dev):
@@ -491,8 +564,9 @@ def check_kernels(dev):
         if not ok:
             fail(f"kernel {name} disagrees with its plain version "
                  f"(max|err| {err:.3e}, limit {limit:.1e})")
-        ms, plain_ms = device_ms(kern), device_ms(plain)
-        lib_ms = device_ms(lib) if lib is not None else None
+        ms, plain_ms, *lib_ms = graph_ms(
+            [kern, plain] + ([lib] if lib is not None else []))
+        lib_ms = lib_ms[0] if lib_ms else None
         host_ms = cuda_ms(kern)
         b_ms, b_by = bound(flops, nbytes)
         print(f"  {name:20s} max|err| {err:.3e} (limit {limit:.1e}) ok  "
@@ -506,6 +580,7 @@ def check_kernels(dev):
 
     records["bgemm_f32"].update(check_products(dev))
     check_triu_kernels(dev)
+    check_band_kernels(dev)
     return records
 
 
@@ -1297,8 +1372,10 @@ def gat_kernel_cases(dev):
 def check_gat_kernels(dev):
     """Phase 7.1: records of the nine new kernels, then every shape the
     step uses at drop_p 0, 0.01 and 0.3 (the plain versions draw the very
-    masks the kernels draw), and the generator's keep rate."""
+    masks the kernels draw), and the generator's keep rate. Records are
+    timed as phase 2's are, in turns."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
 
     records = {}
     for name, kern, plain, tol, flops, nbytes, lib in gat_kernel_cases(dev):
@@ -1309,8 +1386,9 @@ def check_gat_kernels(dev):
         if not err <= limit:
             fail(f"kernel {name} disagrees with its plain version "
                  f"(max|err| {err:.3e}, limit {limit:.1e})")
-        ms, plain_ms = device_ms(kern), device_ms(plain)
-        lib_ms = device_ms(lib) if lib is not None else None
+        ms, plain_ms, *lib_ms = graph_ms(
+            [kern, plain] + ([lib] if lib is not None else []))
+        lib_ms = lib_ms[0] if lib_ms else None
         b_ms, b_by = bound(flops, nbytes)
         print(f"  {name:20s} max|err| {err:.3e} (limit {limit:.1e}) ok  "
               f"kernel {ms:.4f} ms (eager from Python {cuda_ms(kern):.4f})  "

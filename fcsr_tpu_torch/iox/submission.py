@@ -13,6 +13,8 @@ consuming pipeline expects:
 
 The file is ``ID,Predicted`` with IDs from 1, written without pandas;
 values carry 9 significant digits, which parse back to the same float32.
+As pandas' ``to_csv`` (the JAX package's writer), a NaN is an empty field
+and ±inf is ``inf`` / ``-inf``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def save_prediction(preds, output_file: str, ordering: str = "colmajor"
         f.write("ID,Predicted\n")
         for s in range(0, len(flat), _ROWS_PER_WRITE):
             vals = flat[s:s + _ROWS_PER_WRITE].tolist()
-            f.write("".join([f"{i},{v:.9g}\n"
+            f.write("".join([f"{i},{v:.9g}\n" if v == v else f"{i},\n"
                              for i, v in enumerate(vals, s + 1)]))
     os.replace(tmp, output_file)
     return flat

@@ -39,6 +39,40 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
+// Asynchronous copies from global to shared memory that bypass registers,
+// so a block issues all its loads before waiting on any: cp_async*, then
+// cp_async_commit(), cp_async_wait<0>() and __syncthreads().
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async with zero fill: ``bytes`` of the 16 (or 4) are read, the rest
+// of the destination is set to 0 (bytes = 0 reads nothing).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Blocks for a grid-stride loop over ``total`` elements (at most 4096).
 static inline int grid_for(long long total, int threads) {
   const long long blocks = (total + threads - 1) / threads;

@@ -20,8 +20,9 @@
 //                       their two (1, 1) outputs. 2F + 3F floats: latency
 // Each matrix is 268 x 268 (288 KB) per fold: these kernels are bound by
 // bytes moved (a few hundred KB each) and, at this size, by launch latency.
-// The normalisation passes need every row sum before any output, so they
-// run one block per fold with the row sums in shared memory.
+// The forward normalisation needs every row sum before any output, so it
+// runs one block per fold with the row sums in shared memory. Its adjoint
+// does not (r is an input there) and runs in row bands across the card.
 #include "common.cuh"
 
 namespace {
@@ -57,48 +58,76 @@ __global__ void tail_normalize_kernel(const float* __restrict__ t,
 }
 
 // adj[i, j] = fd[j, i] r_i r_j, r_q = rs_q^-1/2, rs_q = sum_k fd[q, k]:
-//   d r_q   = sum_i g[i, q] fd[q, i] r_i + sum_a g[q, a] r_a fd[a, q]
-//   d rs_q  = -1/2 rs_q^-3/2 d r_q = -1/2 r_q^3 d r_q
+//   d r_i   = sum_q r_q (g[q, i] fd[i, q] + g[i, q] fd[q, i])
+//   d rs_i  = -1/2 rs_i^-3/2 d r_i = -1/2 r_i^3 d r_i
 //   d fd[i, j] = g[j, i] r_i r_j + d rs_i;  dT = d fd * sign(T), 0 on diag
-__global__ void tail_normalize_bwd_kernel(const float* __restrict__ g_adj,
-                                          const float* __restrict__ t,
-                                          const float* __restrict__ r_in,
-                                          float* __restrict__ g_t, int m) {
+// Output row i reads only row i and column i of g and T (r is an input),
+// so row bands are independent: block (b, f) owns rows I = [b R, b R + R)
+// of fold f. It stages T[I, :], g[I, :] (R contiguous rows), T[:, I],
+// g[:, I] (m runs of R floats, transposed into rows padded against bank
+// conflicts) and r with cp.async, all in flight at once; then warp c takes
+// row i0 + c: its sum over q in a fixed lane-strided order and a shuffle
+// tree, then the row of dT, coalesced. One launch, no atomics: the same
+// bits from run to run, whatever R. At F = 3, m = 268, R = 8 that is 102
+// blocks of 8 warps, each staging 37 KB (one block per fold, reading g and
+// T down columns at a 32-byte sector per float, took 17x as long).
+template <int R>
+__global__ void __launch_bounds__(R * 32)
+    tail_normalize_bwd_kernel(const float* __restrict__ g_adj,
+                              const float* __restrict__ t,
+                              const float* __restrict__ r_in,
+                              float* __restrict__ g_t, int m, int ld) {
   extern __shared__ float sh[];
-  float* r = sh;
-  float* grs = sh + m;
-  const int f = blockIdx.x;
-  const long long mm = (long long)m * m;
+  const int f = blockIdx.y, i0 = blockIdx.x * R;
+  const int rows = min(R, m - i0);
+  const size_t mm = (size_t)m * m;
   const float* T = t + f * mm;
   const float* G = g_adj + f * mm;
-  float* GT = g_t + f * mm;
-  for (int i = threadIdx.x; i < m; i += blockDim.x)
-    r[i] = r_in[(long long)f * m + i];
-  __syncthreads();
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int q = w; q < m; q += nw) {
-    float acc = 0.f;
-    for (int i = lane; i < m; i += 32) {
-      const float fd_qi = (q == i) ? 1.f : fabsf(T[(long long)q * m + i]);
-      const float fd_iq = (q == i) ? 1.f : fabsf(T[(long long)i * m + q]);
-      acc += G[(long long)i * m + q] * fd_qi * r[i];
-      acc += G[(long long)q * m + i] * r[i] * fd_iq;
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const float rq = r[q];
-      grs[q] = acc * -0.5f * (rq * rq * rq);
+  float* r = sh;                    // m
+  float* rowT = r + m;              // R x m: T[i0 + c, :]
+  float* rowG = rowT + R * m;       // R x m: g[i0 + c, :]
+  float* colT = rowG + R * m;       // R x ld: colT[c ld + q] = T[q, i0 + c]
+  float* colG = colT + R * ld;      // R x ld: g[q, i0 + c]
+  const int tid = threadIdx.x;
+  for (int e = tid; e < m; e += R * 32) cp_async4(r + e, r_in + f * m + e, 4);
+  for (int e = tid; e < rows * m; e += R * 32) {
+    cp_async4(rowT + e, T + i0 * m + e, 4);
+    cp_async4(rowG + e, G + i0 * m + e, 4);
+  }
+  // lanes along the band's R columns, then down q: 32 / R runs per warp
+  for (int e = tid; e < m * R; e += R * 32) {
+    const int q = e / R, c = e % R;
+    if (c < rows) {
+      cp_async4(colT + c * ld + q, T + q * m + i0 + c, 4);
+      cp_async4(colG + c * ld + q, G + q * m + i0 + c, 4);
     }
   }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  for (long long e = threadIdx.x; e < mm; e += blockDim.x) {
-    const int i = (int)(e / m), j = (int)(e % m);
+
+  const int c = tid >> 5, lane = tid & 31;
+  if (c >= rows) return;
+  const int i = i0 + c;
+  const float* tr = rowT + c * m;
+  const float* gr = rowG + c * m;
+  const float* tc = colT + c * ld;
+  const float* gc = colG + c * ld;
+  float acc = 0.f;
+  for (int q = lane; q < m; q += 32) {
+    const float fd_iq = (q == i) ? 1.f : fabsf(tr[q]);
+    const float fd_qi = (q == i) ? 1.f : fabsf(tc[q]);
+    acc += gc[q] * fd_iq * r[q];
+    acc += gr[q] * r[q] * fd_qi;
+  }
+  acc = __shfl_sync(0xffffffffu, warp_sum(acc), 0);
+  const float ri = r[i];
+  const float grs = acc * -0.5f * (ri * ri * ri);
+  float* out = g_t + f * mm + i * m;
+  for (int j = lane; j < m; j += 32) {
     float v = 0.f;
-    if (i != j)
-      v = (G[(long long)j * m + i] * r[i] * r[j] + grs[i]) *
-          abs_grad_sign(T[e]);
-    GT[e] = v;
+    if (j != i) v = (gc[j] * ri * r[j] + grs) * abs_grad_sign(tr[j]);
+    out[j] = v;
   }
 }
 
@@ -180,6 +209,55 @@ __global__ void loss_terms_kernel(const float* __restrict__ vals,
   }
 }
 
+// Rows per band: 8 ran 0.0037 ms against 4's 0.0041 at F = 3, m = 268 on
+// an H100, so the kernel takes 8. Where a band's tiles exceed the card's
+// shared memory R halves, down to 1 row (m up to ~11 600).
+constexpr int BWD_ROWS = 8;
+
+// The card's opt-in shared memory per block, read on the first launch
+// that needs more than 48 KB.
+int g_smem_optin = 0;
+
+template <int R>
+int launch_bwd(const float* g_adj, const float* t, const float* r, float* g_t,
+               int batch, int m, cudaStream_t st) {
+  // the transposed tiles' row stride: ld = 32 / R (mod 32), so the R runs
+  // of one warp's cp.async land in distinct banks
+  const int ld = m + ((32 / R - m % 32) % 32 + 32) % 32;
+  const size_t smem = sizeof(float) * ((size_t)m + 2 * R * (size_t)m +
+                                       2 * R * (size_t)ld);
+  if (smem > 48 * 1024) {
+    if (g_smem_optin == 0) {
+      int dev = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &g_smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (smem > (size_t)g_smem_optin) {
+      if constexpr (R == 1)
+        return (int)cudaErrorInvalidValue;
+      else
+        return launch_bwd<R / 2>(g_adj, t, r, g_t, batch, m, st);
+    }
+    // once per instance: its limit raised to the card's, so no later
+    // launch (none inside a CUDA graph capture) sets an attribute
+    static bool raised = false;
+    if (!raised) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          tail_normalize_bwd_kernel<R>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_optin);
+      if (err != cudaSuccess) return (int)err;
+      raised = true;
+    }
+  }
+  dim3 grid((m + R - 1) / R, batch);
+  tail_normalize_bwd_kernel<R><<<grid, R * 32, smem, st>>>(g_adj, t, r, g_t,
+                                                           m, ld);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fcsr_tail_normalize(const float* t, float* adj, float* r,
@@ -192,9 +270,8 @@ extern "C" int fcsr_tail_normalize(const float* t, float* adj, float* r,
 extern "C" int fcsr_tail_normalize_bwd(const float* g_adj, const float* t,
                                        const float* r, float* g_t, int batch,
                                        int m, void* stream) {
-  tail_normalize_bwd_kernel<<<batch, 1024, 2 * m * sizeof(float),
-                              (cudaStream_t)stream>>>(g_adj, t, r, g_t, m);
-  return (int)cudaGetLastError();
+  return launch_bwd<BWD_ROWS>(g_adj, t, r, g_t, batch, m,
+                              (cudaStream_t)stream);
 }
 
 extern "C" int fcsr_sym_abs_fill(const float* x, float* out, int batch,

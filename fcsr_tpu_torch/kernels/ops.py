@@ -461,7 +461,8 @@ def add_bias_plain(x, bias):
 
 def add_bias(x, bias):
     """``x + bias`` row-broadcast: x (F, r, c), bias (F, 1, c); both may
-    be views into a flat buffer."""
+    be views into a flat buffer (16-byte accesses where x, bias and their
+    batch strides are 16-byte aligned, else 4-byte)."""
     if not x.is_cuda:
         return add_bias_plain(x, bias)
     _check(x.device, x, bias)
@@ -524,14 +525,13 @@ def tail_normalize_bwd_plain(g_adj, t, r):
 
 
 def tail_normalize_bwd(g_adj, t, r):
-    """dT for ``tail_normalize`` given d adj."""
+    """dT for ``tail_normalize`` given d adj (m up to ~11 600: each of the
+    kernel's row bands stages its rows and columns in shared memory)."""
     if not t.is_cuda:
         return tail_normalize_bwd_plain(g_adj, t, r)
     _check(t.device, g_adj, t, r)
     _contig(g_adj, t, r)
     F, m, _ = t.shape
-    if m > 6 * 1024:
-        raise ValueError("tail_normalize_bwd: m too large for shared memory")
     g_t = torch.empty_like(t)
     KERNELS["tail_normalize_bwd"](_ptr(g_adj), _ptr(t), _ptr(r), _ptr(g_t),
                                   F, m)

@@ -38,8 +38,20 @@ __all__ = ["run_gsr_cv", "run_gsr_cv_fast", "run_gat_cv", "run_gat_cv_fast"]
 
 _NO_EVALX = ("full_metrics=True needs the port of fcsr_tpu/evalx (the "
              "topology metric suite), which is not ported yet")
+_NO_NETWORKX = ("eval_backend='networkx' needs the port of fcsr_tpu/evalx "
+                "(the topology metric suite), which is not ported yet")
 _NO_PARALLEL = ("multichip=True needs the port of fcsr_tpu/parallel (fold "
                 "sharding over torch.distributed), which is not ported yet")
+
+
+def _check_eval_backend(eval_backend: str):
+    """The JAX package's ``eval_backend``: "device" runs here; "networkx"
+    waits for the port of evalx."""
+    if eval_backend == "networkx":
+        raise NotImplementedError(_NO_NETWORKX)
+    if eval_backend != "device":
+        raise ValueError(f"unknown eval_backend: {eval_backend!r} "
+                         "(expected 'device' or 'networkx')")
 
 
 def _fit_cfg_to_data(cfg, lr_all, hr_all):
@@ -62,7 +74,7 @@ def _fit_cfg_to_data(cfg, lr_all, hr_all):
 def run_gsr_cv_fast(data: Dict[str, np.ndarray],
                     cfg: Optional[GSRTrainConfig] = None,
                     splits: int = 3, seed: int = 42, init_seed: int = 0,
-                    full_metrics: bool = False,
+                    full_metrics: bool = False, eval_backend: str = "device",
                     checkpoint_path: Optional[str] = None,
                     checkpoint_every: Optional[int] = None,
                     multichip: bool = False, flat0=None,
@@ -81,6 +93,7 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
         raise NotImplementedError(_NO_PARALLEL)
     if full_metrics:
         raise NotImplementedError(_NO_EVALX)
+    _check_eval_backend(eval_backend)
 
     cfg = cfg or GSRTrainConfig(fused_adam=True)
     lr_all = np.asarray(data["lr_train"], dtype=np.float32)
@@ -126,8 +139,9 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
 def run_gsr_cv(data: Dict[str, np.ndarray],
                cfg: Optional[GSRTrainConfig] = None,
                splits: int = 5, seed: int = 42, init_seed: int = 0,
-               reset_per_fold: bool = False, full_metrics: bool = False,
-               verbose: bool = False, device=DEFAULT_DEVICE):
+               reset_per_fold: bool = False, eval_backend: str = "device",
+               full_metrics: bool = False, verbose: bool = False,
+               device=DEFAULT_DEVICE):
     """K-fold cross-validated GSR-Net training with the parity trainer
     (per-sample sequential Adam, ``train/gsr_loop.py``).
 
@@ -144,6 +158,7 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
     forward counts."""
     if full_metrics:
         raise NotImplementedError(_NO_EVALX)
+    _check_eval_backend(eval_backend)
 
     cfg = cfg or GSRTrainConfig()
     lr_all = np.asarray(data["lr_train"], dtype=np.float32)
@@ -212,8 +227,8 @@ def _fold_maes_on_device(model, cfg, best_vars, lr_all, hr_all, folds, dev):
 
 def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
                cfg: Optional[GATTrainConfig] = None,
-               full_metrics: bool = False, verbose: bool = False,
-               device=DEFAULT_DEVICE):
+               full_metrics: bool = False, eval_backend: str = "device",
+               verbose: bool = False, device=DEFAULT_DEVICE):
     """The GAT Graph-U-Net's k-fold pipeline, one fold after the other: a
     fresh model per fold (seed + j), intermediate-loss training under the
     host's plateau schedule (``train_gat``), then each fold's validation
@@ -225,6 +240,7 @@ def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
     (a tensor on ``device``, or None without ``lr_test``), ``timings``."""
     if full_metrics:
         raise NotImplementedError(_NO_EVALX)
+    _check_eval_backend(eval_backend)
     dev = resolve_device(device)
     cfg = cfg or GATTrainConfig()
     lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
@@ -262,7 +278,8 @@ def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
 def run_gat_cv_fast(data: Dict[str, np.ndarray],
                     cfg: Optional[GATTrainConfig] = None, splits: int = 3,
                     seed: int = 42, full_metrics: bool = False,
-                    verbose: bool = False, host_control: bool = False,
+                    eval_backend: str = "device", verbose: bool = False,
+                    host_control: bool = False,
                     multichip: bool = False, flat0=None,
                     device=DEFAULT_DEVICE):
     """Fold-parallel GAT CV: all folds trained together
@@ -275,6 +292,7 @@ def run_gat_cv_fast(data: Dict[str, np.ndarray],
         raise NotImplementedError(_NO_PARALLEL)
     if full_metrics:
         raise NotImplementedError(_NO_EVALX)
+    _check_eval_backend(eval_backend)
     dev = resolve_device(device)
     cfg = cfg or GATTrainConfig()
     lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)

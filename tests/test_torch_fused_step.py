@@ -286,6 +286,23 @@ def test_kernel_bindings_match_c_signatures():
             assert t is want, (k.symbol, p)
 
 
+def test_step_bias_views_take_the_16_byte_path():
+    """add_bias's 16-byte loads need x, bias and their batch strides
+    16-byte aligned: the step's w:start_gcn and b:start_gcn views of the
+    full-width flat layout start at multiples of 4 floats and the buffer's
+    row (the batch stride) is too, so on a 16-byte-aligned buffer they
+    qualify."""
+    layout = FlatLayout(160, 268, 4)
+    flat = torch.zeros(2, layout.size)
+    views = layout.views(flat)
+    assert flat.stride(0) % 4 == 0
+    for name in ("w:start_gcn", "b:start_gcn"):
+        v = views[name]
+        assert (v.data_ptr() - flat.data_ptr()) % 16 == 0, name
+        assert v.stride(0) % 4 == 0, name
+        assert v.shape[2] % 4 == 0 and v.stride(2) == 1, name
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

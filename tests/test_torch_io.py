@@ -214,3 +214,35 @@ def test_submission_file_parses_back_to_the_same_float32(rng, tmp_path,
                                   .astype(np.float32), flat)
     with pytest.raises(ValueError, match="unknown ordering"):
         save_prediction(preds, str(path), "diagonal")
+
+
+@pytest.mark.parametrize("ordering", ["colmajor", "rowmajor"])
+def test_nan_and_inf_predictions_are_written_as_jax_writes_them(
+        rng, tmp_path, ordering):
+    """A NaN prediction is an empty ``Predicted`` field and ±inf is
+    ``inf`` / ``-inf``, as pandas' ``to_csv`` writes them for
+    ``fcsr_tpu.iox.save_prediction``. The two files are compared line by
+    line as parsed values and NaN positions, not as bytes: the port writes
+    9 significant digits, pandas the shortest float32 repr."""
+    from fcsr_tpu.iox import save_prediction as j_save_prediction
+    preds = rng.standard_normal((2, 9, 9)).astype(np.float32)
+    for f, i, j, v in ((0, 0, 1, np.nan), (0, 3, 5, np.inf),
+                       (1, 2, 7, -np.inf), (1, 4, 6, np.nan)):
+        preds[f, i, j] = preds[f, j, i] = v
+    t_path, j_path = tmp_path / "port.csv", tmp_path / "jax.csv"
+    save_prediction(torch.from_numpy(preds), str(t_path), ordering)
+    j_save_prediction(preds, str(j_path), ordering)
+    t_lines = t_path.read_text().splitlines()
+    j_lines = j_path.read_text().splitlines()
+    assert t_lines[0] == j_lines[0] == "ID,Predicted"
+    assert len(t_lines) == len(j_lines) == 1 + 2 * 36
+    fields = {"": 0, "inf": 0, "-inf": 0}
+    for t_line, j_line in zip(t_lines[1:], j_lines[1:]):
+        (t_id, t_val), (j_id, j_val) = t_line.split(","), j_line.split(",")
+        assert t_id == j_id
+        if not np.isfinite(float(j_val or "nan")):
+            assert t_val == j_val
+            fields[j_val] += 1
+        else:
+            assert np.float32(t_val) == np.float32(j_val)
+    assert fields == {"": 2, "inf": 1, "-inf": 1}

@@ -4,6 +4,7 @@ CPU: the same CSVs and the same initial weights through the JAX package's
 port's; checkpoint resume; the command line and what it refuses (the
 other trainer modes' commands are in ``test_torch_gsr_trainers.py``)."""
 
+import inspect
 import json
 import os
 
@@ -12,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from fcsr_tpu import pipelines as j_pipelines
 from fcsr_tpu.data import io as j_io
 from fcsr_tpu.iox import save_prediction as j_save_prediction
 from fcsr_tpu.pipelines import run_gsr_cv_fast as j_run
 from fcsr_tpu.train import GSRTrainConfig as JConfig
-from fcsr_tpu_torch import cli
+from fcsr_tpu_torch import cli, pipelines as t_pipelines
 from fcsr_tpu_torch.data import (kfold_indices, load_dataset,
                                  synthesize_teacher_connectomes,
                                  write_kaggle_csvs)
@@ -213,6 +215,42 @@ def test_fit_cfg_and_pipeline_refusals():
         run_gsr_cv_fast(data, cfg, multichip=True, device="cpu")
     with pytest.raises(NotImplementedError, match="evalx"):
         run_gsr_cv_fast(data, cfg, full_metrics=True, device="cpu")
+
+
+PIPELINES = ("run_gsr_cv_fast", "run_gsr_cv", "run_gat_cv",
+             "run_gat_cv_fast")
+
+
+@pytest.mark.parametrize("name", PIPELINES)
+def test_pipeline_keeps_the_jax_parameter_order(name):
+    """The JAX package's parameters, ``eval_backend`` included, lead the
+    port's in the same order (the port adds ``flat0`` / ``device`` after
+    them), so a positional call binds the same parameters in both."""
+    j_params = inspect.signature(getattr(j_pipelines, name)).parameters
+    t_params = inspect.signature(getattr(t_pipelines, name)).parameters
+    assert list(t_params)[:len(j_params)] == list(j_params)
+    assert t_params["eval_backend"].default == "device" \
+        == j_params["eval_backend"].default
+
+
+@pytest.mark.parametrize("name", PIPELINES)
+def test_pipeline_refuses_networkx_eval_backend_by_name(name):
+    """``eval_backend="networkx"`` names the missing evalx port, by keyword
+    and positionally at the JAX package's position; an unknown backend is a
+    ValueError. Both are refused before any training."""
+    run = getattr(t_pipelines, name)
+    data = {"lr_train": np.zeros((2, 20, 20)),
+            "hr_train": np.zeros((2, 32, 32))}
+    with pytest.raises(NotImplementedError, match="evalx"):
+        run(data, eval_backend="networkx", device="cpu")
+    j_params = list(inspect.signature(getattr(j_pipelines, name)).parameters
+                    .values())
+    upto = [p.name for p in j_params].index("eval_backend")
+    args = [data] + [p.default for p in j_params[1:upto]] + ["networkx"]
+    with pytest.raises(NotImplementedError, match="evalx"):
+        run(*args, device="cpu")
+    with pytest.raises(ValueError, match="unknown eval_backend"):
+        run(data, eval_backend="gpu", device="cpu")
 
 
 def test_set_seed_seeds_the_global_generators():
