@@ -15,7 +15,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    the library call where there is one); ``tail_normalize_bwd`` also at
    other widths and fold counts, bit-equal run to run and over its rows
    per band, and ``add_bias`` on the step's views and on views 1-3 floats
-   off 16 bytes; for
+   off 16 bytes; the two cluster reductions beyond their record
+   (``check_tail_reductions``): ``tail_normalize`` at the adjoint's widths,
+   on a zero row and an inf entry, ``l1_term`` at the step's three call
+   signatures (the ``FlatLayout`` leaf view among them) and on views 1-3
+   floats off 16 bytes, with exact ties; for
    ``bgemm_f32`` every distinct product signature of the full-width GSR
    and GAT steps (their census, ``kernels/census.py``), replayed with the
    step's operand layouts: the path the kernel takes, its error, two
@@ -441,6 +445,132 @@ def check_band_kernels(dev):
               f" torch.add {l_ms:.4f} ms", flush=True)
 
 
+def _nan_aware_err(got, want):
+    """max|err| over the entries where neither is NaN, or inf when the
+    two disagree on where NaN is."""
+    nan = torch.isnan(want)
+    if not torch.equal(nan, torch.isnan(got)):
+        return float("inf")
+    return max_err(got[~nan], want[~nan])
+
+
+def _check_norm(label, got, want):
+    """tail_normalize's (adj, r) against the plain version: within 1e-5 of
+    the largest finite entry, NaN where the plain version has NaN."""
+    for name, a, b in (("adj", got[0], want[0]), ("r", got[1], want[1])):
+        fin = b[torch.isfinite(b)]
+        err = _nan_aware_err(a, b)
+        limit = 1e-5 * scale_of(fin if fin.numel() else b.new_ones(1))
+        if not err <= limit:
+            fail(f"tail_normalize {label}: {name} max|err| {err:.3e} above "
+                 f"{limit:.1e}")
+    return _nan_aware_err(got[0], want[0])
+
+
+def check_tail_reductions(dev):
+    """The two cluster kernels beyond their main record.
+
+    ``tail_normalize`` at every ``TAIL_BWD_SHAPES`` entry under the plan
+    its wrapper takes (adj and r within 1e-5 of the largest entry, two
+    launches bit-equal), on inputs with an all-zero off-diagonal row and
+    with an inf entry (NaN exactly where the plain version has it); the
+    widths past 48 KB of shared memory per block timed in a CUDA graph.
+
+    ``l1_term`` at the step's three call signatures (net / x0 with sign(0)
+    = 0 and the negation, pred / hr, the ``FlatLayout`` leaf view
+    ``layer.weights`` / u_hr), on operands 1-3 floats off 16 bytes, all
+    with exact ties a == b: grad and neg exact, the value within 1e-6
+    relative, two launches bit-equal, each timed in turns with the plain
+    version."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import l1_term_plan, tail_normalize_plan
+    from fcsr_tpu_torch.models.fused_step import FlatLayout
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    for nf, m in TAIL_BWD_SHAPES:
+        t = rnd(nf, m, m, scale=0.1)
+        got = [K.tail_normalize(t) for _ in range(2)]
+        err = _check_norm(f"F={nf} m={m}", got[0], P.tail_normalize(t))
+        if not (torch.equal(got[0][0], got[1][0])
+                and torch.equal(got[0][1], got[1][1])):
+            fail(f"tail_normalize F={nf} m={m}: two launches differ")
+        plan = tail_normalize_plan(m, True, smem)
+        line = (f"    tail_normalize F={nf} m={m} (16 x {plan.rows} rows, "
+                f"{'staged' if plan.staged else 'chunks of %d' % plan.chunk}): "
+                f"max|err| {err:.2e}, bit-equal")
+        if m >= 1000:
+            ms, = graph_ms([lambda: K.tail_normalize(t)])
+            line += f", {ms:.4f} ms in a CUDA graph"
+        print(line, flush=True)
+
+    m = HR
+    t = rnd(F, m, m, scale=0.1)
+    t[1, 5, :] = 0.0                        # an all-zero off-diagonal row
+    _check_norm("with a zero row", K.tail_normalize(t), P.tail_normalize(t))
+    t[2, 7, 9] = float("inf")               # r_7 = 0, adj[9, 7] NaN
+    _check_norm("with an inf entry", K.tail_normalize(t),
+                P.tail_normalize(t))
+    print("    tail_normalize: zero row and inf entry as the plain version",
+          flush=True)
+
+    layout = FlatLayout(LR, HR, len(KS))
+    leaves = layout.views(rnd(F, layout.size))
+
+    def tie(a, b):               # exact ties on every 7th row, 5th column
+        b = b.clone()
+        b[:, ::7, ::5] = a[:, ::7, ::5]
+        return b
+
+    net = rnd(F, LR, HR)
+    pred = rnd(F, HR, HR)
+    wg = leaves["layer.weights"]
+    cases = [("net / x0", net, tie(net, rnd(F, LR, HR)), 0, 16.0,
+              16.0 / (LR * HR), True, True),
+             ("pred / hr", pred, tie(pred, rnd(F, HR, HR)), 1, 1.0,
+              1.0 / (HR * HR), False, False),
+             ("layer.weights / u_hr", wg, tie(wg, rnd(F, HR, LR)), 2, 1.0,
+              1.0 / (HR * LR), False, False)]
+    for off in (1, 2, 3):
+        n = HR * LR
+        ba, bb = rnd(F, n + 4), rnd(F, n + 4)
+        a = ba[:, off:off + n].view(F, HR, LR)
+        cases.append((f"views {off} float(s) off 16 bytes", a,
+                      tie(a, bb[:, off:off + n].view(F, HR, LR)), 2, 1.0,
+                      1.0 / n, False, False))
+    for i, (label, a, b, slot, vs, gs, zs, neg) in enumerate(cases):
+        if l1_term_plan(a, b).vec != (i < 3):
+            fail(f"l1_term {label}: 16-byte path {l1_term_plan(a, b)}")
+        vk = [torch.zeros(F, 3, device=dev) for _ in range(2)]
+        got = [K.l1_term(a, b, v, slot, vs, gs, zs, neg) for v in vk]
+        vp = torch.zeros(F, 3, device=dev)
+        want = P.l1_term(a, b, vp, slot, vs, gs, zs, neg)
+        torch.cuda.synchronize()
+        got0 = got[0] if neg else (got[0],)
+        want0 = want if neg else (want,)
+        if not all(torch.equal(x, y) for x, y in zip(got0, want0)):
+            fail(f"l1_term {label}: gradient not exact")
+        rel = float(((vk[0][:, slot].double() - vp[:, slot].double()).abs()
+                     / vp[:, slot].double().abs()).max())
+        if not rel <= 1e-6:
+            fail(f"l1_term {label}: value off by {rel:.2e} relative")
+        got1 = got[1] if neg else (got[1],)
+        if not (torch.equal(vk[0], vk[1])
+                and all(torch.equal(x, y) for x, y in zip(got0, got1))):
+            fail(f"l1_term {label}: two launches differ")
+        k_ms, p_ms = graph_ms(
+            [lambda: K.l1_term(a, b, vk[0], slot, vs, gs, zs, neg),
+             lambda: P.l1_term(a, b, vp, slot, vs, gs, zs, neg)])
+        print(f"    l1_term {label} ({l1_term_plan(a, b)}): grad exact, "
+              f"value {rel:.1e} relative, bit-equal; kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms", flush=True)
+
+
 def check_product(prod, layout, g, dev):
     """One census signature replayed on the card: its path, the kernel
     against the plain version (within 1e-5 x max(scale, K)), two launches
@@ -581,6 +711,7 @@ def check_kernels(dev):
     records["bgemm_f32"].update(check_products(dev))
     check_triu_kernels(dev)
     check_band_kernels(dev)
+    check_tail_reductions(dev)
     return records
 
 

@@ -7,6 +7,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 // Adjoint sign of |x| as the reference differentiates it: +1 at x >= 0
 // (zero included), -1 below.
@@ -71,6 +72,11 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16-byte accesses need 16-byte-aligned addresses.
+static inline bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
 }
 
 // Blocks for a grid-stride loop over ``total`` elements (at most 4096).

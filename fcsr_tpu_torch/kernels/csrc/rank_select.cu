@@ -160,8 +160,6 @@ __global__ void add_bias_kernel(const float* __restrict__ x, long long sx,
   }
 }
 
-bool aligned16(const float* p) { return ((uintptr_t)p & 15) == 0; }
-
 }  // namespace
 
 extern "C" int fcsr_rank_select(const float* logits, float* s, int* idx,

@@ -20,40 +20,122 @@
 //                       their two (1, 1) outputs. 2F + 3F floats: latency
 // Each matrix is 268 x 268 (288 KB) per fold: these kernels are bound by
 // bytes moved (a few hundred KB each) and, at this size, by launch latency.
-// The forward normalisation needs every row sum before any output, so it
-// runs one block per fold with the row sums in shared memory. Its adjoint
-// does not (r is an input there) and runs in row bands across the card.
+// The forward normalisation needs every row sum before any output, and
+// l1_term one sum over the whole fold: each runs a thread-block cluster
+// per fold whose blocks take a share of the fold and meet once in
+// distributed shared memory, inside the one launch, in a fixed order (no
+// atomics). The adjoint needs no such exchange (r is an input there) and
+// runs in independent row bands across the card. The wrappers
+// (kernels/ops.py) plan the two cluster launches on the host.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void tail_normalize_kernel(const float* __restrict__ t,
-                                      float* __restrict__ adj,
-                                      float* __restrict__ r_out, int m) {
-  extern __shared__ float r[];
-  const int f = blockIdx.x;
-  const long long mm = (long long)m * m;
+// The two halves of a cluster barrier (barrier.cluster: release on
+// arrive, acquire on wait). Every thread of every block arrives, then
+// waits; work placed between the two overlaps the other blocks' arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// tail_normalize: a cluster of C blocks per fold (grid (C, F)); block b
+// owns rows I = [b R, b R + R). It stages T[I, :] in shared memory with
+// cp.async, sums each row in a fixed lane-strided order and a shuffle
+// tree (warp per row: r is the same bits whatever the plan), and writes
+// r_i into the r array of every block of the cluster. After one cluster
+// barrier each block holds all m of r and writes COLUMNS I of adj from
+// the rows it holds: adj[j, i] = fd[i, j] r_j r_i for every j, as m runs
+// of R contiguous floats. T is read from memory once and adj written
+// once. The staged rows have stride ld: = 4 (mod 32) with 16-byte copies
+// where m % 4 == 0 and T is 16-byte aligned (vec), else odd with 4-byte
+// ones, so the transposed reads of the writes meet at most 2-3 to a bank.
+// Where R rows do not fit in shared memory (m past ~950 at C = 16) the
+// block sums its rows straight from memory and stages them again for the
+// writes, J columns at a time (4-byte copies, odd ld). At F = 3, m = 268,
+// C = 16: 48 blocks, 17 rows each, 20 KB staged. On an H100 (700 W),
+// timed in turns in CUDA graphs: 0.0063 ms, against 0.0068 with 4-byte
+// staging, 0.0079-0.0090 at C = 8, 0.0100 in chunks of 64 columns (one
+// 1024-thread block per fold, reading T down columns, took 0.035). The
+// wrapper takes C = 16 at every m.
+constexpr int NORM_THREADS = 512;
+
+__global__ void __launch_bounds__(NORM_THREADS)
+    tail_normalize_kernel(const float* __restrict__ t,
+                          float* __restrict__ adj, float* __restrict__ r_out,
+                          int m, int R, int J, int ld, int vec) {
+  extern __shared__ float sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), b = (int)cluster.block_rank();
+  const int f = blockIdx.y, i0 = b * R;
+  const int rows = max(0, min(R, m - i0));
+  const size_t mm = (size_t)m * m;
   const float* T = t + f * mm;
   float* A = adj + f * mm;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int i = w; i < m; i += nw) {
-    float acc = 0.f;
-    for (int j = lane; j < m; j += 32)
-      acc += (j == i) ? 1.f : fabsf(T[(long long)i * m + j]);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      float ri = 1.f / sqrtf(acc);  // 0 -> inf -> 0 below; < 0 -> NaN
-      if (isinf(ri)) ri = 0.f;
-      r[i] = ri;
-      r_out[(long long)f * m + i] = ri;
+  float* r = sh;           // m: r of every row, own and pushed by the peers
+  float* tile = sh + m;    // rows x ld: tile[c ld + jj] = T[i0 + c, j0 + jj]
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const bool staged = J >= m;
+
+  auto stage = [&](int j0, int cols) {
+    if (vec) {  // whole rows, 16 bytes a copy
+      const int q4 = m >> 2;
+      for (int e = tid; e < rows * q4; e += NORM_THREADS) {
+        const int c = e / q4, jj = 4 * (e - c * q4);
+        cp_async16(tile + c * ld + jj, T + (size_t)(i0 + c) * m + jj, 16);
+      }
+    } else {
+      for (int e = tid; e < rows * cols; e += NORM_THREADS) {
+        const int c = e / cols, jj = e - c * cols;
+        cp_async4(tile + c * ld + jj, T + (size_t)(i0 + c) * m + j0 + jj, 4);
+      }
     }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+
+  cluster_arrive();  // this block has started: peers may write into r
+  if (staged) stage(0, m);
+  cluster_wait();    // every block of the cluster has started
+  for (int c = w; c < rows; c += NORM_THREADS / 32) {
+    const int i = i0 + c;
+    float acc = 0.f;
+    if (staged) {
+      for (int j = lane; j < m; j += 32)
+        acc += (j == i) ? 1.f : fabsf(tile[c * ld + j]);
+    } else {
+      for (int j = lane; j < m; j += 32)
+        acc += (j == i) ? 1.f : fabsf(T[(size_t)i * m + j]);
+    }
+    acc = __shfl_sync(0xffffffffu, warp_sum(acc), 0);
+    float ri = 1.f / sqrtf(acc);  // 0 -> inf -> 0 below; < 0 -> NaN
+    if (isinf(ri)) ri = 0.f;
+    for (int q = lane; q < C; q += 32) cluster.map_shared_rank(r, q)[i] = ri;
+    if (lane == 0) r_out[(size_t)f * m + i] = ri;
   }
-  __syncthreads();
-  for (long long e = threadIdx.x; e < mm; e += blockDim.x) {
-    const int i = (int)(e / m), j = (int)(e % m);
-    const float fd = (i == j) ? 1.f : fabsf(T[(long long)j * m + i]);
-    A[e] = fd * r[i] * r[j];
+  cluster_arrive();  // this block's r is in every block
+  cluster_wait();    // every block's r is here; no remote access after this
+
+  for (int j0 = 0; j0 < m; j0 += J) {
+    const int cols = min(J, m - j0);
+    if (!staged) {
+      __syncthreads();  // the previous chunk is written out
+      stage(j0, cols);
+    }
+    for (int e = tid; e < rows * cols; e += NORM_THREADS) {
+      const int jj = e / rows, c = e - jj * rows;
+      const int i = i0 + c, j = j0 + jj;
+      const float fd = (i == j) ? 1.f : fabsf(tile[c * ld + jj]);
+      A[(size_t)j * m + i] = fd * r[j] * r[i];
+    }
   }
 }
 
@@ -166,29 +248,89 @@ __global__ void sym_sign_grad_kernel(const float* __restrict__ g,
   }
 }
 
-// One block per fold: vals[f * vstride] = value_scale * mean|a - b|;
-// grad = gsign(a - b) * grad_scale, neg = -grad (either may be null).
-__global__ void l1_term_kernel(const float* __restrict__ a, long long sa,
-                               const float* __restrict__ b, long long sb,
-                               int n, float value_scale, float grad_scale,
-                               int zero_sign, float* __restrict__ vals,
-                               int vstride, float* __restrict__ grad,
-                               float* __restrict__ neg) {
-  const int f = blockIdx.x;
+// l1_term: vals[f * vstride] = value_scale * mean|a - b|, grad =
+// gsign(a - b) * grad_scale, neg = -grad (either may be null). A cluster
+// of C blocks per fold (grid (C, F)); block b takes the contiguous groups
+// of 4 elements [b G, b G + G) and streams them once: |a - b| summed per
+// thread in group order, the sign adjoint written as it goes (16-byte
+// loads and stores where VEC: a, b and both batch strides 16-byte
+// aligned, n % 4 == 0; else 4-byte, the same order and bits). The block's
+// sum (warp trees, then the warps in order) goes into rank 0's shared
+// memory; after one cluster barrier rank 0 adds the C partials in rank
+// order and writes vals. No atomics: the same bits from run to run, and
+// for a given C whatever the alignment. At F = 3, n = 71 824, C = 16: 48
+// blocks of 256 threads. On an H100 (700 W), timed in turns in CUDA
+// graphs: 1 / 2 / 4 / 8 / 16 blocks per fold 0.0140 / 0.0090 / 0.0061 /
+// 0.0046 / 0.0040 ms (one 1024-thread block per fold took 0.017); the
+// wrapper takes the fewest blocks that leave each thread about 4 groups.
+constexpr int L1_THREADS = 256;
+
+template <bool VEC>
+__global__ void __launch_bounds__(L1_THREADS)
+    l1_term_kernel(const float* __restrict__ a, long long sa,
+                   const float* __restrict__ b, long long sb, int n, int G,
+                   float value_scale, float grad_scale, int zero_sign,
+                   float* __restrict__ vals, int vstride,
+                   float* __restrict__ grad, float* __restrict__ neg) {
+  __shared__ float parts[16];  // rank 0's: the cluster's partial sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int f = blockIdx.y;
   const float* A = a + f * sa;
   const float* B = b + f * sb;
+  float* Gr = grad ? grad + (size_t)f * n : nullptr;
+  float* Ng = neg ? neg + (size_t)f * n : nullptr;
+  const int groups = (n + 3) / 4;
+  const int g1 = min(groups, (rank + 1) * G);
+
+  cluster_arrive();  // this block has started: rank 0 may be written
   float acc = 0.f;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const float d = A[e] - B[e];
-    acc += fabsf(d);
-    if (grad) {
-      const float gs = (zero_sign ? sign0(d) : abs_grad_sign(d)) * grad_scale;
-      grad[(long long)f * n + e] = gs;
-      if (neg) neg[(long long)f * n + e] = -gs;
+  for (int g = rank * G + threadIdx.x; g < g1; g += L1_THREADS) {
+    const int e = 4 * g;
+    float d[4];
+    if constexpr (VEC) {
+      const float4 va = *reinterpret_cast<const float4*>(A + e);
+      const float4 vb = *reinterpret_cast<const float4*>(B + e);
+      d[0] = va.x - vb.x;
+      d[1] = va.y - vb.y;
+      d[2] = va.z - vb.z;
+      d[3] = va.w - vb.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[k] = e + k < n ? A[e + k] - B[e + k] : 0.f;
+    }
+    float s[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc += fabsf(d[k]);  // + 0 past n: the same bits as stopping
+      s[k] = (zero_sign ? sign0(d[k]) : abs_grad_sign(d[k])) * grad_scale;
+    }
+    if (Gr) {
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(Gr + e) = make_float4(s[0], s[1], s[2], s[3]);
+        if (Ng)
+          *reinterpret_cast<float4*>(Ng + e) =
+              make_float4(-s[0], -s[1], -s[2], -s[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (e + k < n) {
+            Gr[e + k] = s[k];
+            if (Ng) Ng[e + k] = -s[k];
+          }
+      }
     }
   }
   acc = block_sum(acc);
-  if (threadIdx.x == 0) vals[(long long)f * vstride] = value_scale * (acc / (float)n);
+  cluster_wait();    // every block has started
+  if (threadIdx.x == 0) cluster.map_shared_rank(parts, 0)[rank] = acc;
+  cluster_arrive();  // this block's partial is in rank 0
+  cluster_wait();
+  if (rank == 0 && threadIdx.x == 0) {
+    float total = 0.f;
+    for (int q = 0; q < C; ++q) total += parts[q];
+    vals[(size_t)f * vstride] = value_scale * (total / (float)n);
+  }
 }
 
 // The scalars a loss entry point returns, from the per-fold loss terms
@@ -218,6 +360,63 @@ constexpr int BWD_ROWS = 8;
 // that needs more than 48 KB.
 int g_smem_optin = 0;
 
+int read_smem_optin() {
+  if (g_smem_optin > 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&g_smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
+// The cluster kernels' attributes, set once on their first launch (so no
+// later launch, none inside a CUDA graph capture, sets one): clusters of
+// up to 16 blocks (past the portable 8) and, for tail_normalize, the
+// card's opt-in shared memory.
+int init_cluster_kernels() {
+  static bool done = false;
+  if (done) return 0;
+  int err = read_smem_optin();
+  if (err) return err;
+  const void* fns[] = {(const void*)tail_normalize_kernel,
+                       (const void*)l1_term_kernel<true>,
+                       (const void*)l1_term_kernel<false>};
+  for (const void* fn : fns) {
+    err = (int)cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+  }
+  err = (int)cudaFuncSetAttribute(
+      (const void*)tail_normalize_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_optin);
+  if (err) return err;
+  done = true;
+  return 0;
+}
+
+// One launch of a cluster kernel on grid (cluster, batch), a cluster of
+// ``cluster`` blocks per fold (cudaLaunchKernelExC: capturable in a CUDA
+// graph). A cluster shape the card refuses fails here.
+int launch_cluster(const void* fn, int cluster, int batch, int threads,
+                   size_t smem, cudaStream_t st, void** args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, (unsigned)batch, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <int R>
 int launch_bwd(const float* g_adj, const float* t, const float* r, float* g_t,
                int batch, int m, cudaStream_t st) {
@@ -227,14 +426,8 @@ int launch_bwd(const float* g_adj, const float* t, const float* r, float* g_t,
   const size_t smem = sizeof(float) * ((size_t)m + 2 * R * (size_t)m +
                                        2 * R * (size_t)ld);
   if (smem > 48 * 1024) {
-    if (g_smem_optin == 0) {
-      int dev = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(
-            &g_smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (err != cudaSuccess) return (int)err;
-    }
+    const int err = read_smem_optin();
+    if (err) return err;
     if (smem > (size_t)g_smem_optin) {
       if constexpr (R == 1)
         return (int)cudaErrorInvalidValue;
@@ -260,11 +453,28 @@ int launch_bwd(const float* g_adj, const float* t, const float* r, float* g_t,
 
 }  // namespace
 
+// The plan (cluster size, rows per block, columns per staged chunk, the
+// tile's row stride, 16-byte copies) comes from the wrapper
+// (ops.tail_normalize_plan, sized against the card's opt-in shared memory,
+// which is checked again here): chunk >= m stages the block's rows once,
+// else J columns at a time; 16-byte copies stage whole rows only.
 extern "C" int fcsr_tail_normalize(const float* t, float* adj, float* r,
-                                   int batch, int m, void* stream) {
-  tail_normalize_kernel<<<batch, 1024, m * sizeof(float),
-                          (cudaStream_t)stream>>>(t, adj, r, m);
-  return (int)cudaGetLastError();
+                                   int batch, int m, int cluster, int rows,
+                                   int chunk, int ld, int vec, void* stream) {
+  if (batch <= 0 || m <= 0) return 0;
+  if (cluster < 1 || cluster > 16 || rows < 1 ||
+      (long long)cluster * rows < m || chunk < 1 ||
+      ld < (chunk < m ? chunk : m))
+    return (int)cudaErrorInvalidValue;
+  if (vec && !(chunk >= m && m % 4 == 0 && ld % 4 == 0 && aligned16(t)))
+    return (int)cudaErrorInvalidValue;
+  const int err = init_cluster_kernels();
+  if (err) return err;
+  const size_t smem = sizeof(float) * ((size_t)m + (size_t)rows * ld);
+  if (smem > (size_t)g_smem_optin) return (int)cudaErrorInvalidValue;
+  void* args[] = {&t, &adj, &r, &m, &rows, &chunk, &ld, &vec};
+  return launch_cluster((const void*)tail_normalize_kernel, cluster, batch,
+                        NORM_THREADS, smem, (cudaStream_t)stream, args);
 }
 
 extern "C" int fcsr_tail_normalize_bwd(const float* g_adj, const float* t,
@@ -291,15 +501,33 @@ extern "C" int fcsr_sym_sign_grad(const float* g, const float* x, float c,
   return (int)cudaGetLastError();
 }
 
+// The plan (cluster size, groups of 4 elements per block, 16-byte path)
+// comes from the wrapper (ops.l1_term_plan); a 16-byte path the pointers
+// or strides do not allow is refused.
 extern "C" int fcsr_l1_term(const float* a, long long sa, const float* b,
                             long long sb, int n, float value_scale,
                             float grad_scale, int zero_sign, float* vals,
                             int vstride, float* grad, float* neg, int batch,
+                            int cluster, int per_block, int vec,
                             void* stream) {
-  l1_term_kernel<<<batch, 1024, 0, (cudaStream_t)stream>>>(
-      a, sa, b, sb, n, value_scale, grad_scale, zero_sign, vals, vstride,
-      grad, neg);
-  return (int)cudaGetLastError();
+  if (batch <= 0) return 0;
+  if (n < 1 || cluster < 1 || cluster > 16 ||
+      (long long)cluster * per_block < (n + 3) / 4)
+    return (int)cudaErrorInvalidValue;
+  if (vec && !(n % 4 == 0 && aligned16(a) && aligned16(b) &&
+               (!grad || aligned16(grad)) && (!neg || aligned16(neg)) &&
+               (batch == 1 || (sa % 4 == 0 && sb % 4 == 0))))
+    return (int)cudaErrorInvalidValue;
+  const int err = init_cluster_kernels();
+  if (err) return err;
+  void* args[] = {&a,         &sa,         &b,         &sb,
+                  &n,         &per_block,  &value_scale, &grad_scale,
+                  &zero_sign, &vals,       &vstride,   &grad,
+                  &neg};
+  return launch_cluster(vec ? (const void*)l1_term_kernel<true>
+                            : (const void*)l1_term_kernel<false>,
+                        cluster, batch, L1_THREADS, 0, (cudaStream_t)stream,
+                        args);
 }
 
 extern "C" int fcsr_loss_terms(const float* vals, float* loss, float* recon,

@@ -16,8 +16,9 @@ adjacencies and their strict-upper-triangle vectors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -83,7 +84,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("add_bias", "rank_select", "fcsr_add_bias",
            [_P, _LL, _P, _LL, _P, _I, _I, _I], _STEP),
     Kernel("tail_normalize", "tail", "fcsr_tail_normalize",
-           [_P, _P, _P, _I, _I], _STEP),
+           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I], _STEP),
     Kernel("tail_normalize_bwd", "tail", "fcsr_tail_normalize_bwd",
            [_P, _P, _P, _P, _I, _I], _STEP),
     Kernel("sym_abs_fill", "tail", "fcsr_sym_abs_fill",
@@ -91,7 +92,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("sym_sign_grad", "tail", "fcsr_sym_sign_grad",
            [_P, _P, _F, _P, _I, _I], _STEP),
     Kernel("l1_term", "tail", "fcsr_l1_term",
-           [_P, _LL, _P, _LL, _I, _F, _F, _I, _P, _I, _P, _P, _I], _STEP),
+           [_P, _LL, _P, _LL, _I, _F, _F, _I, _P, _I, _P, _P, _I, _I, _I,
+            _I], _STEP),
     Kernel("loss_terms", "tail", "fcsr_loss_terms",
            [_P, _P, _P, _I, _I], "fcsr_tpu/models/fused_step.py:742"),
     Kernel("adam_masked", "adam", "fcsr_adam_masked",
@@ -168,6 +170,17 @@ def _rows_contig(t: torch.Tensor):
     if t.dim() != 3 or (t.shape[2] > 1 and t.stride(2) != 1) \
             or (t.shape[1] > 1 and t.stride(1) != t.shape[2]):
         raise ValueError("operand rows must be contiguous")
+
+
+def _folds_contig(t: torch.Tensor) -> bool:
+    """Each fold slice t[f] is contiguous (any batch stride), read from
+    the strides without making a view."""
+    want = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
 
 
 def rows_contiguous(t: torch.Tensor) -> torch.Tensor:
@@ -495,19 +508,79 @@ def tail_normalize_plain(t):
     return adj, r
 
 
+# The two cluster kernels of tail.cu (tail_normalize, l1_term) run a
+# thread-block cluster per fold; their wrappers plan the launch here, on
+# the host, from shapes, pointers and the card's shared-memory limit.
+MAX_CLUSTER = 16        # the card's largest (non-portable) cluster
+NORM_MAX_M = 12 * 1024  # tail_normalize's widest m
+L1_MAX_N = 2 ** 31 - 4  # l1_term's longest fold (int offsets)
+L1_THREADS = 256        # l1_term's threads per block ...
+L1_GROUPS = 4           # ... and the groups of 4 elements each aims for
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    """Bytes of shared memory a block may opt in to on card ``index`` (the
+    limit tail.cu checks a plan against)."""
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+class NormPlan(NamedTuple):
+    """tail_normalize's launch: ``rows`` rows for each of the 16 blocks
+    of a fold; ``chunk`` columns staged at a time (``chunk == m``: the
+    rows staged once, ``staged``), in tiles of row stride ``ld``; 16-byte
+    copies when ``vec``; ``smem`` bytes of shared memory per block."""
+    rows: int
+    chunk: int
+    ld: int
+    staged: bool
+    vec: bool
+    smem: int
+
+
+def tail_normalize_plan(m: int, aligned: bool, smem_optin: int) -> NormPlan:
+    """The launch of ``tail_normalize`` at width m (``aligned``: T starts
+    on 16 bytes, as ``torch.empty`` gives it) on a card whose blocks may
+    opt in to ``smem_optin`` bytes of shared memory. Each of the 16
+    blocks of a fold holds r for all m rows and a tile of its rows: all m
+    columns where they fit (T read from memory once; 16-byte copies and a
+    row stride of 4 (mod 32) where m % 4 == 0 and T is aligned, else an
+    odd stride), else the widest even chunk (its rows summed from memory,
+    then staged chunk by chunk for the writes)."""
+    rows = -(-m // MAX_CLUSTER)
+    vec = aligned and m % 4 == 0
+    ld = m + (4 - m % 32) % 32 if vec else m | 1
+    if 4 * (m + rows * ld) <= smem_optin:
+        return NormPlan(rows, m, ld, True, vec, 4 * (m + rows * ld))
+    chunk = (smem_optin // 4 - m) // rows - 1
+    chunk -= chunk % 2
+    if chunk < 2:
+        raise ValueError(f"tail_normalize: m = {m} too large for "
+                         f"{smem_optin} bytes of shared memory")
+    return NormPlan(rows, chunk, chunk + 1, False, False,
+                    4 * (m + rows * (chunk + 1)))
+
+
 def tail_normalize(t):
     """(adj, r) for T (F, m, m): f_d = fill_diag(|T|, 1),
-    r = rowsum(f_d)^-1/2 with inf -> 0, adj = D^-1/2 f_d^T D^-1/2."""
+    r = rowsum(f_d)^-1/2 with inf -> 0, adj = D^-1/2 f_d^T D^-1/2.
+    One launch, a cluster of 16 blocks per fold exchanging r in
+    distributed shared memory; m up to 12 288 (on an H100 the rows are
+    staged once up to m ~950, in column chunks past that)."""
     if not t.is_cuda:
         return tail_normalize_plain(t)
     _check(t.device, t)
     _contig(t)
     F, m, _ = t.shape
-    if m > 12 * 1024:
-        raise ValueError("tail_normalize: m too large for shared memory")
+    if m > NORM_MAX_M:
+        raise ValueError(f"tail_normalize: m = {m} above {NORM_MAX_M}")
+    plan = tail_normalize_plan(m, t.data_ptr() % 16 == 0,
+                               _smem_optin(t.device.index))
     adj = torch.empty_like(t)
     r = torch.empty(F, m, dtype=torch.float32, device=t.device)
-    KERNELS["tail_normalize"](_ptr(t), _ptr(adj), _ptr(r), F, m)
+    KERNELS["tail_normalize"](_ptr(t), _ptr(adj), _ptr(r), F, m,
+                              MAX_CLUSTER, plan.rows, plan.chunk, plan.ld,
+                              int(plan.vec))
     return adj, r
 
 
@@ -588,30 +661,61 @@ def l1_term_plain(a, b, vals, slot, value_scale, grad_scale, zero_sign,
     return (grad, -grad) if neg else grad
 
 
+class L1Plan(NamedTuple):
+    """l1_term's launch: ``cluster`` blocks per fold, each taking
+    ``per_block`` groups of 4 elements; 16-byte loads and stores when
+    ``vec``."""
+    cluster: int
+    per_block: int
+    vec: bool
+
+
+def l1_term_plan(a, b) -> L1Plan:
+    """The launch of ``l1_term`` on operands a, b (F, ...): the fewest
+    blocks per fold (a power of two, at most 16) that give each thread
+    about ``L1_GROUPS`` groups; the 16-byte path where n % 4 == 0 and a,
+    b and both batch strides are 16-byte aligned (outputs from
+    ``torch.empty`` are). Reads only shapes, strides and addresses; the
+    value's bits depend on the cluster size alone, so on n alone."""
+    F = a.shape[0]
+    n = a.numel() // F if F else 0
+    groups = -(-n // 4)
+    want = -(-groups // (L1_THREADS * L1_GROUPS))
+    cluster = min(MAX_CLUSTER, 1 << max(0, want - 1).bit_length())
+    vec = (n % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+           and (F == 1 or (a.stride(0) % 4 == 0 and b.stride(0) % 4 == 0)))
+    return L1Plan(cluster, -(-groups // cluster), vec)
+
+
 def l1_term(a, b, vals, slot, value_scale, grad_scale, zero_sign,
             neg=False):
     """Writes ``vals[:, slot] = value_scale * mean|a - b|`` per fold and
     returns its adjoint ``sign(a - b) * grad_scale`` (and its negation when
     ``neg``); ``zero_sign`` picks sign(0) = 0 over the |.| adjoint's +1.
-    a and b may have any batch stride but contiguous fold slices."""
+    a and b may have any batch stride but contiguous fold slices. One
+    launch, a cluster of up to 16 blocks per fold whose partial sums meet
+    in rank order; up to 2^31 - 4 elements per fold."""
     if not a.is_cuda:
         return l1_term_plain(a, b, vals, slot, value_scale, grad_scale,
                              zero_sign, neg)
     _check(a.device, a, b, vals)
     _contig(vals)
     F = a.shape[0]
-    n = a[0].numel()
+    n = a.numel() // F if F else 0
     for t in (a, b):
-        if not t[0].is_contiguous() or t.shape != a.shape:
+        if not _folds_contig(t) or t.shape != a.shape:
             raise ValueError("l1_term operands need contiguous fold slices")
+    if n > L1_MAX_N:
+        raise ValueError(f"l1_term: {n} elements per fold above {L1_MAX_N}")
     if vals.shape != (F, 3):
         raise ValueError("vals must be (F, 3)")
+    plan = l1_term_plan(a, b)
     grad = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     ng = torch.empty_like(grad) if neg else None
     KERNELS["l1_term"](_ptr(a), a.stride(0), _ptr(b), b.stride(0), n,
                        float(value_scale), float(grad_scale), int(zero_sign),
                        vals.data_ptr() + 4 * slot, 3, _ptr(grad), _ptr(ng),
-                       F)
+                       F, plan.cluster, plan.per_block, int(plan.vec))
     return (grad, ng) if neg else grad
 
 
