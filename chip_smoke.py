@@ -58,9 +58,15 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    dim 16, ks (0.5, 0.5, 0.5), 4 / 2 heads, F = 3): each of its nine
    kernels against its plain version at every shape the step uses, at
    drop_p 0, 0.01 and 0.3 with the masks the counter-based generator draws,
-   and the generator's keep rate against a binomial bound; one fused step
-   against the plain step and against autograd over the plain loss (loss,
-   36 gradients, p', m', v'), eager and as one CUDA graph; the fused
+   and the generator's keep rate against a binomial bound; the two cluster
+   kernels beyond that (``check_gat_reductions``): ``gat_attention_bwd``
+   at every layer shape and F = 1 / 3 and at n 1000 / 4096 x d 128, the
+   off-diagonal losses at n 37-3500 x F 1 / 3 / 56, each bit-equal over
+   two launches and in a CUDA graph, with their times beside those of
+   the three-stage adjoint they replaced; one
+   fused step against the plain step and against autograd over the plain
+   loss (loss, 36 gradients, p', m', v'), eager and as one CUDA graph,
+   with 7 ``gat_attention_bwd`` device launches in its profile; the fused
    validation forward; ``train_gat_folds_parallel(fused_step=True)`` on the
    teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
    that run), one epoch fused against one unfused; and ``train gat --fast
@@ -811,7 +817,7 @@ def count_gat_step(step_args, kw):
 def profile_steps(step, eager_ms, path):
     """torch.profiler over 10 eager calls of ``step``: device time by
     kernel, written to ``path``, and the device's busy share of the eager
-    step."""
+    step. Returns the profiler's averages by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -831,6 +837,7 @@ def profile_steps(step, eager_ms, path):
         if e.self_device_time_total > 0:
             print(f"    {e.key[:60]:60s} {e.self_device_time_total / 10:9.1f}"
                   f" us/step  {e.count // 10:3d} launches/step")
+    return averages
 
 
 # ---------------------------------------------------------------------------
@@ -1628,6 +1635,168 @@ def check_gat_kernels(dev):
     return records
 
 
+# the three-stage gat_attention_bwd that the cluster kernel replaced, per
+# layer at F = 3, drop_p = 0.01: device ms in a CUDA graph (PERF.md
+# Findings; NVIDIA H100 80GB HBM3, 700.00 W)
+GAT_BWD_THREE_STAGE_MS = {(160, 4, 8): 0.0960, (80, 4, 16): 0.0422,
+                          (40, 4, 32): 0.0252, (20, 2, 64): 0.0202,
+                          (40, 4, 16): 0.0213, (80, 4, 8): 0.0358,
+                          (160, 4, 4): 0.0770}
+# beyond the shipped widths: (n, heads, d_head), F = 1
+GAT_BWD_WIDE = ((1000, 2, 128), (4096, 1, 128))
+OFFDIAG_NS = (268, 160, 80, 40, 37, 1000, 3500)
+OFFDIAG_FS = (1, 3, 56)
+
+
+def _graph_outputs(fn):
+    """``fn()``'s outputs from one replay of a CUDA graph that captured
+    one call (after a warm-up call on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_gat_reductions(dev):
+    """Phase 7.1b: the two cluster kernels of gat.cu beyond their record.
+
+    ``gat_attention_bwd`` at every GAT layer shape x drop_p (0, 0.01, 0.3)
+    at F = 1 and 3, and at n 1000 / 4096 x d 128 (F = 1): g_h and the
+    three parameter gradients within 1e-5 of their scale, two launches
+    bit-equal, one launch captured in a CUDA graph bit-equal to the eager
+    one; per layer its device ms (F = 3, drop_p = 0.01) beside the
+    three-stage kernel's and the plain version's.
+
+    ``offdiag_mse`` (with and without the cotangent) and ``offdiag_mae`` at
+    every ``OFFDIAG_NS`` x ``OFFDIAG_FS``: values and cotangent within 1e-6
+    of the plain version, two launches bit-equal, the value without the
+    cotangent bit-equal to the value with it, one launch of each captured
+    in a CUDA graph; at 268^2 (F = 3, the step's) and F = 56 (validation)
+    their device ms beside the plain version's."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import (gat_attention_bwd_plan,
+                                            offdiag_plan)
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    worst = 0.0
+    shapes = [(s, nf, p) for s in GAT_LAYER_SHAPES for nf in (1, 3)
+              for p in (0.0, 0.01, 0.3)]
+    shapes += [(s, 1, p) for s in GAT_BWD_WIDE for p in (0.0, 0.3)]
+    for li, ((n, H, d), nf, p) in enumerate(shapes):
+        HD = H * d
+        h, asrc, adst = rnd(nf, n, HD), rnd(nf, H, d), rnd(nf, H, d)
+        if n >= 1000:
+            # on a dyadic grid, so s and t are exact in any summation
+            # order: leaky's slope jumps at z = 0, and over millions of
+            # pairs a last-bit difference in z (the plain version sums in
+            # torch's order, the kernel in feature order) flips a few
+            h, asrc, adst = (torch.round(4 * x) / 16 for x in (h, asrc, adst))
+        bias = rnd(nf, 1, HD, scale=0.1)
+        m = torch.rand(nf, n, n, generator=g, device=dev)
+        m = torch.triu(m * (m < 0.3), 1)
+        a = m + m.transpose(1, 2)
+        seeds = _gat_seeds(dev, nf)
+        y, alpha = P.gat_attention(h, asrc, adst, bias, a, seeds, li, p)
+        gy = rnd(nf, n, HD)
+
+        def bwd(ops):
+            outs = (torch.empty(nf, H, d, device=dev),
+                    torch.empty(nf, H, d, device=dev),
+                    torch.empty(nf, 1, HD, device=dev))
+            return (ops.gat_attention_bwd(gy, y, alpha, h, asrc, adst, seeds,
+                                          li, p, *outs),) + outs
+        got = [bwd(K), bwd(K)]
+        want = bwd(P)
+        graphed = _graph_outputs(lambda: bwd(K))
+        torch.cuda.synchronize()
+        errs = [max_err(x, w) / scale_of(w) for x, w in zip(got[0], want)]
+        err = max(errs)
+        worst = max(worst, err)
+        plan = gat_attention_bwd_plan(n, H, d, nf, smem)
+        label = (f"gat_attention_bwd n={n} heads={H} d={d} F={nf} p={p} "
+                 f"({plan.cluster} x {plan.rows} rows, "
+                 f"{'staged' if plan.staged else 'chunks of %d' % plan.chunk})")
+        if not err <= 1e-5:
+            fail(f"{label}: err / scale (g_h, g_att_src, g_att_dst, g_bias) "
+                 f"{', '.join('%.2e' % e for e in errs)} above 1e-5")
+        if not (_equal(got[0], got[1]) and _equal(got[0], graphed)):
+            fail(f"{label}: two launches or the graphed launch differ")
+        line = f"    {label}: err / scale {err:.2e}, bit-equal, graphed"
+        if (n, H, d) in GAT_BWD_THREE_STAGE_MS and nf == F and p == 0.01:
+            k_ms, p_ms = graph_ms([lambda: bwd(K), lambda: bwd(P)])
+            line += (f"; kernel {k_ms:.4f} ms (three stages: "
+                     f"{GAT_BWD_THREE_STAGE_MS[(n, H, d)]:.4f}), plain "
+                     f"{p_ms:.4f} ms")
+        elif n >= 1000 and p > 0:
+            k_ms, = graph_ms([lambda: bwd(K)], reps=3)
+            line += f"; kernel {k_ms:.4f} ms"
+        print(line, flush=True)
+        del y, alpha, got, want, graphed
+
+    for n in OFFDIAG_NS:
+        for nf in OFFDIAG_FS:
+            G = rnd(nf, n, n)
+            T = torch.rand(nf, n, n, generator=g, device=dev)
+            vk = [torch.zeros(nf, 4, device=dev) for _ in range(3)]
+            vp = torch.zeros(nf, 4, device=dev)
+            gk = [K.offdiag_mse(G, T, v, 0) for v in vk[:2]]
+            K.offdiag_mse(G, T, vk[2], 0, grad=False)
+            for v in vk:
+                K.offdiag_mae(G, T, v, 1)
+            gp = P.offdiag_mse(G, T, vp, 0)
+            P.offdiag_mae(G, T, vp, 1)
+
+            def both():
+                v = torch.zeros(nf, 4, device=dev)
+                return K.offdiag_mse(G, T, v, 0), K.offdiag_mae(G, T, v, 1), v
+            gr = _graph_outputs(both)
+            torch.cuda.synchronize()
+            err = max(max_err(gk[0], gp), max_err(vk[0], vp))
+            worst = max(worst, err)
+            plan = offdiag_plan(nf, n, smem)
+            label = (f"offdiag_mse / mae n={n} F={nf} ({plan.cluster} blocks "
+                     f"x {plan.per_block} tiles, {plan.stages} at a time)")
+            if not err <= 1e-6:
+                fail(f"{label}: max|err| {err:.2e} above 1e-6")
+            if not (torch.equal(gk[0], gk[1]) and torch.equal(vk[0], vk[1])
+                    and torch.equal(vk[0], vk[2]) and torch.equal(gk[0], gr[0])
+                    and torch.equal(vk[0][:, :2], gr[2][:, :2])):
+                fail(f"{label}: launches, the grad-less value or the graphed "
+                     "launch differ")
+            line = f"    {label}: max|err| {err:.2e}, bit-equal, graphed"
+            if n == HR and nf in (F, 56):
+                ms = graph_ms([lambda: K.offdiag_mse(G, T, vk[0], 0),
+                               lambda: P.offdiag_mse(G, T, vp, 0),
+                               lambda: K.offdiag_mae(G, T, vk[0], 1),
+                               lambda: P.offdiag_mae(G, T, vp, 1),
+                               lambda: K.offdiag_mse(G, T, vk[0], 0, False)])
+                line += (f"; offdiag_mse {ms[0]:.4f} ms (plain {ms[1]:.4f}, "
+                         f"no cotangent {ms[4]:.4f}), offdiag_mae "
+                         f"{ms[2]:.4f} ms (plain {ms[3]:.4f})")
+            print(line, flush=True)
+            del G, T, gk, gp, gr
+    print(f"  gat.cu cluster reductions ok: {len(shapes)} backward cases, "
+          f"{len(OFFDIAG_NS) * len(OFFDIAG_FS)} loss cases; worst err "
+          f"{worst:.2e}", flush=True)
+
+
 def _gat_step_inputs(dev, data):
     """Full-width step inputs for F = 3 folds: three fresh models, small
     random moments, the first three teacher subjects, one masked fold."""
@@ -1774,8 +1943,17 @@ def check_gat_step(dev, data):
           f"moved by its {sum(launches.values())} launches {launches}; bound "
           f"{b_ms:.4f} ms ({b_by})")
 
-    profile_steps(run_k, k_eager, os.path.join(OUT_DIR,
-                                               "profile_gat_step.txt"))
+    averages = profile_steps(run_k, k_eager, os.path.join(
+        OUT_DIR, "profile_gat_step.txt"))
+    # the adjoint is one launch per layer: 7 device launches per step (the
+    # profiler can drop the first step's first few launches: rounded)
+    bwd = sum(e.count for e in averages if "gat_attention_bwd" in e.key
+              and e.self_device_time_total > 0)
+    print(f"  gat_attention_bwd: {bwd / 10:g} device launches per step "
+          f"(7 layers)")
+    if round(bwd / 10) != 7:
+        fail(f"gat_attention_bwd: {bwd / 10:g} device launches per step, "
+             "not 7")
     _host_profile(run_k, 100)
 
     # validation: one model read by a fold's 56 subjects
@@ -2003,6 +2181,7 @@ def main():
         parity_counts = run_parity_cli(dev, os.path.join(WORK_DIR, "data"))
         print("phase 7: the GAT U-Net family", flush=True)
         records.update(check_gat_kernels(dev))
+        check_gat_reductions(dev)
         check_gat_step(dev, data)
         gat_counts = run_gat_trainer(dev, data)
         gat_cli_counts = run_gat_cli(dev, os.path.join(WORK_DIR, "data"))

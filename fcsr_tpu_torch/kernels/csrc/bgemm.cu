@@ -55,11 +55,6 @@
 // the first call.
 #include "common.cuh"
 
-#include <cooperative_groups.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int BK = 32;      // K slice per pipeline step

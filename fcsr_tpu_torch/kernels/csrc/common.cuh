@@ -5,9 +5,12 @@
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 // Adjoint sign of |x| as the reference differentiates it: +1 at x >= 0
 // (zero included), -1 below.
@@ -74,8 +77,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The two halves of a cluster barrier (barrier.cluster: release on
+// arrive, acquire on wait). Every thread of every block arrives, then
+// waits; work placed between the two overlaps the other blocks' arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
 // 16-byte accesses need 16-byte-aligned addresses.
-static inline bool aligned16(const void* p) {
+__host__ __device__ static inline bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
@@ -84,6 +98,47 @@ static inline int grid_for(long long total, int threads) {
   const long long blocks = (total + threads - 1) / threads;
   return (int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
+
+namespace {
+
+// The card's opt-in shared memory per block, read once (on the first
+// launch that needs it).
+int g_smem_optin = 0;
+
+inline int read_smem_optin() {
+  if (g_smem_optin > 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&g_smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
+// One launch of a cluster kernel on ``grid``, clusters of ``cluster``
+// blocks along x (cudaLaunchKernelExC: capturable in a CUDA graph). A
+// cluster shape the card refuses fails here.
+inline int launch_cluster(const void* fn, dim3 grid, int cluster,
+                          int threads, size_t smem, cudaStream_t st,
+                          void** args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" const char* fcsr_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

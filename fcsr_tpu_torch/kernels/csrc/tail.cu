@@ -29,22 +29,7 @@
 // (kernels/ops.py) plan the two cluster launches on the host.
 #include "common.cuh"
 
-#include <cooperative_groups.h>
-
-namespace cg = cooperative_groups;
-
 namespace {
-
-// The two halves of a cluster barrier (barrier.cluster: release on
-// arrive, acquire on wait). Every thread of every block arrives, then
-// waits; work placed between the two overlaps the other blocks' arrival.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
 
 // tail_normalize: a cluster of C blocks per fold (grid (C, F)); block b
 // owns rows I = [b R, b R + R). It stages T[I, :] in shared memory with
@@ -356,20 +341,6 @@ __global__ void loss_terms_kernel(const float* __restrict__ vals,
 // shared memory R halves, down to 1 row (m up to ~11 600).
 constexpr int BWD_ROWS = 8;
 
-// The card's opt-in shared memory per block, read on the first launch
-// that needs more than 48 KB.
-int g_smem_optin = 0;
-
-int read_smem_optin() {
-  if (g_smem_optin > 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&g_smem_optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (int)err;
-}
-
 // The cluster kernels' attributes, set once on their first launch (so no
 // later launch, none inside a CUDA graph capture, sets one): clusters of
 // up to 16 blocks (past the portable 8) and, for tail_normalize, the
@@ -393,28 +364,6 @@ int init_cluster_kernels() {
   if (err) return err;
   done = true;
   return 0;
-}
-
-// One launch of a cluster kernel on grid (cluster, batch), a cluster of
-// ``cluster`` blocks per fold (cudaLaunchKernelExC: capturable in a CUDA
-// graph). A cluster shape the card refuses fails here.
-int launch_cluster(const void* fn, int cluster, int batch, int threads,
-                   size_t smem, cudaStream_t st, void** args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster, (unsigned)batch, 1);
-  cfg.blockDim = dim3((unsigned)threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }
 
 template <int R>
@@ -473,7 +422,8 @@ extern "C" int fcsr_tail_normalize(const float* t, float* adj, float* r,
   const size_t smem = sizeof(float) * ((size_t)m + (size_t)rows * ld);
   if (smem > (size_t)g_smem_optin) return (int)cudaErrorInvalidValue;
   void* args[] = {&t, &adj, &r, &m, &rows, &chunk, &ld, &vec};
-  return launch_cluster((const void*)tail_normalize_kernel, cluster, batch,
+  return launch_cluster((const void*)tail_normalize_kernel,
+                        dim3((unsigned)cluster, (unsigned)batch), cluster,
                         NORM_THREADS, smem, (cudaStream_t)stream, args);
 }
 
@@ -526,8 +476,8 @@ extern "C" int fcsr_l1_term(const float* a, long long sa, const float* b,
                   &neg};
   return launch_cluster(vec ? (const void*)l1_term_kernel<true>
                             : (const void*)l1_term_kernel<false>,
-                        cluster, batch, L1_THREADS, 0, (cudaStream_t)stream,
-                        args);
+                        dim3((unsigned)cluster, (unsigned)batch), cluster,
+                        L1_THREADS, 0, (cudaStream_t)stream, args);
 }
 
 extern "C" int fcsr_loss_terms(const float* vals, float* loss, float* recon,

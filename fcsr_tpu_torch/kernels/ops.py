@@ -110,8 +110,9 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            [_P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I,
             _I, _F, _F, _I], _GAT_STEP),
     Kernel("gat_attention_bwd", "gat", "fcsr_gat_attention_bwd",
-           [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _LL,
-            _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _F, _F], _GAT_STEP),
+           [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P, _LL,
+            _P, _LL, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I],
+           _GAT_STEP),
     Kernel("philox_keep_mask", "gat", "fcsr_philox_keep_mask",
            [_P, _P, _P, _I, _I, _LL, _I, _F, _F],
            "tools/experiments/gat_dropout_keeprate.py:32"),
@@ -122,9 +123,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("col_softmax_bwd", "gat", "fcsr_col_softmax_bwd",
            [_P, _P, _P, _I, _I, _I], _GAT_STEP),
     Kernel("offdiag_mse", "gat", "fcsr_offdiag_mse",
-           [_P, _P, _P, _I, _I, _P, _I, _I], _GAT_STEP),
+           [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I], _GAT_STEP),
     Kernel("offdiag_mae", "gat", "fcsr_offdiag_mae",
-           [_P, _P, _P, _I, _I, _I, _I], "fcsr_tpu/models/fused_gat.py:547"),
+           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+           "fcsr_tpu/models/fused_gat.py:547"),
     Kernel("adamw_masked", "gat", "fcsr_adamw_masked",
            [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _LL,
             _F, _F, _F, _F, _F, _F], _GAT_STEP),
@@ -1105,12 +1107,77 @@ def gat_attention_bwd_plain(g_y, y, alpha, h, att_src, att_dst, seeds,
     return g_hh.permute(0, 2, 1, 3).reshape(F, n, HD)
 
 
+# gat_attention_bwd and the off-diagonal losses run a thread-block cluster
+# per (head, fold) or per fold (gat.cu); their wrappers plan the launch
+# here, on the host, from shapes and the card's shared-memory limit.
+SMS = 132               # an H100's multiprocessors: the blocks a plan aims at
+GAT_MAX_N = 12 * 1024   # gat_attention_bwd's widest n
+GAT_BWD_THREADS = 512   # gat_attention_bwd's threads per block ...
+GAT_BWD_WARPS = 16      # ... its warps
+GAT_BWD_SUB = 32        # ... and its sub-band of target rows
+GAT_BWD_MIN_ROWS = 4    # the fewest target rows a block is planned with
+
+
+class GatBwdPlan(NamedTuple):
+    """gat_attention_bwd's launch: ``cluster`` blocks per (head, fold),
+    each owning ``rows`` target rows and as many sources; the sources in
+    chunks of ``chunk`` (``staged``: one chunk, the head's h staged once),
+    the rows in sub-bands of ``sub``; ``smem`` bytes of shared memory per
+    block."""
+    cluster: int
+    rows: int
+    chunk: int
+    sub: int
+    staged: bool
+    smem: int
+
+
+def _gat_bwd_smem(n, d, cluster, rows, chunk, sub):
+    """Bytes of gat_attention_bwd's shared memory (gat.cu ``bwd_smem``):
+    h rows, s, five band vectors, the two attention vectors, g_o of a
+    sub-band, the gz and alpha k tiles, the band's partials, a row's g_o
+    per warp, the parameter shares and rank 0's sums of them, and when
+    the sources fit in one chunk the band's alpha rows."""
+    return 4 * (chunk * (d | 1) + n + 5 * rows + 2 * d + sub * d
+                + 2 * sub * chunk + chunk * (d + 1) + GAT_BWD_WARPS * d
+                + 3 * GAT_BWD_THREADS + 3 * cluster * d
+                + (rows * n if chunk >= n else 0))
+
+
+def gat_attention_bwd_plan(n: int, heads: int, d: int, F: int,
+                           smem_optin: int) -> GatBwdPlan:
+    """The launch of ``gat_attention_bwd`` for F folds of ``heads`` heads
+    of d features over n nodes, on a card whose blocks may opt in to
+    ``smem_optin`` bytes of shared memory: the largest power-of-two
+    cluster (at most 16) that keeps the grid near one block per SM and
+    each block at least 4 target rows; all sources in one chunk where
+    that fits (every shipped layer), else the widest multiple of 32."""
+    want = max(1, min(MAX_CLUSTER, SMS // max(1, heads * F),
+                      n // GAT_BWD_MIN_ROWS))
+    cluster = 1 << (want.bit_length() - 1)
+    rows = -(-n // cluster)
+    sub = min(rows, GAT_BWD_SUB)
+    smem = _gat_bwd_smem(n, d, cluster, rows, n, sub)
+    if smem <= smem_optin:
+        return GatBwdPlan(cluster, rows, n, sub, True, smem)
+    fixed = _gat_bwd_smem(n, d, cluster, rows, 0, sub)
+    chunk = (smem_optin - fixed) // (4 * ((d | 1) + 2 * sub + d + 1))
+    chunk -= chunk % 32
+    if chunk < 32:
+        raise ValueError(f"gat_attention_bwd: n = {n}, d = {d} too large "
+                         f"for {smem_optin} bytes of shared memory")
+    return GatBwdPlan(cluster, rows, chunk, sub, False,
+                      _gat_bwd_smem(n, d, cluster, rows, chunk, sub))
+
+
 def gat_attention_bwd(g_y, y, alpha, h, att_src, att_dst, seeds, mask_id,
                       drop_p, g_src, g_dst, g_bias):
     """Adjoint of ``gat_attention`` given d y: returns d h (through the
     values and through both attention logits) and writes d att_src,
     d att_dst (F, H, d) and d bias (F, 1, H d) into the given views. The
-    keep-mask is drawn again from ``seeds``; alpha is the forward's."""
+    keep-mask is drawn again from ``seeds``; alpha is the forward's. One
+    launch, a cluster per (head, fold) reducing in distributed shared
+    memory (``gat_attention_bwd_plan``); n up to 12 288."""
     if not h.is_cuda:
         return gat_attention_bwd_plain(g_y, y, alpha, h, att_src, att_dst,
                                        seeds, mask_id, drop_p, g_src, g_dst,
@@ -1123,6 +1190,8 @@ def gat_attention_bwd(g_y, y, alpha, h, att_src, att_dst, seeds, mask_id,
     if g_y.shape != h.shape or y.shape != h.shape \
             or tuple(alpha.shape) != (F, H, n, n):
         raise ValueError("gat_attention_bwd shape mismatch")
+    if n > GAT_MAX_N:
+        raise ValueError(f"gat_attention_bwd: n = {n} above {GAT_MAX_N}")
     strides = [_param_stride(t, r, c, what) for t, r, c, what in (
         (att_src, H, d, "att_src"), (att_dst, H, d, "att_dst"),
         (g_src, H, d, "g_src"), (g_dst, H, d, "g_dst"),
@@ -1130,17 +1199,15 @@ def gat_attention_bwd(g_y, y, alpha, h, att_src, att_dst, seeds, mask_id,
     if drop_p > 0:
         _seeds_ok(seeds, F)
         _check(h.device, seeds, dtype=torch.int32)
-    dev = h.device
-    gz = torch.empty(F, H, n, n, dtype=torch.float32, device=dev)
-    gs = torch.empty(F, H, n, dtype=torch.float32, device=dev)
-    gt = torch.empty_like(gs)
+    plan = gat_attention_bwd_plan(n, H, d, F, _smem_optin(h.device.index))
     g_h = torch.empty_like(h)
     KERNELS["gat_attention_bwd"](
         _ptr(g_y), _ptr(y), _ptr(alpha), _ptr(h), _ptr(att_src), strides[0],
         _ptr(att_dst), strides[1], _ptr(seeds) if drop_p > 0 else None,
-        _ptr(gz), _ptr(gs), _ptr(gt), _ptr(g_h), _ptr(g_src), strides[2],
-        _ptr(g_dst), strides[3], _ptr(g_bias), strides[4], F, n, H, d,
-        int(mask_id), float(drop_p), float(_drop_scale(drop_p)))
+        _ptr(g_h), _ptr(g_src), strides[2], _ptr(g_dst), strides[3],
+        _ptr(g_bias), strides[4], F, n, H, d, int(mask_id), float(drop_p),
+        float(_drop_scale(drop_p)), plan.cluster, plan.rows, plan.chunk,
+        plan.sub)
     return g_h
 
 
@@ -1230,18 +1297,61 @@ def _check_offdiag(G, T, vals, slot):
     return F, n
 
 
+OFFDIAG_TILE = 32
+# one staged tile set at most: G and T, and with the cotangent their
+# mirrored tiles in rows padded to 36 floats (gat.cu offdiag_loss_kernel)
+OFFDIAG_STAGE_BYTES = 4 * (2 * 32 * 32 + 2 * 32 * 36)
+
+
+class OffdiagPlan(NamedTuple):
+    """The off-diagonal losses' launch: ``cluster`` blocks per fold, each
+    taking ``per_block`` of the fold's 32 x 32 tiles (tiles b, b + cluster,
+    ...), ``stages`` of them staged at once."""
+    cluster: int
+    per_block: int
+    stages: int
+
+
+def offdiag_plan(F: int, n: int, smem_optin: int) -> OffdiagPlan:
+    """The launch of ``offdiag_mse`` / ``offdiag_mae`` for F folds of
+    n x n: the largest power-of-two cluster (at most 16, at most the
+    fold's tiles) that keeps the grid near two blocks per SM, so many
+    blocks per fold at F = 3 and few at the validation's F = 56; as many
+    of a block's tiles staged at once as half the card's opt-in shared
+    memory holds (two blocks share an SM). The value's bits depend on the
+    cluster alone, so on (F, n)."""
+    tiles = (-(-n // OFFDIAG_TILE)) ** 2
+    want = max(1, min(MAX_CLUSTER, 2 * SMS // max(1, F), tiles))
+    cluster = 1 << (want.bit_length() - 1)
+    per_block = -(-tiles // cluster)
+    stages = max(1, min(per_block, smem_optin // 2 // OFFDIAG_STAGE_BYTES))
+    return OffdiagPlan(cluster, per_block, stages)
+
+
+def _offdiag_launch(name, G, T, vals, slot, gsym):
+    F, n = G.shape[:2]
+    plan = offdiag_plan(F, n, _smem_optin(G.device.index))
+    vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (G, T, gsym)
+                             if t is not None)
+    args = [_ptr(G), _ptr(T), _ptr(vals), vals.shape[1], int(slot)]
+    if name == "offdiag_mse":
+        args.append(_ptr(gsym))
+    KERNELS[name](*args, F, n, plan.cluster, plan.per_block, plan.stages,
+                  int(vec))
+
+
 def offdiag_mse(G, T, vals, slot, grad=True):
     """Writes ``vals[:, slot] = sum_{i != j} (relu(G) - T)^2 / n^2`` per
     fold (the mean over all n^2 entries with the diagonal zeroed) and, with
     ``grad``, returns the symmetrised cotangent of G,
     ``(2 / n^2) (D + D^T)`` with ``D = (relu(G) - T) [G > 0]`` off the
-    diagonal: for ``G = X X^T`` (or ``Q^T Q``) d loss / d X is that times X."""
+    diagonal: for ``G = X X^T`` (or ``Q^T Q``) d loss / d X is that times X.
+    One launch, a cluster per fold over 32 x 32 tiles (``offdiag_plan``)."""
     if not G.is_cuda:
         return offdiag_mse_plain(G, T, vals, slot, grad)
-    F, n = _check_offdiag(G, T, vals, slot)
+    _check_offdiag(G, T, vals, slot)
     gsym = torch.empty_like(G) if grad else None
-    KERNELS["offdiag_mse"](_ptr(G), _ptr(T), _ptr(vals), vals.shape[1],
-                           int(slot), _ptr(gsym), F, n)
+    _offdiag_launch("offdiag_mse", G, T, vals, slot, gsym)
     return gsym
 
 
@@ -1251,12 +1361,12 @@ def offdiag_mae_plain(G, T, vals, slot):
 
 
 def offdiag_mae(G, T, vals, slot):
-    """Writes ``vals[:, slot] = sum_{i != j} |relu(G) - T| / n^2``."""
+    """Writes ``vals[:, slot] = sum_{i != j} |relu(G) - T| / n^2``, as
+    ``offdiag_mse`` launches."""
     if not G.is_cuda:
         return offdiag_mae_plain(G, T, vals, slot)
-    F, n = _check_offdiag(G, T, vals, slot)
-    KERNELS["offdiag_mae"](_ptr(G), _ptr(T), _ptr(vals), vals.shape[1],
-                           int(slot), F, n)
+    _check_offdiag(G, T, vals, slot)
+    _offdiag_launch("offdiag_mae", G, T, vals, slot, None)
 
 
 def _sum_terms(vals):
