@@ -63,12 +63,18 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    at every layer shape and F = 1 / 3 and at n 1000 / 4096 x d 128, the
    off-diagonal losses at n 37-3500 x F 1 / 3 / 56, each bit-equal over
    two launches and in a CUDA graph, with their times beside those of
-   the three-stage adjoint they replaced; one
+   the three-stage adjoint they replaced; the two forward kernels beyond
+   that (``check_gat_forward``): ``gat_attention`` at every layer shape x
+   drop_p x both softmax shifts x F = 1 / 3 / 56 and at n 1000 / 4096 x
+   d 128, ``gat_pool_adj`` at the step's pools x F = 3 / 56 and k 1000,
+   bit-equal and graphed, with per-layer times at F = 3 and 56 beside the
+   kernels they replaced; one
    fused step against the plain step and against autograd over the plain
    loss (loss, 36 gradients, p', m', v'), eager and as one CUDA graph,
-   with 7 ``gat_attention_bwd`` device launches in its profile; the fused
-   validation forward; ``train_gat_folds_parallel(fused_step=True)`` on the
-   teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
+   with 7 ``gat_attention_bwd``, 7 ``gat_attention`` and 3
+   ``gat_pool_adj`` device launches in its profile; the fused validation
+   forward and its profile (``profile_gat_val.txt``);
+   ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
    that run), one epoch fused against one unfused; and ``train gat --fast
    --fused``, ``--fast`` and the per-fold trainer through the command line
    on phase 5's CSVs, each column-major submission parsed back.
@@ -1422,6 +1428,13 @@ def _sparse_adj(g, n, dev, density=0.3):
     return (m + m.transpose(1, 2)).to(dev)
 
 
+def gat_attention_ops(nf, n, H, d):
+    """Operations of one gat_attention call: s and t once per node and
+    head (2 d each), per pair ~12 for the logit, its softmax and dropout,
+    and 2 d for the product (alpha keep) @ h."""
+    return nf * H * (2.0 * n * n * d + 12.0 * n * n + 4.0 * n * d)
+
+
 def gat_kernel_cases(dev):
     """One record case per new kernel at the top level's shape (F = 3,
     n = 160, 4 heads of 8), as ``kernel_cases``."""
@@ -1443,7 +1456,7 @@ def gat_kernel_cases(dev):
     p = 0.01
     att = lambda ops: ops.gat_attention(h, asrc, adst, bias, a, seeds, 0, p)
     cases.append(("gat_attention", lambda: att(K), lambda: att(P), 1e-5,
-                  F * H * n * (4.0 * n * d + 12.0 * n),
+                  gat_attention_ops(F, n, H, d),
                   f4 * (2 * n * HD + 3 * HD + n * n + H * n * n) + 8.0 * F,
                   None))
     y, alpha = att(K)
@@ -1797,6 +1810,237 @@ def check_gat_reductions(dev):
           f"{worst:.2e}", flush=True)
 
 
+# gat_attention and gat_pool_adj before their redesign (one block per
+# attention row, one block per fold), device ms per launch in a CUDA graph
+# from ``gat_forward_times`` run against the tree before the redesign, the
+# mean of two runs (PERF.md Findings; NVIDIA H100 80GB HBM3, 700.00 W)
+GAT_FWD_BEFORE_MS = {
+    (160, 4, 8, 3): 0.0217, (80, 4, 16, 3): 0.0105, (40, 4, 32, 3): 0.0073,
+    (20, 2, 64, 3): 0.0083, (40, 4, 16, 3): 0.0055, (80, 4, 8, 3): 0.0078,
+    (160, 4, 4, 3): 0.0122,
+    (160, 4, 8, 56): 0.2938, (80, 4, 16, 56): 0.1258, (40, 4, 32, 56): 0.0633,
+    (20, 2, 64, 56): 0.0182, (40, 4, 16, 56): 0.0364, (80, 4, 8, 56): 0.0777,
+    (160, 4, 4, 56): 0.1544}
+GAT_POOL_BEFORE_MS = {(160, 80, 3): 0.0094, (80, 40, 3): 0.0042,
+                      (40, 20, 3): 0.0026, (160, 80, 56): 0.0096,
+                      (80, 40, 56): 0.0043, (40, 20, 56): 0.0027}
+# beyond the shipped widths: (n, heads, d_head), F = 1
+GAT_FWD_WIDE = ((1000, 2, 128), (4096, 1, 128))
+GAT_STEP_POOLS = tuple((n, n // 2, nf) for n in (160, 80, 40)
+                       for nf in (F, 56))
+GAT_POOL_CASES = GAT_STEP_POOLS + ((300, 129, 1), (2000, 1000, F))
+
+
+def _graph_adj(g, nf, n, dev):
+    m = torch.rand(nf, n, n, generator=g, device=dev)
+    m = torch.triu(m * (m < 0.3), 1)
+    return m + m.transpose(1, 2)
+
+
+def gat_forward_times(dev):
+    """Device ms per launch in a CUDA graph, beside the plain version and
+    the bound: ``gat_attention`` at each GAT layer shape at the step's
+    F = 3 (drop_p 0.01, alpha kept) and the validation's F = 56 (no
+    dropout, no alpha), ``gat_pool_adj`` at the step's three pools at
+    F = 3 and 56. It calls only the two kernel ops, whose contract
+    predates their redesign, so it also times an older tree of the port:
+    load this file by path with that tree's root as the working
+    directory."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    for nf, p in ((F, 0.01), (56, 0.0)):
+        kept = nf == F
+        calls = []
+        for n, H, d in GAT_LAYER_SHAPES:
+            args = (rnd(nf, n, H * d), rnd(nf, H, d) / d ** 0.5,
+                    rnd(nf, H, d) / d ** 0.5, 0.1 * rnd(nf, 1, H * d),
+                    _graph_adj(g, nf, n, dev), _gat_seeds(dev, nf), 0, p)
+            calls.append(tuple(
+                lambda ops=ops, args=args: ops.gat_attention(
+                    *args, need_alpha=kept) for ops in (K, P)))
+        ms = graph_ms([c[0] for c in calls] + [c[1] for c in calls])
+        L = len(calls)
+        print(f"  gat_attention per layer at F = {nf} ("
+              + ("drop_p 0.01, alpha kept" if kept else
+                 "validation: no dropout, no alpha") + "), device ms in a "
+              "CUDA graph:", flush=True)
+        for (n, H, d), k_ms, p_ms in zip(GAT_LAYER_SHAPES, ms[:L], ms[L:]):
+            before = GAT_FWD_BEFORE_MS.get((n, H, d, nf))
+            b_ms, b_by = bound(gat_attention_ops(nf, n, H, d),
+                               4.0 * nf * (2 * n * H * d + 3 * H * d + n * n
+                                           + (H * n * n if kept else 0)))
+            print(f"    n={n:3d} heads={H} d={d:2d} F={nf:2d}: "
+                  f"kernel {k_ms:.4f} ms (PR 8's kernel: {before:.4f}), "
+                  f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+                  flush=True)
+        before = sum(GAT_FWD_BEFORE_MS[(n, H, d, nf)]
+                     for n, H, d in GAT_LAYER_SHAPES)
+        print(f"    seven layers at F = {nf}: {sum(ms[:L]):.4f} ms (PR 8's "
+              f"kernel: {before:.4f})", flush=True)
+    calls = []
+    for n, k, nf in GAT_STEP_POOLS:
+        a = torch.rand(nf, n, n, generator=g, device=dev)
+        idx = torch.stack([torch.randperm(n, generator=g, device=dev)[:k]
+                           for _ in range(nf)]).to(torch.int32)
+        calls.append(tuple(lambda ops=ops, a=a, idx=idx: ops.gat_pool_adj(
+            a, idx) for ops in (K, P)))
+    ms = graph_ms([c[0] for c in calls] + [c[1] for c in calls])
+    L = len(calls)
+    for (n, k, nf), k_ms, p_ms in zip(GAT_STEP_POOLS, ms[:L], ms[L:]):
+        b_ms, b_by = bound(3.0 * nf * k * k, 4.0 * nf * (2 * k * k + k))
+        print(f"    gat_pool_adj {n} -> {k} F={nf}: kernel {k_ms:.4f} ms "
+              f"(PR 8's kernel: {GAT_POOL_BEFORE_MS[(n, k, nf)]:.4f}), plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+
+
+def check_gat_forward(dev):
+    """Phase 7.1c: the two kernels of the GAT forward beyond their record.
+
+    ``gat_attention`` at every GAT layer shape x drop_p (0, 0.01, 0.3) x
+    both softmax shifts x F (1, 3, 56), and at n 1000 / 4096 x d 128
+    (F = 1, both shifts, drop_p 0 / 0.3): y within 1e-5 of its scale and
+    alpha within 1e-6 of the plain version, two launches bit-equal, y
+    without alpha bit-equal to y with it, one launch per shape and F
+    captured in a CUDA graph; ``gat_attention_bwd`` still matches on the
+    kernel's alpha. ``gat_pool_adj`` at the step's three pools x F (3, 56)
+    and at k 129 and 1000: within 1e-6 of its scale, bit-equal, graphed.
+    ``philox_keep_mask`` at the step's three pool masks, bit-equal. Then
+    ``gat_forward_times``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import (gat_attention_plan,
+                                            gat_pool_adj_plan)
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    worst_y = worst_a = 0.0
+    cases = [(s, nf, p, shift) for s in GAT_LAYER_SHAPES for nf in (1, F, 56)
+             for p in (0.0, 0.01, 0.3) for shift in (False, True)]
+    cases += [(s, 1, p, shift) for s in GAT_FWD_WIDE for p in (0.0, 0.3)
+              for shift in (False, True)]
+    for ci, ((n, H, d), nf, p, shift) in enumerate(cases):
+        HD = H * d
+        # attention vectors at the model's initial scale (glorot over d):
+        # O(1) logits, as in the step
+        h, asrc, adst = rnd(nf, n, HD), rnd(nf, H, d), rnd(nf, H, d)
+        asrc, adst = asrc / d ** 0.5, adst / d ** 0.5
+        if n >= 1000:
+            # on a dyadic grid, so s and t are exact in any summation
+            # order and alpha's error is the denominators' alone
+            h, asrc, adst = (torch.round(4 * x) / 16 for x in (h, asrc, adst))
+        bias = rnd(nf, 1, HD, scale=0.1)
+        a = _graph_adj(g, nf, n, dev)
+        seeds = _gat_seeds(dev, nf)
+        args = (h, asrc, adst, bias, a, seeds, ci % 7, p, shift)
+        call = lambda ops, alpha=True, args=args: ops.gat_attention(
+            *args, need_alpha=alpha)
+        got = [call(K), call(K)]
+        bare = call(K, False)
+        want = call(P)
+        graphed = None
+        if p == 0.3 and not shift:
+            graphed = _graph_outputs(lambda: call(K))
+        torch.cuda.synchronize()
+        plan = gat_attention_plan(n, H, d, nf, shift, smem)
+        how = "staged" if plan.staged else f"chunks of {plan.chunk}"
+        label = (f"gat_attention n={n} heads={H} d={d} F={nf} p={p} "
+                 f"global_shift={shift} ({plan.rows} rows x {plan.bands} "
+                 f"bands, {how}, group {plan.group})")
+        err_y = max_err(got[0][0], want[0]) / scale_of(want[0])
+        err_a = max_err(got[0][1], want[1])
+        worst_y, worst_a = max(worst_y, err_y), max(worst_a, err_a)
+        if not (err_y <= 1e-5 and err_a <= 1e-6):
+            fail(f"{label}: y err / scale {err_y:.2e} (limit 1e-5), alpha "
+                 f"max|err| {err_a:.2e} (limit 1e-6)")
+        if not (_equal(got[0], got[1]) and torch.equal(got[0][0], bare[0])
+                and bare[1] is None
+                and (graphed is None or _equal(got[0], graphed))):
+            fail(f"{label}: two launches, y without alpha or the graphed "
+                 "launch differ")
+        if nf == F and not shift:
+            # the adjoint on the kernel's y and alpha against the plain
+            # adjoint on the same (each side's own y could put an entry
+            # near 0 on two sides of relu's kink)
+            gy = rnd(nf, n, HD)
+            outs = []
+            y_, al_ = got[0]
+            for ops in (K, P):
+                gp = (torch.empty(nf, H, d, device=dev),
+                      torch.empty(nf, H, d, device=dev),
+                      torch.empty(nf, 1, HD, device=dev))
+                outs.append((ops.gat_attention_bwd(gy, y_, al_, h, asrc,
+                                                   adst, seeds, ci % 7, p,
+                                                   *gp),) + gp)
+            err_b = max(max_err(x, w) / scale_of(w) for x, w in zip(*outs))
+            if not err_b <= 1e-5:
+                fail(f"{label}: gat_attention_bwd on the kernel's alpha "
+                     f"err / scale {err_b:.2e} above 1e-5")
+        if n >= 1000 and p > 0 and not shift:
+            k_ms, = graph_ms([lambda: call(K)], reps=3)
+            label += f"; kernel {k_ms:.4f} ms"
+        print(f"    {label}: y err / scale {err_y:.2e}, alpha err "
+              f"{err_a:.2e}, bit-equal" + (", graphed" if graphed else ""),
+              flush=True)
+        del got, bare, want, graphed
+
+    worst_p = 0.0
+    for n, k, nf in GAT_POOL_CASES:
+        a = torch.rand(nf, n, n, generator=g, device=dev)
+        idx = torch.stack([torch.randperm(n, generator=g, device=dev)[:k]
+                           for _ in range(nf)]).to(torch.int32)
+        got = [K.gat_pool_adj(a, idx), K.gat_pool_adj(a, idx)]
+        want = P.gat_pool_adj(a, idx)
+        graphed = _graph_outputs(lambda: K.gat_pool_adj(a, idx))
+        torch.cuda.synchronize()
+        plan = gat_pool_adj_plan(nf, n, k, smem)
+        err = max_err(got[0], want) / scale_of(want)
+        worst_p = max(worst_p, err)
+        label = (f"gat_pool_adj {n} -> {k} F={nf} ({plan.bands} bands of "
+                 f"{plan.rows} rows)")
+        if not err <= 1e-6:
+            fail(f"{label}: err / scale {err:.2e} above 1e-6")
+        if not (torch.equal(got[0], got[1]) and torch.equal(got[0], graphed)):
+            fail(f"{label}: two launches or the graphed launch differ")
+        if (n, k, nf) not in GAT_STEP_POOLS:
+            k_ms, p_ms = graph_ms([lambda: K.gat_pool_adj(a, idx),
+                                   lambda: P.gat_pool_adj(a, idx)], reps=3)
+            b_ms, b_by = bound(3.0 * nf * k * k, 4.0 * nf * (2 * k * k + k))
+            label += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                      f"{b_ms:.5f} ms ({b_by})")
+        print(f"    {label}: err / scale {err:.2e}, bit-equal, graphed",
+              flush=True)
+    # the step's own dropout masks beside the attention: the pools' (F, n,
+    # H d) inputs, forward and adjoint alike
+    seeds = _gat_seeds(dev, F)
+    for n, H, d in GAT_LAYER_SHAPES[:3]:
+        x = rnd(F, n, H * d)
+        mask = lambda ops, x=x, n=n, HD=H * d: ops.philox_keep_mask(
+            seeds, 1, 1, n, HD, 0.01, x, 1 / 0.99)
+        if not torch.equal(mask(K), mask(P)):
+            fail(f"philox_keep_mask on ({F}, {n}, {H * d}) differs")
+        k_ms, p_ms = graph_ms([lambda: mask(K), lambda: mask(P)])
+        b_ms, b_by = bound(60.0 * F * n * H * d, 8.0 * F * n * H * d)
+        print(f"    philox_keep_mask on the pool input ({F}, {n}, {H * d}), "
+              f"drop_p 0.01: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}); 2 launches per step",
+              flush=True)
+    print(f"  GAT forward kernels ok: {len(cases)} attention cases (worst y "
+          f"err / scale {worst_y:.2e}, alpha err {worst_a:.2e}), "
+          f"{len(GAT_POOL_CASES)} pool cases (worst {worst_p:.2e})",
+          flush=True)
+    gat_forward_times(dev)
+
+
 def _gat_step_inputs(dev, data):
     """Full-width step inputs for F = 3 folds: three fresh models, small
     random moments, the first three teacher subjects, one masked fold."""
@@ -1947,13 +2191,13 @@ def check_gat_step(dev, data):
         OUT_DIR, "profile_gat_step.txt"))
     # the adjoint is one launch per layer: 7 device launches per step (the
     # profiler can drop the first step's first few launches: rounded)
-    bwd = sum(e.count for e in averages if "gat_attention_bwd" in e.key
-              and e.self_device_time_total > 0)
-    print(f"  gat_attention_bwd: {bwd / 10:g} device launches per step "
-          f"(7 layers)")
-    if round(bwd / 10) != 7:
-        fail(f"gat_attention_bwd: {bwd / 10:g} device launches per step, "
-             "not 7")
+    for name, want in (("gat_attention_bwd", 7), ("gat_attention_kernel", 7),
+                       ("gat_pool_adj", 3)):
+        got = sum(e.count for e in averages if name in e.key
+                  and e.self_device_time_total > 0) / 10
+        print(f"  {name}: {got:g} device launches per step ({want} wanted)")
+        if round(got) != want:
+            fail(f"{name}: {got:g} device launches per step, not {want}")
     _host_profile(run_k, 100)
 
     # validation: one model read by a fold's 56 subjects
@@ -1982,6 +2226,10 @@ def check_gat_step(dev, data):
           f"device, plain {v_p:.3f} ms device per fold")
     if not max(errs) <= 1e-5 or not bool(torch.isfinite(got[0]).all()):
         fail("gat_val_fused disagrees with its plain version")
+    run_v = lambda: fg.gat_val_fused(p[:1], a0v, x0v, hrv, device=dev,
+                                     **GAT_KW)
+    profile_steps(run_v, cuda_ms(run_v, reps=3),
+                  os.path.join(OUT_DIR, "profile_gat_val.txt"))
 
 
 def run_gat_trainer(dev, data):
@@ -2182,6 +2430,7 @@ def main():
         print("phase 7: the GAT U-Net family", flush=True)
         records.update(check_gat_kernels(dev))
         check_gat_reductions(dev)
+        check_gat_forward(dev)
         check_gat_step(dev, data)
         gat_counts = run_gat_trainer(dev, data)
         gat_cli_counts = run_gat_cli(dev, os.path.join(WORK_DIR, "data"))

@@ -23,9 +23,16 @@ __device__ __forceinline__ float sign0(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
 }
 
-// Sum over the 32 lanes of a warp; the result is valid in lane 0.
+// Sum and maximum over the 32 lanes of a warp, returned to every lane (a
+// butterfly: lane 0 adds in the same order as a shift-down tree would).
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

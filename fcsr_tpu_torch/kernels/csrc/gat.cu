@@ -19,9 +19,12 @@
 // run in a fixed order (no atomics, so results are reproducible); dropout
 // masks are regenerated from (seed, mask, head, element) wherever they are
 // needed, so none is stored between forward and backward. The forward
-// runs a block per attention row; the adjoint and the off-diagonal losses
-// run a thread-block cluster per (head, fold) or per fold whose blocks
-// meet in distributed shared memory inside the one launch.
+// runs a block per (band of target rows, head, fold) over its head's
+// staged h, a warp per row; the pooled adjacency runs bands of pooled
+// rows per fold, each block summing every row itself; the adjoint and the
+// off-diagonal losses run a thread-block cluster per fold or per (head,
+// fold) whose blocks meet in distributed shared memory inside the one
+// launch. Every such launch takes a plan made on the host (ops.*_plan).
 #include "common.cuh"
 
 namespace {
@@ -61,32 +64,9 @@ __device__ __forceinline__ float keep_at(const int* __restrict__ seed2,
                                   0u), p);
 }
 
-// Sum (or max) over a block whose size is a multiple of 32, returned to
-// every thread; ``red`` is 32 floats of shared memory, reusable after.
-template <bool IS_MAX>
-__device__ __forceinline__ float block_all(float v, float* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = IS_MAX ? fmaxf(v, w) : v + w;
-  }
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-  v = lane < nw ? red[lane] : (IS_MAX ? -INFINITY : 0.f);
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = IS_MAX ? fmaxf(v, w) : v + w;
-  }
-  __syncthreads();
-  return v;
-}
-
 __device__ __forceinline__ float leaky(float z) {
   return z >= 0.f ? z : 0.2f * z;          // slope 1 at exactly 0
 }
-
-constexpr float MASKED = -1e30f;
 
 // <h[row, head block], att[head]> over the head's d features
 __device__ __forceinline__ float head_dot(const float* __restrict__ hrow,
@@ -98,81 +78,280 @@ __device__ __forceinline__ float head_dot(const float* __restrict__ hrow,
 }
 
 // ---------------------------------------------------------------------------
-// gat_attention: block (target row i, head j, fold f).
-//   s[src] = <h[src, j], att_src[j]>, t = <h[i, j], att_dst[j]>
-//   logit[src] = leaky(s[src] + t) where a[i, src] != 0 or src == i
+// gat_attention: block (band b of R target rows, head j, fold f).
+//   s[src] = <h[src, j], att_src[j]>, t[i] = <h[i, j], att_dst[j]>
+//   logit[i, src] = leaky(s[src] + t[i]) where a[i, src] != 0 or src == i
 //   alpha = softmax over the unmasked sources (shift: the head's row maximum,
 //           or with global_shift the row's maximum over all heads)
 //   y[i, j block] = relu(sum_src alpha keep / (1 - p) h[src, j block] + bias)
-// Dynamic shared memory: n floats.
+// The block stages by cp.async, all in flight at once, the h columns of
+// its head (of every head with global_shift; rows padded to an odd
+// stride) and its band's rows of a (16-byte copies where n % 4 == 0 and a
+// is aligned), and computes s once per source and head and t once per band
+// row and head, not once per pair (``sl`` lanes per dot). A warp per band
+// row then walks the sources (lanes along them, every access to a and
+// alpha coalesced, the max and the sum by shuffles, no block barrier per
+// row): the logits into the row of a's place (-inf where masked) and
+// their maximum, then exp and the denominator, then alpha (written when
+// asked for) and alpha keep / (1 - p), each pair's keep bit drawn once.
+// The output product (alpha keep) @ h_head runs over all threads: each
+// (row, feature) output is summed by ``group`` lanes over interleaved
+// sources, then a shuffle tree, in a fixed order (no atomics: the same
+// bits from run to run). Past what shared memory holds the sources go in
+// chunks of ``chunk``: pass 1 keeps a running (shift, sum) per row,
+// rescaled as the shift grows; pass 2 restages each chunk and adds its
+// share of the product into a band accumulator. The wrapper plans R, the
+// chunk and the group (ops.gat_attention_plan): at F = 3, n = 160, 4 heads
+// of 8, 20 bands of 8 rows per (head, fold).
+// Bound: bytes on paper (a read and alpha written, F H n^2 floats); on the
+// card the staging round trip and the phases' dependent instructions, a
+// few microseconds a launch at the step's widths (PERF.md Findings).
 // ---------------------------------------------------------------------------
-__global__ void gat_attention_kernel(
-    const float* __restrict__ h, const float* __restrict__ att_src,
-    long long s_src, const float* __restrict__ att_dst, long long s_dst,
-    const float* __restrict__ bias, long long s_bias,
-    const float* __restrict__ a, const int* __restrict__ seeds,
-    float* __restrict__ y, float* __restrict__ alpha, int n, int heads, int d,
-    int mask_id, float drop_p, float scale, int global_shift) {
-  extern __shared__ float sh[];
-  __shared__ float red[32];
-  const int i = blockIdx.x, j = blockIdx.y, f = blockIdx.z;
-  const int HD = heads * d;
-  const float* hf = h + (long long)f * n * HD;
-  const float* arow = a + ((long long)f * n + i) * n;
-  const float* asrc = att_src + f * s_src + j * d;
-  const float* adst = att_dst + f * s_dst + j * d;
-  const float t = head_dot(hf + (long long)i * HD + j * d, adst, d);
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_WARPS = FWD_THREADS / 32;
 
-  float mx = -INFINITY;
-  for (int src = threadIdx.x; src < n; src += blockDim.x) {
-    const bool on = arow[src] != 0.f || src == i;
-    const float z = leaky(head_dot(hf + (long long)src * HD + j * d, asrc, d) + t);
-    const float logit = on ? z : MASKED;
-    sh[src] = logit;
-    mx = fmaxf(mx, logit);
+__global__ void __launch_bounds__(FWD_THREADS, 3)
+    gat_attention_kernel(
+        const float* __restrict__ h, const float* __restrict__ att_src,
+        long long s_src, const float* __restrict__ att_dst, long long s_dst,
+        const float* __restrict__ bias, long long s_bias,
+        const float* __restrict__ a, const int* __restrict__ seeds,
+        float* __restrict__ y, float* __restrict__ alpha, int n, int heads,
+        int d, int mask_id, float drop_p, float scale, int global_shift,
+        int R, int chunk, int group, int vec) {
+  extern __shared__ float4 sh4[];  // 16-byte aligned for cp.async16
+  const int b = blockIdx.x, j = blockIdx.y, f = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int HD = heads * d;
+  const int hh = global_shift ? heads : 1;    // heads whose logits it needs
+  const int jo = global_shift ? j : 0;        // its own head among them
+  const int col0 = global_shift ? 0 : j * d;  // first staged column of h
+  const int wd = hh * d, ldh = wd | 1;
+  const int ldp = (chunk + 3) / 4 * 4 + 4;    // 16-byte rows
+  const int i0 = b * R, rows = max(0, min(R, n - i0));
+  const bool staged = chunk >= n;
+  const bool drop = drop_p > 0.f;
+  float* P = reinterpret_cast<float*>(sh4);   // R x ldp: a, then alpha k
+  float* hs = P + (size_t)R * ldp;            // chunk x ldh: h rows
+  float* sc = hs + (size_t)chunk * ldh;       // hh x chunk: s of the chunk
+  float* tb = sc + (size_t)hh * chunk;        // hh x R: t of the band
+  float* mx = tb + (size_t)hh * R;            // R: the rows' shift
+  float* den = mx + R;                        // R: the rows' denominator
+  float* atts = den + R;                      // wd: att_src of the heads
+  float* attd = atts + wd;                    // wd: att_dst of the heads
+  float* acc = attd + wd;                     // chunks: R x d partial y
+  const float* hf = h + (size_t)f * n * HD + col0;
+  const float* ab = a + ((size_t)f * n + i0) * n;  // the band's rows of a
+  const int* seed2 = seeds ? seeds + 2 * f : nullptr;
+
+  // h rows c0 .. c0 + cols (the staged heads' columns) and the band's
+  // columns c0 .. c0 + cols of a, by cp.async
+  auto stage = [&](int c0, int cols) {
+    for (int e = tid; e < cols * wd; e += FWD_THREADS) {
+      const int q = e / wd, c = e - q * wd;
+      cp_async4(hs + q * ldh + c, hf + (size_t)(c0 + q) * HD + c, 4);
+    }
+    if (vec) {
+      const int c4 = cols >> 2;
+      for (int e = tid; e < rows * c4; e += FWD_THREADS) {
+        const int r = e / c4, q = (e - r * c4) * 4;
+        cp_async16(P + r * ldp + q, ab + (size_t)r * n + c0 + q, 16);
+      }
+    } else {
+      for (int e = tid; e < rows * cols; e += FWD_THREADS) {
+        const int r = e / cols, q = e - r * cols;
+        cp_async4(P + r * ldp + q, ab + (size_t)r * n + c0 + q, 4);
+      }
+    }
+    cp_async_commit();
+  };
+  // <h row, att> for heads jj0 .. jj1 of ``count`` rows: s of the
+  // chunk's sources, or with ``targets`` t of the band rows (staged: their
+  // h rows are in place); ``sl`` lanes per dot along the features, then a
+  // shuffle tree
+  int sl = 1;
+  while (sl < 32 && 8 * sl <= d) sl *= 2;  // 4 to 7 terms per lane
+  auto dots = [&](int count, int jj0, int jj1, bool targets) {
+    const int part = tid & (sl - 1);
+    for (int jj = jj0; jj < jj1; ++jj) {
+      const float* at = (targets ? attd : atts) + jj * d;
+      float* out = targets ? tb + jj * R : sc + jj * chunk;
+      for (int q0 = 0; q0 < count; q0 += FWD_THREADS / sl) {  // uniform
+        const int q = q0 + tid / sl;
+        float v = 0.f;
+        if (q < count) {
+          const float* hr = hs + (targets ? i0 + q : q) * ldh + jj * d;
+          for (int c = part; c < d; c += sl) v += hr[c] * at[c];
+        }
+        for (int o = sl >> 1; o > 0; o >>= 1)
+          v += __shfl_down_sync(0xffffffffu, v, o, sl);
+        if (q < count && part == 0) out[q] = v;
+      }
+    }
+  };
+
+  // the band's share of (alpha keep) @ h_head over the chunk's sources:
+  // ``group`` lanes per (row, feature) output over interleaved sources,
+  // then a shuffle tree; with chunks, added to the band's partial outputs
+  const float* b_j = bias + f * s_bias + j * d;
+  const int per = FWD_THREADS / group, g = tid & (group - 1);
+  const int outs = rows * d;
+  auto product = [&](int c0, int cols) {
+    const float* hj = hs + jo * d;
+    const bool last = c0 + chunk >= n;
+    for (int o0 = 0; o0 < outs; o0 += per) {  // uniform over the block
+      const int o = o0 + tid / group;
+      const bool act = o < outs;
+      const int r = act ? o / d : 0, c = o - r * d;
+      float v = 0.f;
+      if (act) {
+        const float* pr = P + r * ldp;
+        for (int q = g; q < cols; q += group) v += pr[q] * hj[q * ldh + c];
+      }
+      for (int s = group >> 1; s > 0; s >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, s, group);
+      if (act && g == 0) {
+        if (c0 > 0) v += acc[o];
+        if (last) {
+          v += b_j[c];
+          y[((size_t)f * n + i0 + r) * HD + j * d + c] = v > 0.f ? v : 0.f;
+        } else {
+          acc[o] = v;
+        }
+      }
+    }
+  };
+  // band row r's logits over the chunk's sources into P in place of a
+  // (-inf where masked) and, with ``want_max``, their maximum over the
+  // staged heads (every lane gets it)
+  auto row_logits = [&](int r, int c0, int cols, bool want_max) {
+    const int i = i0 + r;
+    float* pr = P + r * ldp;
+    const float t = tb[jo * R + r];
+    const float* so = sc + jo * chunk;
+    float m = -INFINITY;
+    for (int q = lane; q < cols; q += 32) {
+      const bool on = pr[q] != 0.f || c0 + q == i;
+      const float z = on ? leaky(so[q] + t) : -INFINITY;
+      pr[q] = z;
+      m = fmaxf(m, z);
+      if (want_max && hh > 1 && on) {
+        for (int jj = 0; jj < hh; ++jj)
+          m = fmaxf(m, leaky(sc[jj * chunk + q] + tb[jj * R + r]));
+      }
+    }
+    return want_max ? warp_max(m) : 0.f;
+  };
+  // exp(z - m) of row r's logits in P (0 where masked), into P where
+  // ``keep_e``; the lane's share of their sum
+  auto row_exp = [&](int r, int cols, float m, bool keep_e) {
+    float* pr = P + r * ldp;
+    float part = 0.f;
+    for (int q = lane; q < cols; q += 32) {
+      const float z = pr[q];
+      const float e = z > -INFINITY ? expf(z - m) : 0.f;
+      if (keep_e) pr[q] = e;
+      part += e;
+    }
+    return part;
+  };
+  // alpha = e inv of row r (e in P, or exp(z - m) from its logits with
+  // ``from_z``), written out when asked for, and alpha keep / (1 - p) into
+  // P, each pair's keep bit drawn once
+  const unsigned key0 = seed2 ? (unsigned)seed2[0] : 0u;
+  const unsigned key1 = seed2 ? (unsigned)seed2[1] : 0u;
+  auto row_alpha = [&](int r, int c0, int cols, float m, float inv,
+                       bool from_z) {
+    const int i = i0 + r;
+    float* pr = P + r * ldp;
+    float* alrow = alpha
+        ? alpha + (((size_t)f * heads + j) * n + i) * n + c0 : nullptr;
+    for (int q = lane; q < cols; q += 32) {
+      const float e = from_z ? expf(pr[q] - m) : pr[q];
+      float al = e * inv;
+      if (alrow) alrow[q] = al;
+      if (drop)
+        al = al * bits_to_keep(philox_word(key0, key1,
+                                           (unsigned)(i * n + c0 + q),
+                                           (unsigned)j, (unsigned)mask_id,
+                                           0u), drop_p) * scale;
+      pr[q] = al;
+    }
+  };
+
+  stage(0, min(chunk, n));
+  for (int r = tid; r < R; r += FWD_THREADS) {
+    mx[r] = -INFINITY;
+    den[r] = 0.f;
   }
-  if (global_shift) {
-    for (int jj = 0; jj < heads; ++jj) {
-      if (jj == j) continue;
-      const float* asrc2 = att_src + f * s_src + jj * d;
-      const float t2 = head_dot(hf + (long long)i * HD + jj * d,
-                                att_dst + f * s_dst + jj * d, d);
-      for (int src = threadIdx.x; src < n; src += blockDim.x) {
-        const bool on = arow[src] != 0.f || src == i;
-        if (on)
-          mx = fmaxf(mx, leaky(head_dot(hf + (long long)src * HD + jj * d,
-                                        asrc2, d) + t2));
+  for (int e = tid; e < wd; e += FWD_THREADS) {
+    atts[e] = att_src[f * s_src + col0 + e];
+    attd[e] = att_dst[f * s_dst + col0 + e];
+  }
+  if (!staged) {  // t of the band rows, from device memory
+    for (int e = tid; e < hh * rows; e += FWD_THREADS) {
+      const int jj = e / rows, r = e - jj * rows;
+      tb[jj * R + r] = head_dot(hf + (size_t)(i0 + r) * HD + jj * d,
+                                att_dst + f * s_dst + col0 + jj * d, d);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  dots(min(chunk, n), 0, hh, false);
+  if (staged) dots(rows, 0, hh, true);
+  __syncthreads();
+
+  if (staged) {
+    // every source in place: a warp takes its rows from logits to
+    // alpha keep / (1 - p) with no block barrier, e kept in P between
+    for (int r = w; r < rows; r += FWD_WARPS) {
+      const float m = row_logits(r, 0, n, true);
+      const float inv = 1.f / warp_sum(row_exp(r, n, m, true));
+      row_alpha(r, 0, n, m, inv, false);
+    }
+    __syncthreads();
+    product(0, n);
+    return;
+  }
+
+  // chunks, pass 1: each band row's running shift (over the staged heads)
+  // and its head's denominator, rescaled as the shift grows
+  for (int c0 = 0; c0 < n; c0 += chunk) {
+    const int cols = min(chunk, n - c0);
+    if (c0 > 0) {
+      __syncthreads();  // the previous chunk is consumed
+      stage(c0, cols);
+      cp_async_wait<0>();
+      __syncthreads();
+      dots(cols, 0, hh, false);
+      __syncthreads();
+    }
+    for (int r = w; r < rows; r += FWD_WARPS) {
+      const float old = mx[r];
+      const float mn = fmaxf(old, row_logits(r, c0, cols, true));
+      const float part = warp_sum(row_exp(r, cols, mn, false));
+      if (lane == 0) {
+        den[r] = (old == -INFINITY ? 0.f : den[r] * expf(old - mn)) + part;
+        mx[r] = mn;
       }
     }
   }
-  mx = block_all<true>(mx, red);
-  float part = 0.f;
-  for (int src = threadIdx.x; src < n; src += blockDim.x) {
-    const float logit = sh[src];
-    const float e = logit > 0.5f * MASKED ? expf(logit - mx) : 0.f;
-    sh[src] = e;
-    part += e;
-  }
-  const float denom = block_all<false>(part, red);
-  float* alrow = alpha ? alpha + (((long long)f * heads + j) * n + i) * n
-                       : nullptr;
-  const int* seed2 = seeds ? seeds + 2 * f : nullptr;
-  for (int src = threadIdx.x; src < n; src += blockDim.x) {
-    float al = sh[src] / denom;
-    if (alrow) alrow[src] = al;
-    if (drop_p > 0.f)
-      al = al * keep_at(seed2, mask_id, j, (unsigned)(i * n + src), drop_p)
-           * scale;
-    sh[src] = al;
-  }
-  __syncthreads();
-  const float* b = bias + f * s_bias + j * d;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float acc = 0.f;
-    for (int src = 0; src < n; ++src)
-      acc += sh[src] * hf[(long long)src * HD + j * d + c];
-    const float v = acc + b[c];
-    y[((long long)f * n + i) * HD + j * d + c] = v > 0.f ? v : 0.f;
+  // pass 2: each chunk restaged, alpha and alpha keep / (1 - p) in place
+  // of a, then the chunk's share of the output product
+  for (int c0 = 0; c0 < n; c0 += chunk) {
+    const int cols = min(chunk, n - c0);
+    __syncthreads();  // the shifts are final; the last chunk is consumed
+    stage(c0, cols);
+    cp_async_wait<0>();
+    __syncthreads();
+    dots(cols, jo, jo + 1, false);
+    __syncthreads();
+    for (int r = w; r < rows; r += FWD_WARPS) {
+      row_logits(r, c0, cols, false);  // the shifts are final
+      row_alpha(r, c0, cols, mx[r], 1.f / den[r], true);
+    }
+    __syncthreads();
+    product(c0, cols);
   }
 }
 
@@ -565,29 +744,74 @@ __global__ void philox_keep_mask_kernel(const int* __restrict__ seeds,
 }
 
 // ---------------------------------------------------------------------------
-// gat_pool_adj: out[f] = symnorm(a[f][idx][:, idx]), d = rowsum + eps,
-// out = (g r_col) r_row with r = d^-1/2. One block per fold; dynamic shared
-// memory: k floats.
+// gat_pool_adj: out[f] = symnorm(g), g = a[f][idx][:, idx] (k x k),
+// r = (rowsum(g) + eps)^-1/2, out = (g r_col) r_row.
+// Grid (bands, F): block b writes the band of R pooled rows [b R, b R + R),
+// a warp per row, coalesced along it, the row gathered through the fold's
+// idx (staged in shared memory). Every block needs all k values of r, and
+// each sums all k rows itself (k^2 gathered reads: no barrier between
+// blocks, cheap at the step's k <= 80), a warp per row too: the lanes take
+// interleaved columns of one row (a row's reads stay within it, so its
+// sectors are reused from L1), two rows at a time, and shuffles reduce
+// them in a fixed order (no atomics). The wrapper plans the bands and R
+// (ops.gat_pool_adj_plan): at F = 3, 160 -> 80, 16 blocks of 5 rows per
+// fold.
 // ---------------------------------------------------------------------------
-__global__ void gat_pool_adj_kernel(const float* __restrict__ a,
-                                    const int* __restrict__ idx,
-                                    float* __restrict__ out, int n, int k,
-                                    float eps) {
-  extern __shared__ float r[];
-  const int f = blockIdx.x;
-  const float* af = a + (long long)f * n * n;
-  const int* ix = idx + (long long)f * k;
-  for (int row = threadIdx.x; row < k; row += blockDim.x) {
-    const float* arow = af + (long long)ix[row] * n;
-    float sum = 0.f;
-    for (int c = 0; c < k; ++c) sum += arow[ix[c]];
-    r[row] = 1.f / sqrtf(sum + eps);
+constexpr int POOL_THREADS = 512;
+constexpr int POOL_WARPS = POOL_THREADS / 32;
+
+__global__ void __launch_bounds__(POOL_THREADS)
+    gat_pool_adj_kernel(const float* __restrict__ a,
+                        const int* __restrict__ idx, float* __restrict__ out,
+                        int n, int k, float eps, int R, int vec) {
+  extern __shared__ float4 sh4[];  // 16-byte aligned for cp.async16
+  const int b = blockIdx.x, f = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  int* ix = reinterpret_cast<int*>(sh4);           // k: the fold's idx
+  float* rall = reinterpret_cast<float*>(ix + k);  // k: every row's r
+  const float* af = a + (size_t)f * n * n;
+  const int* ixf = idx + (size_t)f * k;
+
+  if (vec) {
+    for (int e = 4 * tid; e < k; e += 4 * POOL_THREADS)
+      cp_async16(reinterpret_cast<float*>(ix + e),
+                 reinterpret_cast<const float*>(ixf + e), 16);
+  } else {
+    for (int e = tid; e < k; e += POOL_THREADS)
+      cp_async4(reinterpret_cast<float*>(ix + e),
+                reinterpret_cast<const float*>(ixf + e), 4);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // r of every row: a warp per row, rows w and w + POOL_WARPS together
+  for (int r0 = w; r0 < k; r0 += 2 * POOL_WARPS) {
+    const int r1 = r0 + POOL_WARPS;
+    const float* a0 = af + (size_t)ix[r0] * n;
+    const float* a1 = af + (size_t)ix[r1 < k ? r1 : r0] * n;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll 4
+    for (int c = lane; c < k; c += 32) {
+      const int col = ix[c];
+      s0 += __ldg(a0 + col);
+      s1 += __ldg(a1 + col);
+    }
+    s0 = warp_sum(s0);
+    s1 = warp_sum(s1);
+    if (lane == 0) {
+      rall[r0] = rsqrtf(s0 + eps);
+      if (r1 < k) rall[r1] = rsqrtf(s1 + eps);
+    }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < k * k; e += blockDim.x) {
-    const int row = e / k, col = e % k;
-    out[(long long)f * k * k + e] =
-        af[(long long)ix[row] * n + ix[col]] * r[col] * r[row];
+  const int i0 = b * R, rows = max(0, min(R, k - i0));
+  for (int r = w; r < rows; r += POOL_WARPS) {
+    const int i = i0 + r;
+    const float ri = rall[i];
+    const float* arow = af + (size_t)ix[i] * n;
+    float* orow = out + ((size_t)f * k + i) * k;
+    for (int c = lane; c < k; c += 32)
+      orow[c] = __ldg(arow + ix[c]) * rall[c] * ri;
   }
 }
 
@@ -817,40 +1041,60 @@ __global__ void adamw_masked_kernel(const float* __restrict__ p,
   }
 }
 
-int block_for(int n) {
-  int t = ((n + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 256 ? 256 : t);
-}
+// The attributes of the kernels that take a plan, set once on their first
+// launch (so no later launch, none inside a CUDA graph capture, sets one):
+// the card's opt-in shared memory (less what the kernel declares
+// statically) and, for the cluster kernels, clusters of up to 16 blocks
+// (past the portable 8). The C entries refuse a plan whose dynamic shared
+// memory passes the kernel's cap.
+size_t g_fwd_cap = 0, g_bwd_cap = 0, g_pool_cap = 0, g_od_cap = 0;
 
-// The cluster kernels' attributes, set once on their first launch (so no
-// later launch, none inside a CUDA graph capture, sets one): clusters of
-// up to 16 blocks (past the portable 8) and the card's opt-in shared
-// memory (less what the kernel declares statically).
-int init_cluster_kernels() {
+int init_planned_kernels() {
   static bool done = false;
   if (done) return 0;
   int err = read_smem_optin();
   if (err) return err;
-  const void* fns[] = {(const void*)gat_attention_bwd_kernel,
-                       (const void*)offdiag_loss_kernel<true, true>,
-                       (const void*)offdiag_loss_kernel<true, false>,
-                       (const void*)offdiag_loss_kernel<false, true>,
-                       (const void*)offdiag_loss_kernel<false, false>};
-  for (const void* fn : fns) {
+  const struct {
+    const void* fn;
+    bool cluster;
+    size_t* cap;
+  } fns[] = {{(const void*)gat_attention_kernel, false, &g_fwd_cap},
+             {(const void*)gat_attention_bwd_kernel, true, &g_bwd_cap},
+             {(const void*)gat_pool_adj_kernel, false, &g_pool_cap},
+             {(const void*)offdiag_loss_kernel<true, true>, true, &g_od_cap},
+             {(const void*)offdiag_loss_kernel<true, false>, true, &g_od_cap},
+             {(const void*)offdiag_loss_kernel<false, true>, true, &g_od_cap},
+             {(const void*)offdiag_loss_kernel<false, false>, true,
+              &g_od_cap}};
+  for (const auto& k : fns) {
     cudaFuncAttributes fa;
-    err = (int)cudaFuncGetAttributes(&fa, fn);
+    err = (int)cudaFuncGetAttributes(&fa, k.fn);
+    if (!err && k.cluster)
+      err = (int)cudaFuncSetAttribute(
+          k.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const int cap = g_smem_optin - (int)fa.sharedSizeBytes;
     if (!err)
       err = (int)cudaFuncSetAttribute(
-          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (!err)
-      err = (int)cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          g_smem_optin - (int)fa.sharedSizeBytes);
+          k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
     if (err) return err;
+    *k.cap = (size_t)cap;
   }
   done = true;
   return 0;
 }
+
+// The shared memory gat_attention_kernel lays out for a plan (the
+// wrapper's ops.gat_attention_plan computes the same bytes).
+size_t fwd_smem(int n, int hh, int d, int rows, int chunk) {
+  const size_t ldp = (size_t)(chunk + 3) / 4 * 4 + 4;
+  return sizeof(float) *
+         ((size_t)rows * ldp + (size_t)chunk * ((hh * d) | 1) +
+          (size_t)hh * chunk + (size_t)hh * rows + 2 * (size_t)rows +
+          2 * (size_t)hh * d + (chunk >= n ? 0 : (size_t)rows * d));
+}
+
+// ... and gat_pool_adj_kernel (ops.gat_pool_adj_plan): idx and every r
+size_t pool_smem(int k) { return sizeof(float) * 2 * (size_t)k; }
 
 // The shared memory gat_attention_bwd_kernel lays out for a plan (the
 // wrapper's ops.gat_attention_bwd_plan computes the same bytes).
@@ -876,13 +1120,13 @@ int launch_offdiag(const float* G, const float* T, float* vals, int n_vals,
   if (vec && !(n % 4 == 0 && aligned16(G) && aligned16(T) &&
                (!gsym || aligned16(gsym))))
     return (int)cudaErrorInvalidValue;
-  const int err = init_cluster_kernels();
+  const int err = init_planned_kernels();
   if (err) return err;
   const int ldt = vec ? OD_TILE + 4 : OD_TILE + 1;
   const size_t stage = sizeof(float) * (2 * OD_TILE * OD_TILE +
                                         (gsym ? 2 * OD_TILE * ldt : 0));
   const size_t smem = stage * stages;
-  if (smem > (size_t)g_smem_optin) return (int)cudaErrorInvalidValue;
+  if (smem > g_od_cap) return (int)cudaErrorInvalidValue;
   const void* fn =
       vec ? (gsym ? (const void*)offdiag_loss_kernel<true, true>
                   : (const void*)offdiag_loss_kernel<true, false>)
@@ -896,17 +1140,35 @@ int launch_offdiag(const float* G, const float* T, float* vals, int n_vals,
 
 }  // namespace
 
+// The plan (rows per block, source chunk, lanes per output) comes from the
+// wrapper (ops.gat_attention_plan, sized against the card's opt-in shared
+// memory, which is checked again here); chunk == n stages the head's h once.
 extern "C" int fcsr_gat_attention(
     const float* h, const float* att_src, long long s_src,
     const float* att_dst, long long s_dst, const float* bias,
     long long s_bias, const float* a, const int* seeds, float* y,
     float* alpha, int batch, int n, int heads, int d, int mask_id,
-    float drop_p, float scale, int global_shift, void* stream) {
-  dim3 grid(n, heads, batch);
-  gat_attention_kernel<<<grid, block_for(n), n * sizeof(float),
-                         (cudaStream_t)stream>>>(
+    float drop_p, float scale, int global_shift, int rows, int chunk,
+    int group, void* stream) {
+  if (batch <= 0 || n <= 0 || heads <= 0) return 0;
+  const bool staged = chunk >= n;
+  if (d < 1 || rows < 1 || rows > n || chunk < 1 || (staged && chunk != n) ||
+      (!staged && chunk % 4 != 0) || group < 1 || group > 32 ||
+      (group & (group - 1)) != 0 || (drop_p > 0.f && !seeds) ||
+      heads > 65535 || batch > 65535 || (long long)n * n >= (1LL << 32))
+    return (int)cudaErrorInvalidValue;
+  const int err = init_planned_kernels();
+  if (err) return err;
+  const int hh = global_shift ? heads : 1;
+  const size_t smem = fwd_smem(n, hh, d, rows, chunk);
+  if (smem > g_fwd_cap) return (int)cudaErrorInvalidValue;
+  const int vec = n % 4 == 0 && aligned16(a);
+  const dim3 grid((unsigned)((n + rows - 1) / rows), (unsigned)heads,
+                  (unsigned)batch);
+  gat_attention_kernel<<<grid, FWD_THREADS, smem, (cudaStream_t)stream>>>(
       h, att_src, s_src, att_dst, s_dst, bias, s_bias, a, seeds, y, alpha, n,
-      heads, d, mask_id, drop_p, scale, global_shift);
+      heads, d, mask_id, drop_p, scale, global_shift, rows, chunk, group,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -929,10 +1191,10 @@ extern "C" int fcsr_gat_attention_bwd(
       sub > rows || (drop_p > 0.f && !seeds) || heads > 65535 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const int err = init_cluster_kernels();
+  const int err = init_planned_kernels();
   if (err) return err;
   const size_t smem = bwd_smem(n, d, cluster, rows, chunk, sub);
-  if (smem > (size_t)g_smem_optin) return (int)cudaErrorInvalidValue;
+  if (smem > g_bwd_cap) return (int)cudaErrorInvalidValue;
   void* args[] = {&g_y,    &y,       &alpha,   &h,     &att_src, &s_src,
                   &att_dst, &s_dst,  &seeds,   &g_h,   &g_src,   &sg_src,
                   &g_dst,  &sg_dst,  &g_bias,  &sg_bias, &n,     &heads,
@@ -957,11 +1219,23 @@ extern "C" int fcsr_philox_keep_mask(const int* seeds, const float* x,
   return (int)cudaGetLastError();
 }
 
+// The plan (bands, rows per band) comes from the wrapper
+// (ops.gat_pool_adj_plan); a plan the card does not allow is refused.
 extern "C" int fcsr_gat_pool_adj(const float* a, const int* idx, float* out,
                                  int batch, int n, int k, float eps,
-                                 void* stream) {
-  gat_pool_adj_kernel<<<batch, 256, k * sizeof(float),
-                        (cudaStream_t)stream>>>(a, idx, out, n, k, eps);
+                                 int bands, int rows, void* stream) {
+  if (batch <= 0 || k <= 0) return 0;
+  if (k > n || bands < 1 || rows < 1 || (long long)bands * rows < k ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int err = init_planned_kernels();
+  if (err) return err;
+  const size_t smem = pool_smem(k);
+  if (smem > g_pool_cap) return (int)cudaErrorInvalidValue;
+  const int vec = k % 4 == 0 && aligned16(idx);
+  gat_pool_adj_kernel<<<dim3((unsigned)bands, (unsigned)batch),
+                        POOL_THREADS, smem, (cudaStream_t)stream>>>(
+      a, idx, out, n, k, eps, rows, vec);
   return (int)cudaGetLastError();
 }
 

@@ -108,7 +108,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            [_P, _P, _I, _I], _TRIU + ":191"),
     Kernel("gat_attention", "gat", "fcsr_gat_attention",
            [_P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I,
-            _I, _F, _F, _I], _GAT_STEP),
+            _I, _F, _F, _I, _I, _I, _I], _GAT_STEP),
     Kernel("gat_attention_bwd", "gat", "fcsr_gat_attention_bwd",
            [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P, _LL,
             _P, _LL, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I],
@@ -117,7 +117,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            [_P, _P, _P, _I, _I, _LL, _I, _F, _F],
            "tools/experiments/gat_dropout_keeprate.py:32"),
     Kernel("gat_pool_adj", "gat", "fcsr_gat_pool_adj",
-           [_P, _P, _P, _I, _I, _I, _F], _GAT_STEP),
+           [_P, _P, _P, _I, _I, _I, _F, _I, _I], _GAT_STEP),
     Kernel("col_softmax", "gat", "fcsr_col_softmax",
            [_P, _P, _I, _I, _I], _GAT_STEP),
     Kernel("col_softmax_bwd", "gat", "fcsr_col_softmax_bwd",
@@ -1046,6 +1046,82 @@ def _param_stride(t, rows, cols, what):
     return t.stride(0)
 
 
+# Every launch of gat.cu but the elementwise ones takes a plan that its
+# wrapper makes here, on the host, from shapes and the card's opt-in shared
+# memory; a given input always gets the same plan.
+SMS = 132               # an H100's multiprocessors: the blocks a plan aims at
+GAT_MAX_N = 12 * 1024   # gat_attention's and its adjoint's widest n
+GAT_FWD_THREADS = 256   # gat_attention's threads per block ...
+GAT_FWD_WAVE = 2 * SMS  # ... the blocks its plan aims at ...
+GAT_FWD_MIN_ROWS = 4    # ... the fewest target rows of a band ...
+GAT_FWD_MAX_ROWS = 32   # ... and the most
+
+
+class GatFwdPlan(NamedTuple):
+    """gat_attention's launch: ``bands`` blocks of ``rows`` target rows per
+    (head, fold); the sources in chunks of ``chunk`` (``staged``: one
+    chunk, the head's h and the band's rows of a staged once); each output
+    summed by ``group`` lanes; ``smem`` bytes of shared memory per block."""
+    rows: int
+    bands: int
+    chunk: int
+    group: int
+    staged: bool
+    smem: int
+
+
+def _gat_fwd_smem(n, hh, d, rows, chunk):
+    """Bytes of gat_attention's shared memory (gat.cu ``fwd_smem``): the
+    band's rows of a (then alpha k) in 16-byte rows, h rows of ``hh``
+    heads at an odd stride, s of the chunk, t, shift and denominator of
+    the band, att_src and att_dst, and with chunks the band's partial
+    outputs."""
+    ldp = -(-chunk // 4) * 4 + 4
+    return 4 * (rows * ldp + chunk * ((hh * d) | 1) + hh * chunk + hh * rows
+                + 2 * rows + 2 * hh * d + (0 if chunk >= n else rows * d))
+
+
+def gat_attention_plan(n: int, heads: int, d: int, F: int,
+                       global_shift: bool, smem_optin: int) -> GatFwdPlan:
+    """The launch of ``gat_attention`` for F folds of ``heads`` heads of d
+    features over n nodes (``global_shift``: every head's logits reach the
+    shift, so the block stages all heads' h columns), on a card whose
+    blocks may opt in to ``smem_optin`` bytes of shared memory: bands of
+    equal height (4 to 32 target rows) so that the (band, head, fold) grid
+    is about two blocks per SM, lower ones where the staged head and band
+    would not fit; past that, the sources in the widest chunks of a
+    multiple of 32. Each output is summed by as many lanes (a power of two
+    up to 32) as keep the block's threads busy."""
+    hh = heads if global_shift else 1
+    bands = max(min(-(-GAT_FWD_WAVE // (heads * F)),
+                    -(-n // GAT_FWD_MIN_ROWS)), -(-n // GAT_FWD_MAX_ROWS))
+    rows = -(-n // bands)
+    rows = even = -(-n // -(-n // rows))   # the last band as tall as the rest
+    while rows > 1 and _gat_fwd_smem(n, hh, d, rows, n) > smem_optin:
+        rows = -(-rows // 2)
+    staged = _gat_fwd_smem(n, hh, d, rows, n) <= smem_optin
+    chunk = n
+    if not staged:
+        rows = even
+        while True:
+            fixed = _gat_fwd_smem(n, hh, d, rows, 0)
+            chunk = (smem_optin - fixed) // (4 * (rows + ((hh * d) | 1)
+                                                  + hh))
+            chunk -= chunk % 32
+            if chunk >= 32 or rows == 1:
+                break
+            rows = -(-rows // 2)
+        if chunk < 32:
+            raise ValueError(f"gat_attention: n = {n}, {hh} x {d} staged "
+                             f"features too large for {smem_optin} bytes "
+                             "of shared memory")
+    group = 1
+    while group < 32 and 2 * group * rows * d <= GAT_FWD_THREADS:
+        group *= 2
+    return GatFwdPlan(rows, -(-n // rows), chunk, group, staged,
+                      _gat_fwd_smem(n, hh, d, rows, chunk))
+
+
 def gat_attention(h, att_src, att_dst, bias, a, seeds=None, mask_id=0,
                   drop_p=0.0, global_shift=False, need_alpha=True):
     """One GAT layer after its projection: (y, alpha) with
@@ -1053,7 +1129,9 @@ def gat_attention(h, att_src, att_dst, bias, a, seeds=None, mask_id=0,
     softmax over the existing-edge + self-loop sources before dropout
     (None unless ``need_alpha``). With ``drop_p > 0`` the attention is
     multiplied by keep-mask ``mask_id`` of ``seeds`` over 1 - p.
-    ``global_shift`` takes the softmax shift over all heads of a row."""
+    ``global_shift`` takes the softmax shift over all heads of a row.
+    One launch, a block per (band of target rows, head, fold) over the
+    head's staged h (``gat_attention_plan``); n up to 12 288."""
     if not h.is_cuda:
         return gat_attention_plain(h, att_src, att_dst, bias, a, seeds,
                                    mask_id, drop_p, global_shift, need_alpha)
@@ -1066,9 +1144,13 @@ def gat_attention(h, att_src, att_dst, bias, a, seeds=None, mask_id=0,
     s_src = _param_stride(att_src, H, d, "att_src")
     s_dst = _param_stride(att_dst, H, d, "att_dst")
     s_bias = _param_stride(bias, 1, HD, "bias")
+    if n > GAT_MAX_N:
+        raise ValueError(f"gat_attention: n = {n} above {GAT_MAX_N}")
     if drop_p > 0:
         _seeds_ok(seeds, F)
         _check(h.device, seeds, dtype=torch.int32)
+    plan = gat_attention_plan(n, H, d, F, bool(global_shift),
+                              _smem_optin(h.device.index))
     y = torch.empty_like(h)
     alpha = torch.empty(F, H, n, n, dtype=torch.float32, device=h.device) \
         if need_alpha else None
@@ -1076,7 +1158,8 @@ def gat_attention(h, att_src, att_dst, bias, a, seeds=None, mask_id=0,
         _ptr(h), _ptr(att_src), s_src, _ptr(att_dst), s_dst, _ptr(bias),
         s_bias, _ptr(a), _ptr(seeds) if drop_p > 0 else None, _ptr(y),
         _ptr(alpha), F, n, H, d, int(mask_id), float(drop_p),
-        float(_drop_scale(drop_p)), int(bool(global_shift)))
+        float(_drop_scale(drop_p)), int(bool(global_shift)), plan.rows,
+        plan.chunk, plan.group)
     return y, alpha
 
 
@@ -1110,8 +1193,6 @@ def gat_attention_bwd_plain(g_y, y, alpha, h, att_src, att_dst, seeds,
 # gat_attention_bwd and the off-diagonal losses run a thread-block cluster
 # per (head, fold) or per fold (gat.cu); their wrappers plan the launch
 # here, on the host, from shapes and the card's shared-memory limit.
-SMS = 132               # an H100's multiprocessors: the blocks a plan aims at
-GAT_MAX_N = 12 * 1024   # gat_attention_bwd's widest n
 GAT_BWD_THREADS = 512   # gat_attention_bwd's threads per block ...
 GAT_BWD_WARPS = 16      # ... its warps
 GAT_BWD_SUB = 32        # ... and its sub-band of target rows
@@ -1219,10 +1300,49 @@ def gat_pool_adj_plain(a, idx, eps=1e-5):
     return g * r[:, None, :] * r[:, :, None]
 
 
+GAT_POOL_MIN_ROWS = 4   # the fewest pooled rows a block is planned with
+GAT_POOL_MAX_BANDS = 16  # the most blocks a fold is planned with
+
+
+class PoolPlan(NamedTuple):
+    """gat_pool_adj's launch: ``bands`` blocks per fold, each summing every
+    row and writing ``rows`` pooled rows; ``smem`` bytes of shared memory
+    per block."""
+    bands: int
+    rows: int
+    smem: int
+
+
+def _gat_pool_smem(k):
+    """Bytes of gat_pool_adj's dynamic shared memory (gat.cu
+    ``pool_smem``): the fold's idx and every row's r."""
+    return 8 * k
+
+
+def gat_pool_adj_plan(F: int, n: int, k: int, smem_optin: int) -> PoolPlan:
+    """The launch of ``gat_pool_adj`` for F folds pooling n nodes to k on a
+    card whose blocks may opt in to ``smem_optin`` bytes of shared memory:
+    up to 16 blocks per fold, within one block per SM and at least 4
+    pooled rows each. Each block sums all k rows itself, so no block waits
+    on another; k = 12 288 needs 96 KB."""
+    if not 0 < k <= n:
+        raise ValueError(f"gat_pool_adj: cannot keep k = {k} of n = {n}")
+    smem = _gat_pool_smem(k)
+    if smem > smem_optin:
+        raise ValueError(f"gat_pool_adj: k = {k} too large for "
+                         f"{smem_optin} bytes of shared memory")
+    want = max(1, min(GAT_POOL_MAX_BANDS, SMS // max(1, F),
+                       k // GAT_POOL_MIN_ROWS))
+    rows = -(-k // want)
+    return PoolPlan(-(-k // rows), rows, smem)
+
+
 def gat_pool_adj(a, idx, eps=1e-5):
     """The pooled adjacency ``symnorm(a[idx][:, idx])`` (F, k, k) for a
     (F, n, n) and int32 idx (F, k): ``(g r_col) r_row`` with
-    ``r = (rowsum(g) + eps)^-1/2``. Data and selection only: no adjoint."""
+    ``r = (rowsum(g) + eps)^-1/2``. Data and selection only: no adjoint.
+    One launch of bands of pooled rows per fold, each block summing every
+    row (``gat_pool_adj_plan``); k up to 12 288."""
     if not a.is_cuda:
         return gat_pool_adj_plain(a, idx, eps)
     _check(a.device, a)
@@ -1230,11 +1350,12 @@ def gat_pool_adj(a, idx, eps=1e-5):
     _contig(a, idx)
     F, n, _ = a.shape
     k = idx.shape[1]
-    if k > 12 * 1024:
-        raise ValueError("gat_pool_adj: k too large for shared memory")
+    if k > GAT_MAX_N:
+        raise ValueError(f"gat_pool_adj: k = {k} above {GAT_MAX_N}")
+    plan = gat_pool_adj_plan(F, n, k, _smem_optin(a.device.index))
     out = torch.empty(F, k, k, dtype=torch.float32, device=a.device)
     KERNELS["gat_pool_adj"](_ptr(a), _ptr(idx), _ptr(out), F, n, k,
-                            float(eps))
+                            float(eps), plan.bands, plan.rows)
     return out
 
 

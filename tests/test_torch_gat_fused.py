@@ -390,13 +390,20 @@ def test_leaky_slope_at_zero_is_one():
     torch.testing.assert_close(alpha[0, 0, 0], torch.softmax(z, 0))
 
 
-def test_pool_adj_matches_jax_symnorm(rng):
-    a = rng.random((2, 20, 20)).astype(np.float32)
+@pytest.mark.parametrize("k", [10, 40, 80])
+@pytest.mark.parametrize("F", [3, 56])
+def test_pool_adj_matches_jax_symnorm(rng, F, k):
+    """The plain pooled adjacency against JAX's ``_symnorm`` of the
+    gathered block, at the step's and the validation's fold counts and
+    the step's pooled widths, within 1e-6 (fp32 against JAX fp32)."""
+    n = 2 * k
+    a = rng.random((F, n, n)).astype(np.float32)
     a = a + a.transpose(0, 2, 1)
-    idx = np.stack([rng.permutation(20)[:10] for _ in range(2)]).astype(
+    idx = np.stack([rng.permutation(n)[:k] for _ in range(F)]).astype(
         np.int32)
     got = POPS.gat_pool_adj(torch.from_numpy(a), torch.from_numpy(idx))
-    for f in range(2):
+    assert tuple(got.shape) == (F, k, k)
+    for f in range(F):
         want = jfg._symnorm(jnp.asarray(a[f][idx[f]][:, idx[f]]))
         np.testing.assert_allclose(got[f].numpy(), np.asarray(want),
                                    atol=1e-6)
