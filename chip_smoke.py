@@ -19,7 +19,12 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    (``check_tail_reductions``): ``tail_normalize`` at the adjoint's widths,
    on a zero row and an inf entry, ``l1_term`` at the step's three call
    signatures (the ``FlatLayout`` leaf view among them) and on views 1-3
-   floats off 16 bytes, with exact ties; for
+   floats off 16 bytes, with exact ties; the pool (``check_pools``):
+   ``rank_select``'s one launch that ranks and gathers at every pool of
+   both steps x F 3 / 56 with ties and NaN scores, every output equal to
+   the plain version's, bit-equal run to run and in a CUDA graph, and the
+   backward's ``gather_rows`` there, then per-pool times
+   (``pool_times``, which also times an older tree); for
    ``bgemm_f32`` every distinct product signature of the full-width GSR
    and GAT steps (their census, ``kernels/census.py``), replayed with the
    step's operand layouts: the path the kernel takes, its error, two
@@ -28,9 +33,10 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
 3. runs one full-width fold-batched training step (F = 3) on the kernels
    and on the plain path from the same weights and compares loss, recon,
    p', m' and v' (one fold masked: it must come through bit-unchanged),
-   counts the step's FLOPs, bytes and launches, and profiles 10 steps
-   (per-kernel device time into ``chiprun_out/profile_step.txt``; the GAT
-   step's of phase 7 into ``profile_gat_step.txt``);
+   counts the step's FLOPs, bytes and launches (110: one ``rank_select``
+   per pool, 4 ``gather_rows``), and profiles 10 steps (per-kernel device
+   time into ``chiprun_out/profile_step.txt``, with the pool's device
+   launches; the GAT step's of phase 7 into ``profile_gat_step.txt``);
 4. drives the trainer path: the seeded 167-subject teacher dataset, 3
    folds, ``GSRFoldRunner(GSRTrainConfig(fused_adam=True))`` at full width
    for 2 epochs (two ``chunk_epochs=1`` launches) and ``evaluate()``, with
@@ -71,9 +77,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    kernels they replaced; one
    fused step against the plain step and against autograd over the plain
    loss (loss, 36 gradients, p', m', v'), eager and as one CUDA graph,
-   with 7 ``gat_attention_bwd``, 7 ``gat_attention`` and 3
-   ``gat_pool_adj`` device launches in its profile; the fused validation
-   forward and its profile (``profile_gat_val.txt``);
+   with 7 ``gat_attention_bwd``, 7 ``gat_attention``, 3
+   ``gat_pool_adj``, 3 ``rank_select`` and 3 ``gather_rows`` device
+   launches in its profile (89 launches); the fused validation forward
+   (37 launches, no ``gather_rows``) and its profile
+   (``profile_gat_val.txt``);
    ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
    that run), one epoch fused against one unfused; and ``train gat --fast
    --fused``, ``--fast`` and the per-fold trainer through the command line
@@ -112,6 +120,11 @@ TRIU = ("anti_vectorize_normalize", "vectorize_colmajor",
         "normalize_adj_batch")
 # launched by the loss entry points (phase 6), not by train_step_fused
 ENTRY_ONLY = ("loss_terms",)
+# launches of one fold-batched GSR step (all, rank_select, gather_rows):
+# each pool one rank_select launch that also gathers, 4 backward gathers
+STEP_LAUNCHES = (110, 4, 4)
+# launches of one GAT step at drop_p 0.01 and of one validation pass
+GAT_STEP_LAUNCHES, GAT_VAL_LAUNCHES = 89, 37
 # the GAT U-Net's kernels (phase 7): no GSR-Net path launches them
 GAT_NEW = ("gat_attention", "gat_attention_bwd", "philox_keep_mask",
            "gat_pool_adj", "col_softmax", "col_softmax_bwd", "offdiag_mse",
@@ -205,20 +218,30 @@ def kernel_cases(dev):
                   2.0 * F * m * m * m, f4 * (3 * m * m + m),
                   lambda: torch.baddbmm(bias, a, b)))
 
-    # rank_select at level 0 (160 -> 144) with constructed exact ties
+    # the pool at level 0 (160 -> 144), one launch: scores, ranks and the
+    # gathered rows, with constructed exact ties and a NaN score. Bytes:
+    # the logits and the k0 kept source rows read, s, slot, idx, vals,
+    # pre and x written
     n0, k0 = LR, pool_sizes(LR, KS)[0]
     logits = rnd(F, n0, scale=100.0)
     logits[:, 10:20] = logits[:, 30:31]           # a 10-way tie
     logits[:, 100] = logits[:, 5]
-    cases.append(("rank_select", lambda: K.rank_select(logits, k0),
-                  lambda: P.rank_select(logits, k0), 1e-6,
-                  float(F * n0 * n0), f4 * (3 * n0 + 2 * k0), None))
+    with_nan = logits.clone()
+    with_nan[1, 7] = float("nan")
+    d = rnd(F, n0, m)
+    cases.append(("rank_select", lambda: K.rank_select(with_nan, k0, src=d),
+                  lambda: P.rank_select(with_nan, k0, src=d), 0.0,
+                  float(F * (n0 * n0 + k0 * m)),
+                  f4 * (3 * n0 + 2 * k0 + 3 * k0 * m), None))
 
     s, idx, vals, slot = K.rank_select(logits, k0)
-    d = rnd(F, n0, m)
-    cases.append(("gather_rows", lambda: K.gather_rows(d, idx, vals),
-                  lambda: P.gather_rows(d, idx, vals), 0.0,
-                  float(F * k0 * m), f4 * (3 * k0 * m + 2 * k0), None))
+    # the backward's gather (unscaled) and its one library call, with the
+    # int64 index made once, outside the timed call
+    gx, idx64 = rnd(F, n0, m), idx.long()[..., None]
+    cases.append(("gather_rows", lambda: K.gather_rows(gx, idx),
+                  lambda: P.gather_rows(gx, idx), 0.0,
+                  0.0, f4 * (2 * k0 * m + k0),
+                  lambda: torch.take_along_dim(gx, idx64, 1)))
     gp, skip = rnd(F, k0, m), rnd(F, n0, m)
     cases.append(("scatter_rows",
                   lambda: K.scatter_rows(gp, slot, vals, skip),
@@ -466,6 +489,19 @@ def _nan_aware_err(got, want):
     return max_err(got[~nan], want[~nan])
 
 
+def _same(got, want) -> bool:
+    """Equal entry for entry, NaN where NaN (any NaN payload)."""
+    nan = torch.isnan(want)
+    return torch.equal(nan, torch.isnan(got)) and torch.equal(
+        got[~nan], want[~nan])
+
+
+def _bits(t):
+    """A float32 tensor's bits (int32), so two launches compare bit for
+    bit, NaN payloads included; other tensors as they are."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def _check_norm(label, got, want):
     """tail_normalize's (adj, r) against the plain version: within 1e-5 of
     the largest finite entry, NaN where the plain version has NaN."""
@@ -583,6 +619,153 @@ def check_tail_reductions(dev):
               f"plain {p_ms:.4f} ms", flush=True)
 
 
+# (n, k, cols, div) of every pool of the two steps: GSR-Net's four (rows
+# of 268, scores / 100; n 101 and 61 are not multiples of 4) and the GAT
+# U-Net's three (rows of 32 / 64 / 128, scores / 1)
+GSR_POOLS = ((160, 144, HR, 100.0), (144, 101, HR, 100.0),
+             (101, 61, HR, 100.0), (61, 30, HR, 100.0))
+GAT_POOLS = ((160, 80, 32, 1.0), (80, 40, 64, 1.0), (40, 20, 128, 1.0))
+# (n, k, cols, div, F) off the steps: the widest fold (two passes over the
+# nodes) and rows of widths that take 4-byte accesses
+POOL_WIDE = ((1024, 1000, 30, 100.0, 1), (300, 129, 7, 1.0, F))
+
+
+def _pool_logits(g, nf, n, div, dev):
+    """Scores over the sigmoid's range with exact ties; the caller adds
+    NaN scores where it wants them."""
+    logits = torch.randn(nf, n, generator=g, device=dev) * (
+        100.0 if div == 100.0 else 3.0)
+    logits[:, 3:7] = logits[:, 9:10]              # a 5-way tie
+    logits[:, n - 1] = logits[:, 0]               # a tie across the row
+    return logits
+
+
+def check_pools(dev):
+    """Phase 2, the pool: ``rank_select``'s one launch (scores, ranks and
+    the gathered rows) at every pool of both steps x F (3, 56), with exact
+    ties and NaN scores: s, idx, vals, slot, pre and x equal to the plain
+    version's entry for entry (NaN where NaN), two launches bit-equal, one
+    launch captured in a CUDA graph bit-equal, the rank-only launch equal
+    to the fused one's indices; ``gather_rows`` (the backward's, and with
+    a scale) at the same pools, exact and graphed. Then ``pool_times``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import gather_rows_plan, rank_select_plan
+
+    smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    g = torch.Generator(device=dev).manual_seed(8)
+    names = ("s", "idx", "vals", "slot", "pre", "x")
+    cases = [pool + (nf,) for pool in GSR_POOLS + GAT_POOLS
+             for nf in (F, 56)] + list(POOL_WIDE)
+    for n, k, cols, div, nf in cases:
+        logits = _pool_logits(g, nf, n, div, dev)
+        logits[0, 1] = float("nan")
+        logits[nf - 1, n - 2:] = float("nan")    # NaN among the last
+        src = torch.randn(nf, n, cols, generator=g, device=dev)
+        call = lambda logits=logits, src=src, k=k, div=div: \
+            K.rank_select(logits, k, div, src=src)
+        got = [call(), call()]
+        graphed = _graph_outputs(call)
+        bare = K.rank_select(logits, k, div)
+        want = P.rank_select(logits, k, div, src=src)
+        torch.cuda.synchronize()
+        plan = rank_select_plan(nf, n, k, cols, smem)
+        label = (f"rank_select {n} -> {k} x {cols} F={nf} div={div:g} "
+                 f"({plan.bands} bands of {plan.rows} rows, "
+                 f"{plan.lanes} lanes per node, "
+                 f"{16 if plan.vec else 4}-byte rows)")
+        bad = [nm for nm, a, b in zip(names, got[0], want)
+               if not _same(a, b)]
+        if bad:
+            fail(f"{label}: {bad} differ from the plain version")
+        if not all(torch.equal(_bits(a), _bits(b)) and torch.equal(
+                _bits(a), _bits(c)) for a, b, c in zip(got[0], got[1],
+                                                       graphed)):
+            fail(f"{label}: two launches or the graphed launch differ")
+        if not all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got[0][:4], bare)):
+            fail(f"{label}: the rank-only launch differs")
+        idx, vals = got[0][1], got[0][2]
+        gx = torch.randn(nf, n, cols, generator=g, device=dev)
+        gplan = gather_rows_plan(nf, k, cols)
+        outs = (K.gather_rows(gx, idx), K.gather_rows(gx, idx, vals),
+                _graph_outputs(lambda gx=gx, idx=idx: K.gather_rows(
+                    gx, idx)))
+        plains = (P.gather_rows(gx, idx), P.gather_rows(gx, idx, vals))
+        torch.cuda.synchronize()
+        if not (torch.equal(outs[0], plains[0])
+                and all(_same(a, b) for a, b in zip(outs[1], plains[1]))
+                and torch.equal(outs[0], outs[2])):
+            fail(f"gather_rows {n} -> {k} x {cols} F={nf}: differs from "
+                 "the plain version or in a graph")
+        print(f"    {label}: every output exact, bit-equal, graphed; "
+              f"gather_rows ({gplan.bands} bands of {gplan.rows} rows, "
+              f"{gplan.threads} threads) exact, scaled exact, graphed",
+              flush=True)
+    print(f"  pools ok: {len(cases)} cases (7 pools x F 3 / 56, 2 wide)",
+          flush=True)
+    pool_times(dev)
+
+
+def pool_times(dev):
+    """Device ms per launch in a CUDA graph at every pool of both steps
+    (GSR-Net's at F = 3, the GAT U-Net's at F = 3 and the validation's
+    56): the forward pool (this tree's one ``rank_select`` launch, or an
+    older tree's ``rank_select`` + ``gather_rows``) beside its plain
+    version and bound, and the backward's ``gather_rows`` beside
+    ``torch.take_along_dim`` and its plain version. It calls only those two
+    kernel ops and detects the older contract, so it also times an older
+    tree of the port: load this file by path with that tree's root as the
+    working directory. Returns {(n, k, cols, F): (pool ms, gather ms)}."""
+    import inspect
+
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    fused = "src" in inspect.signature(K.rank_select).parameters
+    g = torch.Generator(device=dev).manual_seed(9)
+    shapes, calls = [], []
+    for n, k, cols, div in GSR_POOLS + GAT_POOLS:
+        for nf in ((F,) if div == 100.0 else (F, 56)):
+            logits = _pool_logits(g, nf, n, div, dev)
+            src = torch.randn(nf, n, cols, generator=g, device=dev)
+            gx = torch.randn(nf, n, cols, generator=g, device=dev)
+            idx = K.rank_select(logits, k, div)[1]
+            idx64 = idx.long()[..., None]
+            if fused:
+                def pool(logits=logits, src=src, k=k, div=div):
+                    return K.rank_select(logits, k, div, src=src)
+            else:
+                def pool(logits=logits, src=src, k=k, div=div):
+                    _, ix, vals, _ = K.rank_select(logits, k, div)
+                    return K.gather_rows(src, ix, vals)
+
+            def plain(logits=logits, src=src, k=k, div=div):
+                _, ix, vals, _ = P.rank_select(logits, k, div)
+                return P.gather_rows(src, ix, vals)
+            shapes.append((n, k, cols, nf))
+            calls += [pool, plain, lambda gx=gx, idx=idx: K.gather_rows(
+                          gx, idx),
+                      lambda gx=gx, idx64=idx64: torch.take_along_dim(
+                          gx, idx64, 1),
+                      lambda gx=gx, idx=idx: P.gather_rows(gx, idx)]
+    ms = graph_ms(calls)
+    print("  pools per level, device ms per launch in a CUDA graph ("
+          + ("one rank_select launch per pool" if fused else
+             "rank_select + gather_rows per pool") + "):", flush=True)
+    out = {}
+    for j, (n, k, cols, nf) in enumerate(shapes):
+        p_ms, pp_ms, g_ms, lib_ms, gp_ms = ms[5 * j:5 * j + 5]
+        pb, pby = bound(float(nf * (n * n + k * cols)),
+                        4.0 * nf * (3 * n + 2 * k + 3 * k * cols))
+        gb, gby = bound(0.0, 4.0 * nf * (2 * k * cols + k))
+        print(f"    {n:3d} -> {k:3d} x {cols:3d} F={nf:2d}: pool {p_ms:.4f} "
+              f"(plain {pp_ms:.4f}, bound {pb:.5f} {pby}); backward "
+              f"gather_rows {g_ms:.4f} (take_along_dim {lib_ms:.4f}, plain "
+              f"{gp_ms:.4f}, bound {gb:.5f} {gby})", flush=True)
+        out[(n, k, cols, nf)] = (p_ms, g_ms)
+    return out
+
+
 def check_product(prod, layout, g, dev):
     """One census signature replayed on the card: its path, the kernel
     against the plain version (within 1e-5 x max(scale, K)), two launches
@@ -697,12 +880,14 @@ def check_kernels(dev):
     for name, kern, plain, tol, flops, nbytes, lib in kernel_cases(dev):
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        limit = tol * scale_of(want)
-        ok = err <= limit
-        if name == "rank_select":   # indices and slots exactly
-            ok = ok and torch.equal(got[1], want[1]) \
-                and torch.equal(got[3], want[3])
+        if name == "rank_select":   # every output exactly, NaN where NaN
+            err = max(_nan_aware_err(a, b) for a, b in zip(got, want))
+            limit = 0.0
+            ok = all(_same(a, b) for a, b in zip(got, want))
+        else:
+            err = max_err(got, want)
+            limit = tol * scale_of(want)
+            ok = err <= limit
         if not ok:
             fail(f"kernel {name} disagrees with its plain version "
                  f"(max|err| {err:.3e}, limit {limit:.1e})")
@@ -724,6 +909,7 @@ def check_kernels(dev):
     check_triu_kernels(dev)
     check_band_kernels(dev)
     check_tail_reductions(dev)
+    check_pools(dev)
     return records
 
 
@@ -773,6 +959,10 @@ def check_step(dev, data):
             fail("masked fold's state changed")
     print(f"  step loss {got[0].tolist()} recon {got[1].tolist()}")
     flops, nbytes, launches = count_step(args)
+    if (sum(launches.values()), launches.get("rank_select"),
+            launches.get("gather_rows")) != STEP_LAUNCHES:
+        fail(f"the step launches {launches}: not {STEP_LAUNCHES[0]} with "
+             "one rank_select per pool and the backward's 4 gather_rows")
     b_ms, b_by = bound(flops, nbytes)
     state_bytes = 4.0 * p.numel() * 7 + 4.0 * (u_lr.numel() + u_hr.numel()
                                                + hr.numel())
@@ -844,6 +1034,21 @@ def profile_steps(step, eager_ms, path):
             print(f"    {e.key[:60]:60s} {e.self_device_time_total / 10:9.1f}"
                   f" us/step  {e.count // 10:3d} launches/step")
     return averages
+
+
+def check_profile_launches(averages, wanted, what):
+    """Device launches per step of each kernel in ``wanted`` (a name
+    fragment of the profiler's key -> launches) in ``profile_steps``'s
+    averages over 10 steps (the profiler can drop the first step's first
+    few launches: rounded)."""
+    for name, want in wanted.items():
+        got = sum(e.count for e in averages if name in e.key
+                  and e.self_device_time_total > 0) / 10
+        print(f"  {what}: {name} {got:g} device launches per step ({want} "
+              "wanted)")
+        if round(got) != want:
+            fail(f"{what}: {name} {got:g} device launches per step, not "
+                 f"{want}")
 
 
 # ---------------------------------------------------------------------------
@@ -1128,8 +1333,8 @@ STEP_KERNELS = ("bgemm_f32", "rank_select", "gather_rows", "scatter_rows",
                 "l1_term", "loss_terms", "adam_masked")
 TAIL_KERNELS = ("bgemm_f32", "tail_normalize", "tail_normalize_bwd",
                 "sym_abs_fill", "sym_sign_grad", "l1_term", "loss_terms")
-UNET_FWD_KERNELS = ("bgemm_f32", "rank_select", "gather_rows",
-                    "scatter_rows", "add_bias")
+# the forward pools gather in their rank_select launch: no gather_rows
+UNET_FWD_KERNELS = ("bgemm_f32", "rank_select", "scatter_rows", "add_bias")
 # the kernels each trainer mode must launch (the flat Adam of every mode is
 # one adam_masked launch)
 MODE_KERNELS = {
@@ -1333,8 +1538,10 @@ def run_trainer_modes(dev, data):
         if mode == "fused_adam":
             continue
         missing = [k for k in MODE_KERNELS[mode] if not counts.get(k)]
-        if missing:
-            fail(f"{mode}: kernels of its path never launched: {missing}")
+        extra = [k for k in counts if k not in MODE_KERNELS[mode]]
+        if missing or extra:
+            fail(f"{mode}: kernels of its path never launched: {missing}; "
+                 f"kernels off its path launched: {extra}")
         for k, c in counts.items():
             total[k] = total.get(k, 0) + c
 
@@ -1596,19 +1803,18 @@ def check_gat_kernels(dev):
         k = n // 2
         logits = torch.randn(F, n, generator=g).to(dev) * 30.0
         logits[:, 3:6] = 40.0                    # saturated sigmoid: a tie
-        got, want = K.rank_select(logits, k, 1.0), P.rank_select(logits, k,
-                                                                 1.0)
-        if not (torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
-                and max_err(got[0], want[0]) <= 1e-6):
-            fail(f"rank_select(div=1) n={n} disagrees")
-        s, idx, vals, slot = got
+        x = torch.randn(F, n, D, generator=g).to(dev)
+        got = K.rank_select(logits, k, 1.0, src=x)
+        want = P.rank_select(logits, k, 1.0, src=x)
+        if not all(_same(a, b) for a, b in zip(got, want)):
+            fail(f"rank_select(div=1) n={n} with its rows disagrees")
+        s, idx, vals, slot = got[:4]
         a = torch.rand(F, n, n, generator=g).to(dev)
         err = max_err(K.gat_pool_adj(a, idx), P.gat_pool_adj(a, idx))
         gx = torch.randn(F, k, D, generator=g).to(dev)
         pre = torch.randn(F, k, D, generator=g).to(dev)
         err = max(err, max_err(K.pool_logits_bwd(gx, pre, slot, s, 1.0),
                                P.pool_logits_bwd(gx, pre, slot, s, 1.0)))
-        x = torch.randn(F, n, D, generator=g).to(dev)
         for p in (0.01, 0.3):
             if not torch.equal(
                     K.philox_keep_mask(seeds, 1, 1, n, D, p, x, 1 / (1 - p)),
@@ -2189,15 +2395,14 @@ def check_gat_step(dev, data):
 
     averages = profile_steps(run_k, k_eager, os.path.join(
         OUT_DIR, "profile_gat_step.txt"))
-    # the adjoint is one launch per layer: 7 device launches per step (the
-    # profiler can drop the first step's first few launches: rounded)
-    for name, want in (("gat_attention_bwd", 7), ("gat_attention_kernel", 7),
-                       ("gat_pool_adj", 3)):
-        got = sum(e.count for e in averages if name in e.key
-                  and e.self_device_time_total > 0) / 10
-        print(f"  {name}: {got:g} device launches per step ({want} wanted)")
-        if round(got) != want:
-            fail(f"{name}: {got:g} device launches per step, not {want}")
+    # the adjoint is one launch per layer; each pool one rank_select launch
+    # that also gathers; the backward's three gathers
+    check_profile_launches(averages, {
+        "gat_attention_bwd": 7, "gat_attention_kernel": 7, "gat_pool_adj": 3,
+        "rank_select_kernel": 3, "gather_rows_kernel": 3}, "GAT step")
+    if sum(launches.values()) != GAT_STEP_LAUNCHES:
+        fail(f"the GAT step launches {sum(launches.values())}, not "
+             f"{GAT_STEP_LAUNCHES}")
     _host_profile(run_k, 100)
 
     # validation: one model read by a fold's 56 subjects
@@ -2226,10 +2431,16 @@ def check_gat_step(dev, data):
           f"device, plain {v_p:.3f} ms device per fold")
     if not max(errs) <= 1e-5 or not bool(torch.isfinite(got[0]).all()):
         fail("gat_val_fused disagrees with its plain version")
+    if sum(counts.values()) != GAT_VAL_LAUNCHES or counts.get("gather_rows"):
+        fail(f"gat_val_fused launches {counts}: not {GAT_VAL_LAUNCHES}, "
+             "with no gather_rows")
     run_v = lambda: fg.gat_val_fused(p[:1], a0v, x0v, hrv, device=dev,
                                      **GAT_KW)
-    profile_steps(run_v, cuda_ms(run_v, reps=3),
-                  os.path.join(OUT_DIR, "profile_gat_val.txt"))
+    averages = profile_steps(run_v, cuda_ms(run_v, reps=3),
+                             os.path.join(OUT_DIR, "profile_gat_val.txt"))
+    check_profile_launches(averages, {
+        "gat_attention_kernel": 7, "gat_pool_adj": 3,
+        "rank_select_kernel": 3, "gather_rows_kernel": 0}, "GAT validation")
 
 
 def run_gat_trainer(dev, data):
@@ -2412,8 +2623,11 @@ def main():
     print("phase 3: one full-width step, kernels vs plain", flush=True)
     step_args, eager_ms = check_step(dev, data)
     from fcsr_tpu_torch.models.fused_step import train_step_fused
-    profile_steps(lambda: train_step_fused(*step_args, device=dev), eager_ms,
-                  os.path.join(OUT_DIR, "profile_step.txt"))
+    averages = profile_steps(
+        lambda: train_step_fused(*step_args, device=dev), eager_ms,
+        os.path.join(OUT_DIR, "profile_step.txt"))
+    check_profile_launches(averages, {"rank_select_kernel": 4,
+                                      "gather_rows_kernel": 4}, "GSR step")
     print("phase 4: trainer path", flush=True)
     counts = run_main_path(dev, data, EPOCHS)
     check_tiny_trainer(dev, data)

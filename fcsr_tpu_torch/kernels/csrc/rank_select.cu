@@ -1,5 +1,6 @@
-// rank_select: the Graph U-Net's top-k pooling as index selection, plus the
-// row gather / scatter helpers of pooling, unpooling and their adjoints.
+// rank_select: the Graph U-Net's top-k pooling as index selection and the
+// pooling gather in one launch, plus the row gather / scatter helpers of
+// unpooling and the adjoints.
 //
 // Replaces the rank-select pooling inside the TPU training-step kernel
 // (fcsr_tpu/models/fused_step.py::_topk_projection and its one-hot
@@ -11,63 +12,207 @@
 // The score is sigmoid(logits / div): div = 100 in GSR-Net's pool, 1 in the
 // GAT U-Net's.
 // Rank: rank_i = #{j : s_j > s_i} + #{j < i : s_j == s_i} (descending, ties
-// to the lower index, as lax.top_k). One block per fold, n <= 1024 scores in
-// shared memory, O(n^2) compares — ~25k at n = 160, far below any bound.
-// The row kernels move a few hundred KB per call: bound by bytes, and by
-// launch latency at these sizes.
+// to the lower index, as lax.top_k), n <= 1024.
+//
+// The pool (rank_select_kernel) is one launch of a grid (bands, F): every
+// block ranks all n scores of its fold itself (O(n^2) compares, ~26k at
+// n = 160: no block waits on another, no scratch, no second launch), then
+// writes its band of idx / vals (block 0 also s and slot) and, given the
+// source rows, gathers its band: pre = src[idx], x = pre * vals. The
+// function moves a few hundred KB: bound by bytes, and by launch latency
+// at these sizes, so the design spends its time on the latency chain —
+// the rank's compares as integer keys with 16-byte shared loads, two
+// instructions each into four independent counts, split over `lanes`
+// lanes per node so one pass covers every node, the rows copied by a
+// warp each with 16-byte accesses. The wrapper plans the
+// launch (ops.rank_select_plan); the C entry refuses a plan the pointers
+// or the card do not allow.
 #include "common.cuh"
 
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-__global__ void rank_select_kernel(const float* __restrict__ logits,
-                                   float* __restrict__ s_out,
-                                   int* __restrict__ idx,
-                                   float* __restrict__ vals,
-                                   int* __restrict__ slot, int n, int k,
-                                   float div) {
-  extern __shared__ float key[];
-  const int f = blockIdx.x, i = threadIdx.x;
-  float si = 0.f;
-  if (i < n) {
-    si = 1.f / (1.f + expf(-(logits[(long long)f * n + i] / div)));
-    s_out[(long long)f * n + i] = si;
-    // NaN scores sort last, so the ranks stay a permutation and every
-    // selected index is in range
-    key[i] = isnan(si) ? -INFINITY : si;
-  }
-  __syncthreads();
-  if (i >= n) return;
-  const float ki = key[i];
-  int rank = 0;
-  for (int j = 0; j < n; ++j) {
-    const float kj = key[j];
-    rank += (kj > ki) || (kj == ki && j < i);
-  }
-  slot[(long long)f * n + i] = rank < k ? rank : -1;
-  if (rank < k) {
-    idx[(long long)f * k + rank] = i;
-    vals[(long long)f * k + rank] = si;
+constexpr int SEL_MAX_N = 1024;       // the most scores a fold may have
+constexpr int SEL_MAX_SMEM = 48 * 1024;  // no opt-in: at most 16 KB used
+
+// Rows [r0, r1) of a band: out[r] = src[ix[r]] and, with outs,
+// outs[r] = out[r] * sc[r] (sc null: 1). A warp per row, coalesced along
+// it, 16-byte accesses when VEC (cols % 4 == 0, src / out / outs 16-byte
+// aligned). A lane loads up to GATHER_BATCH of its vectors before storing
+// any, so a row of 268 floats costs one round trip to memory, not three.
+// ix and sc may lie in shared or global memory. The pool and the
+// backward's gather both copy their rows here.
+constexpr int GATHER_BATCH = 4;
+
+template <bool VEC>
+__device__ __forceinline__ void gather_band(const float* __restrict__ src,
+                                            const int* ix, const float* sc,
+                                            float* __restrict__ out,
+                                            float* __restrict__ outs, int r0,
+                                            int r1, int cols) {
+  using V = typename std::conditional<VEC, float4, float>::type;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int nv = VEC ? cols >> 2 : cols;  // vectors per row
+  for (int r = r0 + (int)(threadIdx.x >> 5); r < r1; r += nw) {
+    const V* s = reinterpret_cast<const V*>(src + (size_t)ix[r] * cols);
+    V* o = reinterpret_cast<V*>(out + (size_t)r * cols);
+    V* os = outs ? reinterpret_cast<V*>(outs + (size_t)r * cols) : nullptr;
+    const float c = sc ? sc[r] : 1.f;
+    for (int g0 = lane; g0 < nv; g0 += 32 * GATHER_BATCH) {
+      V v[GATHER_BATCH];
+#pragma unroll
+      for (int u = 0; u < GATHER_BATCH; ++u)
+        if (g0 + 32 * u < nv) v[u] = __ldg(s + g0 + 32 * u);
+#pragma unroll
+      for (int u = 0; u < GATHER_BATCH; ++u) {
+        const int g = g0 + 32 * u;
+        if (g >= nv) break;
+        o[g] = v[u];
+        if (os) {
+          if constexpr (VEC)
+            os[g] = make_float4(v[u].x * c, v[u].y * c, v[u].z * c,
+                                v[u].w * c);
+          else
+            os[g] = v[u] * c;
+        }
+      }
+    }
   }
 }
 
-// out[f, r, :] = src[f, idx[f, r], :]; out_scaled = out * scale[f, r]
+// Whether key b sorts above key a, as 0 / 1: (a - b - t) < 0 with t = 1
+// for kj >= ki (j below i) and t = 0 for kj > ki (j above i). Keys are
+// small (see rank_select_kernel), so the difference cannot overflow.
+__device__ __forceinline__ int above(int a, int b, int t) {
+  return (int)((unsigned)(a - b - t) >> 31);
+}
+
+// Grid (bands, F), blockDim.x threads (a multiple of 32). Shared memory:
+// key and s over npad = n rounded up to 4, then the kept nodes and their
+// scores by rank. The key is s's bits as an int (s >= +0, so the ints
+// order as the floats do), -1 for NaN (below every score); pads past n
+// are -1 too: a pad never outranks a real score and never wins a tie,
+// as ties go to the lower index. Block 0 writes s and slot (n values);
+// block b writes idx and vals for rows [b R, b R + R) and gathers those
+// rows. `lanes` is a power of two: shifts, no division on the way.
+template <bool VEC>
+__global__ void __launch_bounds__(1024)
+    rank_select_kernel(const float* __restrict__ logits,
+                       const float* __restrict__ src,
+                       float* __restrict__ s_out, int* __restrict__ idx,
+                       float* __restrict__ vals, int* __restrict__ slot,
+                       float* __restrict__ pre, float* __restrict__ x, int n,
+                       int k, int cols, float div, int R, int lanes) {
+  extern __shared__ int4 sel_sh[];
+  const int npad = (n + 3) & ~3;
+  int* key = reinterpret_cast<int*>(sel_sh);
+  float* sv = reinterpret_cast<float*>(key + npad);
+  int* ix = reinterpret_cast<int*>(sv + npad);
+  float* kv = reinterpret_cast<float*>(ix + k);
+  const int b = blockIdx.x, f = blockIdx.y;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int shift = __ffs(lanes) - 1;
+  const float* lf = logits + (size_t)f * n;
+
+  for (int i = tid; i < npad; i += T) {
+    float si = 0.f;
+    int ki = -1;
+    if (i < n) {
+      si = 1.f / (1.f + expf(-(lf[i] / div)));
+      // NaN scores sort last, so the ranks stay a permutation and every
+      // selected index is in range
+      ki = isnan(si) ? -1 : __float_as_int(si);
+      if (b == 0) s_out[(size_t)f * n + i] = si;
+    }
+    key[i] = ki;
+    sv[i] = si;
+  }
+  __syncthreads();
+
+  // rank_i = #{j < i : k_j >= k_i} + #{j > i : k_j > k_i}. Node
+  // base + tid / lanes: its lane `part` takes every lanes-th group of 4
+  // keys (16-byte loads): the groups below i's with >=, i's own with the
+  // exact rule, those above with >; four independent counts (no select
+  // chain), then the lanes summed by shuffles (integers: any order). The
+  // pass loop's trip count is the same on every thread, so whole warps
+  // reach each shuffle.
+  const int4* key4 = reinterpret_cast<const int4*>(key);
+  const int groups = npad >> 2, part = tid & (lanes - 1);
+  for (int base = 0; base < n; base += T >> shift) {
+    const int i = base + (tid >> shift);
+    int c = 0;
+    if (i < n) {
+      const int ki = key[i], gi = i >> 2;
+      int c0 = 0, c1 = 0, c2 = 0, c3 = 0, g = part;
+#pragma unroll 4
+      for (; g < gi; g += lanes) {
+        const int4 kj = key4[g];
+        c0 += above(ki, kj.x, 1);
+        c1 += above(ki, kj.y, 1);
+        c2 += above(ki, kj.z, 1);
+        c3 += above(ki, kj.w, 1);
+      }
+      if (g == gi) {
+        const int4 kj = key4[g];
+        const int j = 4 * g;
+        c0 += above(ki, kj.x, j < i);
+        c1 += above(ki, kj.y, j + 1 < i);
+        c2 += above(ki, kj.z, j + 2 < i);
+        c3 += above(ki, kj.w, j + 3 < i);
+        g += lanes;
+      }
+#pragma unroll 4
+      for (; g < groups; g += lanes) {
+        const int4 kj = key4[g];
+        c0 += above(ki, kj.x, 0);
+        c1 += above(ki, kj.y, 0);
+        c2 += above(ki, kj.z, 0);
+        c3 += above(ki, kj.w, 0);
+      }
+      c = (c0 + c1) + (c2 + c3);
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1)
+      c += __shfl_xor_sync(0xffffffffu, c, o);
+    if (part == 0 && i < n) {
+      if (c < k) {
+        ix[c] = i;
+        kv[c] = sv[i];
+      }
+      if (b == 0) slot[(size_t)f * n + i] = c < k ? c : -1;
+    }
+  }
+  __syncthreads();
+
+  const int r0 = b * R, r1 = min(k, r0 + R);
+  for (int r = r0 + tid; r < r1; r += T) {
+    idx[(size_t)f * k + r] = ix[r];
+    vals[(size_t)f * k + r] = kv[r];
+  }
+  if (src)
+    gather_band<VEC>(src + (size_t)f * n * cols, ix, kv,
+                     pre + (size_t)f * k * cols, x + (size_t)f * k * cols,
+                     r0, r1, cols);
+}
+
+// The backward's gather: out[f, r, :] = src[f, idx[f, r], :] and, with
+// scale, out_scaled = out * scale[f, r]. Grid (bands, F): block b copies
+// rows [b R, b R + R) through gather_band, idx and scale read from device
+// memory.
+template <bool VEC>
 __global__ void gather_rows_kernel(const float* __restrict__ src,
                                    const int* __restrict__ idx,
                                    const float* __restrict__ scale,
                                    float* __restrict__ out,
                                    float* __restrict__ out_scaled,
-                                   int n_src, int k, int cols) {
-  const int r = blockIdx.x, f = blockIdx.y;
-  const long long orow = ((long long)f * k + r) * cols;
-  const float* s = src + ((long long)f * n_src + idx[(long long)f * k + r]) * cols;
-  const float sc = scale ? scale[(long long)f * k + r] : 1.f;
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    const float v = s[c];
-    out[orow + c] = v;
-    if (out_scaled) out_scaled[orow + c] = v * sc;
-  }
+                                   int n_src, int k, int cols, int R) {
+  const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(k, r0 + R);
+  const size_t fo = (size_t)f * k * cols;
+  gather_band<VEC>(src + (size_t)f * n_src * cols, idx + (size_t)f * k,
+                   scale ? scale + (size_t)f * k : nullptr, out + fo,
+                   out_scaled ? out_scaled + fo : nullptr, r0, r1, cols);
 }
 
 // out[f, p, :] = (slot >= 0 ? src[f, slot, :] * scale[f, slot] : 0) + add[f, p, :]
@@ -162,23 +307,63 @@ __global__ void add_bias_kernel(const float* __restrict__ x, long long sx,
 
 }  // namespace
 
-extern "C" int fcsr_rank_select(const float* logits, float* s, int* idx,
-                                float* vals, int* slot, int batch, int n,
-                                int k, float div, void* stream) {
-  const int threads = ((n + 31) / 32) * 32;
-  rank_select_kernel<<<batch, threads, n * sizeof(float),
-                       (cudaStream_t)stream>>>(logits, s, idx, vals, slot, n,
-                                               k, div);
+// The pool's plan (bands, rows per band, threads, lanes per node, 16-byte
+// rows) comes from the wrapper (ops.rank_select_plan); src = null ranks
+// only. A plan the pointers or the card do not allow is refused.
+extern "C" int fcsr_rank_select(const float* logits, const float* src,
+                                float* s, int* idx, float* vals, int* slot,
+                                float* pre, float* x, int batch, int n, int k,
+                                int cols, float div, int bands, int rows,
+                                int threads, int lanes, int vec,
+                                void* stream) {
+  if (batch <= 0) return 0;
+  if (k <= 0 || k > n || n > SEL_MAX_N || bands < 1 || rows < 1 ||
+      (long long)bands * rows < k || threads < 32 || threads > 1024 ||
+      threads % 32 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (src && (cols <= 0 || !pre || !x)) return (int)cudaErrorInvalidValue;
+  if (vec && !(src && cols % 4 == 0 && aligned16(src) && aligned16(pre) &&
+               aligned16(x)))
+    return (int)cudaErrorInvalidValue;
+  const int npad = (n + 3) & ~3;
+  const size_t smem = sizeof(float) * (2 * (size_t)npad + 2 * (size_t)k);
+  if (smem > (size_t)SEL_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bands, (unsigned)batch);
+  if (vec)
+    rank_select_kernel<true><<<grid, threads, smem, (cudaStream_t)stream>>>(
+        logits, src, s, idx, vals, slot, pre, x, n, k, cols, div, rows,
+        lanes);
+  else
+    rank_select_kernel<false><<<grid, threads, smem, (cudaStream_t)stream>>>(
+        logits, src, s, idx, vals, slot, pre, x, n, k, cols, div, rows,
+        lanes);
   return (int)cudaGetLastError();
 }
 
+// The gather's plan (bands, rows per band, threads, 16-byte rows) comes
+// from the wrapper (ops.gather_rows_plan); a plan the pointers do not
+// allow is refused.
 extern "C" int fcsr_gather_rows(const float* src, const int* idx,
                                 const float* scale, float* out,
                                 float* out_scaled, int batch, int n_src,
-                                int k, int cols, void* stream) {
-  dim3 grid(k, batch);
-  gather_rows_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      src, idx, scale, out, out_scaled, n_src, k, cols);
+                                int k, int cols, int bands, int rows,
+                                int threads, int vec, void* stream) {
+  if (batch <= 0 || k <= 0 || cols <= 0) return 0;
+  if (bands < 1 || rows < 1 || (long long)bands * rows < k || threads < 32 ||
+      threads > 1024 || threads % 32 || batch > 65535 ||
+      (scale != nullptr) != (out_scaled != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (vec && !(cols % 4 == 0 && aligned16(src) && aligned16(out) &&
+               (!out_scaled || aligned16(out_scaled))))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bands, (unsigned)batch);
+  if (vec)
+    gather_rows_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        src, idx, scale, out, out_scaled, n_src, k, cols, rows);
+  else
+    gather_rows_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        src, idx, scale, out, out_scaled, n_src, k, cols, rows);
   return (int)cudaGetLastError();
 }
 

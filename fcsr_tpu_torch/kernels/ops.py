@@ -74,9 +74,9 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _LL, _I, _LL, _I, _LL, _LL, _I, _LL, _I], _STEP),
     Kernel("rank_select", "rank_select", "fcsr_rank_select",
-           [_P, _P, _P, _P, _P, _I, _I, _I, _F], _STEP),
+           [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I], _STEP),
     Kernel("gather_rows", "rank_select", "fcsr_gather_rows",
-           [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
+           [_P] * 5 + [_I] * 8, _STEP),
     Kernel("scatter_rows", "rank_select", "fcsr_scatter_rows",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
     Kernel("pool_logits_bwd", "rank_select", "fcsr_pool_logits_bwd",
@@ -357,12 +357,104 @@ def bgemm_forced(tile, split, a, b, ta=False, tb=False, bias=None,
 # rank_select and the row helpers of pooling / unpooling
 # ---------------------------------------------------------------------------
 
-def rank_select_plain(logits, k, div=100.0):
+SEL_MAX_N = 1024       # rank_select's most scores per fold
+SEL_THREADS = 512      # its threads per block
+SEL_MIN_ROWS = 4       # the fewest kept rows a band is planned with ...
+SEL_MAX_ROWS = 64      # ... and the most (4 per warp of the pool)
+# the most lanes a node's compares are split over: each doubling halves
+# a lane's compare chain but adds a shuffle step to every pass
+SEL_MAX_LANES = 4
+
+
+class SelectPlan(NamedTuple):
+    """rank_select's launch: ``bands`` blocks per fold of ``threads``
+    threads, each ranking all n scores (a node's compares split over
+    ``lanes`` lanes) and gathering ``rows`` kept rows; 16-byte row
+    accesses when ``vec``; ``smem`` bytes of shared memory per block."""
+    bands: int
+    rows: int
+    threads: int
+    lanes: int
+    vec: bool
+    smem: int
+
+
+class GatherPlan(NamedTuple):
+    """gather_rows' launch: ``bands`` blocks per fold of ``threads``
+    threads, a warp per row of the band's ``rows``; 16-byte accesses when
+    ``vec``."""
+    bands: int
+    rows: int
+    threads: int
+    vec: bool
+
+
+def _row_bands(F: int, k: int):
+    """(bands, rows) of k rows per fold: about one wave of blocks over the
+    card's SMS (``SMS // F`` bands per fold), within ``SEL_MIN_ROWS`` and
+    ``SEL_MAX_ROWS`` rows each."""
+    rows = -(-k // max(1, SMS // max(1, F)))
+    rows = min(k, SEL_MAX_ROWS, max(SEL_MIN_ROWS, rows))
+    return -(-k // rows), rows
+
+
+def _rank_lanes(n: int, threads: int) -> int:
+    """Lanes per node for the rank's compares: the most, up to
+    ``SEL_MAX_LANES``, that still cover every node in one pass (a power of
+    two dividing a warp); 1 where one pass cannot cover them."""
+    fit = max(1, min(SEL_MAX_LANES, threads // n))
+    return 1 << (fit.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def rank_select_plan(F: int, n: int, k: int, cols: int, smem_optin: int,
+                     aligned: bool = True) -> SelectPlan:
+    """The launch of ``rank_select`` for F folds keeping k of n scores and
+    gathering rows of ``cols`` floats (0: rank only) on a card whose blocks
+    may opt in to ``smem_optin`` bytes of shared memory (``aligned``: the
+    source rows start on 16 bytes, as ``torch.empty`` gives them). Bands
+    of 4-64 kept rows spread a fold over the card (``_row_bands``); every
+    block ranks all n scores itself, so no block waits on another. The
+    block holds the keys and scores (n rounded up to 4) and the kept nodes
+    with their scores: 16 KB at n = k = 1024, within the 48 KB a block
+    has without opting in."""
+    if not 0 < k <= n <= SEL_MAX_N:
+        raise ValueError(f"rank_select needs 0 < k <= n <= {SEL_MAX_N} "
+                         f"(n={n}, k={k})")
+    smem = 4 * (2 * (-(-n // 4) * 4) + 2 * k)
+    if smem > min(smem_optin, 48 * 1024):
+        raise ValueError(f"rank_select: n = {n}, k = {k} needs {smem} bytes "
+                         f"of shared memory, above {smem_optin}")
+    lanes = _rank_lanes(n, SEL_THREADS)
+    if cols <= 0:
+        return SelectPlan(1, k, SEL_THREADS, lanes, False, smem)
+    bands, rows = _row_bands(F, k)
+    return SelectPlan(bands, rows, SEL_THREADS, lanes,
+                      aligned and cols % 4 == 0, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def gather_rows_plan(F: int, k: int, cols: int,
+                     aligned: bool = True) -> GatherPlan:
+    """The launch of ``gather_rows`` for F folds of k rows of ``cols``
+    floats (``aligned``: source and outputs start on 16 bytes): the pool's
+    bands (``_row_bands``), a warp per row up to 8 warps."""
+    bands, rows = _row_bands(F, k)
+    return GatherPlan(bands, rows, 32 * min(rows, 8),
+                      aligned and cols % 4 == 0)
+
+
+def rank_select_plain(logits, k, div=100.0, src=None):
     """(s, idx, vals, slot): s = sigmoid(logits / div) (F, n); idx (F, k)
     int32 of the top-k scores in descending order with ties to the lower
-    index; vals = s[idx]; slot (F, n) int32 = rank if kept else -1.
-    ``div`` is 100 in GSR-Net's pool and 1 in the GAT U-Net's."""
-    s = torch.sigmoid(logits / div)
+    index (NaN scores last); vals = s[idx]; slot (F, n) int32 = rank if
+    kept else -1. ``div`` is 100 in GSR-Net's pool and 1 in the GAT
+    U-Net's. With ``src`` (F, n, m) also (pre, x): pre = src[idx] and
+    x = pre * vals, the pooled rows."""
+    # a true quotient, as the kernel and the JAX package take it: on the
+    # card torch divides by a Python scalar as a product with its
+    # reciprocal, which can land one ulp off
+    s = torch.sigmoid(logits / torch.full_like(logits, div))
     key = torch.where(torch.isnan(s), float("-inf"), s)
     order = torch.sort(key, dim=-1, descending=True, stable=True).indices
     idx = order[:, :k].to(torch.int32)
@@ -370,26 +462,44 @@ def rank_select_plain(logits, k, div=100.0):
     slot = torch.full(s.shape, -1, dtype=torch.int32, device=s.device)
     ranks = torch.arange(k, dtype=torch.int32, device=s.device)
     slot.scatter_(1, idx.long(), ranks.expand(s.shape[0], k).contiguous())
-    return s, idx, vals, slot
+    if src is None:
+        return s, idx, vals, slot
+    return (s, idx, vals, slot) + gather_rows_plain(src, idx, vals)
 
 
-def rank_select(logits, k, div=100.0):
+def rank_select(logits, k, div=100.0, src=None):
+    """The pool in one launch (``rank_select_plan``): scores, ranks and,
+    given ``src``, the gathered and scaled rows, as ``rank_select_plain``
+    returns them; n up to 1024."""
     if not logits.is_cuda:
-        return rank_select_plain(logits, k, div)
-    _check(logits.device, logits)
-    _contig(logits)
+        return rank_select_plain(logits, k, div, src)
+    _check(logits.device, logits, src)
+    _contig(logits, src)
     F, n = logits.shape
-    if not 0 < k <= n <= 1024:
-        raise ValueError(f"rank_select needs 0 < k <= n <= 1024 (n={n}, "
-                         f"k={k})")
+    cols = 0
+    if src is not None:
+        if src.dim() != 3 or tuple(src.shape[:2]) != (F, n):
+            raise ValueError(f"rank_select: src {tuple(src.shape)} is not "
+                             f"({F}, {n}, cols)")
+        cols = src.shape[2]
+    plan = rank_select_plan(F, n, k, cols, _smem_optin(logits.device.index),
+                            src is None or src.data_ptr() % 16 == 0)
     dev = logits.device
     s = torch.empty(F, n, dtype=torch.float32, device=dev)
     idx = torch.empty(F, k, dtype=torch.int32, device=dev)
     vals = torch.empty(F, k, dtype=torch.float32, device=dev)
     slot = torch.empty(F, n, dtype=torch.int32, device=dev)
-    KERNELS["rank_select"](_ptr(logits), _ptr(s), _ptr(idx), _ptr(vals),
-                           _ptr(slot), F, n, k, float(div))
-    return s, idx, vals, slot
+    pre = x = None
+    if src is not None:
+        pre = torch.empty(F, k, cols, dtype=torch.float32, device=dev)
+        x = torch.empty_like(pre)
+    KERNELS["rank_select"](_ptr(logits), _ptr(src) if cols else None,
+                           _ptr(s), _ptr(idx), _ptr(vals), _ptr(slot),
+                           _ptr(pre), _ptr(x), F, n, k, cols, float(div),
+                           plan.bands, plan.rows, plan.threads, plan.lanes,
+                           int(plan.vec))
+    return (s, idx, vals, slot) if src is None else (s, idx, vals, slot,
+                                                     pre, x)
 
 
 def gather_rows_plain(src, idx, scale=None):
@@ -401,7 +511,8 @@ def gather_rows_plain(src, idx, scale=None):
 
 def gather_rows(src, idx, scale=None):
     """Pooling as a gather: ``src[f, idx[f, r], :]`` (F, k, m); with
-    ``scale`` (F, k) also returns the rows scaled by it."""
+    ``scale`` (F, k) also returns the rows scaled by it. One launch of
+    bands of rows, a warp per row (``gather_rows_plan``)."""
     if not src.is_cuda:
         return gather_rows_plain(src, idx, scale)
     _check(src.device, src, scale)
@@ -411,8 +522,10 @@ def gather_rows(src, idx, scale=None):
     k = idx.shape[1]
     out = torch.empty(F, k, m, dtype=torch.float32, device=src.device)
     scaled = None if scale is None else torch.empty_like(out)
+    plan = gather_rows_plan(F, k, m, src.data_ptr() % 16 == 0)
     KERNELS["gather_rows"](_ptr(src), _ptr(idx), _ptr(scale), _ptr(out),
-                           _ptr(scaled), F, n, k, m)
+                           _ptr(scaled), F, n, k, m, plan.bands, plan.rows,
+                           plan.threads, int(plan.vec))
     return out if scale is None else (out, scaled)
 
 

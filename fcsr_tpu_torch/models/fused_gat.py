@@ -7,8 +7,9 @@ the card the step is a sequence of hand-written kernels over device memory
 (``kernels/csrc/gat.cu`` and the GSR step's ``bgemm_f32``, ``rank_select``,
 ``gather_rows``, ``scatter_rows``, ``pool_logits_bwd``): per GAT layer a
 projection and ``gat_attention`` (masked multi-head softmax, dropout, the
-head's product, bias, relu), per pool the scores' product, ``rank_select``,
-a row gather and ``gat_pool_adj``; the upsampler's ``col_softmax``; the
+head's product, bias, relu), per pool the scores' product, one
+``rank_select`` launch that ranks and gathers the kept rows, and
+``gat_pool_adj``; the upsampler's ``col_softmax``; the
 ``offdiag_mse`` losses, which also give each product's cotangent; then every
 adjoint written out (``gat_attention_bwd``, ``col_softmax_bwd``, the row
 scatter / gather) and one ``adamw_masked`` launch over the flat (F, P)
@@ -283,9 +284,8 @@ def _forward(ops, P, a0, x0, hr, spec: _Spec, seeds, train: bool):
             z = ops.philox_keep_mask(seeds, ids[f"pool_{i}"], 1, x.shape[1],
                                      x.shape[2], drop_p, x, scale)
         logits = bg(z, P[f"pools_{i}.kernel"], bias=P[f"pools_{i}.bias"])
-        s, idx, vals, slot = ops.rank_select(logits.view(F, -1), sizes[i],
-                                             1.0)
-        pre, xp = ops.gather_rows(x, idx, vals)
+        s, idx, vals, slot, pre, xp = ops.rank_select(logits.view(F, -1),
+                                                      sizes[i], 1.0, src=x)
         a = ops.gat_pool_adj(a, idx)
         res["pool"].append((z, s, idx, vals, slot, pre))
         x = xp

@@ -6,8 +6,9 @@ Counterpart of ``fcsr_tpu/models/fused_step.py::train_step_fused``, which
 runs the step as ONE Mosaic kernel holding p, m and v for all folds in
 VMEM. An H100 block has at most 227 KB of shared memory, so on the card
 the step is a short sequence of hand-written kernels over device memory
-(``kernels/csrc``): ``bgemm_f32`` for every product, ``rank_select`` and
-its row gather/scatter helpers for top-k pooling, the ``tail_*`` and
+(``kernels/csrc``): ``bgemm_f32`` for every product, ``rank_select``
+(one launch per pool: scores, ranks and the gathered rows) and the row
+gather/scatter helpers of unpooling and the adjoints, the ``tail_*`` and
 ``sym_*`` elementwise passes and ``l1_term`` for the tail, and one
 ``adam_masked`` launch over the flat (F, P) buffers.
 
@@ -129,9 +130,8 @@ def unet_forward(ops, W, B, sizes):
     for i in range(L):
         d = bg(x, W[f"w:down_gcns_{i}"], bias=B[f"b:down_gcns_{i}"])
         logits = bg(d, W[f"w:pools_{i}"], bias=B[f"b:pools_{i}"])
-        s, idx, vals, slot = ops.rank_select(logits.view(d.shape[0], -1),
-                                             sizes[i])
-        pre, x = ops.gather_rows(d, idx, vals)
+        s, idx, vals, slot, pre, x = ops.rank_select(
+            logits.view(d.shape[0], -1), sizes[i], src=d)
         for key, val in zip(("d", "s", "idx", "vals", "slot", "pre",
                              "pooled"), (d, s, idx, vals, slot, pre, x)):
             res[key].append(val)

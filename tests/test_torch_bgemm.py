@@ -96,7 +96,10 @@ def _labels(census):
 def test_gsr_step_census(gsr_census):
     c = gsr_census
     assert len(c.products) == c.launches["bgemm"] == 79
-    assert sum(c.launches.values()) == 114
+    # each pool ranks and gathers in one rank_select launch: 4 gather_rows
+    # launches (the backward's) of the 8 before the pools were fused
+    assert sum(c.launches.values()) == 110
+    assert c.launches["rank_select"] == c.launches["gather_rows"] == 4
     assert _labels(c) == GSR_SIGNATURES
     assert all(p.F == F for p in c.products)
     # skinny products: 15 column sums (4 of them N = 1), 4 logits and 4
@@ -111,7 +114,8 @@ def test_gsr_step_census(gsr_census):
 def test_gat_step_census(gat_census):
     c = gat_census
     assert len(c.products) == c.launches["bgemm"] == 44
-    assert sum(c.launches.values()) == 92              # at drop_p = 0.01
+    assert sum(c.launches.values()) == 89              # at drop_p = 0.01
+    assert c.launches["rank_select"] == c.launches["gather_rows"] == 3
     assert _labels(c) == GAT_SIGNATURES
     assert sum(min(p.M, p.N) == 1 or p.K == 1 for p in c.products) == 13
     assert max(p.flops for p in c.products) <= 7e6
