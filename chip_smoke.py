@@ -24,7 +24,16 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    both steps x F 3 / 56 with ties and NaN scores, every output equal to
    the plain version's, bit-equal run to run and in a CUDA graph, and the
    backward's ``gather_rows`` there, then per-pool times
-   (``pool_times``, which also times an older tree); for
+   (``pool_times``, which also times an older tree); the pool's backward
+   rows (``check_pool_bwd``): the unpool ``scatter_rows`` (the forward's,
+   and the GAT backward's with scale and addend), ``pool_logits_bwd`` and
+   the GSR backward's ``pool_bwd_pair`` at every pool of both steps (the
+   forward scatter also at F 56), exact (the logits' adjoint within 1e-5,
+   the pair's equal to the standalone launch's bits), bit-equal run to
+   run and graphed, then per-pool times (``pool_bwd_times``, which also
+   times an older tree); the score rule (``check_pool_scores``): the
+   kernel's, the plain pool's, a GSRNet ``GraphPool``'s and
+   ``unet_forward_rankselect``'s scores bit-equal from the same logits; for
    ``bgemm_f32`` every distinct product signature of the full-width GSR
    and GAT steps (their census, ``kernels/census.py``), replayed with the
    step's operand layouts: the path the kernel takes, its error, two
@@ -33,9 +42,10 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
 3. runs one full-width fold-batched training step (F = 3) on the kernels
    and on the plain path from the same weights and compares loss, recon,
    p', m' and v' (one fold masked: it must come through bit-unchanged),
-   counts the step's FLOPs, bytes and launches (110: one ``rank_select``
-   per pool, 4 ``gather_rows``), and profiles 10 steps (per-kernel device
-   time into ``chiprun_out/profile_step.txt``, with the pool's device
+   counts the step's FLOPs, bytes and launches (106: one ``rank_select``
+   per pool, 4 ``gather_rows``, 4 ``scatter_rows``, 4 ``pool_bwd_pair``),
+   and profiles 10 steps (per-kernel device time into
+   ``chiprun_out/profile_step.txt``, with the pool kernels' device
    launches; the GAT step's of phase 7 into ``profile_gat_step.txt``);
 4. drives the trainer path: the seeded 167-subject teacher dataset, 3
    folds, ``GSRFoldRunner(GSRTrainConfig(fused_adam=True))`` at full width
@@ -78,9 +88,10 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    fused step against the plain step and against autograd over the plain
    loss (loss, 36 gradients, p', m', v'), eager and as one CUDA graph,
    with 7 ``gat_attention_bwd``, 7 ``gat_attention``, 3
-   ``gat_pool_adj``, 3 ``rank_select`` and 3 ``gather_rows`` device
-   launches in its profile (89 launches); the fused validation forward
-   (37 launches, no ``gather_rows``) and its profile
+   ``gat_pool_adj``, 3 ``rank_select``, 3 ``gather_rows``, 6
+   ``scatter_rows`` and 3 ``pool_logits_bwd`` device launches in its
+   profile (89 launches); the fused validation forward (37 launches, no
+   ``gather_rows``, 3 ``scatter_rows``) and its profile
    (``profile_gat_val.txt``);
    ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
    that run), one epoch fused against one unfused; and ``train gat --fast
@@ -120,15 +131,22 @@ TRIU = ("anti_vectorize_normalize", "vectorize_colmajor",
         "normalize_adj_batch")
 # launched by the loss entry points (phase 6), not by train_step_fused
 ENTRY_ONLY = ("loss_terms",)
-# launches of one fold-batched GSR step (all, rank_select, gather_rows):
-# each pool one rank_select launch that also gathers, 4 backward gathers
-STEP_LAUNCHES = (110, 4, 4)
+# launches of one fold-batched GSR step, and of its pool kernels: each
+# pool one rank_select launch that also gathers, each level's backward
+# one gather and one pool_bwd_pair (the unpool and the logits' adjoint),
+# each forward unpool one scatter
+STEP_LAUNCHES = 106
+STEP_POOL_LAUNCHES = {"rank_select": 4, "gather_rows": 4, "scatter_rows": 4,
+                      "pool_bwd_pair": 4, "pool_logits_bwd": 0}
 # launches of one GAT step at drop_p 0.01 and of one validation pass
 GAT_STEP_LAUNCHES, GAT_VAL_LAUNCHES = 89, 37
 # the GAT U-Net's kernels (phase 7): no GSR-Net path launches them
 GAT_NEW = ("gat_attention", "gat_attention_bwd", "philox_keep_mask",
            "gat_pool_adj", "col_softmax", "col_softmax_bwd", "offdiag_mse",
            "offdiag_mae", "adamw_masked")
+# the GSR backward takes the logits' adjoint in pool_bwd_pair: only the
+# GAT U-Net launches it alone
+GAT_ONLY = GAT_NEW + ("pool_logits_bwd",)
 
 
 def fail(msg: str):
@@ -194,7 +212,8 @@ def scale_of(x) -> float:
 # ---------------------------------------------------------------------------
 
 def kernel_cases(dev):
-    """(name, kernel call, plain call, rel tolerance, flops, bytes,
+    """(name, kernel call, plain call, rel tolerance (or one per output),
+    flops, bytes,
     library call or None) per kernel, at main-path shapes (F = 3 folds,
     160 -> 268 nodes)."""
 
@@ -242,17 +261,25 @@ def kernel_cases(dev):
                   lambda: P.gather_rows(gx, idx), 0.0,
                   0.0, f4 * (2 * k0 * m + k0),
                   lambda: torch.take_along_dim(gx, idx64, 1)))
+    # the unpool and the pool's adjoints at level 0 (144 kept of 160 rows
+    # of 268): the forward's scatter (the GSR step's 4 launches), the
+    # logits' adjoint alone (the GAT step's form) and the GSR backward's
+    # pair; a scatter and the pair's g_d exactly, the adjoint's dot to
+    # 1e-5 (another sum order)
     gp, skip = rnd(F, k0, m), rnd(F, n0, m)
-    cases.append(("scatter_rows",
-                  lambda: K.scatter_rows(gp, slot, vals, skip),
-                  lambda: P.scatter_rows(gp, slot, vals, skip), 1e-6,
-                  2.0 * F * n0 * m, f4 * (k0 * m + 2 * n0 * m + k0 + n0),
-                  None))
+    cases.append(("scatter_rows", lambda: K.scatter_rows(gp, slot),
+                  lambda: P.scatter_rows(gp, slot), 0.0,
+                  0.0, f4 * (k0 * m + n0 * m + n0), None))
     pre = rnd(F, k0, m)
     cases.append(("pool_logits_bwd",
                   lambda: K.pool_logits_bwd(gp, pre, slot, s),
                   lambda: P.pool_logits_bwd(gp, pre, slot, s), 1e-5,
                   2.0 * F * k0 * m, f4 * (2 * k0 * m + 3 * n0), None))
+    cases.append(("pool_bwd_pair",
+                  lambda: K.pool_bwd_pair(gp, pre, slot, s, vals, skip),
+                  lambda: P.pool_bwd_pair(gp, pre, slot, s, vals, skip),
+                  (0.0, 1e-5), 2.0 * F * (k0 * m + n0 * m),
+                  f4 * (2 * k0 * m + 2 * n0 * m + 3 * n0 + k0), None))
     from fcsr_tpu_torch.models.fused_step import FlatLayout
     layout = FlatLayout(LR, HR, len(KS))
     leaves = layout.views(rnd(F, layout.size))     # the step's own views
@@ -766,6 +793,247 @@ def pool_times(dev):
     return out
 
 
+def _pool_level(g, nf, n, k, cols, div, dev):
+    """One pool level's backward inputs on the card: the slots of a
+    ``rank_select`` over ``_pool_logits`` (k kept, the rest -1), its
+    scores and kept scores, and random rows g (k x cols), pre and an
+    addend (n x cols)."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K
+
+    s, _, vals, slot = K.rank_select(_pool_logits(g, nf, n, div, dev), k,
+                                     div)
+    rows = lambda r: torch.randn(nf, r, cols, generator=g, device=dev)
+    return dict(g=rows(k), pre=rows(k), add=rows(n), slot=slot, s=s,
+                vals=vals)
+
+
+def check_pool_bwd(dev):
+    """Phase 2, the unpool and the pool's adjoints (``scatter_rows``,
+    ``pool_logits_bwd``, ``pool_bwd_pair``) at every pool of both steps at
+    F = 3 (every form at every pool), the forward scatter also at F = 56,
+    and rows of 30 and 7 floats (4-byte accesses): each scatter and the
+    pair's g_d equal to the plain version's, the pair's logits adjoint
+    equal to the standalone launch's bits and within 1e-5 of the plain
+    version's largest entry; two launches and a graphed launch
+    bit-equal. Then ``pool_bwd_times``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import scatter_rows_plan
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    cases = [pool + (nf,) for pool in GSR_POOLS + GAT_POOLS
+             for nf in (F, 56)] + list(POOL_WIDE)
+    worst = 0.0
+    for n, k, cols, div, nf in cases:
+        lv = _pool_level(g, nf, n, k, cols, div, dev)
+        G, pre, add, slot, s, vals = (lv[key] for key in (
+            "g", "pre", "add", "slot", "s", "vals"))
+        calls = {"scatter": lambda: K.scatter_rows(G, slot)}
+        plains = {"scatter": P.scatter_rows(G, slot)}
+        if nf == F or (n, k, cols, div, nf) in POOL_WIDE:
+            scale = 1.0 / div
+            calls.update(
+                scatter_scaled=lambda: K.scatter_rows(G, slot, vals, add),
+                logits_bwd=lambda: K.pool_logits_bwd(G, pre, slot, s, scale),
+                pair=lambda: K.pool_bwd_pair(G, pre, slot, s, vals, add,
+                                             scale))
+            plains.update(
+                scatter_scaled=P.scatter_rows(G, slot, vals, add),
+                logits_bwd=P.pool_logits_bwd(G, pre, slot, s, scale),
+                pair=P.pool_bwd_pair(G, pre, slot, s, vals, add, scale))
+        plan = scatter_rows_plan(nf, n, cols)
+        label = (f"{k:4d} -> {n:4d} rows x {cols:3d} F={nf:2d} "
+                 f"({plan.bands} bands of {plan.rows} rows, {plan.threads} "
+                 f"threads, {plan.lanes} lanes a row, "
+                 f"{16 if plan.vec else 4}-byte rows)")
+        for form, call in calls.items():
+            got = [call(), call(), _graph_outputs(call)]
+            torch.cuda.synchronize()
+            outs = [o if isinstance(o, tuple) else (o,) for o in got]
+            if not all(torch.equal(_bits(a), _bits(b)) and torch.equal(
+                    _bits(a), _bits(c)) for a, b, c in zip(*outs)):
+                fail(f"{form} {label}: two launches or the graphed launch "
+                     "differ")
+            want = plains[form]
+            if form == "logits_bwd":
+                err = max_err(got[0], want)
+                worst = max(worst, err / scale_of(want))
+                if not err <= 1e-5 * scale_of(want):
+                    fail(f"{form} {label}: max|err| {err:.3e}")
+            elif form == "pair":
+                if not torch.equal(got[0][0], want[0]):
+                    fail(f"pool_bwd_pair {label}: g_d differs from the "
+                         "plain scatter")
+                if not torch.equal(_bits(got[0][1]),
+                                   _bits(calls["logits_bwd"]())):
+                    fail(f"pool_bwd_pair {label}: g_logits differs from "
+                         "the standalone launch")
+            elif not torch.equal(got[0], want):
+                fail(f"{form} {label}: differs from the plain version")
+        print(f"    {label}: {', '.join(calls)} ok (exact; logits "
+              "adjoint within 1e-5, the pair's equal to the standalone's); "
+              "bit-equal, graphed", flush=True)
+    print(f"  pool backward ok: {len(cases)} cases, worst logits adjoint "
+          f"err / max {worst:.2e}", flush=True)
+    pool_bwd_times(dev)
+
+
+def pool_bwd_times(dev):
+    """Device ms per launch in a CUDA graph at every pool of both steps:
+    the forward's ``scatter_rows`` (GSR-Net's at F = 3, the GAT U-Net's at
+    F = 3 and the validation's 56), the GSR backward's pair (this tree's
+    one ``pool_bwd_pair`` launch, or an older tree's ``scatter_rows`` +
+    ``pool_logits_bwd``), the GAT backward's scaled ``scatter_rows`` and
+    ``pool_logits_bwd``, each beside its plain version and bound. It calls
+    only those kernel ops and detects the older contract, so it also times
+    an older tree of the port: load this file by path with that tree's
+    root as the working directory. Returns {(n, k, cols, F): {form:
+    ms}}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    fused = hasattr(K, "pool_bwd_pair")
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows, calls = [], []
+    for n, k, cols, div in GSR_POOLS + GAT_POOLS:
+        for nf in ((F,) if div == 100.0 else (F, 56)):
+            lv = _pool_level(g, nf, n, k, cols, div, dev)
+            G, pre, add, slot, s, vals = (lv[key] for key in (
+                "g", "pre", "add", "slot", "s", "vals"))
+            f4 = 4.0 * nf
+            forms = [("scatter", lambda G=G, slot=slot: K.scatter_rows(
+                          G, slot), lambda G=G, slot=slot: P.scatter_rows(
+                          G, slot), bound(0.0, f4 * (k * cols + n * cols
+                                                     + n)))]
+            if nf == F and div == 100.0:
+                if fused:
+                    def pair(G=G, pre=pre, slot=slot, s=s, vals=vals,
+                             add=add):
+                        return K.pool_bwd_pair(G, pre, slot, s, vals, add)
+                else:
+                    def pair(G=G, pre=pre, slot=slot, s=s, vals=vals,
+                             add=add):
+                        return (K.scatter_rows(G, slot, vals, add),
+                                K.pool_logits_bwd(G, pre, slot, s))
+                forms.append(("pair", pair, lambda G=G, pre=pre, slot=slot,
+                              s=s, vals=vals, add=add: (
+                                  P.scatter_rows(G, slot, vals, add),
+                                  P.pool_logits_bwd(G, pre, slot, s)),
+                              bound(2.0 * nf * (k + n) * cols,
+                                    f4 * (2 * k * cols + 2 * n * cols
+                                          + 3 * n + k))))
+            elif nf == F:
+                forms += [
+                    ("scatter_scaled", lambda G=G, slot=slot, vals=vals,
+                     add=add: K.scatter_rows(G, slot, vals, add),
+                     lambda G=G, slot=slot, vals=vals, add=add:
+                     P.scatter_rows(G, slot, vals, add),
+                     bound(2.0 * nf * n * cols,
+                           f4 * (k * cols + 2 * n * cols + k + n))),
+                    ("logits_bwd", lambda G=G, pre=pre, slot=slot, s=s:
+                     K.pool_logits_bwd(G, pre, slot, s, 1.0),
+                     lambda G=G, pre=pre, slot=slot, s=s:
+                     P.pool_logits_bwd(G, pre, slot, s, 1.0),
+                     bound(2.0 * nf * k * cols,
+                           f4 * (2 * k * cols + 3 * n)))]
+            for form, kern, plain, b in forms:
+                rows.append(((n, k, cols, nf), form, b))
+                calls += [kern, plain]
+    ms = graph_ms(calls)
+    print("  pool backward rows, device ms per launch in a CUDA graph ("
+          + ("the GSR pair one pool_bwd_pair launch" if fused else
+             "the GSR pair scatter_rows + pool_logits_bwd") + "):",
+          flush=True)
+    out = {}
+    for j, (shape, form, (b_ms, b_by)) in enumerate(rows):
+        n, k, cols, nf = shape
+        print(f"    {k:3d} -> {n:3d} x {cols:3d} F={nf:2d} {form:14s} "
+              f"{ms[2 * j]:.4f} (plain {ms[2 * j + 1]:.4f}, bound "
+              f"{b_ms:.5f} {b_by})", flush=True)
+        out.setdefault(shape, {})[form] = ms[2 * j]
+    return out
+
+
+class _Sigmoids(torch.overrides.TorchFunctionMode):
+    """Records the output of every ``torch.sigmoid`` call under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.out = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        result = func(*args, **(kwargs or {}))
+        if func is torch.sigmoid:
+            self.out.append(result)
+        return result
+
+
+def _apart_logits(nf, n, dev):
+    """(nf, n) logits at GSR-Net's scale, mostly ones whose scores on the
+    card differ under the true quotient logits / 100 and the product
+    logits * fl32(0.01), with a tie among them."""
+    rng = np.random.default_rng(12)
+    cand = torch.from_numpy((rng.standard_normal(40 * nf * n) * 300.0)
+                            .astype(np.float32)).to(dev)
+    prod = torch.sigmoid(cand * float(np.float32(0.01)))
+    true = torch.sigmoid(cand / torch.full_like(cand, 100.0))
+    apart = cand[prod != true]
+    logits = torch.cat([apart, cand])[:nf * n].reshape(nf, n).contiguous()
+    logits[:, 5] = logits[:, 2]
+    return logits
+
+
+def check_pool_scores(dev):
+    """Phase 2, the score rule on the card: from the same logits (mostly
+    ones where the true quotient rounds apart), the ``rank_select``
+    kernel's s, its plain version's, a GSRNet's first ``GraphPool`` and
+    ``unet_forward_rankselect``'s first level score every node with the
+    same bits, sigmoid(logits * fl32(0.01)) (XLA's form of the JAX
+    package's logits / 100)."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.models.fused_step import (leaf_specs,
+                                                  unet_forward_rankselect)
+    from fcsr_tpu_torch.models.gsr import GSRNet
+
+    n, k = GSR_POOLS[0][:2]
+    logits = _apart_logits(F, n, dev)
+    true = torch.sigmoid(logits / torch.full_like(logits, 100.0))
+    paths = {"rank_select": K.rank_select(logits, k)[0],
+             "plain rank_select": P.rank_select(logits, k)[0]}
+    # the model's pool, its logits made the first feature exactly
+    pool = GSRNet(device=dev, seed=0).net.pools[0]
+    with torch.no_grad():
+        pool.proj.weight.zero_()
+        pool.proj.weight[0, 0] = 1.0
+        pool.proj.bias.zero_()
+        rec = _Sigmoids()
+        with rec:
+            for row in logits:
+                x = torch.ones(n, pool.proj.in_features, device=dev)
+                x[:, 0] = row
+                pool(torch.eye(n, device=dev), x)
+        paths["GSRNet GraphPool"] = torch.stack(rec.out)
+        # one level on 2 features whose pool logits are the given ones
+        W = {name: torch.zeros((F,) + shape, device=dev)
+             for name, shape in leaf_specs(n, 2, 1)}
+        W["w:start_gcn"][..., 0] = logits
+        W["w:start_gcn"][..., 1] = 1.0
+        W["w:down_gcns_0"][:] = torch.eye(2, device=dev)
+        W["w:pools_0"][:, 0, 0] = 1.0
+        rec = _Sigmoids()
+        with rec:
+            unet_forward_rankselect(W, (k / n,), n)
+        paths["unet_forward_rankselect"] = rec.out[0]
+    torch.cuda.synchronize()
+    want = paths["rank_select"]
+    bad = [name for name, t in paths.items()
+           if not torch.equal(_bits(t), _bits(want))]
+    if bad:
+        fail(f"pool scores on the card: {bad} differ from the kernel's")
+    print(f"  pool scores: {', '.join(paths)} bit-equal on {F} x {n} logits"
+          f"; {int((want != true).sum())} of them differ from the true "
+          "quotient's sigmoid", flush=True)
+
+
 def check_product(prod, layout, g, dev):
     """One census signature replayed on the card: its path, the kernel
     against the plain version (within 1e-5 x max(scale, K)), two launches
@@ -884,6 +1152,11 @@ def check_kernels(dev):
             err = max(_nan_aware_err(a, b) for a, b in zip(got, want))
             limit = 0.0
             ok = all(_same(a, b) for a, b in zip(got, want))
+        elif isinstance(tol, tuple):    # a tolerance for each output
+            errs = [max_err(a, b) for a, b in zip(got, want)]
+            limits = [t * scale_of(b) for t, b in zip(tol, want)]
+            ok = all(e <= lim for e, lim in zip(errs, limits))
+            err, limit = max(errs), max(limits)
         else:
             err = max_err(got, want)
             limit = tol * scale_of(want)
@@ -910,6 +1183,8 @@ def check_kernels(dev):
     check_band_kernels(dev)
     check_tail_reductions(dev)
     check_pools(dev)
+    check_pool_bwd(dev)
+    check_pool_scores(dev)
     return records
 
 
@@ -959,10 +1234,10 @@ def check_step(dev, data):
             fail("masked fold's state changed")
     print(f"  step loss {got[0].tolist()} recon {got[1].tolist()}")
     flops, nbytes, launches = count_step(args)
-    if (sum(launches.values()), launches.get("rank_select"),
-            launches.get("gather_rows")) != STEP_LAUNCHES:
-        fail(f"the step launches {launches}: not {STEP_LAUNCHES[0]} with "
-             "one rank_select per pool and the backward's 4 gather_rows")
+    if sum(launches.values()) != STEP_LAUNCHES or any(
+            launches.get(k, 0) != c for k, c in STEP_POOL_LAUNCHES.items()):
+        fail(f"the step launches {launches}: not {STEP_LAUNCHES} with "
+             f"{STEP_POOL_LAUNCHES}")
     b_ms, b_by = bound(flops, nbytes)
     state_bytes = 4.0 * p.numel() * 7 + 4.0 * (u_lr.numel() + u_hr.numel()
                                                + hr.numel())
@@ -1036,19 +1311,32 @@ def profile_steps(step, eager_ms, path):
     return averages
 
 
-def check_profile_launches(averages, wanted, what):
-    """Device launches per step of each kernel in ``wanted`` (a name
-    fragment of the profiler's key -> launches) in ``profile_steps``'s
-    averages over 10 steps (the profiler can drop the first step's first
-    few launches: rounded)."""
-    for name, want in wanted.items():
-        got = sum(e.count for e in averages if name in e.key
-                  and e.self_device_time_total > 0) / 10
-        print(f"  {what}: {name} {got:g} device launches per step ({want} "
-              "wanted)")
-        if round(got) != want:
-            fail(f"{what}: {name} {got:g} device launches per step, not "
-                 f"{want}")
+def profile_launches(step, eager_ms, path, wanted, what, attempts=3):
+    """``profile_steps`` of ``step``, and the device launches per step of
+    each kernel in ``wanted`` (a name fragment of the profiler's key ->
+    launches) over its 10 steps (the profiler can drop the first step's
+    first few launches: rounded). The card's profiler at times loses a
+    share of a window's events (every kernel short by about a tenth of
+    its launches, device time short alike): a window whose counts differ
+    is profiled again, up to ``attempts`` windows, and the check fails if
+    none has the counts. Returns the averages of the window that had
+    them."""
+    for attempt in range(1, attempts + 1):
+        averages = profile_steps(step, eager_ms, path)
+        off = []
+        for name, want in wanted.items():
+            got = sum(e.count for e in averages if name in e.key
+                      and e.self_device_time_total > 0) / 10
+            print(f"  {what}: {name} {got:g} device launches per step "
+                  f"({want} wanted)")
+            if round(got) != want:
+                off.append(f"{name} {got:g} (not {want})")
+        if not off:
+            return averages
+        print(f"  {what}: profile window {attempt} of {attempts} has other "
+              f"counts: {', '.join(off)}", flush=True)
+    fail(f"{what}: device launches per step {', '.join(off)} in each of "
+         f"{attempts} profile windows")
 
 
 # ---------------------------------------------------------------------------
@@ -1090,7 +1378,7 @@ def run_main_path(dev, data, epochs: int):
     print(f"  val MAE untrained {untrained.tolist()} trained "
           f"{maes.tolist()}")
     counts = {k: c for k, c in counts.items()
-              if k not in TRIU + ENTRY_ONLY + GAT_NEW}
+              if k not in TRIU + ENTRY_ONLY + GAT_ONLY}
     print(f"  launches on the trainer path: {counts}")
     if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()
             and bool(torch.isfinite(preds).all())):
@@ -1213,7 +1501,7 @@ def run_csv_path(dev, data):
     print(f"  `train gsr --fused` {t_train_cli:.1f} s, `predict` "
           f"{t_predict_cli:.1f} s; launches on the CSV path: {counts}",
           flush=True)
-    counts = {k: c for k, c in counts.items() if k not in GAT_NEW}
+    counts = {k: c for k, c in counts.items() if k not in GAT_ONLY}
     missing = [k for k, c in counts.items()
                if c == 0 and k not in ENTRY_ONLY]
     if missing:
@@ -1328,7 +1616,7 @@ def run_csv_path(dev, data):
 # ---------------------------------------------------------------------------
 
 STEP_KERNELS = ("bgemm_f32", "rank_select", "gather_rows", "scatter_rows",
-                "pool_logits_bwd", "add_bias", "tail_normalize",
+                "pool_bwd_pair", "add_bias", "tail_normalize",
                 "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad",
                 "l1_term", "loss_terms", "adam_masked")
 TAIL_KERNELS = ("bgemm_f32", "tail_normalize", "tail_normalize_bwd",
@@ -2393,16 +2681,20 @@ def check_gat_step(dev, data):
           f"moved by its {sum(launches.values())} launches {launches}; bound "
           f"{b_ms:.4f} ms ({b_by})")
 
-    averages = profile_steps(run_k, k_eager, os.path.join(
-        OUT_DIR, "profile_gat_step.txt"))
     # the adjoint is one launch per layer; each pool one rank_select launch
-    # that also gathers; the backward's three gathers
-    check_profile_launches(averages, {
+    # that also gathers; the backward's three gathers; the unpool forward
+    # and backward, the logits' adjoint apart from it
+    profile_launches(run_k, k_eager, os.path.join(
+        OUT_DIR, "profile_gat_step.txt"), {
         "gat_attention_bwd": 7, "gat_attention_kernel": 7, "gat_pool_adj": 3,
-        "rank_select_kernel": 3, "gather_rows_kernel": 3}, "GAT step")
-    if sum(launches.values()) != GAT_STEP_LAUNCHES:
-        fail(f"the GAT step launches {sum(launches.values())}, not "
-             f"{GAT_STEP_LAUNCHES}")
+        "rank_select_kernel": 3, "gather_rows_kernel": 3,
+        "scatter_rows_kernel": 6, "pool_logits_bwd_kernel": 3,
+        "pool_bwd_pair_kernel": 0}, "GAT step")
+    if sum(launches.values()) != GAT_STEP_LAUNCHES or (
+            launches.get("scatter_rows"), launches.get("pool_logits_bwd"),
+            launches.get("pool_bwd_pair", 0)) != (6, 3, 0):
+        fail(f"the GAT step launches {launches}: not {GAT_STEP_LAUNCHES} "
+             "with 6 scatter_rows and 3 pool_logits_bwd")
     _host_profile(run_k, 100)
 
     # validation: one model read by a fold's 56 subjects
@@ -2436,11 +2728,11 @@ def check_gat_step(dev, data):
              "with no gather_rows")
     run_v = lambda: fg.gat_val_fused(p[:1], a0v, x0v, hrv, device=dev,
                                      **GAT_KW)
-    averages = profile_steps(run_v, cuda_ms(run_v, reps=3),
-                             os.path.join(OUT_DIR, "profile_gat_val.txt"))
-    check_profile_launches(averages, {
-        "gat_attention_kernel": 7, "gat_pool_adj": 3,
-        "rank_select_kernel": 3, "gather_rows_kernel": 0}, "GAT validation")
+    profile_launches(run_v, cuda_ms(run_v, reps=3),
+                     os.path.join(OUT_DIR, "profile_gat_val.txt"), {
+                         "gat_attention_kernel": 7, "gat_pool_adj": 3,
+                         "rank_select_kernel": 3, "gather_rows_kernel": 0,
+                         "scatter_rows_kernel": 3}, "GAT validation")
 
 
 def run_gat_trainer(dev, data):
@@ -2623,11 +2915,11 @@ def main():
     print("phase 3: one full-width step, kernels vs plain", flush=True)
     step_args, eager_ms = check_step(dev, data)
     from fcsr_tpu_torch.models.fused_step import train_step_fused
-    averages = profile_steps(
+    profile_launches(
         lambda: train_step_fused(*step_args, device=dev), eager_ms,
-        os.path.join(OUT_DIR, "profile_step.txt"))
-    check_profile_launches(averages, {"rank_select_kernel": 4,
-                                      "gather_rows_kernel": 4}, "GSR step")
+        os.path.join(OUT_DIR, "profile_step.txt"),
+        {f"{k}_kernel": c for k, c in STEP_POOL_LAUNCHES.items()},
+        "GSR step")
     print("phase 4: trainer path", flush=True)
     counts = run_main_path(dev, data, EPOCHS)
     check_tiny_trainer(dev, data)

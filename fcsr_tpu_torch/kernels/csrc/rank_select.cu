@@ -9,8 +9,10 @@
 // rank yields indices directly and pooling is a gather, unpooling a
 // scatter — exact, no products.
 //
-// The score is sigmoid(logits / div): div = 100 in GSR-Net's pool, 1 in the
-// GAT U-Net's.
+// The score is sigmoid(logits * r), r = 1 / div rounded to fp32: div = 100
+// in GSR-Net's pool, 1 in the GAT U-Net's. XLA computes the JAX package's
+// logits / div so (a division by a constant becomes a product with its
+// fp32 reciprocal), and the port's plain version and modules follow it.
 // Rank: rank_i = #{j : s_j > s_i} + #{j < i : s_j == s_i} (descending, ties
 // to the lower index, as lax.top_k), n <= 1024.
 //
@@ -105,7 +107,7 @@ __global__ void __launch_bounds__(1024)
                        float* __restrict__ s_out, int* __restrict__ idx,
                        float* __restrict__ vals, int* __restrict__ slot,
                        float* __restrict__ pre, float* __restrict__ x, int n,
-                       int k, int cols, float div, int R, int lanes) {
+                       int k, int cols, float rdiv, int R, int lanes) {
   extern __shared__ int4 sel_sh[];
   const int npad = (n + 3) & ~3;
   int* key = reinterpret_cast<int*>(sel_sh);
@@ -121,7 +123,7 @@ __global__ void __launch_bounds__(1024)
     float si = 0.f;
     int ki = -1;
     if (i < n) {
-      si = 1.f / (1.f + expf(-(lf[i] / div)));
+      si = 1.f / (1.f + expf(-(lf[i] * rdiv)));
       // NaN scores sort last, so the ranks stay a permutation and every
       // selected index is in range
       ki = isnan(si) ? -1 : __float_as_int(si);
@@ -215,51 +217,257 @@ __global__ void gather_rows_kernel(const float* __restrict__ src,
                    out_scaled ? out_scaled + fo : nullptr, r0, r1, cols);
 }
 
-// out[f, p, :] = (slot >= 0 ? src[f, slot, :] * scale[f, slot] : 0) + add[f, p, :]
-__global__ void scatter_rows_kernel(const float* __restrict__ src,
-                                    const int* __restrict__ slot,
-                                    const float* __restrict__ scale,
-                                    const float* __restrict__ add,
-                                    float* __restrict__ out,
-                                    int n, int k, int cols) {
-  const int p = blockIdx.x, f = blockIdx.y;
-  const int r = slot[(long long)f * n + p];
-  const long long orow = ((long long)f * n + p) * cols;
-  const float* s = src + ((long long)f * k + (r >= 0 ? r : 0)) * cols;
-  const float sc = (scale && r >= 0) ? scale[(long long)f * k + r] : 1.f;
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    float v = 0.f;
-    if (r >= 0) v = s[c] * sc;
-    if (add) v += add[orow + c];
-    out[orow + c] = v;
+// The unpool and the pool's adjoints: row p of fold f of an (F, n, cols)
+// output reads row slot[f, p] of an (F, k, cols) input (a dropped node,
+// slot -1, reads none). The work is a few hundred KB per call: bound by
+// launch latency and the chain of dependent loads, so the design spends
+// nothing on tiles and shared memory and everything on that chain. Grid
+// (bands, F) as the pool's (ops.scatter_rows_plan): block b takes rows
+// [b R, b R + R), a group of `lanes` lanes per row, a lane per 16-byte
+// vector (VEC) up to 4 warps: rows of 32-128 floats do not idle most of
+// a warp, and on the card a lane loading several vectors of its row cost
+// more than the lanes it saved. The node's slot, score and its own row
+// of the addend are loaded together; the kept row, its scale and its row
+// of pre in the second round trip, up to ROW_BATCH vectors a lane before
+// any is used. Products and sums are __fmul_rn / __fadd_rn (no FMA
+// contraction), so the rows equal the plain version's bit for bit; the
+// adjoint's dot is one fixed-order sum (row_dot, then group_sum), so the
+// standalone and the fused launch give it the same bits.
+constexpr int ROW_BATCH = 4;
+constexpr int ROW_MAX_THREADS = 256;  // ops.ROW_MAX_THREADS (registers)
+constexpr int ROW_MAX_LANES = 128;    // ops.ROW_MAX_LANES: a row's group
+
+__device__ __forceinline__ float vmul(float a, float c) {
+  return __fmul_rn(a, c);
+}
+__device__ __forceinline__ float4 vmul(float4 a, float c) {
+  return make_float4(__fmul_rn(a.x, c), __fmul_rn(a.y, c), __fmul_rn(a.z, c),
+                     __fmul_rn(a.w, c));
+}
+__device__ __forceinline__ float vadd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+// acc + <a, b> over the vector's entries in order, one rounding each
+__device__ __forceinline__ float row_dot(float a, float b, float acc) {
+  return __fmaf_rn(a, b, acc);
+}
+__device__ __forceinline__ float row_dot(float4 a, float4 b, float acc) {
+  acc = __fmaf_rn(a.x, b.x, acc);
+  acc = __fmaf_rn(a.y, b.y, acc);
+  acc = __fmaf_rn(a.z, b.z, acc);
+  return __fmaf_rn(a.w, b.w, acc);
+}
+template <class V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ float vzero<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ float4 vzero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Sum over the `lanes` lanes of a row's group, in one fixed order on
+// every launch: an xor tree inside each warp, then for a group of 64 or
+// 128 lanes its warps' sums in warp order through `part` (a float per
+// warp of the block). Valid in the group's first lane. Every thread of
+// the block calls it (full-mask shuffles; block barriers for wide
+// groups, `lanes` being the same on every thread).
+__device__ __forceinline__ float group_sum(float v, int lanes,
+                                           float* part) {
+  for (int o = (lanes < 32 ? lanes : 32) >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lanes <= 32) return v;
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) part[w] = v;
+  __syncthreads();
+  if ((threadIdx.x & (lanes - 1)) == 0)
+    for (int j = 1; j < lanes >> 5; ++j) v += part[w + j];
+  __syncthreads();
+  return v;
+}
+
+// Rows [r0, r1) of one fold. SCATTER writes out[p] = (slot >= 0 ?
+// src[slot] (* scale[slot] given scale) : 0) (+ add[p] given add), where
+// scale and add can be given only with EXTRA; DOT writes g_logits[p] =
+// <src[slot], pre[slot]> s (1 - s) gscale (0 times that for a dropped
+// node, as the plain version computes it). A lane loads BATCH vectors
+// of a row before it uses any (the wrapper's plan gives a row a lane per
+// vector up to 128 lanes, so BATCH = 1 up to rows of 512 floats): every
+// instruction on the path from the slot to the stores counts at these
+// sizes, so each form is compiled with only the code it runs. The loop
+// over rows has the same trip count on every thread (group_sum).
+template <bool VEC, int BATCH, bool SCATTER, bool EXTRA, bool DOT>
+__device__ __forceinline__ void rows_band(
+    const float* __restrict__ src, const float* __restrict__ pre,
+    const int* __restrict__ slot, const float* __restrict__ scale,
+    const float* __restrict__ add, const float* __restrict__ s,
+    float* __restrict__ out, float* __restrict__ g_logits, int cols,
+    float gscale, int r0, int r1, int lanes) {
+  using V = typename std::conditional<VEC, float4, float>::type;
+  const int shift = __ffs(lanes) - 1;
+  const int l = threadIdx.x & (lanes - 1);
+  const int groups = blockDim.x >> shift;
+  const int nv = VEC ? cols >> 2 : cols;  // vectors per row
+  __shared__ float part[DOT ? ROW_MAX_THREADS / 32 : 1];
+  for (int base = r0; base < r1; base += groups) {
+    const int p = base + (int)(threadIdx.x >> shift);
+    const bool live = p < r1;
+    // first round trip: the slot, the score and the node's own addend
+    int r = -1;
+    float sp = 0.f;
+    if (live) {
+      r = __ldg(slot + p);
+      if constexpr (DOT) sp = __ldg(s + p);
+    }
+    const V* A = nullptr;
+    V a[BATCH];
+    if constexpr (EXTRA) {
+      if (add && live) {
+        A = reinterpret_cast<const V*>(add + (size_t)p * cols);
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u)
+          if (l + u * lanes < nv) a[u] = __ldg(A + l + u * lanes);
+      }
+    }
+    // second: the kept row (and pre, and its scale)
+    const bool kept = r >= 0;
+    const V* S = reinterpret_cast<const V*>(src + (size_t)(kept ? r : 0) *
+                                                      cols);
+    const V* P = reinterpret_cast<const V*>(pre + (size_t)(kept ? r : 0) *
+                                                      cols);
+    float sc = 1.f;
+    if constexpr (EXTRA)
+      if (scale && kept) sc = __ldg(scale + r);
+    V* O = reinterpret_cast<V*>(out + (size_t)p * cols);
+    float acc = 0.f;
+    for (int g0 = l; g0 < nv; g0 += lanes * BATCH) {
+      V v[BATCH], w[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int g = g0 + u * lanes;
+        if (g < nv) {
+          if constexpr (EXTRA)  // the first batch's addend: above
+            if (A && g0 != l) a[u] = __ldg(A + g);
+          v[u] = kept ? __ldg(S + g) : vzero<V>();
+          if constexpr (DOT) w[u] = kept ? __ldg(P + g) : vzero<V>();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int g = g0 + u * lanes;
+        if (g >= nv) break;
+        if constexpr (DOT)
+          if (kept) acc = row_dot(v[u], w[u], acc);
+        if constexpr (SCATTER) {
+          if (live) {
+            V o = v[u];
+            if constexpr (EXTRA) {
+              if (scale && kept) o = vmul(o, sc);
+              if (A) o = vadd(o, a[u]);
+            }
+            O[g] = o;
+          }
+        }
+      }
+    }
+    if constexpr (DOT) {
+      acc = group_sum(acc, lanes, part);
+      if (live && l == 0)
+        g_logits[p] = __fmul_rn(__fmul_rn(__fmul_rn(acc, sp),
+                                          __fsub_rn(1.f, sp)),
+                                gscale);
+    }
   }
 }
 
-// Adjoint of the pooling gate w.r.t. the pre-sigmoid logits:
-// out[f, p] = slot >= 0 ? <g[f, slot], pre[f, slot]> * s (1 - s) * scale : 0
-// (scale = 1 / div of the forward's sigmoid(logits / div)).
-// One warp per node.
-__global__ void pool_logits_bwd_kernel(const float* __restrict__ g,
-                                       const float* __restrict__ pre,
-                                       const int* __restrict__ slot,
-                                       const float* __restrict__ s,
-                                       float* __restrict__ out,
-                                       int n, int k, int cols, float scale) {
-  const int f = blockIdx.y;
-  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (p >= n) return;
-  const int r = slot[(long long)f * n + p];
-  float acc = 0.f;
-  if (r >= 0) {
-    const long long row = ((long long)f * k + r) * cols;
-    for (int c = lane; c < cols; c += 32) acc += g[row + c] * pre[row + c];
-    acc = warp_sum(acc);
-  }
-  if (lane == 0) {
-    const float sp = s[(long long)f * n + p];
-    out[(long long)f * n + p] =
-        r >= 0 ? acc * sp * (1.f - sp) * scale : 0.f;
+// Unpooling as a scatter: out[f, p, :] = (slot >= 0 ? src[f, slot, :]
+// (* scale[f, slot]) : 0) (+ add[f, p, :]); scale and add may be null,
+// and are with EXTRA = false (the forward's unpool).
+template <bool VEC, int BATCH, bool EXTRA>
+__global__ void __launch_bounds__(ROW_MAX_THREADS)
+    scatter_rows_kernel(const float* __restrict__ src,
+                        const int* __restrict__ slot,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ add,
+                        float* __restrict__ out, int n, int k, int cols,
+                        int R, int lanes) {
+  const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(n, r0 + R);
+  const size_t fo = (size_t)f * n * cols;
+  rows_band<VEC, BATCH, true, EXTRA, false>(
+      src + (size_t)f * k * cols, nullptr, slot + (size_t)f * n,
+      scale ? scale + (size_t)f * k : nullptr, add ? add + fo : nullptr,
+      nullptr, out + fo, nullptr, cols, 1.f, r0, r1, lanes);
+}
+
+// Adjoint of the pooled rows pre * s[idx] w.r.t. the pre-sigmoid logits:
+// out[f, p] = <g[f, slot], pre[f, slot]> s (1 - s) scale (a dropped node's
+// dot is 0); scale = 1 / div of the forward's score sigmoid(logits / div).
+template <bool VEC, int BATCH>
+__global__ void __launch_bounds__(ROW_MAX_THREADS)
+    pool_logits_bwd_kernel(const float* __restrict__ g,
+                           const float* __restrict__ pre,
+                           const int* __restrict__ slot,
+                           const float* __restrict__ s,
+                           float* __restrict__ out, int n, int k, int cols,
+                           float scale, int R, int lanes) {
+  const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(n, r0 + R);
+  const size_t fk = (size_t)f * k * cols;
+  rows_band<VEC, BATCH, false, false, true>(
+      g + fk, pre + fk, slot + (size_t)f * n, nullptr, nullptr,
+      s + (size_t)f * n, nullptr, out + (size_t)f * n, cols, scale, r0, r1,
+      lanes);
+}
+
+// The GSR backward's pair in one pass over g: g_d[f, p, :] = g[f, slot]
+// * vals[f, slot] + add[f, p, :] (scatter_rows with scale and addend) and
+// g_logits[f, p] (pool_logits_bwd), each kept row of g read once.
+template <bool VEC, int BATCH>
+__global__ void __launch_bounds__(ROW_MAX_THREADS)
+    pool_bwd_pair_kernel(const float* __restrict__ g,
+                         const float* __restrict__ pre,
+                         const int* __restrict__ slot,
+                         const float* __restrict__ s,
+                         const float* __restrict__ vals,
+                         const float* __restrict__ add,
+                         float* __restrict__ g_d,
+                         float* __restrict__ g_logits, int n, int k,
+                         int cols, float scale, int R, int lanes) {
+  const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(n, r0 + R);
+  const size_t fk = (size_t)f * k * cols, fn = (size_t)f * n * cols;
+  rows_band<VEC, BATCH, true, true, true>(
+      g + fk, pre + fk, slot + (size_t)f * n, vals + (size_t)f * k,
+      add + fn, s + (size_t)f * n, g_d + fn, g_logits + (size_t)f * n, cols,
+      scale, r0, r1, lanes);
+}
+
+// Calls fn(VEC, BATCH) with the two as std::integral_constant values
+// (decltype(...)::value in the caller) for the instance of a row kernel
+// that takes (vec, batch); batch clamped to 1..ROW_BATCH.
+template <class Fn>
+void row_dispatch(bool vec, int batch, Fn&& fn) {
+  using B1 = std::integral_constant<int, 1>;
+  using B2 = std::integral_constant<int, 2>;
+  using B3 = std::integral_constant<int, 3>;
+  using B4 = std::integral_constant<int, 4>;
+  using T = std::true_type;
+  using F = std::false_type;
+  batch = batch < 1 ? 1 : (batch > ROW_BATCH ? ROW_BATCH : batch);
+  if (vec) {
+    if (batch == 1) fn(T(), B1());
+    else if (batch == 2) fn(T(), B2());
+    else if (batch == 3) fn(T(), B3());
+    else fn(T(), B4());
+  } else {
+    if (batch == 1) fn(F(), B1());
+    else if (batch == 2) fn(F(), B2());
+    else if (batch == 3) fn(F(), B3());
+    else fn(F(), B4());
   }
 }
 
@@ -329,14 +537,15 @@ extern "C" int fcsr_rank_select(const float* logits, const float* src,
   const int npad = (n + 3) & ~3;
   const size_t smem = sizeof(float) * (2 * (size_t)npad + 2 * (size_t)k);
   if (smem > (size_t)SEL_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const float rdiv = 1.f / div;
   const dim3 grid((unsigned)bands, (unsigned)batch);
   if (vec)
     rank_select_kernel<true><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        logits, src, s, idx, vals, slot, pre, x, n, k, cols, div, rows,
+        logits, src, s, idx, vals, slot, pre, x, n, k, cols, rdiv, rows,
         lanes);
   else
     rank_select_kernel<false><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        logits, src, s, idx, vals, slot, pre, x, n, k, cols, div, rows,
+        logits, src, s, idx, vals, slot, pre, x, n, k, cols, rdiv, rows,
         lanes);
   return (int)cudaGetLastError();
 }
@@ -367,23 +576,93 @@ extern "C" int fcsr_gather_rows(const float* src, const int* idx,
   return (int)cudaGetLastError();
 }
 
+// The row kernels' plan (bands, rows per band, threads, lanes per row,
+// 16-byte rows) comes from the wrapper (ops.scatter_rows_plan): 0 if it
+// is one the card can run for these rows, else the error to return.
+static int row_plan_error(int batch, int n, int cols, int bands, int rows,
+                          int threads, int lanes) {
+  if (cols <= 0 || bands < 1 || rows < 1 || (long long)bands * rows < n ||
+      threads < 32 || threads > ROW_MAX_THREADS || threads % 32 ||
+      lanes < 1 || lanes > ROW_MAX_LANES || (lanes & (lanes - 1)) ||
+      threads % lanes || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// The vectors a lane of a row's group loads at once: all of its share of
+// the row, up to ROW_BATCH.
+static int row_batch(int cols, int lanes, int vec) {
+  const int nv = vec ? cols / 4 : cols;
+  return (nv + lanes - 1) / lanes;
+}
+
 extern "C" int fcsr_scatter_rows(const float* src, const int* slot,
                                  const float* scale, const float* add,
                                  float* out, int batch, int n, int k,
-                                 int cols, void* stream) {
-  dim3 grid(n, batch);
-  scatter_rows_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      src, slot, scale, add, out, n, k, cols);
+                                 int cols, int bands, int rows, int threads,
+                                 int lanes, int vec, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (int err = row_plan_error(batch, n, cols, bands, rows, threads, lanes))
+    return err;
+  if (vec && !(cols % 4 == 0 && aligned16(src) && aligned16(out) &&
+               (!add || aligned16(add))))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bands, (unsigned)batch);
+  const cudaStream_t st = (cudaStream_t)stream;
+  row_dispatch(vec, row_batch(cols, lanes, vec), [&](auto V, auto B) {
+    constexpr bool VEC = decltype(V)::value;
+    constexpr int BATCH = decltype(B)::value;
+    if (scale || add)
+      scatter_rows_kernel<VEC, BATCH, true><<<grid, threads, 0, st>>>(
+          src, slot, scale, add, out, n, k, cols, rows, lanes);
+    else
+      scatter_rows_kernel<VEC, BATCH, false><<<grid, threads, 0, st>>>(
+          src, slot, scale, add, out, n, k, cols, rows, lanes);
+  });
   return (int)cudaGetLastError();
 }
 
 extern "C" int fcsr_pool_logits_bwd(const float* g, const float* pre,
                                     const int* slot, const float* s,
                                     float* out, int batch, int n, int k,
-                                    int cols, float scale, void* stream) {
-  dim3 grid((n + 7) / 8, batch);
-  pool_logits_bwd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      g, pre, slot, s, out, n, k, cols, scale);
+                                    int cols, float scale, int bands,
+                                    int rows, int threads, int lanes,
+                                    int vec, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (int err = row_plan_error(batch, n, cols, bands, rows, threads, lanes))
+    return err;
+  if (vec && !(cols % 4 == 0 && aligned16(g) && aligned16(pre)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bands, (unsigned)batch);
+  const cudaStream_t st = (cudaStream_t)stream;
+  row_dispatch(vec, row_batch(cols, lanes, vec), [&](auto V, auto B) {
+    pool_logits_bwd_kernel<decltype(V)::value, decltype(B)::value>
+        <<<grid, threads, 0, st>>>(g, pre, slot, s, out, n, k, cols, scale,
+                                   rows, lanes);
+  });
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fcsr_pool_bwd_pair(const float* g, const float* pre,
+                                  const int* slot, const float* s,
+                                  const float* vals, const float* add,
+                                  float* g_d, float* g_logits, int batch,
+                                  int n, int k, int cols, float scale,
+                                  int bands, int rows, int threads,
+                                  int lanes, int vec, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (int err = row_plan_error(batch, n, cols, bands, rows, threads, lanes))
+    return err;
+  if (vec && !(cols % 4 == 0 && aligned16(g) && aligned16(pre) &&
+               aligned16(add) && aligned16(g_d)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bands, (unsigned)batch);
+  const cudaStream_t st = (cudaStream_t)stream;
+  row_dispatch(vec, row_batch(cols, lanes, vec), [&](auto V, auto B) {
+    pool_bwd_pair_kernel<decltype(V)::value, decltype(B)::value>
+        <<<grid, threads, 0, st>>>(g, pre, slot, s, vals, add, g_d,
+                                   g_logits, n, k, cols, scale, rows, lanes);
+  });
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,7 @@ import functools
 from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from fcsr_tpu_torch.kernels.build import load_library
@@ -78,9 +79,11 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("gather_rows", "rank_select", "fcsr_gather_rows",
            [_P] * 5 + [_I] * 8, _STEP),
     Kernel("scatter_rows", "rank_select", "fcsr_scatter_rows",
-           [_P, _P, _P, _P, _P, _I, _I, _I, _I], _STEP),
+           [_P] * 5 + [_I] * 9, _STEP),
     Kernel("pool_logits_bwd", "rank_select", "fcsr_pool_logits_bwd",
-           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F], _STEP),
+           [_P] * 5 + [_I] * 4 + [_F] + [_I] * 5, _STEP),
+    Kernel("pool_bwd_pair", "rank_select", "fcsr_pool_bwd_pair",
+           [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5, _STEP),
     Kernel("add_bias", "rank_select", "fcsr_add_bias",
            [_P, _LL, _P, _LL, _P, _I, _I, _I], _STEP),
     Kernel("tail_normalize", "tail", "fcsr_tail_normalize",
@@ -389,6 +392,22 @@ class GatherPlan(NamedTuple):
     vec: bool
 
 
+class RowPlan(NamedTuple):
+    """The launch of the row kernels (``scatter_rows``,
+    ``pool_logits_bwd``, ``pool_bwd_pair``): ``bands`` blocks per fold of
+    ``threads`` threads, each taking ``rows`` output rows, a group of
+    ``lanes`` lanes per row; 16-byte accesses when ``vec``."""
+    bands: int
+    rows: int
+    threads: int
+    lanes: int
+    vec: bool
+
+
+ROW_MAX_THREADS = 256  # the row kernels' most threads per block ...
+ROW_MAX_LANES = 128    # ... and lanes per row (4 warps)
+
+
 def _row_bands(F: int, k: int):
     """(bands, rows) of k rows per fold: about one wave of blocks over the
     card's SMS (``SMS // F`` bands per fold), within ``SEL_MIN_ROWS`` and
@@ -444,17 +463,53 @@ def gather_rows_plan(F: int, k: int, cols: int,
                       aligned and cols % 4 == 0)
 
 
+@functools.lru_cache(maxsize=None)
+def scatter_rows_plan(F: int, n: int, cols: int,
+                      aligned: bool = True) -> RowPlan:
+    """The launch of the row kernels for F folds of n output rows of
+    ``cols`` floats (``aligned``: every row operand starts on 16 bytes, as
+    ``torch.empty`` gives them): 16-byte accesses where ``cols % 4 ==
+    0``; a group of lanes per row, the fewest (a power of two) that give
+    each lane at most one vector of the row, up to ``ROW_MAX_LANES`` (on
+    the card a lane per vector beat a warp per row whose lanes load
+    several); the pool's bands (``_row_bands``) cut to the rows one pass
+    of ``ROW_MAX_THREADS`` threads covers, and at least a warp's worth of
+    rows."""
+    if F < 1 or n < 1 or cols < 1:
+        raise ValueError(f"scatter_rows_plan needs F, n, cols >= 1 "
+                         f"(F={F}, n={n}, cols={cols})")
+    vec = aligned and cols % 4 == 0
+    vectors = cols // 4 if vec else cols
+    lanes = min(ROW_MAX_LANES, 1 << (vectors - 1).bit_length())
+    rows = _row_bands(F, n)[1]
+    rows = max(1, min(rows, ROW_MAX_THREADS // lanes), min(n, 32 // lanes))
+    threads = 32 * -(-rows * lanes // 32)
+    return RowPlan(-(-n // rows), rows, threads, lanes, vec)
+
+
+def _row_plan(F, n, cols, *tensors) -> RowPlan:
+    return scatter_rows_plan(F, n, cols, all(
+        t.data_ptr() % 16 == 0 for t in tensors if t is not None))
+
+
+def pool_scores(logits, div=100.0):
+    """The pool's scores ``sigmoid(logits * r)``, r = 1 / div rounded to
+    fp32: the JAX package writes ``sigmoid(logits / div)``, and XLA
+    computes a division by a constant as a product with its fp32
+    reciprocal (eager division would round differently at times). The
+    plain pool, ``GraphPool`` and ``unet_forward_rankselect`` take their
+    scores here, and the ``rank_select`` kernel computes the same."""
+    return torch.sigmoid(logits * float(np.float32(1.0) / np.float32(div)))
+
+
 def rank_select_plain(logits, k, div=100.0, src=None):
-    """(s, idx, vals, slot): s = sigmoid(logits / div) (F, n); idx (F, k)
-    int32 of the top-k scores in descending order with ties to the lower
-    index (NaN scores last); vals = s[idx]; slot (F, n) int32 = rank if
+    """(s, idx, vals, slot): s = ``pool_scores(logits, div)`` (F, n); idx
+    (F, k) int32 of the top-k scores in descending order with ties to the
+    lower index (NaN scores last); vals = s[idx]; slot (F, n) int32 = rank if
     kept else -1. ``div`` is 100 in GSR-Net's pool and 1 in the GAT
     U-Net's. With ``src`` (F, n, m) also (pre, x): pre = src[idx] and
     x = pre * vals, the pooled rows."""
-    # a true quotient, as the kernel and the JAX package take it: on the
-    # card torch divides by a Python scalar as a product with its
-    # reciprocal, which can land one ulp off
-    s = torch.sigmoid(logits / torch.full_like(logits, div))
+    s = pool_scores(logits, div)
     key = torch.where(torch.isnan(s), float("-inf"), s)
     order = torch.sort(key, dim=-1, descending=True, stable=True).indices
     idx = order[:, :k].to(torch.int32)
@@ -543,7 +598,8 @@ def scatter_rows_plain(src, slot, scale=None, add=None):
 def scatter_rows(src, slot, scale=None, add=None):
     """Unpooling as a scatter: row p of the (F, n, m) result is
     ``src[f, slot[f, p]] * scale[f, slot]`` where ``slot >= 0``, else 0,
-    plus ``add[f, p]``."""
+    plus ``add[f, p]``. One launch of bands of rows
+    (``scatter_rows_plan``), equal to the plain version bit for bit."""
     if not src.is_cuda:
         return scatter_rows_plain(src, slot, scale, add)
     _check(src.device, src, scale, add)
@@ -552,8 +608,10 @@ def scatter_rows(src, slot, scale=None, add=None):
     F, k, m = src.shape
     n = slot.shape[1]
     out = torch.empty(F, n, m, dtype=torch.float32, device=src.device)
+    plan = _row_plan(F, n, m, src, add, out)
     KERNELS["scatter_rows"](_ptr(src), _ptr(slot), _ptr(scale), _ptr(add),
-                            _ptr(out), F, n, k, m)
+                            _ptr(out), F, n, k, m, plan.bands, plan.rows,
+                            plan.threads, plan.lanes, int(plan.vec))
     return out
 
 
@@ -565,22 +623,63 @@ def pool_logits_bwd_plain(g, pre, slot, s, scale=1.0 / 100.0):
     return g_s * s * (1.0 - s) * scale
 
 
+def _check_pool_bwd(g, pre, slot, s, *more):
+    _check(g.device, g, pre, s, *more)
+    _check(g.device, slot, dtype=torch.int32)
+    _contig(g, pre, slot, s, *more)
+    F, k, m = g.shape
+    n = slot.shape[1]
+    if tuple(pre.shape) != (F, k, m) or tuple(s.shape) != (F, n):
+        raise ValueError(f"pool adjoint: pre {tuple(pre.shape)}, s "
+                         f"{tuple(s.shape)} do not match g {tuple(g.shape)}"
+                         f" and slot {tuple(slot.shape)}")
+    return F, n, k, m
+
+
 def pool_logits_bwd(g, pre, slot, s, scale=1.0 / 100.0):
     """Adjoint of the pooled rows ``pre * s[idx]`` w.r.t. the pooling
     logits: (F, n), ``<g, pre>`` of the node's kept row times
-    ``s (1 - s) scale``, 0 for dropped nodes; ``scale`` is 1 / div of the
-    forward's ``rank_select``."""
+    ``s (1 - s) scale`` (0 times that for dropped nodes); ``scale`` is
+    1 / div of the forward's ``rank_select``. One launch of the row
+    kernels' bands; the dot's sum order is the fused pair's."""
     if not g.is_cuda:
         return pool_logits_bwd_plain(g, pre, slot, s, scale)
-    _check(g.device, g, pre, s)
-    _check(g.device, slot, dtype=torch.int32)
-    _contig(g, pre, slot, s)
-    F, k, m = g.shape
-    n = slot.shape[1]
+    F, n, k, m = _check_pool_bwd(g, pre, slot, s)
     out = torch.empty(F, n, dtype=torch.float32, device=g.device)
+    plan = _row_plan(F, n, m, g, pre)
     KERNELS["pool_logits_bwd"](_ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
-                               _ptr(out), F, n, k, m, float(scale))
+                               _ptr(out), F, n, k, m, float(scale),
+                               plan.bands, plan.rows, plan.threads,
+                               plan.lanes, int(plan.vec))
     return out
+
+
+def pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
+    return (scatter_rows_plain(g, slot, vals, add),
+            pool_logits_bwd_plain(g, pre, slot, s, scale))
+
+
+def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
+    """The GSR backward's two adjoints of a pool level in one launch,
+    each kept row of ``g`` read once: (``scatter_rows(g, slot, vals,
+    add)``, ``pool_logits_bwd(g, pre, slot, s, scale)``), the first bit
+    for bit and the second with the standalone launch's bits."""
+    if not g.is_cuda:
+        return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale)
+    F, n, k, m = _check_pool_bwd(g, pre, slot, s, vals, add)
+    if tuple(vals.shape) != (F, k) or tuple(add.shape) != (F, n, m):
+        raise ValueError(f"pool_bwd_pair: vals {tuple(vals.shape)}, add "
+                         f"{tuple(add.shape)} do not match g "
+                         f"{tuple(g.shape)} and slot {tuple(slot.shape)}")
+    g_d = torch.empty(F, n, m, dtype=torch.float32, device=g.device)
+    g_logits = torch.empty(F, n, dtype=torch.float32, device=g.device)
+    plan = _row_plan(F, n, m, g, pre, add, g_d)
+    KERNELS["pool_bwd_pair"](_ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
+                             _ptr(vals), _ptr(add), _ptr(g_d),
+                             _ptr(g_logits), F, n, k, m, float(scale),
+                             plan.bands, plan.rows, plan.threads, plan.lanes,
+                             int(plan.vec))
+    return g_d, g_logits
 
 
 def add_bias_plain(x, bias):
@@ -1647,7 +1746,7 @@ def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd):
 
 
 _OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
-        "pool_logits_bwd", "add_bias", "tail_normalize",
+        "pool_logits_bwd", "pool_bwd_pair", "add_bias", "tail_normalize",
         "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
         "loss_terms", "adam_masked", "anti_vectorize_normalize",
         "vectorize_colmajor", "normalize_adj_batch", "gat_attention",

@@ -52,7 +52,7 @@ from fcsr_tpu_torch.iox.weights import (TAIL_NAMES, leaf_names,
                                         leaf_tensors_to_state,
                                         state_to_leaf_tensors)
 from fcsr_tpu_torch.kernels.ops import (KERNEL_OPS, PLAIN_OPS,
-                                        rows_contiguous)
+                                        pool_scores, rows_contiguous)
 from fcsr_tpu_torch.models.fused_tail import _tail_loss, tail_value_and_grad
 from fcsr_tpu_torch.models.gsr import pool_sizes, topk_desc
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, check_on_device
@@ -171,9 +171,11 @@ def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start):
     bg(None, g, out=GB["b:bottom_gcn"])
     g_p = bg(g, W["w:bottom_gcn"], tb=True)
     for i in reversed(range(L)):
-        slot = res["slot"][i]
-        g_d = ops.scatter_rows(g_p, slot, res["vals"][i], g_skip[i])
-        g_logits = ops.pool_logits_bwd(g_p, res["pre"][i], slot, res["s"][i])
+        # the unpool of g_p (scaled by the kept scores, plus the skip) and
+        # the adjoint to the logits in one launch: both read g_p by slot
+        g_d, g_logits = ops.pool_bwd_pair(g_p, res["pre"][i], res["slot"][i],
+                                          res["s"][i], res["vals"][i],
+                                          g_skip[i])
         gl = g_logits.view(g_logits.shape[0], -1, 1)
         bg(res["d"][i], gl, ta=True, out=GW[f"w:pools_{i}"])
         bg(None, gl, out=GB[f"b:pools_{i}"])
@@ -310,7 +312,7 @@ def unet_forward_rankselect(net_params, ks: Sequence[float], lr_dim: int,
     for i in range(L):
         d = torch.matmul(x, W[f"w:down_gcns_{i}"]) + W[f"b:down_gcns_{i}"]
         logits = torch.matmul(d, W[f"w:pools_{i}"]) + W[f"b:pools_{i}"]
-        scores = torch.sigmoid(logits.squeeze(-1) / 100.0)
+        scores = pool_scores(logits.squeeze(-1))
         if idx is None:
             vals, ix = topk_desc(scores, sizes[i])
         else:

@@ -19,6 +19,7 @@ from torch import nn
 
 from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj,
                                            symmetrize)
+from fcsr_tpu_torch.kernels.ops import pool_scores
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["GSRLayer", "GraphConvolution", "GCN", "GraphPool", "GraphUnpool",
@@ -79,7 +80,7 @@ class GraphPool(nn.Module):
         self.proj = _Linear(in_dim, 1, generator)
 
     def forward(self, adj, x):
-        scores = torch.sigmoid(self.proj(x).squeeze(-1) / 100.0)
+        scores = pool_scores(self.proj(x).squeeze(-1))
         values, idx = topk_desc(scores, self.k_out)
         new_x = x[idx, :] * values[:, None]
         new_adj = adj[..., idx, :][..., :, idx]

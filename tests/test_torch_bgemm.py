@@ -97,9 +97,12 @@ def test_gsr_step_census(gsr_census):
     c = gsr_census
     assert len(c.products) == c.launches["bgemm"] == 79
     # each pool ranks and gathers in one rank_select launch: 4 gather_rows
-    # launches (the backward's) of the 8 before the pools were fused
-    assert sum(c.launches.values()) == 110
+    # launches (the backward's) of the 8 before the pools were fused; the
+    # backward unpools and takes the logits' adjoint in one launch a level
+    assert sum(c.launches.values()) == 106
     assert c.launches["rank_select"] == c.launches["gather_rows"] == 4
+    assert c.launches["scatter_rows"] == c.launches["pool_bwd_pair"] == 4
+    assert "pool_logits_bwd" not in c.launches
     assert _labels(c) == GSR_SIGNATURES
     assert all(p.F == F for p in c.products)
     # skinny products: 15 column sums (4 of them N = 1), 4 logits and 4
@@ -116,6 +119,11 @@ def test_gat_step_census(gat_census):
     assert len(c.products) == c.launches["bgemm"] == 44
     assert sum(c.launches.values()) == 89              # at drop_p = 0.01
     assert c.launches["rank_select"] == c.launches["gather_rows"] == 3
+    # the unpool forward and backward; the logits' adjoint feeds the
+    # backward unpool's addend, so the two stay apart
+    assert c.launches["scatter_rows"] == 6
+    assert c.launches["pool_logits_bwd"] == 3
+    assert "pool_bwd_pair" not in c.launches
     assert _labels(c) == GAT_SIGNATURES
     assert sum(min(p.M, p.N) == 1 or p.K == 1 for p in c.products) == 13
     assert max(p.flops for p in c.products) <= 7e6

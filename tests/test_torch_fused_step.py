@@ -222,13 +222,18 @@ def test_plain_step_equals_dispatching_step_on_cpu(rng):
         assert torch.equal(a, b)
 
 
+# the reference's pool scores as its jitted code computes them: XLA takes
+# the division by 100 as a product with fl32(0.01)
+_jax_scores = jax.jit(lambda logits: jax.nn.sigmoid(logits / 100.0))
+
+
 @pytest.mark.parametrize("n,k", [(160, 144), (101, 61), (13, 5)])
 def test_rank_select_matches_topk_projection(rng, n, k):
     logits = rng.normal(0, 100, (2, n)).astype(np.float32)
     logits[:, 3:7] = logits[:, 9:10]                   # exact ties
     s, idx, vals, slot = POPS.rank_select(torch.from_numpy(logits), k)
     for f in range(2):
-        sj = jax.nn.sigmoid(jnp.asarray(logits[f]) / 100.0)
+        sj = _jax_scores(jnp.asarray(logits[f]))
         proj = np.asarray(_topk_projection(sj, k))
         np.testing.assert_array_equal(idx[f].numpy(), proj.argmax(axis=1))
         want_slot = np.full(n, -1)
@@ -266,7 +271,7 @@ def test_kernel_bindings_match_c_signatures():
     on the card, where nothing type-checks the call."""
     csrc = Path(__file__).resolve().parents[1] / "fcsr_tpu_torch" / \
         "kernels" / "csrc"
-    assert len(KERNELS) == 25 and {"anti_vectorize_normalize",
+    assert len(KERNELS) == 26 and {"anti_vectorize_normalize",
                                    "vectorize_colmajor",
                                    "normalize_adj_batch",
                                    "loss_terms"} <= set(KERNELS)

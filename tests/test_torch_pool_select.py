@@ -18,8 +18,18 @@ kernel's own compensated bf16x3 product keeps 2^-17 of each entry).
 Inputs come from a numpy seed, with exact ties, at div 100 (GSR-Net) and
 1 (the GAT U-Net). NaN scores sort last and the ranks stay a permutation,
 against an independent numpy version of that rule.
+
+The score rule: the JAX package writes ``sigmoid(logits / div)`` and runs
+it jitted, where XLA computes the division by a constant as a product with
+its fp32 reciprocal. The reference's scores are taken that way here
+(``_jax_scores``), and every pool score of the port (``rank_select_plain``,
+``GraphPool``, ``unet_forward_rankselect``) is held to
+``sigmoid(logits * fl32(1 / div))`` bit for bit, on logits where the true
+quotient rounds apart from that product, and at a pair of logits that tie
+under the product but not under the quotient.
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -29,12 +39,17 @@ import numpy as np
 import pytest
 import torch
 
+from torch.overrides import TorchFunctionMode
+
 from fcsr_tpu.core.mosaic_mm import mm as j_mm
 from fcsr_tpu.models.fused_step import _topk_projection
 from fcsr_tpu_torch.kernels import KERNEL_OPS, PLAIN_OPS
 from fcsr_tpu_torch.kernels.ops import (SEL_MAX_N, SEL_MAX_ROWS,
                                         SEL_MIN_ROWS, SEL_THREADS, SMS,
                                         gather_rows_plan, rank_select_plan)
+from fcsr_tpu_torch.models.fused_step import (leaf_specs,
+                                              unet_forward_rankselect)
+from fcsr_tpu_torch.models.gsr import GraphPool
 
 # shared memory a block may opt in to on an H100
 SMEM = 232448
@@ -140,7 +155,7 @@ def test_pool_matches_topk_projection_products(rng, pool, div):
         torch.from_numpy(logits), k, div, src=torch.from_numpy(src))
     assert pre.shape == x.shape == (F, k, cols)
     for f in range(F):
-        sj = jax.nn.sigmoid(jnp.asarray(logits[f]) / div)
+        sj = _jax_scores(jnp.asarray(logits[f]), div)
         proj = _topk_projection(sj, k)
         np.testing.assert_allclose(s[f].numpy(), np.asarray(sj), rtol=1e-6)
         np.testing.assert_array_equal(idx[f].numpy(),
@@ -164,11 +179,175 @@ def test_pool_matches_topk_projection_products(rng, pool, div):
             rtol=2.0 ** -17, atol=0)
 
 
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_scores(logits, div):
+    """The reference's pool scores as its jitted code computes them
+    (``fcsr_tpu/models/gsr.py:88``, ``fused_step.py:381``)."""
+    return jax.nn.sigmoid(logits / div)
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_kept(logits, k):
+    """The nodes GSR-Net's pool keeps, by the jitted reference: the
+    one-hot projection's rows (``_topk_projection``) as indices."""
+    return jnp.argmax(_topk_projection(jax.nn.sigmoid(logits / 100.0), k),
+                      axis=1)
+
+
+def test_reference_divides_by_the_fp32_reciprocal(rng):
+    """Jitted ``x / 100.0`` is ``x * fl32(0.01)``, not the true quotient,
+    which rounds apart on a share of the entries."""
+    x = (rng.standard_normal(100_000) * 300.0).astype(np.float32)
+    jitted = np.asarray(jax.jit(lambda a: a / 100.0)(x))
+    np.testing.assert_array_equal(jitted, x * np.float32(0.01))
+    assert (jitted != x / np.float32(100.0)).mean() > 0.05
+    # and so the scores of the reference's pool
+    np.testing.assert_array_equal(
+        np.asarray(_jax_scores(jnp.asarray(x), 100.0)),
+        np.asarray(jax.jit(jax.nn.sigmoid)(x * np.float32(0.01))))
+
+
+def _rule_scores(logits, div):
+    """sigmoid(logits * fl32(1 / div)) and sigmoid(logits / div) (the true
+    quotient), by torch on the CPU."""
+    lg = np.asarray(logits, np.float32)
+    r = np.float32(1.0) / np.float32(div)
+    return (torch.sigmoid(torch.from_numpy(lg * r)),
+            torch.sigmoid(torch.from_numpy(lg / np.float32(div))))
+
+
+# torch's CPU sigmoid takes a vectorised path in blocks of 16-64 floats
+# and a scalar one for the rest, whose bits may differ: the score tests
+# use rows of 64, which take the vectorised path whole, row by row or
+# as one (F, 64) tensor
+ROW = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _apart_logits(F, n=ROW, seed=7):
+    """(F, n) logits at GSR-Net's scale whose scores differ under the two
+    rules, every one of them."""
+    rng = np.random.default_rng(seed)
+    cand = (rng.standard_normal(40 * F * n) * 300.0).astype(np.float32)
+    prod, true = _rule_scores(cand, 100.0)
+    apart = cand[(prod != true).numpy()]
+    assert apart.size >= F * n
+    return apart[:F * n].reshape(F, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _boundary_pair():
+    """Two logits a < b that tie under the product (the same score) but
+    not under the true quotient, where b scores higher."""
+    start = np.float32(500.0).view(np.int32)
+    a = -np.arange(start, start + 200_000, dtype=np.int32).view(np.float32)
+    b = np.nextafter(a, np.float32(0.0))         # the next one up
+    pa, ta = _rule_scores(a, 100.0)
+    pb, tb = _rule_scores(b, 100.0)
+    hit = np.flatnonzero(((pa == pb) & (tb > ta)).numpy())
+    assert hit.size
+    return float(a[hit[0]]), float(b[hit[0]])
+
+
+class _Sigmoids(TorchFunctionMode):
+    """Records the output of every ``torch.sigmoid`` call under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.out = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        result = func(*args, **(kwargs or {}))
+        if func is torch.sigmoid:
+            self.out.append(result)
+        return result
+
+
+def _graph_pool(k):
+    """GraphPool on 2 features whose score logits are feature 0 exactly."""
+    pool = GraphPool(k, 2, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        pool.proj.weight.copy_(torch.tensor([[1.0, 0.0]]))
+        pool.proj.bias.zero_()
+    return pool
+
+
+def graph_pool_scores(logits, k):
+    """(scores, kept indices) of GraphPool for each row of (F, n) logits:
+    the features are (logit, 1)."""
+    pool, scores, kept = _graph_pool(k), [], []
+    for row in torch.as_tensor(logits):
+        x = torch.stack([row, torch.ones_like(row)], 1)
+        adj = torch.eye(len(row))
+        with torch.no_grad(), _Sigmoids() as rec:
+            kept.append(pool(adj, x)[2])
+        scores.append(rec.out[0])
+    return torch.stack(scores), torch.stack(kept)
+
+
+def rankselect_scores(logits, k):
+    """The first level's scores of ``unet_forward_rankselect`` for (F, n)
+    logits, through one level on 2 features whose pool logits are the
+    given ones exactly (identity start, down and pool weights)."""
+    lg = torch.as_tensor(logits)
+    F, n = lg.shape
+    W = {name: torch.zeros((F,) + shape)
+         for name, shape in leaf_specs(n, 2, 1)}
+    W["w:start_gcn"][..., 0] = lg
+    W["w:start_gcn"][..., 1] = 1.0
+    W["w:down_gcns_0"][:] = torch.eye(2)
+    W["w:pools_0"][:, 0, 0] = 1.0
+    with torch.no_grad(), _Sigmoids() as rec:
+        unet_forward_rankselect(W, (k / n,), n)
+    return rec.out[0]
+
+
+SCORE_PATHS = {
+    "rank_select_plain": lambda lg, k: PLAIN_OPS.rank_select(lg, k)[0],
+    "GraphPool": lambda lg, k: graph_pool_scores(lg, k)[0],
+    "unet_forward_rankselect": rankselect_scores,
+}
+
+
+@pytest.mark.parametrize("path", sorted(SCORE_PATHS))
+def test_pool_scores_multiply_by_the_fp32_reciprocal(path):
+    logits = _apart_logits(3)
+    want, true = _rule_scores(logits, 100.0)
+    assert (want != true).all()
+    got = SCORE_PATHS[path](torch.from_numpy(logits), 48)
+    assert torch.equal(got, want), path
+
+
+def test_gat_pool_scores_stay_the_sigmoid(rng):
+    """At div 1 (the GAT U-Net) the rule multiplies by 1: the scores are
+    the sigmoid of the logits themselves, as before the rule."""
+    logits = torch.from_numpy(_logits(rng, 3, 80, 1.0))
+    s = PLAIN_OPS.rank_select(logits, 40, 1.0)[0]
+    assert torch.equal(s, torch.sigmoid(logits))
+
+
+def test_boundary_pair_keeps_the_node_jax_keeps():
+    """a at node 2 and b at node 5 tie under the product, so the lower
+    index is kept, as jitted JAX keeps it; under the true quotient b
+    would win the last place."""
+    a, b = _boundary_pair()
+    logits = np.full((1, ROW), -2000.0, np.float32)    # far below
+    logits[0, [0, 1, 4]] = (100.0, 90.0, 80.0)         # far above
+    logits[0, 2], logits[0, 5] = a, b
+    k = 4                                              # 3 above, a or b
+    want = np.asarray(_jax_kept(jnp.asarray(logits[0]), k))
+    np.testing.assert_array_equal(want, [0, 1, 4, 2])
+    idx = PLAIN_OPS.rank_select(torch.from_numpy(logits), k)[1]
+    np.testing.assert_array_equal(idx[0].numpy(), want)
+    np.testing.assert_array_equal(
+        graph_pool_scores(torch.from_numpy(logits), k)[1][0].numpy(), want)
+
+
 def _np_pool(logits, k, div, src):
     """The pool by its documented rule in numpy: NaN scores as -inf, a
     stable descending order (ties to the lower index)."""
-    s = (1.0 / (1.0 + np.exp(-(logits.astype(np.float64) / div)))
-         ).astype(np.float32)
+    s = (1.0 / (1.0 + np.exp(-(logits.astype(np.float64)
+                                * np.float32(1.0 / div))))).astype(np.float32)
     key = np.where(np.isnan(s), -np.inf, s)
     idx = np.stack([np.argsort(-key[f], kind="stable")[:k]
                     for f in range(len(s))])
