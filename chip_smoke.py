@@ -33,7 +33,12 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    run and graphed, then per-pool times (``pool_bwd_times``, which also
    times an older tree); the score rule (``check_pool_scores``): the
    kernel's, the plain pool's, a GSRNet ``GraphPool``'s and
-   ``unet_forward_rankselect``'s scores bit-equal from the same logits; for
+   ``unet_forward_rankselect``'s scores bit-equal from the same logits;
+   the symmetric pair (``check_sym_tiles``): ``sym_abs_fill`` and
+   ``sym_sign_grad`` (c 0.5 and 1) at the GSR tail's and odd widths, on
+   the 16- and the 4-byte path, bit-equal to the plain version (NaN where
+   NaN), run to run and graphed, bitwise symmetric, then their times
+   (``sym_times``, which also times an older tree); for
    ``bgemm_f32`` every distinct product signature of the full-width GSR
    and GAT steps (their census, ``kernels/census.py``), replayed with the
    step's operand layouts: the path the kernel takes, its error, two
@@ -516,11 +521,15 @@ def _nan_aware_err(got, want):
     return max_err(got[~nan], want[~nan])
 
 
-def _same(got, want) -> bool:
-    """Equal entry for entry, NaN where NaN (any NaN payload)."""
+def _same(got, want, bits: bool = False) -> bool:
+    """Equal entry for entry, NaN where NaN (any NaN payload); ``bits``:
+    the same float32 bits too (-0.0 is not +0.0)."""
     nan = torch.isnan(want)
-    return torch.equal(nan, torch.isnan(got)) and torch.equal(
-        got[~nan], want[~nan])
+    if not torch.equal(nan, torch.isnan(got)):
+        return False
+    if bits:
+        got, want = _bits(got), _bits(want)
+    return torch.equal(got[~nan], want[~nan])
 
 
 def _bits(t):
@@ -1034,6 +1043,113 @@ def check_pool_scores(dev):
           "quotient's sigmoid", flush=True)
 
 
+# the symmetric pair's cases (tests/test_torch_sym_tiles.py's shapes):
+# the GSR tail's (F, m), one fold, widths off 4 and off the tile edge
+SYM_SHAPES = ((3, HR), (1, HR), (3, 270), (3, 33), (3, 32), (2, 33))
+
+
+def _sym_inputs(nf, m, seed, dev, off=0):
+    """``ops.sym_check_inputs`` (the CPU tests' draw, with zeros, -0.0,
+    x_ij = -x_ji, NaN and +-inf) on the card; ``off`` > 0: views that many
+    floats into a buffer (off 16 bytes)."""
+    from fcsr_tpu_torch.kernels.ops import sym_check_inputs
+
+    def put(a):
+        buf = torch.empty(a.size + off, device=dev)
+        view = buf[off:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        return view
+    return tuple(put(a) for a in sym_check_inputs(nf, m, seed))
+
+
+def check_sym_tiles(dev):
+    """Phase 2, the symmetric pair (``sym_abs_fill``, ``sym_sign_grad`` at
+    c = 0.5 and 1) at every ``SYM_SHAPES`` entry, on 16-byte-aligned
+    operands (the 16-byte path where m % 4 == 0) and on views 1 float off
+    16 bytes (the 4-byte path): each output bit-equal to the plain
+    version's (NaN where NaN), two launches bit-equal, a graphed launch
+    equal to an eager one, and bitwise symmetric; then ``sym_times``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import sym_tiles_plan
+
+    paths = set()
+    for nf, m in SYM_SHAPES:
+        for off in (0, 1):
+            x, g = _sym_inputs(nf, m, 5, dev, off)
+            vec = sym_tiles_plan(nf, m, off == 0).vec
+            paths.add(vec)
+            calls = [("sym_abs_fill", lambda: K.sym_abs_fill(x),
+                      lambda: P.sym_abs_fill(x))]
+            for c in (0.5, 1.0):
+                calls.append((f"sym_sign_grad c={c}",
+                              lambda c=c: K.sym_sign_grad(g, x, c),
+                              lambda c=c: P.sym_sign_grad(g, x, c)))
+            for name, kern, plain in calls:
+                got, again, want = kern(), kern(), plain()
+                graphed = _graph_outputs(kern)
+                torch.cuda.synchronize()
+                label = (f"{name} ({nf}, {m}, {m}) "
+                         f"{'16' if vec else '4'}-byte")
+                if not _same(got, want, bits=True):
+                    fail(f"{label}: differs from the plain version")
+                if not torch.equal(_bits(got), _bits(again)):
+                    fail(f"{label}: two launches differ")
+                if not torch.equal(_bits(got), _bits(graphed)):
+                    fail(f"{label}: the graphed launch differs")
+                if not _same(got, got.transpose(1, 2), bits=True):
+                    fail(f"{label}: not bitwise symmetric")
+    if paths != {True, False}:
+        fail("check_sym_tiles: both the 16- and the 4-byte path must run")
+    print(f"  sym_abs_fill, sym_sign_grad (c 0.5, 1): {len(SYM_SHAPES)} "
+          "shapes x 16- / 4-byte operands bit-equal to the plain version "
+          "(zeros, -0.0, x_ij = -x_ji, NaN, +-inf), run to run and graphed,"
+          " bitwise symmetric", flush=True)
+    sym_times(dev)
+
+
+def sym_times(dev):
+    """``sym_abs_fill`` and ``sym_sign_grad`` (c = 0.5) at the GSR tail's
+    3 x 268 x 268: device ms per launch in a CUDA graph, each in turns
+    with its plain version, beside its bound; then the eager call from
+    Python: ms per call of 200 back to back by CUDA events (the median of
+    11 rounds), and the host's us per call by its clock (the least of 21
+    rounds of 500 calls; the device, 6x faster, never holds it back). It
+    calls only those kernel ops, so it also times an older tree of the
+    port: load this file by path with that tree's root as the working
+    directory. Returns {name: (ms, eager ms, host us)}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    rng = np.random.default_rng(8)
+    x, g = (torch.from_numpy(rng.standard_normal((F, HR, HR)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    nbytes = 4.0 * F * HR * HR
+    forms = (("sym_abs_fill", lambda: K.sym_abs_fill(x),
+              lambda: P.sym_abs_fill(x), bound(2.0 * F * HR * HR,
+                                               2 * nbytes)),
+             ("sym_sign_grad", lambda: K.sym_sign_grad(g, x, 0.5),
+              lambda: P.sym_sign_grad(g, x, 0.5),
+              bound(5.0 * F * HR * HR, 3 * nbytes)))
+    ms = graph_ms([fn for _, kern, plain, _ in forms
+                   for fn in (kern, plain)])
+    out = {}
+    for j, (name, kern, _, (b_ms, b_by)) in enumerate(forms):
+        eager = cuda_ms(kern, reps=200, rounds=11)
+        host = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            for _ in range(500):
+                kern()
+            host.append((time.perf_counter() - t0) / 500 * 1e6)
+            torch.cuda.synchronize()
+        print(f"  {name} at {F} x {HR}^2: {ms[2 * j]:.5f} ms per launch "
+              f"(plain {ms[2 * j + 1]:.5f}, bound {b_ms:.5f} {b_by}); "
+              f"{eager:.5f} ms per eager call, host {min(host):.3f} us",
+              flush=True)
+        out[name] = (ms[2 * j], eager, min(host))
+    return out
+
+
 def check_product(prod, layout, g, dev):
     """One census signature replayed on the card: its path, the kernel
     against the plain version (within 1e-5 x max(scale, K)), two launches
@@ -1185,6 +1301,7 @@ def check_kernels(dev):
     check_pools(dev)
     check_pool_bwd(dev)
     check_pool_scores(dev)
+    check_sym_tiles(dev)
     return records
 
 

@@ -25,9 +25,13 @@
 // per fold whose blocks take a share of the fold and meet once in
 // distributed shared memory, inside the one launch, in a fixed order (no
 // atomics). The adjoint needs no such exchange (r is an input there) and
-// runs in independent row bands across the card. The wrappers
-// (kernels/ops.py) plan the two cluster launches on the host.
+// runs in independent row bands across the card; sym_abs_fill and its
+// adjoint run a block per pair of mirrored tiles. The wrappers
+// (kernels/ops.py) plan the cluster launches and the pairs' 16-byte path
+// on the host.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -198,39 +202,191 @@ __global__ void __launch_bounds__(R * 32)
   }
 }
 
-__global__ void sym_abs_fill_kernel(const float* __restrict__ x,
-                                    float* __restrict__ out, int batch,
-                                    int m) {
-  const long long mm = (long long)m * m, total = mm * batch;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long f = e / mm, rem = e % mm;
-    const int i = (int)(rem / m), j = (int)(rem % m);
-    const float* X = x + f * mm;
-    out[e] = (i == j) ? 1.f
-                      : fabsf((X[(long long)i * m + j] + X[(long long)j * m + i]) / 2.f);
+// sym_abs_fill and sym_sign_grad: out[i, j] and out[j, i] come from the
+// same two entries of each input, so a block owns an unordered pair of
+// T x T tiles, (ti, tj) with ti <= tj, and its mirror (tj, ti): grid
+// (pairs, F), pairs = nt (nt + 1) / 2, nt = ceil(m / T); blockIdx.x = p
+// maps to tj (tj + 1) / 2 + ti. Each thread loads its units (VW floats
+// along a row: 16-byte loads where VEC, m % 4 == 0 and every pointer
+// 16-byte aligned, else 4-byte) of the tile and of its mirror, every
+// input, all before the first use: the tile's values stay in registers,
+// the mirror's go to shared memory in rows of T + 1 floats (the
+// transposed reads meet no bank twice at T = 32). A thread computes
+// its units of the tile once and stores them as rows of out(ti, tj); it
+// writes each value over the one mirror entry that it alone read, so
+// after one barrier the mirror tile holds the transposed result and is
+// stored as rows of out(tj, ti): every element is read once and written
+// once, all coalesced, no per-element division. A diagonal pair is one
+// tile, its own mirror: each thread stores its own positions (an
+// unordered entry there is computed by both its threads, sparing the
+// barrier). Bound by bytes (2 and 3 tensors of 862 KB at F = 3, m =
+// 268), and at this size by launch latency. The tile edge and the
+// threads per block are fixed (SYM_T, SYM_THREADS: best or tied in a
+// sweep of 16, 32 and 64 float tiles on the card, PERF.md); the wrapper
+// plans the 16-byte path (ops.sym_tiles_plan).
+//
+// Bits, equal to the plain version's: (x_ij + x_ji) / 2 is the same float
+// for both mirrors (addition commutes), the adjoint c (G_ij s) + c (G_ji s)
+// is written with __fmul_rn / __fadd_rn (no FMA contraction), the sign
+// is abs_grad_sign (+1 at +-0, -1 at NaN); the diagonal is 1 in the
+// forward and c 0 + c 0 in the adjoint, as the plain version computes it.
+__device__ __forceinline__ float sym_abs_fill_value(float a, float b) {
+  return fabsf((a + b) / 2.f);
+}
+
+__device__ __forceinline__ float sym_sign_grad_value(float g_ij, float g_ji,
+                                                     float x_ij, float x_ji,
+                                                     float c) {
+  const float s = abs_grad_sign((x_ij + x_ji) / 2.f);
+  return __fadd_rn(__fmul_rn(c, __fmul_rn(g_ij, s)),
+                   __fmul_rn(c, __fmul_rn(g_ji, s)));
+}
+
+// The tile pair of block p: p = tj (tj + 1) / 2 + ti, 0 <= ti <= tj; a
+// float square root, then an integer correction that makes it exact
+// (tests/test_torch_sym_tiles.py holds its Python twin).
+__device__ __forceinline__ void sym_pair(int p, int& ti, int& tj) {
+  long long t = (long long)((sqrtf(8.f * (float)p + 1.f) - 1.f) * 0.5f);
+  while (t * (t + 1) / 2 > p) --t;
+  while ((t + 1) * (t + 2) / 2 <= p) ++t;
+  tj = (int)t;
+  ti = (int)(p - t * (t + 1) / 2);
+}
+
+constexpr int SYM_T = 32, SYM_THREADS = 256;
+
+template <bool VEC, bool GRAD>
+__global__ void __launch_bounds__(SYM_THREADS)
+    sym_tiles_kernel(const float* __restrict__ g,
+                     const float* __restrict__ x, float c,
+                     float* __restrict__ out, int m) {
+  constexpr int T = SYM_T, THREADS = SYM_THREADS;
+  constexpr int VW = VEC ? 4 : 1;       // floats per unit
+  constexpr int UR = T / VW;            // units per tile row
+  constexpr int UPT = T * T / VW / THREADS;  // units per thread
+  constexpr int NIN = GRAD ? 2 : 1;     // inputs: x, and g first
+  constexpr int LD = T + 1;
+  static_assert(UPT >= 1 && UPT * THREADS * VW == T * T, "tile / threads");
+  using V = typename std::conditional<VEC, float4, float>::type;
+  __shared__ float mir[NIN][T * LD];    // mir[k][r LD + c]: mirror tile
+  int ti, tj;
+  sym_pair(blockIdx.x, ti, tj);
+  const bool diag = ti == tj;
+  const size_t base = (size_t)blockIdx.y * m * m;
+  const float* in[NIN];
+  if constexpr (GRAD) {
+    in[0] = g + base;
+    in[1] = x + base;
+  } else {
+    in[0] = x + base;
+  }
+  float* o = out + base;
+  const int i0 = ti * T, j0 = tj * T;   // the tile's first row, column
+
+  // every load first: the tile into registers, its mirror (unless the
+  // pair is one tile) into registers on their way to shared memory
+  float a[NIN][UPT][VW], b[NIN][UPT][VW];
+#pragma unroll
+  for (int u = 0; u < UPT; ++u) {
+    const int e = threadIdx.x + u * THREADS, r = e / UR, cc = (e % UR) * VW;
+    const bool in_a = i0 + r < m && j0 + cc < m;
+    const bool in_b = !diag && j0 + r < m && i0 + cc < m;
+#pragma unroll
+    for (int k = 0; k < NIN; ++k) {
+      V va = {}, vb = {};
+      if (in_a)
+        va = *reinterpret_cast<const V*>(in[k] + (size_t)(i0 + r) * m + j0 +
+                                         cc);
+      if (in_b)
+        vb = *reinterpret_cast<const V*>(in[k] + (size_t)(j0 + r) * m + i0 +
+                                         cc);
+      const float* pa = reinterpret_cast<const float*>(&va);
+      const float* pb = reinterpret_cast<const float*>(&vb);
+#pragma unroll
+      for (int q = 0; q < VW; ++q) {
+        a[k][u][q] = pa[q];
+        b[k][u][q] = pb[q];
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < UPT; ++u) {
+    const int e = threadIdx.x + u * THREADS, r = e / UR, cc = (e % UR) * VW;
+#pragma unroll
+    for (int k = 0; k < NIN; ++k)
+#pragma unroll
+      for (int q = 0; q < VW; ++q)
+        mir[k][r * LD + cc + q] = diag ? a[k][u][q] : b[k][u][q];
+  }
+  __syncthreads();
+
+  // the tile: out[i0 + r, j0 + cc + q] from its own entry and the mirror's
+  // [cc + q, r]; the value then replaces that mirror entry
+#pragma unroll
+  for (int u = 0; u < UPT; ++u) {
+    const int e = threadIdx.x + u * THREADS, r = e / UR, cc = (e % UR) * VW;
+    float v[VW];
+#pragma unroll
+    for (int q = 0; q < VW; ++q) {
+      const int t = (cc + q) * LD + r;
+      if (diag && r == cc + q) {
+        v[q] = GRAD ? __fadd_rn(__fmul_rn(c, 0.f), __fmul_rn(c, 0.f)) : 1.f;
+      } else if constexpr (GRAD) {
+        v[q] = sym_sign_grad_value(a[0][u][q], mir[0][t], a[1][u][q],
+                                   mir[1][t], c);
+      } else {
+        v[q] = sym_abs_fill_value(a[0][u][q], mir[0][t]);
+      }
+    }
+    if (i0 + r < m && j0 + cc < m) {
+      if constexpr (VEC)
+        *reinterpret_cast<float4*>(o + (size_t)(i0 + r) * m + j0 + cc) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      else
+        o[(size_t)(i0 + r) * m + j0 + cc] = v[0];
+    }
+    if (!diag) {
+#pragma unroll
+      for (int q = 0; q < VW; ++q) mir[0][(cc + q) * LD + r] = v[q];
+    }
+  }
+  if (diag) return;  // block-uniform
+  __syncthreads();
+
+  // the mirror: out[j0 + r, i0 + cc + q] = mir[0][r, cc + q], as rows
+#pragma unroll
+  for (int u = 0; u < UPT; ++u) {
+    const int e = threadIdx.x + u * THREADS, r = e / UR, cc = (e % UR) * VW;
+    if (j0 + r < m && i0 + cc < m) {
+      const float* s = &mir[0][r * LD + cc];
+      if constexpr (VEC)
+        *reinterpret_cast<float4*>(o + (size_t)(j0 + r) * m + i0 + cc) =
+            make_float4(s[0], s[1], s[2], s[3]);
+      else
+        o[(size_t)(j0 + r) * m + i0 + cc] = s[0];
+    }
   }
 }
 
-__global__ void sym_sign_grad_kernel(const float* __restrict__ g,
-                                     const float* __restrict__ x, float c,
-                                     float* __restrict__ out, int batch,
-                                     int m) {
-  const long long mm = (long long)m * m, total = mm * batch;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long f = e / mm, rem = e % mm;
-    const int i = (int)(rem / m), j = (int)(rem % m);
-    float v = 0.f;
-    if (i != j) {
-      const float* X = x + f * mm;
-      const float* Gm = g + f * mm;
-      const long long ij = (long long)i * m + j, ji = (long long)j * m + i;
-      const float sgn = abs_grad_sign((X[ij] + X[ji]) / 2.f);  // sym is symmetric
-      v = c * (Gm[ij] * sgn) + c * (Gm[ji] * sgn);
-    }
-    out[e] = v;
-  }
+template <bool GRAD>
+int launch_sym(const float* g, const float* x, float c, float* out,
+               int batch, int m, int vec, cudaStream_t st) {
+  if (batch <= 0 || m <= 0) return 0;
+  const long long nt = (m + (long long)SYM_T - 1) / SYM_T,
+                  pairs = nt * (nt + 1) / 2;
+  if (batch > 65535 || pairs >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  if (vec && !(m % 4 == 0 && aligned16(x) && aligned16(out) &&
+               (!GRAD || aligned16(g))))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)pairs, (unsigned)batch);
+  if (vec)
+    sym_tiles_kernel<true, GRAD><<<grid, SYM_THREADS, 0, st>>>(g, x, c, out,
+                                                               m);
+  else
+    sym_tiles_kernel<false, GRAD><<<grid, SYM_THREADS, 0, st>>>(g, x, c, out,
+                                                                m);
+  return (int)cudaGetLastError();
 }
 
 // l1_term: vals[f * vstride] = value_scale * mean|a - b|, grad =
@@ -434,21 +590,18 @@ extern "C" int fcsr_tail_normalize_bwd(const float* g_adj, const float* t,
                               (cudaStream_t)stream);
 }
 
+// The 16-byte path comes from the wrapper (ops.sym_tiles_plan); one
+// that m or the pointers do not allow is refused, as is F > 65535.
 extern "C" int fcsr_sym_abs_fill(const float* x, float* out, int batch,
-                                 int m, void* stream) {
-  const long long total = (long long)batch * m * m;
-  sym_abs_fill_kernel<<<grid_for(total, 256), 256, 0,
-                        (cudaStream_t)stream>>>(x, out, batch, m);
-  return (int)cudaGetLastError();
+                                 int m, int vec, void* stream) {
+  return launch_sym<false>(nullptr, x, 0.f, out, batch, m, vec,
+                           (cudaStream_t)stream);
 }
 
 extern "C" int fcsr_sym_sign_grad(const float* g, const float* x, float c,
-                                  float* out, int batch, int m,
+                                  float* out, int batch, int m, int vec,
                                   void* stream) {
-  const long long total = (long long)batch * m * m;
-  sym_sign_grad_kernel<<<grid_for(total, 256), 256, 0,
-                         (cudaStream_t)stream>>>(g, x, c, out, batch, m);
-  return (int)cudaGetLastError();
+  return launch_sym<true>(g, x, c, out, batch, m, vec, (cudaStream_t)stream);
 }
 
 // The plan (cluster size, groups of 4 elements per block, 16-byte path)

@@ -91,9 +91,9 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("tail_normalize_bwd", "tail", "fcsr_tail_normalize_bwd",
            [_P, _P, _P, _P, _I, _I], _STEP),
     Kernel("sym_abs_fill", "tail", "fcsr_sym_abs_fill",
-           [_P, _P, _I, _I], _STEP),
+           [_P, _P, _I, _I, _I], _STEP),
     Kernel("sym_sign_grad", "tail", "fcsr_sym_sign_grad",
-           [_P, _P, _F, _P, _I, _I], _STEP),
+           [_P, _P, _F, _P, _I, _I, _I], _STEP),
     Kernel("l1_term", "tail", "fcsr_l1_term",
            [_P, _LL, _P, _LL, _I, _F, _F, _I, _P, _I, _P, _P, _I, _I, _I,
             _I], _STEP),
@@ -833,16 +833,78 @@ def sym_abs_fill_plain(x):
     return _fill_diag_abs(_sym(x))
 
 
+# sym_abs_fill and sym_sign_grad (tail.cu) run a block of 256 threads per
+# pair of mirrored SYM_TILE x SYM_TILE tiles (tail.cu's SYM_T; 32 was best
+# or tied in a sweep on an H100, PERF.md)
+SYM_TILE = 32
+SYM_MAX_F = 65535        # the grid's y extent
+
+
+class SymPlan(NamedTuple):
+    """The launch of ``sym_abs_fill`` / ``sym_sign_grad``: ``grid`` =
+    (``pairs``, F) blocks, each owning the tile pair (ti, tj), (tj, ti),
+    ti <= tj (``sym_pair``); 16-byte accesses when ``vec``."""
+    pairs: int
+    grid: tuple
+    vec: bool
+
+
+@functools.lru_cache(maxsize=None)
+def sym_tiles_plan(F: int, m: int, aligned: bool) -> SymPlan:
+    """The launch of the symmetric pair for F folds of m x m (``aligned``:
+    every operand starts on 16 bytes, as ``torch.empty`` gives them): nt =
+    ceil(m / SYM_TILE) tiles a side, a block per unordered tile pair,
+    nt (nt + 1) / 2 per fold; 16-byte accesses only where m % 4 == 0 and
+    the operands are aligned. The C entries derive the same grid."""
+    if F < 1 or m < 1:
+        raise ValueError(f"sym_tiles_plan needs F, m >= 1 (F={F}, m={m})")
+    if F > SYM_MAX_F:
+        raise ValueError(f"sym_tiles_plan: F = {F} above {SYM_MAX_F}")
+    nt = -(-m // SYM_TILE)
+    pairs = nt * (nt + 1) // 2
+    if pairs >= 2 ** 31:
+        raise ValueError(f"sym_tiles_plan: m = {m} needs {pairs} blocks")
+    return SymPlan(pairs, (pairs, F), bool(aligned) and m % 4 == 0)
+
+
+def sym_pair(p: int):
+    """(ti, tj) of block p, the kernel's map: p = tj (tj + 1) / 2 + ti,
+    0 <= ti <= tj, from a float32 square root and the same integer
+    correction (tail.cu::sym_pair)."""
+    one = np.float32(1.0)
+    t = int((np.sqrt(np.float32(8.0) * np.float32(p) + one) - one)
+            * np.float32(0.5))
+    while t * (t + 1) // 2 > p:
+        t -= 1
+    while (t + 1) * (t + 2) // 2 <= p:
+        t += 1
+    return p - t * (t + 1) // 2, t
+
+
+def _sym_launch(name, g, x, c):
+    _check(x.device, g, x)
+    _contig(g, x)
+    F, m, m2 = x.shape
+    if m2 != m or (g is not None and g.shape != x.shape):
+        raise ValueError(f"{name}: operands must be one (F, m, m) shape")
+    out = torch.empty_like(x)
+    xp, op = x.data_ptr(), out.data_ptr()
+    if g is None:
+        vec = sym_tiles_plan(F, m, (xp | op) % 16 == 0).vec
+        KERNELS[name](xp, op, F, m, vec)
+    else:
+        gp = g.data_ptr()
+        vec = sym_tiles_plan(F, m, (xp | op | gp) % 16 == 0).vec
+        KERNELS[name](gp, xp, float(c), op, F, m, vec)
+    return out
+
+
 def sym_abs_fill(x):
-    """|fill_diag((X + X^T) / 2, 1)| over (F, m, m)."""
+    """|fill_diag((X + X^T) / 2, 1)| over (F, m, m): one launch of a block
+    per pair of mirrored tiles (``sym_tiles_plan``)."""
     if not x.is_cuda:
         return sym_abs_fill_plain(x)
-    _check(x.device, x)
-    _contig(x)
-    F, m, _ = x.shape
-    out = torch.empty_like(x)
-    KERNELS["sym_abs_fill"](_ptr(x), _ptr(out), F, m)
-    return out
+    return _sym_launch("sym_abs_fill", None, x, None)
 
 
 def sym_sign_grad_plain(g, x, c):
@@ -855,15 +917,34 @@ def sym_sign_grad_plain(g, x, c):
 def sym_sign_grad(g, x, c):
     """Adjoint of ``sym_abs_fill`` at X given d out, times ``2c``:
     ``c (G + G^T)`` with ``G = g * sign(sym X)``, zero diagonal
-    (c = 1/2 is the exact adjoint)."""
+    (c = 1/2 is the exact adjoint); launched as ``sym_abs_fill`` is."""
     if not x.is_cuda:
         return sym_sign_grad_plain(g, x, c)
-    _check(x.device, g, x)
-    _contig(g, x)
-    F, m, _ = x.shape
-    out = torch.empty_like(x)
-    KERNELS["sym_sign_grad"](_ptr(g), _ptr(x), float(c), _ptr(out), F, m)
-    return out
+    return _sym_launch("sym_sign_grad", g, x, c)
+
+
+def sym_check_inputs(F: int, m: int, seed: int):
+    """(x, g), float32 numpy (F, m, m) from a seeded draw, with the special
+    values the symmetric pair is checked on (CPU tests and the card's):
+    exact zeros, -0.0, pairs x_ij = -x_ji, a NaN off and on the diagonal,
+    +-inf (an inf - inf pair in x and in g), an inf on g's diagonal."""
+    if m < 8:
+        raise ValueError(f"sym_check_inputs needs m >= 8 (m={m})")
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((F, m, m)).astype(np.float32)
+    g = rng.standard_normal((F, m, m)).astype(np.float32)
+    x[:, 0, 1:5] = 0.0
+    x[:, 1:5, 0] = 0.0
+    x[:, 2, 3] = x[:, 3, 2] = -0.0
+    x[:, 0, 5], x[:, 5, 0] = -0.0, 0.0
+    x[:, 6, 7:] = -x[:, 7:, 6]
+    x[0, m - 1, 1] = x[0, 2, 2] = np.nan
+    x[-1, 1, m - 2], x[-1, m - 2, 1] = np.inf, -np.inf
+    x[0, 3, m - 1] = np.inf
+    g[:, 4, 5] = -0.0
+    g[0, 4, 7], g[0, 7, 4] = np.inf, -np.inf
+    g[0, 5, 5] = np.inf
+    return x, g
 
 
 def l1_term_plain(a, b, vals, slot, value_scale, grad_scale, zero_sign,
