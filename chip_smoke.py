@@ -76,10 +76,12 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    (``train gsr`` with no flag, 2 folds x 1 epoch) through the command
    line on phase 5's CSVs;
 7. drives the GAT U-Net family at its shipped width (n = 160, m = 268,
-   dim 16, ks (0.5, 0.5, 0.5), 4 / 2 heads, F = 3): each of its nine
+   dim 16, ks (0.5, 0.5, 0.5), 4 / 2 heads, F = 3): each of its eleven
    kernels against its plain version at every shape the step uses, at
    drop_p 0, 0.01 and 0.3 with the masks the counter-based generator draws,
-   and the generator's keep rate against a binomial bound; the two cluster
+   and the generator's keep rate against a binomial bound (the keep mask's
+   bound from the integer work of its draws as compiled, ``philox_sass``);
+   the two cluster
    kernels beyond that (``check_gat_reductions``): ``gat_attention_bwd``
    at every layer shape and F = 1 / 3 and at n 1000 / 4096 x d 128, the
    off-diagonal losses at n 37-3500 x F 1 / 3 / 56, each bit-equal over
@@ -89,13 +91,22 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    drop_p x both softmax shifts x F = 1 / 3 / 56 and at n 1000 / 4096 x
    d 128, ``gat_pool_adj`` at the step's pools x F = 3 / 56 and k 1000,
    bit-equal and graphed, with per-layer times at F = 3 and 56 beside the
-   kernels they replaced; one
+   kernels they replaced; the pool's dropout inside its products
+   (``check_pool_dropout``): ``philox_drop_logits`` and
+   ``philox_drop_outer`` at the step's pools and at (4096, 128), edge
+   seeds, bit-equal to the two-launch pairs they replaced and to their
+   plain versions (the logits within 1e-5), eager and graphed, then timed
+   beside the pairs (``pool_dropout_times``, which also times an older
+   tree); ``col_softmax`` at R 16 (F 3 / 56), 64 and 200, both forms
+   of its plan, within 1e-6 and bit-equal run to run and graphed, then
+   timed beside ``torch.softmax`` (``col_softmax_times``); one
    fused step against the plain step and against autograd over the plain
    loss (loss, 36 gradients, p', m', v'), eager and as one CUDA graph,
    with 7 ``gat_attention_bwd``, 7 ``gat_attention``, 3
    ``gat_pool_adj``, 3 ``rank_select``, 3 ``gather_rows``, 6
-   ``scatter_rows`` and 3 ``pool_logits_bwd`` device launches in its
-   profile (89 launches); the fused validation forward (37 launches, no
+   ``scatter_rows``, 3 ``pool_logits_bwd``, 3 ``philox_drop_logits``, 3
+   ``philox_drop_outer`` and no ``philox_keep_mask`` device launches in
+   its profile (83 launches); the fused validation forward (37 launches, no
    ``gather_rows``, 3 ``scatter_rows``) and its profile
    (``profile_gat_val.txt``);
    ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
@@ -143,15 +154,18 @@ ENTRY_ONLY = ("loss_terms",)
 STEP_LAUNCHES = 106
 STEP_POOL_LAUNCHES = {"rank_select": 4, "gather_rows": 4, "scatter_rows": 4,
                       "pool_bwd_pair": 4, "pool_logits_bwd": 0}
-# launches of one GAT step at drop_p 0.01 and of one validation pass
-GAT_STEP_LAUNCHES, GAT_VAL_LAUNCHES = 89, 37
+# launches of one GAT step at drop_p 0.01 (as many as at drop_p 0: each
+# pool's dropout is drawn inside its two products) and of one validation
+# pass
+GAT_STEP_LAUNCHES, GAT_VAL_LAUNCHES = 83, 37
 # the GAT U-Net's kernels (phase 7): no GSR-Net path launches them
-GAT_NEW = ("gat_attention", "gat_attention_bwd", "philox_keep_mask",
-           "gat_pool_adj", "col_softmax", "col_softmax_bwd", "offdiag_mse",
-           "offdiag_mae", "adamw_masked")
+GAT_NEW = ("gat_attention", "gat_attention_bwd", "philox_drop_logits",
+           "philox_drop_outer", "gat_pool_adj", "col_softmax",
+           "col_softmax_bwd", "offdiag_mse", "offdiag_mae", "adamw_masked")
 # the GSR backward takes the logits' adjoint in pool_bwd_pair: only the
-# GAT U-Net launches it alone
-GAT_ONLY = GAT_NEW + ("pool_logits_bwd",)
+# GAT U-Net launches it alone; the keep mask alone is drawn by draw_masks
+# and the keep-rate experiment's counterpart, on no trainer path
+GAT_ONLY = GAT_NEW + ("pool_logits_bwd", "philox_keep_mask")
 
 
 def fail(msg: str):
@@ -193,11 +207,113 @@ def device_ms(fn, reps: int = 20) -> float:
     return graph_ms([fn], reps)[0]
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, bound_by): the larger of flops / fp32 peak and bytes / HBM."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, int_clocks: float = 0.0):
+    """(ms, bound_by): the largest of flops / fp32 peak, bytes / HBM and
+    ``int_clocks`` SM clocks of integer issue spread over every SM at its
+    highest clock (``philox_clocks``)."""
+    t_ops = flops / PEAK_FP32_FLOPS
+    if int_clocks:
+        sms, hz = sm_clock()
+        t_ops = max(t_ops, int_clocks / (sms * hz))
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# Integer issue per SM and clock on compute capability 9.0 (NVIDIA's
+# arithmetic-throughput table for CUDA: 64 32-bit integer multiply-adds, 64
+# adds, shifts and logic ops): IMAD runs on the FMA pipe, LOP3, IADD3 and
+# VIADD on the ALU pipe, 64 lanes a clock each; the SM's four schedulers
+# issue 128 lanes a clock in all
+FMA_LANES, ALU_LANES, ISSUE_LANES = 64, 64, 128
+_INT = {}
+
+
+def sm_clock():
+    """(SMs, the SM's highest clock in Hz: nvidia-smi clocks.max.sm)."""
+    if "clock" not in _INT:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _INT["clock"] = (sms, mhz * 1e6)
+    return _INT["clock"]
+
+
+def philox_sass():
+    """Instructions of one Philox-4x32-10 draw as compiled, by pipe: from
+    ``cuobjdump -sass`` of the built gat library, the body of
+    ``philox_keep_mask_kernel``'s grid-stride loop (its backward branch),
+    the draw's own instructions counted: the IMADs by the two Philox
+    multipliers (FMA pipe), the XORs (LOP3 0x96 / 0x3c) and the key
+    schedule's adds (IADD3 / VIADD of a multiple of a Weyl constant; ALU
+    pipe); divided by the draws the body holds (a round multiplies twice,
+    20 IMAD.WIDE.U32 / IMAD.HI.U32 a draw at most). Returns (per draw
+    {"fma", "alu", "all"}, the body's counts by (draw or other, opcode),
+    draws in the body); the listing goes to
+    ``chiprun_out/philox_keep_mask.sass``."""
+    import re
+    from fcsr_tpu_torch.kernels.build import build_all
+
+    if "sass" in _INT:
+        return _INT["sass"]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(build_all()["gat"])],
+                          capture_output=True, text=True, check=True).stdout
+    parts = re.split(r"Function : (\S+)", text)
+    body = next(parts[i + 1] for i in range(1, len(parts), 2)
+                if "philox_keep_mask_kernel" in parts[i])
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "philox_keep_mask.sass"), "w") as f:
+        f.write(body)
+    ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+        r"([^;]*);", body)]
+    loops = [(int(m.group(1), 16), a) for a, op, rest in ins
+             if op.startswith("BRA")
+             for m in [re.search(r"0x([0-9a-f]+)", rest)]
+             if m and int(m.group(1), 16) < a]
+    lo, hi = max(loops, key=lambda l: l[1] - l[0])
+    weyl = {(j * w) & 0xFFFFFFFF for w in (0x9E3779B9, 0xBB67AE85)
+            for j in range(1, 10)}
+
+    def imm(rest):
+        return {(-int(h, 16) if sgn else int(h, 16)) & 0xFFFFFFFF
+                for sgn, h in re.findall(r"(-?)0x([0-9a-f]+)", rest)}
+    hist, muls = {}, 0
+    for a, op, rest in ins:
+        if not lo <= a <= hi:
+            continue
+        mul = op.startswith("IMAD") and bool(
+            imm(rest) & {0xD2511F53, 0xCD9E8D57})
+        muls += mul and op.startswith(("IMAD.WIDE.U32", "IMAD.HI.U32"))
+        kind = ("draw" if mul or (op.startswith("LOP3") and re.search(
+            r"0x(96|3c)\b", rest)) or (op.startswith(("IADD3", "VIADD"))
+                                        and imm(rest) & weyl) else "other")
+        hist[(kind, op)] = hist.get((kind, op), 0) + 1
+    draws = -(-muls // 20)
+    fma = sum(c for (kind, op), c in hist.items()
+              if kind == "draw" and op.startswith("IMAD"))
+    total = sum(c for (kind, _), c in hist.items() if kind == "draw")
+    per = {"fma": fma / draws, "alu": (total - fma) / draws,
+           "all": total / draws}
+    _INT["sass"] = (per, hist, draws)
+    print(f"    Philox-4x32-10 draw as compiled: {per['fma']:g} IMAD (FMA "
+          f"pipe), {per['alu']:g} LOP3 / IADD3 / VIADD (ALU pipe), "
+          f"{per['all']:g} in all: {philox_clocks(1):.4f} SM clocks a draw",
+          flush=True)
+    return _INT["sass"]
+
+
+def philox_clocks(draws: int) -> float:
+    """SM clocks of integer issue for ``draws`` Philox draws as compiled:
+    per draw the most of its IMADs over the FMA pipe's lanes, its ALU
+    instructions over the ALU pipe's and all of them over the SM's issue
+    (``philox_sass``)."""
+    per = philox_sass()[0]
+    return draws * max(per["fma"] / FMA_LANES, per["alu"] / ALU_LANES,
+                       per["all"] / ISSUE_LANES)
 
 
 def max_err(a, b) -> float:
@@ -1134,20 +1250,29 @@ def sym_times(dev):
                    for fn in (kern, plain)])
     out = {}
     for j, (name, kern, _, (b_ms, b_by)) in enumerate(forms):
-        eager = cuda_ms(kern, reps=200, rounds=11)
-        host = []
-        for _ in range(21):
-            t0 = time.perf_counter()
-            for _ in range(500):
-                kern()
-            host.append((time.perf_counter() - t0) / 500 * 1e6)
-            torch.cuda.synchronize()
+        eager, host = _eager_and_host(kern, 21, 500)
         print(f"  {name} at {F} x {HR}^2: {ms[2 * j]:.5f} ms per launch "
               f"(plain {ms[2 * j + 1]:.5f}, bound {b_ms:.5f} {b_by}); "
-              f"{eager:.5f} ms per eager call, host {min(host):.3f} us",
+              f"{eager:.5f} ms per eager call, host {host:.3f} us",
               flush=True)
-        out[name] = (ms[2 * j], eager, min(host))
+        out[name] = (ms[2 * j], eager, host)
     return out
+
+
+def _eager_and_host(fn, rounds=11, calls=200):
+    """(eager ms per call of 200 back to back by CUDA events, the median
+    of 11 rounds; the host's us per call by its clock, the least of
+    ``rounds`` rounds of ``calls`` calls: the device, several times
+    faster, never holds it back)."""
+    eager = cuda_ms(fn, reps=200, rounds=11)
+    host = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return eager, min(host)
 
 
 def check_product(prod, layout, g, dev):
@@ -2084,11 +2209,31 @@ def gat_kernel_cases(dev):
                   lambda: att_bwd(P), 1e-5,
                   F * H * n * (8.0 * n * d + 12.0 * n),
                   f4 * (4 * n * HD + 5 * HD + H * n * n) + 8.0 * F, None))
+    # the keep-rate experiment's mask, bound by the draws' integer work: no
+    # flops, the Philox draws' SM clocks of integer issue (as compiled, by
+    # pipe)
     s4 = _gat_seeds(dev, 4)
     cases.append(("philox_keep_mask",
                   lambda: K.philox_keep_mask(s4, 0, 4, 256, 256, 0.1),
                   lambda: P.philox_keep_mask(s4, 0, 4, 256, 256, 0.1), 0.0,
-                  60.0 * 16 * 256 * 256, 4.0 * 16 * 256 * 256 + 32.0, None))
+                  (0.0, philox_clocks(16 * 256 * 256)),
+                  4.0 * 16 * 256 * 256 + 32.0, None))
+    # the pool's dropout inside its products at the first pool (F = 3,
+    # 160 x 32, drop_p 0.01): z and g_z bit-equal to the plain version, the
+    # logits (gemv_dot's sum order, not the library product's) within 1e-5
+    x, gl, w, b, es = _pool_drop_inputs(n, HD, 11, dev)
+    s99 = 1.0 / 0.99
+    nc = F * n * HD
+    cases.append(("philox_drop_logits",
+                  lambda: K.philox_drop_logits(x, w, b, es, 1, 0.01, s99),
+                  lambda: P.philox_drop_logits(x, w, b, es, 1, 0.01, s99),
+                  (0.0, 1e-5), (2.0 * nc, philox_clocks(nc)),
+                  4.0 * (2 * nc + F * n + F * HD + F) + 8.0 * F, None))
+    cases.append(("philox_drop_outer",
+                  lambda: K.philox_drop_outer(gl, w, es, 1, 0.01, s99),
+                  lambda: P.philox_drop_outer(gl, w, es, 1, 0.01, s99),
+                  0.0, (2.0 * nc, philox_clocks(nc)),
+                  4.0 * (nc + F * n + F * HD) + 8.0 * F, None))
     k = n // 2
     idx = torch.stack([torch.randperm(n, generator=g)[:k]
                        for _ in range(F)]).to(torch.int32).to(dev)
@@ -2132,11 +2277,18 @@ def gat_kernel_cases(dev):
     return cases
 
 
+def _bound_of(ops, nbytes):
+    """``bound`` of a case's ops, flops or (flops, SM clocks of integer
+    issue) where the kernel draws Philox words, and bytes."""
+    flops, int_clocks = ops if isinstance(ops, tuple) else (ops, 0.0)
+    return bound(flops, nbytes, int_clocks)
+
+
 def check_gat_kernels(dev):
-    """Phase 7.1: records of the nine new kernels, then every shape the
-    step uses at drop_p 0, 0.01 and 0.3 (the plain versions draw the very
-    masks the kernels draw), and the generator's keep rate. Records are
-    timed as phase 2's are, in turns."""
+    """Phase 7.1: records of the GAT family's eleven kernels, then every
+    shape the step uses at drop_p 0, 0.01 and 0.3 (the plain versions draw
+    the very masks the kernels draw). Records are timed as phase 2's are,
+    in turns."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
     from fcsr_tpu_torch.utils.timing import graph_ms
 
@@ -2144,15 +2296,22 @@ def check_gat_kernels(dev):
     for name, kern, plain, tol, flops, nbytes, lib in gat_kernel_cases(dev):
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        limit = tol * scale_of(want)
-        if not err <= limit:
+        if isinstance(tol, tuple):      # a tolerance for each output
+            errs = [max_err(a, b) for a, b in zip(got, want)]
+            limits = [t * scale_of(b) for t, b in zip(tol, want)]
+            ok = all(e <= lim for e, lim in zip(errs, limits))
+            err, limit = max(errs), max(limits)
+        else:
+            err = max_err(got, want)
+            limit = tol * scale_of(want)
+            ok = err <= limit
+        if not ok:
             fail(f"kernel {name} disagrees with its plain version "
                  f"(max|err| {err:.3e}, limit {limit:.1e})")
         ms, plain_ms, *lib_ms = graph_ms(
             [kern, plain] + ([lib] if lib is not None else []))
         lib_ms = lib_ms[0] if lib_ms else None
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = _bound_of(flops, nbytes)
         print(f"  {name:20s} max|err| {err:.3e} (limit {limit:.1e}) ok  "
               f"kernel {ms:.4f} ms (eager from Python {cuda_ms(kern):.4f})  "
               f"plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})"
@@ -2242,9 +2401,22 @@ def check_gat_kernels(dev):
     print(f"  shape sweep ok: 7 attention shapes x drop_p (0, 0.01, 0.3) x "
           f"both softmax shifts with their backward, 3 pools, 4 loss sizes; "
           f"worst err / scale {worst:.2e}")
-    # the generator's keep rate, as the TPU experiment measured its own:
-    # (256, 256) x 4 heads x 4 seeds per p, inside a 4-sigma binomial bound
+    return records
+
+
+def run_keep_rate(dev):
+    """Phase 7.1a, the keep-rate experiment's counterpart (the path of
+    ``tools/experiments/gat_dropout_keeprate.py``'s ``mask_kernel``, whose
+    port ``philox_keep_mask`` no trainer path launches): the generator's
+    keep rate as the TPU experiment measured its own, (256, 256) x 4
+    heads x 4 seeds per p, inside a 4-sigma binomial bound, every mask
+    bit-equal to the plain version's. Returns the launch counts of this
+    run (counts set to 0 just before it)."""
+    from fcsr_tpu_torch.kernels import (KERNEL_OPS as K, PLAIN_OPS as P,
+                                        launch_counts, reset_launch_counts)
+
     s4 = _gat_seeds(dev, 4)
+    reset_launch_counts()
     for p in (0.01, 0.1, 0.5):
         mask = K.philox_keep_mask(s4, 0, 4, 256, 256, p)
         if not torch.equal(mask, P.philox_keep_mask(s4, 0, 4, 256, 256, p)):
@@ -2256,7 +2428,199 @@ def check_gat_kernels(dev):
               f"{mask.numel()} draws")
         if not abs(rate - (1 - p)) < 4 * sigma + 1e-6:
             fail(f"keep rate {rate} at drop_p={p} outside the binomial bound")
-    return records
+    counts = _nonzero(launch_counts())
+    if counts != {"philox_keep_mask": 3}:
+        fail(f"the keep-rate run launched {counts}")
+    return counts
+
+
+# the GAT pools' dropout: the step's three pool inputs (n, c) at F = 3 and
+# a wide one that takes many blocks, under the edge seeds
+POOL_DROP_SHAPES = ((160, 32), (80, 64), (40, 128), (4096, 128))
+EDGE_SEEDS = (-2 ** 31, 2 ** 31 - 1)
+# col_softmax: the step's (F = 3) and the validation pass's (F = 56)
+# upsampler, a `--dim 64` run's and one past the registers (y read again)
+COL_SOFTMAX_SHAPES = ((F, 16, HR), (56, 16, HR), (F, 64, HR), (F, 200, HR))
+
+
+def _pool_drop_inputs(n, c, seed, dev):
+    """x (F, n, c), gl (F, n, 1) and a pool's w (F, c, 1), b (F, 1, 1) as
+    views into a flat (F, P) buffer (as the step hands them over), and the
+    edge seeds."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    flat = t(F, 3 + c + 1)
+    seeds = torch.tensor([EDGE_SEEDS] * F, dtype=torch.int32, device=dev)
+    return (t(F, n, c), t(F, n, 1), flat[:, 3:3 + c].view(F, c, 1),
+            flat[:, 3 + c:].view(F, 1, 1), seeds)
+
+
+def _pool_drop_pairs(K, x, gl, w, b, seeds, p):
+    """The two launches each form replaced: ``philox_keep_mask`` then the
+    scores' ``bgemm``, and the rank-1 ``bgemm`` then ``philox_keep_mask``."""
+    F_, n, c = x.shape
+    s = 1.0 / (1.0 - p)
+
+    def fwd():
+        z = K.philox_keep_mask(seeds, 1, 1, n, c, p, x, s)
+        return z, K.bgemm(z, w, bias=b)
+    return fwd, lambda: K.philox_keep_mask(seeds, 1, 1, n, c, p,
+                                           K.bgemm(gl, w, tb=True), s)
+
+
+def check_pool_dropout(dev):
+    """Phase 7.1d: the pool's dropout drawn inside its two products.
+    ``philox_drop_logits`` and ``philox_drop_outer`` at the step's three
+    pools and at (4096, 128), drop_p 0.01 and 0.3, seeds (-2^31, 2^31 -
+    1): bit-equal to the two-launch pairs on the card (``philox_keep_mask``
+    then ``bgemm``; ``bgemm`` rank-1 then ``philox_keep_mask``), eagerly
+    and in a CUDA graph, and to their plain versions, but for the logits:
+    those sum in gemv_dot's order, not the library product's, and are held
+    to 1e-5 of their scale, as ``bgemm_f32`` is; then
+    ``pool_dropout_times``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import (philox_drop_logits_plan,
+                                            philox_drop_outer_plan)
+
+    worst = 0.0
+    for n, c in POOL_DROP_SHAPES:
+        x, gl, w, b, seeds = _pool_drop_inputs(n, c, n + c, dev)
+        for p in (0.01, 0.3):
+            s = 1.0 / (1.0 - p)
+            fwd = lambda: K.philox_drop_logits(x, w, b, seeds, 1, p, s)
+            bwd = lambda: K.philox_drop_outer(gl, w, seeds, 1, p, s)
+            pair_f, pair_b = _pool_drop_pairs(K, x, gl, w, b, seeds, p)
+            for name, kern, plain, pair in (
+                    ("philox_drop_logits", fwd,
+                     lambda: P.philox_drop_logits(x, w, b, seeds, 1, p, s),
+                     pair_f),
+                    ("philox_drop_outer", bwd,
+                     lambda: P.philox_drop_outer(gl, w, seeds, 1, p, s),
+                     pair_b)):
+                got, want, old = kern(), plain(), pair()
+                graphed = _graph_outputs(kern)
+                torch.cuda.synchronize()
+                if torch.is_tensor(got):        # the adjoint: one output
+                    got, want, old, graphed = [got], [want], [old], [graphed]
+                for what, other in (("its plain version", want),
+                                    ("the two-launch pair", old),
+                                    ("its graphed launch", graphed)):
+                    ok = [torch.equal(_bits(a), _bits(e))
+                          for a, e in zip(got, other)]
+                    if other is want and len(ok) == 2:   # the logits
+                        err = max_err(got[1], want[1])
+                        ok[1] = err <= 1e-5 * scale_of(want[1])
+                        worst = max(worst, err / scale_of(want[1]))
+                    if not all(ok):
+                        fail(f"{name} ({F}, {n}, {c}) drop_p {p}: not "
+                             f"bit-equal to {what}")
+        plan = philox_drop_outer_plan(F, n, c, True)
+        print(f"    pool dropout ({F}, {n}, {c}): philox_drop_logits ("
+              f"{philox_drop_logits_plan(F, n, c)} blocks x {F}) and "
+              f"philox_drop_outer ({plan.blocks} blocks x {F}, {plan.vec} "
+              "columns a thread) bit-equal to the two-launch pairs, eager "
+              "and graphed, and to plain (the logits within 1e-5: worst "
+              f"err / scale {worst:.2e}) at drop_p 0.01 / 0.3", flush=True)
+    pool_dropout_times(dev)
+
+
+def pool_dropout_times(dev):
+    """The pool's dropout at the step's three pools (F = 3, drop_p 0.01):
+    device ms per call in a CUDA graph of each one-launch form and of the
+    two-launch pair it replaced, in turns, with eager ms and host us per
+    call. It calls only kernel ops, so it also times an older tree of the
+    port (load this file by path with that tree's root as the working
+    directory), where only the pairs exist. Returns {label: (ms, eager
+    ms, host us)}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    new = hasattr(K, "philox_drop_logits")
+    calls = []
+    for n, c in POOL_DROP_SHAPES[:3]:
+        x, gl, w, b, seeds = _pool_drop_inputs(n, c, n + c, dev)
+        s = 1.0 / 0.99
+        pair_f, pair_b = _pool_drop_pairs(K, x, gl, w, b, seeds, 0.01)
+        calls += [(f"keep_mask + bgemm ({n}, {c})", pair_f),
+                  (f"bgemm rank-1 + keep_mask ({n}, {c})", pair_b)]
+        if new:
+            calls += [(f"philox_drop_logits ({n}, {c})",
+                       lambda x=x, w=w, b=b, seeds=seeds:
+                       K.philox_drop_logits(x, w, b, seeds, 1, 0.01, s)),
+                      (f"philox_drop_outer ({n}, {c})",
+                       lambda gl=gl, w=w, seeds=seeds:
+                       K.philox_drop_outer(gl, w, seeds, 1, 0.01, s))]
+    ms = graph_ms([fn for _, fn in calls])
+    out = {}
+    for (label, fn), t in zip(calls, ms):
+        eager, host = _eager_and_host(fn)
+        print(f"    {label}: {t:.5f} ms per call in a graph, {eager:.5f} "
+              f"ms eager, host {host:.3f} us", flush=True)
+        out[label] = (t, eager, host)
+    return out
+
+
+def check_col_softmax(dev):
+    """Phase 7.1e: ``col_softmax`` at every ``COL_SOFTMAX_SHAPES`` entry
+    (each form of its plan) within 1e-6 of its plain version and bit-equal
+    run to run and graphed; then ``col_softmax_times``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import col_softmax_plan
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    forms = set()
+    for nf, R, C in COL_SOFTMAX_SHAPES:
+        y = (torch.randn(nf, R, C, generator=g) * 4.0).to(dev)
+        got, again, want = K.col_softmax(y), K.col_softmax(y), P.col_softmax(y)
+        graphed = _graph_outputs(lambda: K.col_softmax(y))
+        torch.cuda.synchronize()
+        plan = col_softmax_plan(nf, R)
+        forms.add(plan.form)
+        err = max_err(got, want)
+        label = (f"col_softmax ({nf}, {R}, {C}), form {plan.form}, "
+                 f"{plan.warps} warps")
+        if not err <= 1e-6:
+            fail(f"{label}: max|err| {err:.3e} above 1e-6")
+        if not (torch.equal(_bits(got), _bits(again))
+                and torch.equal(_bits(got), _bits(graphed))):
+            fail(f"{label}: two launches or the graphed launch differ")
+        print(f"    {label}: max|err| {err:.2e}, bit-equal run to run and "
+              "graphed", flush=True)
+    if forms != {0, 1}:
+        fail(f"col_softmax: forms {sorted(forms)} ran, not both")
+    col_softmax_times(dev)
+
+
+def col_softmax_times(dev):
+    """``col_softmax`` at the step's (3, 16, 268), the validation pass's
+    (56, 16, 268) and a `--dim 64` run's (3, 64, 268): device ms per
+    launch in a CUDA graph in turns with ``torch.softmax`` over the same
+    axis and the plain version, beside its bound; eager ms and host us
+    per call, and where the wrapper's host time goes at the step's shape
+    (``_host_profile``). It calls only ``col_softmax``, so it also times an
+    older tree. Returns {shape: (ms, eager ms, host us, softmax ms)}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cpu").manual_seed(10)
+    out = {}
+    for nf, R, C in COL_SOFTMAX_SHAPES[:3]:
+        y = torch.randn(nf, R, C, generator=g).to(dev)
+        k_ms, lib_ms, p_ms = graph_ms([lambda: K.col_softmax(y),
+                                       lambda: torch.softmax(y, 1),
+                                       lambda: P.col_softmax(y)])
+        eager, host = _eager_and_host(lambda: K.col_softmax(y))
+        b_ms, b_by = bound(4.0 * nf * R * C, 8.0 * nf * R * C)
+        print(f"    col_softmax ({nf}, {R}, {C}): {k_ms:.5f} ms per launch "
+              f"(torch.softmax {lib_ms:.5f}, plain {p_ms:.5f}, bound "
+              f"{b_ms:.5f} {b_by}); {eager:.5f} ms eager, host {host:.3f} "
+              "us", flush=True)
+        out[(nf, R, C)] = (k_ms, eager, host, lib_ms)
+        if (nf, R) == (F, 16):
+            _host_profile(lambda: K.col_softmax(y), 2000,
+                          f"col_softmax ({nf}, {R}, {C})")
+    return out
 
 
 # the three-stage gat_attention_bwd that the cluster kernel replaced, per
@@ -2630,21 +2994,6 @@ def check_gat_forward(dev):
                       f"{b_ms:.5f} ms ({b_by})")
         print(f"    {label}: err / scale {err:.2e}, bit-equal, graphed",
               flush=True)
-    # the step's own dropout masks beside the attention: the pools' (F, n,
-    # H d) inputs, forward and adjoint alike
-    seeds = _gat_seeds(dev, F)
-    for n, H, d in GAT_LAYER_SHAPES[:3]:
-        x = rnd(F, n, H * d)
-        mask = lambda ops, x=x, n=n, HD=H * d: ops.philox_keep_mask(
-            seeds, 1, 1, n, HD, 0.01, x, 1 / 0.99)
-        if not torch.equal(mask(K), mask(P)):
-            fail(f"philox_keep_mask on ({F}, {n}, {H * d}) differs")
-        k_ms, p_ms = graph_ms([lambda: mask(K), lambda: mask(P)])
-        b_ms, b_by = bound(60.0 * F * n * H * d, 8.0 * F * n * H * d)
-        print(f"    philox_keep_mask on the pool input ({F}, {n}, {H * d}), "
-              f"drop_p 0.01: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}); 2 launches per step",
-              flush=True)
     print(f"  GAT forward kernels ok: {len(cases)} attention cases (worst y "
           f"err / scale {worst_y:.2e}, alpha err {worst_a:.2e}), "
           f"{len(GAT_POOL_CASES)} pool cases (worst {worst_p:.2e})",
@@ -2683,9 +3032,39 @@ def _gat_step_inputs(dev, data):
     return p, m, v, a0, x0, hr, scal, _gat_seeds(dev, F)
 
 
-def _host_profile(fn, reps):
-    """Where the host's time per eager call goes: cProfile over ``reps``
-    calls, the six functions with the most time of their own (and
+def gat_step_snapshot(dev, path):
+    """One full-width fused GAT step at drop_p 0.01 on ``_gat_step_inputs``
+    (the teacher set's first three subjects, seeded models): loss, p', m'
+    and v' written to ``path`` (.npz). It calls only the step's entry
+    point, so it also runs on an older tree of the port (load this file by
+    path with that tree's root as the working directory);
+    ``compare_gat_snapshots`` then holds two trees' steps to each other."""
+    from fcsr_tpu_torch.data import load_or_synthesize
+    from fcsr_tpu_torch.models.fused_gat import gat_train_step_fused
+
+    data = load_or_synthesize(None, n_train=N_TRAIN, n_test=N_TEST, seed=42)
+    out = gat_train_step_fused(*_gat_step_inputs(dev, data), device=dev,
+                               drop_p=0.01, **GAT_KW)
+    np.savez(path, **{k: t.cpu().numpy()
+                      for k, t in zip(("loss", "p", "m", "v"), out)})
+
+
+def compare_gat_snapshots(a, b, limit=1e-5):
+    """Each array of two ``gat_step_snapshot`` files: max |a - b| over the
+    largest |b| (relative to 1e-30); fails above ``limit``."""
+    a, b = np.load(a), np.load(b)
+    rel = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()
+                    / max(float(np.abs(b[k]).max()), 1e-30)) for k in b}
+    print(f"  GAT step at drop_p 0.01, one tree against the other: max "
+          f"|d| / max |.| {rel} (limit {limit})", flush=True)
+    if not max(rel.values()) <= limit:
+        fail("the two trees' GAT steps differ")
+    return rel
+
+
+def _host_profile(fn, reps, what="the eager step"):
+    """Where the host's time per eager call of ``what`` goes: cProfile over
+    ``reps`` calls, the six functions with the most time of their own (and
     ``torch.cuda.current_stream``, which every launch calls)."""
     import cProfile
     import pstats
@@ -2710,13 +3089,13 @@ def _host_profile(fn, reps):
     # the launch wrapper asks PyTorch for the current stream at every call
     rows += [kv for kv in stats.stats.items()
              if kv[0][2] == "current_stream" and kv not in rows]
-    print(f"  host profile of the eager step: {1e3 * wall:.3f} ms per call by "
-          f"the wall clock ({reps} calls), {1e3 * total / reps:.3f} ms under "
-          f"cProfile; own time and cumulative time per call:")
+    print(f"  host profile of {what}: {1e6 * wall:.2f} us per call by "
+          f"the wall clock ({reps} calls), {1e6 * total / reps:.2f} us under "
+          f"cProfile; own time and cumulative time per call:", flush=True)
     for (path, line, name), (_, ncalls, tt, ct, _) in rows:
         print(f"    {os.path.basename(path)}:{line}({name}): "
-              f"{1e3 * tt / reps:.3f} ms own, {1e3 * ct / reps:.3f} ms "
-              f"cumulative, {ncalls // reps} calls")
+              f"{1e6 * tt / reps:.2f} us own, {1e6 * ct / reps:.2f} us "
+              f"cumulative, {ncalls // reps} calls", flush=True)
 
 
 def check_gat_step(dev, data):
@@ -2806,12 +3185,18 @@ def check_gat_step(dev, data):
         "gat_attention_bwd": 7, "gat_attention_kernel": 7, "gat_pool_adj": 3,
         "rank_select_kernel": 3, "gather_rows_kernel": 3,
         "scatter_rows_kernel": 6, "pool_logits_bwd_kernel": 3,
-        "pool_bwd_pair_kernel": 0}, "GAT step")
+        "pool_bwd_pair_kernel": 0, "philox_drop_logits_kernel": 3,
+        "philox_drop_outer_kernel": 3, "philox_keep_mask_kernel": 0},
+        "GAT step")
     if sum(launches.values()) != GAT_STEP_LAUNCHES or (
             launches.get("scatter_rows"), launches.get("pool_logits_bwd"),
-            launches.get("pool_bwd_pair", 0)) != (6, 3, 0):
+            launches.get("pool_bwd_pair", 0),
+            launches.get("philox_drop_logits"),
+            launches.get("philox_drop_outer"),
+            launches.get("philox_keep_mask", 0)) != (6, 3, 0, 3, 3, 0):
         fail(f"the GAT step launches {launches}: not {GAT_STEP_LAUNCHES} "
-             "with 6 scatter_rows and 3 pool_logits_bwd")
+             "with 6 scatter_rows, 3 pool_logits_bwd, 3 philox_drop_logits, "
+             "3 philox_drop_outer and no philox_keep_mask")
     _host_profile(run_k, 100)
 
     # validation: one model read by a fold's 56 subjects
@@ -3052,8 +3437,11 @@ def main():
         parity_counts = run_parity_cli(dev, os.path.join(WORK_DIR, "data"))
         print("phase 7: the GAT U-Net family", flush=True)
         records.update(check_gat_kernels(dev))
+        keep_counts = run_keep_rate(dev)
         check_gat_reductions(dev)
         check_gat_forward(dev)
+        check_pool_dropout(dev)
+        check_col_softmax(dev)
         check_gat_step(dev, data)
         gat_counts = run_gat_trainer(dev, data)
         gat_cli_counts = run_gat_cli(dev, os.path.join(WORK_DIR, "data"))
@@ -3070,7 +3458,7 @@ def main():
                "replaces": k.replaces,
                "launches": sum(c.get(name, 0) for c in (
                    counts, csv_counts, mode_counts, parity_counts,
-                   gat_counts, gat_cli_counts))}
+                   gat_counts, gat_cli_counts, keep_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@
 // each is bound by bytes on paper and by launch latency in practice. Sums
 // run in a fixed order (no atomics, so results are reproducible); dropout
 // masks are regenerated from (seed, mask, head, element) wherever they are
-// needed, so none is stored between forward and backward. The forward
+// needed, so none is stored between forward and backward: the attention's
+// inside the attention kernels, the pool's inside its two products
+// (philox_drop_logits, philox_drop_outer). The forward
 // runs a block per (band of target rows, head, fold) over its head's
 // staged h, a warp per row; the pooled adjacency runs bands of pooled
 // rows per fold, each block summing every row itself; the adjoint and the
@@ -744,6 +746,83 @@ __global__ void philox_keep_mask_kernel(const int* __restrict__ seeds,
 }
 
 // ---------------------------------------------------------------------------
+// philox_drop_logits / philox_drop_outer: the pool's dropout (mask
+// ``mask_id``, head 0, element r c + col of the fold's (n, c) input) drawn
+// inside the two products that consume it, so no mask and no masked copy
+// makes a launch of its own:
+//   forward  z = (x keep) scale, logits[f, r] = sum_col z[r, col] w[col] + b
+//   adjoint  g_z[f, r, col] = ((gl[f, r] w[col]) keep) scale
+// The forward is gemv_dot's warp per row (bgemm.cu): lanes along the row,
+// each lane's fmaf chain in the same order, warp_sum, then + b, so the
+// logits are bit-equal to philox_keep_mask followed by bgemm_f32 (they
+// feed a top-k, where one ulp can swap a kept node at a near tie). The
+// products are __fmul_rn, as philox_keep_mask's and rank1_kernel's are
+// rounded, so no contraction into an FMA moves a bit. The adjoint writes
+// each row coalesced, ``VEC`` consecutive columns a thread (16-byte stores
+// where c % 4 == 0). Bound: a few hundred KB and one Philox draw per
+// element; at the step's (3, 160..40, 32..128) launch latency. The grid
+// comes from the host (ops.philox_drop_logits_plan /
+// ops.philox_drop_outer_plan).
+// ---------------------------------------------------------------------------
+constexpr int DROP_THREADS = 128;
+constexpr int DROP_WARPS = DROP_THREADS / 32;
+
+__global__ void __launch_bounds__(DROP_THREADS) philox_drop_logits_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, long long sw,
+    const float* __restrict__ b, long long sb, const int* __restrict__ seeds,
+    float* __restrict__ z, float* __restrict__ logits, int n, int c,
+    int mask_id, float drop_p, float scale) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * DROP_WARPS + (threadIdx.x >> 5);
+  const int f = blockIdx.y;
+  if (r >= n) return;  // the whole warp
+  const unsigned k0 = (unsigned)seeds[2 * f], k1 = (unsigned)seeds[2 * f + 1];
+  const size_t row = ((size_t)f * n + r) * c;
+  const float* __restrict__ wf = w + f * sw;
+  const unsigned e0 = (unsigned)r * (unsigned)c;
+  float s = 0.f;
+#pragma unroll 4
+  for (int k = lane; k < c; k += 32) {
+    const float keep = bits_to_keep(
+        philox_word(k0, k1, e0 + (unsigned)k, 0u, (unsigned)mask_id, 0u),
+        drop_p);
+    const float zv = __fmul_rn(__fmul_rn(x[row + k], keep), scale);
+    z[row + k] = zv;
+    s = fmaf(zv, wf[k], s);
+  }
+  s = warp_sum(s);
+  if (lane == 0) logits[(size_t)f * n + r] = s + b[f * sb];
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(DROP_THREADS) philox_drop_outer_kernel(
+    const float* __restrict__ gl, const float* __restrict__ w, long long sw,
+    const int* __restrict__ seeds, float* __restrict__ gz, int n, int c,
+    int mask_id, float drop_p, float scale) {
+  const int f = blockIdx.y;
+  const long long v = blockIdx.x * (long long)DROP_THREADS + threadIdx.x;
+  if (v >= (long long)n * c / VEC) return;
+  const unsigned e = (unsigned)(v * VEC);  // VEC divides c: one row
+  const int r = (int)(e / (unsigned)c), col = (int)(e % (unsigned)c);
+  const unsigned k0 = (unsigned)seeds[2 * f], k1 = (unsigned)seeds[2 * f + 1];
+  const float g = gl[(size_t)f * n + r];
+  const float* __restrict__ wf = w + f * sw + col;
+  float out[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float keep = bits_to_keep(
+        philox_word(k0, k1, e + j, 0u, (unsigned)mask_id, 0u), drop_p);
+    out[j] = __fmul_rn(__fmul_rn(__fmul_rn(g, wf[j]), keep), scale);
+  }
+  float* dst = gz + (size_t)f * n * c + e;
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(out[0], out[1], out[2], out[3]);
+  else
+    dst[0] = out[0];
+}
+
+// ---------------------------------------------------------------------------
 // gat_pool_adj: out[f] = symnorm(g), g = a[f][idx][:, idx] (k x k),
 // r = (rowsum(g) + eps)^-1/2, out = (g r_col) r_row.
 // Grid (bands, F): block b writes the band of R pooled rows [b R, b R + R),
@@ -816,29 +895,97 @@ __global__ void __launch_bounds__(POOL_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// col_softmax / col_softmax_bwd over the rows of (F, R, C): thread per
-// (fold, column). q = softmax over rows; g_y = q (g_q - sum_rows q g_q).
+// col_softmax: q = softmax over the R rows of (F, R, C), column by column
+// (the reference's upsampler: shift by the column max, e = exp(y - max),
+// q = e / sum e, a true division). Grid (column blocks, F): a block takes
+// 32 consecutive columns of a fold, a lane each, so every load and store
+// of a warp is one 128-byte row segment; its warps split the rows. Each y
+// is read once and q written once. The column's max and sum meet across
+// the warps in shared memory, summed in warp order (no atomics: the same
+// bits from run to run). Two forms, planned on the host
+// (ops.col_softmax_plan): up to 128 rows the values stay in registers
+// (CSM_PER = 4 per thread, warps = ceil(R / 4): of 2, 4, 8 and 16 rows a
+// thread, 4 was the fastest at 16 and 64 rows on an H100, PERF.md); past
+// that 32 warps walk the rows and read y again from L2 (three reads).
+// Bound: bytes (R C floats in and out), launch latency at the step's
+// 16 x 268; the old form's thread per column walked the rows three times.
 // ---------------------------------------------------------------------------
-__global__ void col_softmax_kernel(const float* __restrict__ y,
-                                   float* __restrict__ q, int batch, int R,
-                                   int C) {
-  const long long total = (long long)batch * C;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long f = e / C, c = e % C;
-    const float* col = y + f * R * C + c;
-    float* qc = q + f * R * C + c;
-    float mx = -INFINITY;
-    for (int r = 0; r < R; ++r) mx = fmaxf(mx, col[(long long)r * C]);
-    float sum = 0.f;
-    for (int r = 0; r < R; ++r) {
-      const float ev = expf(col[(long long)r * C] - mx);
-      qc[(long long)r * C] = ev;
-      sum += ev;
-    }
-    for (int r = 0; r < R; ++r) qc[(long long)r * C] = qc[(long long)r * C] / sum;
+constexpr int CSM_PER = 4;
+constexpr int CSM_MAX_WARPS = 32;
+
+// max (sum) of the lane's column over the block's W warps, in warp order
+__device__ __forceinline__ float csm_meet(float v, bool is_max, int w, int W,
+                                          float (*red)[32]) {
+  if (W == 1) return v;
+  const int lane = threadIdx.x & 31;
+  red[w][lane] = v;
+  __syncthreads();
+  v = red[0][lane];
+  for (int i = 1; i < W; ++i)
+    v = is_max ? fmaxf(v, red[i][lane]) : v + red[i][lane];
+  __syncthreads();  // red is written again by the next meeting
+  return v;
+}
+
+__global__ void __launch_bounds__(32 * CSM_MAX_WARPS)
+    col_softmax_regs(const float* __restrict__ y, float* __restrict__ q,
+                     int R, int C) {
+  __shared__ float red[CSM_MAX_WARPS][32];
+  const int w = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const int col = blockIdx.x * 32 + (threadIdx.x & 31), f = blockIdx.y;
+  const bool on = col < C;
+  const size_t base = (size_t)f * R * C + col;
+  float v[CSM_PER];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < CSM_PER; ++j) {
+    const int r = w * CSM_PER + j;
+    v[j] = on && r < R ? y[base + (size_t)r * C] : -INFINITY;
+    mx = fmaxf(mx, v[j]);
+  }
+  mx = csm_meet(mx, true, w, W, red);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < CSM_PER; ++j) {
+    v[j] = w * CSM_PER + j < R ? expf(v[j] - mx) : 0.f;
+    s += v[j];
+  }
+  s = csm_meet(s, false, w, W, red);
+  if (!on) return;
+#pragma unroll
+  for (int j = 0; j < CSM_PER; ++j) {
+    const int r = w * CSM_PER + j;
+    if (r < R) q[base + (size_t)r * C] = v[j] / s;
   }
 }
+
+// R past the registers: warp w takes rows w, w + W, ...; the later passes
+// read y again.
+__global__ void __launch_bounds__(32 * CSM_MAX_WARPS)
+    col_softmax_rows(const float* __restrict__ y, float* __restrict__ q,
+                     int R, int C) {
+  __shared__ float red[CSM_MAX_WARPS][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5,
+            W = blockDim.x >> 5;
+  const int col = blockIdx.x * 32 + lane, f = blockIdx.y;
+  const bool on = col < C;
+  const float* __restrict__ yc = y + (size_t)f * R * C + (on ? col : 0);
+  float mx = -INFINITY;
+  for (int r = w; r < R; r += W) mx = fmaxf(mx, on ? yc[(size_t)r * C] : 0.f);
+  mx = csm_meet(mx, true, w, W, red);
+  float s = 0.f;
+  for (int r = w; r < R; r += W) s += expf(yc[(size_t)r * C] - mx);
+  s = csm_meet(s, false, w, W, red);
+  if (!on) return;
+  float* __restrict__ qc = q + (size_t)f * R * C + col;
+  for (int r = w; r < R; r += W)
+    qc[(size_t)r * C] = expf(yc[(size_t)r * C] - mx) / s;
+}
+
+// ---------------------------------------------------------------------------
+// col_softmax_bwd over the rows of (F, R, C): thread per (fold, column),
+// g_y = q (g_q - sum_rows q g_q).
+// ---------------------------------------------------------------------------
 
 __global__ void col_softmax_bwd_kernel(const float* __restrict__ g_q,
                                        const float* __restrict__ q,
@@ -1219,6 +1366,56 @@ extern "C" int fcsr_philox_keep_mask(const int* seeds, const float* x,
   return (int)cudaGetLastError();
 }
 
+// The grids come from the wrapper (ops.philox_drop_logits_plan,
+// ops.philox_drop_outer_plan). Refused: a counter past 32 bits (n c >=
+// 2^32), more folds than the grid's y extent, a grid that does not cover
+// the rows, a missing pointer, 16-byte stores where c % 4 != 0 or g_z is
+// not 16-byte aligned.
+extern "C" int fcsr_philox_drop_logits(const float* x, const float* w,
+                                       long long sw, const float* b,
+                                       long long sb, const int* seeds,
+                                       float* z, float* logits, int batch,
+                                       int n, int c, int blocks, int mask_id,
+                                       float drop_p, float scale,
+                                       void* stream) {
+  if (batch <= 0 || n <= 0 || c <= 0) return 0;
+  if (!x || !w || !b || !seeds || !z || !logits || batch > 65535 ||
+      (long long)n * c >= (1LL << 32) ||
+      (long long)blocks * DROP_WARPS < n ||
+      (long long)(blocks - 1) * DROP_WARPS >= n)
+    return (int)cudaErrorInvalidValue;
+  philox_drop_logits_kernel<<<dim3((unsigned)blocks, (unsigned)batch),
+                              DROP_THREADS, 0, (cudaStream_t)stream>>>(
+      x, w, sw, b, sb, seeds, z, logits, n, c, mask_id, drop_p, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fcsr_philox_drop_outer(const float* gl, const float* w,
+                                      long long sw, const int* seeds,
+                                      float* gz, int batch, int n, int c,
+                                      int blocks, int vec, int mask_id,
+                                      float drop_p, float scale,
+                                      void* stream) {
+  if (batch <= 0 || n <= 0 || c <= 0) return 0;
+  const long long vecs = (long long)n * c / (vec == 4 ? 4 : 1);
+  if (!gl || !w || !seeds || !gz || batch > 65535 ||
+      (long long)n * c >= (1LL << 32) || (vec != 1 && vec != 4) ||
+      (vec == 4 && (c % 4 != 0 || !aligned16(gz))) ||
+      (long long)blocks * DROP_THREADS < vecs ||
+      (long long)(blocks - 1) * DROP_THREADS >= vecs)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)batch);
+  if (vec == 4)
+    philox_drop_outer_kernel<4><<<grid, DROP_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+        gl, w, sw, seeds, gz, n, c, mask_id, drop_p, scale);
+  else
+    philox_drop_outer_kernel<1><<<grid, DROP_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+        gl, w, sw, seeds, gz, n, c, mask_id, drop_p, scale);
+  return (int)cudaGetLastError();
+}
+
 // The plan (bands, rows per band) comes from the wrapper
 // (ops.gat_pool_adj_plan); a plan the card does not allow is refused.
 extern "C" int fcsr_gat_pool_adj(const float* a, const int* idx, float* out,
@@ -1239,10 +1436,21 @@ extern "C" int fcsr_gat_pool_adj(const float* a, const int* idx, float* out,
   return (int)cudaGetLastError();
 }
 
+// The plan (form, warps) comes from the wrapper (ops.col_softmax_plan); a
+// plan that does not cover R is refused.
 extern "C" int fcsr_col_softmax(const float* y, float* q, int batch, int R,
-                                int C, void* stream) {
-  col_softmax_kernel<<<grid_for((long long)batch * C, 128), 128, 0,
-                       (cudaStream_t)stream>>>(y, q, batch, R, C);
+                                int C, int form, int warps, void* stream) {
+  if (batch <= 0 || R <= 0 || C <= 0) return 0;
+  if (!y || !q || batch > 65535 || warps < 1 || warps > CSM_MAX_WARPS ||
+      (form == 0 && (long long)warps * CSM_PER < R) || form < 0 || form > 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((C + 31) / 32), (unsigned)batch);
+  if (form == 0)
+    col_softmax_regs<<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(y, q, R,
+                                                                     C);
+  else
+    col_softmax_rows<<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(y, q, R,
+                                                                     C);
   return (int)cudaGetLastError();
 }
 

@@ -121,8 +121,14 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "tools/experiments/gat_dropout_keeprate.py:32"),
     Kernel("gat_pool_adj", "gat", "fcsr_gat_pool_adj",
            [_P, _P, _P, _I, _I, _I, _F, _I, _I], _GAT_STEP),
+    Kernel("philox_drop_logits", "gat", "fcsr_philox_drop_logits",
+           [_P, _P, _LL, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F],
+           _GAT_STEP),
+    Kernel("philox_drop_outer", "gat", "fcsr_philox_drop_outer",
+           [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F],
+           _GAT_STEP),
     Kernel("col_softmax", "gat", "fcsr_col_softmax",
-           [_P, _P, _I, _I, _I], _GAT_STEP),
+           [_P, _P, _I, _I, _I, _I, _I], _GAT_STEP),
     Kernel("col_softmax_bwd", "gat", "fcsr_col_softmax_bwd",
            [_P, _P, _P, _I, _I, _I], _GAT_STEP),
     Kernel("offdiag_mse", "gat", "fcsr_offdiag_mse",
@@ -1280,6 +1286,108 @@ def philox_keep_mask(seeds, mask_id, heads, rows, cols, drop_p, x=None,
     return out
 
 
+DROP_THREADS = 128      # the pool products' threads per block (gat.cu)
+DROP_WARPS = 4          # ... a warp per row in the forward
+MAX_F = 65535           # a (blocks, F) grid's y extent: the most folds
+
+
+def _drop_checks(what, F, n, c):
+    if F > MAX_F:
+        raise ValueError(f"{what}: {F} folds, at most {MAX_F}")
+    if n * c >= 2 ** 32:
+        raise ValueError(f"{what}: {n} x {c} elements overflow the "
+                         "generator's 32-bit element counter")
+
+
+def philox_drop_logits_plan(F: int, n: int, c: int) -> int:
+    """Blocks per fold of ``philox_drop_logits``: a warp per row of the
+    (n, c) input, ``DROP_WARPS`` rows a block (grid (blocks, F))."""
+    _drop_checks("philox_drop_logits", F, n, c)
+    return max(1, -(-n // DROP_WARPS))
+
+
+class DropPlan(NamedTuple):
+    """``philox_drop_outer``'s launch: grid (``blocks``, F) of
+    ``DROP_THREADS`` threads, ``vec`` consecutive columns a thread."""
+    blocks: int
+    vec: int
+
+
+def philox_drop_outer_plan(F: int, n: int, c: int,
+                           aligned: bool) -> DropPlan:
+    """The launch of ``philox_drop_outer`` over the (n, c) adjoint: 16-byte
+    stores (4 columns a thread) where c % 4 == 0 and g_z is aligned."""
+    _drop_checks("philox_drop_outer", F, n, c)
+    vec = 4 if c % 4 == 0 and aligned else 1
+    return DropPlan(max(1, -(-(n * c // vec) // DROP_THREADS)), vec)
+
+
+def philox_drop_logits_plain(x, w, b, seeds, mask_id, drop_p, scale):
+    _, n, c = x.shape
+    z = philox_keep_mask_plain(seeds, mask_id, 1, n, c, drop_p, x, scale)
+    return z, bgemm_plain(z, w, bias=b)
+
+
+def philox_drop_logits(x, w, b, seeds, mask_id, drop_p, scale):
+    """The pool's forward under dropout: ``z = (x keep) scale`` with the
+    keep mask ``mask_id`` (head 0) of the per-fold ``seeds``, and the
+    logits ``z w + b``: x (F, n, c), w (F, c, 1) and b (F, 1, 1) with
+    contiguous rows and any batch stride. Returns (z (F, n, c), logits
+    (F, n, 1)), the bits of ``philox_keep_mask`` followed by ``bgemm``, in
+    one launch."""
+    F, n, c = x.shape
+    _seeds_ok(seeds, F)
+    if not x.is_cuda:
+        return philox_drop_logits_plain(x, w, b, seeds, mask_id, drop_p,
+                                        scale)
+    _check(x.device, x, w, b)
+    _contig(x)
+    _rows_contig(w)
+    if tuple(w.shape) != (F, c, 1) or b.numel() != F or b.dim() < 2:
+        raise ValueError(f"philox_drop_logits: w {tuple(w.shape)} and b "
+                         f"{tuple(b.shape)} do not fit x {tuple(x.shape)}")
+    blocks = philox_drop_logits_plan(F, n, c)
+    z = torch.empty_like(x)
+    logits = torch.empty(F, n, 1, dtype=torch.float32, device=x.device)
+    KERNELS["philox_drop_logits"](_ptr(x), _ptr(w), w.stride(0), _ptr(b),
+                                  b.stride(0), _ptr(seeds), _ptr(z),
+                                  _ptr(logits), F, n, c, blocks,
+                                  int(mask_id), float(drop_p), float(scale))
+    return z, logits
+
+
+def philox_drop_outer_plain(gl, w, seeds, mask_id, drop_p, scale):
+    n, c = gl.shape[1], w.shape[1]
+    g_z = bgemm_plain(gl, w, tb=True)
+    return philox_keep_mask_plain(seeds, mask_id, 1, n, c, drop_p, g_z,
+                                  scale)
+
+
+def philox_drop_outer(gl, w, seeds, mask_id, drop_p, scale):
+    """The pool's input adjoint under dropout: ``g_z = ((gl w^T) keep)
+    scale`` for gl (F, n, 1) and w (F, c, 1) (contiguous rows, any batch
+    stride), keep the mask of ``philox_drop_logits``: the bits of the
+    rank-1 ``bgemm`` followed by ``philox_keep_mask``, in one launch."""
+    F, n = gl.shape[0], gl.shape[1]
+    _seeds_ok(seeds, F)
+    if not gl.is_cuda:
+        return philox_drop_outer_plain(gl, w, seeds, mask_id, drop_p, scale)
+    _check(gl.device, gl, w)
+    _contig(gl)
+    _rows_contig(w)
+    c = w.shape[1]
+    if tuple(gl.shape) != (F, n, 1) or tuple(w.shape) != (F, c, 1):
+        raise ValueError(f"philox_drop_outer: gl {tuple(gl.shape)} and w "
+                         f"{tuple(w.shape)} are not (F, n, 1), (F, c, 1)")
+    g_z = torch.empty(F, n, c, dtype=torch.float32, device=gl.device)
+    plan = philox_drop_outer_plan(F, n, c, g_z.data_ptr() % 16 == 0)
+    KERNELS["philox_drop_outer"](_ptr(gl), _ptr(w), w.stride(0),
+                                 _ptr(seeds), _ptr(g_z), F, n, c,
+                                 plan.blocks, plan.vec, int(mask_id),
+                                 float(drop_p), float(scale))
+    return g_z
+
+
 def _drop_scale(drop_p):
     return 1.0 / (1.0 - drop_p)
 
@@ -1657,15 +1765,42 @@ def col_softmax_plain(y):
     return e / e.sum(1, keepdim=True)
 
 
+CSM_PER = 4             # col_softmax's rows a thread keeps in registers
+CSM_MAX_WARPS = 32      # ... its most warps a block
+CSM_REG_ROWS = CSM_PER * CSM_MAX_WARPS   # the most rows kept in registers
+
+
+class SoftmaxPlan(NamedTuple):
+    """col_softmax's launch, grid (ceil(C / 32), F): ``form`` 0 keeps the
+    values in registers, 1 reads y again; ``warps`` split the rows."""
+    form: int
+    warps: int
+
+
+@functools.lru_cache(maxsize=None)
+def col_softmax_plan(F: int, R: int) -> SoftmaxPlan:
+    """The launch of ``col_softmax`` over (F, R, C): up to
+    ``CSM_REG_ROWS`` rows, ceil(R / 4) warps holding 4 rows each in
+    registers; past that 32 warps over y itself. Every R runs."""
+    if F > MAX_F:
+        raise ValueError(f"col_softmax: {F} folds, at most {MAX_F}")
+    if R <= CSM_REG_ROWS:
+        return SoftmaxPlan(0, max(1, -(-R // CSM_PER)))
+    return SoftmaxPlan(1, CSM_MAX_WARPS)
+
+
 def col_softmax(y):
-    """Softmax over the rows (axis 1) of (F, R, C), column by column."""
+    """Softmax over the rows (axis 1) of (F, R, C), column by column: one
+    launch, a block per (fold, 32 columns), each y read once up to 128
+    rows (``col_softmax_plan``)."""
     if not y.is_cuda:
         return col_softmax_plain(y)
     _check(y.device, y)
     _contig(y)
     F, R, C = y.shape
+    form, warps = col_softmax_plan(F, R)
     q = torch.empty_like(y)
-    KERNELS["col_softmax"](_ptr(y), _ptr(q), F, R, C)
+    KERNELS["col_softmax"](_ptr(y), _ptr(q), F, R, C, form, warps)
     return q
 
 
@@ -1831,7 +1966,8 @@ _OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
         "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
         "loss_terms", "adam_masked", "anti_vectorize_normalize",
         "vectorize_colmajor", "normalize_adj_batch", "gat_attention",
-        "gat_attention_bwd", "philox_keep_mask", "gat_pool_adj",
+        "gat_attention_bwd", "philox_keep_mask", "philox_drop_logits",
+        "philox_drop_outer", "gat_pool_adj",
         "col_softmax", "col_softmax_bwd", "offdiag_mse", "offdiag_mae",
         "adamw_masked")
 # launch the kernel for CUDA tensors, the plain version for CPU tensors

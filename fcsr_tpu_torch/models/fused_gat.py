@@ -13,8 +13,12 @@ head's product, bias, relu), per pool the scores' product, one
 ``offdiag_mse`` losses, which also give each product's cotangent; then every
 adjoint written out (``gat_attention_bwd``, ``col_softmax_bwd``, the row
 scatter / gather) and one ``adamw_masked`` launch over the flat (F, P)
-buffers. Dropout masks come from the counter-based ``philox_keep_mask``
-generator keyed by per-fold seeds, drawn again wherever they are needed.
+buffers. Dropout masks come from a counter-based Philox generator keyed by
+per-fold seeds and are never stored: the attention kernels draw theirs,
+and each pool's mask is drawn inside its two products
+(``philox_drop_logits``: the masked input and its scores;
+``philox_drop_outer``: the masked input adjoint). ``philox_keep_mask``
+dumps any mask (``draw_masks``).
 
 As in ``fused_step.py`` the step is written once over an op namespace:
 ``gat_train_step_fused`` / ``gat_val_fused`` use ``kernels.KERNEL_OPS``
@@ -279,11 +283,14 @@ def _forward(ops, P, a0, x0, hr, spec: _Spec, seeds, train: bool):
         x, rec = layer(f"down_gcns_{i}", a, x)
         res["down"].append(rec)
         res["a_hist"].append(a)
-        z = x
-        if drop_p > 0:
-            z = ops.philox_keep_mask(seeds, ids[f"pool_{i}"], 1, x.shape[1],
-                                     x.shape[2], drop_p, x, scale)
-        logits = bg(z, P[f"pools_{i}.kernel"], bias=P[f"pools_{i}.bias"])
+        if drop_p > 0:       # the mask drawn inside the scores' product
+            z, logits = ops.philox_drop_logits(
+                x, P[f"pools_{i}.kernel"], P[f"pools_{i}.bias"], seeds,
+                ids[f"pool_{i}"], drop_p, scale)
+        else:
+            z = x
+            logits = bg(x, P[f"pools_{i}.kernel"],
+                        bias=P[f"pools_{i}.bias"])
         s, idx, vals, slot, pre, xp = ops.rank_select(logits.view(F, -1),
                                                       sizes[i], 1.0, src=x)
         a = ops.gat_pool_adj(a, idx)
@@ -353,11 +360,11 @@ def _backward(ops, P, G, res, spec: _Spec, seeds):
         gl = gl.view(gl.shape[0], -1, 1)
         bg(z, gl, ta=True, out=G[f"pools_{i}.kernel"])
         bg(None, gl, out=G[f"pools_{i}.bias"])
-        g_z = bg(gl, P[f"pools_{i}.kernel"], tb=True)
         if drop_p > 0:
-            g_z = ops.philox_keep_mask(seeds, ids[f"pool_{i}"], 1,
-                                       g_z.shape[1], g_z.shape[2], drop_p,
-                                       g_z, scale)
+            g_z = ops.philox_drop_outer(gl, P[f"pools_{i}.kernel"], seeds,
+                                        ids[f"pool_{i}"], drop_p, scale)
+        else:
+            g_z = bg(gl, P[f"pools_{i}.kernel"], tb=True)
         g_y = ops.scatter_rows(g_x, slot, vals, g_z)
         g_x = layer_bwd(f"down_gcns_{i}", res["down"][i], g_y,
                         need_input=i > 0)

@@ -271,7 +271,7 @@ def test_kernel_bindings_match_c_signatures():
     on the card, where nothing type-checks the call."""
     csrc = Path(__file__).resolve().parents[1] / "fcsr_tpu_torch" / \
         "kernels" / "csrc"
-    assert len(KERNELS) == 26 and {"anti_vectorize_normalize",
+    assert len(KERNELS) == 28 and {"anti_vectorize_normalize",
                                    "vectorize_colmajor",
                                    "normalize_adj_batch",
                                    "loss_terms"} <= set(KERNELS)

@@ -504,8 +504,9 @@ def test_gat_kernel_bindings_match_c_signatures():
     gat = [k for k in KERNELS.values() if k.source == "gat"]
     assert {k.name for k in gat} == {
         "gat_attention", "gat_attention_bwd", "philox_keep_mask",
-        "gat_pool_adj", "col_softmax", "col_softmax_bwd", "offdiag_mse",
-        "offdiag_mae", "adamw_masked"}
+        "philox_drop_logits", "philox_drop_outer", "gat_pool_adj",
+        "col_softmax", "col_softmax_bwd", "offdiag_mse", "offdiag_mae",
+        "adamw_masked"}
     for k in gat:
         m = re.search(r'extern "C" int ' + k.symbol + r"\((.*?)\)\s*\{", src,
                       re.S)
