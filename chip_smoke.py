@@ -12,11 +12,18 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    CUDA versions, the build time) with TF32 switched off;
 2. holds every kernel against its plain PyTorch version on the card at the
    shapes of the main path, and times both (CUDA graphs, in turns, with
-   the library call where there is one); ``tail_normalize_bwd`` also at
-   other widths and fold counts, bit-equal run to run and over its rows
-   per band, and ``add_bias`` on the step's views and on views 1-3 floats
-   off 16 bytes; the two cluster reductions beyond their record
-   (``check_tail_reductions``): ``tail_normalize`` at the adjoint's widths,
+   the library call where there is one);
+   ``anti_vectorize_normalize`` in each form of its plan (the copy and
+   the normalised cluster) at the CSV path's shapes, at 2-268 and 1300
+   nodes and at 65 537 matrices, with trailing entries, a diagonal fill
+   and the row-sum guard (``check_triu_kernels``), then timed at the CSV
+   path's three shapes, warm and with L2 flushed (``triu_times``, which
+   also times an older tree);
+   ``tail_normalize_bwd`` also at other widths and fold counts,
+   bit-equal run to run and over its rows per band, and ``add_bias`` on
+   the step's views and on views 1-3 floats off 16 bytes; the two cluster
+   reductions beyond their record (``check_tail_reductions``):
+   ``tail_normalize`` at the adjoint's widths,
    on a zero row and an inf entry, ``l1_term`` at the step's three call
    signatures (the ``FlatLayout`` leaf view among them) and on views 1-3
    floats off 16 bytes, with exact ties; the pool (``check_pools``):
@@ -97,9 +104,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    seeds, bit-equal to the two-launch pairs they replaced and to their
    plain versions (the logits within 1e-5), eager and graphed, then timed
    beside the pairs (``pool_dropout_times``, which also times an older
-   tree); ``col_softmax`` at R 16 (F 3 / 56), 64 and 200, both forms
-   of its plan, within 1e-6 and bit-equal run to run and graphed, then
-   timed beside ``torch.softmax`` (``col_softmax_times``); one
+   tree); ``col_softmax`` and its adjoint ``col_softmax_bwd`` at R 16
+   (F 3 / 56), 64 and 200, both forms of their plan, within 1e-6 and
+   bit-equal run to run and graphed, then timed beside ``torch.softmax``
+   and ``torch._softmax_backward_data`` (``col_softmax_times``,
+   ``col_softmax_bwd_times``, which also time an older tree); one
    fused step against the plain step and against autograd over the plain
    loss (loss, 36 gradients, p', m', v'), eager and as one CUDA graph,
    with 7 ``gat_attention_bwd``, 7 ``gat_attention``, 3
@@ -487,12 +496,40 @@ def _colmajor_flat_index(n, dev):
     return torch.from_numpy((i * n + j).astype(np.int64)).to(dev)
 
 
+# anti_vectorize_normalize beyond its record: the CSV path's three
+# launches (B, n), the CPU tests' tile-run sizes, a large n, and batches
+# past the grid's y extent of 65 535 matrices
+TRIU_CSV_SHAPES = ((N_TRAIN, LR), (N_TRAIN, HR), (N_TEST, LR))
+ANTIVEC_SIZES = (2, 3, 31, 32, 33, 64, LR, HR)
+ANTIVEC_LARGE = (2, 1300)
+ANTIVEC_PAST_GRID_Y = 65537
+# the copy's output rows beside n = 268's 1 072 bytes: rows of a multiple
+# of 32 bytes (256, 264 with 16-byte rows, 272) at the CSV path's B
+ANTIVEC_ROW_SIZES = (256, 264, 272)
+
+
+def _antivec_vectors(B, n, g, dev, extra=0, pad=0):
+    """(B, m + extra) vectors in [0, 1) with -0.0 entries: a view of rows
+    ``pad`` floats longer (trailing entries, a row stride past them)."""
+    m = n * (n - 1) // 2
+    buf = torch.rand(B, m + extra + pad, generator=g)
+    buf[:, ::7] = -0.0
+    return buf.to(dev)[:, :m + extra]
+
+
 def check_triu_kernels(dev):
-    """The data-path kernels beyond their main record: every main-path
-    shape with and without normalisation (timed), small odd sizes,
-    trailing vector entries, a diagonal fill, and the guard (a zero row
-    sum gives 0, a negative one NaN, on both sides)."""
+    """The data-path kernels beyond their main record.
+    ``anti_vectorize_normalize`` in both forms of its plan (the copy, the
+    normalised cluster), each with and without 16-byte stores, at the CSV
+    path's shapes, the tile-run sizes 2 to 268 with trailing entries and a
+    longer row stride, n 1300 / 1301 and 65 537 matrices (past the grid's
+    y extent), with and without a diagonal fill: the copy bit-equal to the
+    plain version (-0.0 entries made +0.0), the normalised form within
+    1e-6, each bit-equal run to run and graphed; then ``triu_times``. ``vectorize_colmajor`` and
+    ``normalize_adj_batch`` at small odd sizes, and the guard (a zero row
+    sum gives 0, a negative one NaN) in both normalising kernels."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import antivec_plan
 
     g = torch.Generator(device="cpu").manual_seed(2)
 
@@ -506,58 +543,143 @@ def check_triu_kernels(dev):
             fail(f"{name}: max|err| {err:.3e} above {limit:.1e}")
         return err
 
-    for B, n in ((N_TRAIN, LR), (N_TRAIN, HR), (N_TEST, LR)):
-        m = n * (n - 1) // 2
-        v = torch.rand(B, m, generator=g).to(dev)
+    props = torch.cuda.get_device_properties(dev)
+    cases = [(B, n, 0, 0, 0.0) for B, n in TRIU_CSV_SHAPES]
+    cases += [(3, n, 7, 5, fill) for n in ANTIVEC_SIZES for fill in (0.0,
+                                                                     1.0)]
+    cases += [ANTIVEC_LARGE + (7, 5, 0.0), (2, ANTIVEC_LARGE[1] + 1, 7, 5,
+                                           1.0)]
+    cases += [(ANTIVEC_PAST_GRID_Y, 3, 7, 5, 0.0),
+              (ANTIVEC_PAST_GRID_Y, 4, 0, 0, 1.0)]
+    forms, worst = set(), 0.0
+    for B, n, extra, pad, fill in cases:
+        v = _antivec_vectors(B, n, g, dev, extra, pad)
         for norm in (False, True):
-            err = same(f"anti_vectorize_normalize B={B} n={n} norm={norm}",
-                       K.anti_vectorize_normalize(v, n, norm),
-                       P.anti_vectorize_normalize(v, n, norm),
-                       1e-6 if norm else 0.0)
-            k_ms = device_ms(lambda: K.anti_vectorize_normalize(v, n, norm))
-            p_ms = device_ms(lambda: P.anti_vectorize_normalize(v, n, norm))
-            b_ms, _ = bound(3.0 * B * n * n if norm else 0.0,
-                            4.0 * B * (m + n * n))
-            print(f"    anti_vectorize_normalize B={B} n={n} normalize="
-                  f"{int(norm)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {b_ms:.5f} ms, max|err| {err:.2e}")
+            kern = lambda: K.anti_vectorize_normalize(v, n, norm, fill)
+            got, again = kern(), kern()
+            want = P.anti_vectorize_normalize(v, n, norm, fill)
+            graphed = _graph_outputs(kern)
+            plan = antivec_plan(B, n, norm,
+                                props.shared_memory_per_block_optin,
+                                props.multi_processor_count)
+            forms.add((plan.form, plan.vec))
+            label = (f"anti_vectorize_normalize B={B} n={n} norm={int(norm)}"
+                     f" fill={fill} form {plan.form}")
+            err = same(label, got, want, 1e-6 if norm else 0.0)
+            worst = max(worst, err)
+            if not norm and not torch.equal(_bits(got), _bits(want)):
+                fail(f"{label}: not bit-equal to the plain version")
+            if not (torch.equal(_bits(got), _bits(again))
+                    and torch.equal(_bits(got), _bits(graphed))):
+                fail(f"{label}: two launches or the graphed launch differ")
+    if forms != {(f, v) for f in (0, 1) for v in (False, True)}:
+        fail(f"anti_vectorize_normalize: (form, 16-byte) {sorted(forms)} "
+             "ran, not all four")
+    print(f"  anti_vectorize_normalize: {len(cases)} shapes x normalize 0 / 1"
+          f", (form, 16-byte) {sorted(forms)}: the copy bit-equal, "
+          f"normalised max|err| "
+          f"{worst:.2e}, bit-equal run to run and graphed", flush=True)
     for n in (2, 3, 33, LR, HR):
-        m = n * (n - 1) // 2
         mats = torch.randn(5, n, n, generator=g).to(dev)
         same(f"vectorize_colmajor n={n}", K.vectorize_colmajor(mats),
              P.vectorize_colmajor(mats), 0.0)
-        v = torch.rand(5, m + 7, generator=g).to(dev)      # trailing entries
-        same(f"anti_vectorize n={n} trailing", K.anti_vectorize_normalize(
-            v, n, False), P.anti_vectorize_normalize(v, n, False), 0.0)
-        same(f"anti_vectorize n={n} fill", K.anti_vectorize_normalize(
-            v, n, True, 1.0), P.anti_vectorize_normalize(v, n, True, 1.0),
-            1e-6)
         a = torch.rand(5, n, n, generator=g).to(dev)
         same(f"normalize_adj_batch n={n}", K.normalize_adj_batch(a),
              P.normalize_adj_batch(a), 1e-6)
     # the guard: row 1 sums to zero, row 2 to a negative number
-    n = 33
-    v = torch.rand(3, n * (n - 1) // 2, generator=g)
-    dense = P.anti_vectorize_normalize(v, n, False)
-    dense[:, 1, :] = 0.0
-    dense[:, :, 1] = 0.0
-    dense[:, 2, 5] = dense[:, 5, 2] = -40.0
-    rows, cols = np.triu_indices(n, 1)
-    v = dense[:, rows, cols].contiguous().to(dev)
-    dense = dense.to(dev)
-    for name, got, want in (
-            ("anti_vectorize_normalize",
-             K.anti_vectorize_normalize(v, n, True),
-             P.anti_vectorize_normalize(v, n, True)),
-            ("normalize_adj_batch", K.normalize_adj_batch(dense),
-             P.normalize_adj_batch(dense))):
-        same(f"{name} guard", got, want, 1e-6)
-        if not (bool((got[:, 1, 3] == 0).all())
-                and bool(torch.isnan(got[:, 2]).all())
-                and bool(torch.isfinite(got[:, 3, 4]).all())):
-            fail(f"{name}: zero row sum must give 0, a negative one NaN")
+    for n in (33, 70):
+        v = torch.rand(3, n * (n - 1) // 2, generator=g)
+        dense = P.anti_vectorize_normalize(v, n, False)
+        dense[:, 1, :] = 0.0
+        dense[:, :, 1] = 0.0
+        dense[:, 2, 5] = dense[:, 5, 2] = -4.0 * n
+        rows, cols = np.triu_indices(n, 1)
+        v = dense[:, rows, cols].contiguous().to(dev)
+        dense = dense.to(dev)
+        for name, got, want in (
+                ("anti_vectorize_normalize",
+                 K.anti_vectorize_normalize(v, n, True),
+                 P.anti_vectorize_normalize(v, n, True)),
+                ("normalize_adj_batch", K.normalize_adj_batch(dense),
+                 P.normalize_adj_batch(dense))):
+            same(f"{name} guard n={n}", got, want, 1e-6)
+            if not (bool((got[:, 1, 3] == 0).all())
+                    and bool(torch.isnan(got[:, 2]).all())
+                    and bool(torch.isfinite(got[:, 3, 4]).all())):
+                fail(f"{name}: zero row sum must give 0, a negative one NaN")
     print("  data-path kernels: shapes, odd sizes, trailing entries, "
           "diagonal fill and the zero / negative row-sum guard ok")
+    triu_times(dev)
+
+
+def cold_ms(fn, reps: int = 11) -> float:
+    """Device ms of one call with nothing of its inputs in L2: before each
+    call 256 MB (five times the H100's 50 MB L2) are written, which also
+    keeps the device busy while the host launches the call; the median
+    over ``reps`` calls by CUDA events."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                        device=torch.cuda.current_device())
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del flush
+    return statistics.median(times)
+
+
+def triu_times(dev):
+    """``anti_vectorize_normalize`` at the CSV path's three shapes, at
+    normalize 0 and 1: device ms per launch in a CUDA graph, in turns with
+    its plain version (v, 8.5-24 MB, stays in L2 across the graph's
+    launches), and cold (``cold_ms``: L2 flushed before each launch, as
+    the CSV path's one launch a command finds it), beside its bound (v
+    read once, B n^2 floats written; normalised also 3 B n^2 FLOPs);
+    eager ms and host us per call (``_eager_and_host``); then the copy at
+    ``ANTIVEC_ROW_SIZES``, warm and cold. It calls only the public
+    wrapper, so it also times an older tree of the port (load this file
+    by path with that tree's root as the working directory). Returns
+    {(B, n, normalize): (ms, cold ms, eager ms, host us, plain ms)}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    out = {}
+    for B, n in TRIU_CSV_SHAPES:
+        m = n * (n - 1) // 2
+        v = torch.rand(B, m, generator=g).to(dev)
+        for norm in (False, True):
+            kern = lambda: K.anti_vectorize_normalize(v, n, norm)
+            k_ms, p_ms = graph_ms(
+                [kern, lambda: P.anti_vectorize_normalize(v, n, norm)])
+            cold = cold_ms(kern)
+            eager, host = _eager_and_host(kern)
+            b_ms, b_by = bound(3.0 * B * n * n if norm else 0.0,
+                               4.0 * B * (m + n * n))
+            print(f"    anti_vectorize_normalize B={B} n={n} normalize="
+                  f"{int(norm)}: {k_ms:.5f} ms per launch (plain {p_ms:.5f},"
+                  f" bound {b_ms:.5f} {b_by}), cold {cold:.5f}; {eager:.5f} "
+                  f"ms eager, host {host:.3f} us", flush=True)
+            out[(B, n, norm)] = (k_ms, cold, eager, host, p_ms)
+    B = N_TRAIN
+    for n in ANTIVEC_ROW_SIZES:
+        m = n * (n - 1) // 2
+        v = torch.rand(B, m, generator=g).to(dev)
+        kern = lambda: K.anti_vectorize_normalize(v, n, False)
+        k_ms = graph_ms([kern])[0]
+        cold = cold_ms(kern)
+        b_ms, _ = bound(0.0, 4.0 * B * (m + n * n))
+        print(f"    anti_vectorize_normalize B={B} n={n} normalize=0 (rows "
+              f"of {4 * n} bytes): {k_ms:.5f} ms per launch, cold "
+              f"{cold:.5f} (bound {b_ms:.5f} bytes)", flush=True)
+        out[(B, n, False)] = (k_ms, cold, None, None, None)
+    return out
 
 
 # (F, m) of the tail adjoint beyond its main record: odd and wider widths,
@@ -2562,9 +2684,10 @@ def pool_dropout_times(dev):
 
 
 def check_col_softmax(dev):
-    """Phase 7.1e: ``col_softmax`` at every ``COL_SOFTMAX_SHAPES`` entry
-    (each form of its plan) within 1e-6 of its plain version and bit-equal
-    run to run and graphed; then ``col_softmax_times``."""
+    """Phase 7.1e: ``col_softmax`` and its adjoint ``col_softmax_bwd`` at
+    every ``COL_SOFTMAX_SHAPES`` entry (each form of their plan) within
+    1e-6 of their plain versions' scale and bit-equal run to run and
+    graphed; then ``col_softmax_times`` and ``col_softmax_bwd_times``."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
     from fcsr_tpu_torch.kernels.ops import col_softmax_plan
 
@@ -2572,24 +2695,32 @@ def check_col_softmax(dev):
     forms = set()
     for nf, R, C in COL_SOFTMAX_SHAPES:
         y = (torch.randn(nf, R, C, generator=g) * 4.0).to(dev)
-        got, again, want = K.col_softmax(y), K.col_softmax(y), P.col_softmax(y)
-        graphed = _graph_outputs(lambda: K.col_softmax(y))
-        torch.cuda.synchronize()
+        g_q = torch.randn(nf, R, C, generator=g).to(dev)
+        q = P.col_softmax(y)
         plan = col_softmax_plan(nf, R)
         forms.add(plan.form)
-        err = max_err(got, want)
-        label = (f"col_softmax ({nf}, {R}, {C}), form {plan.form}, "
-                 f"{plan.warps} warps")
-        if not err <= 1e-6:
-            fail(f"{label}: max|err| {err:.3e} above 1e-6")
-        if not (torch.equal(_bits(got), _bits(again))
-                and torch.equal(_bits(got), _bits(graphed))):
-            fail(f"{label}: two launches or the graphed launch differ")
-        print(f"    {label}: max|err| {err:.2e}, bit-equal run to run and "
-              "graphed", flush=True)
+        for name, kern, plain in (
+                ("col_softmax", lambda: K.col_softmax(y),
+                 lambda: P.col_softmax(y)),
+                ("col_softmax_bwd", lambda: K.col_softmax_bwd(g_q, q),
+                 lambda: P.col_softmax_bwd(g_q, q))):
+            got, again, want = kern(), kern(), plain()
+            graphed = _graph_outputs(kern)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            label = (f"{name} ({nf}, {R}, {C}), form {plan.form}, "
+                     f"{plan.warps} warps")
+            if not err <= 1e-6 * scale_of(want):
+                fail(f"{label}: max|err| {err:.3e} above 1e-6")
+            if not (torch.equal(_bits(got), _bits(again))
+                    and torch.equal(_bits(got), _bits(graphed))):
+                fail(f"{label}: two launches or the graphed launch differ")
+            print(f"    {label}: max|err| {err:.2e}, bit-equal run to run "
+                  "and graphed", flush=True)
     if forms != {0, 1}:
         fail(f"col_softmax: forms {sorted(forms)} ran, not both")
     col_softmax_times(dev)
+    col_softmax_bwd_times(dev)
 
 
 def col_softmax_times(dev):
@@ -2620,6 +2751,37 @@ def col_softmax_times(dev):
         if (nf, R) == (F, 16):
             _host_profile(lambda: K.col_softmax(y), 2000,
                           f"col_softmax ({nf}, {R}, {C})")
+    return out
+
+
+def col_softmax_bwd_times(dev):
+    """``col_softmax_bwd`` at ``col_softmax_times``' three shapes: device
+    ms per launch in a CUDA graph in turns with
+    ``torch._softmax_backward_data`` over the same axis and the plain
+    version, beside its bound (q and g_q read, g_y written); eager ms and
+    host us per call. It calls only ``col_softmax`` and
+    ``col_softmax_bwd``, so it also times an older tree. Returns {shape:
+    (ms, eager ms, host us, library ms, plain ms)}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    out = {}
+    for nf, R, C in COL_SOFTMAX_SHAPES[:3]:
+        q = K.col_softmax(torch.randn(nf, R, C, generator=g).to(dev))
+        g_q = torch.randn(nf, R, C, generator=g).to(dev)
+        kern = lambda: K.col_softmax_bwd(g_q, q)
+        k_ms, lib_ms, p_ms = graph_ms(
+            [kern, lambda: torch._softmax_backward_data(g_q, q, 1,
+                                                        torch.float32),
+             lambda: P.col_softmax_bwd(g_q, q)])
+        eager, host = _eager_and_host(kern)
+        b_ms, b_by = bound(4.0 * nf * R * C, 12.0 * nf * R * C)
+        print(f"    col_softmax_bwd ({nf}, {R}, {C}): {k_ms:.5f} ms per "
+              f"launch (torch._softmax_backward_data {lib_ms:.5f}, plain "
+              f"{p_ms:.5f}, bound {b_ms:.5f} {b_by}); {eager:.5f} ms eager, "
+              f"host {host:.3f} us", flush=True)
+        out[(nf, R, C)] = (k_ms, eager, host, lib_ms, p_ms)
     return out
 
 

@@ -95,6 +95,18 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
+// The tile pair of block p: p = tj (tj + 1) / 2 + ti, 0 <= ti <= tj; a
+// float square root, then an integer correction that makes it exact
+// (ops.sym_pair is its Python twin; tail.cu's symmetric pair and triu.cu's
+// anti-vectorize walk their mirrored tiles by it).
+__device__ __forceinline__ void sym_pair(int p, int& ti, int& tj) {
+  long long t = (long long)((sqrtf(8.f * (float)p + 1.f) - 1.f) * 0.5f);
+  while (t * (t + 1) / 2 > p) --t;
+  while ((t + 1) * (t + 2) / 2 <= p) ++t;
+  tj = (int)t;
+  ti = (int)(p - t * (t + 1) / 2);
+}
+
 // 16-byte accesses need 16-byte-aligned addresses.
 __host__ __device__ static inline bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;

@@ -983,25 +983,72 @@ __global__ void __launch_bounds__(32 * CSM_MAX_WARPS)
 }
 
 // ---------------------------------------------------------------------------
-// col_softmax_bwd over the rows of (F, R, C): thread per (fold, column),
-// g_y = q (g_q - sum_rows q g_q).
+// col_softmax_bwd: g_y = q (g_q - sum_rows q g_q) over the R rows of
+// (F, R, C), the adjoint of col_softmax, in its layout and plan: grid
+// (column blocks, F), a lane a column (every load and store of a warp one
+// 128-byte row segment), the warps splitting the rows. Up to 128 rows
+// (form 0) each warp keeps its CSM_PER rows of q and g_q in registers:
+// its lanes' partial dots meet across the warps once in shared memory,
+// summed in warp order (no atomics: the same bits run to run), then each
+// warp writes its own rows; q and g_q are read once and g_y written once.
+// Past that (form 1) 32 warps walk the rows and read q and g_q again.
+// Bound: bytes (3 R C floats), launch latency at the step's 16 x 268; the
+// first form's thread per column walked its rows twice in serial chains
+// on 7 of the card's SMs.
 // ---------------------------------------------------------------------------
 
-__global__ void col_softmax_bwd_kernel(const float* __restrict__ g_q,
-                                       const float* __restrict__ q,
-                                       float* __restrict__ g_y, int batch,
-                                       int R, int C) {
-  const long long total = (long long)batch * C;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long f = e / C, c = e % C, base = f * R * C + c;
-    float dot = 0.f;
-    for (int r = 0; r < R; ++r)
-      dot += q[base + (long long)r * C] * g_q[base + (long long)r * C];
-    for (int r = 0; r < R; ++r)
-      g_y[base + (long long)r * C] =
-          q[base + (long long)r * C] * (g_q[base + (long long)r * C] - dot);
+__global__ void __launch_bounds__(32 * CSM_MAX_WARPS)
+    col_softmax_bwd_regs(const float* __restrict__ g_q,
+                         const float* __restrict__ q, float* __restrict__ g_y,
+                         int R, int C) {
+  __shared__ float red[CSM_MAX_WARPS][32];
+  const int w = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const int col = blockIdx.x * 32 + (threadIdx.x & 31), f = blockIdx.y;
+  const bool on = col < C;
+  const size_t base = (size_t)f * R * C + col;
+  float qv[CSM_PER], gv[CSM_PER];
+#pragma unroll
+  for (int j = 0; j < CSM_PER; ++j) {
+    const int r = w * CSM_PER + j;
+    const bool in = on && r < R;
+    qv[j] = in ? q[base + (size_t)r * C] : 0.f;
+    gv[j] = in ? g_q[base + (size_t)r * C] : 0.f;
   }
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < CSM_PER; ++j) dot = fmaf(qv[j], gv[j], dot);
+  dot = csm_meet(dot, false, w, W, red);
+  if (!on) return;
+#pragma unroll
+  for (int j = 0; j < CSM_PER; ++j) {
+    const int r = w * CSM_PER + j;
+    if (r < R) g_y[base + (size_t)r * C] = qv[j] * (gv[j] - dot);
+  }
+}
+
+// R past the registers: warp w takes rows w, w + W, ...; the writes read q
+// and g_q again.
+__global__ void __launch_bounds__(32 * CSM_MAX_WARPS)
+    col_softmax_bwd_rows(const float* __restrict__ g_q,
+                         const float* __restrict__ q, float* __restrict__ g_y,
+                         int R, int C) {
+  __shared__ float red[CSM_MAX_WARPS][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5,
+            W = blockDim.x >> 5;
+  const int col = blockIdx.x * 32 + lane, f = blockIdx.y;
+  const bool on = col < C;
+  const size_t base = (size_t)f * R * C + (on ? col : 0);
+  const float* __restrict__ qc = q + base;
+  const float* __restrict__ gc = g_q + base;
+  float dot = 0.f;
+  if (on)
+    for (int r = w; r < R; r += W)
+      dot = fmaf(qc[(size_t)r * C], gc[(size_t)r * C], dot);
+  dot = csm_meet(dot, false, w, W, red);
+  if (!on) return;
+  float* __restrict__ yc = g_y + base;
+  for (int r = w; r < R; r += W)
+    yc[(size_t)r * C] = qc[(size_t)r * C] * (gc[(size_t)r * C] - dot);
 }
 
 // ---------------------------------------------------------------------------
@@ -1454,11 +1501,23 @@ extern "C" int fcsr_col_softmax(const float* y, float* q, int batch, int R,
   return (int)cudaGetLastError();
 }
 
+// col_softmax's plan (ops.col_softmax_plan) serves its adjoint too; a plan
+// that does not cover R is refused.
 extern "C" int fcsr_col_softmax_bwd(const float* g_q, const float* q,
                                     float* g_y, int batch, int R, int C,
-                                    void* stream) {
-  col_softmax_bwd_kernel<<<grid_for((long long)batch * C, 128), 128, 0,
-                           (cudaStream_t)stream>>>(g_q, q, g_y, batch, R, C);
+                                    int form, int warps, void* stream) {
+  if (batch <= 0 || R <= 0 || C <= 0) return 0;
+  if (!g_q || !q || !g_y || batch > 65535 || warps < 1 ||
+      warps > CSM_MAX_WARPS ||
+      (form == 0 && (long long)warps * CSM_PER < R) || form < 0 || form > 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((C + 31) / 32), (unsigned)batch);
+  if (form == 0)
+    col_softmax_bwd_regs<<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(
+        g_q, q, g_y, R, C);
+  else
+    col_softmax_bwd_rows<<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(
+        g_q, q, g_y, R, C);
   return (int)cudaGetLastError();
 }
 

@@ -242,17 +242,6 @@ __device__ __forceinline__ float sym_sign_grad_value(float g_ij, float g_ji,
                    __fmul_rn(c, __fmul_rn(g_ji, s)));
 }
 
-// The tile pair of block p: p = tj (tj + 1) / 2 + ti, 0 <= ti <= tj; a
-// float square root, then an integer correction that makes it exact
-// (tests/test_torch_sym_tiles.py holds its Python twin).
-__device__ __forceinline__ void sym_pair(int p, int& ti, int& tj) {
-  long long t = (long long)((sqrtf(8.f * (float)p + 1.f) - 1.f) * 0.5f);
-  while (t * (t + 1) / 2 > p) --t;
-  while ((t + 1) * (t + 2) / 2 <= p) ++t;
-  tj = (int)t;
-  ti = (int)(p - t * (t + 1) / 2);
-}
-
 constexpr int SYM_T = 32, SYM_THREADS = 256;
 
 template <bool VEC, bool GRAD>

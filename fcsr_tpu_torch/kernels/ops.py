@@ -104,7 +104,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
             _F, _F, _F, _F, _F, _F], _STEP),
     Kernel("anti_vectorize_normalize", "triu",
            "fcsr_anti_vectorize_normalize",
-           [_P, _LL, _P, _I, _I, _F, _I], _TRIU + ":113"),
+           [_P, _LL, _P, _I, _I, _F, _I, _I, _I, _I], _TRIU + ":113"),
     Kernel("vectorize_colmajor", "triu", "fcsr_vectorize_colmajor",
            [_P, _P, _I, _I], _TRIU + ":166"),
     Kernel("normalize_adj_batch", "triu", "fcsr_normalize_adj_batch",
@@ -130,7 +130,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("col_softmax", "gat", "fcsr_col_softmax",
            [_P, _P, _I, _I, _I, _I, _I], _GAT_STEP),
     Kernel("col_softmax_bwd", "gat", "fcsr_col_softmax_bwd",
-           [_P, _P, _P, _I, _I, _I], _GAT_STEP),
+           [_P, _P, _P, _I, _I, _I, _I, _I], _GAT_STEP),
     Kernel("offdiag_mse", "gat", "fcsr_offdiag_mse",
            [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I], _GAT_STEP),
     Kernel("offdiag_mae", "gat", "fcsr_offdiag_mae",
@@ -1120,11 +1120,93 @@ def anti_vectorize_normalize_plain(v, n, normalize=True, fill_diag=0.0):
     return _degree_normalize(out) if normalize else out
 
 
+AV_TILE = 32            # triu.cu's tile edge (AV_T)
+AV_TILE_BYTES = 4 * AV_TILE * (AV_TILE + 1)   # a tile staged, rows of 33
+AV_CHUNK = 8            # tiles a normalised block stages at once (AV_CHUNK)
+AV_MAX_B = 2 ** 31 - 1  # matrices per launch (triu.cu walks them past the
+                        # grid's y extent)
+
+
+class AntivecPlan(NamedTuple):
+    """anti_vectorize_normalize's launch over B matrices: ``form`` 0 the
+    copy, a block per tile pair (grid (pairs, min(B, 65535))); 1
+    normalised, a cluster of ``cluster`` blocks per matrix (grid
+    (cluster, min(B, 65535))), each owning ``per_block`` consecutive tile
+    pairs, staged in chunks of up to ``AV_CHUNK`` tiles (v read once where
+    they make one chunk, else again for the writes); 16-byte stores when
+    ``vec`` (n % 4 == 0: the output, from ``torch.empty``, starts on 16
+    bytes, and so does every tile row); ``smem`` bytes of dynamic shared
+    memory per block."""
+    form: int
+    grid: tuple
+    cluster: int
+    per_block: int
+    vec: bool
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def antivec_plan(B: int, n: int, normalize: bool, smem_optin: int,
+                 sms: int) -> AntivecPlan:
+    """The launch of ``anti_vectorize_normalize`` for B matrices of n x n
+    on a card of ``sms`` SMs whose blocks may opt in to ``smem_optin``
+    bytes of shared memory. nt = ceil(n / 32) tiles a side, nt (nt + 1) /
+    2 unordered tile pairs (``sym_pair``). The copy takes a block per
+    pair. Normalised, a cluster per matrix takes the fewest blocks whose
+    pairs make one chunk each (a block stages them in one batch and reads
+    v once), or more where that leaves an SM fewer than two blocks (a
+    block walks its pairs one after another, so fewer pairs a block is
+    shorter where the card has room), at most 16 and at most the pairs;
+    the pairs spread evenly over them. A block holds the chunk's tiles,
+    partial and final row sums (2 n floats) and nt flags. Refuses what the
+    grid or a block's shared memory cannot take."""
+    if n < 2 or not 1 <= B <= AV_MAX_B:
+        raise ValueError(f"anti_vectorize_normalize: n = {n} (>= 2) and "
+                         f"B = {B} (1 to {AV_MAX_B}) per launch")
+    nt = -(-n // AV_TILE)
+    pairs = nt * (nt + 1) // 2
+    if pairs >= 2 ** 31:
+        raise ValueError(f"anti_vectorize_normalize: n = {n} needs {pairs} "
+                         "tile pairs, past the grid")
+    vec = n % 4 == 0
+    rows = min(B, 65535)
+    if not normalize:
+        return AntivecPlan(0, (pairs, rows), 1, 1, vec, 0)
+    want = max(-(-pairs // AV_CHUNK), -(-2 * sms // B))
+    per = -(-pairs // min(MAX_CLUSTER, pairs, want))
+    cluster = -(-pairs // per)
+    smem = 4 * (2 * n + nt) + AV_CHUNK * AV_TILE_BYTES
+    if smem > smem_optin:
+        raise ValueError(f"anti_vectorize_normalize: n = {n} too large for "
+                         f"{smem_optin} bytes of shared memory (normalised)")
+    return AntivecPlan(1, (cluster, rows), cluster, per, vec, smem)
+
+
+def antivec_tile_runs(n: int, p: int):
+    """The runs of a row-major strict-upper vector that the block of tile
+    pair p stages (triu.cu's ``av_stage``): for each row i of the upper
+    tile (ti, tj) = ``sym_pair(p)`` that holds entries, (i, j_first,
+    start, count): ``v[start + k]`` is entry (i, j_first + k), k < count
+    (entry (i, j), i < j, lies at i n - i (i + 1) / 2 + j - i - 1)."""
+    ti, tj = sym_pair(p)
+    i0, j0 = ti * AV_TILE, tj * AV_TILE
+    runs = []
+    for i in range(i0, min(i0 + AV_TILE, n)):
+        j_first, j_end = max(j0, i + 1), min(j0 + AV_TILE, n)
+        if j_first < j_end:
+            runs.append((i, j_first,
+                         i * n - i * (i + 1) // 2 + j_first - i - 1,
+                         j_end - j_first))
+    return runs
+
+
 def anti_vectorize_normalize(v, n, normalize=True, fill_diag=0.0):
     """(B, V) row-major strict-upper vectors, V >= n(n-1)/2 (trailing
     entries ignored) -> (B, n, n) symmetric; the diagonal is 0, or
     ``fill_diag`` when that is not 0; with ``normalize`` the result is
-    ``(a r_i) r_j``, r from the row sums."""
+    ``(a r_i) r_j``, r from the row sums. One launch of a block per pair
+    of mirrored tiles, or normalised a cluster per matrix
+    (``antivec_plan``)."""
     m = n * (n - 1) // 2
     if v.dim() != 2 or n < 2 or v.shape[1] < m:
         raise ValueError(f"anti_vectorize_normalize needs (B, V >= {m}) "
@@ -1132,16 +1214,22 @@ def anti_vectorize_normalize(v, n, normalize=True, fill_diag=0.0):
     if not v.is_cuda:
         return anti_vectorize_normalize_plain(v, n, normalize, fill_diag)
     _check(v.device, v)
-    if v.stride(1) != 1 or not 0 < v.shape[0] <= 2 ** 31 - 1:
-        raise ValueError("anti_vectorize_normalize needs a non-empty batch "
-                         "of vectors with unit element stride")
-    if n > 12 * 1024:
-        raise ValueError("anti_vectorize_normalize: n too large for shared "
-                         "memory")
-    out = torch.empty(v.shape[0], n, n, dtype=torch.float32, device=v.device)
-    KERNELS["anti_vectorize_normalize"](_ptr(v), v.stride(0), _ptr(out),
-                                        v.shape[0], n, float(fill_diag),
-                                        int(bool(normalize)))
+    if v.stride(1) != 1:
+        raise ValueError("anti_vectorize_normalize needs vectors with unit "
+                         "element stride")
+    B = v.shape[0]
+    if normalize:
+        props = torch.cuda.get_device_properties(v.device.index)
+        plan = antivec_plan(B, n, True, props.shared_memory_per_block_optin,
+                            props.multi_processor_count)
+    else:
+        plan = antivec_plan(B, n, False, 0, 0)
+    out = torch.empty(B, n, n, dtype=torch.float32, device=v.device)
+    # -0.0 fills nothing, as in the plain version
+    KERNELS["anti_vectorize_normalize"](_ptr(v), v.stride(0), _ptr(out), B,
+                                        n, float(fill_diag) or 0.0,
+                                        plan.form, plan.cluster,
+                                        plan.per_block, int(plan.vec))
     return out
 
 
@@ -1809,14 +1897,22 @@ def col_softmax_bwd_plain(g_q, q):
 
 
 def col_softmax_bwd(g_q, q):
-    """d y of ``q = col_softmax(y)`` given d q."""
+    """d y of ``q = col_softmax(y)`` given d q: ``q (g_q - sum_rows q
+    g_q)``, one launch in ``col_softmax``'s layout and plan
+    (``col_softmax_plan``): a block per (fold, 32 columns), q and g_q read
+    once up to 128 rows."""
     if not q.is_cuda:
         return col_softmax_bwd_plain(g_q, q)
     _check(q.device, g_q, q)
     _contig(g_q, q)
+    if g_q.shape != q.shape:
+        raise ValueError("col_softmax_bwd: g_q and q must be one (F, R, C) "
+                         "shape")
     F, R, C = q.shape
+    form, warps = col_softmax_plan(F, R)
     g_y = torch.empty_like(q)
-    KERNELS["col_softmax_bwd"](_ptr(g_q), _ptr(q), _ptr(g_y), F, R, C)
+    KERNELS["col_softmax_bwd"](_ptr(g_q), _ptr(q), _ptr(g_y), F, R, C, form,
+                               warps)
     return g_y
 
 
