@@ -18,7 +18,12 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    nodes and at 65 537 matrices, with trailing entries, a diagonal fill
    and the row-sum guard (``check_triu_kernels``), then timed at the CSV
    path's three shapes, warm and with L2 flushed (``triu_times``, which
-   also times an older tree);
+   also times an older tree); ``vectorize_colmajor`` bit-equal to its
+   plain version at 2-1300 nodes and at 65 537 and 131 073 matrices (past
+   the grid's y extent), on non-symmetric
+   inputs with -0.0 and NaN entries, run to run and graphed
+   (``check_colmajor``), then timed at the predict command's shape and
+   beside it, warm and cold, with the library call (``triu_times``);
    ``tail_normalize_bwd`` also at other widths and fold counts,
    bit-equal run to run and over its rows per band, and ``add_bias`` on
    the step's views and on views 1-3 floats off 16 bytes; the two cluster
@@ -26,7 +31,9 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``tail_normalize`` at the adjoint's widths,
    on a zero row and an inf entry, ``l1_term`` at the step's three call
    signatures (the ``FlatLayout`` leaf view among them) and on views 1-3
-   floats off 16 bytes, with exact ties; the pool (``check_pools``):
+   floats off 16 bytes, with exact ties, and at the last term with the
+   loss scalars it writes (bit-equal to its terms in ``adam_masked``'s
+   order); the pool (``check_pools``):
    ``rank_select``'s one launch that ranks and gathers at every pool of
    both steps x F 3 / 56 with ties and NaN scores, every output equal to
    the plain version's, bit-equal run to run and in a CUDA graph, and the
@@ -76,9 +83,14 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``unet_fused_fwdbwd``, ``gsr_step_loss_fused``,
    ``step_value_and_grad_fused``) at F = 3 against autograd over its plain
    PyTorch version (value and gradients), with its launches and times;
-   one epoch over 3 folds of ``GSRFoldRunner`` in each mode (unfused,
-   ``fused_tail``, ``+ fused_unet``, ``+ fused_unet_bwd``, ``fused_step``)
-   with the launch counts of each run, ``fused_step`` bit-equal to
+   the loss entry points' launches (27, 105, 105: the loss scalars come
+   out of the spectral ``l1_term`` launch) and their loss and recon bit
+   for bit against their loss terms, then their device, eager and host
+   times per call (``entry_point_times``, which also times an older
+   tree); one epoch over 3 folds of ``GSRFoldRunner`` in each mode
+   (unfused, ``fused_tail``, ``+ fused_unet``, ``+ fused_unet_bwd``,
+   ``fused_step``) with the launch counts of each run (``MODE_LAUNCHES``
+   a step), ``fused_step`` bit-equal to
    ``fused_adam`` from the same weights; and the parity trainer
    (``train gsr`` with no flag, 2 folds x 1 epoch) through the command
    line on phase 5's CSVs;
@@ -154,8 +166,6 @@ EPOCHS = 2                   # trainer-path epochs, run as two chunks of 1
 N_TRAIN, N_TEST = 167, 112   # subjects of the challenge's train / test set
 TRIU = ("anti_vectorize_normalize", "vectorize_colmajor",
         "normalize_adj_batch")
-# launched by the loss entry points (phase 6), not by train_step_fused
-ENTRY_ONLY = ("loss_terms",)
 # launches of one fold-batched GSR step, and of its pool kernels: each
 # pool one rank_select launch that also gathers, each level's backward
 # one gather and one pool_bwd_pair (the unpool and the logits' adjoint),
@@ -447,10 +457,6 @@ def kernel_cases(dev):
                                      False), vp[:, 1]), 1e-6,
                   3.0 * F * m * m, f4 * (3 * m * m + 1), None))
 
-    lk = rnd(F, 3).abs()
-    cases.append(("loss_terms", lambda: K.loss_terms(lk),
-                  lambda: P.loss_terms(lk), 0.0, 2.0 * F, f4 * 5, None))
-
     n_p = layout.size
     pp, gg = rnd(F, n_p), rnd(F, n_p, scale=1e-2)
     mm_, vv = rnd(F, n_p, scale=1e-3), rnd(F, n_p, scale=1e-3).abs()
@@ -525,9 +531,10 @@ def check_triu_kernels(dev):
     longer row stride, n 1300 / 1301 and 65 537 matrices (past the grid's
     y extent), with and without a diagonal fill: the copy bit-equal to the
     plain version (-0.0 entries made +0.0), the normalised form within
-    1e-6, each bit-equal run to run and graphed; then ``triu_times``. ``vectorize_colmajor`` and
-    ``normalize_adj_batch`` at small odd sizes, and the guard (a zero row
-    sum gives 0, a negative one NaN) in both normalising kernels."""
+    1e-6, each bit-equal run to run and graphed; then ``triu_times``.
+    ``vectorize_colmajor`` as ``check_colmajor`` says; ``normalize_adj_batch``
+    at small odd sizes, and the guard (a zero row sum gives 0, a negative
+    one NaN) in both normalising kernels."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
     from fcsr_tpu_torch.kernels.ops import antivec_plan
 
@@ -579,10 +586,8 @@ def check_triu_kernels(dev):
           f", (form, 16-byte) {sorted(forms)}: the copy bit-equal, "
           f"normalised max|err| "
           f"{worst:.2e}, bit-equal run to run and graphed", flush=True)
+    check_colmajor(dev, g)
     for n in (2, 3, 33, LR, HR):
-        mats = torch.randn(5, n, n, generator=g).to(dev)
-        same(f"vectorize_colmajor n={n}", K.vectorize_colmajor(mats),
-             P.vectorize_colmajor(mats), 0.0)
         a = torch.rand(5, n, n, generator=g).to(dev)
         same(f"normalize_adj_batch n={n}", K.normalize_adj_batch(a),
              P.normalize_adj_batch(a), 1e-6)
@@ -610,6 +615,58 @@ def check_triu_kernels(dev):
     print("  data-path kernels: shapes, odd sizes, trailing entries, "
           "diagonal fill and the zero / negative row-sum guard ok")
     triu_times(dev)
+
+
+# vectorize_colmajor beyond its record: every tile shape (one partial
+# tile, 31 / 32 / 33 columns, several tiles, the CSV path's widths, a
+# large n), an odd batch whose last block holds one matrix, and batches
+# past the grid's y extent (65 535 pairs of matrices) at a small n; timed
+# at the predict command's shape and beside it
+COLMAJOR_SIZES = (2, 3, 31, 32, 33, 64, LR, HR, 1300)
+COLMAJOR_PAST_GRID_Y = ((65537, 3), (65537, 33), (131073, 3))
+COLMAJOR_TIMES = ((N_TEST, HR), (N_TRAIN, HR), (N_TEST, LR))
+
+
+def _colmajor_mats(B, n, g, dev):
+    """(B, n, n) matrices, not symmetric, with -0.0 and NaN entries (one
+    NaN with a payload) on both sides of the diagonal."""
+    mats = torch.randn(B, n, n, generator=g)
+    flat = mats.view(B, -1)
+    flat[:, ::5] = -0.0
+    flat[:, 3::11] = float("nan")
+    flat[:, 1::17] = torch.tensor(0x7FC00ABC, dtype=torch.int32).view(
+        torch.float32)
+    return mats.to(dev)
+
+
+def check_colmajor(dev, g):
+    """``vectorize_colmajor`` (a block per upper tile and pair of
+    matrices) bit for bit against its plain version at every
+    ``COLMAJOR_SIZES`` width (B 5: the last block one matrix) and at
+    65 537 and 131 073 matrices (the last past the grid's y extent), on
+    non-symmetric inputs with -0.0 and NaN entries; two launches and a
+    graphed launch bit-equal."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.kernels.ops import colmajor_plan
+
+    cases = [(5, n) for n in COLMAJOR_SIZES] + list(COLMAJOR_PAST_GRID_Y)
+    for B, n in cases:
+        mats = _colmajor_mats(B, n, g, dev)
+        kern = lambda: K.vectorize_colmajor(mats)
+        got, again = kern(), kern()
+        graphed = _graph_outputs(kern)
+        want = P.vectorize_colmajor(mats)
+        torch.cuda.synchronize()
+        label = f"vectorize_colmajor B={B} n={n} {colmajor_plan(B, n)}"
+        if not torch.equal(_bits(got), _bits(want)):
+            fail(f"{label}: not bit-equal to the plain version")
+        if not (torch.equal(_bits(got), _bits(again))
+                and torch.equal(_bits(got), _bits(graphed))):
+            fail(f"{label}: two launches or the graphed launch differ")
+        del mats, got, again, graphed, want
+    print(f"  vectorize_colmajor: {len(cases)} shapes (n {COLMAJOR_SIZES}, "
+          f"B x n {COLMAJOR_PAST_GRID_Y}), -0.0 and NaN entries: bit-equal "
+          "to the plain version, run to run and graphed", flush=True)
 
 
 def cold_ms(fn, reps: int = 11) -> float:
@@ -642,10 +699,11 @@ def triu_times(dev):
     the CSV path's one launch a command finds it), beside its bound (v
     read once, B n^2 floats written; normalised also 3 B n^2 FLOPs);
     eager ms and host us per call (``_eager_and_host``); then the copy at
-    ``ANTIVEC_ROW_SIZES``, warm and cold. It calls only the public
-    wrapper, so it also times an older tree of the port (load this file
-    by path with that tree's root as the working directory). Returns
-    {(B, n, normalize): (ms, cold ms, eager ms, host us, plain ms)}."""
+    ``ANTIVEC_ROW_SIZES``, warm and cold; then ``colmajor_times``. It
+    calls only the public wrappers, so it also times an older tree of the
+    port (load this file by path with that tree's root as the working
+    directory). Returns {(B, n, normalize): (ms, cold ms, eager ms, host
+    us, plain ms)} and ``colmajor_times``'s records."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
     from fcsr_tpu_torch.utils.timing import graph_ms
 
@@ -679,6 +737,40 @@ def triu_times(dev):
               f"of {4 * n} bytes): {k_ms:.5f} ms per launch, cold "
               f"{cold:.5f} (bound {b_ms:.5f} bytes)", flush=True)
         out[(B, n, False)] = (k_ms, cold, None, None, None)
+    out.update(colmajor_times(dev))
+    return out
+
+
+def colmajor_times(dev):
+    """``vectorize_colmajor`` at ``COLMAJOR_TIMES``: device ms per launch
+    in a CUDA graph, in turns with its plain version and the library call
+    (``index_select`` of the flat upper-triangle index), cold
+    (``cold_ms``), eager ms and host us per call, beside its bound (the
+    strict upper triangle read once, B n (n - 1) / 2 floats written). It
+    calls only the public wrapper, so it also times an older tree (or one
+    whose ``triu.cu`` was edited: load this file by path with that tree's
+    root as the working directory). Returns {("colmajor", B, n): (ms,
+    cold ms, eager ms, host us, plain ms, library ms)}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cpu").manual_seed(13)
+    out = {}
+    for B, n in COLMAJOR_TIMES:
+        mats = torch.rand(B, n, n, generator=g).to(dev)
+        idx = _colmajor_flat_index(n, dev)
+        kern = lambda: K.vectorize_colmajor(mats)
+        k_ms, p_ms, l_ms = graph_ms(
+            [kern, lambda: P.vectorize_colmajor(mats),
+             lambda: mats.flatten(1).index_select(1, idx)])
+        cold = cold_ms(kern)
+        eager, host = _eager_and_host(kern)
+        b_ms, b_by = bound(0.0, 8.0 * B * (n * (n - 1) // 2))
+        print(f"    vectorize_colmajor B={B} n={n}: {k_ms:.5f} ms per launch "
+              f"(plain {p_ms:.5f}, library {l_ms:.5f}, bound {b_ms:.5f} "
+              f"{b_by}), cold {cold:.5f}; {eager:.5f} ms eager, host "
+              f"{host:.3f} us", flush=True)
+        out[("colmajor", B, n)] = (k_ms, cold, eager, host, p_ms, l_ms)
     return out
 
 
@@ -803,7 +895,10 @@ def check_tail_reductions(dev):
     ``layer.weights`` / u_hr), on operands 1-3 floats off 16 bytes, all
     with exact ties a == b: grad and neg exact, the value within 1e-6
     relative, two launches bit-equal, each timed in turns with the plain
-    version."""
+    version; at slot 2 also with the loss scalars: ``loss`` bit-equal to
+    ``vals[0] + (vals[1] + vals[2])`` of the launch's own ``vals`` (and
+    without ``with_l1`` to ``vals[1] + vals[2]``, a NaN in slot 0 unread),
+    ``recon`` to ``vals[1]``, the gradient unchanged."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
     from fcsr_tpu_torch.kernels.ops import l1_term_plan, tail_normalize_plan
     from fcsr_tpu_torch.models.fused_step import FlatLayout
@@ -891,6 +986,33 @@ def check_tail_reductions(dev):
         print(f"    l1_term {label} ({l1_term_plan(a, b)}): grad exact, "
               f"value {rel:.1e} relative, bit-equal; kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms", flush=True)
+        if slot == 2:
+            _check_l1_loss(label, K, a, b, gs, got0[0])
+
+
+def _check_l1_loss(label, K, a, b, gs, grad):
+    """``l1_term``'s slot-2 launch with the loss scalars, against its own
+    ``vals`` summed in ``adam_masked``'s order: slots 0 and 1 preset to 1
+    and 2^-24, slot 0 NaN without ``with_l1`` (it must not be read)."""
+    dev = a.device
+    for with_l1 in (True, False):
+        vals = torch.tensor([[1.0, 2.0 ** -24, 0.0]] * F, device=dev)
+        if not with_l1:
+            vals[:, 0] = float("nan")
+        loss, recon = torch.empty(F, device=dev), torch.empty(F, device=dev)
+        got = K.l1_term(a, b, vals, 2, 1.0, gs, False, loss=loss,
+                        recon=recon, with_l1=with_l1)
+        tail = vals[:, 1] + vals[:, 2]
+        want = vals[:, 0] + tail if with_l1 else tail
+        torch.cuda.synchronize()
+        if not (torch.equal(_bits(loss), _bits(want))
+                and torch.equal(_bits(recon), _bits(vals[:, 1]))
+                and torch.equal(got, grad)):
+            fail(f"l1_term {label} with_l1={with_l1}: loss {loss.tolist()} "
+                 f"recon {recon.tolist()}, not {want.tolist()} and "
+                 f"{vals[:, 1].tolist()} (or the gradient moved)")
+    print(f"    l1_term {label}: loss and recon bit-equal to its vals in "
+          "adam_masked's order, with_l1 1 / 0", flush=True)
 
 
 # (n, k, cols, div) of every pool of the two steps: GSR-Net's four (rows
@@ -1382,11 +1504,11 @@ def sym_times(dev):
 
 
 def _eager_and_host(fn, rounds=11, calls=200):
-    """(eager ms per call of 200 back to back by CUDA events, the median
-    of 11 rounds; the host's us per call by its clock, the least of
-    ``rounds`` rounds of ``calls`` calls: the device, several times
-    faster, never holds it back)."""
-    eager = cuda_ms(fn, reps=200, rounds=11)
+    """(eager ms per call of ``calls`` back to back by CUDA events, the
+    median of ``rounds`` rounds; the host's us per call by its clock, the
+    least of ``rounds`` rounds of ``calls`` calls: the device, several
+    times faster, never holds it back)."""
+    eager = cuda_ms(fn, reps=calls, rounds=rounds)
     host = []
     for _ in range(rounds):
         t0 = time.perf_counter()
@@ -1742,7 +1864,7 @@ def run_main_path(dev, data, epochs: int):
     print(f"  val MAE untrained {untrained.tolist()} trained "
           f"{maes.tolist()}")
     counts = {k: c for k, c in counts.items()
-              if k not in TRIU + ENTRY_ONLY + GAT_ONLY}
+              if k not in TRIU + GAT_ONLY}
     print(f"  launches on the trainer path: {counts}")
     if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()
             and bool(torch.isfinite(preds).all())):
@@ -1866,8 +1988,7 @@ def run_csv_path(dev, data):
           f"{t_predict_cli:.1f} s; launches on the CSV path: {counts}",
           flush=True)
     counts = {k: c for k, c in counts.items() if k not in GAT_ONLY}
-    missing = [k for k, c in counts.items()
-               if c == 0 and k not in ENTRY_ONLY]
+    missing = [k for k, c in counts.items() if c == 0]
     if missing:
         fail(f"kernels never launched on the CSV path: {missing}")
 
@@ -1982,11 +2103,19 @@ def run_csv_path(dev, data):
 STEP_KERNELS = ("bgemm_f32", "rank_select", "gather_rows", "scatter_rows",
                 "pool_bwd_pair", "add_bias", "tail_normalize",
                 "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad",
-                "l1_term", "loss_terms", "adam_masked")
+                "l1_term", "adam_masked")
 TAIL_KERNELS = ("bgemm_f32", "tail_normalize", "tail_normalize_bwd",
-                "sym_abs_fill", "sym_sign_grad", "l1_term", "loss_terms")
+                "sym_abs_fill", "sym_sign_grad", "l1_term")
 # the forward pools gather in their rank_select launch: no gather_rows
 UNET_FWD_KERNELS = ("bgemm_f32", "rank_select", "scatter_rows", "add_bias")
+# own-kernel launches per call of the loss entry points and per step of
+# each trainer mode: the loss scalars come out of the spectral term's
+# l1_term launch, with no launch of their own
+ENTRY_LAUNCHES = {"tail_loss_fused": 27, "gsr_step_loss_fused": 105,
+                  "step_value_and_grad_fused": 105}
+MODE_LAUNCHES = {"unfused": 1, "fused_tail": 28, "fused_tail_unet": 52,
+                 "fused_tail_unet_bwd": 105, "fused_step": 106,
+                 "fused_adam": STEP_LAUNCHES}
 # the kernels each trainer mode must launch (the flat Adam of every mode is
 # one adam_masked launch)
 MODE_KERNELS = {
@@ -2017,7 +2146,10 @@ def check_entry_points(dev, step_args):
     its plain PyTorch version: values to 1e-5 relative, every gradient to
     1e-4 of the plain gradient's largest entry (fp32 sums in another order
     than cuBLAS's through ~20 chained products); launches and times of the
-    forward and of forward + backward."""
+    forward and of forward + backward, the loss entry points' launches
+    ``ENTRY_LAUNCHES``; then their loss and recon bit for bit against the
+    loss terms (``_check_entry_losses``) and their times
+    (``entry_point_times``)."""
     from fcsr_tpu_torch.iox.weights import (leaf_names,
                                             leaf_tensors_to_state)
     from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -2085,6 +2217,7 @@ def check_entry_points(dev, step_args):
              ("unet_fused_fwdbwd", *unet_case(fs.unet_fused_fwdbwd)),
              ("gsr_step_loss_fused", step_fused, step_plain,
               tuple(leaf_names(len(KS))))]
+    entry_outs = {}
     for name, fused, plain, wrt in cases:
         def run(fn, backward=True):
             P = leaves()
@@ -2119,6 +2252,11 @@ def check_entry_points(dev, step_args):
             fail(f"{name} disagrees with autograd over its plain version")
         if not all_counts:
             fail(f"{name} launched no kernel")
+        if name in ENTRY_LAUNCHES and (sum(fwd_counts.values())
+                                       != ENTRY_LAUNCHES[name]):
+            fail(f"{name} launches {sum(fwd_counts.values())} kernels, not "
+                 f"{ENTRY_LAUNCHES[name]}")
+        entry_outs[name] = outs
 
     # step_value_and_grad_fused: the same launches over a state_dict
     with torch.no_grad():
@@ -2146,6 +2284,125 @@ def check_entry_points(dev, step_args):
     if not (v_err <= 1e-5 and g_err <= 1e-4) or sorted(grads) != sorted(
             state):
         fail("step_value_and_grad_fused disagrees with its plain version")
+    if sum(counts.values()) != ENTRY_LAUNCHES["step_value_and_grad_fused"]:
+        fail(f"step_value_and_grad_fused launches {sum(counts.values())} "
+             "kernels, not "
+             f"{ENTRY_LAUNCHES['step_value_and_grad_fused']}")
+    entry_outs["step_value_and_grad_fused"] = [loss, recon]
+    _check_entry_losses(dev, p, u_lr, u_hr, hr, f0, entry_outs)
+    entry_point_times(dev)
+
+
+def _check_entry_losses(dev, p, u_lr, u_hr, hr, f0, entry_outs):
+    """The loss entry points' scalars on the card, bit for bit: the terms
+    ``vals`` of the same launches run directly (``tail_value_and_grad``,
+    ``step_value_and_grads``), the loss summed from them in
+    ``adam_masked``'s order (the tail's ``vals[1] + vals[2]`` with a NaN
+    in the slot it must not read), recon ``vals[1]``, and each entry
+    point's outputs equal to the direct run's."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS
+    from fcsr_tpu_torch.models import fused_step as fs
+    from fcsr_tpu_torch.models.fused_tail import tail_value_and_grad
+    from fcsr_tpu_torch.models.gsr import pool_sizes
+
+    layout = fs.FlatLayout(LR, HR, len(KS))
+    with torch.no_grad():
+        P = layout.views(p.clone())
+        tail = [P[k] for k in ("layer.weights", "gc1.weight", "gc2.weight")]
+        vals = torch.full((F, 3), float("nan"), device=dev)
+        t_loss = torch.empty(F, device=dev)
+        tail_value_and_grad(KERNEL_OPS, *tail, f0, u_lr, u_hr, hr, vals,
+                            loss=t_loss, with_l1=False)
+        t_want = vals[:, 1] + vals[:, 2]
+        G = layout.views(torch.empty(F, layout.size, device=dev))
+        s_loss, s_recon = torch.empty(F, device=dev), torch.empty(F,
+                                                                 device=dev)
+        svals = fs.step_value_and_grads(KERNEL_OPS, P, G, u_lr, u_hr, hr,
+                                        pool_sizes(LR, KS), 16.0, s_loss,
+                                        s_recon)
+        s_want = svals[:, 0] + (svals[:, 1] + svals[:, 2])
+    torch.cuda.synchronize()
+    same = lambda x, y: torch.equal(_bits(x), _bits(y))
+    checks = [("tail_loss_fused's terms", same(t_loss, t_want)),
+              ("the step's terms", same(s_loss, s_want)
+               and same(s_recon, svals[:, 1])),
+              ("tail_loss_fused", same(entry_outs["tail_loss_fused"][0],
+                                       t_loss))]
+    for name in ("gsr_step_loss_fused", "step_value_and_grad_fused"):
+        got_loss, got_recon = entry_outs[name]
+        checks.append((name, same(got_loss, s_loss)
+                       and same(got_recon, s_recon)))
+    bad = [name for name, ok in checks if not ok]
+    if bad:
+        fail(f"loss scalars not bit-equal to the loss terms: {bad} (tail "
+             f"{t_loss.tolist()} vs {t_want.tolist()}, step "
+             f"{s_loss.tolist()} vs {s_want.tolist()})")
+    print(f"  loss entry points: loss and recon bit-equal to their terms in "
+          f"adam_masked's order (tail {t_loss.tolist()}, step "
+          f"{s_loss.tolist()})", flush=True)
+
+
+def _entry_inputs(dev):
+    """Seeded full-width inputs of the loss entry points at F = 3: the flat
+    weights of three GSRNet inits, an orthonormal u_lr, u_hr and a
+    symmetric hr."""
+    from fcsr_tpu_torch.iox.weights import state_to_flat
+    from fcsr_tpu_torch.models.gsr import GSRNet
+
+    flat = np.stack([state_to_flat({k: v.numpy() for k, v in GSRNet(
+        KS, LR, HR, HR, device="cpu", seed=j).state_dict().items()})
+        for j in range(F)])
+    g = torch.Generator(device="cpu").manual_seed(12)
+    u_lr = torch.linalg.qr(torch.randn(F, LR, LR, generator=g))[0]
+    u_hr = torch.randn(F, HR, LR, generator=g)
+    hr = torch.rand(F, HR, HR, generator=g)
+    hr = (hr + hr.transpose(1, 2)) / 2
+    return [t.contiguous().to(dev) for t in (torch.from_numpy(flat), u_lr,
+                                             u_hr, hr)]
+
+
+def entry_point_times(dev):
+    """The loss entry points #4, #8 and #10 (forward only) at F = 3 and
+    full width on seeded inputs (``_entry_inputs``): launches, device ms
+    per call (three calls in a CUDA graph), eager ms per call and the
+    host's us per call (``_eager_and_host``, 5 rounds of 20 calls). It
+    calls only the public entry points, so it also times an older tree
+    (load this file by path with that tree's root as the working
+    directory). Returns {name: (launches, ms, eager ms, host us)}."""
+    from fcsr_tpu_torch.iox.weights import leaf_names, leaf_tensors_to_state
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.models import fused_step as fs
+    from fcsr_tpu_torch.models.fused_tail import tail_loss_fused
+
+    p, u_lr, u_hr, hr = _entry_inputs(dev)
+    P = fs.FlatLayout(LR, HR, len(KS)).views(p)
+    net = {k: P[k] for k in leaf_names(len(KS), tail=False)}
+    tail = [P[k] for k in ("layer.weights", "gc1.weight", "gc2.weight")]
+    with torch.no_grad():
+        f0, _ = fs.unet_forward_rankselect(P, KS, LR)
+        state = {k: t.contiguous()
+                 for k, t in leaf_tensors_to_state(P).items()}
+    calls = {
+        "tail_loss_fused": lambda: tail_loss_fused(
+            *tail, f0, u_lr, u_hr, hr, device=dev),
+        "gsr_step_loss_fused": lambda: fs.gsr_step_loss_fused(
+            net, *tail, u_lr, u_hr, hr, KS, LR, HR, 16.0, device=dev),
+        "step_value_and_grad_fused": lambda: fs.step_value_and_grad_fused(
+            state, u_lr, u_hr, hr, KS, LR, HR, HR, 16.0, device=dev)}
+    out = {}
+    with torch.no_grad():
+        for name, call in calls.items():
+            reset_launch_counts()
+            call()
+            torch.cuda.synchronize()
+            launches = sum(launch_counts().values())
+            ms = device_ms(call, reps=3)
+            eager, host = _eager_and_host(call, rounds=5, calls=20)
+            print(f"    {name}: {launches} launches, {ms:.4f} ms device, "
+                  f"{eager:.4f} ms eager, host {host:.1f} us per call",
+                  flush=True)
+            out[name] = (launches, ms, eager, host)
+    return out
 
 
 def run_trainer_modes(dev, data):
@@ -2187,6 +2444,9 @@ def run_trainer_modes(dev, data):
               f"launches/step {per_step}", flush=True)
         if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()):
             fail(f"{mode}: non-finite loss or MAE")
+        if sum(counts.values()) != MODE_LAUNCHES[mode] * steps:
+            fail(f"{mode}: {sum(counts.values())} launches in {steps} "
+                 f"steps, not {MODE_LAUNCHES[mode]} a step")
         if mode == "fused_adam":
             continue
         missing = [k for k in MODE_KERNELS[mode] if not counts.get(k)]

@@ -13,11 +13,12 @@
 //   sym_sign_grad       the adjoint of sym_abs_fill: c (G + G^T), with
 //                       G = g * sign(sym X), zero diagonal
 //   l1_term             value_scale * mean|a - b| and its sign adjoint
-//   loss_terms          the (loss, recon) scalars of a loss entry point from
-//                       the three loss terms; it stands where the TPU kernels
-//                       of tail_loss_fused (fused_tail.py:73-84) and
-//                       gsr_step_loss_fused (fused_step.py:721-722) store
-//                       their two (1, 1) outputs. 2F + 3F floats: latency
+//                       and, with its last term (the spectral one), the
+//                       (loss, recon) scalars of a loss entry point: it
+//                       stands where the TPU kernels of the loss entry
+//                       points store their two (1, 1) outputs
+//                       (fcsr_tpu/models/fused_tail.py:79-80,
+//                       fused_step.py:286-287 and :721-722)
 // Each matrix is 268 x 268 (288 KB) per fold: these kernels are bound by
 // bytes moved (a few hundred KB each) and, at this size, by launch latency.
 // The forward normalisation needs every row sum before any output, and
@@ -378,7 +379,7 @@ int launch_sym(const float* g, const float* x, float c, float* out,
   return (int)cudaGetLastError();
 }
 
-// l1_term: vals[f * vstride] = value_scale * mean|a - b|, grad =
+// l1_term: vals[f][slot] = value_scale * mean|a - b|, grad =
 // gsign(a - b) * grad_scale, neg = -grad (either may be null). A cluster
 // of C blocks per fold (grid (C, F)); block b takes the contiguous groups
 // of 4 elements [b G, b G + G) and streams them once: |a - b| summed per
@@ -387,21 +388,26 @@ int launch_sym(const float* g, const float* x, float c, float* out,
 // aligned, n % 4 == 0; else 4-byte, the same order and bits). The block's
 // sum (warp trees, then the warps in order) goes into rank 0's shared
 // memory; after one cluster barrier rank 0 adds the C partials in rank
-// order and writes vals. No atomics: the same bits from run to run, and
+// order and writes vals, and with ``loss`` (slot 2 only) the loss entry
+// point's scalars from the fold's three terms. No atomics: the same bits from run to run, and
 // for a given C whatever the alignment. At F = 3, n = 71 824, C = 16: 48
 // blocks of 256 threads. On an H100 (700 W), timed in turns in CUDA
 // graphs: 1 / 2 / 4 / 8 / 16 blocks per fold 0.0140 / 0.0090 / 0.0061 /
 // 0.0046 / 0.0040 ms (one 1024-thread block per fold took 0.017); the
 // wrapper takes the fewest blocks that leave each thread about 4 groups.
 constexpr int L1_THREADS = 256;
+constexpr int L1_TERMS = 3;  // vals[f] = [lmbda * L1(net, start), recon,
+                             // spectral]
 
 template <bool VEC>
 __global__ void __launch_bounds__(L1_THREADS)
     l1_term_kernel(const float* __restrict__ a, long long sa,
                    const float* __restrict__ b, long long sb, int n, int G,
                    float value_scale, float grad_scale, int zero_sign,
-                   float* __restrict__ vals, int vstride,
-                   float* __restrict__ grad, float* __restrict__ neg) {
+                   float* __restrict__ vals, int slot,
+                   float* __restrict__ grad, float* __restrict__ neg,
+                   float* __restrict__ loss, float* __restrict__ recon,
+                   int with_l1) {
   __shared__ float parts[16];  // rank 0's: the cluster's partial sums
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -459,25 +465,19 @@ __global__ void __launch_bounds__(L1_THREADS)
   if (rank == 0 && threadIdx.x == 0) {
     float total = 0.f;
     for (int q = 0; q < C; ++q) total += parts[q];
-    vals[(size_t)f * vstride] = value_scale * (total / (float)n);
-  }
-}
-
-// The scalars a loss entry point returns, from the per-fold loss terms
-// vals[f] = [lmbda * L1(net, start), recon, spectral]: recon[f] = vals[f][1]
-// and loss[f] = recon + spectral, plus the L1 term when with_l1 (the whole
-// step's loss; without it, the tail's). The sum is taken in the order of
-// adam_masked's, so the step's loss is the same bits with or without the
-// Adam launch.
-__global__ void loss_terms_kernel(const float* __restrict__ vals,
-                                  float* __restrict__ loss,
-                                  float* __restrict__ recon, int batch,
-                                  int with_l1) {
-  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < batch;
-       f += gridDim.x * blockDim.x) {
-    const float tail = __fadd_rn(vals[f * 3 + 1], vals[f * 3 + 2]);
-    loss[f] = with_l1 ? __fadd_rn(vals[f * 3], tail) : tail;
-    recon[f] = vals[f * 3 + 1];
+    float* V = vals + (size_t)f * L1_TERMS;
+    const float value = value_scale * (total / (float)n);
+    V[slot] = value;
+    // The loss entry point's scalars, with the last term: slots 0 (the
+    // step's L1 term) and 1 (recon) were written by earlier launches on
+    // this stream. loss = recon + spectral, then the L1 term in front
+    // (adam_masked's order: the same bits as its loss); slot 0 is not
+    // read without with_l1 (the tail's entry point never writes it).
+    if (loss) {
+      const float tail = __fadd_rn(V[1], value);
+      loss[f] = with_l1 ? __fadd_rn(V[0], tail) : tail;
+      if (recon) recon[f] = V[1];
+    }
   }
 }
 
@@ -595,16 +595,20 @@ extern "C" int fcsr_sym_sign_grad(const float* g, const float* x, float c,
 
 // The plan (cluster size, groups of 4 elements per block, 16-byte path)
 // comes from the wrapper (ops.l1_term_plan); a 16-byte path the pointers
-// or strides do not allow is refused.
+// or strides do not allow is refused, as are a slot outside vals' three,
+// and loss with another slot than the last (or recon without loss).
 extern "C" int fcsr_l1_term(const float* a, long long sa, const float* b,
                             long long sb, int n, float value_scale,
                             float grad_scale, int zero_sign, float* vals,
-                            int vstride, float* grad, float* neg, int batch,
+                            int slot, float* grad, float* neg, float* loss,
+                            float* recon, int with_l1, int batch,
                             int cluster, int per_block, int vec,
                             void* stream) {
   if (batch <= 0) return 0;
   if (n < 1 || cluster < 1 || cluster > 16 ||
-      (long long)cluster * per_block < (n + 3) / 4)
+      (long long)cluster * per_block < (n + 3) / 4 || !vals || slot < 0 ||
+      slot >= L1_TERMS || (recon && !loss) ||
+      (loss && slot != L1_TERMS - 1))
     return (int)cudaErrorInvalidValue;
   if (vec && !(n % 4 == 0 && aligned16(a) && aligned16(b) &&
                (!grad || aligned16(grad)) && (!neg || aligned16(neg)) &&
@@ -612,19 +616,12 @@ extern "C" int fcsr_l1_term(const float* a, long long sa, const float* b,
     return (int)cudaErrorInvalidValue;
   const int err = init_cluster_kernels();
   if (err) return err;
-  void* args[] = {&a,         &sa,         &b,         &sb,
-                  &n,         &per_block,  &value_scale, &grad_scale,
-                  &zero_sign, &vals,       &vstride,   &grad,
-                  &neg};
+  void* args[] = {&a,         &sa,        &b,           &sb,
+                  &n,         &per_block, &value_scale, &grad_scale,
+                  &zero_sign, &vals,      &slot,        &grad,
+                  &neg,       &loss,      &recon,       &with_l1};
   return launch_cluster(vec ? (const void*)l1_term_kernel<true>
                             : (const void*)l1_term_kernel<false>,
                         dim3((unsigned)cluster, (unsigned)batch), cluster,
                         L1_THREADS, 0, (cudaStream_t)stream, args);
-}
-
-extern "C" int fcsr_loss_terms(const float* vals, float* loss, float* recon,
-                               int batch, int with_l1, void* stream) {
-  loss_terms_kernel<<<grid_for(batch, 128), 128, 0, (cudaStream_t)stream>>>(
-      vals, loss, recon, batch, with_l1);
-  return (int)cudaGetLastError();
 }

@@ -13,24 +13,28 @@
 //   normalize_adj_batch       (normalize_adj_pallas) (B, n, n) ->
 //                             (a r_i) r_j, r = rowsum^-1/2, no transpose
 // The TPU versions load aligned windows and rotate them because Mosaic has
-// no gather; here a thread computes its index and loads.
+// no gather; here the two copies stage tiles in shared memory and write
+// them in the order of their output.
 //
 // All three are bound by bytes (a copy with index arithmetic, plus n row
-// sums). anti_vectorize_normalize walks the matrix as unordered pairs of
-// mirrored 32 x 32 tiles (the symmetric pair's map, sym_pair): row i of
-// the upper tile (ti, tj) is one contiguous run of v, so a block reads
-// each entry of v once with lanes on consecutive floats, stages the tile
-// in shared memory (rows padded to 33 floats) and writes the tile and its
-// mirror as rows: every access coalesced, every output written once.
-// Normalised, every row sum of a matrix is needed before any output: a
-// thread-block cluster per matrix splits its tile pairs, each block sums
-// its pairs' rows and columns into partial row sums in its own shared
-// memory, and after one cluster barrier each block adds the partials of
-// the rows it writes in rank order (distributed shared memory, no
-// atomics). normalize_adj_batch runs one block per matrix with the n
-// reciprocal roots in shared memory and reads its input twice (the second
-// time from L2); vectorize_colmajor's reads are not coalesced, its writes
-// are.
+// sums). anti_vectorize_normalize and vectorize_colmajor walk the matrix
+// by 32 x 32 tiles (the symmetric pair's map, sym_pair), staged in shared
+// memory as rows of 33 floats, so that both sides of every copy are
+// contiguous runs: row i of the upper tile (ti, tj) is one run of the
+// row-major vector, column j's entries from it one run of the
+// column-major vector. anti_vectorize_normalize reads each entry of v
+// once with lanes on consecutive floats and writes the tile and its
+// mirror as rows; vectorize_colmajor reads the upper tile's rows of M
+// (lanes on consecutive floats, two matrices a block) and writes its
+// columns as runs (lanes on consecutive addresses). Every access coalesced, every output written
+// once. Normalised, every row sum of a matrix is needed before any
+// output: a thread-block cluster per matrix splits its tile pairs, each
+// block sums its pairs' rows and columns into partial row sums in its
+// own shared memory, and after one cluster barrier each block adds the
+// partials of the rows it writes in rank order (distributed shared
+// memory, no atomics). normalize_adj_batch runs one block per matrix
+// with the n reciprocal roots in shared memory and reads its input twice
+// (the second time from L2).
 //
 // The guard is the reference's: only the infinite r of a ZERO row sum
 // (-0.0 included) becomes 0; a negative row sum gives NaN and the NaN
@@ -329,21 +333,72 @@ int init_antivec_kernels() {
   return 0;
 }
 
-// One thread per output entry; blockIdx.y is the matrix.
-__global__ void vectorize_colmajor_kernel(const float* __restrict__ m,
-                                          float* __restrict__ out, int n,
-                                          long long len) {
-  const float* M = m + (long long)blockIdx.y * n * n;
-  float* O = out + blockIdx.y * len;
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       p < len; p += (long long)gridDim.x * blockDim.x) {
-    // column j holds entries j(j-1)/2 .. j(j+1)/2 - 1; the float root is
-    // off by one near triangular numbers, so settle it on integers
-    long long j = (long long)((1.0 + sqrt(1.0 + 8.0 * (double)p)) * 0.5);
-    while (j * (j - 1) / 2 > p) --j;
-    while (j * (j + 1) / 2 <= p) ++j;
-    const long long i = p - j * (j - 1) / 2;
-    O[p] = M[i * n + j];
+// ---------------------------------------------------------------------------
+// vectorize_colmajor: a block per (upper tile, pair of matrices), grid
+// (nt (nt + 1) / 2, min(ceil(B / 2), 65 535)), the tile (ti, tj) =
+// sym_pair(blockIdx.x), ti <= tj; past 131 070 matrices each block walks
+// pairs blockIdx.y + k gridDim.y. The block stages M[i0 + r, j0 + c] for
+// i0 + r < j0 + c < n of both matrices in one cp.async batch (a diagonal
+// tile's lower half is never read): lane c reads column j0 + c, so a warp
+// reads 128 contiguous bytes of a row (4-byte copies: the rows of M start
+// 4 n bytes apart, on no wider boundary in general), 8 loads a thread in
+// flight. Then warp w writes the tiles' columns w, w + 8, ...: column j's
+// entries from a tile, i in [i0, min(i0 + 32, j)), are the run of the
+// output from j (j - 1) / 2 + i0 (ops.colmajor_tile_runs is its Python
+// twin), lane r writing entry i0 + r, lanes on consecutive addresses,
+// reading banks (r + c) % 32 of the staged tile. The input is not taken
+// as symmetric: the strict upper triangle is what is read. Bound by
+// bytes: B n (n - 1) / 2 floats read once and written once (32 MB at the
+// predict command's B = 112, n = 268: 45 tiles x 56 pairs, 2 520 blocks).
+// On an H100 (700 W) at that shape a block per matrix took 0.0162 ms warm
+// and 0.0226 with L2 flushed, two matrices 0.0120 and 0.0207, four
+// 0.0115-0.0119 and 0.0215-0.0222 (11% slower than two at B = 167);
+// capping registers for 8 blocks an SM gained nothing with one matrix and
+// lost with two (PERF.md PR 15). A copy: every bit kept (-0.0, NaN).
+// ---------------------------------------------------------------------------
+constexpr int CM_MATS = 2;  // matrices a block stages at once
+
+__global__ void __launch_bounds__(AV_THREADS)
+    colmajor_tiles(const float* __restrict__ m, float* __restrict__ out,
+                   int batch, int n) {
+  __shared__ float s[CM_MATS][AV_TILE];
+  int ti, tj;
+  sym_pair(blockIdx.x, ti, tj);
+  const int i0 = ti * AV_T, j0 = tj * AV_T;
+  const int c = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long len = (long long)n * (n - 1) / 2;
+  for (long long mat0 = (long long)blockIdx.y * CM_MATS; mat0 < batch;
+       mat0 += (long long)gridDim.y * CM_MATS) {
+    const int j = j0 + c;
+#pragma unroll
+    for (int q = 0; q < CM_MATS; ++q) {
+      const long long mat = mat0 + q;
+      if (mat >= batch) break;
+      const float* M = m + mat * n * n;
+#pragma unroll
+      for (int k = 0; k < AV_RPW; ++k) {
+        const int r = w + k * AV_WARPS, i = i0 + r;
+        const bool in = i < j && j < n;
+        cp_async4(s[q] + r * AV_LD + c, in ? M + (long long)i * n + j : M,
+                  in ? 4 : 0);
+      }
+    }
+    av_staged();
+#pragma unroll
+    for (int q = 0; q < CM_MATS; ++q) {
+      const long long mat = mat0 + q;
+      if (mat >= batch) break;
+      float* O = out + mat * len;
+#pragma unroll
+      for (int k = 0; k < AV_T / AV_WARPS; ++k) {
+        const int col = w + k * AV_WARPS, jc = j0 + col;
+        const int count = jc < n ? min(AV_T, jc - i0) : 0;
+        if (c < count)
+          O[(long long)jc * (jc - 1) / 2 + i0 + c] = s[q][c * AV_LD + col];
+      }
+    }
+    if (mat0 + (long long)gridDim.y * CM_MATS < batch)
+      __syncthreads();  // s staged again
   }
 }
 
@@ -411,12 +466,19 @@ extern "C" int fcsr_anti_vectorize_normalize(const float* v, long long vstride,
                         smem, st, args);
 }
 
+// The grid is the tile count by the matrix pairs (ops.colmajor_plan
+// computes the same and refuses what this entry refuses): n < 2 writes
+// nothing; null pointers and a tile count past the grid are refused.
 extern "C" int fcsr_vectorize_colmajor(const float* m, float* out, int batch,
                                        int n, void* stream) {
-  const long long len = (long long)n * (n - 1) / 2;
-  const dim3 grid(grid_for(len, 256), batch);
-  vectorize_colmajor_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      m, out, n, len);
+  if (batch <= 0 || n < 2) return 0;
+  const long long nt = (n + AV_T - 1) / AV_T, pairs = nt * (nt + 1) / 2;
+  if (!m || !out || pairs >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const long long gy = (batch + CM_MATS - 1) / CM_MATS;
+  const dim3 grid((unsigned)pairs,
+                  (unsigned)(gy < AV_MAX_GRID_Y ? gy : AV_MAX_GRID_Y));
+  colmajor_tiles<<<grid, AV_THREADS, 0, (cudaStream_t)stream>>>(m, out, batch,
+                                                                n);
   return (int)cudaGetLastError();
 }
 

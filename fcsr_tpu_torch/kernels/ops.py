@@ -95,10 +95,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("sym_sign_grad", "tail", "fcsr_sym_sign_grad",
            [_P, _P, _F, _P, _I, _I, _I], _STEP),
     Kernel("l1_term", "tail", "fcsr_l1_term",
-           [_P, _LL, _P, _LL, _I, _F, _F, _I, _P, _I, _P, _P, _I, _I, _I,
-            _I], _STEP),
-    Kernel("loss_terms", "tail", "fcsr_loss_terms",
-           [_P, _P, _P, _I, _I], "fcsr_tpu/models/fused_step.py:742"),
+           [_P, _LL, _P, _LL, _I, _F, _F, _I, _P, _I, _P, _P, _P, _P, _I,
+            _I, _I, _I, _I], _STEP),
     Kernel("adam_masked", "adam", "fcsr_adam_masked",
            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL,
             _F, _F, _F, _F, _F, _F], _STEP),
@@ -953,10 +951,32 @@ def sym_check_inputs(F: int, m: int, seed: int):
     return x, g
 
 
+def _check_loss_outputs(vals, slot, loss, recon):
+    """l1_term writes (loss, recon) with the last of the three terms only,
+    and recon only beside loss."""
+    if loss is None:
+        if recon is not None:
+            raise ValueError("l1_term: recon is written only beside loss")
+        return
+    if slot != 2:
+        raise ValueError("l1_term writes loss and recon with the last term "
+                         f"(slot 2), not slot {slot}")
+    for t in (loss, recon):
+        if t is not None and tuple(t.shape) != (vals.shape[0],):
+            raise ValueError(f"loss and recon must be ({vals.shape[0]},), "
+                             f"got {tuple(t.shape)}")
+
+
 def l1_term_plain(a, b, vals, slot, value_scale, grad_scale, zero_sign,
-                  neg=False):
+                  neg=False, loss=None, recon=None, with_l1=True):
+    _check_loss_outputs(vals, slot, loss, recon)
     d = (a - b).reshape(a.shape[0], -1)
     vals[:, slot] = value_scale * d.abs().mean(-1)
+    if loss is not None:
+        tail = vals[:, 1] + vals[:, 2]
+        loss.copy_(vals[:, 0] + tail if with_l1 else tail)
+        if recon is not None:
+            recon.copy_(vals[:, 1])
     sgn = torch.sign(d) if zero_sign else _asign(d)
     grad = (sgn * grad_scale).reshape(a.shape)
     return (grad, -grad) if neg else grad
@@ -989,18 +1009,27 @@ def l1_term_plan(a, b) -> L1Plan:
 
 
 def l1_term(a, b, vals, slot, value_scale, grad_scale, zero_sign,
-            neg=False):
+            neg=False, loss=None, recon=None, with_l1=True):
     """Writes ``vals[:, slot] = value_scale * mean|a - b|`` per fold and
     returns its adjoint ``sign(a - b) * grad_scale`` (and its negation when
     ``neg``); ``zero_sign`` picks sign(0) = 0 over the |.| adjoint's +1.
     a and b may have any batch stride but contiguous fold slices. One
     launch, a cluster of up to 16 blocks per fold whose partial sums meet
-    in rank order; up to 2^31 - 4 elements per fold."""
+    in rank order; up to 2^31 - 4 elements per fold.
+
+    ``vals`` (F, 3) holds a loss entry point's terms [lmbda * L1(net,
+    start), recon, spectral]. With the last term (slot 2) the launch also
+    writes the entry point's scalars into ``loss`` (F,): ``vals[0] +
+    (vals[1] + vals[2])`` (``adam_masked``'s order, so the same bits), or
+    without ``with_l1`` the tail's ``vals[1] + vals[2]`` (slot 0 is then
+    not read); and ``recon`` (F,), when given, ``vals[1]``. Slots 0 and 1
+    must have been written before, on the same stream."""
     if not a.is_cuda:
         return l1_term_plain(a, b, vals, slot, value_scale, grad_scale,
-                             zero_sign, neg)
-    _check(a.device, a, b, vals)
-    _contig(vals)
+                             zero_sign, neg, loss, recon, with_l1)
+    _check(a.device, a, b, vals, loss, recon)
+    _contig(vals, loss, recon)
+    _check_loss_outputs(vals, slot, loss, recon)
     F = a.shape[0]
     n = a.numel() // F if F else 0
     for t in (a, b):
@@ -1015,33 +1044,10 @@ def l1_term(a, b, vals, slot, value_scale, grad_scale, zero_sign,
     ng = torch.empty_like(grad) if neg else None
     KERNELS["l1_term"](_ptr(a), a.stride(0), _ptr(b), b.stride(0), n,
                        float(value_scale), float(grad_scale), int(zero_sign),
-                       vals.data_ptr() + 4 * slot, 3, _ptr(grad), _ptr(ng),
-                       F, plan.cluster, plan.per_block, int(plan.vec))
+                       _ptr(vals), int(slot), _ptr(grad), _ptr(ng),
+                       _ptr(loss), _ptr(recon), int(bool(with_l1)), F,
+                       plan.cluster, plan.per_block, int(plan.vec))
     return (grad, ng) if neg else grad
-
-
-def loss_terms_plain(vals, with_l1=True):
-    tail = vals[:, 1] + vals[:, 2]
-    return (vals[:, 0] + tail) if with_l1 else tail, vals[:, 1].clone()
-
-
-def loss_terms(vals, with_l1=True):
-    """(loss, recon), each (F,), from the per-fold loss terms ``vals``
-    (F, 3) = [lmbda * L1(net, start), recon, spectral]: the whole step's
-    loss ``vals[0] + (vals[1] + vals[2])`` (``adam_masked``'s order, so the
-    same bits), or without ``with_l1`` the tail's ``vals[1] + vals[2]``."""
-    if not vals.is_cuda:
-        return loss_terms_plain(vals, with_l1)
-    _check(vals.device, vals)
-    _contig(vals)
-    if vals.dim() != 2 or vals.shape[1] != 3:
-        raise ValueError("vals must be (F, 3)")
-    loss = torch.empty(vals.shape[0], dtype=torch.float32,
-                       device=vals.device)
-    recon = torch.empty_like(loss)
-    KERNELS["loss_terms"](_ptr(vals), _ptr(loss), _ptr(recon),
-                          vals.shape[0], int(bool(with_l1)))
-    return loss, recon
 
 
 # ---------------------------------------------------------------------------
@@ -1098,12 +1104,12 @@ def _degree_normalize(a):
     return (a * r) * r.transpose(-1, -2)
 
 
-def _check_batch(t, what):
+def _check_batch(t, what, max_b=65535):
     if t.dim() != 3 or t.shape[1] != t.shape[2] or t.shape[1] < 2:
         raise ValueError(f"{what} needs a (B, n, n) stack with n >= 2, got "
                          f"{tuple(t.shape)}")
-    if not 0 < t.shape[0] <= 65535:
-        raise ValueError(f"{what} takes 1 to 65535 matrices per call, got "
+    if not 0 < t.shape[0] <= max_b:
+        raise ValueError(f"{what} takes 1 to {max_b} matrices per call, got "
                          f"{t.shape[0]}")
 
 
@@ -1240,11 +1246,47 @@ def vectorize_colmajor_plain(m):
     return m[:, i, j]
 
 
+CM_MATS = 2             # matrices a vectorize_colmajor block stages (CM_MATS)
+
+
+def colmajor_plan(B: int, n: int):
+    """The grid of ``vectorize_colmajor``'s launch over B matrices of n x
+    n: (tiles, rows), a block per upper 32 x 32 tile (nt (nt + 1) / 2 of
+    them, nt = ceil(n / 32), the map ``sym_pair``) and pair of matrices
+    (``CM_MATS``), rows = min(ceil(B / 2), 65535) (blocks walk the pairs
+    past that). Refuses what the C entry refuses or writes nothing for: n
+    < 2, B outside 1 to ``AV_MAX_B``, 2^31 tiles or more."""
+    if n < 2 or not 1 <= B <= AV_MAX_B:
+        raise ValueError(f"vectorize_colmajor: n = {n} (>= 2) and B = {B} "
+                         f"(1 to {AV_MAX_B}) per launch")
+    nt = -(-n // AV_TILE)
+    tiles = nt * (nt + 1) // 2
+    if tiles >= 2 ** 31:
+        raise ValueError(f"vectorize_colmajor: n = {n} needs {tiles} tiles, "
+                         "past the grid")
+    return tiles, min(-(-B // CM_MATS), 65535)
+
+
+def colmajor_tile_runs(n: int, p: int):
+    """The column runs that the block of tile p writes (triu.cu's
+    ``colmajor_tiles``): for each column j of the upper tile (ti, tj) =
+    ``sym_pair(p)`` that holds entries above the diagonal, (j, i_first,
+    out_start, count): ``out[out_start + k]`` is ``M[i_first + k, j]``, k <
+    count (entry (i, j), i < j, lies at j (j - 1) / 2 + i)."""
+    ti, tj = sym_pair(p)
+    i0, j0 = ti * AV_TILE, tj * AV_TILE
+    return [(j, i0, j * (j - 1) // 2 + i0, min(AV_TILE, j - i0))
+            for j in range(j0, min(j0 + AV_TILE, n)) if j > i0]
+
+
 def vectorize_colmajor(m):
     """(B, n, n) -> (B, n(n-1)/2): entry ``p = j(j-1)/2 + i`` is
     ``m[:, i, j]``, i < j (columns in order, rows above the diagonal within
-    each column). A copy: exact."""
-    _check_batch(m, "vectorize_colmajor")
+    each column; the input need not be symmetric). A copy: exact. One
+    launch, a block per upper 32 x 32 tile and pair of matrices
+    (``colmajor_plan``) that reads the tiles' rows and writes their
+    columns as runs."""
+    _check_batch(m, "vectorize_colmajor", AV_MAX_B)
     if not m.is_cuda:
         return vectorize_colmajor_plain(m)
     _check(m.device, m)
@@ -2060,7 +2102,7 @@ def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd):
 _OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
         "pool_logits_bwd", "pool_bwd_pair", "add_bias", "tail_normalize",
         "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
-        "loss_terms", "adam_masked", "anti_vectorize_normalize",
+        "adam_masked", "anti_vectorize_normalize",
         "vectorize_colmajor", "normalize_adj_batch", "gat_attention",
         "gat_attention_bwd", "philox_keep_mask", "philox_drop_logits",
         "philox_drop_outer", "gat_pool_adj",

@@ -192,11 +192,14 @@ def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start):
     bg(None, GW["w:start_gcn"], out=GB["b:start_gcn"])
 
 
-def step_value_and_grads(ops, P, G, u_lr, u_hr, hr, sizes, lmbda):
+def step_value_and_grads(ops, P, G, u_lr, u_hr, hr, sizes, lmbda,
+                         loss=None, recon=None):
     """Value and every gradient of the step's loss over the op namespace
     ``ops``: U-Net forward, lmbda * L1(net, start), the tail's value and
     gradients, the U-Net adjoints. ``P`` and ``G`` map leaf names to
     (F, r, c) tensors; every gradient is written into its ``G`` tensor.
+    With ``loss`` and ``recon`` (F,) the tail's last loss term also writes
+    the step's loss and recon into them (no launch of their own).
     Returns the loss terms (F, 3) = [lmbda * L1, recon, spectral]."""
     w_start = P["w:start_gcn"]
     F, lr_dim, hr_dim = w_start.shape
@@ -208,7 +211,8 @@ def step_value_and_grads(ops, P, G, u_lr, u_hr, hr, sizes, lmbda):
     _, _, _, ct_net = tail_value_and_grad(
         ops, P["layer.weights"], P["gc1.weight"], P["gc2.weight"], net,
         u_lr, u_hr, hr, vals, g_wgsr=G["layer.weights"],
-        g_w1=G["gc1.weight"], g_w2=G["gc2.weight"], g_f_add=g_l1)
+        g_w1=G["gc1.weight"], g_w2=G["gc2.weight"], g_f_add=g_l1, loss=loss,
+        recon=recon)
     unet_backward(ops, P, G, G, x0, res, ct_net, neg_g_l1)
     return vals
 
@@ -516,9 +520,10 @@ class _StepLossFused(torch.autograd.Function):
         F, lr_dim, hr_dim = P["w:start_gcn"].shape
         layout = FlatLayout(lr_dim, hr_dim, len(sizes))
         g = torch.empty(F, layout.size, dtype=torch.float32, device=hr.device)
-        vals = step_value_and_grads(KERNEL_OPS, P, layout.views(g), u_lr,
-                                    u_hr, hr, sizes, lmbda)
-        loss, recon = KERNEL_OPS.loss_terms(vals)
+        loss, recon = (torch.empty(F, dtype=torch.float32, device=hr.device)
+                       for _ in range(2))
+        step_value_and_grads(KERNEL_OPS, P, layout.views(g), u_lr, u_hr, hr,
+                             sizes, lmbda, loss, recon)
         ctx.mark_non_differentiable(recon)
         ctx.save_for_backward(g)
         ctx.layout = layout
@@ -576,9 +581,10 @@ def step_value_and_grad_fused(params, u_lr, u_hr, hr, ks: Sequence[float],
         layout = FlatLayout(lr_dim, hr_dim, len(ks))
         G = layout.views(torch.empty(F, layout.size, dtype=torch.float32,
                                      device=leaves[0].device))
-        vals = step_value_and_grads(KERNEL_OPS, dict(zip(names, leaves)), G,
-                                    *data, pool_sizes(lr_dim, ks), lmbda)
-        loss, recon = KERNEL_OPS.loss_terms(vals)
+        loss, recon = (torch.empty(F, dtype=torch.float32,
+                                   device=leaves[0].device) for _ in range(2))
+        step_value_and_grads(KERNEL_OPS, dict(zip(names, leaves)), G, *data,
+                             pool_sizes(lr_dim, ks), lmbda, loss, recon)
         grads = leaf_tensors_to_state(G)
     if squeeze:
         return loss[0], recon[0], {k: g[0] for k, g in grads.items()}

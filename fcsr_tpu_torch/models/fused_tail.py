@@ -37,14 +37,19 @@ __all__ = ["tail_value_and_grad", "tail_loss", "tail_loss_grads",
 
 
 def tail_value_and_grad(ops, w_gsr, w1, w2, f, u_lr, u_hr, hr, vals,
-                        g_wgsr=None, g_w1=None, g_w2=None, g_f_add=None):
+                        g_wgsr=None, g_w1=None, g_w2=None, g_f_add=None,
+                        loss=None, recon=None, with_l1=True):
     """Tail forward and backward over (F, ...) tensors: w_gsr (hr, lr),
     w1/w2 (hr, hr), f (lr, hr), u_lr (lr, lr), u_hr (hr, lr), hr (hr, hr).
 
     Writes the fold's recon and spectral terms into ``vals[:, 1]`` and
     ``vals[:, 2]`` ((F, 3) float32) and the weight gradients into
-    ``g_wgsr``/``g_w1``/``g_w2`` (allocated when None). Returns
-    (g_wgsr, g_w1, g_w2, g_f) where ``g_f`` already includes ``g_f_add``.
+    ``g_wgsr``/``g_w1``/``g_w2`` (allocated when None). With ``loss`` (F,)
+    the spectral term's launch also writes the loss entry point's scalars
+    (``ops.l1_term``): the tail's ``recon + spectral``, or with
+    ``with_l1`` the whole step's (``vals[:, 0]`` written before), and
+    ``recon`` when given. Returns (g_wgsr, g_w1, g_w2, g_f) where ``g_f``
+    already includes ``g_f_add``.
     """
     m, n = w_gsr.shape[1], w_gsr.shape[2]
     bg = ops.bgemm
@@ -60,7 +65,8 @@ def tail_value_and_grad(ops, w_gsr, w1, w2, f, u_lr, u_hr, hr, vals,
     h2 = bg(adj, h2p)
     pred = ops.sym_abs_fill(h2)
     g_pred = ops.l1_term(pred, hr, vals, 1, 1.0, 1.0 / (m * m), False)
-    g_spec = ops.l1_term(w_gsr, u_hr, vals, 2, 1.0, 1.0 / (m * n), False)
+    g_spec = ops.l1_term(w_gsr, u_hr, vals, 2, 1.0, 1.0 / (m * n), False,
+                         loss=loss, recon=recon, with_l1=with_l1)
     # backward
     g_h2 = ops.sym_sign_grad(g_pred, h2, 0.5)
     g_adj = bg(g_h2, h2p, tb=True)
@@ -140,9 +146,10 @@ class _TailLossFused(torch.autograd.Function):
     def forward(ctx, w_gsr, w1, w2, f, u_lr, u_hr, hr):
         vals = torch.empty(w_gsr.shape[0], 3, dtype=torch.float32,
                            device=w_gsr.device)
+        loss = torch.empty(w_gsr.shape[0], dtype=torch.float32,
+                           device=w_gsr.device)
         grads = tail_value_and_grad(KERNEL_OPS, w_gsr, w1, w2, f, u_lr, u_hr,
-                                    hr, vals)
-        loss, _ = KERNEL_OPS.loss_terms(vals, with_l1=False)
+                                    hr, vals, loss=loss, with_l1=False)
         ctx.save_for_backward(*grads)
         return loss
 

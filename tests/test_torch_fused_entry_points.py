@@ -11,18 +11,20 @@ scaling by their largest entry, at 3e-4 (the JAX package's own tolerance
 for its hand-written adjoints against XLA autodiff). Against the port's
 own oracle (the same fp32 arithmetic in another order) gradients agree to
 1e-5 of their largest entry.
+
+JAX and the JAX package load inside the tests that compare with them, so
+the card test collects where they are not installed (``pytest
+--noconftest -m cuda``): it takes its weights from the port's own
+``GSRNet`` init.
 """
 
-import jax
-import jax.numpy as jnp
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from fcsr_tpu.core.normalize import normalize_adj_np
-from fcsr_tpu.models import fused_step as jfs
-from fcsr_tpu.models import fused_tail as jft
-from fcsr_tpu.train import GSRTrainConfig, init_gsr
+from fcsr_tpu_torch.core.normalize import normalize_adj_np
 from fcsr_tpu_torch.iox.weights import (flax_to_state, leaf_names,
                                         leaf_tensors_to_state,
                                         state_to_leaf_tensors, state_to_leaves)
@@ -32,20 +34,45 @@ from fcsr_tpu_torch.models import (GSRNet, gsr_step_loss_fused,
                                    tail_loss_fused, tail_loss_reference,
                                    unet_forward_rankselect, unet_fused,
                                    unet_fused_fwdbwd, unet_fused_fwdonly)
-from tests.conftest import random_symmetric
+from fcsr_tpu_torch.train import GSRTrainConfig
 
 CFG = GSRTrainConfig(lr_dim=20, hr_dim=32, hidden_dim=32, ks=(0.9, 0.7))
 N, M, KS = CFG.lr_dim, CFG.hr_dim, CFG.ks
 NET_NAMES = leaf_names(len(KS), tail=False)
 TAIL = ("layer.weights", "gc1.weight", "gc2.weight")
-UNETS = {"unet_fused": (unet_fused, jfs.unet_fused),
-         "unet_fused_fwdonly": (unet_fused_fwdonly, jfs.unet_fused_fwdonly),
-         "unet_fused_fwdbwd": (unet_fused_fwdbwd, jfs.unet_fused_fwdbwd)}
+# the port's entry point and the name of the JAX package's
+UNETS = {"unet_fused": (unet_fused, "unet_fused"),
+         "unet_fused_fwdonly": (unet_fused_fwdonly, "unet_fused_fwdonly"),
+         "unet_fused_fwdbwd": (unet_fused_fwdbwd, "unet_fused_fwdbwd")}
+
+
+def _jax():
+    """(jax, jax.numpy), imported by the tests that compare with JAX."""
+    return importlib.import_module("jax"), importlib.import_module("jax.numpy")
+
+
+def _jfs():
+    return importlib.import_module("fcsr_tpu.models.fused_step")
+
+
+def _jft():
+    return importlib.import_module("fcsr_tpu.models.fused_tail")
 
 
 def _flax(seed):
-    _, params, _, _ = init_gsr(CFG, jax.random.PRNGKey(seed))
+    """The JAX package's GSR-Net init at the test's config."""
+    jax, _ = _jax()
+    jtrain = importlib.import_module("fcsr_tpu.train")
+    cfg = jtrain.GSRTrainConfig(lr_dim=N, hr_dim=M, hidden_dim=M, ks=KS)
+    _, params, _, _ = jtrain.init_gsr(cfg, jax.random.PRNGKey(seed))
     return jax.tree_util.tree_map(np.asarray, params)
+
+
+def random_symmetric(rng, n):
+    """``tests/conftest.py::random_symmetric`` at density 1 (the same draws
+    and bits): conftest imports JAX, the card's machine has none."""
+    m = np.triu(rng.random((n, n)), k=1)
+    return (m + m.T).astype(np.float32)
 
 
 def _data(rng, n_folds):
@@ -85,6 +112,7 @@ def _close_scaled(got, want, atol, name=""):
 
 def _check_state_grads(leaves, j_grads, batched, atol=3e-4):
     """The leaves' ``.grad`` against JAX gradient trees (one per fold)."""
+    jax, _ = _jax()
     got = leaf_tensors_to_state({k: t.grad for k, t in leaves.items()})
     for f, tree in enumerate(j_grads):
         want = flax_to_state(jax.tree_util.tree_map(np.asarray, tree))
@@ -100,6 +128,7 @@ def _folds(batched):
 @pytest.mark.parametrize("batched", [False, True], ids=["2d", "F2"])
 def test_tail_loss_fused_matches_jax(rng, batched):
     """#4: value and the four gradients under a cotangent of 2.5."""
+    jax, jnp = _jax()
     F = _folds(batched)
     w_gsr = rng.normal(size=(F, M, N)).astype(np.float32)
     w1, w2 = (rng.uniform(-0.3, 0.3, (F, M, M)).astype(np.float32)
@@ -114,7 +143,7 @@ def test_tail_loss_fused_matches_jax(rng, batched):
     for j in range(F):
         args = [jnp.asarray(a[j]) for a in (w_gsr, w1, w2, f, *data)]
         jl, jg = jax.value_and_grad(
-            lambda *a: 2.5 * jft.tail_loss_fused(*a, interpret=True),
+            lambda *a: 2.5 * _jft().tail_loss_fused(*a, interpret=True),
             argnums=(0, 1, 2, 3))(*args)
         got = loss[j] if batched else loss
         np.testing.assert_allclose(2.5 * float(got.detach()), float(jl),
@@ -131,9 +160,10 @@ def test_tail_loss_fused_backward_is_autograd_of_the_plain_tail(rng):
         rng.uniform(-0.3, 0.3, (F, M, M)).astype(np.float32),
         rng.uniform(-0.3, 0.3, (F, M, M)).astype(np.float32),
         rng.normal(0, 0.3, (F, N, M)).astype(np.float32), *_data(rng, F))]
+    _, jnp = _jax()
     want_loss, want_recon, want = tail_loss_reference(*args)
-    jl, jr, _ = jft.tail_loss_reference(*[jnp.asarray(a[0].numpy())
-                                          for a in args])
+    jl, jr, _ = _jft().tail_loss_reference(*[jnp.asarray(a[0].numpy())
+                                             for a in args])
     np.testing.assert_allclose(float(want_loss[0]), float(jl), rtol=1e-5)
     np.testing.assert_allclose(float(want_recon[0]), float(jr), rtol=1e-5)
     diff = [a.clone().requires_grad_() for a in args[:4]]
@@ -156,7 +186,9 @@ def test_tail_loss_fused_backward_is_autograd_of_the_plain_tail(rng):
 def test_unet_entry_points_match_jax(rng, name, batched):
     """#5, #6, #7: (net, start) and every gradient under random cotangents
     on both outputs, against the JAX function in interpret mode."""
-    fn, j_fn = UNETS[name]
+    jax, jnp = _jax()
+    fn, j_name = UNETS[name]
+    j_fn = getattr(_jfs(), j_name)
     F = _folds(batched)
     flaxes = [_flax(seed) for seed in range(F)]
     leaves = _leaves(flaxes, batched)
@@ -212,7 +244,7 @@ def test_oracle_unet_matches_jax_rankselect_and_the_module():
     leaves = _leaves([flax], False)
     with torch.no_grad():
         net, start = unet_forward_rankselect(leaves, KS, N)
-    jn, js = jfs.unet_forward_rankselect(flax["params"]["net"], KS, N)
+    jn, js = _jfs().unet_forward_rankselect(flax["params"]["net"], KS, N)
     np.testing.assert_allclose(net.numpy(), np.asarray(jn), atol=1e-5)
     np.testing.assert_allclose(start.numpy(), np.asarray(js), atol=1e-5)
     model = GSRNet(KS, N, M, M, device="cpu")
@@ -280,6 +312,7 @@ def test_unet_fwdonly_differentiates_the_rows_the_forward_kept(rng):
 def test_gsr_step_loss_fused_matches_jax(rng, batched):
     """#8: loss, recon and all 34 gradients under a cotangent of 2.5;
     recon carries no gradient."""
+    jax, jnp = _jax()
     F = _folds(batched)
     flaxes = [_flax(seed) for seed in range(F)]
     leaves = _leaves(flaxes, batched)
@@ -296,7 +329,7 @@ def test_gsr_step_loss_fused_matches_jax(rng, batched):
     for j in range(F):
         def j_loss(p):
             pp = p["params"]
-            l, r = jfs.gsr_step_loss_fused(
+            l, r = _jfs().gsr_step_loss_fused(
                 pp["net"], pp["layer"]["weights"], pp["gc1"]["weight"],
                 pp["gc2"]["weight"], *[jnp.asarray(a[j]) for a in data], KS,
                 N, M, CFG.lmbda, interpret=True)
@@ -337,6 +370,7 @@ def test_gsr_step_loss_fused_backward_is_autograd_of_the_oracle(rng):
 def test_step_value_and_grad_fused_matches_jax(rng, batched):
     """#10: (loss, recon, grads) over a state_dict, grads under its names
     and shapes."""
+    jax, jnp = _jax()
     F = _folds(batched)
     flaxes = [_flax(seed) for seed in range(F)]
     state = _stack_states(flaxes)
@@ -348,7 +382,7 @@ def test_step_value_and_grad_fused_matches_jax(rng, batched):
         device="cpu")
     assert sorted(grads) == sorted(state)
     for j in range(F):
-        jl, jr, jg = jfs.step_value_and_grad_fused(
+        jl, jr, jg = _jfs().step_value_and_grad_fused(
             flaxes[j], *[jnp.asarray(a[j]) for a in data], KS, N, M, M,
             CFG.lmbda, interpret=True)
         np.testing.assert_allclose(
@@ -380,9 +414,16 @@ def test_leaf_tensor_mapping_round_trips_and_matches_numpy_leaves():
 
 
 def test_loss_terms_plain_orders_the_sum_as_adam_masked(rng):
+    """The loss scalars the spectral term's ``l1_term`` writes (no launch of
+    their own): the step's in ``adam_masked``'s order, the tail's without
+    the L1 term; the spectral term is the one the launch computes."""
     vals = torch.from_numpy(rng.normal(size=(5, 3)).astype(np.float32))
-    loss, recon = PLAIN_OPS.loss_terms(vals)
-    tail, _ = KERNEL_OPS.loss_terms(vals, with_l1=False)
+    a = torch.from_numpy(rng.normal(size=(5, 4, 3)).astype(np.float32))
+    b = torch.zeros(5, 4, 3)
+    loss, recon, tail = (torch.empty(5) for _ in range(3))
+    PLAIN_OPS.l1_term(a, b, vals, 2, 1.0, 1.0, False, loss=loss, recon=recon)
+    KERNEL_OPS.l1_term(a, b, vals, 2, 1.0, 1.0, False, loss=tail,
+                       with_l1=False)
     z = torch.zeros(5, 4)
     ones = torch.ones(5, 3)
     _, _, _, a_loss, a_recon = PLAIN_OPS.adam_masked(z, z, z, z, ones, vals,
@@ -420,15 +461,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _port_leaves(seeds):
+    """Leaf tensors (F, ...) of the port's own GSRNet inits, one per seed."""
+    states = [GSRNet(KS, N, M, M, device="cpu", seed=s).state_dict()
+              for s in seeds]
+    return state_to_leaf_tensors({k: torch.stack([st[k] for st in states])
+                                  for k in states[0]})
+
+
 @pytest.mark.cuda
-def test_entry_points_match_the_oracle_on_card(cuda_device, rng):
-    flaxes = [_flax(seed) for seed in (0, 1)]
+def test_entry_points_match_the_oracle_on_card(cuda_device):
+    rng = np.random.default_rng(42)
     u_lr, u_hr, hr = (torch.from_numpy(a).to(cuda_device)
                       for a in _data(rng, 2))
     grads = []
     for fused in (True, False):
         leaves = {k: t.detach().to(cuda_device).requires_grad_()
-                  for k, t in _leaves(flaxes, True).items()}
+                  for k, t in _port_leaves((0, 1)).items()}
         if fused:
             loss, _ = gsr_step_loss_fused(
                 {k: leaves[k] for k in NET_NAMES},

@@ -6,26 +6,24 @@ Tolerances: the JAX kernels' products are f32-class compensated bf16x3
 (about 2^-16 relative per product), the port's are IEEE fp32, so values
 agree to ~1e-6 relative; gradients are compared after scaling by their
 largest entry, at 1e-4.
+
+JAX and the JAX package load inside the tests that compare with them, so
+the card test collects where they are not installed (``pytest
+--noconftest -m cuda``): it takes its weights from the port's own
+``GSRNet`` init.
 """
 
 import ctypes
+import functools
+import importlib
 import re
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fcsr_tpu.core.normalize import normalize_adj_np
-from fcsr_tpu.models.fused_step import (_lin_names, _topk_projection,
-                                        _unet_bwd_math, _unet_fwd_math,
-                                        _unet_leaf_shapes)
-from fcsr_tpu.models.fused_step import train_step_fused as j_train_step
-from fcsr_tpu.models.fused_tail import tail_loss_reference
-from fcsr_tpu.models.gsr import pool_sizes
-from fcsr_tpu.train import GSRTrainConfig, init_gsr
+from fcsr_tpu_torch.core.normalize import normalize_adj_np
 from fcsr_tpu_torch.iox.weights import (flax_to_state, leaves_to_flat,
                                         state_to_leaves)
 from fcsr_tpu_torch.kernels import KERNELS
@@ -36,17 +34,44 @@ from fcsr_tpu_torch.models.fused_step import (FlatLayout, adam_scalars,
                                               train_step_plain,
                                               unet_backward, unet_forward)
 from fcsr_tpu_torch.models.fused_tail import tail_loss, tail_loss_grads
+from fcsr_tpu_torch.models.gsr import GSRNet, pool_sizes
+from fcsr_tpu_torch.train import GSRTrainConfig
 from fcsr_tpu_torch.train.fast_loop import adam_flat_update
-from tests.conftest import random_symmetric
 
 CFG = GSRTrainConfig(lr_dim=20, hr_dim=32, hidden_dim=32, ks=(0.9, 0.7))
 N, M, L = CFG.lr_dim, CFG.hr_dim, len(CFG.ks)
 
 
+def _jax():
+    """(jax, jax.numpy), imported by the tests that compare with JAX."""
+    return importlib.import_module("jax"), importlib.import_module("jax.numpy")
+
+
+def _jfs():
+    return importlib.import_module("fcsr_tpu.models.fused_step")
+
+
 def _leaves(seed=0):
-    _, params, _, _ = init_gsr(CFG, jax.random.PRNGKey(seed))
+    """The JAX package's GSR-Net init at the test's config, as leaves."""
+    jax, _ = _jax()
+    jtrain = importlib.import_module("fcsr_tpu.train")
+    cfg = jtrain.GSRTrainConfig(lr_dim=N, hr_dim=M, hidden_dim=M, ks=CFG.ks)
+    _, params, _, _ = jtrain.init_gsr(cfg, jax.random.PRNGKey(seed))
     params = jax.tree_util.tree_map(np.asarray, params)
     return state_to_leaves(flax_to_state(params))
+
+
+def _port_leaves(seed=0):
+    """The port's own GSRNet init at the test's config, as leaves."""
+    return state_to_leaves({k: v.numpy() for k, v in GSRNet(
+        CFG.ks, N, M, M, device="cpu", seed=seed).state_dict().items()})
+
+
+def random_symmetric(rng, n):
+    """``tests/conftest.py::random_symmetric`` at density 1 (the same draws
+    and bits): conftest imports JAX, the card's machine has none."""
+    m = np.triu(rng.random((n, n)), k=1)
+    return (m + m.T).astype(np.float32)
 
 
 def _data(rng, n_folds):
@@ -66,7 +91,8 @@ def _close_scaled(got, want, atol=1e-4, name=""):
 
 
 def test_leaf_layout_matches_jax_kernel_order():
-    shapes = [tuple(s.shape) for s in _unet_leaf_shapes(N, M, L, tail=True)]
+    shapes = [tuple(s.shape)
+              for s in _jfs()._unet_leaf_shapes(N, M, L, tail=True)]
     assert FlatLayout(N, M, L).shapes == shapes
     assert [tuple(a.shape) for a in _leaves()] == shapes
     full = FlatLayout(160, 268, 4)
@@ -80,7 +106,10 @@ def test_tail_value_and_grads_match_jax_reference(rng):
     f = rng.normal(0, 0.3, (N, M)).astype(np.float32)
     u_lr, u_hr, hr = (x[0] for x in _data(rng, 1))
     args = (w_gsr, w1, w2, f, u_lr, u_hr, hr)
-    jl, jr, jg = tail_loss_reference(*[jnp.asarray(a) for a in args])
+    _, jnp = _jax()
+    jl, jr, jg = importlib.import_module(
+        "fcsr_tpu.models.fused_tail").tail_loss_reference(
+        *[jnp.asarray(a) for a in args])
     targs = [torch.from_numpy(a) for a in args]
     loss, recon, grads = tail_loss_grads(*targs)
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
@@ -92,10 +121,11 @@ def test_tail_value_and_grads_match_jax_reference(rng):
 
 
 def _unet_inputs(seed):
+    _, jnp = _jax()
     leaves = _leaves(seed)
     flat = torch.from_numpy(leaves_to_flat(leaves))[None].contiguous()
     views = FlatLayout(N, M, L).views(flat)
-    names = _lin_names(L)
+    names = _jfs()._lin_names(L)
     w = {n: jnp.asarray(leaves[j]) for j, n in enumerate(names[:-1])}
     w["end_gcn"] = jnp.concatenate([jnp.asarray(leaves[len(names) - 1]),
                                     jnp.asarray(leaves[len(names)])], 0)
@@ -107,7 +137,7 @@ def _unet_inputs(seed):
 def test_unet_forward_residuals_match_jax():
     sizes = pool_sizes(N, CFG.ks)
     _, views, w, b = _unet_inputs(1)
-    net, x0, d, s, P, pooled, xu, xf, pre, kscol = _unet_fwd_math(
+    net, x0, d, s, P, pooled, xu, xf, pre, kscol = _jfs()._unet_fwd_math(
         w, b, N, sizes, L)
     t_net, t_x0, res = unet_forward(KOPS, views, views, sizes)
     for name, got, want in (("net", t_net, net), ("x0", t_x0, x0),
@@ -129,13 +159,15 @@ def test_unet_forward_residuals_match_jax():
 
 def test_unet_backward_matches_jax(rng):
     sizes = pool_sizes(N, CFG.ks)
+    _, jnp = _jax()
+    jfs = _jfs()
     _, views, w, b = _unet_inputs(2)
-    net, x0, d, s, P, pooled, xu, xf, pre, kscol = _unet_fwd_math(
+    net, x0, d, s, P, pooled, xu, xf, pre, kscol = jfs._unet_fwd_math(
         w, b, N, sizes, L)
     ct_net = rng.normal(size=(N, M)).astype(np.float32)
     ct_start = rng.normal(size=(N, M)).astype(np.float32)
-    names = _lin_names(L)
-    want = _unet_bwd_math(
+    names = jfs._lin_names(L)
+    want = jfs._unet_bwd_math(
         w["end_gcn"][:M], w["end_gcn"][M:], w["bottom_gcn"],
         [w[f"down_gcns_{i}"] for i in range(L)],
         [w[f"up_gcns_{i}"] for i in range(L)],
@@ -154,8 +186,8 @@ def test_unet_backward_matches_jax(rng):
         _close_scaled(G[name][0].numpy(), gw, name=name)
 
 
-def _step_inputs(rng, n_folds=2):
-    leaves = [_leaves(j) for j in range(n_folds)]
+def _step_inputs(rng, n_folds=2, leaves_of=_leaves):
+    leaves = [leaves_of(j) for j in range(n_folds)]
     ms = [[rng.normal(0, 1e-3, a.shape).astype(np.float32) for a in lv]
           for lv in leaves]
     vs = [[np.abs(rng.normal(0, 1e-3, a.shape)).astype(np.float32)
@@ -173,6 +205,7 @@ def _flat(per_fold):
 def test_one_step_matches_jax_interpret(rng):
     """train_step_fused (port, CPU) vs JAX train_step_fused(interpret=True)
     on loss, recon, p', m', v' for two folds at different step counts."""
+    _, jnp = _jax()
     leaves, ms, vs, scal, (u_lr, u_hr, hr) = _step_inputs(rng)
     got = train_step_fused(
         _flat(leaves), _flat(ms), _flat(vs), torch.from_numpy(u_lr),
@@ -180,7 +213,7 @@ def test_one_step_matches_jax_interpret(rng):
         torch.from_numpy(scal), CFG.ks, N, M, CFG.lmbda, CFG.lr,
         device="cpu")
     for f in range(2):
-        jl, jr, jp, jm, jv = j_train_step(
+        jl, jr, jp, jm, jv = _jfs().train_step_fused(
             [jnp.asarray(a) for a in leaves[f]],
             [jnp.asarray(a) for a in ms[f]],
             [jnp.asarray(a) for a in vs[f]], jnp.asarray(u_lr[f]),
@@ -222,19 +255,27 @@ def test_plain_step_equals_dispatching_step_on_cpu(rng):
         assert torch.equal(a, b)
 
 
-# the reference's pool scores as its jitted code computes them: XLA takes
-# the division by 100 as a product with fl32(0.01)
-_jax_scores = jax.jit(lambda logits: jax.nn.sigmoid(logits / 100.0))
+@functools.lru_cache(maxsize=None)
+def _jax_scores_jit():
+    jax, _ = _jax()
+    return jax.jit(lambda logits: jax.nn.sigmoid(logits / 100.0))
+
+
+def _jax_scores(logits):
+    """The reference's pool scores as its jitted code computes them: XLA
+    takes the division by 100 as a product with fl32(0.01)."""
+    return _jax_scores_jit()(logits)
 
 
 @pytest.mark.parametrize("n,k", [(160, 144), (101, 61), (13, 5)])
 def test_rank_select_matches_topk_projection(rng, n, k):
+    _, jnp = _jax()
     logits = rng.normal(0, 100, (2, n)).astype(np.float32)
     logits[:, 3:7] = logits[:, 9:10]                   # exact ties
     s, idx, vals, slot = POPS.rank_select(torch.from_numpy(logits), k)
     for f in range(2):
         sj = _jax_scores(jnp.asarray(logits[f]))
-        proj = np.asarray(_topk_projection(sj, k))
+        proj = np.asarray(_jfs()._topk_projection(sj, k))
         np.testing.assert_array_equal(idx[f].numpy(), proj.argmax(axis=1))
         want_slot = np.full(n, -1)
         want_slot[proj.argmax(axis=1)] = np.arange(k)
@@ -271,10 +312,11 @@ def test_kernel_bindings_match_c_signatures():
     on the card, where nothing type-checks the call."""
     csrc = Path(__file__).resolve().parents[1] / "fcsr_tpu_torch" / \
         "kernels" / "csrc"
-    assert len(KERNELS) == 28 and {"anti_vectorize_normalize",
+    assert len(KERNELS) == 27 and {"anti_vectorize_normalize",
                                    "vectorize_colmajor",
                                    "normalize_adj_batch",
-                                   "loss_terms"} <= set(KERNELS)
+                                   "l1_term"} <= set(KERNELS)
+    assert "loss_terms" not in KERNELS    # l1_term writes the loss scalars
     for k in KERNELS.values():
         src = (csrc / f"{k.source}.cu").read_text()
         m = re.search(r'extern "C" int ' + k.symbol + r"\((.*?)\)\s*\{",
@@ -317,8 +359,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_step_kernels_match_plain_on_card(cuda_device, rng):
-    leaves, ms, vs, scal, (u_lr, u_hr, hr) = _step_inputs(rng)
+def test_step_kernels_match_plain_on_card(cuda_device):
+    leaves, ms, vs, scal, (u_lr, u_hr, hr) = _step_inputs(
+        np.random.default_rng(42), leaves_of=_port_leaves)
     args = [_flat(leaves), _flat(ms), _flat(vs), torch.from_numpy(u_lr),
             torch.from_numpy(u_hr), torch.from_numpy(hr),
             torch.from_numpy(scal)]

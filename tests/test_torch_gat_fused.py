@@ -17,30 +17,41 @@ against the interpreted kernel 1e-5. The upsampler's bias has a gradient
 of exactly zero in exact arithmetic (a softmax ignores a shift of its
 column), so its entries are rounding noise on both sides: a per-leaf scale
 would compare noise with noise.
+
+JAX and the JAX package load inside the tests that compare with them, so
+the card test collects where they are not installed (``pytest
+--noconftest -m cuda``): it takes its weights from the port's own
+``GATGraphUnet`` init.
 """
 
 import ctypes
+import importlib
 import re
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fcsr_tpu.core.normalize import symmetric_normalize as j_symnorm
-from fcsr_tpu.models import fused_gat as jfg
-from fcsr_tpu.train.gat_loop import GATTrainConfig as JGATTrainConfig
-from fcsr_tpu.train.gat_loop import precompute_gat_features as j_features
 from fcsr_tpu_torch.iox import weights as W
 from fcsr_tpu_torch.kernels import KERNELS, ops
 from fcsr_tpu_torch.kernels import KERNEL_OPS as KOPS
 from fcsr_tpu_torch.kernels import PLAIN_OPS as POPS
 from fcsr_tpu_torch.models import fused_gat as fg
-from fcsr_tpu_torch.train.gat_loop import adamw_flat_update
+from fcsr_tpu_torch.models.gat_unet import symmetric_normalize
+from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, adamw_flat_update,
+                                           precompute_gat_features)
 
 KS = (0.5, 0.5)
+
+
+def _jax():
+    """(jax, jax.numpy), imported by the tests that compare with JAX."""
+    return importlib.import_module("jax"), importlib.import_module("jax.numpy")
+
+
+def _jfg():
+    return importlib.import_module("fcsr_tpu.models.fused_gat")
 
 
 @pytest.fixture(autouse=True)
@@ -53,27 +64,37 @@ def _kw(heads=2):
     return dict(dim=4, ks=KS, n_nodes=20, m_nodes=32, heads=heads)
 
 
+def _graphs(rng):
+    """One subject's adjacency with real zeros and its HR target."""
+    a_raw = rng.random((20, 20)).astype(np.float32)
+    a_raw = (a_raw + a_raw.T) / 2
+    a_raw = np.where(a_raw > 0.45, a_raw, 0.0).astype(np.float32)
+    np.fill_diagonal(a_raw, 0.0)
+    hr = rng.random((32, 32)).astype(np.float32)
+    return a_raw, (hr + hr.T) / 2
+
+
 def _setup(rng, heads=2, n_folds=1, seed=0):
     """JAX leaves and data for ``n_folds`` subjects whose adjacency has real
     zeros; returns the JAX side (lists per fold) and the port's tensors."""
-    cfg = JGATTrainConfig(n_nodes=20, m_nodes=32, dim=4, ks=KS, heads=heads,
-                          drop_p=0.0)
+    jax, jnp = _jax()
+    jfg = _jfg()
+    jgat = importlib.import_module("fcsr_tpu.train.gat_loop")
+    j_symnorm = importlib.import_module(
+        "fcsr_tpu.core.normalize").symmetric_normalize
+    cfg = jgat.GATTrainConfig(n_nodes=20, m_nodes=32, dim=4, ks=KS,
+                              heads=heads, drop_p=0.0)
     model = cfg.model()
     jax_side, flats, a0s, xs, hrs = [], [], [], [], []
     for f in range(n_folds):
-        a_raw = rng.random((20, 20)).astype(np.float32)
-        a_raw = (a_raw + a_raw.T) / 2
-        a_raw = np.where(a_raw > 0.45, a_raw, 0.0).astype(np.float32)
-        np.fill_diagonal(a_raw, 0.0)
-        hr = rng.random((32, 32)).astype(np.float32)
-        hr = (hr + hr.T) / 2
+        a_raw, hr = _graphs(rng)
         k1, k2 = jax.random.split(jax.random.PRNGKey(seed + f))
         v = model.init({"params": k1, "dropout": k2}, jnp.asarray(a_raw))
         # biases start at zero: perturb every leaf so each gradient is live
         v = jax.tree_util.tree_map(
             lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
                 a.shape).astype(np.float32), v)
-        x = np.asarray(j_features(a_raw[None], dim=4))[0]
+        x = np.asarray(jgat.precompute_gat_features(a_raw[None], dim=4))[0]
         a0 = np.asarray(j_symnorm(jnp.asarray(a_raw) + jnp.eye(20)))
         leaves = jfg.gat_leaves_from_tree(v["params"], 4, KS, heads)
         jax_side.append((leaves, jnp.asarray(a0), jnp.asarray(x),
@@ -84,6 +105,26 @@ def _setup(rng, heads=2, n_folds=1, seed=0):
         hrs.append(hr)
     t = lambda arrs: torch.from_numpy(np.stack(arrs))
     return jax_side, t(flats), t(a0s), t(xs), t(hrs)
+
+
+def _port_setup(rng, heads=2, n_folds=1, seed=0):
+    """``_setup``'s port tensors from the port's own GATGraphUnet init (every
+    leaf perturbed alike), its features and normalisation: no JAX."""
+    cfg = GATTrainConfig(n_nodes=20, m_nodes=32, dim=4, ks=KS, heads=heads,
+                         drop_p=0.0)
+    flats, a0s, xs, hrs = [], [], [], []
+    for f in range(n_folds):
+        a_raw, hr = _graphs(rng)
+        state = {k: v.numpy() + 0.05 * rng.standard_normal(v.shape).astype(
+            np.float32) for k, v in cfg.model(
+            device="cpu", seed=seed + f).state_dict().items()}
+        flats.append(W.gat_state_to_flat(state))
+        a0s.append(symmetric_normalize(torch.from_numpy(a_raw)
+                                       + torch.eye(20)).numpy())
+        xs.append(precompute_gat_features(a_raw[None], dim=4)[0])
+        hrs.append(hr)
+    t = lambda arrs: torch.from_numpy(np.stack(arrs).astype(np.float32))
+    return t(flats), t(a0s), t(xs), t(hrs)
 
 
 def _leaf_list(p, heads=2):
@@ -107,6 +148,7 @@ def _largest(grads):
 def _random_masks(rng, heads, drop_p, n_folds):
     """Keep masks for both sides: port tensors (F, count, rows, cols) and
     the JAX per-fold dict of per-head lists."""
+    _, jnp = _jax()
     port, jax_masks = {}, [dict() for _ in range(n_folds)]
     for name, count, shape in fg._mask_shapes(4, KS, 20, heads):
         m = (rng.random((n_folds, count) + shape) >= drop_p).astype(
@@ -124,6 +166,8 @@ def test_step_loss_value_and_grad_match_jax(rng, heads, drop_p, chain):
     """``gat_step_loss`` (value, autograd gradient) against JAX's pure loss
     and ``jax.value_and_grad``, with given dropout masks, heads = 1 (the
     per-head-list hazard) and both softmax shifts."""
+    jax, _ = _jax()
+    jfg = _jfg()
     n_folds = 2
     jax_side, p, a0, x0, hr = _setup(rng, heads, n_folds)
     port_masks, jax_masks = (None, [None] * n_folds) if drop_p == 0 \
@@ -182,6 +226,7 @@ def test_hand_written_gradient_matches_autograd(rng, heads, drop_p, chain,
 def test_one_step_matches_jax_interpret(rng):
     """One fused step (loss, p', m', v') against the Mosaic kernel in
     interpret mode, and a masked (ok = 0) fold that must not change."""
+    _, jnp = _jax()
     jax_side, p, a0, x0, hr = _setup(rng, 2, 2)
     m = torch.from_numpy(rng.normal(0, 1e-3, p.shape).astype(np.float32))
     v = torch.from_numpy(np.abs(rng.normal(0, 1e-3, p.shape)).astype(
@@ -196,7 +241,7 @@ def test_one_step_matches_jax_interpret(rng):
     j_leaves, ja0, jx, jhr = jax_side[0]
     split = lambda flat: [jnp.asarray(a) for a in W.flat_to_leaves(
         flat.numpy(), layout.shapes)]
-    want = jfg.gat_train_step_fused(
+    want = _jfg().gat_train_step_fused(
         j_leaves, split(m[0]), split(v[0]), ja0, jx, jhr,
         jnp.asarray(scal[:1]), jnp.zeros((1, 2), jnp.int32), interpret=True,
         **_kw())
@@ -235,7 +280,7 @@ def test_val_matches_jax_interpret(rng, chain):
     loss, mae = fg.gat_val_fused(p, a0, x0, hr, batched_chain=chain,
                                  device="cpu", **_kw())
     for f, (j_leaves, ja0, jx, jhr) in enumerate(jax_side):
-        w_loss, w_mae = jfg.gat_val_fused(j_leaves, ja0, jx, jhr,
+        w_loss, w_mae = _jfg().gat_val_fused(j_leaves, ja0, jx, jhr,
                                           interpret=True, batched_chain=chain,
                                           **_kw())
         np.testing.assert_allclose(float(loss[f]), float(w_loss), rtol=1e-5)
@@ -255,13 +300,14 @@ def test_val_matches_jax_interpret(rng, chain):
 def test_keep_transform_matches_jax_exactly(rng):
     """The port's word -> keep function against ``_bits_to_keep_mask`` on
     the same words (the signed / unsigned shift hazard included)."""
+    _, jnp = _jax()
     words = rng.integers(0, 2 ** 32, size=(64, 64), dtype=np.int64)
     words[0, :4] = [0, 2 ** 32 - 1, 2 ** 31, 2 ** 31 - 1]
     signed = jnp.asarray(words.astype(np.uint32).view(np.int32))
     for p in (0.01, 0.1, 0.3, 0.5, 0.9):
         got = ops.bits_to_keep(torch.from_numpy(words), p).numpy()
         np.testing.assert_array_equal(
-            got, np.asarray(jfg._bits_to_keep_mask(signed, p)))
+            got, np.asarray(_jfg()._bits_to_keep_mask(signed, p)))
         assert set(np.unique(got)) <= {0.0, 1.0}
 
 
@@ -396,6 +442,7 @@ def test_pool_adj_matches_jax_symnorm(rng, F, k):
     """The plain pooled adjacency against JAX's ``_symnorm`` of the
     gathered block, at the step's and the validation's fold counts and
     the step's pooled widths, within 1e-6 (fp32 against JAX fp32)."""
+    _, jnp = _jax()
     n = 2 * k
     a = rng.random((F, n, n)).astype(np.float32)
     a = a + a.transpose(0, 2, 1)
@@ -404,7 +451,7 @@ def test_pool_adj_matches_jax_symnorm(rng, F, k):
     got = POPS.gat_pool_adj(torch.from_numpy(a), torch.from_numpy(idx))
     assert tuple(got.shape) == (F, k, k)
     for f in range(F):
-        want = jfg._symnorm(jnp.asarray(a[f][idx[f]][:, idx[f]]))
+        want = _jfg()._symnorm(jnp.asarray(a[f][idx[f]][:, idx[f]]))
         np.testing.assert_allclose(got[f].numpy(), np.asarray(want),
                                    atol=1e-6)
 
@@ -561,9 +608,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_gat_step_kernels_match_plain_on_card(cuda_device, rng):
-    _, p, a0, x0, hr = _setup(rng, 2, 3)
-    m, v = torch.zeros_like(p), torch.zeros_like(p)
+def test_gat_step_kernels_match_plain_on_card(cuda_device):
+    """One fused step on the card against the plain step there. The
+    moments start small and random, as ``chip_smoke.py``'s step check
+    does: from m = v = 0, Adam's first step is lr * g / (|g| + eps), and
+    the tiny config's many gradient entries of rounding-noise size
+    (the upsampler's bias: exactly zero in exact arithmetic) would move
+    by up to lr whichever sum order the two sides take."""
+    rng = np.random.default_rng(42)
+    p, a0, x0, hr = _port_setup(rng, 2, 3)
+    m = torch.from_numpy(rng.normal(0, 1e-4, p.shape).astype(np.float32))
+    v = torch.from_numpy(np.abs(rng.normal(0, 1e-6, p.shape)).astype(
+        np.float32))
     scal = torch.tensor([[1.0, 1e-3, 0.1, 0.001]] * 3)
     seeds = torch.tensor([[1, 2], [3, 4], [5, 6]], dtype=torch.int32)
     args = [t.to(cuda_device) for t in (p, m, v, a0, x0, hr, scal, seeds)]

@@ -14,18 +14,18 @@ card: against the JAX package's ``jnp.abs(fill_diagonal(symmetrize(x),
 1.0))`` (``fcsr_tpu.core.normalize``) and its ``jax.vjp``, eager and
 jitted, bit for bit, on inputs with exact zeros, -0.0, pairs x_ij = -x_ji,
 a NaN (off and on the diagonal), +-inf and an inf - inf pair in the
-cotangent; and their outputs bitwise symmetric.
+cotangent; and their outputs bitwise symmetric. JAX and the JAX package
+load inside those comparisons, so the card test collects where they are
+not installed (``pytest --noconftest -m cuda``).
 """
 
+import importlib
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fcsr_tpu.core.normalize import fill_diagonal, symmetrize
 from fcsr_tpu_torch.kernels import KERNEL_OPS, PLAIN_OPS
 from fcsr_tpu_torch.kernels.ops import (SYM_MAX_F, SYM_TILE,
                                         sym_check_inputs, sym_pair,
@@ -57,11 +57,19 @@ def _assert_bits(got, want):
                                   want[~nan].view(np.int32))
 
 
+def _jax():
+    """(jax, jax.numpy), imported by the tests that compare with JAX."""
+    return importlib.import_module("jax"), importlib.import_module("jax.numpy")
+
+
 def _jax_fill(x):
-    return jnp.abs(fill_diagonal(symmetrize(x), 1.0))
+    _, jnp = _jax()
+    norm = importlib.import_module("fcsr_tpu.core.normalize")
+    return jnp.abs(norm.fill_diagonal(norm.symmetrize(x), 1.0))
 
 
 def _jax_vjp(x, g):
+    jax, _ = _jax()
     return jax.vjp(_jax_fill, x)[1](g)[0]
 
 
@@ -159,6 +167,7 @@ def test_pair_map_is_exact_past_float_precision(p):
 @pytest.mark.parametrize("jit", (False, True), ids=("eager", "jit"))
 @pytest.mark.parametrize("shape", JAX_SHAPES, ids=lambda s: "{}x{}".format(*s))
 def test_sym_abs_fill_plain_equals_jax(shape, jit):
+    jax, jnp = _jax()
     x, _ = _inputs(*shape, seed=1)
     fn = jax.jit(_jax_fill) if jit else _jax_fill
     want = np.asarray(fn(jnp.asarray(x)))
@@ -170,6 +179,7 @@ def test_sym_abs_fill_plain_equals_jax(shape, jit):
 def test_sym_sign_grad_plain_equals_jax_vjp(shape, jit):
     """c = 1/2 is the vjp of sym_abs_fill; c = 1 (the tail's second call,
     the factor 2 of a symmetric cotangent folded in) exactly twice it."""
+    jax, jnp = _jax()
     x, g = _inputs(*shape, seed=2)
     fn = jax.jit(_jax_vjp) if jit else _jax_vjp
     want = np.asarray(fn(jnp.asarray(x), jnp.asarray(g)))
