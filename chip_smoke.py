@@ -99,7 +99,12 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    kernels against its plain version at every shape the step uses, at
    drop_p 0, 0.01 and 0.3 with the masks the counter-based generator draws,
    and the generator's keep rate against a binomial bound (the keep mask's
-   bound from the integer work of its draws as compiled, ``philox_sass``);
+   bound from the integer work of its draws as compiled, ``philox_sass``,
+   beside the parent's count); ``philox_keep_mask`` bit-equal to its plain
+   version at the keep-rate shape, every mask ``draw_masks`` dumps and an
+   odd plane, under edge seeds, alone and applied to x one float off 16
+   bytes (``check_keep_mask``), then timed (``keep_mask_times``, which also
+   times an older tree);
    the two cluster
    kernels beyond that (``check_gat_reductions``): ``gat_attention_bwd``
    at every layer shape and F = 1 / 3 and at n 1000 / 4096 x d 128, the
@@ -260,18 +265,27 @@ def sm_clock():
     return _INT["clock"]
 
 
+# The draw as compiled before the keep mask's per-plane kernel (its
+# grid-stride body drew one element an iteration, the key schedule and
+# 64-bit index divisions inside): instructions a draw by pipe (IMAD FMA
+# pipe, LOP3 / IADD3 / VIADD ALU pipe, all) and the body's others a draw,
+# measured on an H100 by philox_sass (PERF.md Findings)
+PARENT_DRAW = {"fma": 18.0, "alu": 34.0, "all": 52.0, "other": 96.0}
+
+
 def philox_sass():
     """Instructions of one Philox-4x32-10 draw as compiled, by pipe: from
     ``cuobjdump -sass`` of the built gat library, the body of
-    ``philox_keep_mask_kernel``'s grid-stride loop (its backward branch),
+    ``philox_keep_mask_kernel``'s loop over its planes (its longest
+    backward branch; of the 16-byte instance ``<4>`` where there is one),
     the draw's own instructions counted: the IMADs by the two Philox
     multipliers (FMA pipe), the XORs (LOP3 0x96 / 0x3c) and the key
     schedule's adds (IADD3 / VIADD of a multiple of a Weyl constant; ALU
-    pipe); divided by the draws the body holds (a round multiplies twice,
-    20 IMAD.WIDE.U32 / IMAD.HI.U32 a draw at most). Returns (per draw
-    {"fma", "alu", "all"}, the body's counts by (draw or other, opcode),
-    draws in the body); the listing goes to
-    ``chiprun_out/philox_keep_mask.sass``."""
+    pipe); divided by the draws the body holds (the instance's template
+    argument, one for a body without one; a draw takes 8-24 IMADs by the
+    multipliers, or the count fails). Returns (per draw {"fma", "alu", "all",
+    "other"}, the body's counts by (draw or other, opcode), draws in the
+    body); the listing goes to ``chiprun_out/philox_keep_mask.sass``."""
     import re
     from fcsr_tpu_torch.kernels.build import build_all
 
@@ -281,11 +295,16 @@ def philox_sass():
     text = subprocess.run([tool, "-sass", str(build_all()["gat"])],
                           capture_output=True, text=True, check=True).stdout
     parts = re.split(r"Function : (\S+)", text)
-    body = next(parts[i + 1] for i in range(1, len(parts), 2)
-                if "philox_keep_mask_kernel" in parts[i])
+    bodies = {parts[i]: parts[i + 1] for i in range(1, len(parts), 2)
+              if "philox_keep_mask_kernel" in parts[i]}
+    name = next((k for k in bodies if "philox_keep_mask_kernelILi4E" in k),
+                next(iter(bodies)))
+    body = bodies[name]
+    m = re.search(r"philox_keep_mask_kernelILi(\d+)E", name)
+    draws = int(m.group(1)) if m else 1
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "philox_keep_mask.sass"), "w") as f:
-        f.write(body)
+        f.write(f"Function : {name}\n{body}")
     ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
         r"([^;]*);", body)]
@@ -306,31 +325,38 @@ def philox_sass():
             continue
         mul = op.startswith("IMAD") and bool(
             imm(rest) & {0xD2511F53, 0xCD9E8D57})
-        muls += mul and op.startswith(("IMAD.WIDE.U32", "IMAD.HI.U32"))
+        muls += mul
         kind = ("draw" if mul or (op.startswith("LOP3") and re.search(
             r"0x(96|3c)\b", rest)) or (op.startswith(("IADD3", "VIADD"))
                                         and imm(rest) & weyl) else "other")
         hist[(kind, op)] = hist.get((kind, op), 0) + 1
-    draws = -(-muls // 20)
+    if not 8 * draws <= muls <= 24 * draws:
+        fail(f"philox_sass: {muls} Philox products in {name}'s loop, not "
+             f"8-24 for each of its {draws} draws")
     fma = sum(c for (kind, op), c in hist.items()
               if kind == "draw" and op.startswith("IMAD"))
     total = sum(c for (kind, _), c in hist.items() if kind == "draw")
+    other = sum(c for (kind, _), c in hist.items() if kind == "other")
     per = {"fma": fma / draws, "alu": (total - fma) / draws,
-           "all": total / draws}
+           "all": total / draws, "other": other / draws}
     _INT["sass"] = (per, hist, draws)
-    print(f"    Philox-4x32-10 draw as compiled: {per['fma']:g} IMAD (FMA "
-          f"pipe), {per['alu']:g} LOP3 / IADD3 / VIADD (ALU pipe), "
-          f"{per['all']:g} in all: {philox_clocks(1):.4f} SM clocks a draw",
-          flush=True)
+    old = PARENT_DRAW
+    print(f"    Philox-4x32-10 draw as compiled ({name}, {draws} draws a "
+          f"loop body): {per['fma']:g} IMAD (FMA pipe), {per['alu']:g} LOP3 "
+          f"/ IADD3 / VIADD (ALU pipe), {per['all']:g} in all, "
+          f"{per['other']:g} other a draw: {philox_clocks(1):.4f} SM clocks "
+          f"a draw; the parent's {old['fma']:g} / {old['alu']:g} / "
+          f"{old['all']:g}, {old['other']:g} other: "
+          f"{philox_clocks(1, old):.4f}", flush=True)
     return _INT["sass"]
 
 
-def philox_clocks(draws: int) -> float:
+def philox_clocks(draws: int, per=None) -> float:
     """SM clocks of integer issue for ``draws`` Philox draws as compiled:
     per draw the most of its IMADs over the FMA pipe's lanes, its ALU
     instructions over the ALU pipe's and all of them over the SM's issue
-    (``philox_sass``)."""
-    per = philox_sass()[0]
+    (``philox_sass``; ``per``: another count, as ``PARENT_DRAW``)."""
+    per = per or philox_sass()[0]
     return draws * max(per["fma"] / FMA_LANES, per["alu"] / ALU_LANES,
                        per["all"] / ISSUE_LANES)
 
@@ -2769,6 +2795,7 @@ def check_gat_kernels(dev):
         worst = max(worst, err)
         if not err <= 1e-5:
             fail(f"pool kernels n={n}: err {err:.2e}")
+    n_keep = check_keep_mask(dev, g)
     for n in (268, 160, 80, 40):
         G = torch.randn(F, n, n, generator=g).to(dev)
         T = torch.rand(F, n, n, generator=g).to(dev)
@@ -2781,9 +2808,98 @@ def check_gat_kernels(dev):
         if not err <= 1e-6:
             fail(f"offdiag losses n={n}: err {err:.2e}")
     print(f"  shape sweep ok: 7 attention shapes x drop_p (0, 0.01, 0.3) x "
-          f"both softmax shifts with their backward, 3 pools, 4 loss sizes; "
-          f"worst err / scale {worst:.2e}")
+          f"both softmax shifts with their backward, 3 pools, {n_keep} keep "
+          f"masks, 4 loss sizes; worst err / scale {worst:.2e}")
     return records
+
+
+def check_keep_mask(dev, g):
+    """``philox_keep_mask`` bit-equal to its plain version at the keep-rate
+    shape, every mask ``draw_masks`` dumps at the shipped GAT config (F =
+    3) and an odd plane (the 4-byte path), mask id its place in that list,
+    drop_p 0.01 and 0.3, under random and edge seeds, alone and applied to
+    x (with its scale) from an aligned buffer and from a view one float off
+    16 bytes (the 4-byte path). Returns the number of masks checked."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.models.fused_gat import _mask_shapes
+
+    shapes = (((4, 4, 256, 256),)
+              + tuple((F, h, r, c) for _, h, (r, c) in
+                      _mask_shapes(GAT_DIM, GAT_KS, LR, GAT_HEADS))
+              + ((F, 2, 7, 9),))
+    checked = 0
+    for mask_id, (nf, heads, rows, cols) in enumerate(shapes):
+        n = nf * heads * rows * cols
+        flat = torch.randn(n + 1, generator=g).to(dev)
+        for edge in (False, True):
+            seeds = _gat_seeds(dev, nf)
+            if edge:
+                seeds[0] = torch.tensor(EDGE_SEEDS, dtype=torch.int32)
+            for p in (0.01, 0.3):
+                args = (seeds, mask_id, heads, rows, cols, p)
+                forms = [("mask", ())] + [
+                    (f"applied to x {off} float(s) off 16 bytes",
+                     (flat[off:off + n].view(nf, heads, rows, cols),
+                      1 / (1 - p))) for off in (0, 1)]
+                for what, extra in forms:
+                    if not torch.equal(K.philox_keep_mask(*args, *extra),
+                                       P.philox_keep_mask(*args, *extra)):
+                        fail(f"philox_keep_mask ({nf}, {heads}, {rows}, "
+                             f"{cols}) p={p} edge seeds={edge} {what}: "
+                             "kernel and plain bits differ")
+                    checked += 1
+    return checked
+
+
+# philox_keep_mask's timed shapes (F, heads, rows, cols): the keep-rate
+# experiment's, the shipped GAT config's largest and smallest attention
+# masks at F = 3 (att_down_0, att_bottom) and a pool mask (pool_0), the
+# last also applied to x with its scale
+KEEP_MASK_SHAPES = ((4, 4, 256, 256), (F, 4, LR, LR), (F, 2, 20, 20),
+                    (F, 1, LR, 32))
+
+
+def keep_mask_times(dev):
+    """``philox_keep_mask`` at ``KEEP_MASK_SHAPES`` and applied to x (with
+    its scale) at the pool mask's: device ms per launch in a CUDA graph, in
+    turns with the plain version, beside its bound by this build's count of
+    a draw's instructions and by the parent's (``PARENT_DRAW``), the share
+    against the lower; eager ms and host us per call. It calls only
+    ``philox_keep_mask``, so it also times an older tree (load this file by
+    path with that tree's root as the working directory). Returns {label:
+    (ms, eager ms, host us, plain ms)}."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS as K, PLAIN_OPS as P
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device="cpu").manual_seed(13)
+    cases = []
+    for nf, H, r, c in KEEP_MASK_SHAPES:
+        seeds = _gat_seeds(dev, nf)
+        args = (seeds, 0, H, r, c, 0.1)
+        n = nf * H * r * c
+        cases.append((f"({nf}, {H}, {r}, {c})", n, 4.0 * n + 8.0 * nf,
+                      lambda a=args: K.philox_keep_mask(*a),
+                      lambda a=args: P.philox_keep_mask(*a)))
+    x = torch.randn(nf, H, r, c, generator=g).to(dev)
+    args = (seeds, 1, H, r, c, 0.01, x, 1 / 0.99)
+    cases.append((f"({nf}, {H}, {r}, {c}) applied to x", n,
+                  8.0 * n + 8.0 * nf, lambda: K.philox_keep_mask(*args),
+                  lambda: P.philox_keep_mask(*args)))
+    ms = graph_ms([fn for case in cases for fn in case[3:]])
+    out = {}
+    for i, (label, draws, nbytes, kern, _) in enumerate(cases):
+        k_ms, p_ms = ms[2 * i], ms[2 * i + 1]
+        b_ms, b_by = bound(0.0, nbytes, philox_clocks(draws))
+        old_ms, old_by = bound(0.0, nbytes,
+                               philox_clocks(draws, PARENT_DRAW))
+        eager, host = _eager_and_host(kern)
+        print(f"    philox_keep_mask {label}: {k_ms:.5f} ms per launch "
+              f"(plain {p_ms:.5f}); bound {b_ms:.6f} ({b_by}), by the "
+              f"parent's count {old_ms:.6f} ({old_by}): "
+              f"{100 * min(b_ms, old_ms) / k_ms:.0f}% of the lower; "
+              f"{eager:.5f} ms eager, host {host:.3f} us", flush=True)
+        out[label] = (k_ms, eager, host, p_ms)
+    return out
 
 
 def run_keep_rate(dev):
@@ -3860,6 +3976,7 @@ def main():
         print("phase 7: the GAT U-Net family", flush=True)
         records.update(check_gat_kernels(dev))
         keep_counts = run_keep_rate(dev)
+        keep_mask_times(dev)
         check_gat_reductions(dev)
         check_gat_forward(dev)
         check_pool_dropout(dev)

@@ -112,12 +112,6 @@ __host__ __device__ static inline bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
-// Blocks for a grid-stride loop over ``total`` elements (at most 4096).
-static inline int grid_for(long long total, int threads) {
-  const long long blocks = (total + threads - 1) / threads;
-  return (int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
-}
-
 namespace {
 
 // The card's opt-in shared memory per block, read once (on the first

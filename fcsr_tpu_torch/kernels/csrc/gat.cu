@@ -727,21 +727,105 @@ __global__ void __launch_bounds__(BWD_THREADS)
 // ---------------------------------------------------------------------------
 // philox_keep_mask: out[f, head, e] = (x ? x[f, head, e] : 1) keep scale.
 // With x = nullptr and scale = 1 it dumps the mask the other kernels draw.
+// Replaces mask_kernel of tools/experiments/gat_dropout_keeprate.py (one
+// (256, 256) mask a call from the TPU core's own generator, prng_seed /
+// prng_random_bits, whose bits the card cannot draw).
+// Bound: the output's bytes (4 a draw, and 4 of x) and the draws' integer
+// work (Philox-4x32-10: 10 rounds of two 32 x 32 -> 64-bit products and
+// their XORs), each near 1.2 us at the keep-rate shape (4 seeds x 4 heads
+// x 256^2) by NVIDIA's per-clock rates. The design spends no instruction
+// on anything else: a block walks one strip of one (fold, head) plane
+// (grid (strips, heads, F)), so the plane comes from blockIdx with no
+// division and the element counter is the 32-bit index within the plane;
+// the fold's seeds are loaded once and the key schedule (PhiloxPlane) is
+// made once per thread, outside the loop, with the half of round 0 that
+// only sees the head and mask id; a thread draws four consecutive
+// elements and writes them with one 16-byte store (one 16-byte load of
+// x), at most 32 registers so that 8 blocks share an SM. Where per_head %
+// 4 != 0 or x is not 16-byte aligned, VEC = 1: a draw and a 4-byte access
+// a thread. Planes longer than the grid's strip are walked grid-stride in
+// 32 bits. The strips come from the host (ops.philox_keep_mask_plan: the
+// card about full in one wave). Each product is written as one 64-bit
+// multiply so that ptxas keeps it one IMAD.WIDE.U32 (as high and low
+// halves it split a third of them in two). On the card a draw takes about
+// twice the SM clocks its instruction count gives; what binds is not
+// measured (PERF.md Findings).
 // ---------------------------------------------------------------------------
-__global__ void philox_keep_mask_kernel(const int* __restrict__ seeds,
-                                        const float* __restrict__ x,
-                                        float* __restrict__ out, int batch,
-                                        int heads, long long per_head,
-                                        int mask_id, float drop_p,
-                                        float scale) {
-  const long long total = (long long)batch * heads * per_head;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long fh = e / per_head;
-    const int f = (int)(fh / heads), head = (int)(fh % heads);
-    const float k = keep_at(seeds + 2 * f, mask_id, head,
-                            (unsigned)(e % per_head), drop_p);
-    out[e] = (x ? x[e] * k : k) * scale;
+constexpr int KM_THREADS = 256;
+
+// The draws of one plane: Philox-4x32-10 word 0 at counter (e, head,
+// mask_id, 0) under the key (seed0, seed1), philox_word's bits, with the
+// key of every round and round 0's product of the mask id made once. Round
+// 0 of counter (e, head, mask, 0) leaves c0 = hi(M1 mask) ^ head ^ k0 and
+// c1 = lo(M1 mask), the same for every e, and c2 = hi(M0 e) ^ k1,
+// c3 = lo(M0 e).
+struct PhiloxPlane {
+  unsigned k0[10], k1[10], c0, c1;
+
+  __device__ __forceinline__ PhiloxPlane(unsigned s0, unsigned s1,
+                                         unsigned head, unsigned mask) {
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+      k0[r] = s0 + (unsigned)r * 0x9E3779B9u;
+      k1[r] = s1 + (unsigned)r * 0xBB67AE85u;
+    }
+    c0 = __umulhi(0xCD9E8D57u, mask) ^ head ^ k0[0];
+    c1 = 0xCD9E8D57u * mask;
+  }
+
+  __device__ __forceinline__ unsigned word(unsigned e) const {
+    unsigned long long p0 = 0xD2511F53ull * e;
+    unsigned a = c0, b = c1, c2 = (unsigned)(p0 >> 32) ^ k1[0],
+             c3 = (unsigned)p0;
+#pragma unroll
+    for (int r = 1; r < 10; ++r) {
+      p0 = 0xD2511F53ull * a;
+      const unsigned long long p1 = 0xCD9E8D57ull * c2;
+      a = (unsigned)(p1 >> 32) ^ b ^ k0[r];
+      c2 = (unsigned)(p0 >> 32) ^ c3 ^ k1[r];
+      b = (unsigned)p1;
+      c3 = (unsigned)p0;
+    }
+    return a;
+  }
+};
+
+template <int VEC>
+__global__ void __launch_bounds__(KM_THREADS, 8) philox_keep_mask_kernel(
+    const int* __restrict__ seeds, const float* __restrict__ x,
+    float* __restrict__ out, unsigned per_head, int mask_id, float drop_p,
+    float scale) {
+  const unsigned head = blockIdx.y, f = blockIdx.z;
+  const size_t plane = ((size_t)f * gridDim.y + head) * per_head;
+  const PhiloxPlane key((unsigned)seeds[2 * f], (unsigned)seeds[2 * f + 1],
+                        head, (unsigned)mask_id);
+  const float* __restrict__ xp = x ? x + plane : nullptr;
+  float* __restrict__ op = out + plane;
+  const unsigned stride = gridDim.x * (unsigned)(KM_THREADS * VEC);
+#pragma unroll 1
+  for (unsigned e = (blockIdx.x * KM_THREADS + threadIdx.x) * VEC;
+       e < per_head;) {
+    float v[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      v[j] = bits_to_keep(key.word(e + j), drop_p);
+    if constexpr (VEC == 4) {
+      if (xp) {
+        const float4 xv = *reinterpret_cast<const float4*>(xp + e);
+        v[0] = __fmul_rn(xv.x, v[0]);
+        v[1] = __fmul_rn(xv.y, v[1]);
+        v[2] = __fmul_rn(xv.z, v[2]);
+        v[3] = __fmul_rn(xv.w, v[3]);
+      }
+      *reinterpret_cast<float4*>(op + e) =
+          make_float4(__fmul_rn(v[0], scale), __fmul_rn(v[1], scale),
+                      __fmul_rn(v[2], scale), __fmul_rn(v[3], scale));
+    } else {
+      if (xp) v[0] = __fmul_rn(xp[e], v[0]);
+      op[e] = __fmul_rn(v[0], scale);
+    }
+    if (per_head - e <= stride) break;  // e + stride: past the plane
+    e += stride;
   }
 }
 
@@ -1401,15 +1485,30 @@ extern "C" int fcsr_gat_attention_bwd(
                         args);
 }
 
+// The strips and the 16-byte path come from the wrapper
+// (ops.philox_keep_mask_plan). Refused: more folds or heads than the
+// grid's z and y extents, a counter past 32 bits (per_head >= 2^32), more
+// strips than keep the stride in 32 bits, a missing pointer, the 16-byte
+// path where per_head % 4 != 0 or out or x is not 16-byte aligned.
 extern "C" int fcsr_philox_keep_mask(const int* seeds, const float* x,
                                      float* out, int batch, int heads,
-                                     long long per_head, int mask_id,
-                                     float drop_p, float scale,
+                                     long long per_head, int strips, int vec,
+                                     int mask_id, float drop_p, float scale,
                                      void* stream) {
-  const long long total = (long long)batch * heads * per_head;
-  philox_keep_mask_kernel<<<grid_for(total, 256), 256, 0,
-                            (cudaStream_t)stream>>>(
-      seeds, x, out, batch, heads, per_head, mask_id, drop_p, scale);
+  if (batch <= 0 || heads <= 0 || per_head <= 0) return 0;
+  if (!seeds || !out || batch > 65535 || heads > 65535 ||
+      per_head >= (1LL << 32) || strips < 1 || strips > 65535 ||
+      (vec != 1 && vec != 4) ||
+      (vec == 4 && ((per_head & 3) || !aligned16(out) ||
+                    (x && !aligned16(x)))))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)strips, (unsigned)heads, (unsigned)batch);
+  if (vec == 4)
+    philox_keep_mask_kernel<4><<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(
+        seeds, x, out, (unsigned)per_head, mask_id, drop_p, scale);
+  else
+    philox_keep_mask_kernel<1><<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(
+        seeds, x, out, (unsigned)per_head, mask_id, drop_p, scale);
   return (int)cudaGetLastError();
 }
 

@@ -115,7 +115,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
             _P, _LL, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I],
            _GAT_STEP),
     Kernel("philox_keep_mask", "gat", "fcsr_philox_keep_mask",
-           [_P, _P, _P, _I, _I, _LL, _I, _F, _F],
+           [_P, _P, _P, _I, _I, _LL, _I, _I, _I, _F, _F],
            "tools/experiments/gat_dropout_keeprate.py:32"),
     Kernel("gat_pool_adj", "gat", "fcsr_gat_pool_adj",
            [_P, _P, _P, _I, _I, _I, _F, _I, _I], _GAT_STEP),
@@ -1387,6 +1387,38 @@ def philox_keep_mask_plain(seeds, mask_id, heads, rows, cols, drop_p,
     return ((x.reshape(keep.shape) * keep) * scale).view(x.shape)
 
 
+KM_THREADS = 256        # philox_keep_mask's threads per block (gat.cu)
+KM_WAVE = 1056          # blocks of 256 threads 132 SMs hold at once (8 each)
+MAX_F = 65535           # a grid's y or z extent: the most folds (or heads)
+
+
+class KeepMaskPlan(NamedTuple):
+    """``philox_keep_mask``'s launch: grid (``strips``, heads, F) of
+    ``KM_THREADS`` threads, ``vec`` consecutive elements a thread."""
+    strips: int
+    vec: int
+
+
+def philox_keep_mask_plan(batch: int, heads: int, per_head: int,
+                          aligned: bool) -> KeepMaskPlan:
+    """The launch of ``philox_keep_mask`` over ``batch`` x ``heads`` planes
+    of ``per_head`` elements: 16-byte accesses (4 draws a thread) where
+    per_head % 4 == 0 and out and x are ``aligned``; as many strips a
+    plane as cover it, at most about one wave of blocks on the card in
+    all (longer planes are walked grid-stride)."""
+    if batch > MAX_F:
+        raise ValueError(f"philox_keep_mask: {batch} folds, at most {MAX_F}")
+    if heads > MAX_F:
+        raise ValueError(f"philox_keep_mask: {heads} heads, at most {MAX_F}")
+    if per_head >= 2 ** 32:
+        raise ValueError(f"philox_keep_mask: {per_head} elements a plane "
+                         "overflow the generator's 32-bit element counter")
+    vec = 4 if per_head % 4 == 0 and aligned else 1
+    need = max(1, -(-per_head // (KM_THREADS * vec)))
+    return KeepMaskPlan(min(need, max(1, KM_WAVE // max(1, batch * heads))),
+                        vec)
+
+
 def philox_keep_mask(seeds, mask_id, heads, rows, cols, drop_p, x=None,
                      scale=1.0):
     """The dropout keep-mask ``mask_id`` (its place in the step's order)
@@ -1399,26 +1431,25 @@ def philox_keep_mask(seeds, mask_id, heads, rows, cols, drop_p, x=None,
     if not seeds.is_cuda:
         return philox_keep_mask_plain(seeds, mask_id, heads, rows, cols,
                                       drop_p, x, scale)
-    if rows * cols >= 2 ** 32:
-        raise ValueError("philox_keep_mask: mask too large for its counter")
-    if x is None:
-        out = torch.empty(F, heads, rows, cols, dtype=torch.float32,
-                          device=seeds.device)
-    else:
+    if x is not None:
         _check(seeds.device, x)
         _contig(x)
         if x.numel() != F * heads * rows * cols:
             raise ValueError("philox_keep_mask: x does not match the mask")
-        out = torch.empty_like(x)
+    # out is a fresh allocation: 16-byte aligned
+    plan = philox_keep_mask_plan(F, heads, rows * cols,
+                                 x is None or x.data_ptr() % 16 == 0)
+    out = (torch.empty(F, heads, rows, cols, dtype=torch.float32,
+                       device=seeds.device) if x is None
+           else torch.empty_like(x))
     KERNELS["philox_keep_mask"](_ptr(seeds), _ptr(x), _ptr(out), F, heads,
-                                rows * cols, int(mask_id), float(drop_p),
-                                float(scale))
+                                rows * cols, plan.strips, plan.vec,
+                                int(mask_id), float(drop_p), float(scale))
     return out
 
 
 DROP_THREADS = 128      # the pool products' threads per block (gat.cu)
 DROP_WARPS = 4          # ... a warp per row in the forward
-MAX_F = 65535           # a (blocks, F) grid's y extent: the most folds
 
 
 def _drop_checks(what, F, n, c):
