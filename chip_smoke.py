@@ -138,7 +138,23 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
    that run), one epoch fused against one unfused; and ``train gat --fast
    --fused``, ``--fast`` and the per-fold trainer through the command line
-   on phase 5's CSVs, each column-major submission parsed back.
+   on phase 5's CSVs, each column-major submission parsed back;
+8. drives the metric suite (``evalx``) on the card: phase 4's fold stacks
+   (``evaluate_gsr_folds(pull_preds=True)``, 3 folds of 55-56 pairs at
+   268 nodes), fold 0 in float64 and float32 (the precisions agree
+   outside the betweenness pass; the betweenness gap is printed), its
+   first 8 pairs on the card against the CPU path (float64 within 1e-9,
+   float32 within 3e-5, core-periphery equal); the seconds per stack of
+   56 and 112 pairs (folds 0 and 1, as ``evaluate`` sees them) in both
+   precisions by CUDA events, with the time of each part (BC, EC, PR,
+   k-core, KL) and the iterations and host syncs of its loops; then
+   ``train gsr --fused --full-metrics`` on phase 5's CSVs (106 launches a
+   step, ``eval_metrics.json`` with 3 folds x 8 finite metrics, its launch
+   counts in the JSON line), ``evaluate --gt --pred`` on ``.npz`` stacks
+   (``results_fold_0.txt`` against the in-process dict) and, where
+   networkx is absent, ``--eval-backend networkx`` failing with an
+   ImportError that names it (where it is present, its backend against
+   the card on 4 pairs).
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -1860,6 +1876,7 @@ def run_main_path(dev, data, epochs: int):
     from fcsr_tpu_torch import (GSRFoldRunner, GSRTrainConfig,
                                 kfold_indices)
     from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.train import evaluate_gsr_folds
 
     n = len(data["lr_train"])
     folds = kfold_indices(n, 3, seed=42)
@@ -1900,7 +1917,8 @@ def run_main_path(dev, data, epochs: int):
     missing = [k for k, c in counts.items() if c == 0]
     if missing:
         fail(f"kernels never launched on the trainer path: {missing}")
-    return counts
+    _, fold_outs = evaluate_gsr_folds(cfg, runner, pull_preds=True)
+    return counts, fold_outs
 
 
 def check_tiny_trainer(dev, data):
@@ -3915,6 +3933,250 @@ def run_gat_cli(dev, csv_dir):
                 fail(f"`train gat --fast --fused` never launched: {missing}")
     return main_counts
 
+# ---------------------------------------------------------------------------
+# phase 8: the metric suite on the card
+# ---------------------------------------------------------------------------
+
+TOPO_KEYS = ("mae_betweenness", "mae_eigenvector", "mae_pagerank",
+             "mae_core_periphery", "kl_weights")
+METRIC_KEYS = ("mae", "pcc", "js_distance") + TOPO_KEYS
+# results_fold_{i}.txt: each metric's label, in the reference's order
+RESULT_LINES = (("MAE: ", "mae"), ("PCC: ", "pcc"),
+                ("Jensen-Shannon Distance: ", "js_distance"),
+                ("Average KL Divergence on weight distributions: ",
+                 "kl_weights"),
+                ("Average MAE betweenness centrality: ", "mae_betweenness"),
+                ("Average MAE eigenvector centrality: ", "mae_eigenvector"),
+                ("Average MAE PageRank centrality: ", "mae_pagerank"),
+                ("Average MAE core-periphery structure: ",
+                 "mae_core_periphery"))
+# the suite's parts, as evalx/report.py::_topo_rows calls them, and the
+# batched loops (evalx/centrality.py) each runs
+SUITE_LOOPS = {"BC": ("dijkstra", "brandes_sigma", "brandes_delta"),
+               "EC": ("eigenvector",), "PR": ("pagerank",),
+               "k-core": ("kcore", "kcore_peel"), "KL": ()}
+
+
+def events_s(fn):
+    """(fn(), seconds) of one call by CUDA events, the end event waited
+    for on the host."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b) / 1e3
+
+
+def _check_metric_dict(label, m):
+    if set(m) != set(METRIC_KEYS) \
+            or not all(np.isfinite(m[k]) for k in METRIC_KEYS):
+        fail(f"{label}: metric dict {m}")
+
+
+def suite_breakdown(dev, gts, preds, precision):
+    """Seconds of each part of the device backend's pass over the stacks
+    (the chunks evaluate_pair_stacks takes; CUDA events around each part,
+    which ends on the host at its loops' last condition), with the
+    iterations and host syncs of its loops."""
+    from fcsr_tpu_torch.evalx import centrality as C
+    from fcsr_tpu_torch.evalx import metrics as M
+    from fcsr_tpu_torch.evalx.report import _device_chunks
+
+    parts = {
+        "BC": lambda w, p, m, dt: C.betweenness_centrality(w, p, dtype=dt),
+        "EC": lambda w, p, m, dt: C.eigenvector_centrality(
+            w, return_converged=True),
+        "PR": lambda w, p, m, dt: C.pagerank(w, return_converged=True),
+        "k-core": lambda w, p, m, dt: C.weighted_kcore_scores(w),
+        "KL": lambda w, p, m, dt: M.weight_histogram_kl(w[m:], w[:m]),
+    }
+    secs = dict.fromkeys(parts, 0.0)
+    C.reset_loop_counts()
+    n_chunks = 0
+    for w, piv, m, dtype in _device_chunks(
+            np.asarray(gts, np.float64), np.asarray(preds, np.float64), 42,
+            precision, dev):
+        n_chunks += 1
+        for name, fn in parts.items():
+            secs[name] += events_s(lambda: fn(w, piv, m, dtype))[1]
+    loops = C.loop_counts()
+    return secs, {name: {k: loops.get(k, {"iterations": 0, "syncs": 0})
+                         for k in names}
+                  for name, names in SUITE_LOOPS.items()}, n_chunks
+
+
+def _read_results(path):
+    """{metric: value} of a results_fold_{i}.txt, after checking its
+    labels and their order."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if len(lines) != len(RESULT_LINES):
+        fail(f"{path}: {len(lines)} lines")
+    out = {}
+    for line, (label, key) in zip(lines, RESULT_LINES):
+        if not line.startswith(label):
+            fail(f"{path}: {line!r} where {label!r} belongs")
+        out[key] = float(line[len(label):])
+    return out
+
+
+def run_metric_suite(dev, fold_outs, csv_dir):
+    """Phase 8: the metric suite on phase 4's fold stacks (3 folds of 55-56
+    pairs at 268 nodes) on the card, in both precisions and against the
+    port's CPU path; its seconds per stack at the `evaluate` scale (folds 0
+    and 1, 112 pairs) with their breakdown; `train gsr --fused
+    --full-metrics` and `evaluate` through the command line. Returns the
+    launch counts of the `train` run."""
+    import importlib.util
+
+    from fcsr_tpu_torch import cli
+    from fcsr_tpu_torch.data import kfold_indices
+    from fcsr_tpu_torch.evalx import centrality as C
+    from fcsr_tpu_torch.evalx import evaluate_pair_stacks
+    from fcsr_tpu_torch.evalx.report import _global_metrics
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    preds0, gts0 = fold_outs[0]
+    if tuple(preds0.shape[1:]) != (HR, HR) or len(fold_outs) != 3:
+        fail(f"fold stacks {[p.shape for p, _ in fold_outs]}")
+    m64, t64 = events_s(lambda: evaluate_pair_stacks(gts0, preds0,
+                                                     device=dev))
+    m32, t32 = events_s(lambda: evaluate_pair_stacks(
+        gts0, preds0, precision="float32", device=dev))
+    _check_metric_dict("fold 0 float64", m64)
+    _check_metric_dict("fold 0 float32", m32)
+    gap = {k: m32[k] - m64[k] for k in METRIC_KEYS}
+    print(f"  fold 0 ({len(preds0)} pairs) on the card, first call: float64 "
+          f"{t64:.3f} s {m64}; float32 {t32:.3f} s; float32 - float64 "
+          f"{gap}", flush=True)
+    # precision governs the betweenness pass and the KL's arithmetic only:
+    # EC / PageRank run in float64 from the same float32 stacks, k-core
+    # and the host metrics do not depend on it. The betweenness gap
+    # depends on the stacks: near-zero weights make near-tied shortest
+    # paths that float32's 1e-5 tie rule joins (as the JAX package's)
+    if any(gap[k] != 0.0 for k in ("mae_eigenvector", "mae_pagerank",
+                                    "mae_core_periphery", "mae", "pcc",
+                                    "js_distance")) \
+            or max(abs(gap[k]) for k in TOPO_KEYS) > 3e-5:
+        fail("float32 against float64: the betweenness and KL gaps over "
+             "3e-5, or another metric unequal")
+    for precision, limit in (("float64", 1e-9), ("float32", 3e-5)):
+        card = evaluate_pair_stacks(gts0[:8], preds0[:8], precision=precision,
+                                    device=dev)
+        host, t_host = events_s(lambda: evaluate_pair_stacks(
+            gts0[:8], preds0[:8], precision=precision, device="cpu"))
+        d_host = max(abs(card[k] - host[k]) for k in METRIC_KEYS)
+        print(f"  first 8 pairs, card vs CPU ({t_host:.2f} s) {precision}: "
+              f"max|d| {d_host:.2e} (limit {limit:.0e}), core-periphery "
+              f"{card['mae_core_periphery']} vs "
+              f"{host['mae_core_periphery']}", flush=True)
+        if d_host > limit or card["mae_core_periphery"] \
+                != host["mae_core_periphery"]:
+            fail(f"the metric suite ({precision}) on the card disagrees with "
+                 "the CPU path")
+
+    # the `evaluate` scale: folds 0 and 1, as evaluate sees them
+    gts = np.concatenate([fold_outs[0][1], fold_outs[1][1]])
+    preds = np.concatenate([fold_outs[0][0], fold_outs[1][0]])
+    smi = smi_line()
+    for precision in ("float64", "float32"):
+        times = {}
+        for label, g, p in ((str(len(gts0)), gts0, preds0),
+                            (str(len(gts)), gts, preds)):
+            times[label] = [events_s(lambda: evaluate_pair_stacks(
+                g, p, precision=precision, device=dev))[1]
+                for _ in range(2)]
+        secs, loops, n_chunks = suite_breakdown(dev, gts, preds, precision)
+        t0 = time.perf_counter()
+        _global_metrics(np.asarray(gts, np.float64),
+                        np.asarray(preds, np.float64))
+        secs["host MAE / PCC / JSD"] = time.perf_counter() - t0
+        rest = min(times[str(len(gts))]) - sum(secs.values())
+        print(f"  {precision}: seconds per stack (two calls each) "
+              f"{times}; {len(gts)} pairs by part over {n_chunks} "
+              f"chunk(s): " + ", ".join(f"{k} {v:.4f} s"
+                                        for k, v in secs.items())
+              + f" (sum {sum(secs.values()):.4f} s; the rest of the "
+              f"faster call, staging and conversions, {rest:.4f} s); loops "
+              f"{loops}; card {smi}", flush=True)
+
+    # the command line: every fold scored after a fused run on the CSVs
+    out_dir = os.path.join(WORK_DIR, "out_metrics")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "gsr", "--fused", "--full-metrics", "--epochs",
+                   "2", "--splits", "3", "--data-dir", csv_dir, "--out-dir",
+                   out_dir])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    counts = _nonzero(launch_counts())
+    if rc != 0:
+        fail(f"`train gsr --fused --full-metrics` returned {rc}")
+    steps = 2 * max(len(tr) for tr, _ in kfold_indices(N_TRAIN, 3, seed=42))
+    per_step = sum(counts.get(k, 0) for k in STEP_KERNELS) / steps
+    with open(os.path.join(out_dir, "eval_metrics.json")) as f:
+        fold_metrics = json.load(f)
+    print(f"  `train gsr --fused --full-metrics` (3 folds x 2 epochs) "
+          f"{t_cli:.1f} s; {per_step} launches a step; eval_metrics.json "
+          f"{fold_metrics}", flush=True)
+    if per_step != STEP_LAUNCHES:
+        fail(f"{per_step} launches a step, not {STEP_LAUNCHES}")
+    if len(fold_metrics) != 3:
+        fail(f"eval_metrics.json holds {len(fold_metrics)} folds")
+    for j, m in enumerate(fold_metrics):
+        _check_metric_dict(f"eval_metrics.json fold {j}", m)
+
+    gt_path = os.path.join(WORK_DIR, "gt.npz")
+    pred_path = os.path.join(WORK_DIR, "pred.npz")
+    np.savez(gt_path, gt=gts0)
+    np.savez(pred_path, pred=preds0)
+    ev_dir = os.path.join(WORK_DIR, "out_evaluate")
+    rc = cli.main(["evaluate", "--gt", gt_path, "--pred", pred_path,
+                   "--out-dir", ev_dir])
+    if rc != 0:
+        fail(f"`evaluate` returned {rc}")
+    written = _read_results(os.path.join(ev_dir, "results_fold_0.txt"))
+    d_file = max(abs(written[k] - m64[k]) for k in METRIC_KEYS)
+    print(f"  `evaluate --gt --pred` ({len(gts0)} pairs): "
+          f"results_fold_0.txt in the reference's 8 lines, max|file - "
+          f"in-process| {d_file:.1e} (limit 1e-12)", flush=True)
+    if d_file > 1e-12:
+        fail("`evaluate` wrote other values than the in-process pass")
+
+    if importlib.util.find_spec("networkx") is None:
+        for argv in (["train", "gsr", "--fused", "--full-metrics",
+                      "--eval-backend", "networkx", "--epochs", "1",
+                      "--data-dir", csv_dir, "--out-dir", out_dir],
+                     ["evaluate", "--gt", gt_path, "--pred", pred_path,
+                      "--backend", "networkx", "--out-dir", ev_dir]):
+            try:
+                cli.main(argv)
+            except ImportError as e:
+                if "networkx" not in str(e):
+                    fail(f"`{' '.join(argv[:2])}` with networkx missing: "
+                         f"{e!r} does not name networkx")
+                print(f"  `{' '.join(argv[:2])} ... networkx` without "
+                      f"networkx: ImportError({str(e)!r})")
+            else:
+                fail(f"`{' '.join(argv[:2])}` ran the networkx backend "
+                     "without networkx")
+    else:
+        nx_m, t_nx = events_s(lambda: evaluate_pair_stacks(
+            gts0[:4], preds0[:4], backend="networkx"))
+        dev_m = evaluate_pair_stacks(gts0[:4], preds0[:4], device=dev)
+        rel = max(abs(dev_m[k] - nx_m[k]) / max(abs(nx_m[k]), 1e-300)
+                  for k in METRIC_KEYS)
+        print(f"  networkx is installed here: the networkx backend on 4 "
+              f"pairs ({t_nx:.1f} s) vs the card's float64, max relative "
+              f"|d| {rel:.2e} (limit 2e-4)", flush=True)
+        if rel > 2e-4:
+            fail("the card's metric suite disagrees with networkx")
+    C.reset_loop_counts()
+    return counts
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3961,7 +4223,7 @@ def main():
         {f"{k}_kernel": c for k, c in STEP_POOL_LAUNCHES.items()},
         "GSR step")
     print("phase 4: trainer path", flush=True)
-    counts = run_main_path(dev, data, EPOCHS)
+    counts, fold_outs = run_main_path(dev, data, EPOCHS)
     check_tiny_trainer(dev, data)
     print("phase 5: Kaggle CSVs to submission.csv through the command line",
           flush=True)
@@ -3984,6 +4246,9 @@ def main():
         check_gat_step(dev, data)
         gat_counts = run_gat_trainer(dev, data)
         gat_cli_counts = run_gat_cli(dev, os.path.join(WORK_DIR, "data"))
+        print("phase 8: the metric suite on the card", flush=True)
+        metric_counts = run_metric_suite(dev, fold_outs,
+                                         os.path.join(WORK_DIR, "data"))
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -3997,7 +4262,8 @@ def main():
                "replaces": k.replaces,
                "launches": sum(c.get(name, 0) for c in (
                    counts, csv_counts, mode_counts, parity_counts,
-                   gat_counts, gat_cli_counts, keep_counts))}
+                   gat_counts, gat_cli_counts, keep_counts,
+                   metric_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -22,7 +22,10 @@ same way: ``models.GATGraphUnet``, ``train.train_gat`` and
 ``train_gat_folds_parallel`` (unfused, or ``fused_step`` / ``fused_val`` on
 the kernels of ``models.gat_train_step_fused`` / ``gat_val_fused``, under
 host or on-device control), ``pipelines.run_gat_cv`` / ``run_gat_cv_fast``
-and ``train gat [--fast] [--fused]``.
+and ``train gat [--fast] [--fused]``. The evaluation suite (``evalx``: the
+challenge's eight metrics on the card or through networkx;
+``core/graph.py``) scores saved stacks (``evaluate``) and every fold of a
+``--full-metrics`` run.
 """
 
 from fcsr_tpu_torch.data import (kfold_indices, load_dataset,

@@ -6,13 +6,18 @@ The parser of ``fcsr_tpu/cli.py`` plus ``--device``:
     python -m fcsr_tpu_torch train gsr --fast [--fused-tail] --splits 3
     python -m fcsr_tpu_torch train gsr --fused --data-dir data --splits 3
     python -m fcsr_tpu_torch train gat [--fast] [--fused] --splits 3
+    python -m fcsr_tpu_torch train gsr --fused --full-metrics  # + evalx
+    python -m fcsr_tpu_torch evaluate --gt gt.npz --pred pred.npz --fold 0
     python -m fcsr_tpu_torch predict --params ck.npz --out sub.csv
     python -m fcsr_tpu_torch submit  --csv submission.csv -m "message"
 
 Commands run on the card; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the host. Synthetic data is substituted when the Kaggle CSVs
-are not in ``--data-dir``. A subcommand or flag whose module is not ported
-yet exits with a message naming what is missing; none is dropped silently.
+are not in ``--data-dir``. ``--full-metrics`` scores every fold with the
+metric suite into ``<out-dir>/eval_metrics.json``; ``--eval-backend
+networkx`` and ``evaluate --backend networkx`` need the networkx package.
+A subcommand or flag whose module is not ported yet exits with a message
+naming what is missing; none is dropped silently.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import argparse
 import json
 import os
 import sys
+
+import numpy as np
 
 __all__ = ["main", "build_parser"]
 
@@ -116,6 +123,7 @@ def build_parser():
     ev.add_argument("--backend", default="device",
                     choices=["device", "networkx"])
     ev.add_argument("--out-dir", default=".")
+    _add_device(ev)
 
     pr = sub.add_parser("predict",
                         help="load GSR-Net weights and write a submission")
@@ -149,20 +157,32 @@ def _refuse(ap, what: str, missing: str):
 
 def _refuse_unported(ap, args):
     """Exit for every subcommand or flag whose module is not ported."""
-    if args.cmd == "evaluate":
-        _refuse(ap, "`evaluate`", "fcsr_tpu/evalx (the metric suite)")
     if args.cmd != "train":
         return
     if args.family == "mlp":
         _refuse(ap, "`train mlp`", "fcsr_tpu/models/mlp.py and the MLP "
                                    "trainer of train/generic_loop.py")
-    if args.full_metrics:
-        _refuse(ap, "--full-metrics", "fcsr_tpu/evalx (the metric suite)")
-    if args.eval_backend != "device":
-        _refuse(ap, "--eval-backend networkx",
-                "fcsr_tpu/evalx (the metric suite)")
     if args.multichip:
         _refuse(ap, "--multichip", "fcsr_tpu/parallel (fold sharding)")
+
+
+def _write_fold_metrics(args, result):
+    """``<out-dir>/eval_metrics.json``: the per-fold metric dicts of a
+    ``--full-metrics`` run, as the JAX package's command line writes
+    them."""
+    if result.get("fold_metrics"):
+        os.makedirs(args.out_dir, exist_ok=True)
+        path = os.path.join(args.out_dir, "eval_metrics.json")
+        with open(path, "w") as f:
+            json.dump(result["fold_metrics"], f, indent=2)
+        print(f"metrics written: {path}")
+
+
+def _load_stack(path):
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return z[z.files[0]]
+    return np.load(path)
 
 
 def _train_gat(args):
@@ -182,12 +202,15 @@ def _train_gat(args):
                          fused_step=args.fused)
     if args.fast or args.fused:
         result = run_gat_cv_fast(data, cfg, splits=args.splits,
-                                 seed=args.seed, verbose=args.verbose,
-                                 device=args.device)
+                                 seed=args.seed,
+                                 full_metrics=args.full_metrics,
+                                 eval_backend=args.eval_backend,
+                                 verbose=args.verbose, device=args.device)
     else:
         result = run_gat_cv(data, splits=args.splits, seed=args.seed,
-                            cfg=cfg, verbose=args.verbose,
-                            device=args.device)
+                            cfg=cfg, full_metrics=args.full_metrics,
+                            eval_backend=args.eval_backend,
+                            verbose=args.verbose, device=args.device)
     print(json.dumps({"fold_maes": result["fold_maes"],
                       "mean_mae": result["mean_mae"],
                       "timings": result["timings"]}))
@@ -200,6 +223,7 @@ def _train_gat(args):
         path = os.path.join(args.out_dir, "submission.csv")
         save_prediction(result["test_preds"], path, ordering="colmajor")
         print(f"submission written: {path}")
+    _write_fold_metrics(args, result)
     return 0
 
 
@@ -230,7 +254,10 @@ def main(argv=None):
                  ("--checkpoint", args.checkpoint and not fast,
                   "the parity trainer (pass --fast or --fused)"),
                  ("--fused-tail", args.fused_tail and not fast,
-                  "the parity trainer (pass --fast)")]
+                  "the parity trainer (pass --fast)"),
+                 ("--eval-backend", args.eval_backend != "device"
+                  and not args.full_metrics,
+                  "a run without --full-metrics")]
         for flag, on, where in notes:
             if on:
                 print(f"note: {flag} changes nothing on {where}",
@@ -243,12 +270,16 @@ def main(argv=None):
         if fast:
             result = run_gsr_cv_fast(
                 data, cfg, splits=args.splits, seed=args.seed,
+                full_metrics=args.full_metrics,
+                eval_backend=args.eval_backend,
                 checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every, device=args.device)
         else:
             result = run_gsr_cv(data, cfg, splits=args.splits,
                                 seed=args.seed,
                                 reset_per_fold=args.reset_per_fold,
+                                eval_backend=args.eval_backend,
+                                full_metrics=args.full_metrics,
                                 verbose=args.verbose, device=args.device)
         print(json.dumps({"fold_maes": result["fold_maes"],
                           "mean_mae": result["mean_mae"],
@@ -262,6 +293,7 @@ def main(argv=None):
             path = os.path.join(args.out_dir, "submission.csv")
             save_prediction(result["test_preds"], path, ordering="rowmajor")
             print(f"submission written: {path}")
+        _write_fold_metrics(args, result)
         return 0
 
     if args.cmd == "predict":
@@ -281,6 +313,14 @@ def main(argv=None):
         save_prediction(preds, args.out, ordering=args.ordering)
         print(f"submission written: {args.out} "
               f"({preds.shape[0]} subjects, {args.ordering})")
+        return 0
+
+    if args.cmd == "evaluate":
+        from fcsr_tpu_torch.evalx.report import print_metrics
+        os.makedirs(args.out_dir, exist_ok=True)
+        print_metrics(_load_stack(args.gt), _load_stack(args.pred),
+                      fold_i=args.fold, backend=args.backend,
+                      out_dir=args.out_dir, device=args.device)
         return 0
 
     if args.cmd == "submit":

@@ -7,7 +7,9 @@ reference-faithful parity trainer, one model carried across the folds) and
 the mode the configuration's ``fused_*`` flags pick). GAT U-Net:
 ``run_gat_cv`` (a fresh model per fold, one fold after the other) and
 ``run_gat_cv_fast`` (all folds together; ``cfg.fused_step`` puts the step
-on the CUDA kernels). The per-fold topology metrics (``evalx``), the MLP
+on the CUDA kernels). With ``full_metrics`` each pipeline also scores
+every fold's validation predictions with the metric suite (``evalx``,
+``eval_backend`` "device" or "networkx") into ``fold_metrics``. The MLP
 family and multi-device fold sharding are not ported yet and are refused
 by name.
 """
@@ -22,11 +24,12 @@ import numpy as np
 import torch
 
 from fcsr_tpu_torch.data.datamodule import kfold_indices
+from fcsr_tpu_torch.evalx.report import print_metrics, require_networkx
 from fcsr_tpu_torch.train.fast_loop import (evaluate_gsr_folds,
                                             train_gsr_folds_parallel)
 from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, init_gat,
                                            precompute_gat_features,
-                                           predict_gat,
+                                           predict_gat, predict_gat_folds,
                                            predict_gat_folds_mae, train_gat,
                                            train_gat_folds_parallel)
 from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, evaluate_gsr,
@@ -36,22 +39,26 @@ from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["run_gsr_cv", "run_gsr_cv_fast", "run_gat_cv", "run_gat_cv_fast"]
 
-_NO_EVALX = ("full_metrics=True needs the port of fcsr_tpu/evalx (the "
-             "topology metric suite), which is not ported yet")
-_NO_NETWORKX = ("eval_backend='networkx' needs the port of fcsr_tpu/evalx "
-                "(the topology metric suite), which is not ported yet")
 _NO_PARALLEL = ("multichip=True needs the port of fcsr_tpu/parallel (fold "
                 "sharding over torch.distributed), which is not ported yet")
 
 
-def _check_eval_backend(eval_backend: str):
-    """The JAX package's ``eval_backend``: "device" runs here; "networkx"
-    waits for the port of evalx."""
-    if eval_backend == "networkx":
-        raise NotImplementedError(_NO_NETWORKX)
-    if eval_backend != "device":
+def _check_eval_backend(eval_backend: str, full_metrics: bool):
+    """The JAX package's ``eval_backend``, checked before any training: an
+    unknown name is a ValueError, and "networkx" for the metric suite
+    needs the networkx package (an ImportError naming it)."""
+    if eval_backend not in ("device", "networkx"):
         raise ValueError(f"unknown eval_backend: {eval_backend!r} "
                          "(expected 'device' or 'networkx')")
+    if full_metrics and eval_backend == "networkx":
+        require_networkx()
+
+
+def _fold_metrics(fold_outs, eval_backend, verbose, device):
+    """The metric suite over each fold's (preds, gts) stacks."""
+    return [print_metrics(gts, preds, fold_i=j, backend=eval_backend,
+                          write_file=False, verbose=verbose, device=device)
+            for j, (preds, gts) in enumerate(fold_outs)]
 
 
 def _fit_cfg_to_data(cfg, lr_all, hr_all):
@@ -84,16 +91,15 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
     and the last fold's predictions of the test set.
 
     Returns the JAX package's result dict: ``fold_maes``, ``mean_mae``,
-    ``fold_metrics`` (empty), ``params`` / ``params_per_fold`` (state_dict
+    ``fold_metrics`` (each fold's metric dict with ``full_metrics``, else
+    empty), ``params`` / ``params_per_fold`` (state_dict
     mappings of numpy arrays), ``runner``, ``model``, ``cfg``,
     ``test_preds`` (a tensor on ``device``, or None without ``lr_test``),
     ``loss_hist``, ``timings`` and the step / forward counts. ``flat0``
     optionally gives the folds' initial weights (``GSRFoldRunner``)."""
     if multichip:
         raise NotImplementedError(_NO_PARALLEL)
-    if full_metrics:
-        raise NotImplementedError(_NO_EVALX)
-    _check_eval_backend(eval_backend)
+    _check_eval_backend(eval_backend, full_metrics)
 
     cfg = cfg or GSRTrainConfig(fused_adam=True)
     lr_all = np.asarray(data["lr_train"], dtype=np.float32)
@@ -111,8 +117,13 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
     t_train = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    fold_maes, _ = evaluate_gsr_folds(cfg, runner, pull_preds=False)
+    fold_maes, fold_outs = evaluate_gsr_folds(cfg, runner,
+                                              pull_preds=full_metrics)
     t_eval = time.perf_counter() - t0
+
+    fold_metrics = []
+    if full_metrics:
+        fold_metrics = _fold_metrics(fold_outs, eval_backend, False, device)
 
     test_preds = None
     if data.get("lr_test") is not None:
@@ -122,7 +133,7 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
     return {
         "fold_maes": fold_maes,
         "mean_mae": float(np.mean(fold_maes)),
-        "fold_metrics": [],
+        "fold_metrics": fold_metrics,
         "params": params_per_fold[-1],
         "params_per_fold": params_per_fold,
         "runner": runner,
@@ -152,13 +163,11 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
     fresh ``GSRNet(seed=init_seed + j)`` and a fresh optimizer.
 
     Returns the JAX package's result dict: ``fold_maes``, ``mean_mae``,
-    ``fold_metrics`` (empty), ``params`` (the last model's state_dict as
-    numpy arrays), ``model``, ``cfg``, ``test_preds`` (a tensor on
-    ``device``, or None without ``lr_test``), ``timings`` and the step /
-    forward counts."""
-    if full_metrics:
-        raise NotImplementedError(_NO_EVALX)
-    _check_eval_backend(eval_backend)
+    ``fold_metrics`` (with ``full_metrics``), ``params`` (the last model's
+    state_dict as numpy arrays), ``model``, ``cfg``, ``test_preds`` (a
+    tensor on ``device``, or None without ``lr_test``), ``timings`` and the
+    step / forward counts."""
+    _check_eval_backend(eval_backend, full_metrics)
 
     cfg = cfg or GSRTrainConfig()
     lr_all = np.asarray(data["lr_train"], dtype=np.float32)
@@ -174,7 +183,7 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
                                              padding=cfg.padding)
     t_spectral = time.perf_counter() - t0
 
-    fold_maes = []
+    fold_maes, fold_metrics = [], []
     t_train = t_eval = 0.0
     for j, (tr, va) in enumerate(folds):
         if reset_per_fold:
@@ -185,9 +194,13 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
                        verbose=verbose)
         t_train += time.perf_counter() - t0
         t0 = time.perf_counter()
-        mae, _, _ = evaluate_gsr(None, model, cfg, lr_all[va], hr_all[va],
-                                 verbose=verbose)
+        mae, preds, gts = evaluate_gsr(None, model, cfg, lr_all[va],
+                                       hr_all[va], verbose=verbose)
         fold_maes.append(mae)
+        if full_metrics:
+            fold_metrics.append(print_metrics(
+                gts, preds, fold_i=j, backend=eval_backend, write_file=False,
+                verbose=verbose, device=device))
         t_eval += time.perf_counter() - t0
 
     test_preds = None
@@ -197,7 +210,7 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
     return {
         "fold_maes": fold_maes,
         "mean_mae": float(np.mean(fold_maes)),
-        "fold_metrics": [],
+        "fold_metrics": fold_metrics,
         "params": {k: t.detach().cpu().numpy()
                    for k, t in model.state_dict().items()},
         "model": model,
@@ -210,19 +223,47 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
     }
 
 
-def _fold_maes_on_device(model, cfg, best_vars, lr_all, hr_all, folds, dev):
-    """Each fold's validation off-diagonal MAE from one staging of the
-    stacks; only (F,) scalars come back."""
+def _stage_val(cfg, lr_all, folds, dev):
+    """The LR stack and its node features on ``dev``, and the folds'
+    validation subjects padded to one length, (F, va_len)."""
     lr_d = torch.from_numpy(lr_all).to(dev)
-    hr_d = torch.from_numpy(hr_all).to(dev)
     x_d = torch.from_numpy(precompute_gat_features(lr_all, cfg.dim)).to(dev)
     va_len = max(len(va) for _, va in folds)
     va_idx = np.zeros((len(folds), va_len), np.int64)
     for j, (_, va) in enumerate(folds):
         va_idx[j, :len(va)] = np.asarray(va)
+    return lr_d, x_d, va_idx
+
+
+def _fold_maes_on_device(model, cfg, best_vars, lr_all, hr_all, folds, dev):
+    """Each fold's validation off-diagonal MAE from one staging of the
+    stacks; only (F,) scalars come back."""
+    lr_d, x_d, va_idx = _stage_val(cfg, lr_all, folds, dev)
+    hr_d = torch.from_numpy(hr_all).to(dev)
     maes = predict_gat_folds_mae(model, best_vars, lr_d, x_d, va_idx, hr_d,
                                  [len(va) for _, va in folds])
     return [float(m) for m in maes.cpu().numpy()]
+
+
+def _gat_fold_eval(model, cfg, best_vars, lr_all, hr_all, folds, dev,
+                   full_metrics, eval_backend, verbose):
+    """(fold_maes, fold_metrics). Without ``full_metrics`` only the (F,)
+    MAEs come back from the device; with it every fold's predictions come
+    back, its off-diagonal MAE is taken on the host and the metric suite
+    scores them, as in the JAX package."""
+    if not full_metrics:
+        return _fold_maes_on_device(model, cfg, best_vars, lr_all, hr_all,
+                                    folds, dev), []
+    preds_f = predict_gat_folds(model, best_vars,
+                                *_stage_val(cfg, lr_all, folds, dev))
+    preds_f = preds_f.cpu().numpy()
+    fold_maes, fold_outs = [], []
+    for j, (_, va) in enumerate(folds):
+        preds, gts = preds_f[j, :len(va)], hr_all[va]
+        off = ~np.eye(gts.shape[-1], dtype=bool)
+        fold_maes.append(float(np.abs(preds[:, off] - gts[:, off]).mean()))
+        fold_outs.append((preds, gts))
+    return fold_maes, _fold_metrics(fold_outs, eval_backend, verbose, dev)
 
 
 def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
@@ -236,11 +277,10 @@ def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
 
     Returns ``model``, ``variables`` (the last fold's best state_dict as
     numpy arrays), ``variables_per_fold``, ``cfg``, ``fold_maes``,
-    ``mean_mae``, ``fold_metrics`` (empty), ``histories``, ``test_preds``
-    (a tensor on ``device``, or None without ``lr_test``), ``timings``."""
-    if full_metrics:
-        raise NotImplementedError(_NO_EVALX)
-    _check_eval_backend(eval_backend)
+    ``mean_mae``, ``fold_metrics`` (each fold's metric dict with
+    ``full_metrics``, else empty), ``histories``, ``test_preds`` (a tensor
+    on ``device``, or None without ``lr_test``), ``timings``."""
+    _check_eval_backend(eval_backend, full_metrics)
     dev = resolve_device(device)
     cfg = cfg or GATTrainConfig()
     lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
@@ -261,8 +301,9 @@ def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
     t_train = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    fold_maes = _fold_maes_on_device(model, cfg, best_vars, lr_all, hr_all,
-                                     folds, dev)
+    fold_maes, fold_metrics = _gat_fold_eval(
+        model, cfg, best_vars, lr_all, hr_all, folds, dev, full_metrics,
+        eval_backend, verbose)
     t_predict = time.perf_counter() - t0
     test_preds = None
     if data.get("lr_test") is not None:
@@ -270,7 +311,7 @@ def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
     return {"model": model, "variables": best_vars[-1],
             "variables_per_fold": best_vars, "cfg": cfg,
             "fold_maes": fold_maes, "mean_mae": float(np.mean(fold_maes)),
-            "fold_metrics": [], "histories": histories,
+            "fold_metrics": fold_metrics, "histories": histories,
             "test_preds": test_preds,
             "timings": {"train": t_train, "predict": t_predict}}
 
@@ -290,9 +331,7 @@ def run_gat_cv_fast(data: Dict[str, np.ndarray],
     folds' initial weights (``GATLayout`` order)."""
     if multichip:
         raise NotImplementedError(_NO_PARALLEL)
-    if full_metrics:
-        raise NotImplementedError(_NO_EVALX)
-    _check_eval_backend(eval_backend)
+    _check_eval_backend(eval_backend, full_metrics)
     dev = resolve_device(device)
     cfg = cfg or GATTrainConfig()
     lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
@@ -307,8 +346,9 @@ def run_gat_cv_fast(data: Dict[str, np.ndarray],
     t_train = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    fold_maes = _fold_maes_on_device(model, cfg, best_vars, lr_all, hr_all,
-                                     folds, dev)
+    fold_maes, fold_metrics = _gat_fold_eval(
+        model, cfg, best_vars, lr_all, hr_all, folds, dev, full_metrics,
+        eval_backend, verbose)
     t_predict = time.perf_counter() - t0
     test_preds = None
     if data.get("lr_test") is not None:
@@ -316,6 +356,6 @@ def run_gat_cv_fast(data: Dict[str, np.ndarray],
     return {"model": model, "variables": best_vars[-1],
             "variables_per_fold": best_vars, "cfg": cfg,
             "fold_maes": fold_maes, "mean_mae": float(np.mean(fold_maes)),
-            "fold_metrics": [], "histories": histories,
+            "fold_metrics": fold_metrics, "histories": histories,
             "test_preds": test_preds,
             "timings": {"train": t_train, "predict": t_predict}}

@@ -173,10 +173,7 @@ def test_cli_defaults_to_the_card(csv_dir, tmp_path):
 
 @pytest.mark.parametrize("argv,what", [
     (["train", "gat", "--multichip"], "--multichip"),
-    (["train", "gat", "--fast", "--full-metrics"], "--full-metrics"),
-    (["train", "gat", "--eval-backend", "networkx"], "networkx"),
-    (["train", "mlp"], "train mlp"),
-    (["evaluate", "--gt", "a.npz", "--pred", "b.npz"], "evaluate")])
+    (["train", "mlp"], "train mlp")])
 def test_cli_refuses_what_is_not_ported(capsys, argv, what):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
@@ -184,6 +181,26 @@ def test_cli_refuses_what_is_not_ported(capsys, argv, what):
     err = capsys.readouterr().err
     assert what in err and "not available in fcsr_tpu_torch yet" in err
     assert "gat_unet" not in err and "gat_loop" not in err
+
+
+@pytest.mark.parametrize("flags", [["--fast", "--full-metrics"],
+                                   ["--eval-backend", "networkx"],
+                                   ["--full-metrics", "--eval-backend",
+                                    "networkx"]])
+def test_cli_train_gat_runs_the_metric_suite(csv_dir, tmp_path, flags):
+    """``train gat`` with the flags the metric suite's port lifted: each
+    fold scored into ``eval_metrics.json`` with ``--full-metrics``."""
+    out = tmp_path / "out"
+    assert cli.main(["train", "gat", *flags, "--epochs", "1", "--splits",
+                     "2", "--dim", "4", "--data-dir", csv_dir, "--out-dir",
+                     str(out), "--device", "cpu"]) == 0
+    scored = "--full-metrics" in flags
+    assert (out / "eval_metrics.json").exists() == scored
+    if scored:
+        metrics = json.loads((out / "eval_metrics.json").read_text())
+        assert len(metrics) == 2
+        assert all(len(m) == 8 and np.isfinite(list(m.values())).all()
+                   for m in metrics)
 
 
 def test_entry_points_refuse_what_is_not_ported(dataset):
@@ -196,8 +213,9 @@ def test_entry_points_refuse_what_is_not_ported(dataset):
     with pytest.raises(NotImplementedError, match="fcsr_tpu/parallel"):
         run_gat_cv_fast(data, cfg, multichip=True, device="cpu")
     for run in (run_gat_cv_fast, run_gat_cv):
-        with pytest.raises(NotImplementedError, match="fcsr_tpu/evalx"):
-            run(data, cfg=cfg, full_metrics=True, device="cpu")
+        with pytest.raises(ValueError, match="unknown eval_backend"):
+            run(data, cfg=cfg, full_metrics=True, eval_backend="gpu",
+                device="cpu")
     bad = GATTrainConfig(epochs=1, **{**TINY, "dim": 3})
     with pytest.raises(ValueError, match="not divisible"):
         train_gat_folds_parallel(bad, lr, hr, folds, device="cpu")

@@ -301,7 +301,8 @@ def test_run_gsr_cv_matches_jax(cv_data, monkeypatch, reset):
 
 def test_run_gsr_cv_carryover_and_reset_differ(cv_data):
     cfg = GSRTrainConfig(epochs=2, ks=KS)
-    carry = pipelines.run_gsr_cv(cv_data, cfg, splits=2, device="cpu")
+    carry = pipelines.run_gsr_cv(cv_data, cfg, splits=2, full_metrics=True,
+                                 device="cpu")
     reset = pipelines.run_gsr_cv(cv_data, cfg, splits=2,
                                  reset_per_fold=True, device="cpu")
     # fold 0 of reset mode starts from the carried model's one init
@@ -309,8 +310,10 @@ def test_run_gsr_cv_carryover_and_reset_differ(cv_data):
                                atol=1e-6)
     assert abs(carry["fold_maes"][1] - reset["fold_maes"][1]) > 1e-6
     assert tuple(carry["test_preds"].shape) == (2, 32, 32)
-    with pytest.raises(NotImplementedError, match="evalx"):
-        pipelines.run_gsr_cv(cv_data, cfg, full_metrics=True, device="cpu")
+    # full_metrics scores each fold with the metric suite
+    assert len(carry["fold_metrics"]) == 2 and reset["fold_metrics"] == []
+    assert all(len(m) == 8 and np.isfinite(list(m.values())).all()
+               for m in carry["fold_metrics"])
 
 
 # ---------------------------------------------------------------------------

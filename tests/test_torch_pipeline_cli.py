@@ -1,12 +1,14 @@
 """The CSV-to-submission path as a whole, at the tiny 20 -> 32 size on the
 CPU: the same CSVs and the same initial weights through the JAX package's
 ``run_gsr_cv_fast`` (``fused_adam``, Pallas interpret mode) and the
-port's; checkpoint resume; the command line and what it refuses (the
-other trainer modes' commands are in ``test_torch_gsr_trainers.py``)."""
+port's; checkpoint resume; the command line, what it refuses and the
+metric suite's commands it runs (the other trainer modes' commands are in
+``test_torch_gsr_trainers.py``)."""
 
 import inspect
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -204,7 +206,7 @@ def test_train_gsr_folds_parallel_and_evaluate_folds():
     assert evaluate_gsr_folds(cfg, runner, pull_preds=False)[1] == []
 
 
-def test_fit_cfg_and_pipeline_refusals():
+def test_fit_cfg_and_pipeline_refusals(monkeypatch):
     cfg = GSRTrainConfig(fused_adam=True)
     lr, hr = np.zeros((2, 20, 20)), np.zeros((2, 32, 32))
     fit = _fit_cfg_to_data(cfg, lr, hr)
@@ -213,8 +215,10 @@ def test_fit_cfg_and_pipeline_refusals():
     data = {"lr_train": lr, "hr_train": hr}
     with pytest.raises(NotImplementedError, match="parallel"):
         run_gsr_cv_fast(data, cfg, multichip=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="evalx"):
-        run_gsr_cv_fast(data, cfg, full_metrics=True, device="cpu")
+    monkeypatch.setitem(sys.modules, "networkx", None)
+    with pytest.raises(ImportError, match="networkx"):
+        run_gsr_cv_fast(data, cfg, full_metrics=True,
+                        eval_backend="networkx", device="cpu")
 
 
 PIPELINES = ("run_gsr_cv_fast", "run_gsr_cv", "run_gat_cv",
@@ -234,21 +238,26 @@ def test_pipeline_keeps_the_jax_parameter_order(name):
 
 
 @pytest.mark.parametrize("name", PIPELINES)
-def test_pipeline_refuses_networkx_eval_backend_by_name(name):
-    """``eval_backend="networkx"`` names the missing evalx port, by keyword
-    and positionally at the JAX package's position; an unknown backend is a
+def test_pipeline_refuses_networkx_eval_backend_by_name(name, monkeypatch):
+    """Where networkx is missing, ``eval_backend="networkx"`` with
+    ``full_metrics`` is an ImportError naming it, by keyword and
+    positionally at the JAX package's position; an unknown backend is a
     ValueError. Both are refused before any training."""
     run = getattr(t_pipelines, name)
     data = {"lr_train": np.zeros((2, 20, 20)),
             "hr_train": np.zeros((2, 32, 32))}
-    with pytest.raises(NotImplementedError, match="evalx"):
-        run(data, eval_backend="networkx", device="cpu")
+    monkeypatch.setitem(sys.modules, "networkx", None)
+    with pytest.raises(ImportError, match="networkx"):
+        run(data, full_metrics=True, eval_backend="networkx", device="cpu")
     j_params = list(inspect.signature(getattr(j_pipelines, name)).parameters
                     .values())
     upto = [p.name for p in j_params].index("eval_backend")
-    args = [data] + [p.default for p in j_params[1:upto]] + ["networkx"]
-    with pytest.raises(NotImplementedError, match="evalx"):
-        run(*args, device="cpu")
+    args = [data] + [True if p.name == "full_metrics" else p.default
+                     for p in j_params[1:upto]] + ["networkx"]
+    kw = {} if "full_metrics" in [p.name for p in j_params[:upto]] \
+        else {"full_metrics": True}
+    with pytest.raises(ImportError, match="networkx"):
+        run(*args, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown eval_backend"):
         run(data, eval_backend="gpu", device="cpu")
 
@@ -310,14 +319,9 @@ def test_cli_submit_dry_run(tmp_path, capsys):
 @pytest.mark.parametrize("argv,missing", [
     (["train", "mlp"], "models/mlp.py"),
     (["train", "gat", "--fused", "--multichip"], "fcsr_tpu/parallel"),
-    (["evaluate", "--gt", "a.npz", "--pred", "b.npz"], "evalx"),
-    (["train", "gsr", "--full-metrics"], "evalx"),
-    (["train", "gsr", "--fast", "--eval-backend", "networkx"], "evalx"),
     (["train", "gsr", "--fused", "--multichip"], "fcsr_tpu/parallel"),
     (["train", "gsr", "--fast", "--fused-tail", "--multichip"],
      "fcsr_tpu/parallel"),
-    (["train", "gsr", "--fused", "--full-metrics"], "evalx"),
-    (["train", "gsr", "--fused", "--eval-backend", "networkx"], "evalx"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, missing, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -325,6 +329,45 @@ def test_cli_refuses_what_is_not_ported(argv, missing, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not available in fcsr_tpu_torch yet" in err and missing in err
+
+
+@pytest.mark.parametrize("argv,scored", [
+    (["evaluate"], False),
+    (["train", "gsr", "--full-metrics"], True),
+    (["train", "gsr", "--fast", "--eval-backend", "networkx"], False),
+    (["train", "gsr", "--fused", "--full-metrics"], True),
+    (["train", "gsr", "--fused", "--eval-backend", "networkx"], False),
+])
+def test_cli_runs_the_metric_suite(argv, scored, csv_dir, tmp_path, capsys):
+    """The commands the metric suite's port lifted: ``evaluate`` writes
+    ``results_fold_0.txt``; ``--full-metrics`` writes ``eval_metrics.json``
+    (one dict a fold); ``--eval-backend networkx`` alone changes nothing
+    and says so."""
+    out = tmp_path / "out"
+    if argv[0] == "evaluate":
+        rng = np.random.default_rng(0)
+        gt = np.triu(rng.random((2, 12, 12)), 1)
+        np.savez(tmp_path / "gt.npz", gt=gt + gt.transpose(0, 2, 1))
+        np.savez(tmp_path / "pred.npz", pred=0.9 * (gt + gt.transpose(0, 2,
+                                                                      1)))
+        argv = argv + ["--gt", str(tmp_path / "gt.npz"), "--pred",
+                       str(tmp_path / "pred.npz")]
+    else:
+        argv = argv + ["--epochs", "1", "--splits", "2", "--data-dir",
+                       csv_dir]
+    assert cli.main(argv + ["--out-dir", str(out), "--device", "cpu"]) == 0
+    captured = capsys.readouterr()
+    if argv[0] == "evaluate":
+        lines = (out / "results_fold_0.txt").read_text().splitlines()
+        assert [ln.split(": ")[0] for ln in lines[:3]] == [
+            "MAE", "PCC", "Jensen-Shannon Distance"] and len(lines) == 8
+        return
+    assert (out / "eval_metrics.json").exists() == scored
+    if scored:
+        metrics = json.loads((out / "eval_metrics.json").read_text())
+        assert len(metrics) == 2 and len(metrics[0]) == 8
+    else:
+        assert "--eval-backend changes nothing" in captured.err
 
 
 def test_cli_parser_keeps_the_jax_flags():
