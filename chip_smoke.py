@@ -154,7 +154,23 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    (``results_fold_0.txt`` against the in-process dict) and, where
    networkx is absent, ``--eval-backend networkx`` failing with an
    ImportError that names it (where it is present, its backend against
-   the card on 4 pairs).
+   the card on 4 pairs);
+9. drives the MLP family at full width (v2: 12 720 -> 214 -> 35 778; v1:
+   25 600 -> 10 000 -> 71 824, 974 M parameters a fold): ``adamw_masked``
+   at v2's 3 x 10 414 992, out of place against plain and in place
+   against out of place, bit for bit, timed in turns beside
+   ``torch._fused_adamw_`` (one rate, no mask), and in place at v1's 3 x
+   974 341 824 against plain on a slice of each fold (``check_adamw_inplace``);
+   one step of each variant on the kernels against the same step on the
+   plain versions, bit for bit (v2 at F = 3 with a masked fold, v1 at F =
+   1), then both steps at F = 3 eager, as one CUDA graph and profiled
+   (``check_mlp_steps``; ``profile_mlp_v2.txt``, ``profile_mlp_v1.txt``);
+   the slice's main path, ``run_mlp_cv`` for the shipped 100 epochs on the
+   teacher set (one ``adamw_masked`` launch a step, the test predictions'
+   matrix scatter), its MAEs beside the untrained model's and the mean
+   target's; and ``train mlp`` and ``train mlp --variant v1 --epochs 2``
+   on phase 5's CSVs, each column-major submission parsed back, with
+   v1's peak device memory.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -176,7 +192,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
-# phase 5's CSVs and submissions (a few hundred MB), removed when phase 7 ends
+# phase 5's CSVs and submissions (a few hundred MB), removed when phase 9 ends
 WORK_DIR = os.path.join(OUT_DIR, "smoke_csv_path")
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W):
@@ -1817,6 +1833,7 @@ def profile_steps(step, eager_ms, path):
     """torch.profiler over 10 eager calls of ``step``: device time by
     kernel, written to ``path``, and the device's busy share of the eager
     step. Returns the profiler's averages by name."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1826,13 +1843,15 @@ def profile_steps(step, eager_ms, path):
         torch.cuda.synchronize()
     averages = prof.key_averages()
     table = averages.table(sort_by="cuda_time_total", row_limit=15)
-    dev_ms = sum(e.self_device_time_total for e in averages) / 10 / 1e3
+    # device events only: an aten op's self device time is its kernels'
+    device = [e for e in averages if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in device) / 10 / 1e3
     with open(path, "w") as f:
         f.write(table)
     print(f"  profile: {dev_ms:.3f} ms of device time per step, "
           f"{100 * dev_ms / eager_ms:.1f}% of the {eager_ms:.3f} ms eager "
           f"step; table in {path}")
-    for e in sorted(averages, key=lambda e: -e.self_device_time_total):
+    for e in sorted(device, key=lambda e: -e.self_device_time_total):
         if e.self_device_time_total > 0:
             print(f"    {e.key[:60]:60s} {e.self_device_time_total / 10:9.1f}"
                   f" us/step  {e.count // 10:3d} launches/step")
@@ -4178,6 +4197,369 @@ def run_metric_suite(dev, fold_outs, csv_dir):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the MLP family
+# ---------------------------------------------------------------------------
+
+MLP_EPOCHS = 100            # the shipped `train mlp` run
+MLP_V1_EPOCHS = 2           # v1 at full width, cut to 2 epochs
+MLP_V2_P, MLP_V1_P = 10_414_992, 974_341_824   # parameters per fold
+MLP_V1_HIDDEN = 10_000     # v1's hidden width (the JAX package's default)
+MLP_CHECK_SLICE = 1 << 20   # elements per fold held to plain at v1's size
+ADAMW_BYTES = 28            # p, m, v, g read and p, m, v written, float32
+
+
+def _adamw_inputs(F, P, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randn(F, P, device=dev, generator=g)
+    m = torch.randn(F, P, device=dev, generator=g).mul_(1e-2)
+    v = torch.rand(F, P, device=dev, generator=g).mul_(1e-3)
+    grad = torch.randn(F, P, device=dev, generator=g)
+    # fold 1 masked, the others at other rates and steps
+    scal = torch.tensor([[1.0, 1e-2, 1 - 0.9, 1 - 0.999],
+                         [0.0, 1e-2, 1 - 0.9, 1 - 0.999],
+                         [1.0, 1e-3, 1 - 0.9 ** 7, 1 - 0.999 ** 7]][:F],
+                        device=dev)
+    return p, m, v, grad, scal, torch.ones(F, 1, device=dev)
+
+
+def check_adamw_inplace(dev):
+    """Phase 9.1: ``adamw_masked`` at the MLP trainer's shapes. At v2's (3 x
+    10 414 992) the out-of-place form against its plain version and the
+    in-place form against the out-of-place one, bit for bit, then both
+    timed in turns beside the plain version and ``torch._fused_adamw_``
+    (one rate, no mask: not the same function, so no library time); at
+    v1's (3 x 974 341 824, which only the in-place form fits) the
+    in-place form against the plain version on the first 2^20 entries of
+    each fold, bit for bit, and timed. Returns the printed rows."""
+    from fcsr_tpu_torch.kernels import PLAIN_OPS, KERNEL_OPS as K
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    hp = (0.9, 0.999, 1e-8, 0.01)
+    rows = {}
+    F = 3
+    p, m, v, g, scal, vals = _adamw_inputs(F, MLP_V2_P, dev, 9)
+    oop = K.adamw_masked(p, m, v, g, scal, vals, *hp)
+    plain = PLAIN_OPS.adamw_masked(p, m, v, g, scal, vals, *hp)
+    bufs = [t.clone() for t in (p, m, v)]
+    inp = K.adamw_masked(*bufs, g, scal, vals, *hp, inplace=True)
+    torch.cuda.synchronize()
+    same_plain = all(torch.equal(a, b) for a, b in zip(oop, plain))
+    same_forms = all(torch.equal(a, b) for a, b in zip(oop, inp)) and all(
+        a.data_ptr() == b.data_ptr() for a, b in zip(inp[:3], bufs))
+    masked = all(torch.equal(a[1], b[1]) for a, b in zip(inp[:3], (p, m, v)))
+    print(f"  adamw_masked at v2's {F} x {MLP_V2_P}: out of place == plain "
+          f"{same_plain}, in place == out of place {same_forms}, masked "
+          f"fold unchanged {masked}", flush=True)
+    if not (same_plain and same_forms and masked):
+        fail("adamw_masked: the in-place and out-of-place forms and the "
+             "plain version disagree at v2's shape")
+    del oop, plain, inp
+    fns = [lambda: K.adamw_masked(p, m, v, g, scal, vals, *hp),
+           lambda: K.adamw_masked(*bufs, g, scal, vals, *hp, inplace=True),
+           lambda: PLAIN_OPS.adamw_masked(p, m, v, g, scal, vals, *hp)]
+    ps, gs = list(bufs[0].clone().unbind(0)), list(g.unbind(0))
+    ms_, vs = list(bufs[1].clone().unbind(0)), list(bufs[2].clone().unbind(0))
+    steps = [torch.ones((), device=dev) for _ in range(F)]
+    fused = getattr(torch, "_fused_adamw_", None)
+    if fused is not None:
+        fns.append(lambda: fused(ps, gs, ms_, vs, [], steps, lr=1e-2,
+                                 beta1=0.9, beta2=0.999, weight_decay=0.01,
+                                 eps=1e-8, amsgrad=False, maximize=False))
+    times = graph_ms(fns, reps=10)
+    b_ms, b_by = bound(0.0, ADAMW_BYTES * F * MLP_V2_P)
+    rows["v2"] = dict(ms=times[0], ms_inplace=times[1], plain_ms=times[2],
+                      bound_ms=b_ms, fused_adamw_ms=(times[3] if fused
+                                                     else None))
+    print(f"  adamw_masked at v2's shape: out of place {times[0]:.4f} ms, in "
+          f"place {times[1]:.4f} ms, plain {times[2]:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); torch._fused_adamw_ over the 3 folds "
+          "(one rate, no mask, not the same function) "
+          + (f"{times[3]:.4f} ms" if fused else "not in this torch"),
+          flush=True)
+    del p, m, v, g, bufs, ps, gs, ms_, vs, fns
+    torch.cuda.empty_cache()
+
+    p, m, v, g, scal, vals = _adamw_inputs(F, MLP_V1_P, dev, 10)
+    sl = slice(0, MLP_CHECK_SLICE)
+    before = [t[:, sl].clone() for t in (p, m, v, g)]
+    K.adamw_masked(p, m, v, g, scal, vals, *hp, inplace=True)
+    want = PLAIN_OPS.adamw_masked(*before, scal, vals, *hp)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a[:, sl], b) for a, b in zip((p, m, v), want))
+    ms = graph_ms([lambda: K.adamw_masked(p, m, v, g, scal, vals, *hp,
+                                          inplace=True)], reps=2)[0]
+    b_ms, b_by = bound(0.0, ADAMW_BYTES * F * MLP_V1_P)
+    rows["v1"] = dict(ms_inplace=ms, bound_ms=b_ms)
+    print(f"  adamw_masked in place at v1's {F} x {MLP_V1_P} (4 buffers of "
+          f"{F * MLP_V1_P * 4 / 1e9:.1f} GB): == plain on the first "
+          f"{MLP_CHECK_SLICE} entries of each fold {same}; {ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.0f}% of it", flush=True)
+    if not same:
+        fail("adamw_masked in place disagrees with its plain version at "
+             "v1's shape")
+    del p, m, v, g, before, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _mlp_setup(variant, data, F, dev):
+    """The full-width training model, its fold stacks (the teacher set's
+    contiguous-window folds) and a trainer from fresh inits."""
+    from fcsr_tpu_torch.data import contiguous_window_folds
+    from fcsr_tpu_torch.models.mlp import SpectralResMLP, SuperResMLP
+    from fcsr_tpu_torch.train.generic_loop import _FoldTrainer, mse_criterion
+    from fcsr_tpu_torch.train.losses import (make_triu_mse_criterion,
+                                             pack_triu_targets)
+
+    lr = np.asarray(data["lr_train"], np.float32)
+    hr = np.asarray(data["hr_train"], np.float32)
+    if variant == "v2":
+        model = SpectralResMLP(LR, HR, (LR + HR) // 2, output="vector",
+                               device="meta")
+        r, c = np.triu_indices(LR, 1)
+        x, y = lr[:, r, c], pack_triu_targets(hr)
+        crit = make_triu_mse_criterion(HR)
+    else:
+        model = SuperResMLP(LR * LR, HR * HR, MLP_V1_HIDDEN, 1,
+                            device="meta")
+        x, y, crit = lr, hr, mse_criterion
+    folds = contiguous_window_folds(len(lr), 3, 0.33, seed=42)[:F]
+    tr = np.stack([a for a, _ in folds])
+    va = np.stack([b for _, b in folds])
+    p, s = model.init_flat([42 + j for j in range(F)], dev)
+    return _FoldTrainer(model, p, s, x[tr], y[tr], x[va], y[va], 42, 32,
+                        crit, 1.0, 0.01, dev)
+
+
+def _fingerprint(t):
+    """(sum of the float32 bit patterns as int64, sum in float64, the first
+    entries): two buffers with the same fingerprint are taken as equal bit
+    for bit (one entry that differs changes the first sum), without a
+    second copy of a v1-sized buffer."""
+    return (int(t.view(torch.int32).sum(dtype=torch.int64)),
+            float(t.sum(dtype=torch.float64)),
+            t.reshape(-1)[:MLP_CHECK_SLICE].clone())
+
+
+def _same_fingerprint(a, b):
+    return a[0] == b[0] and a[1] == b[1] and torch.equal(a[2], b[2])
+
+
+def check_mlp_steps(dev, data):
+    """Phase 9.2: one full-width training step of each variant on the
+    kernels (``KERNEL_OPS``) against the same step on the plain versions
+    (``PLAIN_OPS``) from the same state and the same dropout draws: loss,
+    clipped gradient, p, m, v and the statistics bit for bit (the update
+    is IEEE with no FMA; everything else is the same PyTorch code),
+    compared by ``_fingerprint``. v2 at F = 3 with fold 1 masked, v1 at
+    F = 1 (the plain update's temporaries for 3 folds would not fit). Then
+    each variant's step at F = 3 timed eager and as one CUDA graph and
+    profiled (its device launches; ``adamw_masked`` once). Returns the
+    step numbers by variant."""
+    from torch.autograd import DeviceType
+
+    from fcsr_tpu_torch.kernels import (KERNEL_OPS, PLAIN_OPS, launch_counts,
+                                        reset_launch_counts)
+
+    for variant, F in (("v2", 3), ("v1", 1)):
+        tr = _mlp_setup(variant, data, F, dev)
+        idx = torch.arange(32, device=dev).repeat(F, 1)
+        ok = torch.tensor([1.0, 0.0, 1.0][:F], device=dev)
+        lr = torch.full((F,), 0.01, device=dev)
+        bufs = (tr.p, tr.m, tr.v, tr.s, tr.t)
+        state = [t.clone() for t in bufs]
+        masked_before = [t[1].clone() for t in bufs[:4]] if F > 1 else None
+        results = []
+        for ops in (KERNEL_OPS, PLAIN_OPS):
+            for buf, saved in zip(bufs, state):
+                buf.copy_(saved)
+            tr.gen.manual_seed(42)
+            tr.ops = ops
+            reset_launch_counts()
+            loss = tr.step(idx, ok, lr)
+            torch.cuda.synchronize()
+            results.append(([loss.clone()] + [_fingerprint(t) for t in (
+                tr.g, tr.p, tr.m, tr.v, tr.s)], _nonzero(launch_counts())))
+        (k, k_counts), (pl, p_counts) = results
+        same = [torch.equal(k[0], pl[0])] + [
+            _same_fingerprint(a, b) for a, b in zip(k[1:], pl[1:])]
+        moved = not _same_fingerprint(k[2], _fingerprint(state[0]))
+        masked = F == 1 or all(torch.equal(a[1], b) for a, b in zip(
+            bufs[:4], masked_before))
+        print(f"  {variant} step (F = {F}, full width): kernels vs plain, "
+              f"loss / g / p / m / v / stats bit-equal {same}; masked fold "
+              f"unchanged {masked}; launches {k_counts} vs {p_counts}; loss "
+              f"{k[0].tolist()}", flush=True)
+        if not (all(same) and moved and masked) \
+                or k_counts != {"adamw_masked": 1} or p_counts:
+            fail(f"the {variant} MLP step on the kernels disagrees with the "
+                 "step on the plain versions")
+        del tr, bufs, state, results, k, pl, masked_before
+        torch.cuda.empty_cache()
+
+    out = {}
+    for variant in ("v2", "v1"):
+        tr = _mlp_setup(variant, data, 3, dev)
+        tr.gen = None            # a graph draws from the default generator
+        idx = torch.arange(32, device=dev).repeat(3, 1)
+        ok, lr = (torch.ones(3, device=dev), torch.full((3,), 0.01,
+                                                        device=dev))
+        step = lambda: tr.step(idx, ok, lr)
+        reps = 10 if variant == "v2" else 2
+        eager = cuda_ms(step, reps=reps, rounds=3)
+        graph = device_ms(step, reps=reps)
+        averages = profile_launches(
+            step, eager, os.path.join(OUT_DIR, f"profile_mlp_{variant}.txt"),
+            {"adamw_masked": 1}, f"MLP {variant} step")
+        launches = sum(e.count for e in averages
+                       if e.device_type == DeviceType.CUDA) / 10
+        out[variant] = dict(eager_ms=eager, graph_ms=graph,
+                            launches=launches)
+        print(f"  {variant} step (F = 3): {eager:.3f} ms eager, {graph:.3f} "
+              f"ms on the device as one CUDA graph, {launches:g} device "
+              "launches a step (kernels, copies, fills), 1 of them "
+              "adamw_masked", flush=True)
+        del tr, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mlp_reference_maes(data, folds, dev):
+    """Each fold's validation MAE of its untrained model (the pipeline's
+    inits) and of the mean training target."""
+    from fcsr_tpu_torch.models.mlp import SpectralResMLP
+    from fcsr_tpu_torch.train.generic_loop import fold_state
+    from fcsr_tpu_torch.train.losses import pack_triu_targets
+
+    model = SpectralResMLP(LR, HR, (LR + HR) // 2, output="vector",
+                           device="meta")
+    p, s = model.init_flat([42 + j for j in range(len(folds))], dev)
+    lr = np.asarray(data["lr_train"], np.float32)
+    y = torch.from_numpy(pack_triu_targets(np.asarray(
+        data["hr_train"], np.float32))).to(dev)[:, :HR * (HR - 1) // 2]
+    r, c = np.triu_indices(LR, 1)
+    x = torch.from_numpy(np.ascontiguousarray(lr[:, r, c])).to(dev)
+    untrained, mean = [], []
+    for j, (tr, va) in enumerate(folds):
+        pred = model.predict(fold_state(model, p, s, j), x[va])
+        untrained.append(float((pred - y[va]).abs().mean()))
+        mean.append(float((y[tr].mean(0) - y[va]).abs().mean()))
+    return untrained, mean
+
+
+def run_mlp_main_path(dev, data):
+    """Phase 9.3: the slice's main path, ``run_mlp_cv`` with the JAX
+    package's defaults (v2 at full width, 3 folds of 112 / 55 subjects,
+    100 epochs, batch 32) on the teacher set; its launch counts, times and
+    MAEs (beside the untrained model's and the mean target's)."""
+    from fcsr_tpu_torch.data import contiguous_window_folds
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.pipelines import run_mlp_cv
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_mlp_cv(data, num_epochs=MLP_EPOCHS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _nonzero(launch_counts())
+    epochs = max(len(h[0]) for h in result["histories"])
+    steps = epochs * 4
+    t = result["timings"]
+    folds = contiguous_window_folds(len(data["lr_train"]), 3, 0.33, seed=42)
+    untrained, mean = _mlp_reference_maes(data, folds, dev)
+    print(f"  run_mlp_cv (v2, 3 folds, {MLP_EPOCHS} epochs): {wall:.2f} s "
+          f"(train {t['train']:.2f}, eval {t['eval']:.3f}, predict "
+          f"{t['predict']:.3f}); epochs run {[len(h[0]) for h in result['histories']]}"
+          f"; {t['train'] / epochs:.4f} s/epoch, {1e3 * t['train'] / steps:.2f}"
+          f" ms per step in the loop (validation included); launches "
+          f"{counts}", flush=True)
+    print(f"  fold MAEs {result['fold_maes']}, mean {result['mean_mae']:.5f}; "
+          f"untrained {np.mean(untrained):.5f} {untrained}; mean training "
+          f"target {np.mean(mean):.5f} {mean}; final lrs "
+          f"{[h[2][-1] for h in result['histories']]}", flush=True)
+    preds = result["test_preds"]
+    if counts.get("adamw_masked") != steps or not counts.get(
+            "anti_vectorize_normalize"):
+        fail(f"run_mlp_cv launched {counts}: not one adamw_masked per step "
+             f"({steps}) and the matrix scatter for the test predictions")
+    if not (np.isfinite(result["fold_maes"]).all()
+            and result["mean_mae"] < np.mean(untrained)
+            and tuple(preds.shape) == (N_TEST, HR, HR)
+            and bool(torch.isfinite(preds).all())):
+        fail("run_mlp_cv: non-finite or untrained-level MAEs, or bad test "
+             "predictions")
+    return counts
+
+
+def run_mlp_cli(dev, csv_dir):
+    """Phase 9.4: `train mlp` (v2, its defaults) and `train mlp --variant
+    v1 --epochs 2` through the command line on phase 5's CSVs, each
+    column-major submission parsed back against the plain vectorization of
+    the run's test predictions; v1's peak device memory. Returns the
+    launch counts of both runs."""
+    from fcsr_tpu_torch import cli, pipelines
+    from fcsr_tpu_torch.kernels import (PLAIN_OPS, launch_counts,
+                                        reset_launch_counts)
+
+    run = pipelines.run_mlp_cv
+    seen = {}
+
+    def capture(*args, **kw):
+        seen.update(run(*args, **kw))
+        return seen
+
+    n_rows = N_TEST * HR * (HR - 1) // 2
+    total = {}
+    pipelines.run_mlp_cv = capture
+    try:
+        for flags in ([], ["--variant", "v1", "--epochs",
+                           str(MLP_V1_EPOCHS)]):
+            out_dir = os.path.join(WORK_DIR, "out_mlp" + "".join(flags))
+            seen.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "mlp", *flags, "--data-dir", csv_dir,
+                           "--out-dir", out_dir])
+            torch.cuda.synchronize()
+            t_cli = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            counts = _nonzero(launch_counts())
+            if rc != 0:
+                fail(f"`train mlp {' '.join(flags)}` returned {rc}")
+            got = _read_submission(os.path.join(out_dir, "submission.csv"),
+                                   n_rows)
+            ref = PLAIN_OPS.vectorize_colmajor(
+                seen["test_preds"].cpu()).reshape(-1).numpy()
+            err = float(np.abs(got.astype(np.float64) - ref).max())
+            epochs = max(len(h[0]) for h in seen["histories"])
+            t = seen["timings"]
+            print(f"  `train mlp {' '.join(flags)}`: {t_cli:.1f} s (train "
+                  f"{t['train']:.2f} s, {epochs} epochs run, "
+                  f"{t['train'] / epochs:.3f} s/epoch, "
+                  f"{1e3 * t['train'] / (4 * epochs):.2f} ms per step in the "
+                  f"loop); fold MAEs {seen['fold_maes']}; peak device memory "
+                  f"{peak:.2f} GB; submission.csv 1 + {n_rows} lines, "
+                  f"max|parsed - plain column-major vectorization| "
+                  f"{err:.1e}; launches {counts}", flush=True)
+            if err != 0.0 or not np.isfinite(got).all():
+                fail("`train mlp`: the submission does not parse back to the "
+                     "column-major vectorization of the predictions")
+            if counts.get("adamw_masked") != 4 * epochs \
+                    or not counts.get("vectorize_colmajor"):
+                fail(f"`train mlp {' '.join(flags)}` launched {counts}")
+            if os.listdir(out_dir) != ["submission.csv"]:
+                fail(f"`train mlp` wrote {os.listdir(out_dir)}")
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+            seen.clear()
+    finally:
+        pipelines.run_mlp_cv = run
+    return total
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -4249,6 +4631,11 @@ def main():
         print("phase 8: the metric suite on the card", flush=True)
         metric_counts = run_metric_suite(dev, fold_outs,
                                          os.path.join(WORK_DIR, "data"))
+        print("phase 9: the MLP family", flush=True)
+        check_adamw_inplace(dev)
+        check_mlp_steps(dev, data)
+        mlp_counts = run_mlp_main_path(dev, data)
+        mlp_cli_counts = run_mlp_cli(dev, os.path.join(WORK_DIR, "data"))
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -4263,7 +4650,7 @@ def main():
                "launches": sum(c.get(name, 0) for c in (
                    counts, csv_counts, mode_counts, parity_counts,
                    gat_counts, gat_cli_counts, keep_counts,
-                   metric_counts))}
+                   metric_counts, mlp_counts, mlp_cli_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

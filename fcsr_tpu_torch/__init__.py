@@ -25,25 +25,30 @@ host or on-device control), ``pipelines.run_gat_cv`` / ``run_gat_cv_fast``
 and ``train gat [--fast] [--fused]``. The evaluation suite (``evalx``: the
 challenge's eight metrics on the card or through networkx;
 ``core/graph.py``) scores saved stacks (``evaluate``) and every fold of a
-``--full-metrics`` run.
+``--full-metrics`` run. The MLP family: ``models.SpectralResMLP`` (v2) and
+``SuperResMLP`` (v1), the fold-parallel generic trainer
+(``train.train_model_folds``, ``train_model``; AdamW on the
+``adamw_masked`` kernel), ``pipelines.run_mlp_cv`` and ``train mlp``.
 """
 
 from fcsr_tpu_torch.data import (kfold_indices, load_dataset,
                                  load_dataset_device, load_or_synthesize,
                                  write_kaggle_csvs)
 from fcsr_tpu_torch.iox import save_prediction
-from fcsr_tpu_torch.models import (GATGraphUnet, GSRNet,
-                                   gat_train_step_fused, gat_val_fused,
-                                   gsr_step_loss_fused, tail_loss_fused,
-                                   train_step_fused, unet_fused_fwdbwd,
-                                   unet_fused_fwdonly)
+from fcsr_tpu_torch.models import (GATGraphUnet, GSRNet, SpectralResMLP,
+                                   SuperResMLP, gat_train_step_fused,
+                                   gat_val_fused, gsr_step_loss_fused,
+                                   tail_loss_fused, train_step_fused,
+                                   unet_fused_fwdbwd, unet_fused_fwdonly)
 from fcsr_tpu_torch.pipelines import (run_gat_cv, run_gat_cv_fast,
-                                      run_gsr_cv, run_gsr_cv_fast)
+                                      run_gsr_cv, run_gsr_cv_fast,
+                                      run_mlp_cv)
 from fcsr_tpu_torch.train import (GATTrainConfig, GSRFoldRunner,
                                   GSRTrainConfig, evaluate_gsr, init_gat,
                                   init_gsr, make_train_fn, predict_gat,
                                   predict_gsr, train_gat,
-                                  train_gat_folds_parallel, train_gsr_fold)
+                                  train_gat_folds_parallel, train_gsr_fold,
+                                  train_model, train_model_folds)
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["DEFAULT_DEVICE", "GATGraphUnet", "GATTrainConfig",
@@ -53,7 +58,8 @@ __all__ = ["DEFAULT_DEVICE", "GATGraphUnet", "GATTrainConfig",
            "run_gat_cv_fast", "train_gat", "train_gat_folds_parallel",
            "kfold_indices", "load_dataset", "load_dataset_device",
            "load_or_synthesize", "make_train_fn", "predict_gsr",
-           "resolve_device", "run_gsr_cv", "run_gsr_cv_fast",
-           "save_prediction", "tail_loss_fused", "train_gsr_fold",
+           "resolve_device", "run_gsr_cv", "run_gsr_cv_fast", "run_mlp_cv",
+           "SpectralResMLP", "SuperResMLP", "train_model",
+           "train_model_folds", "save_prediction", "tail_loss_fused", "train_gsr_fold",
            "train_step_fused", "unet_fused_fwdbwd", "unet_fused_fwdonly",
            "write_kaggle_csvs"]

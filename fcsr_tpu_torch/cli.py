@@ -6,6 +6,7 @@ The parser of ``fcsr_tpu/cli.py`` plus ``--device``:
     python -m fcsr_tpu_torch train gsr --fast [--fused-tail] --splits 3
     python -m fcsr_tpu_torch train gsr --fused --data-dir data --splits 3
     python -m fcsr_tpu_torch train gat [--fast] [--fused] --splits 3
+    python -m fcsr_tpu_torch train mlp [--variant v1] --k-folds 3
     python -m fcsr_tpu_torch train gsr --fused --full-metrics  # + evalx
     python -m fcsr_tpu_torch evaluate --gt gt.npz --pred pred.npz --fold 0
     python -m fcsr_tpu_torch predict --params ck.npz --out sub.csv
@@ -159,10 +160,7 @@ def _refuse_unported(ap, args):
     """Exit for every subcommand or flag whose module is not ported."""
     if args.cmd != "train":
         return
-    if args.family == "mlp":
-        _refuse(ap, "`train mlp`", "fcsr_tpu/models/mlp.py and the MLP "
-                                   "trainer of train/generic_loop.py")
-    if args.multichip:
+    if getattr(args, "multichip", False):
         _refuse(ap, "--multichip", "fcsr_tpu/parallel (fold sharding)")
 
 
@@ -227,6 +225,38 @@ def _train_gat(args):
     return 0
 
 
+def _train_mlp(args):
+    """`train mlp`: the MLP family's CV run (v2, or --variant v1), all
+    folds together; writes the column-major submission, and with
+    --full-metrics eval_metrics.json (no weights file, as the JAX
+    package's command writes none)."""
+    from fcsr_tpu_torch.data import load_or_synthesize
+    from fcsr_tpu_torch.iox import save_prediction
+    from fcsr_tpu_torch.pipelines import run_mlp_cv
+    from fcsr_tpu_torch.utils.reproducibility import set_seed
+
+    set_seed(args.seed)
+    data = load_or_synthesize(args.data_dir, seed=args.seed,
+                              device=args.device)
+    result = run_mlp_cv(data, k_folds=args.k_folds, p_val=args.p_val,
+                        num_epochs=args.epochs, lr=args.lr,
+                        batch_size=args.batch_size, n_layers=args.n_layers,
+                        seed=args.seed, variant=args.variant,
+                        full_metrics=args.full_metrics,
+                        eval_backend=args.eval_backend,
+                        verbose=args.verbose, device=args.device)
+    print(json.dumps({"fold_maes": result["fold_maes"],
+                      "mean_mae": result["mean_mae"],
+                      "timings": result["timings"]}))
+    if result["test_preds"] is not None:
+        os.makedirs(args.out_dir, exist_ok=True)
+        path = os.path.join(args.out_dir, "submission.csv")
+        save_prediction(result["test_preds"], path, ordering="colmajor")
+        print(f"submission written: {path}")
+    _write_fold_metrics(args, result)
+    return 0
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -234,6 +264,8 @@ def main(argv=None):
 
     if args.cmd == "train" and args.family == "gat":
         return _train_gat(args)
+    if args.cmd == "train" and args.family == "mlp":
+        return _train_mlp(args)
 
     if args.cmd == "train":
         from fcsr_tpu_torch.data import load_or_synthesize

@@ -1,5 +1,6 @@
-"""Carry GSR-Net and GAT U-Net weights between the JAX package and the
-port (GSR-Net first; the GAT U-Net's layouts are at the end of the file).
+"""Carry GSR-Net, GAT U-Net and MLP weights between the JAX package and
+the port (GSR-Net first; the GAT U-Net's layouts, then the MLP family's,
+are at the end of the file).
 
 Three layouts, as plain numpy arrays (the torch boundary is
 ``torch.from_numpy`` on the caller's side), and for the last two also as
@@ -25,7 +26,7 @@ trainer use):
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 
@@ -36,7 +37,9 @@ __all__ = ["lin_names", "leaf_names", "flax_to_state", "state_to_flax",
            "gat_dims", "gat_layer_specs", "gat_leaf_names",
            "gat_leaf_shapes", "gat_flax_to_state", "gat_state_to_flax",
            "gat_state_to_leaves", "gat_leaves_to_state", "gat_state_to_flat",
-           "gat_flat_to_state", "gat_leaf_tensors_to_state"]
+           "gat_flat_to_state", "gat_leaf_tensors_to_state", "mlp_entries",
+           "mlp_flax_to_state", "mlp_state_to_flax", "mlp_state_to_leaves",
+           "mlp_leaves_to_state", "mlp_state_to_flat", "mlp_flat_to_state"]
 
 TAIL_NAMES = ("layer.weights", "gc1.weight", "gc2.weight")
 
@@ -407,3 +410,147 @@ def gat_leaf_tensors_to_state(leaves: Mapping[str, "torch.Tensor"]):
     out["upsampler.upsample_mlp.weight"] = leaves["upsampler.kernel"].T
     out["upsampler.upsample_mlp.bias"] = leaves["upsampler.bias"][0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# The MLP family (models/mlp.py)
+# ---------------------------------------------------------------------------
+# v2, SpectralResMLP, under the reference notebook's torch names (legacy
+# ``torch.nn.utils.spectral_norm``), as fcsr_tpu/iox/torch_interop.py maps
+# them:
+#   input_layer.1.{weight_orig,bias,weight_u,weight_v}    SN Linear(L_in, h)
+#   input_layer.2.{weight,bias,running_mean,running_var}  BatchNorm1d(h)
+#   residual_blocks.{i}.0.* / residual_blocks.{i}.1.*     (n_layers blocks)
+#   output_layer.0.{weight_orig,bias,weight_u,weight_v}   SN Linear(h, L_out)
+# v1, SuperResMLP, has no torch mapping in the JAX package: each module is
+# named after its flax path and each leaf as torch names it:
+#   Dense_{i}.{weight,bias}                                Linear (out, in)
+#   TorchBatchNorm_{i}.{weight,bias,running_mean,running_var}
+# Leaf by leaf: a Dense kernel (in, out) is ``weight`` / ``weight_orig``
+# (out, in) transposed; BatchNorm scale / bias / mean / var are weight /
+# bias / running_mean / running_var; spectral-norm u / v are weight_u /
+# weight_v. The flat layouts (``models/mlp.py::MLPLayout``) hold the flax
+# leaves, named ``<flax module>.<flax leaf>``, module after module: the
+# parameters in one (P,) vector per fold, the statistics (BatchNorm mean
+# and var, spectral-norm u and v) in one (S,) vector per fold.
+
+# (flax leaf, torch leaf, transposed) by module kind
+_MLP_PARAMS = {
+    "sn": (("kernel", "weight_orig", True), ("bias", "bias", False)),
+    "dense": (("kernel", "weight", True), ("bias", "bias", False)),
+    "bn": (("scale", "weight", False), ("bias", "bias", False))}
+_MLP_STATS = {"sn": (("u", "weight_u"), ("v", "weight_v")), "dense": (),
+              "bn": (("mean", "running_mean"), ("var", "running_var"))}
+
+
+def _mlp_modules(variant: str, n_layers: int):
+    """[(flax module, torch prefix, kind)] in layout order."""
+    if variant == "v2":
+        mods = [("input_dense", "input_layer.1", "sn"),
+                ("input_bn", "input_layer.2", "bn")]
+        for i in range(n_layers):
+            mods += [(f"res_dense_{i}", f"residual_blocks.{i}.0", "sn"),
+                     (f"res_bn_{i}", f"residual_blocks.{i}.1", "bn")]
+        return mods + [("output_dense", "output_layer.0", "sn")]
+    if variant == "v1":
+        mods = []
+        for i in range(n_layers):
+            mods += [(f"Dense_{i}", f"Dense_{i}", "dense"),
+                     (f"TorchBatchNorm_{i}", f"TorchBatchNorm_{i}", "bn")]
+        return mods + [(f"Dense_{n_layers}", f"Dense_{n_layers}", "dense")]
+    raise ValueError(f"unknown MLP variant: {variant!r}")
+
+
+def mlp_entries(variant: str, n_layers: int):
+    """(params, stats) in layout order: [(leaf, torch name, transposed)]
+    and [(leaf, torch name)], leaf = ``<flax module>.<flax leaf>``."""
+    params, stats = [], []
+    for mod, prefix, kind in _mlp_modules(variant, n_layers):
+        params += [(f"{mod}.{a}", f"{prefix}.{b}", t)
+                   for a, b, t in _MLP_PARAMS[kind]]
+        stats += [(f"{mod}.{a}", f"{prefix}.{b}") for a, b in _MLP_STATS[kind]]
+    return params, stats
+
+
+def _mlp_kind(names) -> Tuple[str, int]:
+    """(variant, n_layers) from torch names or flax module names."""
+    names = list(names)
+    if any(k.startswith(("input_layer.", "input_dense")) for k in names):
+        blocks = {k.split(".")[1] for k in names
+                  if k.startswith("residual_blocks.")}
+        blocks |= {k for k in names if k.startswith("res_dense_")}
+        return "v2", len(blocks)
+    return "v1", len({k.split(".")[0] for k in names
+                      if k.startswith("TorchBatchNorm_")})
+
+
+def mlp_flax_to_state(variables) -> Dict[str, np.ndarray]:
+    """The JAX package's MLP variables ``{"params", "batch_stats"}`` (numpy
+    or array-like leaves) -> state_dict mapping of float32 numpy arrays."""
+    p, bs = variables["params"], variables.get("batch_stats", {})
+    params, stats = mlp_entries(*_mlp_kind(p))
+
+    def arr(tree, leaf):
+        mod, name = leaf.split(".")
+        return np.asarray(tree[mod][name], np.float32)
+
+    out = {}
+    for leaf, tname, transposed in params:
+        a = arr(p, leaf)
+        out[tname] = np.ascontiguousarray(a.T if transposed else a)
+    for leaf, tname in stats:
+        out[tname] = np.ascontiguousarray(arr(bs, leaf))
+    return out
+
+
+def mlp_state_to_flax(state: Mapping[str, np.ndarray]):
+    """Inverse of ``mlp_flax_to_state``; a reference ``state_dict``'s
+    ``num_batches_tracked`` entries are ignored."""
+    params, stats = mlp_entries(*_mlp_kind(state))
+    out = {"params": {}, "batch_stats": {}}
+    for coll, entries in (("params", params),
+                          ("batch_stats", [(a, b, False) for a, b in stats])):
+        for leaf, tname, transposed in entries:
+            mod, name = leaf.split(".")
+            a = np.asarray(state[tname], np.float32)
+            out[coll].setdefault(mod, {})[name] = np.ascontiguousarray(
+                a.T if transposed else a)
+    return out
+
+
+def mlp_state_to_leaves(state: Mapping[str, "torch.Tensor"]):
+    """state_dict -> ({param leaf: tensor}, {stat leaf: tensor}) in layout
+    order, as views (kernels transposed), so tensors stay differentiable:
+    how a module reads its own weights into ``fold_forward``."""
+    params, stats = mlp_entries(*_mlp_kind(state))
+    return ({leaf: state[t].T if tr else state[t] for leaf, t, tr in params},
+            {leaf: state[t] for leaf, t in stats})
+
+
+def mlp_leaves_to_state(p_leaves: Mapping, s_leaves: Mapping):
+    """Inverse of ``mlp_state_to_leaves`` (views for tensors)."""
+    params, stats = mlp_entries(*_mlp_kind(
+        k.split(".")[0] for k in p_leaves))
+    out = {t: p_leaves[leaf].T if tr else p_leaves[leaf]
+           for leaf, t, tr in params}
+    out.update({t: s_leaves[leaf] for leaf, t in stats})
+    return out
+
+
+def mlp_state_to_flat(state: Mapping[str, np.ndarray]):
+    """state_dict -> (params (P,), stats (S,)) float32 in layout order."""
+    p_leaves, s_leaves = mlp_state_to_leaves(
+        {k: np.asarray(v, np.float32) for k, v in state.items()})
+    return tuple(np.concatenate([np.ascontiguousarray(a).reshape(-1)
+                                 for a in leaves.values()])
+                 for leaves in (p_leaves, s_leaves))
+
+
+def mlp_flat_to_state(p: np.ndarray, s: np.ndarray, layout):
+    """(params (P,), stats (S,)) and a ``models/mlp.py::MLPLayout`` ->
+    state_dict mapping of float32 numpy arrays."""
+    views = [{k: v[0] for k, v in spec.views(
+        np.asarray(buf, np.float32).reshape(1, -1)).items()}
+        for spec, buf in ((layout.params, p), (layout.stats, s))]
+    return {k: np.ascontiguousarray(v)
+            for k, v in mlp_leaves_to_state(*views).items()}

@@ -1277,7 +1277,44 @@ __global__ void __launch_bounds__(OD_THREADS)
 // flat (F, P) buffers with per-fold scalars scal[f] = [ok, lr, 1 - b1^t,
 // 1 - b2^t] read from device memory; loss[f] = vals[f, 0] + vals[f, 1] + ...
 // IEEE round-to-nearest with no FMA contraction: the plain version's bits.
+// Two forms with one body: out of place (p, m, v read through __restrict__
+// pointers, p', m', v' written elsewhere) and in place (p, m, v read and
+// written through the same pointers, none of them __restrict__), which
+// the MLP trainer takes where a second copy of its buffers does not fit.
 // ---------------------------------------------------------------------------
+struct AdamwElem {
+  float p, m, v;
+};
+
+__device__ __forceinline__ AdamwElem adamw_elem(
+    float po, float mo, float vo, float gg, const float* __restrict__ sc,
+    float b1, float omb1, float b2, float omb2, float eps, float wd) {
+  const float ok = sc[0], lr = sc[1], d1 = sc[2], d2 = sc[3];
+  const float mn = __fadd_rn(__fmul_rn(b1, mo), __fmul_rn(omb1, gg));
+  const float vn = __fadd_rn(__fmul_rn(b2, vo),
+                             __fmul_rn(omb2, __fmul_rn(gg, gg)));
+  const float mhat = __fdiv_rn(mn, d1);
+  const float vhat = __fdiv_rn(vn, d2);
+  const float step = __fmul_rn(
+      lr, __fadd_rn(__fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), eps)),
+                    __fmul_rn(wd, po)));
+  if (ok > 0.f) return {__fsub_rn(po, step), mn, vn};
+  return {po, mo, vo};
+}
+
+__device__ __forceinline__ void adamw_loss(const float* __restrict__ vals,
+                                           int n_vals,
+                                           float* __restrict__ loss,
+                                           int batch) {
+  if (blockIdx.x != 0) return;
+  for (int f = threadIdx.x; f < batch; f += blockDim.x) {
+    float total_loss = vals[(long long)f * n_vals];
+    for (int s = 1; s < n_vals; ++s)
+      total_loss = __fadd_rn(total_loss, vals[(long long)f * n_vals + s]);
+    loss[f] = total_loss;
+  }
+}
+
 __global__ void adamw_masked_kernel(const float* __restrict__ p,
                                     const float* __restrict__ m,
                                     const float* __restrict__ v,
@@ -1292,31 +1329,30 @@ __global__ void adamw_masked_kernel(const float* __restrict__ p,
   const long long total = P * batch;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long f = e / P;
-    const float ok = scal[f * 4], lr = scal[f * 4 + 1], d1 = scal[f * 4 + 2],
-                d2 = scal[f * 4 + 3];
-    const float gg = g[e], mo = m[e], vo = v[e], po = p[e];
-    const float mn = __fadd_rn(__fmul_rn(b1, mo), __fmul_rn(omb1, gg));
-    const float vn = __fadd_rn(__fmul_rn(b2, vo),
-                               __fmul_rn(omb2, __fmul_rn(gg, gg)));
-    const float mhat = __fdiv_rn(mn, d1);
-    const float vhat = __fdiv_rn(vn, d2);
-    const float step = __fmul_rn(
-        lr, __fadd_rn(__fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), eps)),
-                      __fmul_rn(wd, po)));
-    const bool on = ok > 0.f;
-    p_out[e] = on ? __fsub_rn(po, step) : po;
-    m_out[e] = on ? mn : mo;
-    v_out[e] = on ? vn : vo;
+    const AdamwElem r = adamw_elem(p[e], m[e], v[e], g[e], scal + e / P * 4,
+                                   b1, omb1, b2, omb2, eps, wd);
+    p_out[e] = r.p;
+    m_out[e] = r.m;
+    v_out[e] = r.v;
   }
-  if (blockIdx.x == 0) {
-    for (int f = threadIdx.x; f < batch; f += blockDim.x) {
-      float total_loss = vals[(long long)f * n_vals];
-      for (int s = 1; s < n_vals; ++s)
-        total_loss = __fadd_rn(total_loss, vals[(long long)f * n_vals + s]);
-      loss[f] = total_loss;
-    }
+  adamw_loss(vals, n_vals, loss, batch);
+}
+
+__global__ void adamw_masked_inplace_kernel(
+    float* p, float* m, float* v, const float* __restrict__ g,
+    const float* __restrict__ scal, const float* __restrict__ vals,
+    int n_vals, float* __restrict__ loss, int batch, long long P, float b1,
+    float omb1, float b2, float omb2, float eps, float wd) {
+  const long long total = P * batch;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const AdamwElem r = adamw_elem(p[e], m[e], v[e], g[e], scal + e / P * 4,
+                                   b1, omb1, b2, omb2, eps, wd);
+    p[e] = r.p;
+    m[e] = r.m;
+    v[e] = r.v;
   }
+  adamw_loss(vals, n_vals, loss, batch);
 }
 
 // The attributes of the kernels that take a plan, set once on their first
@@ -1648,12 +1684,22 @@ extern "C" int fcsr_adamw_masked(const float* p, const float* m,
                                  long long P, float b1, float omb1, float b2,
                                  float omb2, float eps, float wd,
                                  void* stream) {
+  // outputs either all alias their inputs (in place) or none does
+  const bool inplace = p_out == p && m_out == m && v_out == v;
+  if (!inplace && (p_out == p || m_out == m || v_out == v))
+    return (int)cudaErrorInvalidValue;
   const long long total = P * batch;
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
   if (blocks < 1) blocks = 1;
-  adamw_masked_kernel<<<(int)blocks, 256, 0, (cudaStream_t)stream>>>(
-      p, m, v, g, scal, vals, n_vals, p_out, m_out, v_out, loss, batch, P, b1,
-      omb1, b2, omb2, eps, wd);
+  if (inplace)
+    adamw_masked_inplace_kernel<<<(int)blocks, 256, 0,
+                                  (cudaStream_t)stream>>>(
+        p_out, m_out, v_out, g, scal, vals, n_vals, loss, batch, P, b1, omb1,
+        b2, omb2, eps, wd);
+  else
+    adamw_masked_kernel<<<(int)blocks, 256, 0, (cudaStream_t)stream>>>(
+        p, m, v, g, scal, vals, n_vals, p_out, m_out, v_out, loss, batch, P,
+        b1, omb1, b2, omb2, eps, wd);
   return (int)cudaGetLastError();
 }

@@ -2094,7 +2094,8 @@ def _sum_terms(vals):
     return loss.clone() if vals.shape[1] == 1 else loss
 
 
-def adamw_masked_plain(p, m, v, g, scal, vals, b1, b2, eps, wd):
+def adamw_masked_plain(p, m, v, g, scal, vals, b1, b2, eps, wd,
+                       inplace=False):
     ok, lr, d1, d2 = (scal[:, j:j + 1] for j in range(4))
     m_new = b1 * m + (1.0 - b1) * g
     v_new = b2 * v + (1.0 - b2) * (g * g)
@@ -2102,17 +2103,25 @@ def adamw_masked_plain(p, m, v, g, scal, vals, b1, b2, eps, wd):
     vhat = v_new / d2
     step = lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p)
     on = ok > 0
-    return (torch.where(on, p - step, p), torch.where(on, m_new, m),
-            torch.where(on, v_new, v), _sum_terms(vals))
+    out = (torch.where(on, p - step, p), torch.where(on, m_new, m),
+           torch.where(on, v_new, v))
+    if inplace:
+        for buf, new in zip((p, m, v), out):
+            buf.copy_(new)
+        out = (p, m, v)
+    return (*out, _sum_terms(vals))
 
 
-def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd):
+def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd, inplace=False):
     """Masked AdamW (the decay inside the step, as optax.adamw) on flat
     (F, P) buffers with per-fold scalars ``scal[f] = [ok, lr, 1 - b1^t,
     1 - b2^t]`` read from device memory; returns (p', m', v', loss) with
-    ``loss[f]`` the sum of the fold's loss terms ``vals[f]`` in order."""
+    ``loss[f]`` the sum of the fold's loss terms ``vals[f]`` in order.
+    With ``inplace`` p', m', v' are written over p, m, v (the returned
+    tensors are those three): the kernel's in-place form, the same bits."""
     if not p.is_cuda:
-        return adamw_masked_plain(p, m, v, g, scal, vals, b1, b2, eps, wd)
+        return adamw_masked_plain(p, m, v, g, scal, vals, b1, b2, eps, wd,
+                                  inplace)
     _check(p.device, p, m, v, g, scal, vals)
     _contig(p, m, v, g, scal, vals)
     F, P = p.shape
@@ -2120,7 +2129,8 @@ def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd):
             or tuple(scal.shape) != (F, 4) or vals.shape[0] != F:
         raise ValueError("adamw_masked: buffers must share one (F, P) shape, "
                          "scal be (F, 4) and vals (F, terms)")
-    p2, m2, v2 = (torch.empty_like(p) for _ in range(3))
+    p2, m2, v2 = (p, m, v) if inplace else (torch.empty_like(p)
+                                             for _ in range(3))
     loss = torch.empty(F, dtype=torch.float32, device=p.device)
     KERNELS["adamw_masked"](_ptr(p), _ptr(m), _ptr(v), _ptr(g), _ptr(scal),
                             _ptr(vals), vals.shape[1], _ptr(p2), _ptr(m2),

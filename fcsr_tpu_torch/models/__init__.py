@@ -15,9 +15,12 @@ from fcsr_tpu_torch.models.fused_tail import (tail_loss_fused,
                                               tail_loss_reference)
 from fcsr_tpu_torch.models.gat_unet import GATGraphUnet, gat_pool_sizes
 from fcsr_tpu_torch.models.gsr import GSRNet, pool_sizes
+from fcsr_tpu_torch.models.mlp import (MLPLayout, SNDense, SpectralResMLP,
+                                       SuperResMLP, TorchBatchNorm)
 
 __all__ = ["FlatLayout", "GATGraphUnet", "GATLayout", "GSRNet",
-           "gat_pool_sizes", "gat_step_loss", "gat_train_step_fused",
+           "MLPLayout", "SNDense", "SpectralResMLP", "SuperResMLP",
+           "TorchBatchNorm", "gat_pool_sizes", "gat_step_loss", "gat_train_step_fused",
            "gat_train_step_plain", "gat_val_fused", "gat_val_plain",
            "gsr_step_loss_fused", "pool_sizes",
            "step_loss_pure", "step_value_and_grad_fused", "tail_loss_fused",

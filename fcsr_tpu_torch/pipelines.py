@@ -7,11 +7,12 @@ reference-faithful parity trainer, one model carried across the folds) and
 the mode the configuration's ``fused_*`` flags pick). GAT U-Net:
 ``run_gat_cv`` (a fresh model per fold, one fold after the other) and
 ``run_gat_cv_fast`` (all folds together; ``cfg.fused_step`` puts the step
-on the CUDA kernels). With ``full_metrics`` each pipeline also scores
-every fold's validation predictions with the metric suite (``evalx``,
-``eval_backend`` "device" or "networkx") into ``fold_metrics``. The MLP
-family and multi-device fold sharding are not ported yet and are refused
-by name.
+on the CUDA kernels). The MLP family: ``run_mlp_cv`` (all folds together
+when their sizes agree, else one after the other). With ``full_metrics``
+each pipeline also scores every fold's validation predictions with the
+metric suite (``evalx``, ``eval_backend`` "device" or "networkx") into
+``fold_metrics``. Multi-device fold sharding is not ported yet and is
+refused by name.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fcsr_tpu_torch.data.datamodule import kfold_indices
+from fcsr_tpu_torch.core.vectorize import triu_indices_rowmajor
+from fcsr_tpu_torch.data.datamodule import (contiguous_window_folds,
+                                            kfold_indices)
 from fcsr_tpu_torch.evalx.report import print_metrics, require_networkx
 from fcsr_tpu_torch.train.fast_loop import (evaluate_gsr_folds,
                                             train_gsr_folds_parallel)
@@ -32,12 +35,18 @@ from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, init_gat,
                                            predict_gat, predict_gat_folds,
                                            predict_gat_folds_mae, train_gat,
                                            train_gat_folds_parallel)
+from fcsr_tpu_torch.models.mlp import SpectralResMLP, SuperResMLP
+from fcsr_tpu_torch.train.generic_loop import (mse_criterion, train_model,
+                                               train_model_folds)
 from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, evaluate_gsr,
                                            init_gsr, precompute_spectral,
                                            predict_gsr, train_gsr_fold)
+from fcsr_tpu_torch.train.losses import (make_triu_mse_criterion,
+                                         pack_triu_targets)
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["run_gsr_cv", "run_gsr_cv_fast", "run_gat_cv", "run_gat_cv_fast"]
+__all__ = ["run_gsr_cv", "run_gsr_cv_fast", "run_mlp_cv", "run_gat_cv",
+           "run_gat_cv_fast"]
 
 _NO_PARALLEL = ("multichip=True needs the port of fcsr_tpu/parallel (fold "
                 "sharding over torch.distributed), which is not ported yet")
@@ -264,6 +273,128 @@ def _gat_fold_eval(model, cfg, best_vars, lr_all, hr_all, folds, dev,
         fold_maes.append(float(np.abs(preds[:, off] - gts[:, off]).mean()))
         fold_outs.append((preds, gts))
     return fold_maes, _fold_metrics(fold_outs, eval_backend, verbose, dev)
+
+
+def _mlp_fold_mae(variant, pred, target):
+    """A fold's validation MAE on the device: over the triangle vectors for
+    v2 (which equals the off-diagonal matrix MAE: each off-diagonal pair
+    counts twice in both sums), over the off-diagonal entries for v1."""
+    if variant != "v1":
+        return (pred - target[:, :pred.shape[-1]]).abs().mean()
+    n = pred.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=pred.device)
+    return (pred - target).abs().masked_fill(eye, 0.0).sum() \
+        / (pred.shape[0] * n * (n - 1))
+
+
+def run_mlp_cv(data: Dict[str, np.ndarray], k_folds: int = 3,
+               p_val: float = 0.33, num_epochs: int = 100, lr: float = 0.01,
+               batch_size: int = 32, n_layers: int = 0,
+               hidden: Optional[int] = None, seed: int = 42,
+               variant: str = "v2",
+               full_metrics: bool = False, eval_backend: str = "device",
+               fold_parallel: bool = True,
+               verbose: bool = False, flat0=None, device=DEFAULT_DEVICE):
+    """The MLP family's k-fold pipeline: contiguous-window folds over one
+    permutation, MSE + AdamW + plateau schedule, best-state restore, each
+    fold's validation MAE, then the last fold's predictions of the test
+    set.
+
+    ``variant="v2"`` is the shipped ``SpectralResMLP``, trained in
+    triangle-vector space (``make_triu_mse_criterion`` on packed targets)
+    and predicting matrices through ``anti_vectorize_normalize``;
+    ``variant="v1"`` the dense ``SuperResMLP`` (hidden 10 000, at least one
+    hidden block) on matrices. Fold j starts from seed ``seed + j``, or
+    from row j of ``flat0`` = (p (F, P), s (F, S)) in the model's
+    ``MLPLayout``. The folds train together (``train_model_folds``) when
+    their sizes agree and neither ``verbose`` nor ``fold_parallel=False``
+    asks otherwise; else one after the other (``train_model``).
+
+    Returns ``model`` (the prediction model's configuration, on the meta
+    device: its weights are ``variables``, for ``model.predict``),
+    ``variables`` (the last fold's best state_dict, tensors on
+    ``device``), ``fold_metrics`` (each fold's metric dict with
+    ``full_metrics``), ``fold_maes``, ``mean_mae``, ``histories`` (each
+    fold's train / val / lr lists), ``test_preds`` (a tensor on
+    ``device``, or None without ``lr_test``) and ``timings``."""
+    _check_eval_backend(eval_backend, full_metrics)
+    dev = resolve_device(device)
+    lr_all = np.asarray(data["lr_train"], dtype=np.float32)
+    hr_all = np.asarray(data["hr_train"], dtype=np.float32)
+    n_in, n_out = lr_all.shape[-1], hr_all.shape[-1]
+    folds = contiguous_window_folds(len(lr_all), k_folds, p_val, seed=seed)
+    if variant == "v1":
+        model = SuperResMLP(n_in * n_in, n_out * n_out, hidden or 10000,
+                            max(1, n_layers), device="meta")
+        model_train = model
+        x_all, y_all = lr_all, hr_all
+        criterion = mse_criterion
+    elif variant == "v2":
+        hidden = hidden or (n_in + n_out) // 2
+        model = SpectralResMLP(n_in, n_out, hidden, n_layers, device="meta")
+        model_train = SpectralResMLP(n_in, n_out, hidden, n_layers,
+                                     output="vector", device="meta")
+        r_in, c_in = triu_indices_rowmajor(n_in)
+        x_all = lr_all[:, r_in, c_in]                # (N, L_in)
+        y_all = pack_triu_targets(hr_all)            # (N, L_out + n)
+        criterion = make_triu_mse_criterion(n_out)
+    else:
+        raise ValueError(f"unknown MLP variant: {variant!r}")
+    seeds = [seed + j for j in range(len(folds))]
+    if flat0 is None:
+        p0, s0 = model.init_flat(seeds, dev)
+    else:
+        p0, s0 = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            dev) for a in flat0)
+    kw = dict(num_epochs=num_epochs, lr=lr, batch_size=batch_size,
+              criterion=criterion, device=dev)
+
+    t0 = time.perf_counter()
+    sizes = {(len(tr), len(va)) for tr, va in folds}
+    if fold_parallel and not verbose and len(sizes) == 1 and len(folds) > 1:
+        tr_idx = np.stack([tr for tr, _ in folds])
+        va_idx = np.stack([va for _, va in folds])
+        results = train_model_folds(
+            model_train, (p0, s0), x_all[tr_idx], y_all[tr_idx],
+            x_all[va_idx], y_all[va_idx], seeds=seeds, **kw)
+    else:
+        results = [train_model(model_train, (p0[j], s0[j]), x_all[tr],
+                               y_all[tr], x_all[va], y_all[va],
+                               seed=seeds[j], verbose=verbose, **kw)
+                   for j, (tr, va) in enumerate(folds)]
+    del p0, s0
+    t_train = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    maes, fold_outs = [], []
+    for (tr, va), (*_, best) in zip(folds, results):
+        x_va = torch.from_numpy(np.ascontiguousarray(x_all[va])).to(dev)
+        y_va = torch.from_numpy(np.ascontiguousarray(y_all[va])).to(dev)
+        maes.append(_mlp_fold_mae(variant, model_train.predict(best, x_va),
+                                  y_va))
+        if full_metrics:
+            fold_outs.append((model.predict(best, x_va).cpu().numpy(),
+                              hr_all[va]))
+    fold_maes = [float(m) for m in torch.stack(maes).cpu().numpy()]
+    fold_metrics = (_fold_metrics(fold_outs, eval_backend, verbose, dev)
+                    if full_metrics else [])
+    t_eval = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    best = results[-1][3]
+    test_preds = None
+    if data.get("lr_test") is not None:
+        lr_test = np.asarray(data["lr_test"], dtype=np.float32)
+        x_test = lr_test if variant == "v1" else lr_test[:, r_in, c_in]
+        test_preds = model.predict(best, torch.from_numpy(
+            np.ascontiguousarray(x_test)).to(dev))
+    t_predict = time.perf_counter() - t0
+    return {"model": model, "variables": best, "fold_metrics": fold_metrics,
+            "fold_maes": fold_maes, "mean_mae": float(np.mean(fold_maes)),
+            "histories": [tuple(r[:3]) for r in results],
+            "test_preds": test_preds,
+            "timings": {"train": t_train, "eval": t_eval,
+                        "predict": t_predict}}
 
 
 def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,

@@ -1,10 +1,50 @@
-"""The plateau learning-rate scheduler shared by the trainers. Counterpart
-of ``fcsr_tpu/train/generic_loop.py::PlateauScheduler``; the MLP trainer of
-that file is not ported yet."""
+"""Generic batched training loop (the MLP family). Counterpart of
+``fcsr_tpu/train/generic_loop.py``: AdamW (optax's, the decay inside the
+step), ReduceLROnPlateau (torch semantics), a per-fold global-norm clip,
+validation every ``validate_every`` epochs, best-validation restore and an
+early stop once the learning rate falls below ``min_lr_stop``.
+
+Every run trains F folds together (``train_model`` is F = 1) on flat
+buffers: parameters p (F, P) and statistics s (F, S) (BatchNorm running
+mean / var, spectral-norm u / v) in the model's ``MLPLayout``. One step is
+autograd over the model's ``fold_forward`` (all folds in one batched pass,
+the gradient accumulated straight into a flat (F, P) buffer), the per-fold
+global-norm clip in place (optax's: g below the norm, else (g / |g|) *
+clip_norm), then one ``ops.adamw_masked`` launch over the (F, P) buffers
+with ``scal[f] = [active, lr, 1 - 0.9^t, 1 - 0.999^t]`` that updates p, m
+and v in place (v1 at full width holds 11.7 GB per copy of its three
+folds' parameters). An epoch is the full batches of a per-fold shuffle and
+then the ragged remainder as its own step, so BatchNorm sees the reference
+loader's batches; its training loss is the mean of its batch losses.
+
+Control runs on the device by default: the plateau scheduler, the best
+state (parameters and statistics) and the early-stop mask are float32
+tensors, with one host read per ``control_chunk_epochs`` epochs;
+``host_control=True`` keeps the per-epoch host loop in Python floats. The
+shuffle plans come from ``np.random.default_rng(seed)`` in the JAX
+package's sequence. Dropout masks come from a ``torch.Generator`` seeded
+with the run's (first) seed, not from JAX's threefry keys: at dropout > 0
+runs agree with the JAX package in distribution only; at dropout 0 they
+agree with it run for run (tested).
+"""
 
 from __future__ import annotations
 
-__all__ = ["PlateauScheduler"]
+import warnings
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from fcsr_tpu_torch.iox.weights import mlp_leaves_to_state, mlp_state_to_flat
+from fcsr_tpu_torch.kernels.ops import KERNEL_OPS
+from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["PlateauScheduler", "TrainState", "mse_criterion", "train_model",
+           "train_model_folds", "fold_state"]
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 class PlateauScheduler:
@@ -39,3 +79,352 @@ class PlateauScheduler:
             self.lr = max(self.lr * self.factor, self.min_lr)
             self.num_bad = 0
         return self.lr
+
+
+@dataclass
+class TrainState:
+    variables: dict          # state_dict mapping (torch names)
+    opt_state: dict          # {"m", "v": flat (P,) moments, "t": steps}
+
+
+def mse_criterion(pred, target):
+    return torch.mean((pred - target) ** 2)
+
+
+def fold_state(model, p, s, j: int):
+    """Fold j of flat (F, P) / (F, S) buffers as a state_dict of views."""
+    layout = model.layout
+    return mlp_leaves_to_state(
+        {k: v[j] for k, v in layout.params.views(p).items()},
+        {k: v[j] for k, v in layout.stats.views(s).items()})
+
+
+def _on(x, dev) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+
+
+def _flat_buffers(model, variables, n_folds: int, dev, stacked: bool = True):
+    """(p (F, P), s (F, S)) float32 on ``dev`` from a (p, s) pair (tensors
+    already there, float32 and contiguous, are trained in place) or a
+    state_dict mapping, whose leaves carry a leading fold axis if
+    ``stacked``."""
+    layout = model.layout
+    if isinstance(variables, (tuple, list)):
+        p, s = (_on(x, dev).reshape(n_folds, -1) for x in variables)
+    else:
+        host = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                              else v) for k, v in variables.items()}
+        if not stacked:
+            host = {k: v[None] for k, v in host.items()}
+        flats = [mlp_state_to_flat({k: v[j] for k, v in host.items()})
+                 for j in range(n_folds)]
+        p, s = (torch.from_numpy(np.stack(x)).to(dev) for x in zip(*flats))
+    if p.shape != (n_folds, layout.params.size) \
+            or s.shape != (n_folds, layout.stats.size):
+        raise ValueError(f"variables give {tuple(p.shape)} parameters and "
+                         f"{tuple(s.shape)} statistics; the model needs "
+                         f"{(n_folds, layout.params.size)} and "
+                         f"{(n_folds, layout.stats.size)}")
+    return p.contiguous(), s.contiguous()
+
+
+class _FoldTrainer:
+    """The state of F folds trained together and the step, epoch and
+    validation passes over it. ``ops`` picks the update's op namespace
+    (``KERNEL_OPS``: the kernel for CUDA tensors, the plain version for CPU
+    ones)."""
+
+    def __init__(self, model, p, s, x_tr, y_tr, x_va, y_va, seed: int,
+                 batch_size: int, criterion: Callable, clip_norm: float,
+                 weight_decay: float, dev):
+        self.model, self.dev = model, dev
+        self.p, self.s = p, s
+        self.F = F = p.shape[0]
+        self.m, self.v, self.g = (torch.zeros_like(p) for _ in range(3))
+        self.t = torch.zeros(F, dtype=torch.float32, device=dev)
+        layout = model.layout
+        self.pv = layout.params.views(p)
+        for view, grad in zip(self.pv.values(),
+                              layout.params.views(self.g).values()):
+            view.requires_grad_()
+            view.grad = grad
+        self.sv = layout.stats.views(s)
+        self.x_tr, self.y_tr = _on(x_tr, dev), _on(y_tr, dev)
+        self.x_va, self.y_va = _on(x_va, dev), _on(y_va, dev)
+        self.n = self.x_tr.shape[1]
+        self.batch_size = batch_size
+        self.folds = torch.arange(F, device=dev)[:, None]
+        self.crit = torch.vmap(criterion)
+        self.clip_norm, self.wd = float(clip_norm), float(weight_decay)
+        self.gen = torch.Generator(device=dev).manual_seed(int(seed))
+        self.ops = KERNEL_OPS
+
+    def step(self, idx, ok, lr):
+        """One step of every fold on its samples ``idx`` (F, B) (long, on
+        the device), with ``ok`` (F,) (1 where the fold trains) and ``lr``
+        (F,) float32 on the device; returns the (F,) batch losses. Nothing
+        is read back to the host."""
+        x, y = self.x_tr[self.folds, idx], self.y_tr[self.folds, idx]
+        pred, new = self.model.fold_forward(self.pv, self.sv, x, True,
+                                            self.gen)
+        loss = self.crit(pred, y)
+        self.g.zero_()
+        with warnings.catch_warnings():
+            # the leaves are strided views of p, their gradients the same
+            # views of g: the sums land in g in place
+            warnings.filterwarnings("ignore", "grad and param do not obey")
+            loss.sum().backward()
+        norm = torch.linalg.vector_norm(self.g, dim=1)
+        clip = norm >= self.clip_norm
+        self.g.div_(torch.where(clip, norm, 1.0)[:, None])
+        if self.clip_norm != 1.0:
+            self.g.mul_(torch.where(clip, self.clip_norm, 1.0)[:, None])
+        self.t += ok
+        te = self.t.clamp(min=1.0)
+        scal = torch.stack([ok, lr, 1.0 - ADAM_B1 ** te,
+                            1.0 - ADAM_B2 ** te], dim=-1)
+        loss = loss.detach()
+        self.ops.adamw_masked(self.p, self.m, self.v, self.g, scal,
+                              loss[:, None], ADAM_B1, ADAM_B2, ADAM_EPS,
+                              self.wd, inplace=True)
+        if new:
+            torch.where(ok[:, None] > 0,
+                        torch.cat([t.reshape(self.F, -1)
+                                   for t in new.values()], dim=1),
+                        self.s, out=self.s)
+        return loss
+
+    def epoch(self, perms, lr, active):
+        """One epoch of every fold: ``perms`` (F, n) sample orders (host
+        ints), ``lr`` and ``active`` (F,) float32 on the device. Returns
+        the (steps, F) batch losses on the device."""
+        order = torch.from_numpy(np.ascontiguousarray(perms)).to(
+            self.dev).long()
+        bs = self.batch_size
+        n_full = self.n // bs
+        losses = [self.step(order[:, b * bs:(b + 1) * bs], active, lr)
+                  for b in range(n_full)]
+        if self.n % bs:
+            losses.append(self.step(order[:, n_full * bs:], active, lr))
+        return torch.stack(losses)
+
+    @torch.no_grad()
+    def validate(self):
+        """Each fold's validation loss, (F,) on the device."""
+        pred, _ = self.model.fold_forward(self.pv, self.sv, self.x_va, False)
+        return self.crit(pred, self.y_va)
+
+
+def _log_epochs(hists, flags, lr0, verbose, logger):
+    """The device-control path's per-epoch report, after the run."""
+    train_hist, val_hist, lr_hist = hists
+    vi = 0
+    for e, tr in enumerate(train_hist):
+        vloss = val_hist[vi] if flags[e] else None
+        cur = lr_hist[vi] if flags[e] else (lr_hist[vi - 1] if vi else lr0)
+        vi += int(bool(flags[e]))
+        if logger is not None:
+            logger.log("epoch", epoch=e + 1, train_loss=tr, val_loss=vloss,
+                       lr=cur)
+        if verbose:
+            print(f"epoch {e + 1}: train {tr:.6f} val "
+                  f"{vloss if vloss is not None else float('nan'):.6f} "
+                  f"lr {cur:.2e}")
+
+
+def _device_control(tr: _FoldTrainer, rngs, num_epochs, lr0, validate_flag,
+                    patience, thr, factor, min_lr_stop, chunk_epochs):
+    """The JAX package's on-device control, the plateau scheduler's logic
+    vectorized over the folds in float32 tensors; one host read per chunk
+    of epochs (have all folds stopped?) and one at the end. Returns the
+    per-fold histories, the validate flags and the selected (p, s): the
+    best validation state, or the final one where no loss was finite."""
+    F, dev = tr.F, tr.dev
+    stop_lr = float(np.float32(min_lr_stop))        # compared in float32
+    lr = torch.full((F,), lr0, dtype=torch.float32, device=dev)
+    active = torch.ones(F, dtype=torch.float32, device=dev)
+    sbest = torch.full((F,), float("inf"), dtype=torch.float32, device=dev)
+    nbad = torch.zeros(F, dtype=torch.int32, device=dev)
+    bval = sbest.clone()
+    inf = sbest.clone()
+    bp, bs = tr.p.clone(), tr.s.clone()
+    parts, flags = [], []
+    done = 0
+    while done < num_epochs:
+        chunk = min(chunk_epochs, num_epochs - done)
+        perms = np.stack([np.stack([rng.permutation(tr.n)
+                                    for _ in range(chunk)]) for rng in rngs])
+        for e in range(chunk):
+            do_val = validate_flag(done + e)
+            tr_loss = tr.epoch(perms[:, e], lr, active).mean(0)
+            vloss = tr.validate() if do_val else inf
+            upd = (active > 0) & do_val
+            is_better = vloss < sbest * (1.0 - thr)
+            sbest2 = torch.where(is_better, vloss, sbest)
+            nbad2 = torch.where(is_better, 0, nbad + 1)
+            decay = nbad2 > patience
+            lr2 = torch.where(decay, lr * factor, lr)
+            nbad2 = torch.where(decay, 0, nbad2)
+            sbest = torch.where(upd, sbest2, sbest)
+            nbad = torch.where(upd, nbad2, nbad)
+            lr2 = torch.where(upd, lr2, lr)
+            improved = upd & (vloss < bval)
+            bval = torch.where(improved, vloss, bval)
+            torch.where(improved[:, None], tr.p, bp, out=bp)
+            torch.where(improved[:, None], tr.s, bs, out=bs)
+            # ``active`` at the epoch's start: the epochs the fold ran
+            parts.append(torch.stack([tr_loss, vloss, lr2, active]))
+            active = torch.where(upd & (lr2 < stop_lr), 0.0, active)
+            lr = lr2
+            flags.append(do_val)
+        done += chunk
+        if float(active.max()) == 0.0:          # one read per chunk
+            break
+    finite = torch.isfinite(bval)[:, None]
+    torch.where(finite, bp, tr.p, out=bp)
+    torch.where(finite, bs, tr.s, out=bs)
+    hist = torch.stack(parts).cpu().numpy()     # (epochs, 4, F)
+    flags = np.asarray(flags, dtype=bool)
+    hists = []
+    for j in range(F):
+        on = hist[:, 3, j] > 0
+        von = on & flags
+        hists.append(([float(x) for x in hist[on, 0, j]],
+                      [float(x) for x in hist[von, 1, j]],
+                      [float(x) for x in hist[von, 2, j]]))
+    return hists, flags, bp, bs
+
+
+def _host_control(tr: _FoldTrainer, rng, num_epochs, lr0, validate_flag,
+                  patience, thr, factor, min_lr_stop, verbose, logger):
+    """The JAX package's per-epoch host loop for one run (F = 1): the
+    scheduler in Python floats, one host read per epoch; the best state is
+    copied on the device. Returns the histories and the selected (p, s)."""
+    dev = tr.dev
+    scheduler = PlateauScheduler(lr0, patience=patience, factor=factor,
+                                 threshold=thr)
+    cur_lr = lr0
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    train_hist, val_hist, lr_hist = [], [], []
+    best_val = float("inf")
+    bp = bs = None
+    vloss = None
+    for epoch in range(num_epochs):
+        perm = rng.permutation(tr.n)
+        validate = validate_flag(epoch)
+        lr_t = torch.full((1,), cur_lr, dtype=torch.float32, device=dev)
+        losses = tr.epoch(perm[None], lr_t, one)[:, 0]
+        if validate:
+            losses = torch.cat([losses, tr.validate()])
+        packed = losses.cpu().numpy()           # one read per epoch
+        n_steps = len(packed) - int(validate)
+        train_hist.append(float(np.mean(packed[:n_steps].tolist())))
+        if validate:
+            vloss = float(packed[-1])
+            val_hist.append(vloss)
+            cur_lr = scheduler.step(vloss)
+            lr_hist.append(cur_lr)
+            if vloss < best_val:
+                best_val = vloss
+                if bp is None:
+                    bp, bs = tr.p.clone(), tr.s.clone()
+                else:
+                    bp.copy_(tr.p)
+                    bs.copy_(tr.s)
+            if cur_lr < min_lr_stop:
+                break
+        vloss_log = vloss if validate and val_hist else None
+        if logger is not None:
+            logger.log("epoch", epoch=epoch + 1, train_loss=train_hist[-1],
+                       val_loss=vloss_log, lr=cur_lr)
+        if verbose:
+            print(f"epoch {epoch + 1}: train {train_hist[-1]:.6f} val "
+                  f"{vloss_log if vloss_log is not None else float('nan'):.6f}"
+                  f" lr {cur_lr:.2e}")
+    if bp is None:
+        bp, bs = tr.p, tr.s
+    return (train_hist, val_hist, lr_hist), bp, bs
+
+
+def _validate_flag(validate_every: int, num_epochs: int):
+    return lambda epoch: ((epoch + 1) % validate_every == 0
+                          or (epoch + 1) == num_epochs)
+
+
+def train_model(model, variables, lr_train, hr_train, lr_val, hr_val,
+                num_epochs: int = 100, lr: float = 0.01,
+                batch_size: int = 32, validate_every: int = 1,
+                patience: int = 10, plateau_threshold: float = 1e-4,
+                plateau_factor: float = 0.1, clip_norm: float = 1.0,
+                weight_decay: float = 0.01,
+                criterion: Callable = mse_criterion,
+                min_lr_stop: float = 1e-5, seed: int = 0,
+                verbose: bool = False, logger=None,
+                host_control: bool = False,
+                control_chunk_epochs: int = 25, device=DEFAULT_DEVICE):
+    """Train one model of ``models/mlp.py`` from ``variables`` (its
+    state_dict mapping, or a flat (p, s) pair) on (N, ...) train /
+    validation stacks; returns (train_hist, val_hist, lr_hist,
+    best_variables), the best validation state as a state_dict of tensors
+    on ``device`` (the final state if no validation loss was finite)."""
+    dev = resolve_device(device)
+    p, s = _flat_buffers(model, variables, 1, dev, stacked=False)
+    tr = _FoldTrainer(model, p, s, _on(lr_train, dev)[None],
+                      _on(hr_train, dev)[None], _on(lr_val, dev)[None],
+                      _on(hr_val, dev)[None], seed, batch_size, criterion,
+                      clip_norm, weight_decay, dev)
+    rng = np.random.default_rng(seed)
+    flag = _validate_flag(validate_every, num_epochs)
+    if host_control:
+        hists, bp, bs = _host_control(
+            tr, rng, num_epochs, lr, flag, patience, plateau_threshold,
+            plateau_factor, min_lr_stop, verbose, logger)
+    else:
+        (hists,), flags, bp, bs = _device_control(
+            tr, [rng], num_epochs, lr, flag, patience, plateau_threshold,
+            plateau_factor, min_lr_stop, max(1, int(control_chunk_epochs)))
+        if verbose or logger is not None:
+            _log_epochs(hists, flags, lr, verbose, logger)
+    return (*hists, fold_state(model, bp, bs, 0))
+
+
+def train_model_folds(model, variables_stack, lr_train_f, hr_train_f,
+                      lr_val_f, hr_val_f, seeds,
+                      num_epochs: int = 100, lr: float = 0.01,
+                      batch_size: int = 32, validate_every: int = 1,
+                      patience: int = 10, plateau_threshold: float = 1e-4,
+                      plateau_factor: float = 0.1, clip_norm: float = 1.0,
+                      weight_decay: float = 0.01,
+                      criterion: Callable = mse_criterion,
+                      min_lr_stop: float = 1e-5,
+                      control_chunk_epochs: int = 25,
+                      return_stacked: bool = False, device=DEFAULT_DEVICE):
+    """Train F folds of one model configuration together under on-device
+    control: ``variables_stack`` is a state_dict mapping whose leaves carry
+    a leading fold axis, or a flat (p (F, P), s (F, S)) pair (tensors on
+    the device, float32 and contiguous, are trained in place and become
+    the returned stack); ``*_f`` are (F, n, ...) stacks of equal sizes
+    across folds; ``seeds[j]`` drives fold j's shuffle plans, ``seeds[0]``
+    the dropout generator. Per fold it equals ``train_model`` with
+    ``seed=seeds[j]`` up to float reassociation (at dropout 0).
+
+    Returns F ``(train_hist, val_hist, lr_hist, best_variables)`` tuples
+    (state_dicts of views into the selected stack); with
+    ``return_stacked`` also the selected (p, s) stack: ``(results, (p,
+    s))``."""
+    dev = resolve_device(device)
+    F = len(seeds)
+    p, s = _flat_buffers(model, variables_stack, F, dev)
+    tr = _FoldTrainer(model, p, s, lr_train_f, hr_train_f, lr_val_f,
+                      hr_val_f, seeds[0], batch_size, criterion, clip_norm,
+                      weight_decay, dev)
+    rngs = [np.random.default_rng(sd) for sd in seeds]
+    hists, _, bp, bs = _device_control(
+        tr, rngs, num_epochs, lr, _validate_flag(validate_every, num_epochs),
+        patience, plateau_threshold, plateau_factor, min_lr_stop,
+        max(1, int(control_chunk_epochs)))
+    del tr
+    results = [(*h, fold_state(model, bp, bs, j)) for j, h in enumerate(hists)]
+    return (results, (bp, bs)) if return_stacked else results

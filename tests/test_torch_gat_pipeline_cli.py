@@ -173,7 +173,7 @@ def test_cli_defaults_to_the_card(csv_dir, tmp_path):
 
 @pytest.mark.parametrize("argv,what", [
     (["train", "gat", "--multichip"], "--multichip"),
-    (["train", "mlp"], "train mlp")])
+    (["train", "gsr", "--multichip"], "--multichip")])
 def test_cli_refuses_what_is_not_ported(capsys, argv, what):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)

@@ -317,7 +317,7 @@ def test_cli_submit_dry_run(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,missing", [
-    (["train", "mlp"], "models/mlp.py"),
+    (["train", "gsr", "--multichip"], "fcsr_tpu/parallel"),
     (["train", "gat", "--fused", "--multichip"], "fcsr_tpu/parallel"),
     (["train", "gsr", "--fused", "--multichip"], "fcsr_tpu/parallel"),
     (["train", "gsr", "--fast", "--fused-tail", "--multichip"],
