@@ -170,7 +170,23 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    matrix scatter), its MAEs beside the untrained model's and the mean
    target's; and ``train mlp`` and ``train mlp --variant v1 --epochs 2``
    on phase 5's CSVs, each column-major submission parsed back, with
-   v1's peak device memory.
+   v1's peak device memory;
+10. the JAX package's files and the last modules: decodes the JAX
+   package's trained GSR-Net file (``outputs/gsr/gsr_net_trained.msgpack``)
+   with the port's msgpack coder and encodes it again, byte for byte
+   (this machine has no flax: the coder's only check here); runs
+   ``predict --params`` on that file over the teacher set's 112 test
+   subjects in both orderings on the card and with ``--device cpu``
+   (predictions within 1e-4, both wall times, the launches of
+   ``normalize_adj_batch`` and ``vectorize_colmajor``); runs
+   ``python -m fcsr_tpu_torch.examples.train_gsr --fast --splits 3
+   --epochs 2`` (in process, its artifacts listed) and ``predict`` on the
+   ``gsr_net_trained.msgpack`` it wrote, which must reproduce its
+   ``submission.csv``; runs ``GraphSAGEUpsampler(64, 268, n_layers=2)``
+   over the 112 x 160 test stack on the card and the CPU (logits within
+   1e-4 of their scale; after the 0.2 threshold a mismatch only within
+   1e-5 of it; both times); and draws the ``lift`` dataset, whose sha256
+   must be the one the CPU tests pin.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -4560,6 +4576,262 @@ def run_mlp_cli(dev, csv_dir):
         pipelines.run_mlp_cv = run
     return total
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the JAX package's files and the last modules
+# ---------------------------------------------------------------------------
+
+JAX_GSR_FILE = os.path.join(HERE, "outputs", "gsr", "gsr_net_trained.msgpack")
+# sha256 of load_or_synthesize(None, flavor="lift") (keys in order, each
+# as name, shape, dtype and bytes): tests/test_torch_synthetic_lift.py
+LIFT_SHA256 = \
+    "6a59b7836ef1776df61a91ff9fdcbcacb3aa5b41ce9d8426a5faf9e0c989b3da"
+# the JAX package's GraphSAGEUpsampler has no default width: this phase's
+UPSAMPLE_HIDDEN, UPSAMPLE_LAYERS, UPSAMPLE_THRESHOLD = 64, 2, 0.2
+EXAMPLE_EPOCHS, EXAMPLE_SPLITS = 2, 3
+
+
+def check_msgpack_fixture():
+    """10a: the JAX package's GSR-Net file decoded and encoded again by the
+    port's coder, byte for byte; the least of 5 timed runs of each."""
+    from fcsr_tpu_torch.iox.msgpack import (msgpack_restore,
+                                            msgpack_serialize, to_bytes)
+    with open(JAX_GSR_FILE, "rb") as f:
+        raw = f.read()
+    dec, enc = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tree = msgpack_restore(raw)
+        t1 = time.perf_counter()
+        out = msgpack_serialize(tree)
+        enc.append(time.perf_counter() - t1)
+        dec.append(t1 - t0)
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(tree)
+    same = out == raw and to_bytes(tree) == raw
+    print(f"  {os.path.relpath(JAX_GSR_FILE, HERE)}: {len(raw)} bytes, "
+          f"{len(leaves)} arrays; decode {1e3 * min(dec):.2f} ms, encode "
+          f"{1e3 * min(enc):.2f} ms (least of 5); re-encoded bytes equal "
+          f"the file's: {same}", flush=True)
+    if not same:
+        fail("the msgpack coder does not write the JAX package's file back "
+             "byte for byte")
+    if not all(isinstance(a, np.ndarray) and a.flags.writeable
+               and a.dtype == np.float32 for a in leaves):
+        fail("the decoded GSR-Net leaves are not writable float32 arrays")
+
+
+def _p10_predict(args, device):
+    """`predict` through the command line; (wall s, launch counts)."""
+    from fcsr_tpu_torch import cli
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["predict", *args, "--device", device])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"`predict {' '.join(args)} --device {device}` returned {rc}")
+    return wall, _nonzero(launch_counts())
+
+
+def run_predict_msgpack(work):
+    """10b: `predict --params <the JAX package's file>` over the teacher
+    set's 112 test subjects, in both orderings, on the card and with
+    --device cpu. Returns the card runs' launch counts."""
+    from fcsr_tpu_torch.data import load_or_synthesize
+
+    data_dir = os.path.join(work, "data")
+    load_or_synthesize(data_dir, n_train=N_TRAIN, n_test=N_TEST, seed=42)
+    n_rows = N_TEST * HR * (HR - 1) // 2
+    total = {}
+    for ordering in ("rowmajor", "colmajor"):
+        got = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(work, f"predict_{ordering}_{device}.csv")
+            wall, counts = _p10_predict(
+                ["--params", JAX_GSR_FILE, "--data-dir", data_dir, "--out",
+                 out, "--ordering", ordering], device)
+            got[device] = (_read_submission(out, n_rows), wall, counts)
+            os.remove(out)
+        (card, t_card, counts), (host, t_host, host_counts) = \
+            got["cuda"], got["cpu"]
+        err = float(np.abs(card.astype(np.float64) - host).max())
+        print(f"  predict --params {os.path.basename(JAX_GSR_FILE)} "
+              f"--ordering {ordering}: card {t_card:.2f} s, --device cpu "
+              f"{t_host:.2f} s (each parse, predict of 112 subjects and "
+              f"the {n_rows}-line write); max|card - cpu| {err:.2e} "
+              f"(limit 1e-4); card launches {counts}", flush=True)
+        if not (np.isfinite(card).all() and err <= 1e-4):
+            fail(f"predict ({ordering}): card and CPU disagree ({err:.2e}) "
+                 "or non-finite predictions")
+        if host_counts or not counts.get("normalize_adj_batch") or \
+                counts.get("vectorize_colmajor", 0) != (ordering == "colmajor"):
+            fail(f"predict ({ordering}) launched {counts} on the card, "
+                 f"{host_counts} on the CPU")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+    return total
+
+
+def run_gsr_example(work):
+    """10c: the GSR example (`python -m fcsr_tpu_torch.examples.train_gsr
+    --fast --splits 3 --epochs 2`, in process, on the teacher set), then
+    `predict` on the gsr_net_trained.msgpack it wrote: the two
+    submissions must agree. Returns the launch counts of both runs."""
+    import importlib.util
+
+    from fcsr_tpu_torch.examples import train_gsr
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    data_dir = os.path.join(work, "data")
+    out_dir = os.path.join(work, "example_gsr")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_gsr.main(["--fast", "--splits", str(EXAMPLE_SPLITS),
+                             "--epochs", str(EXAMPLE_EPOCHS), "--data-dir",
+                             data_dir, "--out-dir", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _nonzero(launch_counts())
+    steps = result["runner"].tr_idx.shape[1] * EXAMPLE_EPOCHS
+    files = sorted(os.listdir(out_dir))
+    want = ["gsr_net_trained.msgpack", "submission.csv"]
+    if importlib.util.find_spec("matplotlib") is not None:
+        want = sorted(want + ["loss.png"])
+    print(f"  examples.train_gsr --fast --splits {EXAMPLE_SPLITS} --epochs "
+          f"{EXAMPLE_EPOCHS}: {wall:.1f} s (train "
+          f"{result['timings']['train']:.2f} s, {steps} fold-batched steps "
+          f"in the JAX package's default (unfused) mode); fold MAEs "
+          f"{result['fold_maes']}; wrote {files}; launches {counts}",
+          flush=True)
+    if files != want:
+        fail(f"the GSR example wrote {files}, not {want}")
+    if counts.get("adam_masked") != steps or \
+            not counts.get("normalize_adj_batch"):
+        fail(f"the GSR example launched {counts}: not one adam_masked per "
+             f"step ({steps}) and normalize_adj_batch for its predictions")
+    if not np.isfinite(result["fold_maes"]).all():
+        fail("the GSR example's fold MAEs are not finite")
+
+    n_rows = N_TEST * HR * (HR - 1) // 2
+    out = os.path.join(work, "predict_example.csv")
+    t_pred, pred_counts = _p10_predict(
+        ["--params", os.path.join(out_dir, "gsr_net_trained.msgpack"),
+         "--data-dir", data_dir, "--out", out], "cuda")
+    example = os.path.join(out_dir, "submission.csv")
+    with open(example, "rb") as f, open(out, "rb") as g:
+        identical = f.read() == g.read()
+    err = float(np.abs(_read_submission(out, n_rows).astype(np.float64)
+                       - _read_submission(example, n_rows)).max())
+    print(f"  predict --params <example>/gsr_net_trained.msgpack: "
+          f"{t_pred:.2f} s; max|predict - example submission| {err:.2e}, "
+          f"files identical: {identical}; launches {pred_counts}",
+          flush=True)
+    if err > 1e-6:
+        fail("predict on the example's msgpack does not reproduce the "
+             f"example's submission.csv ({err:.2e})")
+    for k, c in pred_counts.items():
+        counts[k] = counts.get(k, 0) + c
+    return counts
+
+
+def run_upsampler(dev, data):
+    """10d: GraphSAGEUpsampler(64, 268, n_layers=2) over the 112 x 160 test
+    stack (degree-normalized on the host, the GCN layers' ``a_norm``) on
+    the card and on the CPU, from the same seeded weights."""
+    from fcsr_tpu_torch.core.normalize import normalize_adj
+    from fcsr_tpu_torch.models import GraphSAGEUpsampler
+
+    a = normalize_adj(torch.from_numpy(np.ascontiguousarray(
+        data["lr_test"])))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        model = GraphSAGEUpsampler(UPSAMPLE_HIDDEN, HR,
+                                   n_layers=UPSAMPLE_LAYERS,
+                                   threshold=UPSAMPLE_THRESHOLD,
+                                   device=where, seed=0)
+        x = a.to(where)
+        with torch.no_grad():
+            logits, out = model.logits(x).cpu(), model(x).cpu()
+            if where.type == "cuda":
+                ms = cuda_ms(lambda: model(x), reps=10, rounds=3)
+            else:
+                ms = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    model(x)
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                ms = min(ms)
+        runs.append((logits, out, ms))
+    (lc, oc, ms_card), (lh, oh, ms_host) = runs
+    scale = float(lh.abs().max())
+    err = float((lc - lh).abs().max())
+    score = torch.sigmoid(lh)
+    differ = oc != oh
+    off = float((score[differ] - UPSAMPLE_THRESHOLD).abs().max()) \
+        if bool(differ.any()) else 0.0
+    print(f"  GraphSAGEUpsampler(hidden {UPSAMPLE_HIDDEN}, {UPSAMPLE_LAYERS} "
+          f"layers, {LR} -> {HR}) over {tuple(a.shape)}: a forward "
+          f"{ms_card:.3f} ms on the card (eager, CUDA events, median of 3 x "
+          f"10 calls), {ms_host:.1f} ms on the CPU (least of 3); "
+          f"max|card - cpu| logits "
+          f"{err:.2e} of scale {scale:.3e} (limit 1e-4 of it); "
+          f"{int(differ.sum())} thresholded entries differ, the farthest "
+          f"{off:.2e} from {UPSAMPLE_THRESHOLD} (limit 1e-5); share kept "
+          f"{float((oc > 0).float().mean()):.4f}, of the CPU's scores "
+          f"within 1e-5 of the threshold "
+          f"{float(((score - UPSAMPLE_THRESHOLD).abs() <= 1e-5).float().mean()):.2e}",
+          flush=True)
+    if not (tuple(oc.shape) == (N_TEST, HR, HR) and torch.isfinite(lc).all()
+            and err <= 1e-4 * scale and off <= 1e-5):
+        fail("GraphSAGEUpsampler: card and CPU disagree")
+    if not bool(((oc == 0) | (oc > UPSAMPLE_THRESHOLD)).all()):
+        fail("GraphSAGEUpsampler: an output survives below the threshold")
+
+
+def check_lift_dataset():
+    """10e: the lift dataset's sha256 against the CPU tests' pin."""
+    import hashlib
+
+    from fcsr_tpu_torch.data import load_or_synthesize
+
+    t0 = time.perf_counter()
+    data = load_or_synthesize(None, flavor="lift")
+    t_draw = time.perf_counter() - t0
+    h = hashlib.sha256()
+    for name in ("lr_train", "hr_train", "lr_test"):
+        arr = np.ascontiguousarray(data[name])
+        h.update(name.encode())
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(memoryview(arr).cast("B"))
+    print(f"  lift dataset drawn in {t_draw:.2f} s: sha256 {h.hexdigest()} "
+          f"(pinned {LIFT_SHA256})", flush=True)
+    if h.hexdigest() != LIFT_SHA256:
+        fail("the lift dataset differs from the one the CPU tests pin")
+
+
+def run_phase10(dev, data, work):
+    """Phase 10; returns the launch counts of its command-line runs."""
+    t0 = time.perf_counter()
+    check_msgpack_fixture()
+    counts = run_predict_msgpack(work)
+    for k, c in run_gsr_example(work).items():
+        counts[k] = counts.get(k, 0) + c
+    run_upsampler(dev, data)
+    check_lift_dataset()
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -4636,6 +4908,9 @@ def main():
         check_mlp_steps(dev, data)
         mlp_counts = run_mlp_main_path(dev, data)
         mlp_cli_counts = run_mlp_cli(dev, os.path.join(WORK_DIR, "data"))
+        print("phase 10: the JAX package's files and the last modules",
+              flush=True)
+        p10_counts = run_phase10(dev, data, os.path.join(WORK_DIR, "p10"))
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -4650,7 +4925,7 @@ def main():
                "launches": sum(c.get(name, 0) for c in (
                    counts, csv_counts, mode_counts, parity_counts,
                    gat_counts, gat_cli_counts, keep_counts,
-                   metric_counts, mlp_counts, mlp_cli_counts))}
+                   metric_counts, mlp_counts, mlp_cli_counts, p10_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -28,7 +28,13 @@ challenge's eight metrics on the card or through networkx;
 ``--full-metrics`` run. The MLP family: ``models.SpectralResMLP`` (v2) and
 ``SuperResMLP`` (v1), the fold-parallel generic trainer
 (``train.train_model_folds``, ``train_model``; AdamW on the
-``adamw_masked`` kernel), ``pipelines.run_mlp_cv`` and ``train mlp``.
+``adamw_masked`` kernel), ``pipelines.run_mlp_cv`` and ``train mlp``. The
+JAX package's flax msgpack files are read and written by the port's own
+coder (``iox.msgpack``; ``predict --params *.msgpack``); the GraphSAGE
+upsampler (``models.GraphSAGEUpsampler``), the ``lift`` synthetic set,
+the ``utils`` helpers and the example drivers
+(``python -m fcsr_tpu_torch.examples.<name>``) complete the
+single-device modules.
 """
 
 from fcsr_tpu_torch.data import (kfold_indices, load_dataset,

@@ -10,6 +10,7 @@ The parser of ``fcsr_tpu/cli.py`` plus ``--device``:
     python -m fcsr_tpu_torch train gsr --fused --full-metrics  # + evalx
     python -m fcsr_tpu_torch evaluate --gt gt.npz --pred pred.npz --fold 0
     python -m fcsr_tpu_torch predict --params ck.npz --out sub.csv
+    python -m fcsr_tpu_torch predict --params gsr_net_trained.msgpack
     python -m fcsr_tpu_torch submit  --csv submission.csv -m "message"
 
 Commands run on the card; ``--device cpu`` runs the kernels' plain PyTorch
@@ -129,8 +130,11 @@ def build_parser():
     pr = sub.add_parser("predict",
                         help="load GSR-Net weights and write a submission")
     pr.add_argument("--params", required=True,
-                    help="npz file: a model state (as `train gsr` writes "
-                         f"to <out-dir>/{PARAMS_FILE}) or a trainer "
+                    help="the JAX package's msgpack params file (as its "
+                         "train pipelines / examples and the port's "
+                         "examples write it, e.g. gsr_net_trained.msgpack), "
+                         "or an npz file: a model state (as `train gsr` "
+                         f"writes to <out-dir>/{PARAMS_FILE}) or a trainer "
                          "checkpoint (its last fold's weights)")
     pr.add_argument("--data-dir", default="data")
     pr.add_argument("--out", default="submission.csv")

@@ -178,28 +178,34 @@ def write_kaggle_csvs(data: Dict[str, np.ndarray], out_dir: str,
 
 def load_or_synthesize(data_dir: Optional[str] = None,
                        n_train: int = 167, n_test: int = 112,
-                       seed: int = 42,
+                       seed: int = 42, flavor: str = "teacher",
                        device=DEFAULT_DEVICE) -> Dict[str, np.ndarray]:
     """The Kaggle CSVs of ``data_dir`` when present (``load_dataset`` on
-    ``device``), else the seeded teacher dataset ``{lr_train, hr_train,
-    lr_test}``, cached as
-    ``<data_dir>/fcsr_synth2_teacher_<seed>_<n_train>_<n_test>.npz`` when
-    ``data_dir`` is given (the same file the JAX package writes). Only the
-    CSV branch touches ``device``."""
+    ``device``), else a seeded synthetic dataset ``{lr_train, hr_train,
+    lr_test}`` of ``flavor`` "teacher" (the default: HR from a hidden
+    teacher in GSR-Net's realizable family) or "lift" (the soft-parcellation
+    lift; ``data/synthetic.py``), cached as
+    ``<data_dir>/fcsr_synth2_<flavor>_<seed>_<n_train>_<n_test>.npz`` when
+    ``data_dir`` is given (the same file the JAX package writes and reads).
+    Only the CSV branch touches ``device``."""
     if has_real_csvs(data_dir):
         return load_dataset(data_dir, device=device)
+    if flavor not in ("teacher", "lift"):
+        raise ValueError(f"unknown synthetic flavor {flavor!r}: 'teacher' "
+                         "or 'lift'")
 
     cache_path = None
     if data_dir:
         cache_path = os.path.join(
-            data_dir, f"fcsr_synth2_teacher_{seed}_{n_train}_{n_test}.npz")
+            data_dir, f"fcsr_synth2_{flavor}_{seed}_{n_train}_{n_test}.npz")
         if os.path.exists(cache_path):
             with np.load(cache_path) as z:
                 return {k: z[k] for k in z.files}
 
-    from fcsr_tpu_torch.data.synthetic import synthesize_teacher_connectomes
-    lr, hr, lr_test = synthesize_teacher_connectomes(n_train, seed=seed,
-                                                     n_test=n_test)
+    from fcsr_tpu_torch.data import synthetic
+    synth = (synthetic.synthesize_teacher_connectomes if flavor == "teacher"
+             else synthetic.synthesize_paired_connectomes)
+    lr, hr, lr_test = synth(n_train, seed=seed, n_test=n_test)
     out = {"lr_train": lr, "hr_train": hr, "lr_test": lr_test}
     if cache_path:
         try:

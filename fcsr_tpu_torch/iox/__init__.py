@@ -1,5 +1,6 @@
 from fcsr_tpu_torch.iox.checkpoint import (load_arrays, load_params,
-                                           load_state, save_arrays,
+                                           load_pytree, load_state,
+                                           save_arrays, save_pytree,
                                            save_state)
 from fcsr_tpu_torch.iox.submission import (DEFAULT_COMPETITION,
                                            kaggle_submit, save_prediction,
@@ -11,7 +12,9 @@ from fcsr_tpu_torch.iox.weights import (flat_to_state, flax_to_state,
                                         mlp_flat_to_state, mlp_flax_to_state,
                                         mlp_state_to_flat, mlp_state_to_flax,
                                         state_to_flat, state_to_flax,
-                                        state_to_leaves)
+                                        state_to_leaves,
+                                        upsample_flax_to_state,
+                                        upsample_state_to_flax)
 
 __all__ = ["DEFAULT_COMPETITION", "flat_to_state", "flax_to_state",
            "gat_flat_to_state", "gat_flax_to_state", "gat_state_to_flat",
@@ -19,6 +22,7 @@ __all__ = ["DEFAULT_COMPETITION", "flat_to_state", "flax_to_state",
            "kaggle_submit", "leaves_to_state", "load_arrays", "load_params",
            "mlp_flat_to_state", "mlp_flax_to_state", "mlp_state_to_flat",
            "mlp_state_to_flax",
-           "load_state", "save_arrays", "save_prediction", "save_state",
-           "state_to_flat", "state_to_flax", "state_to_leaves",
-           "submission_frame"]
+           "load_pytree", "load_state", "save_arrays", "save_prediction",
+           "save_pytree", "save_state", "state_to_flat", "state_to_flax",
+           "state_to_leaves", "submission_frame", "upsample_flax_to_state",
+           "upsample_state_to_flax"]

@@ -1,6 +1,6 @@
-"""Carry GSR-Net, GAT U-Net and MLP weights between the JAX package and
-the port (GSR-Net first; the GAT U-Net's layouts, then the MLP family's,
-are at the end of the file).
+"""Carry GSR-Net, GAT U-Net, MLP and upsampler weights between the JAX
+package and the port (GSR-Net first; the GAT U-Net's layouts, then the MLP
+family's and the GraphSAGE upsampler's, are at the end of the file).
 
 Three layouts, as plain numpy arrays (the torch boundary is
 ``torch.from_numpy`` on the caller's side), and for the last two also as
@@ -39,7 +39,8 @@ __all__ = ["lin_names", "leaf_names", "flax_to_state", "state_to_flax",
            "gat_state_to_leaves", "gat_leaves_to_state", "gat_state_to_flat",
            "gat_flat_to_state", "gat_leaf_tensors_to_state", "mlp_entries",
            "mlp_flax_to_state", "mlp_state_to_flax", "mlp_state_to_leaves",
-           "mlp_leaves_to_state", "mlp_state_to_flat", "mlp_flat_to_state"]
+           "mlp_leaves_to_state", "mlp_state_to_flat", "mlp_flat_to_state",
+           "upsample_flax_to_state", "upsample_state_to_flax"]
 
 TAIL_NAMES = ("layer.weights", "gc1.weight", "gc2.weight")
 
@@ -554,3 +555,25 @@ def mlp_flat_to_state(p: np.ndarray, s: np.ndarray, layout):
         for spec, buf in ((layout.params, p), (layout.stats, s))]
     return {k: np.ascontiguousarray(v)
             for k, v in mlp_leaves_to_state(*views).items()}
+
+
+# ------------------------------------------------- GraphSAGE upsampler
+# flax ``{"params": {"gcn_{i}": {"omega", "beta"}}}`` <-> the port's
+# ``gcn.{i}.omega`` / ``gcn.{i}.beta`` (``models/upsample.py``; the names
+# follow the port's module tree, as the reference's torch names for this
+# model are not recorded). omega is (in, out) on both sides.
+
+def upsample_flax_to_state(params) -> Dict[str, np.ndarray]:
+    """The JAX package's ``GraphSAGEUpsampler`` variables -> state_dict
+    mapping of float32 numpy arrays."""
+    p = params["params"]
+    return {f"gcn.{i}.{leaf}": np.asarray(p[f"gcn_{i}"][leaf], np.float32)
+            for i in range(len(p)) for leaf in ("omega", "beta")}
+
+
+def upsample_state_to_flax(state: Mapping[str, np.ndarray]):
+    """Inverse of ``upsample_flax_to_state``."""
+    n = sum(1 for k in state if k.endswith(".omega"))
+    return {"params": {f"gcn_{i}": {
+        leaf: np.asarray(state[f"gcn.{i}.{leaf}"], np.float32)
+        for leaf in ("omega", "beta")} for i in range(n)}}

@@ -36,6 +36,20 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 
+# set by ``utils/debug.py::eager_debug``: every launch is followed by a
+# synchronize, so an asynchronous CUDA error raises at the launch that
+# caused it
+SYNC_EACH_LAUNCH = False
+
+
+def _check_after_launch(name: str) -> None:
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        raise RuntimeError(f"CUDA kernel {name} failed after its launch: "
+                           f"{e}") from e
+
+
 class Kernel:
     """One CUDA entry point: its library, C signature and launch count."""
 
@@ -62,6 +76,8 @@ class Kernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"{self._err(err).decode()}")
         self.launches += 1
+        if SYNC_EACH_LAUNCH:
+            _check_after_launch(self.name)
 
 
 # the TPU kernel these replace: train_step_fused's pallas_call

@@ -10,7 +10,7 @@ import random
 import numpy as np
 import torch
 
-__all__ = ["set_seed"]
+__all__ = ["set_seed", "seed_everything"]
 
 
 def set_seed(random_seed: int = 42) -> torch.Generator:
@@ -20,3 +20,7 @@ def set_seed(random_seed: int = 42) -> torch.Generator:
     np.random.seed(random_seed)
     torch.manual_seed(random_seed)
     return torch.Generator(device="cpu").manual_seed(random_seed)
+
+
+# alias with the more common modern name (as the JAX package has it)
+seed_everything = set_seed
