@@ -186,7 +186,22 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    over the 112 x 160 test stack on the card and the CPU (logits within
    1e-4 of their scale; after the 0.2 threshold a mismatch only within
    1e-5 of it; both times); and draws the ``lift`` dataset, whose sha256
-   must be the one the CPU tests pin.
+   must be the one the CPU tests pin;
+11. the fold-sharded trainers and the data-parallel steps
+   (``fcsr_tpu_torch/parallel``): ``train gsr --multichip --fused`` and
+   ``train gat --multichip --fused`` (2 epochs, 3 folds, drop_p 0.01 for
+   GAT) on phase 5's CSVs, on this machine's one-card mesh, with fold MAEs
+   and submission.csv bit-equal to the runs without ``--multichip``; the
+   full-width ``fused_adam`` GSRFoldRunner on a 3-shard (F = 1 a shard)
+   and a 2-shard mesh (3 folds padded to 4) of the one card against the
+   F = 3 run (bit-equal: the shards' products are planned for the 3 real
+   folds; 106 launches a shard step, s/epoch of each); ``make_sharded_batch_step`` (full width, batch
+   8 on 4 shards) under an NCCL process group of one process started by
+   ``maybe_initialize_distributed`` on 127.0.0.1, and
+   ``make_sharded_generic_step`` (MLP v2 at its published widths, batch
+   32 on 2 shards, BatchNorm moments and dropout of the whole batch)
+   against their single-device steps (parameters and running statistics
+   within 2e-5).
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -4832,6 +4847,236 @@ def run_phase10(dev, data, work):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the fold-sharded trainers and the data-parallel steps
+# ---------------------------------------------------------------------------
+
+def _cli_json(argv):
+    """``cli.main(argv)`` in process: (return code, its JSON report)."""
+    import contextlib
+    import io
+
+    from fcsr_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print("  | " + out.strip().replace("\n", "\n  | "), flush=True)
+    return rc, json.loads(out.strip().splitlines()[0])
+
+
+def run_multichip_cli(csv_dir, smi):
+    """Phase 11 (a) and (c): `train gsr --multichip --fused` and `train gat
+    --multichip --fused` (2 epochs, 3 folds; on this one-card machine the
+    mesh is the card) against the same commands without --multichip: fold
+    MAEs and submission.csv bit-equal. Returns the --multichip runs'
+    launch counts."""
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    counts = {}
+    for family in ("gsr", "gat"):
+        runs = {}
+        for flags in (["--fused"], ["--multichip", "--fused"]):
+            out_dir = os.path.join(WORK_DIR, f"p11_{family}_{len(flags)}")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc, report = _cli_json(["train", family, *flags,
+                                    "--epochs", "2", "--splits", "3",
+                                    "--data-dir", csv_dir, "--out-dir",
+                                    out_dir])
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            c = _nonzero(launch_counts())
+            if rc != 0:
+                fail(f"`train {family} {' '.join(flags)}` returned {rc}")
+            with open(os.path.join(out_dir, "submission.csv"), "rb") as f:
+                runs[len(flags)] = (report["fold_maes"], f.read())
+            print(f"  `train {family} {' '.join(flags)}` {t:.1f} s, "
+                  f"launches {c} [{smi}]", flush=True)
+            if len(flags) == 2:
+                for k, n in c.items():
+                    counts[k] = counts.get(k, 0) + n
+        same_maes = runs[1][0] == runs[2][0]
+        same_sub = runs[1][1] == runs[2][1]
+        print(f"  {family}: --multichip fold MAEs {runs[2][0]} "
+              f"{'==' if same_maes else '!='} {runs[1][0]}; submission.csv "
+              f"{'identical' if same_sub else 'DIFFERS'}", flush=True)
+        if not (same_maes and same_sub):
+            fail(f"`train {family} --multichip --fused` differs from "
+                 "`--fused` on the one-card mesh")
+    return counts
+
+
+def run_sharded_runner(dev, data, smi):
+    """Phase 11 (b): the full-width fused_adam GSRFoldRunner (3 folds of the
+    teacher set, 2 epochs) on a 3-shard (F = 1 a shard) and a 2-shard mesh
+    (3 folds padded to 4) of the one card, against the unsharded F = 3 run:
+    every shard's launches are planned for the 3 real folds
+    (``ops.plan_folds``: the products' tile and split-K), so parameters,
+    histories and val MAEs must be bit-equal. Returns the sharded runs'
+    launch counts."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.parallel import virtual_batch_mesh
+
+    n = len(data["lr_train"])
+    folds = kfold_indices(n, 3, seed=42)
+    cfg = GSRTrainConfig(fused_adam=True, epochs=EPOCHS)
+    runs, counts = {}, {}
+    for shards in (None, 3, 2):
+        mesh = None if shards is None else virtual_batch_mesh(shards, dev)
+        runner = GSRFoldRunner(cfg, data["lr_train"], data["hr_train"],
+                               folds, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        p, loss, err = runner.train()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        c = _nonzero(launch_counts())
+        maes, _ = runner.evaluate()
+        steps = runner.tr_idx.shape[1] * EPOCHS * len(runner.shards)
+        if sum(c.values()) != STEP_LAUNCHES * steps:
+            fail(f"sharded runner ({shards} shards): {sum(c.values())} "
+                 f"launches in {steps} shard steps, not {STEP_LAUNCHES} each")
+        runs[shards] = (p.cpu().numpy(), loss, err, maes)
+        label = "unsharded F = 3" if shards is None else \
+            f"{shards} shards x F = {runner.shards[0].n_folds}"
+        print(f"  fused_adam runner, {label}: {t / EPOCHS:.3f} s/epoch "
+              f"({1e3 * t / steps:.3f} ms a shard step), val MAE "
+              f"{maes.tolist()} [{smi}]", flush=True)
+        if shards is not None:
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+    for shards in (3, 2):
+        d = [float(np.abs(a - b).max()) for a, b in zip(runs[None],
+                                                         runs[shards])]
+        print(f"  {shards} shards vs unsharded: max|d| params {d[0]:.3e}, "
+              f"loss history {d[1]:.3e}, recon {d[2]:.3e}, val MAE "
+              f"{d[3]:.3e} (bit-equal required)", flush=True)
+        if max(d) != 0.0 or not np.isfinite(runs[shards][0]).all():
+            fail(f"the {shards}-shard fused_adam runner is not bit-equal to "
+                 "the unsharded run")
+    return counts
+
+
+def run_data_parallel_steps(dev, data, smi):
+    """Phase 11 (d) and (e): make_sharded_batch_step (full-width GSR-Net,
+    batch 8 on a 4-shard mesh of the card) under an NCCL process group of
+    one process (maybe_initialize_distributed on 127.0.0.1), so the
+    gradients' and the loss's all_reduce run on the card, and
+    make_sharded_generic_step (MLP v2 at its published widths, batch 32 on
+    2 shards; its BatchNorm moments all_reduced too), each against the
+    single-device step from the same weights, 2 steps: parameters (and
+    the running statistics) within 2e-5."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fcsr_tpu_torch.models.mlp import SpectralResMLP
+    from fcsr_tpu_torch.parallel import (make_sharded_batch_step,
+                                         make_sharded_generic_step,
+                                         maybe_initialize_distributed,
+                                         virtual_batch_mesh)
+    from fcsr_tpu_torch.train import (GSRTrainConfig, gsr_composite_loss,
+                                      init_gsr, precompute_spectral)
+    from fcsr_tpu_torch.train.losses import (make_triu_mse_criterion,
+                                             pack_triu_targets)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if not maybe_initialize_distributed(f"127.0.0.1:{port}", 1, 0):
+        fail("maybe_initialize_distributed did not start the group")
+    try:
+        lr = np.asarray(data["lr_train"][:8], np.float32)
+        hr = np.asarray(data["hr_train"][:8], np.float32)
+        u_lr, u_hr = (np.asarray(u, np.float32) for u in
+                      precompute_spectral(lr, hr, lr_dim=LR))
+        cfg = GSRTrainConfig()
+        single, opt1 = init_gsr(cfg, seed=1, device=dev)
+        model, opt2 = init_gsr(cfg, seed=1, device=dev)
+        t = [torch.from_numpy(a).to(dev) for a in (lr, hr, u_lr, u_hr)]
+        step = make_sharded_batch_step(model, opt2,
+                                       virtual_batch_mesh(4, dev))
+        ms_single, ms_sharded = [], []
+        for _ in range(2):          # the first call of each starts up
+            t0 = time.perf_counter()
+            loss1 = 0.0
+            for j in range(8):
+                pred, net, start, _ = single(t[0][j], u_lr=t[2][j])
+                loss1 = loss1 + gsr_composite_loss(
+                    pred, net, start, single.layer.weights, t[3][j],
+                    t[1][j], cfg.lmbda)[0] / 8
+            opt1.zero_grad()
+            loss1.backward()
+            opt1.step()
+            torch.cuda.synchronize()
+            ms_single.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            loss2, _ = step(lr, hr, u_lr, u_hr)
+            torch.cuda.synchronize()
+            ms_sharded.append(1e3 * (time.perf_counter() - t0))
+        d = max(max_err(a.detach(), b.detach()) for a, b in
+                zip(single.parameters(), model.parameters()))
+        dl = abs(float(loss1) - float(loss2))
+        print(f"  make_sharded_batch_step, 4 shards x 2 subjects, NCCL "
+              f"group of 1 ({dist.get_backend()}), 2 steps: loss "
+              f"{float(loss2):.6f}, |d loss| {dl:.2e}, max|d param| {d:.2e} "
+              f"(limit 2e-5); ms a step {[round(x, 1) for x in ms_sharded]}"
+              f", single {[round(x, 1) for x in ms_single]} [{smi}]",
+              flush=True)
+        if not (d <= 2e-5 and dl <= 2e-5):
+            fail("make_sharded_batch_step disagrees with the single step")
+
+        r, c = np.triu_indices(LR, 1)
+        x = np.ascontiguousarray(data["lr_train"][:32][:, r, c], np.float32)
+        y = pack_triu_targets(data["hr_train"][:32]).astype(np.float32)
+        crit = make_triu_mse_criterion(HR)
+        mlp, twin = (SpectralResMLP(LR, HR, (LR + HR) // 2, 0,
+                                    output="vector", device=dev, seed=5)
+                     for _ in range(2))
+        o1 = torch.optim.SGD(mlp.parameters(), lr=0.01)
+        gstep = make_sharded_generic_step(
+            twin, torch.optim.SGD(twin.parameters(), lr=0.01),
+            virtual_batch_mesh(2, dev), crit)
+        xs, ys = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        for _ in range(2):
+            mlp.train()
+            want = crit(mlp(xs), ys)
+            o1.zero_grad()
+            want.backward()
+            o1.step()
+            got = gstep(x, y)
+        torch.cuda.synchronize()
+        a = dict(mlp.named_parameters()) | dict(mlp.named_buffers())
+        b = dict(twin.named_parameters()) | dict(twin.named_buffers())
+        errs = {k: max_err(a[k].detach(), b[k].detach()) for k in a}
+        worst = max(errs, key=errs.get)
+        dl = abs(float(want) - float(got))
+        print(f"  make_sharded_generic_step, MLP v2 {x.shape[1]} -> "
+              f"{(LR + HR) // 2} -> {y.shape[1] - HR}, 2 steps of batch 32 "
+              f"on 2 shards: |d loss| {dl:.2e}, max|d| {errs[worst]:.2e} "
+              f"({worst}; running stats "
+              f"{max(v for k, v in errs.items() if 'running' in k):.2e}) "
+              f"(limit 2e-5) [{smi}]", flush=True)
+        if not (max(errs.values()) <= 2e-5 and dl <= 2e-5):
+            fail("make_sharded_generic_step disagrees with the single step")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_phase11(dev, data, csv_dir, smi):
+    """Phase 11; returns the launch counts of its sharded runs."""
+    t0 = time.perf_counter()
+    counts = run_multichip_cli(csv_dir, smi)
+    for k, c in run_sharded_runner(dev, data, smi).items():
+        counts[k] = counts.get(k, 0) + c
+    run_data_parallel_steps(dev, data, smi)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -4911,6 +5156,10 @@ def main():
         print("phase 10: the JAX package's files and the last modules",
               flush=True)
         p10_counts = run_phase10(dev, data, os.path.join(WORK_DIR, "p10"))
+        print("phase 11: the fold-sharded trainers and the data-parallel "
+              "steps", flush=True)
+        p11_counts = run_phase11(dev, data, os.path.join(WORK_DIR, "data"),
+                                 smi)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -4925,7 +5174,8 @@ def main():
                "launches": sum(c.get(name, 0) for c in (
                    counts, csv_counts, mode_counts, parity_counts,
                    gat_counts, gat_cli_counts, keep_counts,
-                   metric_counts, mlp_counts, mlp_cli_counts, p10_counts))}
+                   metric_counts, mlp_counts, mlp_cli_counts, p10_counts,
+                   p11_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -34,7 +34,10 @@ coder (``iox.msgpack``; ``predict --params *.msgpack``); the GraphSAGE
 upsampler (``models.GraphSAGEUpsampler``), the ``lift`` synthetic set,
 the ``utils`` helpers and the example drivers
 (``python -m fcsr_tpu_torch.examples.<name>``) complete the
-single-device modules.
+single-device modules. ``parallel`` shards the folds of the GSR-Net and
+GAT trainers over the cards of a mesh (``GSRFoldRunner(mesh=)``,
+``train_gat_folds_parallel(mesh=)``, ``multichip=True``, ``--multichip``)
+and holds the data-parallel steps and the ``torch.distributed`` bootstrap.
 """
 
 from fcsr_tpu_torch.data import (kfold_indices, load_dataset,

@@ -5,7 +5,8 @@ The parser of ``fcsr_tpu/cli.py`` plus ``--device``:
     python -m fcsr_tpu_torch train gsr --data-dir data     # parity trainer
     python -m fcsr_tpu_torch train gsr --fast [--fused-tail] --splits 3
     python -m fcsr_tpu_torch train gsr --fused --data-dir data --splits 3
-    python -m fcsr_tpu_torch train gat [--fast] [--fused] --splits 3
+    python -m fcsr_tpu_torch train gsr --multichip --fused  # folds on cards
+    python -m fcsr_tpu_torch train gat [--fast] [--fused] [--multichip]
     python -m fcsr_tpu_torch train mlp [--variant v1] --k-folds 3
     python -m fcsr_tpu_torch train gsr --fused --full-metrics  # + evalx
     python -m fcsr_tpu_torch evaluate --gt gt.npz --pred pred.npz --fold 0
@@ -18,8 +19,8 @@ versions on the host. Synthetic data is substituted when the Kaggle CSVs
 are not in ``--data-dir``. ``--full-metrics`` scores every fold with the
 metric suite into ``<out-dir>/eval_metrics.json``; ``--eval-backend
 networkx`` and ``evaluate --backend networkx`` need the networkx package.
-A subcommand or flag whose module is not ported yet exits with a message
-naming what is missing; none is dropped silently.
+``--multichip`` (implies ``--fast``) shards the folds over the local cards.
+No flag is dropped silently.
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ def build_parser():
     g.add_argument("--lr", type=float, default=1e-4)
     g.add_argument("--lmbda", type=float, default=16.0)
     g.add_argument("--multichip", action="store_true",
-                   help="shard the fold axis over all local devices "
-                        "(not ported yet)")
+                   help="shard the fold axis over the local cards, at most "
+                        "one per fold (implies --fast)")
     g.add_argument("--fast", action="store_true",
                    help="fold-parallel clean-CV trainer: a fresh model per "
                         "fold, all folds trained together")
@@ -111,8 +112,8 @@ def build_parser():
                    help="run each training step and the validation forwards "
                         "on the hand-written CUDA kernels (implies --fast)")
     a.add_argument("--multichip", action="store_true",
-                   help="shard the fold axis over all local devices "
-                        "(not ported yet)")
+                   help="shard the fold axis over the local cards, at most "
+                        "one per fold (implies --fast)")
     a.add_argument("--splits", type=int, default=3)
     a.add_argument("--epochs", type=int, default=100)
     a.add_argument("--lr", type=float, default=1e-3)
@@ -155,19 +156,6 @@ def build_parser():
     return ap
 
 
-def _refuse(ap, what: str, missing: str):
-    ap.error(f"{what} is not available in fcsr_tpu_torch yet: it needs the "
-             f"port of {missing} (use `python -m fcsr_tpu` meanwhile)")
-
-
-def _refuse_unported(ap, args):
-    """Exit for every subcommand or flag whose module is not ported."""
-    if args.cmd != "train":
-        return
-    if getattr(args, "multichip", False):
-        _refuse(ap, "--multichip", "fcsr_tpu/parallel (fold sharding)")
-
-
 def _write_fold_metrics(args, result):
     """``<out-dir>/eval_metrics.json``: the per-fold metric dicts of a
     ``--full-metrics`` run, as the JAX package's command line writes
@@ -189,8 +177,8 @@ def _load_stack(path):
 
 def _train_gat(args):
     """`train gat`: the GAT U-Net's CV run, one fold after the other, or
-    with --fast / --fused all folds together; writes the last fold's best
-    weights and the column-major submission."""
+    with --fast / --fused / --multichip all folds together; writes the last
+    fold's best weights and the column-major submission."""
     from fcsr_tpu_torch.data import load_or_synthesize
     from fcsr_tpu_torch.iox import save_prediction, save_state
     from fcsr_tpu_torch.pipelines import run_gat_cv, run_gat_cv_fast
@@ -202,12 +190,14 @@ def _train_gat(args):
                               device=args.device)
     cfg = GATTrainConfig(epochs=args.epochs, lr=args.lr, dim=args.dim,
                          fused_step=args.fused)
-    if args.fast or args.fused:
+    if args.fast or args.fused or args.multichip:
         result = run_gat_cv_fast(data, cfg, splits=args.splits,
                                  seed=args.seed,
                                  full_metrics=args.full_metrics,
                                  eval_backend=args.eval_backend,
-                                 verbose=args.verbose, device=args.device)
+                                 verbose=args.verbose,
+                                 multichip=args.multichip,
+                                 device=args.device)
     else:
         result = run_gat_cv(data, splits=args.splits, seed=args.seed,
                             cfg=cfg, full_metrics=args.full_metrics,
@@ -264,7 +254,6 @@ def _train_mlp(args):
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
 
     if args.cmd == "train" and args.family == "gat":
         return _train_gat(args)
@@ -279,7 +268,7 @@ def main(argv=None):
         from fcsr_tpu_torch.utils.reproducibility import set_seed
 
         set_seed(args.seed)
-        fast = args.fast or args.fused
+        fast = args.fast or args.fused or args.multichip
         # no silent flag drop
         notes = [("--verbose", args.verbose and fast,
                   "the fast / fused path (the epoch histories are in the "
@@ -309,7 +298,8 @@ def main(argv=None):
                 full_metrics=args.full_metrics,
                 eval_backend=args.eval_backend,
                 checkpoint_path=args.checkpoint,
-                checkpoint_every=args.checkpoint_every, device=args.device)
+                checkpoint_every=args.checkpoint_every,
+                multichip=args.multichip, device=args.device)
         else:
             result = run_gsr_cv(data, cfg, splits=args.splits,
                                 seed=args.seed,

@@ -420,24 +420,30 @@ const Variant& variant(int t) {
   return table[t];
 }
 
-int g_sms = 0;  // SMs of the current device, read on the first call
+// SMs of each device, 0 until its first call has set the tiles' shared
+// memory attributes there
+std::atomic<int> g_sms[MAX_DEVICES];
 
-int init_once() {
-  if (g_sms > 0) return 0;
+// The current device's SM count into *sms, its tiles set up on the first
+// call there.
+int init_device(int* sms) {
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  int err = current_device(&dev);
+  if (err) return err;
+  *sms = g_sms[dev].load(std::memory_order_acquire);
+  if (*sms > 0) return 0;
+  int n = 0;
+  err = (int)cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
   for (int t = 0; t < N_TILES; ++t)
     for (int l = 0; l < 4; ++l) {
-      err = cudaFuncSetAttribute(variant(t).fn[l],
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 variant(t).smem[l]);
-      if (err != cudaSuccess) return (int)err;
+      err = (int)cudaFuncSetAttribute(
+          variant(t).fn[l], cudaFuncAttributeMaxDynamicSharedMemorySize,
+          variant(t).smem[l]);
+      if (err) return err;
     }
-  g_sms = sms > 0 ? sms : 132;
+  *sms = n > 0 ? n : 132;
+  g_sms[dev].store(*sms, std::memory_order_release);
   return 0;
 }
 
@@ -457,7 +463,8 @@ int path_class(int M, int N, int K, int ta, int tb) {
 // (kernels/bgemm_sweep.py): a fixed cost, the K slices of one block times
 // the tile's slice cost, 1.5x for each further block the busiest SM holds,
 // the cluster's exchange (~1 us), and a little per block.
-void choose_dense(int M, int N, int K, int F, int* tile, int* split) {
+void choose_dense(int M, int N, int K, int F, int sms, int* tile,
+                  int* split) {
   const int nk = (K + BK - 1) / BK;
   double best = 1e30;
   *tile = 0;
@@ -469,7 +476,7 @@ void choose_dense(int M, int N, int K, int F, int* tile, int* split) {
     for (int s = 1; s <= 4 && s <= nk; s *= 2) {
       const long long ctas = tiles * s;
       const int kc = (nk + s - 1) / s;
-      const long long per_sm = (ctas + g_sms - 1) / g_sms;
+      const long long per_sm = (ctas + sms - 1) / sms;
       const double est = 1.8 + 0.35 * kc * v.cost * (1.0 + 0.5 * (per_sm - 1)) +
                          (s > 1 ? 1.0 : 0.0) + 0.002 * ctas;
       if (est < best) {
@@ -486,11 +493,11 @@ bool vec_ok(const float* ptr, int ld, int rows, long long stride, int batch) {
          (rows == 1 || (ld & 3) == 0) && (batch == 1 || (stride & 3) == 0);
 }
 
-int plan(const Args& p, int batch, int ta, int tb) {
+int plan(const Args& p, int batch, int ta, int tb, int sms) {
   const int cls = path_class(p.M, p.N, p.K, ta, tb);
   if (cls != DENSE) return cls * 10000;
   int tile, split;
-  choose_dense(p.M, p.N, p.K, batch, &tile, &split);
+  choose_dense(p.M, p.N, p.K, batch, sms, &tile, &split);
   const int vecA = vec_ok(p.A, p.ldA, ta ? p.K : p.M, p.sA, batch);
   const int vecB = vec_ok(p.B, p.ldB, tb ? p.N : p.K, p.sB, batch);
   return vecB * 2000 + vecA * 1000 + tile * 10 + split;
@@ -541,9 +548,14 @@ int launch_vec(const Args& p, int batch, int ta, int tb, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-int launch(const Args& p, int batch, int ta, int tb, int forced, void* stream) {
+// ``plan_batch`` (0: batch) is the fold count the dense tile and split-K
+// are chosen for: a fold's sums depend on them alone, so a fold sharded
+// over devices takes the order of the unsharded run.
+int launch(const Args& p, int batch, int ta, int tb, int forced,
+           int plan_batch, void* stream) {
   if (batch <= 0 || p.M <= 0 || p.N <= 0) return 0;
-  int err = init_once();
+  int sms = 0;
+  int err = init_device(&sms);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   const int cls = path_class(p.M, p.N, p.K, ta, tb);
@@ -556,7 +568,9 @@ int launch(const Args& p, int batch, int ta, int tb, int forced, void* stream) {
     return (int)cudaGetLastError();
   }
   if (p.A == nullptr) return (int)cudaErrorInvalidValue;
-  const int code = forced >= 0 ? forced : plan(p, batch, ta, tb);
+  const int code =
+      forced >= 0 ? forced
+                  : plan(p, plan_batch > 0 ? plan_batch : batch, ta, tb, sms);
   int tile = (code / 10) % 10, split = code % 10;
   if (tile >= N_TILES || (split != 1 && split != 2 && split != 4))
     return (int)cudaErrorInvalidValue;
@@ -618,10 +632,11 @@ extern "C" int fcsr_bgemm_f32(const float* A, const float* B,
                               int batch, int M, int N, int K, int ta, int tb,
                               long long sA, int ldA, long long sB, int ldB,
                               long long sBias, long long sD, int ldD,
-                              long long sC, int ldC, void* stream) {
+                              long long sC, int ldC, int plan_batch,
+                              void* stream) {
   const Args p = make_args(A, B, bias, D, C, M, N, K, sA, ldA, sB, ldB, sBias,
                            sD, ldD, sC, ldC);
-  return launch(p, batch, ta, tb, -1, stream);
+  return launch(p, batch, ta, tb, -1, plan_batch, stream);
 }
 
 // The plan fcsr_bgemm_f32 takes for these arguments (nothing launches):
@@ -630,10 +645,11 @@ extern "C" int fcsr_bgemm_f32_plan(const float* A, const float* B, int batch,
                                    int M, int N, int K, int ta, int tb,
                                    long long sA, int ldA, long long sB,
                                    int ldB) {
-  if (init_once()) return -1;
+  int sms = 0;
+  if (init_device(&sms)) return -1;
   const Args p = make_args(A, B, nullptr, nullptr, nullptr, M, N, K, sA, ldA,
                            sB, ldB, 0, 0, 0, 0, 0);
-  return plan(p, batch, ta, tb);
+  return plan(p, batch, ta, tb, sms);
 }
 
 // The dense tile (0-5) and split (1, 2, 4) of a dense launch given as
@@ -648,7 +664,7 @@ extern "C" int fcsr_bgemm_f32_forced(int code, const float* A,
                                      void* stream) {
   const Args p = make_args(A, B, bias, D, C, M, N, K, sA, ldA, sB, ldB, sBias,
                            sD, ldD, sC, ldC);
-  return launch(p, batch, ta, tb, code % 100, stream);
+  return launch(p, batch, ta, tb, code % 100, 0, stream);
 }
 
 // Shape of tile t: bm * 1000000 + bn * 1000 + 4 * 100 + 4 * 10 + kg (a

@@ -10,6 +10,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace cg = cooperative_groups;
 
 // Adjoint sign of |x| as the reference differentiates it: +1 at x >= 0
@@ -114,18 +116,39 @@ __host__ __device__ static inline bool aligned16(const void* p) {
 
 namespace {
 
-// The card's opt-in shared memory per block, read once (on the first
-// launch that needs it).
-int g_smem_optin = 0;
+// Per-device state. A kernel attribute (cudaFuncSetAttribute) and a value
+// read from the card hold for the device that was current, so whatever an
+// entry point sets up or reads once, it does once per device, in a small
+// table indexed by cudaGetDevice. A set-up is idempotent: host threads
+// racing on one device set the same attributes twice.
+constexpr int MAX_DEVICES = 64;
 
-inline int read_smem_optin() {
-  if (g_smem_optin > 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&g_smem_optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (int)err;
+// The current device into *dev (0 or a CUDA error).
+inline int current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  if (*dev < 0 || *dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  return 0;
+}
+
+// The opt-in shared memory per block of each device, read on the first
+// launch there that needs it.
+std::atomic<int> g_smem_optin[MAX_DEVICES];
+
+// The current device's opt-in shared memory into *optin, and the device
+// into *dev.
+inline int read_smem_optin(int* optin, int* dev) {
+  int err = current_device(dev);
+  if (err) return err;
+  int v = g_smem_optin[*dev].load(std::memory_order_relaxed);
+  if (v == 0) {
+    err = (int)cudaDeviceGetAttribute(
+        &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (err) return err;
+    g_smem_optin[*dev].store(v, std::memory_order_relaxed);
+  }
+  *optin = v;
+  return 0;
 }
 
 // One launch of a cluster kernel on ``grid``, clusters of ``cluster``

@@ -1355,45 +1355,50 @@ __global__ void adamw_masked_inplace_kernel(
   adamw_loss(vals, n_vals, loss, batch);
 }
 
-// The attributes of the kernels that take a plan, set once on their first
-// launch (so no later launch, none inside a CUDA graph capture, sets one):
-// the card's opt-in shared memory (less what the kernel declares
-// statically) and, for the cluster kernels, clusters of up to 16 blocks
-// (past the portable 8). The C entries refuse a plan whose dynamic shared
-// memory passes the kernel's cap.
-size_t g_fwd_cap = 0, g_bwd_cap = 0, g_pool_cap = 0, g_od_cap = 0;
+// The attributes of the kernels that take a plan, set once per device on
+// their first launch there (so no later launch, none inside a CUDA graph
+// capture, sets one): the card's opt-in shared memory (less what the
+// kernel declares statically) and, for the cluster kernels, clusters of up
+// to 16 blocks (past the portable 8). The C entries refuse a plan whose
+// dynamic shared memory passes the kernel's cap on the current device.
+struct Caps {
+  size_t fwd, bwd, pool, od;
+};
+Caps g_caps[MAX_DEVICES];
+std::atomic<bool> g_caps_ready[MAX_DEVICES];
 
-int init_planned_kernels() {
-  static bool done = false;
-  if (done) return 0;
-  int err = read_smem_optin();
+int init_planned_kernels(const Caps** caps) {
+  int optin = 0, dev = 0;
+  int err = read_smem_optin(&optin, &dev);
   if (err) return err;
+  Caps& c = g_caps[dev];
+  *caps = &c;
+  if (g_caps_ready[dev].load(std::memory_order_acquire)) return 0;
   const struct {
     const void* fn;
     bool cluster;
     size_t* cap;
-  } fns[] = {{(const void*)gat_attention_kernel, false, &g_fwd_cap},
-             {(const void*)gat_attention_bwd_kernel, true, &g_bwd_cap},
-             {(const void*)gat_pool_adj_kernel, false, &g_pool_cap},
-             {(const void*)offdiag_loss_kernel<true, true>, true, &g_od_cap},
-             {(const void*)offdiag_loss_kernel<true, false>, true, &g_od_cap},
-             {(const void*)offdiag_loss_kernel<false, true>, true, &g_od_cap},
-             {(const void*)offdiag_loss_kernel<false, false>, true,
-              &g_od_cap}};
+  } fns[] = {{(const void*)gat_attention_kernel, false, &c.fwd},
+             {(const void*)gat_attention_bwd_kernel, true, &c.bwd},
+             {(const void*)gat_pool_adj_kernel, false, &c.pool},
+             {(const void*)offdiag_loss_kernel<true, true>, true, &c.od},
+             {(const void*)offdiag_loss_kernel<true, false>, true, &c.od},
+             {(const void*)offdiag_loss_kernel<false, true>, true, &c.od},
+             {(const void*)offdiag_loss_kernel<false, false>, true, &c.od}};
   for (const auto& k : fns) {
     cudaFuncAttributes fa;
     err = (int)cudaFuncGetAttributes(&fa, k.fn);
     if (!err && k.cluster)
       err = (int)cudaFuncSetAttribute(
           k.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    const int cap = g_smem_optin - (int)fa.sharedSizeBytes;
+    const int cap = optin - (int)fa.sharedSizeBytes;
     if (!err)
       err = (int)cudaFuncSetAttribute(
           k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
     if (err) return err;
     *k.cap = (size_t)cap;
   }
-  done = true;
+  g_caps_ready[dev].store(true, std::memory_order_release);
   return 0;
 }
 
@@ -1434,13 +1439,14 @@ int launch_offdiag(const float* G, const float* T, float* vals, int n_vals,
   if (vec && !(n % 4 == 0 && aligned16(G) && aligned16(T) &&
                (!gsym || aligned16(gsym))))
     return (int)cudaErrorInvalidValue;
-  const int err = init_planned_kernels();
+  const Caps* caps = nullptr;
+  const int err = init_planned_kernels(&caps);
   if (err) return err;
   const int ldt = vec ? OD_TILE + 4 : OD_TILE + 1;
   const size_t stage = sizeof(float) * (2 * OD_TILE * OD_TILE +
                                         (gsym ? 2 * OD_TILE * ldt : 0));
   const size_t smem = stage * stages;
-  if (smem > g_od_cap) return (int)cudaErrorInvalidValue;
+  if (smem > caps->od) return (int)cudaErrorInvalidValue;
   const void* fn =
       vec ? (gsym ? (const void*)offdiag_loss_kernel<true, true>
                   : (const void*)offdiag_loss_kernel<true, false>)
@@ -1471,11 +1477,12 @@ extern "C" int fcsr_gat_attention(
       (group & (group - 1)) != 0 || (drop_p > 0.f && !seeds) ||
       heads > 65535 || batch > 65535 || (long long)n * n >= (1LL << 32))
     return (int)cudaErrorInvalidValue;
-  const int err = init_planned_kernels();
+  const Caps* caps = nullptr;
+  const int err = init_planned_kernels(&caps);
   if (err) return err;
   const int hh = global_shift ? heads : 1;
   const size_t smem = fwd_smem(n, hh, d, rows, chunk);
-  if (smem > g_fwd_cap) return (int)cudaErrorInvalidValue;
+  if (smem > caps->fwd) return (int)cudaErrorInvalidValue;
   const int vec = n % 4 == 0 && aligned16(a);
   const dim3 grid((unsigned)((n + rows - 1) / rows), (unsigned)heads,
                   (unsigned)batch);
@@ -1505,10 +1512,11 @@ extern "C" int fcsr_gat_attention_bwd(
       sub > rows || (drop_p > 0.f && !seeds) || heads > 65535 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const int err = init_planned_kernels();
+  const Caps* caps = nullptr;
+  const int err = init_planned_kernels(&caps);
   if (err) return err;
   const size_t smem = bwd_smem(n, d, cluster, rows, chunk, sub);
-  if (smem > g_bwd_cap) return (int)cudaErrorInvalidValue;
+  if (smem > caps->bwd) return (int)cudaErrorInvalidValue;
   void* args[] = {&g_y,    &y,       &alpha,   &h,     &att_src, &s_src,
                   &att_dst, &s_dst,  &seeds,   &g_h,   &g_src,   &sg_src,
                   &g_dst,  &sg_dst,  &g_bias,  &sg_bias, &n,     &heads,
@@ -1607,10 +1615,11 @@ extern "C" int fcsr_gat_pool_adj(const float* a, const int* idx, float* out,
   if (k > n || bands < 1 || rows < 1 || (long long)bands * rows < k ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const int err = init_planned_kernels();
+  const Caps* caps = nullptr;
+  const int err = init_planned_kernels(&caps);
   if (err) return err;
   const size_t smem = pool_smem(k);
-  if (smem > g_pool_cap) return (int)cudaErrorInvalidValue;
+  if (smem > caps->pool) return (int)cudaErrorInvalidValue;
   const int vec = k % 4 == 0 && aligned16(idx);
   gat_pool_adj_kernel<<<dim3((unsigned)bands, (unsigned)batch),
                         POOL_THREADS, smem, (cudaStream_t)stream>>>(

@@ -486,15 +486,17 @@ __global__ void __launch_bounds__(L1_THREADS)
 // shared memory R halves, down to 1 row (m up to ~11 600).
 constexpr int BWD_ROWS = 8;
 
-// The cluster kernels' attributes, set once on their first launch (so no
-// later launch, none inside a CUDA graph capture, sets one): clusters of
-// up to 16 blocks (past the portable 8) and, for tail_normalize, the
-// card's opt-in shared memory.
-int init_cluster_kernels() {
-  static bool done = false;
-  if (done) return 0;
-  int err = read_smem_optin();
+// The cluster kernels' attributes, set once per device on their first
+// launch there (so no later launch, none inside a CUDA graph capture, sets
+// one): clusters of up to 16 blocks (past the portable 8) and, for
+// tail_normalize, the card's opt-in shared memory, into *optin.
+std::atomic<bool> g_cluster_ready[MAX_DEVICES];
+
+int init_cluster_kernels(int* optin) {
+  int dev = 0;
+  int err = read_smem_optin(optin, &dev);
   if (err) return err;
+  if (g_cluster_ready[dev].load(std::memory_order_acquire)) return 0;
   const void* fns[] = {(const void*)tail_normalize_kernel,
                        (const void*)l1_term_kernel<true>,
                        (const void*)l1_term_kernel<false>};
@@ -505,9 +507,9 @@ int init_cluster_kernels() {
   }
   err = (int)cudaFuncSetAttribute(
       (const void*)tail_normalize_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_optin);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
   if (err) return err;
-  done = true;
+  g_cluster_ready[dev].store(true, std::memory_order_release);
   return 0;
 }
 
@@ -520,23 +522,24 @@ int launch_bwd(const float* g_adj, const float* t, const float* r, float* g_t,
   const size_t smem = sizeof(float) * ((size_t)m + 2 * R * (size_t)m +
                                        2 * R * (size_t)ld);
   if (smem > 48 * 1024) {
-    const int err = read_smem_optin();
+    int optin = 0, dev = 0;
+    const int err = read_smem_optin(&optin, &dev);
     if (err) return err;
-    if (smem > (size_t)g_smem_optin) {
+    if (smem > (size_t)optin) {
       if constexpr (R == 1)
         return (int)cudaErrorInvalidValue;
       else
         return launch_bwd<R / 2>(g_adj, t, r, g_t, batch, m, st);
     }
-    // once per instance: its limit raised to the card's, so no later
-    // launch (none inside a CUDA graph capture) sets an attribute
-    static bool raised = false;
-    if (!raised) {
-      const cudaError_t err = cudaFuncSetAttribute(
+    // once per instance and device: its limit raised to the card's, so no
+    // later launch (none inside a CUDA graph capture) sets an attribute
+    static std::atomic<bool> raised[MAX_DEVICES];
+    if (!raised[dev].load(std::memory_order_acquire)) {
+      const cudaError_t e = cudaFuncSetAttribute(
           tail_normalize_bwd_kernel<R>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_optin);
-      if (err != cudaSuccess) return (int)err;
-      raised = true;
+          cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      if (e != cudaSuccess) return (int)e;
+      raised[dev].store(true, std::memory_order_release);
     }
   }
   dim3 grid((m + R - 1) / R, batch);
@@ -562,10 +565,11 @@ extern "C" int fcsr_tail_normalize(const float* t, float* adj, float* r,
     return (int)cudaErrorInvalidValue;
   if (vec && !(chunk >= m && m % 4 == 0 && ld % 4 == 0 && aligned16(t)))
     return (int)cudaErrorInvalidValue;
-  const int err = init_cluster_kernels();
+  int optin = 0;
+  const int err = init_cluster_kernels(&optin);
   if (err) return err;
   const size_t smem = sizeof(float) * ((size_t)m + (size_t)rows * ld);
-  if (smem > (size_t)g_smem_optin) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   void* args[] = {&t, &adj, &r, &m, &rows, &chunk, &ld, &vec};
   return launch_cluster((const void*)tail_normalize_kernel,
                         dim3((unsigned)cluster, (unsigned)batch), cluster,
@@ -614,7 +618,8 @@ extern "C" int fcsr_l1_term(const float* a, long long sa, const float* b,
                (!grad || aligned16(grad)) && (!neg || aligned16(neg)) &&
                (batch == 1 || (sa % 4 == 0 && sb % 4 == 0))))
     return (int)cudaErrorInvalidValue;
-  const int err = init_cluster_kernels();
+  int optin = 0;
+  const int err = init_cluster_kernels(&optin);
   if (err) return err;
   void* args[] = {&a,         &sa,        &b,           &sb,
                   &n,         &per_block, &value_scale, &grad_scale,

@@ -311,14 +311,17 @@ inline size_t antivec_smem(int n) {
          ((size_t)AV_CHUNK * AV_TILE + 2 * (size_t)n + nt);
 }
 
-// The cluster kernel's attributes, set once on its first launch (no later
-// launch, none inside a CUDA graph capture, sets one): clusters of up to
-// 16 blocks and the card's opt-in shared memory.
-int init_antivec_kernels() {
-  static bool done = false;
-  if (done) return 0;
-  int err = read_smem_optin();
+// The cluster kernel's attributes, set once per device on its first launch
+// there (no later launch, none inside a CUDA graph capture, sets one):
+// clusters of up to 16 blocks and the card's opt-in shared memory, into
+// *optin.
+std::atomic<bool> g_antivec_ready[MAX_DEVICES];
+
+int init_antivec_kernels(int* optin) {
+  int dev = 0;
+  int err = read_smem_optin(optin, &dev);
   if (err) return err;
+  if (g_antivec_ready[dev].load(std::memory_order_acquire)) return 0;
   const void* fns[] = {(const void*)antivec_norm_tiles<true>,
                        (const void*)antivec_norm_tiles<false>};
   for (const void* fn : fns) {
@@ -326,10 +329,10 @@ int init_antivec_kernels() {
         fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (!err)
       err = (int)cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_optin);
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
     if (err) return err;
   }
-  done = true;
+  g_antivec_ready[dev].store(true, std::memory_order_release);
   return 0;
 }
 
@@ -455,10 +458,11 @@ extern "C" int fcsr_anti_vectorize_normalize(const float* v, long long vstride,
   if (cluster < 1 || cluster > AV_MAX_CLUSTER || per_block < 1 ||
       (long long)cluster * per_block < pairs)
     return (int)cudaErrorInvalidValue;
-  const int err = init_antivec_kernels();
+  int optin = 0;
+  const int err = init_antivec_kernels(&optin);
   if (err) return err;
   const size_t smem = antivec_smem(n);
-  if (smem > (size_t)g_smem_optin) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   void* args[] = {&v, &vstride, &out, &batch, &n, &diag, &per_block};
   const void* fn = vec ? (const void*)antivec_norm_tiles<true>
                        : (const void*)antivec_norm_tiles<false>;

@@ -2,9 +2,10 @@
 PyTorch version.
 
 A wrapper takes its plain version only when the tensors it is given lie
-on the CPU; for CUDA tensors it launches its kernel (on the current stream)
-or raises — there is no fallback. Each kernel counts its launches
-(``launch_counts``), so a run can show that it went through the kernels.
+on the CPU; for CUDA tensors it launches its kernel (on the current stream,
+which must be the operands' device's) or raises — there is no fallback.
+Each kernel counts its launches (``launch_counts``), so a run can show
+that it went through the kernels.
 
 All tensors are float32 (int32 for indices). The training-step kernels
 carry a leading fold axis F; shapes use n for a node count entering a
@@ -15,6 +16,8 @@ adjacencies and their strict-upper-triangle vectors.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 from types import SimpleNamespace
@@ -26,7 +29,7 @@ import torch
 from fcsr_tpu_torch.kernels.build import load_library
 
 __all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "launch_counts",
-           "bgemm_path", "bgemm_forced", "bgemm_tiles",
+           "bgemm_path", "bgemm_forced", "bgemm_tiles", "plan_folds",
            "reset_launch_counts", "rows_contiguous", "philox_words",
            "bits_to_keep", "gat_attention_math"]
 
@@ -40,6 +43,26 @@ _F = ctypes.c_float
 # synchronize, so an asynchronous CUDA error raises at the launch that
 # caused it
 SYNC_EACH_LAUNCH = False
+
+
+# The fold count the launches of this context are planned for (0: each
+# launch's own): set by ``plan_folds``
+_PLAN_FOLDS = contextvars.ContextVar("plan_folds", default=0)
+
+
+@contextlib.contextmanager
+def plan_folds(n: int):
+    """Plan every launch inside as for ``n`` folds where the plan sets a
+    fold's summation order (the product's tile and split-K, the attention
+    kernels' bands and clusters, the off-diagonal losses' cluster): a
+    shard of a fold-sharded run then gives each fold the bits of the
+    unsharded run over ``n`` folds. The launch itself covers the
+    operands' folds."""
+    token = _PLAN_FOLDS.set(int(n))
+    try:
+        yield
+    finally:
+        _PLAN_FOLDS.reset(token)
 
 
 def _check_after_launch(name: str) -> None:
@@ -63,7 +86,9 @@ class Kernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on the current stream; ``device`` is where the wrapper's
+        operands lie, which must be the current device (``on_device``)."""
         if self._fn is None:
             lib = load_library(self.source)
             fn = getattr(lib, self.symbol)
@@ -71,7 +96,13 @@ class Kernel:
             fn.restype = _I
             self._fn = fn
             self._err = lib.fcsr_error_string
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream()
+        if stream.device != device:
+            raise RuntimeError(
+                f"CUDA kernel {self.name}: operands on {device}, current "
+                f"device {stream.device}; launch under "
+                "torch.cuda.device(<the operands' device>)")
+        err = self._fn(*args, stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"{self._err(err).decode()}")
@@ -89,7 +120,7 @@ _GAT_STEP = "fcsr_tpu/models/fused_gat.py:497"
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("bgemm_f32", "bgemm", "fcsr_bgemm_f32",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            _LL, _I, _LL, _I, _LL, _LL, _I, _LL, _I], _STEP),
+            _LL, _I, _LL, _I, _LL, _LL, _I, _LL, _I, _I], _STEP),
     Kernel("rank_select", "rank_select", "fcsr_rank_select",
            [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I], _STEP),
     Kernel("gather_rows", "rank_select", "fcsr_gather_rows",
@@ -238,14 +269,16 @@ def _take_rows(src, index):
 
 def bgemm_plain(a, b, ta=False, tb=False, bias=None, add=None, out=None):
     """op(a) @ op(b) [+ bias row] [+ add]; ``a=None`` is a row of ones
-    (a column sum of op(b))."""
+    (a column sum of op(b)). One product per fold: a batched product's
+    summation order depends on the fold count on the CPU, and a fold's
+    result must not (a fold-sharded run equals the unsharded one)."""
     B = b.transpose(-1, -2) if tb else b
     if a is None:
         A = torch.ones(B.shape[0], 1, B.shape[1], dtype=B.dtype,
                        device=B.device)
     else:
         A = a.transpose(-1, -2) if ta else a
-    c = torch.matmul(A, B)
+    c = torch.stack([torch.matmul(A[f], B[f]) for f in range(B.shape[0])])
     if bias is not None:
         c = c + bias.reshape(c.shape[0], 1, c.shape[2])
     if add is not None:
@@ -264,7 +297,7 @@ def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None):
     if not b.is_cuda:
         return bgemm_plain(a, b, ta, tb, bias, add, out)
     out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
-    KERNELS["bgemm_f32"](*args)
+    KERNELS["bgemm_f32"](b.device, *args, _PLAN_FOLDS.get())
     return out
 
 
@@ -314,7 +347,8 @@ _BGEMM_CLASSES = {1: "vector, a warp per output along k",
 BGEMM_EXTRA = {
     "fcsr_bgemm_f32_plan": [_P, _P] + [_I] * 6 + [_LL, _I, _LL, _I],
     "fcsr_bgemm_f32_tile": [_I],
-    "fcsr_bgemm_f32_forced": [_I] + KERNELS["bgemm_f32"].argtypes + [_P],
+    "fcsr_bgemm_f32_forced": [_I] + KERNELS["bgemm_f32"].argtypes[:-1]
+    + [_P],
 }
 
 
@@ -368,8 +402,12 @@ def bgemm_forced(tile, split, a, b, ta=False, tb=False, bias=None,
     every plan against the one the kernel picks. Counts no launch; shapes
     that take another path launch as usual."""
     out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+    stream = torch.cuda.current_stream()
+    if stream.device != b.device:
+        raise RuntimeError(f"bgemm_forced: operands on {b.device}, current "
+                           f"device {stream.device}")
     err = _bgemm_lib().fcsr_bgemm_f32_forced(
-        tile * 10 + split, *args, torch.cuda.current_stream().cuda_stream)
+        tile * 10 + split, *args, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"bgemm_f32 (tile {tile}, split {split}) failed "
                            f"to launch: error {err}")
@@ -518,8 +556,19 @@ def pool_scores(logits, div=100.0):
     computes a division by a constant as a product with its fp32
     reciprocal (eager division would round differently at times). The
     plain pool, ``GraphPool`` and ``unet_forward_rankselect`` take their
-    scores here, and the ``rank_select`` kernel computes the same."""
-    return torch.sigmoid(logits * float(np.float32(1.0) / np.float32(div)))
+    scores here, and the ``rank_select`` kernel computes the same. On
+    the CPU the rows are padded to a multiple of 64 for the sigmoid:
+    torch's CPU sigmoid takes a vectorised path for whole blocks and a
+    scalar one for the tail, which may differ in the last bit, so a
+    score's bits would otherwise depend on the rows beside it (on the
+    fold count)."""
+    x = logits * float(np.float32(1.0) / np.float32(div))
+    n = x.shape[-1]
+    pad = -n % 64
+    if not pad or x.device.type != "cpu":
+        return torch.sigmoid(x)
+    return torch.sigmoid(torch.nn.functional.pad(x, (0, pad)))[
+        ..., :n].contiguous()
 
 
 def rank_select_plain(logits, k, div=100.0, src=None):
@@ -568,11 +617,11 @@ def rank_select(logits, k, div=100.0, src=None):
     if src is not None:
         pre = torch.empty(F, k, cols, dtype=torch.float32, device=dev)
         x = torch.empty_like(pre)
-    KERNELS["rank_select"](_ptr(logits), _ptr(src) if cols else None,
-                           _ptr(s), _ptr(idx), _ptr(vals), _ptr(slot),
-                           _ptr(pre), _ptr(x), F, n, k, cols, float(div),
-                           plan.bands, plan.rows, plan.threads, plan.lanes,
-                           int(plan.vec))
+    KERNELS["rank_select"](logits.device, _ptr(logits),
+                           _ptr(src) if cols else None, _ptr(s), _ptr(idx),
+                           _ptr(vals), _ptr(slot), _ptr(pre), _ptr(x), F, n, k,
+                           cols, float(div), plan.bands, plan.rows,
+                           plan.threads, plan.lanes, int(plan.vec))
     return (s, idx, vals, slot) if src is None else (s, idx, vals, slot,
                                                      pre, x)
 
@@ -598,9 +647,9 @@ def gather_rows(src, idx, scale=None):
     out = torch.empty(F, k, m, dtype=torch.float32, device=src.device)
     scaled = None if scale is None else torch.empty_like(out)
     plan = gather_rows_plan(F, k, m, src.data_ptr() % 16 == 0)
-    KERNELS["gather_rows"](_ptr(src), _ptr(idx), _ptr(scale), _ptr(out),
-                           _ptr(scaled), F, n, k, m, plan.bands, plan.rows,
-                           plan.threads, int(plan.vec))
+    KERNELS["gather_rows"](src.device, _ptr(src), _ptr(idx), _ptr(scale),
+                           _ptr(out), _ptr(scaled), F, n, k, m, plan.bands,
+                           plan.rows, plan.threads, int(plan.vec))
     return out if scale is None else (out, scaled)
 
 
@@ -629,9 +678,9 @@ def scatter_rows(src, slot, scale=None, add=None):
     n = slot.shape[1]
     out = torch.empty(F, n, m, dtype=torch.float32, device=src.device)
     plan = _row_plan(F, n, m, src, add, out)
-    KERNELS["scatter_rows"](_ptr(src), _ptr(slot), _ptr(scale), _ptr(add),
-                            _ptr(out), F, n, k, m, plan.bands, plan.rows,
-                            plan.threads, plan.lanes, int(plan.vec))
+    KERNELS["scatter_rows"](src.device, _ptr(src), _ptr(slot), _ptr(scale),
+                            _ptr(add), _ptr(out), F, n, k, m, plan.bands,
+                            plan.rows, plan.threads, plan.lanes, int(plan.vec))
     return out
 
 
@@ -667,10 +716,10 @@ def pool_logits_bwd(g, pre, slot, s, scale=1.0 / 100.0):
     F, n, k, m = _check_pool_bwd(g, pre, slot, s)
     out = torch.empty(F, n, dtype=torch.float32, device=g.device)
     plan = _row_plan(F, n, m, g, pre)
-    KERNELS["pool_logits_bwd"](_ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
-                               _ptr(out), F, n, k, m, float(scale),
-                               plan.bands, plan.rows, plan.threads,
-                               plan.lanes, int(plan.vec))
+    KERNELS["pool_logits_bwd"](g.device, _ptr(g), _ptr(pre), _ptr(slot),
+                               _ptr(s), _ptr(out), F, n, k, m, float(scale),
+                               plan.bands, plan.rows, plan.threads, plan.lanes,
+                               int(plan.vec))
     return out
 
 
@@ -694,7 +743,7 @@ def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
     g_d = torch.empty(F, n, m, dtype=torch.float32, device=g.device)
     g_logits = torch.empty(F, n, dtype=torch.float32, device=g.device)
     plan = _row_plan(F, n, m, g, pre, add, g_d)
-    KERNELS["pool_bwd_pair"](_ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
+    KERNELS["pool_bwd_pair"](g.device, _ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
                              _ptr(vals), _ptr(add), _ptr(g_d),
                              _ptr(g_logits), F, n, k, m, float(scale),
                              plan.bands, plan.rows, plan.threads, plan.lanes,
@@ -719,8 +768,8 @@ def add_bias(x, bias):
     if bias.stride(2) != 1:
         raise ValueError("bias row must be contiguous")
     out = torch.empty(F, r, c, dtype=torch.float32, device=x.device)
-    KERNELS["add_bias"](_ptr(x), x.stride(0), _ptr(bias), bias.stride(0),
-                        _ptr(out), F, r, c)
+    KERNELS["add_bias"](x.device, _ptr(x), x.stride(0), _ptr(bias),
+                        bias.stride(0), _ptr(out), F, r, c)
     return out
 
 
@@ -812,7 +861,7 @@ def tail_normalize(t):
                                _smem_optin(t.device.index))
     adj = torch.empty_like(t)
     r = torch.empty(F, m, dtype=torch.float32, device=t.device)
-    KERNELS["tail_normalize"](_ptr(t), _ptr(adj), _ptr(r), F, m,
+    KERNELS["tail_normalize"](t.device, _ptr(t), _ptr(adj), _ptr(r), F, m,
                               MAX_CLUSTER, plan.rows, plan.chunk, plan.ld,
                               int(plan.vec))
     return adj, r
@@ -840,8 +889,8 @@ def tail_normalize_bwd(g_adj, t, r):
     _contig(g_adj, t, r)
     F, m, _ = t.shape
     g_t = torch.empty_like(t)
-    KERNELS["tail_normalize_bwd"](_ptr(g_adj), _ptr(t), _ptr(r), _ptr(g_t),
-                                  F, m)
+    KERNELS["tail_normalize_bwd"](t.device, _ptr(g_adj), _ptr(t), _ptr(r),
+                                  _ptr(g_t), F, m)
     return g_t
 
 
@@ -911,11 +960,11 @@ def _sym_launch(name, g, x, c):
     xp, op = x.data_ptr(), out.data_ptr()
     if g is None:
         vec = sym_tiles_plan(F, m, (xp | op) % 16 == 0).vec
-        KERNELS[name](xp, op, F, m, vec)
+        KERNELS[name](x.device, xp, op, F, m, vec)
     else:
         gp = g.data_ptr()
         vec = sym_tiles_plan(F, m, (xp | op | gp) % 16 == 0).vec
-        KERNELS[name](gp, xp, float(c), op, F, m, vec)
+        KERNELS[name](x.device, gp, xp, float(c), op, F, m, vec)
     return out
 
 
@@ -1058,7 +1107,7 @@ def l1_term(a, b, vals, slot, value_scale, grad_scale, zero_sign,
     plan = l1_term_plan(a, b)
     grad = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     ng = torch.empty_like(grad) if neg else None
-    KERNELS["l1_term"](_ptr(a), a.stride(0), _ptr(b), b.stride(0), n,
+    KERNELS["l1_term"](a.device, _ptr(a), a.stride(0), _ptr(b), b.stride(0), n,
                        float(value_scale), float(grad_scale), int(zero_sign),
                        _ptr(vals), int(slot), _ptr(grad), _ptr(ng),
                        _ptr(loss), _ptr(recon), int(bool(with_l1)), F,
@@ -1099,9 +1148,9 @@ def adam_masked(p, m, v, g, scal, vals, lr, b1, b2, eps):
     p2, m2, v2 = (torch.empty_like(p) for _ in range(3))
     loss = torch.empty(F, dtype=torch.float32, device=p.device)
     recon = torch.empty_like(loss)
-    KERNELS["adam_masked"](_ptr(p), _ptr(m), _ptr(v), _ptr(g), _ptr(scal),
-                           _ptr(vals), _ptr(p2), _ptr(m2), _ptr(v2),
-                           _ptr(loss), _ptr(recon), F, P, float(lr),
+    KERNELS["adam_masked"](p.device, _ptr(p), _ptr(m), _ptr(v), _ptr(g),
+                           _ptr(scal), _ptr(vals), _ptr(p2), _ptr(m2),
+                           _ptr(v2), _ptr(loss), _ptr(recon), F, P, float(lr),
                            float(b1), float(1.0 - b1), float(b2),
                            float(1.0 - b2), float(eps))
     return p2, m2, v2, loss, recon
@@ -1248,10 +1297,11 @@ def anti_vectorize_normalize(v, n, normalize=True, fill_diag=0.0):
         plan = antivec_plan(B, n, False, 0, 0)
     out = torch.empty(B, n, n, dtype=torch.float32, device=v.device)
     # -0.0 fills nothing, as in the plain version
-    KERNELS["anti_vectorize_normalize"](_ptr(v), v.stride(0), _ptr(out), B,
-                                        n, float(fill_diag) or 0.0,
-                                        plan.form, plan.cluster,
-                                        plan.per_block, int(plan.vec))
+    KERNELS["anti_vectorize_normalize"](v.device, _ptr(v), v.stride(0),
+                                        _ptr(out), B, n,
+                                        float(fill_diag) or 0.0, plan.form,
+                                        plan.cluster, plan.per_block,
+                                        int(plan.vec))
     return out
 
 
@@ -1310,7 +1360,7 @@ def vectorize_colmajor(m):
     B, n, _ = m.shape
     out = torch.empty(B, n * (n - 1) // 2, dtype=torch.float32,
                       device=m.device)
-    KERNELS["vectorize_colmajor"](_ptr(m), _ptr(out), B, n)
+    KERNELS["vectorize_colmajor"](m.device, _ptr(m), _ptr(out), B, n)
     return out
 
 
@@ -1332,7 +1382,7 @@ def normalize_adj_batch(a):
     if n > 12 * 1024:
         raise ValueError("normalize_adj_batch: n too large for shared memory")
     out = torch.empty_like(a)
-    KERNELS["normalize_adj_batch"](_ptr(a), _ptr(out), B, n)
+    KERNELS["normalize_adj_batch"](a.device, _ptr(a), _ptr(out), B, n)
     return out
 
 
@@ -1458,8 +1508,8 @@ def philox_keep_mask(seeds, mask_id, heads, rows, cols, drop_p, x=None,
     out = (torch.empty(F, heads, rows, cols, dtype=torch.float32,
                        device=seeds.device) if x is None
            else torch.empty_like(x))
-    KERNELS["philox_keep_mask"](_ptr(seeds), _ptr(x), _ptr(out), F, heads,
-                                rows * cols, plan.strips, plan.vec,
+    KERNELS["philox_keep_mask"](seeds.device, _ptr(seeds), _ptr(x), _ptr(out),
+                                F, heads, rows * cols, plan.strips, plan.vec,
                                 int(mask_id), float(drop_p), float(scale))
     return out
 
@@ -1526,10 +1576,10 @@ def philox_drop_logits(x, w, b, seeds, mask_id, drop_p, scale):
     blocks = philox_drop_logits_plan(F, n, c)
     z = torch.empty_like(x)
     logits = torch.empty(F, n, 1, dtype=torch.float32, device=x.device)
-    KERNELS["philox_drop_logits"](_ptr(x), _ptr(w), w.stride(0), _ptr(b),
-                                  b.stride(0), _ptr(seeds), _ptr(z),
-                                  _ptr(logits), F, n, c, blocks,
-                                  int(mask_id), float(drop_p), float(scale))
+    KERNELS["philox_drop_logits"](x.device, _ptr(x), _ptr(w), w.stride(0),
+                                  _ptr(b), b.stride(0), _ptr(seeds), _ptr(z),
+                                  _ptr(logits), F, n, c, blocks, int(mask_id),
+                                  float(drop_p), float(scale))
     return z, logits
 
 
@@ -1558,7 +1608,7 @@ def philox_drop_outer(gl, w, seeds, mask_id, drop_p, scale):
                          f"{tuple(w.shape)} are not (F, n, 1), (F, c, 1)")
     g_z = torch.empty(F, n, c, dtype=torch.float32, device=gl.device)
     plan = philox_drop_outer_plan(F, n, c, g_z.data_ptr() % 16 == 0)
-    KERNELS["philox_drop_outer"](_ptr(gl), _ptr(w), w.stride(0),
+    KERNELS["philox_drop_outer"](gl.device, _ptr(gl), _ptr(w), w.stride(0),
                                  _ptr(seeds), _ptr(g_z), F, n, c,
                                  plan.blocks, plan.vec, int(mask_id),
                                  float(drop_p), float(scale))
@@ -1727,17 +1777,19 @@ def gat_attention(h, att_src, att_dst, bias, a, seeds=None, mask_id=0,
     if drop_p > 0:
         _seeds_ok(seeds, F)
         _check(h.device, seeds, dtype=torch.int32)
-    plan = gat_attention_plan(n, H, d, F, bool(global_shift),
+    plan = gat_attention_plan(n, H, d, _PLAN_FOLDS.get() or F,
+                              bool(global_shift),
                               _smem_optin(h.device.index))
     y = torch.empty_like(h)
     alpha = torch.empty(F, H, n, n, dtype=torch.float32, device=h.device) \
         if need_alpha else None
-    KERNELS["gat_attention"](
-        _ptr(h), _ptr(att_src), s_src, _ptr(att_dst), s_dst, _ptr(bias),
-        s_bias, _ptr(a), _ptr(seeds) if drop_p > 0 else None, _ptr(y),
-        _ptr(alpha), F, n, H, d, int(mask_id), float(drop_p),
-        float(_drop_scale(drop_p)), int(bool(global_shift)), plan.rows,
-        plan.chunk, plan.group)
+    KERNELS["gat_attention"](h.device, _ptr(h), _ptr(att_src), s_src,
+                             _ptr(att_dst), s_dst, _ptr(bias), s_bias, _ptr(a),
+                             _ptr(seeds) if drop_p > 0 else None, _ptr(y),
+                             _ptr(alpha), F, n, H, d, int(mask_id),
+                             float(drop_p), float(_drop_scale(drop_p)),
+                             int(bool(global_shift)), plan.rows, plan.chunk,
+                             plan.group)
     return y, alpha
 
 
@@ -1858,15 +1910,18 @@ def gat_attention_bwd(g_y, y, alpha, h, att_src, att_dst, seeds, mask_id,
     if drop_p > 0:
         _seeds_ok(seeds, F)
         _check(h.device, seeds, dtype=torch.int32)
-    plan = gat_attention_bwd_plan(n, H, d, F, _smem_optin(h.device.index))
+    plan = gat_attention_bwd_plan(n, H, d, _PLAN_FOLDS.get() or F,
+                                  _smem_optin(h.device.index))
     g_h = torch.empty_like(h)
-    KERNELS["gat_attention_bwd"](
-        _ptr(g_y), _ptr(y), _ptr(alpha), _ptr(h), _ptr(att_src), strides[0],
-        _ptr(att_dst), strides[1], _ptr(seeds) if drop_p > 0 else None,
-        _ptr(g_h), _ptr(g_src), strides[2], _ptr(g_dst), strides[3],
-        _ptr(g_bias), strides[4], F, n, H, d, int(mask_id), float(drop_p),
-        float(_drop_scale(drop_p)), plan.cluster, plan.rows, plan.chunk,
-        plan.sub)
+    KERNELS["gat_attention_bwd"](h.device, _ptr(g_y), _ptr(y), _ptr(alpha),
+                                 _ptr(h), _ptr(att_src), strides[0],
+                                 _ptr(att_dst), strides[1],
+                                 _ptr(seeds) if drop_p > 0 else None,
+                                 _ptr(g_h), _ptr(g_src), strides[2],
+                                 _ptr(g_dst), strides[3], _ptr(g_bias),
+                                 strides[4], F, n, H, d, int(mask_id),
+                                 float(drop_p), float(_drop_scale(drop_p)),
+                                 plan.cluster, plan.rows, plan.chunk, plan.sub)
     return g_h
 
 
@@ -1932,7 +1987,7 @@ def gat_pool_adj(a, idx, eps=1e-5):
         raise ValueError(f"gat_pool_adj: k = {k} above {GAT_MAX_N}")
     plan = gat_pool_adj_plan(F, n, k, _smem_optin(a.device.index))
     out = torch.empty(F, k, k, dtype=torch.float32, device=a.device)
-    KERNELS["gat_pool_adj"](_ptr(a), _ptr(idx), _ptr(out), F, n, k,
+    KERNELS["gat_pool_adj"](a.device, _ptr(a), _ptr(idx), _ptr(out), F, n, k,
                             float(eps), plan.bands, plan.rows)
     return out
 
@@ -1977,7 +2032,7 @@ def col_softmax(y):
     F, R, C = y.shape
     form, warps = col_softmax_plan(F, R)
     q = torch.empty_like(y)
-    KERNELS["col_softmax"](_ptr(y), _ptr(q), F, R, C, form, warps)
+    KERNELS["col_softmax"](y.device, _ptr(y), _ptr(q), F, R, C, form, warps)
     return q
 
 
@@ -2000,8 +2055,8 @@ def col_softmax_bwd(g_q, q):
     F, R, C = q.shape
     form, warps = col_softmax_plan(F, R)
     g_y = torch.empty_like(q)
-    KERNELS["col_softmax_bwd"](_ptr(g_q), _ptr(q), _ptr(g_y), F, R, C, form,
-                               warps)
+    KERNELS["col_softmax_bwd"](q.device, _ptr(g_q), _ptr(q), _ptr(g_y), F, R,
+                               C, form, warps)
     return g_y
 
 
@@ -2064,14 +2119,15 @@ def offdiag_plan(F: int, n: int, smem_optin: int) -> OffdiagPlan:
 
 def _offdiag_launch(name, G, T, vals, slot, gsym):
     F, n = G.shape[:2]
-    plan = offdiag_plan(F, n, _smem_optin(G.device.index))
+    plan = offdiag_plan(_PLAN_FOLDS.get() or F, n,
+                        _smem_optin(G.device.index))
     vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (G, T, gsym)
                              if t is not None)
     args = [_ptr(G), _ptr(T), _ptr(vals), vals.shape[1], int(slot)]
     if name == "offdiag_mse":
         args.append(_ptr(gsym))
-    KERNELS[name](*args, F, n, plan.cluster, plan.per_block, plan.stages,
-                  int(vec))
+    KERNELS[name](G.device, *args, F, n, plan.cluster, plan.per_block,
+                  plan.stages, int(vec))
 
 
 def offdiag_mse(G, T, vals, slot, grad=True):
@@ -2148,9 +2204,9 @@ def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd, inplace=False):
     p2, m2, v2 = (p, m, v) if inplace else (torch.empty_like(p)
                                              for _ in range(3))
     loss = torch.empty(F, dtype=torch.float32, device=p.device)
-    KERNELS["adamw_masked"](_ptr(p), _ptr(m), _ptr(v), _ptr(g), _ptr(scal),
-                            _ptr(vals), vals.shape[1], _ptr(p2), _ptr(m2),
-                            _ptr(v2), _ptr(loss), F, P, float(b1),
+    KERNELS["adamw_masked"](p.device, _ptr(p), _ptr(m), _ptr(v), _ptr(g),
+                            _ptr(scal), _ptr(vals), vals.shape[1], _ptr(p2),
+                            _ptr(m2), _ptr(v2), _ptr(loss), F, P, float(b1),
                             float(1.0 - b1), float(b2), float(1.0 - b2),
                             float(eps), float(wd))
     return p2, m2, v2, loss

@@ -24,7 +24,9 @@ dropout masks) come from explicit ``torch.Generator``s.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,12 +41,32 @@ from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["FlatSpec", "MLPLayout", "TorchBatchNorm", "SNDense",
            "SuperResMLP", "SpectralResMLP", "batch_norm_fold",
-           "sn_dense_fold", "dropout_fold"]
+           "sn_dense_fold", "dropout_fold", "sharded_batch"]
 
 BN_MOMENTUM = 0.9   # flax's sense: running <- 0.9 running + 0.1 batch
 BN_EPS = 1e-5
 SN_EPS = 1e-12
 LEAKY_SLOPE = 0.01
+
+# The data-parallel shard this thread computes (``sharded_batch``), or
+# None: BatchNorm then normalises by the whole batch's moments and dropout
+# takes its slice of the whole batch's draw, so a sharded step equals the
+# single-device one
+_BATCH_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def sharded_batch(shard):
+    """Run this thread's ``fold_forward`` calls as one shard of a batch
+    split over devices. ``shard.moments(x)`` returns (n, mean, mean of
+    squares) over the whole batch for this shard's x (F, b, H), and
+    ``shard.uniform(x)`` this shard's slice of a whole-batch uniform draw
+    of x's shape (``parallel/mesh.py::make_sharded_generic_step``)."""
+    _BATCH_SHARD.ctx = shard
+    try:
+        yield
+    finally:
+        _BATCH_SHARD.ctx = None
 
 
 class FlatSpec:
@@ -109,11 +131,18 @@ def batch_norm_fold(x, scale, bias, mean_r, var_r, train: bool,
     the batch's mean and ``mean(x^2) - mean^2`` normalise, and the running
     statistics take ``momentum`` of themselves plus the rest of the batch
     mean and of the unbiased variance ``var * n / max(n - 1, 1)``; in
-    evaluation the running statistics normalise. Returns (y, mean', var')."""
+    evaluation the running statistics normalise. On a data-parallel shard
+    (``sharded_batch``) the moments and n are the whole batch's. Returns
+    (y, mean', var')."""
     if train:
-        n = x.shape[1]
-        mean = torch.mean(x, dim=1)
-        var = torch.mean(torch.square(x), dim=1) - torch.square(mean)
+        shard = getattr(_BATCH_SHARD, "ctx", None)
+        if shard is None:
+            n = x.shape[1]
+            mean = torch.mean(x, dim=1)
+            meansq = torch.mean(torch.square(x), dim=1)
+        else:
+            n, mean, meansq = shard.moments(x)
+        var = meansq - torch.square(mean)
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             mean_r = momentum * mean_r + (1 - momentum) * mean
@@ -129,11 +158,15 @@ def dropout_fold(x, rate: float, train: bool, generator=None):
     """flax's ``nn.Dropout``: keep where ``u < 1 - rate`` and scale the kept
     entries by ``1 / (1 - rate)``; the identity out of training or at rate
     0. The uniforms come from ``generator`` (the device's default when
-    None)."""
+    None), or on a data-parallel shard from its slice of the whole
+    batch's draw."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shard = getattr(_BATCH_SHARD, "ctx", None)
+    u = (torch.rand(x.shape, generator=generator, device=x.device)
+         if shard is None else shard.uniform(x))
+    mask = u < keep
     return torch.where(mask, x / keep, 0.0)
 
 

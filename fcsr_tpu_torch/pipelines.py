@@ -11,8 +11,9 @@ on the CUDA kernels). The MLP family: ``run_mlp_cv`` (all folds together
 when their sizes agree, else one after the other). With ``full_metrics``
 each pipeline also scores every fold's validation predictions with the
 metric suite (``evalx``, ``eval_backend`` "device" or "networkx") into
-``fold_metrics``. Multi-device fold sharding is not ported yet and is
-refused by name.
+``fold_metrics``. With ``multichip=True`` the fast GSR and GAT pipelines
+shard the fold axis over the first ``min(cards, splits)`` cards
+(``parallel/mesh.py``; with ``device="cpu"`` over the one CPU).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, init_gat,
                                            predict_gat_folds_mae, train_gat,
                                            train_gat_folds_parallel)
 from fcsr_tpu_torch.models.mlp import SpectralResMLP, SuperResMLP
+from fcsr_tpu_torch.parallel.mesh import batch_mesh
 from fcsr_tpu_torch.train.generic_loop import (mse_criterion, train_model,
                                                train_model_folds)
 from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, evaluate_gsr,
@@ -48,8 +50,17 @@ from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 __all__ = ["run_gsr_cv", "run_gsr_cv_fast", "run_mlp_cv", "run_gat_cv",
            "run_gat_cv_fast"]
 
-_NO_PARALLEL = ("multichip=True needs the port of fcsr_tpu/parallel (fold "
-                "sharding over torch.distributed), which is not ported yet")
+def _fold_mesh(multichip: bool, splits: int, device):
+    """The mesh ``multichip`` asks for: the first ``min(cards, splits)``
+    cards (surplus cards would only hold fully masked padding folds), or
+    the one CPU with ``device="cpu"``; None without ``multichip``."""
+    if not multichip:
+        return None
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return batch_mesh([dev])
+    return batch_mesh([torch.device("cuda", i) for i in
+                       range(min(torch.cuda.device_count(), splits))])
 
 
 def _check_eval_backend(eval_backend: str, full_metrics: bool):
@@ -105,10 +116,11 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
     mappings of numpy arrays), ``runner``, ``model``, ``cfg``,
     ``test_preds`` (a tensor on ``device``, or None without ``lr_test``),
     ``loss_hist``, ``timings`` and the step / forward counts. ``flat0``
-    optionally gives the folds' initial weights (``GSRFoldRunner``)."""
-    if multichip:
-        raise NotImplementedError(_NO_PARALLEL)
+    optionally gives the folds' initial weights (``GSRFoldRunner``).
+    ``multichip=True`` shards the fold axis over the local cards (every
+    fold's math unchanged)."""
     _check_eval_backend(eval_backend, full_metrics)
+    mesh = _fold_mesh(multichip, splits, device)
 
     cfg = cfg or GSRTrainConfig(fused_adam=True)
     lr_all = np.asarray(data["lr_train"], dtype=np.float32)
@@ -122,7 +134,7 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
                                  init_seed=init_seed,
                                  checkpoint_path=checkpoint_path,
                                  checkpoint_every=checkpoint_every,
-                                 flat0=flat0, device=device)
+                                 flat0=flat0, device=device, mesh=mesh)
     t_train = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -459,11 +471,11 @@ def run_gat_cv_fast(data: Dict[str, np.ndarray],
     early stop run on the device unless ``host_control``), then each fold's
     validation MAE and the last fold's predictions of the test set. The
     same result dict as ``run_gat_cv``. ``flat0`` optionally gives the
-    folds' initial weights (``GATLayout`` order)."""
-    if multichip:
-        raise NotImplementedError(_NO_PARALLEL)
+    folds' initial weights (``GATLayout`` order). ``multichip=True``
+    shards the fold axis over the local cards (on-device control)."""
     _check_eval_backend(eval_backend, full_metrics)
     dev = resolve_device(device)
+    mesh = _fold_mesh(multichip, splits, dev)
     cfg = cfg or GATTrainConfig()
     lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
     hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
@@ -473,7 +485,7 @@ def run_gat_cv_fast(data: Dict[str, np.ndarray],
     t0 = time.perf_counter()
     model, best_vars, histories = train_gat_folds_parallel(
         cfg, lr_all, hr_all, folds, seed=seed, verbose=verbose,
-        host_control=host_control, flat0=flat0, device=dev)
+        host_control=host_control, mesh=mesh, flat0=flat0, device=dev)
     t_train = time.perf_counter() - t0
 
     t0 = time.perf_counter()

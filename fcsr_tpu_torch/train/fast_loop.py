@@ -33,7 +33,15 @@ With a checkpoint path the chunked state (p, m, v, step counts, epoch,
 histories) is written as an ``.npz`` resume blob between chunks and a later
 run of the same configuration, folds and data resumes from it exactly.
 
-Not ported yet: multi-device fold sharding.
+With a ``mesh`` (``parallel/mesh.py``) the fold axis is sharded over its
+placements, the production multi-device path: the folds are padded to a
+multiple of the mesh size with fully masked no-op folds, and each
+placement runs its contiguous block of folds as the runner above does on
+one device (its own staged data, its own step, under its own device),
+shard after shard within each step, its kernels planned as for the real
+fold count (``ops.plan_folds``), so every fold is bit-equal to the
+unsharded run. No collective is needed. Histories, MAEs and parameters
+come back for the real folds only.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj_np,
 from fcsr_tpu_torch.iox.checkpoint import load_arrays, save_arrays
 from fcsr_tpu_torch.iox.weights import (flat_to_state,
                                         leaf_tensors_to_state, state_to_flat)
-from fcsr_tpu_torch.kernels.ops import KERNEL_OPS
+from fcsr_tpu_torch.kernels.ops import KERNEL_OPS, plan_folds
 from fcsr_tpu_torch.models.fused_step import (FlatLayout, adam_scalars,
                                               gsr_step_loss_fused,
                                               train_step_fused,
@@ -62,7 +70,8 @@ from fcsr_tpu_torch.models.fused_tail import tail_loss_fused
 from fcsr_tpu_torch.models.gsr import GSRNet
 from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig, precompute_spectral
 from fcsr_tpu_torch.train.losses import gsr_composite_loss
-from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from fcsr_tpu_torch.utils.device import (DEFAULT_DEVICE, on_device,
+                                         resolve_device)
 
 __all__ = ["adam_flat_update", "trainer_mode", "stage_dataset",
            "GSRFoldRunner", "train_gsr_folds_parallel", "evaluate_gsr_folds"]
@@ -127,93 +136,32 @@ def stage_dataset(cfg: GSRTrainConfig, lr_all, hr_all, device):
                  for a in (a_norm, hr_np, u_lr, u_hr))
 
 
-class GSRFoldRunner:
-    """Stage once, train/evaluate all folds together on one device.
+class _FoldShard:
+    """One placement's contiguous block of folds ``[lo, hi)``: its per-step
+    (S, F, ...) data stacks on its device and the step of the runner's
+    mode over (F, P) buffers."""
 
-    ``flat0`` optionally gives the initial parameters, (F, P) in the
-    kernels' flat order (``iox/weights.py``); by default fold j starts
-    from ``GSRNet(seed=init_seed + j)``. ``device`` defaults to CUDA and
-    raises without a card unless the caller passes ``device="cpu"``."""
-
-    def __init__(self, cfg: GSRTrainConfig, lr_all, hr_all, folds,
-                 init_seed: int = 0, flat0=None, device=DEFAULT_DEVICE):
-        self.mode = trainer_mode(cfg)
-        if cfg.padding and self.mode != "unfused":
-            # the fused kernels compute the loss at hr_dim without the
-            # unfused branch's unpad() crop
-            raise ValueError(
-                "padding != 0 is not supported by the fused kernel paths "
-                "(fused_step/fused_tail/fused_adam); use the unfused "
-                "trainer (all fused flags False) for padded configs")
-        if cfg.hidden_dim != cfg.hr_dim:
-            raise ValueError("the fold-parallel trainer's flat layout needs "
-                             "hidden_dim == hr_dim")
-        self.cfg = cfg
-        self.folds = folds
-        self.n_folds = len(folds)
-        self.device = resolve_device(device)
-        self.layout = FlatLayout(cfg.lr_dim, cfg.hr_dim, len(cfg.ks))
-        self.data = stage_dataset(cfg, lr_all, hr_all, self.device)
-        self.tr_idx, self.tr_valid = _pad_plans(folds, 0)
-        self.va_idx, self.va_valid = _pad_plans(folds, 1)
+    def __init__(self, runner: "GSRFoldRunner", lo: int, hi: int, device,
+                 data):
+        self.cfg, self.mode, self.layout = runner.cfg, runner.mode, \
+            runner.layout
+        self.lo, self.hi, self.n_folds = lo, hi, hi - lo
+        self.device = device
         # per-step (S, F, ...) stacks: step s of fold f trains on sample
         # tr_idx[f, s]; a view per step, no gather inside the loop
-        plan = torch.from_numpy(self.tr_idx.T.astype(np.int64)).to(
-            self.device)
-        a_norm, hr, u_lr, u_hr = self.data
+        plan = torch.from_numpy(runner.tr_idx[lo:hi].T.astype(np.int64)).to(
+            device)
+        a_norm, hr, u_lr, u_hr = data
         self._steps = tuple(x[plan] for x in (u_lr, u_hr, hr))
         # only the unfused model is handed the adjacency (and ignores it);
         # the folds' parameters are swapped into one module per call
         unfused = self.mode == "unfused"
         self._a_norm_steps = a_norm[plan] if unfused else None
-        self._unfused = self._model(device=self.device) if unfused else None
+        self._unfused = runner._model(device=device) if unfused else None
         self._no_vals = torch.zeros(self.n_folds, 3, dtype=torch.float32,
-                                    device=self.device)
-        if flat0 is None:
-            flat0 = np.stack([self._init_flat(init_seed + j)
-                              for j in range(self.n_folds)])
-        flat0 = torch.as_tensor(np.asarray(flat0, np.float32))
-        if tuple(flat0.shape) != (self.n_folds, self.layout.size):
-            raise ValueError(f"flat0 must be ({self.n_folds}, "
-                             f"{self.layout.size}), got {tuple(flat0.shape)}")
-        self.flat0 = flat0.to(self.device).contiguous()
-        self.flat_trained = None
-        self.fingerprint = self._fingerprint(lr_all, hr_all, flat0)
+                                    device=device)
 
-    def _fingerprint(self, lr_all, hr_all, flat0) -> str:
-        """Hash of config + fold plan + initial weights + dataset content.
-        Stored in resume blobs, so a file from another run at the same
-        path (other epochs, folds, seed or data) is detected and discarded
-        instead of restored."""
-        h = hashlib.blake2b(digest_size=8)
-        h.update(repr(self.cfg).encode())
-        for tr, va in self.folds:
-            h.update(np.asarray(tr, np.int64).tobytes())
-            h.update(np.asarray(va, np.int64).tobytes())
-        for a in (lr_all, hr_all, flat0):
-            a = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
-            h.update(str(a.shape).encode())
-            h.update(a.tobytes())
-        return h.hexdigest()
-
-    def _model(self, seed: int = 0, device="cpu") -> GSRNet:
-        cfg = self.cfg
-        return GSRNet(cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.hidden_dim,
-                      device=device, seed=seed)
-
-    def _init_flat(self, seed: int) -> np.ndarray:
-        state = {k: t.numpy() for k, t in
-                 self._model(seed).state_dict().items()}
-        return state_to_flat(state)
-
-    def fresh_state(self):
-        """(params, adam_m, adam_v, step counts) over folds; the counts
-        stay on the host, where the chunk's Adam scalars are planned."""
-        z = torch.zeros_like(self.flat0)
-        return (self.flat0.clone(), z, z.clone(),
-                np.zeros(self.n_folds, np.float32))
-
-    def _loss(self, P, s: int):
+    def loss(self, P, s: int):
         """(loss, err), each (F,), of step ``s`` for the leaf mapping ``P``
         in this runner's mode, differentiable in the leaves."""
         cfg = self.cfg
@@ -252,7 +200,7 @@ class GSRFoldRunner:
         err = tail - (w - u_hr).abs().mean(dim=(1, 2))
         return loss, err
 
-    def _step(self, p, m, v, s: int, scal):
+    def step(self, p, m, v, s: int, scal):
         """One fold-batched step on sample slot ``s``: (loss, err, p', m',
         v') with loss and err multiplied by the folds' validity."""
         cfg = self.cfg
@@ -265,7 +213,7 @@ class GSRFoldRunner:
         # the leaf views of p are the autograd leaves: the gradient comes
         # back leaf by leaf and is laid out flat for the one Adam launch
         P = {k: t.requires_grad_() for k, t in self.layout.views(p).items()}
-        loss, err = self._loss(P, s)
+        loss, err = self.loss(P, s)
         grads = torch.autograd.grad(loss.sum(), list(P.values()))
         g = torch.cat([x.reshape(self.n_folds, -1) for x in grads], dim=1)
         p, m, v, _, _ = KERNEL_OPS.adam_masked(p, m, v, g, scal,
@@ -274,38 +222,189 @@ class GSRFoldRunner:
         ok = scal[:, 0]
         return loss.detach() * ok, err.detach() * ok, p, m, v
 
+
+class GSRFoldRunner:
+    """Stage once, train/evaluate all folds together on one device, or on
+    the placements of ``mesh``.
+
+    ``flat0`` optionally gives the initial parameters, (F, P) in the
+    kernels' flat order (``iox/weights.py``); by default fold j starts
+    from ``GSRNet(seed=init_seed + j)``, padding folds included. ``device``
+    defaults to CUDA and raises without a card unless the caller passes
+    ``device="cpu"``; a ``mesh`` gives the placements instead.
+
+    With a mesh the state (p, m, v) is a list of each placement's (F_i, P)
+    block; ``flat0`` is the whole padded stack on the first placement."""
+
+    def __init__(self, cfg: GSRTrainConfig, lr_all, hr_all, folds,
+                 init_seed: int = 0, flat0=None, device=DEFAULT_DEVICE,
+                 mesh=None):
+        self.mode = trainer_mode(cfg)
+        if cfg.padding and self.mode != "unfused":
+            # the fused kernels compute the loss at hr_dim without the
+            # unfused branch's unpad() crop
+            raise ValueError(
+                "padding != 0 is not supported by the fused kernel paths "
+                "(fused_step/fused_tail/fused_adam); use the unfused "
+                "trainer (all fused flags False) for padded configs")
+        if cfg.hidden_dim != cfg.hr_dim:
+            raise ValueError("the fold-parallel trainer's flat layout needs "
+                             "hidden_dim == hr_dim")
+        self.cfg = cfg
+        self.folds = folds
+        self.n_folds = len(folds)
+        self.mesh = mesh
+        placements = (list(mesh.devices) if mesh is not None
+                      else [resolve_device(device)])
+        self.device = placements[0]
+        # padding folds: every train and validation slot masked, so each
+        # is a no-op; the padded count shapes the state
+        n_pad = (-self.n_folds) % len(placements)
+        self._n_total = self.n_folds + n_pad
+        self.layout = FlatLayout(cfg.lr_dim, cfg.hr_dim, len(cfg.ks))
+        self.data = stage_dataset(cfg, lr_all, hr_all, self.device)
+        pad_folds = list(folds) + [(np.zeros(1, np.int32),) * 2] * n_pad
+        self.tr_idx, self.tr_valid = _pad_plans(pad_folds, 0)
+        self.va_idx, self.va_valid = _pad_plans(pad_folds, 1)
+        self.tr_valid[self.n_folds:] = 0.0
+        self.va_valid[self.n_folds:] = 0.0
+        if flat0 is None:
+            flat0 = np.stack([self._init_flat(init_seed + j)
+                              for j in range(self._n_total)])
+        flat0 = torch.as_tensor(np.asarray(flat0, np.float32))
+        if flat0.shape[0] == self.n_folds < self._n_total:
+            flat0 = torch.cat([flat0, torch.from_numpy(np.stack([
+                self._init_flat(init_seed + j)
+                for j in range(self.n_folds, self._n_total)]))])
+        if tuple(flat0.shape) != (self._n_total, self.layout.size):
+            raise ValueError(f"flat0 must be ({self.n_folds}, "
+                             f"{self.layout.size}), got {tuple(flat0.shape)}")
+        self.flat0 = flat0.to(self.device).contiguous()
+        self.flat_trained = None
+        self.fingerprint = self._fingerprint(lr_all, hr_all, flat0)
+        staged = {self.device: self.data}
+        per = self._n_total // len(placements)
+        self.shards = []
+        for i, dev in enumerate(placements):
+            if dev not in staged:
+                staged[dev] = tuple(x.to(dev) for x in self.data)
+            with on_device(dev):
+                self.shards.append(_FoldShard(self, i * per, (i + 1) * per,
+                                              dev, staged[dev]))
+        self._staged = staged
+
+    def _fingerprint(self, lr_all, hr_all, flat0) -> str:
+        """Hash of config + fold plan + initial weights + dataset content
+        (+ the padded fold count where the mesh pads). Stored in resume
+        blobs, so a file from another run at the same path (other epochs,
+        folds, seed, data or mesh padding) is detected and discarded
+        instead of restored."""
+        h = hashlib.blake2b(digest_size=8)
+        h.update(repr(self.cfg).encode())
+        if self._n_total != self.n_folds:
+            h.update(repr(self._n_total).encode())
+        for tr, va in self.folds:
+            h.update(np.asarray(tr, np.int64).tobytes())
+            h.update(np.asarray(va, np.int64).tobytes())
+        for a in (lr_all, hr_all, flat0):
+            a = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
+            h.update(str(a.shape).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    def _model(self, seed: int = 0, device="cpu") -> GSRNet:
+        cfg = self.cfg
+        return GSRNet(cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.hidden_dim,
+                      device=device, seed=seed)
+
+    def _init_flat(self, seed: int) -> np.ndarray:
+        state = {k: t.numpy() for k, t in
+                 self._model(seed).state_dict().items()}
+        return state_to_flat(state)
+
+    def _blocks(self, x) -> list:
+        """Each shard's block of a fold-stacked state buffer."""
+        return list(x) if isinstance(x, (list, tuple)) else [x]
+
+    def _split(self, x) -> list:
+        """A whole (F_total, ...) host array or tensor as each shard's
+        block on its placement."""
+        x = torch.as_tensor(x)
+        return [x[sh.lo:sh.hi].to(sh.device).contiguous()
+                for sh in self.shards]
+
+    def _state(self, blocks):
+        """One tensor on one device, each shard's block under a mesh."""
+        return list(blocks) if self.mesh is not None else blocks[0]
+
+    def _gather(self, x) -> torch.Tensor:
+        """The whole fold stack of a state buffer on the first placement."""
+        blocks = self._blocks(x)
+        if len(blocks) == 1:
+            return blocks[0]
+        return torch.cat([b.to(self.device) for b in blocks])
+
+    def fresh_state(self):
+        """(params, adam_m, adam_v, step counts) over folds; the counts
+        stay on the host, where the chunk's Adam scalars are planned."""
+        p = self._split(self.flat0)
+        return (self._state([b.clone() for b in p]),
+                self._state([torch.zeros_like(b) for b in p]),
+                self._state([torch.zeros_like(b) for b in p]),
+                np.zeros(self._n_total, np.float32))
+
+    def _step(self, p, m, v, s: int, scal):
+        """One fold-batched step of a one-device runner (its only shard)."""
+        with on_device(self.device):
+            return self.shards[0].step(p, m, v, s, scal)
+
     def _run_chunk(self, state, epochs: int):
-        p, m, v, t = state
+        ps, ms, vs = (self._blocks(x) for x in state[:3])
+        t = state[3]
         n_steps = self.tr_idx.shape[1]
-        scal = np.empty((epochs, n_steps, self.n_folds, 3), np.float32)
+        scal = np.empty((epochs, n_steps, self._n_total, 3), np.float32)
         for e in range(epochs):
             for s in range(n_steps):
                 scal[e, s], t = adam_scalars(t, self.tr_valid[:, s], B1, B2)
-        scal = torch.from_numpy(scal).to(self.device)
-        losses, errs = [], []
+        scals = [torch.from_numpy(scal[:, :, sh.lo:sh.hi].copy()).to(
+            sh.device) for sh in self.shards]
+        losses = [[] for _ in self.shards]
+        errs = [[] for _ in self.shards]
         for e in range(epochs):
             for s in range(n_steps):
-                loss, err, p, m, v = self._step(p, m, v, s, scal[e, s])
-                losses.append(loss)
-                errs.append(err)
+                for i, sh in enumerate(self.shards):
+                    # each shard's launches planned as for the unsharded
+                    # run's folds: a fold's bits are that run's
+                    with on_device(sh.device), plan_folds(self.n_folds):
+                        loss, err, ps[i], ms[i], vs[i] = sh.step(
+                            ps[i], ms[i], vs[i], s, scals[i][e, s])
+                    losses[i].append(loss)
+                    errs[i].append(err)
         denom = np.maximum(self.tr_valid.sum(axis=1), 1.0)
 
-        def epoch_means(xs):
-            sums = torch.stack(xs).view(epochs, n_steps, -1).sum(1)
-            return sums.cpu().numpy().T / denom[:, None]
+        def epoch_means(per_shard):
+            # each fold's steps summed along a contiguous row, so its sum
+            # does not depend on how many folds lie beside it
+            steps = np.concatenate([torch.stack(xs).cpu().numpy()
+                                    for xs in per_shard], axis=1)
+            sums = np.ascontiguousarray(
+                steps.T.reshape(-1, epochs, n_steps)).sum(axis=2)
+            return sums / denom[:, None]
 
-        return (p, m, v, t), epoch_means(losses), epoch_means(errs)
+        state = (self._state(ps), self._state(ms), self._state(vs), t)
+        return state, epoch_means(losses), epoch_means(errs)
 
     def save_checkpoint(self, path: str, state, epoch: int, loss_hist,
                         err_hist) -> None:
-        """Write the resume blob of ``state`` after ``epoch`` epochs."""
-        p, m, v, t = state
-        save_arrays(path, p=p.cpu().numpy(), m=m.cpu().numpy(),
-                    v=v.cpu().numpy(), t=np.asarray(t, np.float32),
+        """Write the resume blob of ``state`` (the whole padded fold stack)
+        after ``epoch`` epochs; the histories are the real folds'."""
+        p, m, v = (self._gather(x).cpu().numpy() for x in state[:3])
+        save_arrays(path, p=p, m=m, v=v, t=np.asarray(state[3], np.float32),
                     epoch=np.int64(epoch),
                     fingerprint=np.str_(self.fingerprint),
-                    loss_hist=np.asarray(loss_hist, np.float32),
-                    err_hist=np.asarray(err_hist, np.float32),
+                    loss_hist=np.asarray(loss_hist, np.float32)[
+                        :self.n_folds],
+                    err_hist=np.asarray(err_hist, np.float32)[:self.n_folds],
                     lr_dim=np.int64(self.layout.lr_dim),
                     hr_dim=np.int64(self.layout.hr_dim),
                     n_levels=np.int64(self.layout.n_levels))
@@ -316,14 +415,14 @@ class GSRFoldRunner:
         blob = load_arrays(path)
         if (str(blob.get("fingerprint")) == self.fingerprint
                 and int(blob["epoch"]) <= self.cfg.epochs):
-            state = tuple(torch.from_numpy(blob[k]).to(self.device)
+            state = tuple(self._state(self._split(blob[k]))
                           for k in ("p", "m", "v")) + (blob["t"],)
             return (state, int(blob["epoch"]), blob["loss_hist"],
                     blob["err_hist"])
         warnings.warn(
             f"checkpoint {path} is from a different run (config/folds/"
-            "dataset fingerprint mismatch) — discarding it and training "
-            "from scratch")
+            "dataset/mesh fingerprint mismatch) — discarding it and "
+            "training from scratch")
         os.remove(path)
         return None
 
@@ -331,8 +430,8 @@ class GSRFoldRunner:
               checkpoint_every: int = None, chunk_epochs: int = None):
         """Full training run, as repeated launches of ``chunk_epochs``
         epochs (default: one chunk of ``cfg.epochs``); trajectory-identical
-        either way. Returns (trained flat params (F, P), loss_hist (F, E),
-        err_hist (F, E)).
+        either way. Returns (trained flat params (F, P) of the real folds,
+        on the first placement, loss_hist (F, E), err_hist (F, E)).
 
         With ``checkpoint_path`` the state is written there every
         ``checkpoint_every`` epochs (default ``chunk_epochs``, else a tenth
@@ -354,52 +453,63 @@ class GSRFoldRunner:
         while done < self.cfg.epochs:
             n = min(chunk, self.cfg.epochs - done)
             state, lh, eh = self._run_chunk(state, n)
-            losses.append(lh)
-            errs.append(eh)
+            losses.append(lh[:self.n_folds])
+            errs.append(eh[:self.n_folds])
             done += n
             if checkpoint_path is not None:
                 self.save_checkpoint(checkpoint_path, state, done,
                                      np.concatenate(losses, axis=1),
                                      np.concatenate(errs, axis=1))
         self.flat_trained = state[0]
-        return (state[0], np.concatenate(losses, axis=1).astype(np.float32),
+        return (self._gather(state[0])[:self.n_folds],
+                np.concatenate(losses, axis=1).astype(np.float32),
                 np.concatenate(errs, axis=1).astype(np.float32))
 
     def evaluate(self, flat=None):
-        """Validation MAE per fold (the label's diagonal set to 1), and the
-        (F, V, hr, hr) predictions over the padded val plan."""
+        """Validation MAE per real fold (the label's diagonal set to 1),
+        and their (F, V, hr, hr) predictions over the padded val plan, on
+        the first placement. ``flat`` is a fold stack (real or padded
+        folds) or a state's per-shard blocks; each fold is evaluated on
+        its shard's placement."""
         if flat is None:
             if self.flat_trained is None:
                 raise RuntimeError(
                     "GSRFoldRunner.evaluate() called before train(); pass "
                     "params explicitly (e.g. runner.flat0) or train first")
             flat = self.flat_trained
-        a_norm, hr, u_lr, _ = self.data
-        model = self._model(device=self.device)
+        flat = self._gather(flat)
+        models = {}
         maes, preds = [], []
-        for j in range(self.n_folds):
-            state = flat_to_state(flat[j].detach().cpu().numpy(),
-                                  self.layout.shapes)
-            model.load_state_dict({k: torch.from_numpy(a)
-                                   for k, a in state.items()})
-            idx = torch.from_numpy(self.va_idx[j].astype(np.int64)).to(
-                self.device)
-            with torch.no_grad():
-                pred = unpad(model(a_norm[idx], u_lr=u_lr[idx],
-                                   a_norm=a_norm[idx])[0], self.cfg.padding)
-            gt = fill_diagonal(hr[idx], 1.0)
-            per = (pred - gt).abs().mean(dim=(1, 2))
-            valid = torch.from_numpy(self.va_valid[j]).to(self.device)
-            maes.append(float((per * valid).sum())
-                        / max(float(valid.sum()), 1.0))
-            preds.append(pred)
+        for sh in self.shards:
+            a_norm, hr, u_lr, _ = self._staged[sh.device]
+            for j in range(sh.lo, min(sh.hi, self.n_folds)):
+                with on_device(sh.device):
+                    if sh.device not in models:
+                        models[sh.device] = self._model(device=sh.device)
+                    model = models[sh.device]
+                    state = flat_to_state(flat[j].detach().cpu().numpy(),
+                                          self.layout.shapes)
+                    model.load_state_dict({k: torch.from_numpy(a)
+                                           for k, a in state.items()})
+                    idx = torch.from_numpy(
+                        self.va_idx[j].astype(np.int64)).to(sh.device)
+                    with torch.no_grad():
+                        pred = unpad(model(a_norm[idx], u_lr=u_lr[idx],
+                                           a_norm=a_norm[idx])[0],
+                                     self.cfg.padding)
+                    gt = fill_diagonal(hr[idx], 1.0)
+                    per = (pred - gt).abs().mean(dim=(1, 2))
+                    valid = torch.from_numpy(self.va_valid[j]).to(sh.device)
+                    maes.append(float((per * valid).sum())
+                                / max(float(valid.sum()), 1.0))
+                preds.append(pred.to(self.device))
         return np.asarray(maes, np.float32), torch.stack(preds)
 
     def params_per_fold(self) -> List[dict]:
-        """The trained parameters of each fold as a state_dict of numpy
-        arrays."""
-        return [flat_to_state(self.flat_trained[j].cpu().numpy(),
-                              self.layout.shapes)
+        """The trained parameters of each real fold as a state_dict of
+        numpy arrays."""
+        flat = self._gather(self.flat_trained)
+        return [flat_to_state(flat[j].cpu().numpy(), self.layout.shapes)
                 for j in range(self.n_folds)]
 
 
@@ -407,14 +517,16 @@ def train_gsr_folds_parallel(cfg: GSRTrainConfig, lr_all, hr_all, folds,
                              init_seed: int = 0,
                              checkpoint_path: str = None,
                              checkpoint_every: int = None, flat0=None,
-                             device=DEFAULT_DEVICE):
-    """Train one fresh GSR-Net per fold, all folds together. Returns
-    (model, per-fold state_dict list, loss_hist (F, epochs), err_hist
-    (F, epochs), runner); the runner keeps the staged data on the device
+                             device=DEFAULT_DEVICE, mesh=None):
+    """Train one fresh GSR-Net per fold, all folds together (with ``mesh``
+    the folds sharded over its placements). Returns (model, per-fold
+    state_dict list, loss_hist (F, epochs), err_hist (F, epochs), runner),
+    for the real folds; the runner keeps the staged data on the device
     for the evaluation that follows, and ``model`` is a GSRNet of the
-    run's shape on the run's device to load any fold's state into."""
+    run's shape on the run's (first) device to load any fold's state
+    into."""
     runner = GSRFoldRunner(cfg, lr_all, hr_all, folds, init_seed=init_seed,
-                           flat0=flat0, device=device)
+                           flat0=flat0, device=device, mesh=mesh)
     _, loss_hist, err_hist = runner.train(
         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
     return (runner._model(device=runner.device), runner.params_per_fold(),

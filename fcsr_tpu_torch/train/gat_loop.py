@@ -15,10 +15,13 @@ The control loop (plateau scheduler, best-state snapshot, early stop at
 lr < 1e-5) runs on the device by default, in float32 tensors with one
 host read per ``control_chunk_epochs`` epochs; ``host_control=True`` keeps
 the per-epoch host loop in Python floats. Both keep the BEST validation
-loss (the reference kept the worst). With ``drop_p > 0`` the card's
-generator is not the JAX package's, so trajectories are stochastically
-equivalent only; at ``drop_p = 0`` every mode agrees with its JAX
-counterpart (tested).
+loss (the reference kept the worst). With a ``mesh`` the fold axis is
+sharded over its placements (``_ShardedTrainer``), with no collective: a
+real fold's trajectory is the unsharded run's (the fused step's dropout
+too; the unfused module draws its masks from a generator per shard).
+With ``drop_p > 0`` the card's generator is not the JAX package's, so
+trajectories are stochastically equivalent only; at ``drop_p = 0`` every
+mode agrees with its JAX counterpart (tested).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch.func import functional_call
 from fcsr_tpu_torch.iox.weights import (gat_flat_to_state,
                                         gat_leaf_tensors_to_state,
                                         gat_state_to_flat)
+from fcsr_tpu_torch.kernels.ops import plan_folds
 from fcsr_tpu_torch.models.fused_gat import (ADAM_B1, ADAM_B2, GATLayout,
                                              _check_widths,
                                              gat_train_step_fused,
@@ -43,7 +47,8 @@ from fcsr_tpu_torch.train.generic_loop import PlateauScheduler
 from fcsr_tpu_torch.train.losses import (intermediate_recon_loss,
                                          offdiag_mse_loss)
 from fcsr_tpu_torch.utils import host_cache
-from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from fcsr_tpu_torch.utils.device import (DEFAULT_DEVICE, on_device,
+                                         resolve_device)
 
 __all__ = ["GATTrainConfig", "init_gat", "precompute_gat_features",
            "train_gat", "train_gat_folds_parallel", "adamw_flat_update",
@@ -185,6 +190,19 @@ def _offdiag_mae_all(pred, target):
     return (pred - target).abs().masked_fill(eye, 0.0).mean(dim=(-2, -1))
 
 
+def _fold_flat0(cfg: GATTrainConfig, seeds) -> np.ndarray:
+    """(F, P) initial weights, fold j a fresh model from ``seeds[j]``."""
+    return np.stack([gat_state_to_flat(
+        {k: t.numpy() for k, t in cfg.model(
+            device="cpu", seed=s).state_dict().items()}) for s in seeds])
+
+
+def _seed_table(rng, steps: int, folds: int) -> np.ndarray:
+    """An epoch's dropout seeds, (steps, folds, 2) int32."""
+    return rng.integers(-2 ** 31, 2 ** 31, size=(steps, folds, 2),
+                        dtype=np.int64).astype(np.int32)
+
+
 def _state_to_device(variables, dev):
     return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32).to(dev)
             for k, v in variables.items()}
@@ -192,10 +210,14 @@ def _state_to_device(variables, dev):
 
 class _FoldTrainer:
     """State and the two device programs (one epoch of steps, one
-    validation pass) of the fold-parallel trainer."""
+    validation pass) of the fold-parallel trainer. Under a mesh it holds
+    one placement's block of folds: ``fold_lo`` is its first fold's index
+    (fold j's host generator is seeded ``seed + j``) and ``tr_len`` the
+    whole run's steps per epoch."""
 
     def __init__(self, cfg: GATTrainConfig, lr_all, hr_all, folds, seed: int,
-                 device, flat0=None, fused: bool = False):
+                 device, flat0=None, fused: bool = False, fold_lo: int = 0,
+                 tr_len: int = None):
         _check_widths(cfg.dim, tuple(cfg.ks), cfg.heads)
         self.cfg, self.fused = cfg, fused
         self.dev = dev = resolve_device(device)
@@ -213,10 +235,7 @@ class _FoldTrainer:
         self.model.set_generator(self.gen)
         self.n_folds = F = len(folds)
         if flat0 is None:
-            flat0 = np.stack([gat_state_to_flat(
-                {k: t.numpy() for k, t in cfg.model(
-                    device="cpu", seed=seed + j).state_dict().items()})
-                for j in range(F)])
+            flat0 = _fold_flat0(cfg, [seed + j for j in range(F)])
         flat0 = np.ascontiguousarray(flat0, dtype=np.float32)
         if flat0.shape != (F, self.layout.size):
             raise ValueError(f"flat0 has shape {flat0.shape}, expected "
@@ -228,9 +247,11 @@ class _FoldTrainer:
         self.tr_sets = [np.asarray(tr, dtype=np.int32) for tr, _ in folds]
         self.va_sets = [torch.from_numpy(np.asarray(va, dtype=np.int64)
                                          ).to(dev) for _, va in folds]
-        self.tr_len = max(max(len(s) for s in self.tr_sets), 1)
-        self.rngs = [np.random.default_rng(seed + j) for j in range(F)]
+        self.tr_len = tr_len or max(max(len(s) for s in self.tr_sets), 1)
+        self.rngs = [np.random.default_rng(seed + fold_lo + j)
+                     for j in range(F)]
         self.seed_rng = np.random.default_rng([seed, 0x5EED])
+        self.active0 = np.ones(F, np.float32)
 
     def draw_epoch_plan(self):
         """One epoch's per-fold shuffled, padded index plan, from each
@@ -267,12 +288,18 @@ class _FoldTrainer:
         return (loss.detach(), self.p - ok * step,
                 torch.where(on, m_new, self.m), torch.where(on, v_new, self.v))
 
-    def epoch(self, order, valid, lr_t, active_t):
-        """One epoch over every fold: ``tr_len`` fold-batched steps.
-        ``lr_t`` and ``active_t`` are (F,) float32 tensors on the device;
-        returns each fold's mean training loss (F,). Nothing is read back
-        to the host."""
-        cfg, dev = self.cfg, self.dev
+    def draw_seeds(self):
+        """One epoch's dropout seed table, (tr_len, F, 2) int32, or None
+        where the step draws no mask. Masked padding steps draw seeds too:
+        the stream advances."""
+        if not (self.fused and self.cfg.drop_p > 0):
+            return None
+        return _seed_table(self.seed_rng, self.tr_len, self.n_folds)
+
+    def epoch_plan(self, order, valid, lr_t, active_t, seeds):
+        """The device tensors of one epoch: the (L, F) sample order, the
+        (L, F, 4) step scalars, the seed table and the step counts."""
+        dev = self.dev
         order_d = torch.from_numpy(np.ascontiguousarray(order.T)).to(
             dev).long()                                          # (L, F)
         ok = torch.from_numpy(np.ascontiguousarray(valid.T)).to(dev) \
@@ -285,32 +312,56 @@ class _FoldTrainer:
                                 1.0 - ADAM_B2 ** te], dim=-1).contiguous()
         else:
             scal = torch.stack([ok, lr_t.expand_as(ok), te], dim=-1)
-        seeds = None
-        if self.fused and cfg.drop_p > 0:
-            # masked padding steps draw seeds too: the stream advances
-            seeds = torch.from_numpy(self.seed_rng.integers(
-                -2 ** 31, 2 ** 31, size=(self.tr_len, self.n_folds, 2),
-                dtype=np.int64).astype(np.int32)).to(dev)
-        losses = []
-        for s in range(self.tr_len):
-            i = order_d[s]
-            if self.fused:
-                loss, self.p, self.m, self.v = gat_train_step_fused(
-                    self.p, self.m, self.v, self.a0_d[i], self.x_d[i],
-                    self.hr_d[i], scal[s],
-                    None if seeds is None else seeds[s],
-                    drop_p=cfg.drop_p, wd=cfg.weight_decay, device=dev,
-                    **cfg.kernel_kwargs)
-            else:
-                loss, self.p, self.m, self.v = self._unfused_step(i, scal[s])
-            losses.append(loss)
+        seeds = None if seeds is None else torch.from_numpy(
+            np.ascontiguousarray(seeds)).to(dev)
+        return order_d, ok, t_new, scal, seeds, []
+
+    def epoch_step(self, plan, s: int):
+        """Step ``s`` of the epoch ``plan`` over every fold."""
+        cfg = self.cfg
+        order_d, _, _, scal, seeds, losses = plan
+        i = order_d[s]
+        if self.fused:
+            loss, self.p, self.m, self.v = gat_train_step_fused(
+                self.p, self.m, self.v, self.a0_d[i], self.x_d[i],
+                self.hr_d[i], scal[s], None if seeds is None else seeds[s],
+                drop_p=cfg.drop_p, wd=cfg.weight_decay, device=self.dev,
+                **cfg.kernel_kwargs)
+        else:
+            loss, self.p, self.m, self.v = self._unfused_step(i, scal[s])
+        losses.append(loss)
+
+    def epoch_end(self, plan):
+        """Each fold's mean training loss over the finished ``plan``."""
+        _, ok, t_new, _, _, losses = plan
         self.t = t_new[-1]
-        return (torch.stack(losses) * ok).sum(0) / ok.sum(0).clamp(min=1.0)
+        # each fold's steps summed along a contiguous row: the sum does not
+        # depend on how many folds lie beside it
+        total = (torch.stack(losses) * ok).T.contiguous().sum(1)
+        return total / ok.sum(0).clamp(min=1.0)
+
+    def epoch(self, order, valid, lr_t, active_t, seeds=None):
+        """One epoch over every fold: ``tr_len`` fold-batched steps.
+        ``lr_t`` and ``active_t`` are (F,) float32 tensors on the device;
+        ``seeds`` the epoch's seed table (default: drawn here). Returns
+        each fold's mean training loss (F,). Nothing is read back to the
+        host."""
+        with on_device(self.dev):
+            plan = self.epoch_plan(order, valid, lr_t, active_t,
+                                   self.draw_seeds() if seeds is None
+                                   else seeds)
+            for s in range(self.tr_len):
+                self.epoch_step(plan, s)
+            return self.epoch_end(plan)
 
     @torch.no_grad()
     def validate(self):
         """Each fold's mean validation loss and off-diagonal MAE, (F,)
         tensors on the device: one batch of subjects per fold."""
+        with on_device(self.dev):
+            return self._validate()
+
+    def _validate(self):
         cfg = self.cfg
         vloss, vmae = [], []
         views = None if self.fused and cfg.fused_val \
@@ -339,6 +390,95 @@ class _FoldTrainer:
     def states(self, flat: np.ndarray):
         shapes = self.layout.shapes
         return [gat_flat_to_state(row, shapes) for row in flat]
+
+
+class _ShardedTrainer:
+    """The fold-parallel trainer with its fold axis sharded over a mesh:
+    the folds padded to a multiple of the mesh size with empty no-op folds
+    (inactive from the start), each placement a ``_FoldTrainer`` over its
+    contiguous block, the steps of an epoch run shard after shard under
+    each shard's device and planned as for the real folds
+    (``ops.plan_folds``). It has ``_FoldTrainer``'s interface over the
+    padded folds, with the per-fold tensors on the first placement. The
+    dropout seed table is drawn once per epoch, for the real folds, and
+    sliced to the shards, so every real fold draws the masks it draws in
+    the unsharded run."""
+
+    def __init__(self, cfg: GATTrainConfig, lr_all, hr_all, folds, seed: int,
+                 mesh, flat0=None, fused: bool = False):
+        self.cfg, self.fused = cfg, fused
+        self.n_real = len(folds)
+        n_pad = (-self.n_real) % mesh.size
+        self.n_folds = F = self.n_real + n_pad
+        if flat0 is None:
+            flat0 = _fold_flat0(cfg, [seed + j for j in range(F)])
+        elif len(flat0) == self.n_real < F:
+            flat0 = np.concatenate([np.asarray(flat0, np.float32), _fold_flat0(
+                cfg, [seed + j for j in range(self.n_real, F)])])
+        empty = np.zeros(0, np.int32)
+        folds = list(folds) + [(empty, empty)] * n_pad
+        tr_len = max(max(len(tr) for tr, _ in folds), 1)
+        per = F // mesh.size
+        self.shards = []
+        for i, dev in enumerate(mesh.devices):
+            lo = i * per
+            with on_device(dev):
+                self.shards.append(_FoldTrainer(
+                    cfg, lr_all, hr_all, folds[lo:lo + per], seed, dev,
+                    flat0=flat0[lo:lo + per],
+                    fused=fused, fold_lo=lo, tr_len=tr_len))
+        self.dev = self.shards[0].dev
+        self.model = self.shards[0].model
+        self.layout = cfg.layout
+        self.tr_len = tr_len
+        self.seed_rng = np.random.default_rng([seed, 0x5EED])
+        self.active0 = (np.arange(F) < self.n_real).astype(np.float32)
+
+    @property
+    def p(self):
+        return torch.cat([sh.p.to(self.dev) for sh in self.shards])
+
+    def _slices(self):
+        lo = 0
+        for sh in self.shards:
+            yield sh, slice(lo, lo + sh.n_folds)
+            lo += sh.n_folds
+
+    def draw_epoch_plan(self):
+        plans = [sh.draw_epoch_plan() for sh in self.shards]
+        return (np.concatenate([o for o, _ in plans]),
+                np.concatenate([v for _, v in plans]))
+
+    def epoch(self, order, valid, lr_t, active_t):
+        seeds = None
+        if self.fused and self.cfg.drop_p > 0:
+            seeds = np.zeros((self.tr_len, self.n_folds, 2), np.int32)
+            seeds[:, :self.n_real] = _seed_table(self.seed_rng, self.tr_len,
+                                                 self.n_real)
+        plans = []
+        for sh, f in self._slices():
+            with on_device(sh.dev):
+                plans.append(sh.epoch_plan(
+                    order[f], valid[f], lr_t[f].to(sh.dev),
+                    active_t[f].to(sh.dev),
+                    None if seeds is None else seeds[:, f]))
+        for s in range(self.tr_len):
+            for sh, plan in zip(self.shards, plans):
+                with on_device(sh.dev), plan_folds(self.n_real):
+                    sh.epoch_step(plan, s)
+        out = []
+        for sh, plan in zip(self.shards, plans):
+            with on_device(sh.dev):
+                out.append(sh.epoch_end(plan).to(self.dev))
+        return torch.cat(out)
+
+    def validate(self):
+        parts = [sh.validate() for sh in self.shards]
+        return tuple(torch.cat([x[k].to(self.dev) for x in parts])
+                     for k in range(2))
+
+    def states(self, flat: np.ndarray):
+        return self.shards[0].states(flat)
 
 
 def _run_host_control(tr: _FoldTrainer, cfg: GATTrainConfig, verbose: bool):
@@ -398,7 +538,7 @@ def _run_device_control(tr: _FoldTrainer, cfg: GATTrainConfig, verbose: bool,
                              cfg.plateau_factor)
     stop_lr = float(np.float32(STOP_LR))        # compared in float32
     lr = torch.full((F,), cfg.lr, dtype=torch.float32, device=dev)
-    active = torch.ones(F, dtype=torch.float32, device=dev)
+    active = torch.from_numpy(tr.active0).to(dev)
     sbest = torch.full((F,), float("inf"), dtype=torch.float32, device=dev)
     nbad = torch.zeros(F, dtype=torch.int32, device=dev)
     bval = sbest.clone()
@@ -460,21 +600,26 @@ def train_gat_folds_parallel(cfg: GATTrainConfig, lr_all, hr_all, folds,
     single-fold ``train_gat`` semantics per fold and per-fold seeds
     ``seed + j``. ``flat0`` (F, P) optionally gives the folds' initial
     weights in ``GATLayout`` order (default: a fresh model from seed + j
-    per fold). Returns (model, best state_dict per fold as numpy arrays,
-    histories)."""
+    per fold). ``mesh`` (``parallel/mesh.py``) shards the fold axis over
+    its placements (``_ShardedTrainer``; on-device control only), in place
+    of ``device``. Returns (model, best state_dict per fold as numpy
+    arrays, histories), for the real folds."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the fold axis sharded over devices) needs the port of "
-            "fcsr_tpu/parallel over torch.distributed, which is not ported "
-            "yet (ROADMAP.md, Queue A item 12)")
-    tr = _FoldTrainer(cfg, lr_all, hr_all, folds, seed, device,
-                      flat0=flat0, fused=cfg.fused_step)
+        if host_control:
+            raise ValueError("mesh= requires on-device control "
+                             "(host_control=False)")
+        tr = _ShardedTrainer(cfg, lr_all, hr_all, folds, seed, mesh,
+                             flat0=flat0, fused=cfg.fused_step)
+    else:
+        tr = _FoldTrainer(cfg, lr_all, hr_all, folds, seed, device,
+                          flat0=flat0, fused=cfg.fused_step)
     if host_control:
         best, hists = _run_host_control(tr, cfg, verbose)
     else:
         best, hists = _run_device_control(tr, cfg, verbose,
                                           max(1, int(control_chunk_epochs)))
-    return tr.model, tr.states(np.stack(best)), hists
+    n = len(folds)
+    return tr.model, tr.states(np.stack(best[:n])), hists[:n]
 
 
 def train_gat(model: GATGraphUnet, opt_state, cfg: GATTrainConfig, lr_train,

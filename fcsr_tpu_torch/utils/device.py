@@ -7,9 +7,12 @@ asking for CUDA on a machine without a card raises.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "check_on_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "check_on_device",
+           "on_device"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -34,3 +37,12 @@ def check_on_device(what: str, device, *tensors) -> torch.device:
             raise ValueError(f"{what}(device={device!r}) got a tensor on "
                              f"{t.device}")
     return dev
+
+
+def on_device(device):
+    """Context in which ``device`` is the current CUDA device (kernels
+    launch on the current device's stream); nothing for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -20,7 +20,7 @@ CARD_FILES = sorted(
     if re.search(r"^@pytest\.mark\.cuda\b", p.read_text(), re.M))
 
 _BLOCKED_IMPORT = r"""
-import importlib.abc, importlib.util, sys
+import importlib, importlib.abc, importlib.util, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -43,6 +43,7 @@ print("imported", sys.argv[2])
 def test_the_card_files_are_found():
     assert len(CARD_FILES) >= 10
     assert "test_torch_fused_entry_points.py" in CARD_FILES
+    assert "test_torch_parallel.py" in CARD_FILES
     assert "test_torch_card_imports.py" not in CARD_FILES
 
 
@@ -51,5 +52,24 @@ def test_card_file_imports_without_jax(name):
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT), str(TESTS / name)],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "imported" in out.stdout
+
+
+@pytest.mark.parametrize("module", ["fcsr_tpu_torch.parallel",
+                                    "fcsr_tpu_torch.parallel.mesh",
+                                    "fcsr_tpu_torch.parallel.distributed"])
+def test_parallel_modules_import_without_jax(module):
+    """The multi-device layer (and what it imports: the trainers, the MLP
+    models) loads with JAX, flax and the JAX package refused."""
+    code = _BLOCKED_IMPORT.replace(
+        'spec = importlib.util.spec_from_file_location("card_test", '
+        'sys.argv[2])\nmodule = importlib.util.module_from_spec(spec)\n'
+        'spec.loader.exec_module(module)\n',
+        "importlib.import_module(sys.argv[2])\n")
+    assert "import_module" in code
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT), module],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "imported" in out.stdout

@@ -23,6 +23,7 @@ from fcsr_tpu_torch.data import (load_dataset,
 from fcsr_tpu_torch.iox import load_arrays
 from fcsr_tpu_torch.iox.weights import gat_flax_to_state, gat_state_to_flat
 from fcsr_tpu_torch.kernels import launch_counts
+from fcsr_tpu_torch.parallel import virtual_batch_mesh
 from fcsr_tpu_torch.pipelines import (_fit_cfg_to_data, run_gat_cv,
                                       run_gat_cv_fast)
 from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, init_gat,
@@ -174,13 +175,19 @@ def test_cli_defaults_to_the_card(csv_dir, tmp_path):
 @pytest.mark.parametrize("argv,what", [
     (["train", "gat", "--multichip"], "--multichip"),
     (["train", "gsr", "--multichip"], "--multichip")])
-def test_cli_refuses_what_is_not_ported(capsys, argv, what):
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert e.value.code == 2
+def test_cli_refuses_what_is_not_ported(capsys, argv, what, csv_dir,
+                                        tmp_path):
+    """Nothing of ``train gat`` / ``train gsr`` is refused any more:
+    ``--multichip`` runs (on the CPU, the one-device mesh) and writes its
+    submission."""
+    out = tmp_path / "out"
+    extra = ["--dim", "4"] if argv[1] == "gat" else []
+    assert cli.main(argv + extra + ["--epochs", "1", "--splits", "2",
+                                    "--data-dir", csv_dir, "--out-dir",
+                                    str(out), "--device", "cpu"]) == 0
     err = capsys.readouterr().err
-    assert what in err and "not available in fcsr_tpu_torch yet" in err
-    assert "gat_unet" not in err and "gat_loop" not in err
+    assert what not in err and "not available" not in err
+    assert (out / "submission.csv").exists()
 
 
 @pytest.mark.parametrize("flags", [["--fast", "--full-metrics"],
@@ -207,11 +214,15 @@ def test_entry_points_refuse_what_is_not_ported(dataset):
     lr, hr, folds = dataset
     data = {"lr_train": lr, "hr_train": hr, "lr_test": None}
     cfg = GATTrainConfig(epochs=1, **TINY)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        train_gat_folds_parallel(cfg, lr, hr, folds, mesh=object(),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="fcsr_tpu/parallel"):
-        run_gat_cv_fast(data, cfg, multichip=True, device="cpu")
+    mesh = virtual_batch_mesh(2, "cpu")
+    with pytest.raises(ValueError, match="on-device control"):
+        train_gat_folds_parallel(cfg, lr, hr, folds, mesh=mesh,
+                                 host_control=True)
+    # the mesh= and multichip= refusals are lifted: both run
+    _, best, hists = train_gat_folds_parallel(cfg, lr, hr, folds, mesh=mesh)
+    assert len(best) == len(hists) == len(folds)
+    res = run_gat_cv_fast(data, cfg, multichip=True, device="cpu")
+    assert np.isfinite(res["fold_maes"]).all()
     for run in (run_gat_cv_fast, run_gat_cv):
         with pytest.raises(ValueError, match="unknown eval_backend"):
             run(data, cfg=cfg, full_metrics=True, eval_backend="gpu",

@@ -213,8 +213,18 @@ def test_fit_cfg_and_pipeline_refusals(monkeypatch):
     assert (fit.lr_dim, fit.hr_dim, fit.hidden_dim) == (20, 32, 32)
     assert _fit_cfg_to_data(fit, lr, hr) is fit
     data = {"lr_train": lr, "hr_train": hr}
-    with pytest.raises(NotImplementedError, match="parallel"):
-        run_gsr_cv_fast(data, cfg, multichip=True, device="cpu")
+    # multichip=True is no longer refused: on the CPU its mesh is the CPU
+    seen = {}
+
+    def stop(*args, **kw):
+        seen.update(kw)
+        raise RuntimeError("stop before training")
+    with monkeypatch.context() as m:
+        m.setattr(t_pipelines, "train_gsr_folds_parallel", stop)
+        with pytest.raises(RuntimeError, match="stop before training"):
+            run_gsr_cv_fast(data, cfg, splits=2, multichip=True,
+                            device="cpu")
+    assert seen["mesh"].devices == (torch.device("cpu"),)
     monkeypatch.setitem(sys.modules, "networkx", None)
     with pytest.raises(ImportError, match="networkx"):
         run_gsr_cv_fast(data, cfg, full_metrics=True,
@@ -323,12 +333,27 @@ def test_cli_submit_dry_run(tmp_path, capsys):
     (["train", "gsr", "--fast", "--fused-tail", "--multichip"],
      "fcsr_tpu/parallel"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, missing, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv + ["--device", "cpu"] if argv[0] == "train" else argv)
-    assert exc.value.code == 2
+def test_cli_refuses_what_is_not_ported(argv, missing, capsys, csv_dir,
+                                        monkeypatch):
+    """--multichip is no longer refused: every form reaches the
+    fold-parallel trainer with a mesh of the port's ``parallel`` (the
+    module the JAX package's ``missing`` one is ported to); on the CPU the
+    one-CPU mesh."""
+    seen = {}
+
+    def stop(*args, **kw):
+        seen.update(kw)
+        raise RuntimeError("stop before training")
+    for name in ("train_gsr_folds_parallel", "train_gat_folds_parallel"):
+        monkeypatch.setattr(t_pipelines, name, stop)
+    with pytest.raises(RuntimeError, match="stop before training"):
+        cli.main(argv + ["--data-dir", csv_dir, "--device", "cpu"])
     err = capsys.readouterr().err
-    assert "not available in fcsr_tpu_torch yet" in err and missing in err
+    assert "not available" not in err
+    mesh = seen["mesh"]
+    assert type(mesh).__module__.startswith(
+        missing.replace("fcsr_tpu", "fcsr_tpu_torch").replace("/", "."))
+    assert mesh.devices == (torch.device("cpu"),)
 
 
 @pytest.mark.parametrize("argv,scored", [

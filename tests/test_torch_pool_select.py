@@ -345,10 +345,17 @@ def test_pool_scores_multiply_by_the_fp32_reciprocal(path):
 
 def test_gat_pool_scores_stay_the_sigmoid(rng):
     """At div 1 (the GAT U-Net) the rule multiplies by 1: the scores are
-    the sigmoid of the logits themselves, as before the rule."""
+    the sigmoid of the logits themselves, as before the rule, each on
+    torch's vectorised CPU path (the rows padded to 64 floats), so a
+    fold's scores do not depend on the folds beside it."""
     logits = torch.from_numpy(_logits(rng, 3, 80, 1.0))
     s = PLAIN_OPS.rank_select(logits, 40, 1.0)[0]
-    assert torch.equal(s, torch.sigmoid(logits))
+    padded = torch.nn.functional.pad(logits, (0, 48))
+    assert torch.equal(s, torch.sigmoid(padded)[:, :80])
+    for f in range(3):
+        assert torch.equal(s[f:f + 1],
+                           PLAIN_OPS.rank_select(logits[f:f + 1], 40,
+                                                 1.0)[0])
 
 
 def test_boundary_pair_keeps_the_node_jax_keeps():
