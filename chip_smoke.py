@@ -201,7 +201,26 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``make_sharded_generic_step`` (MLP v2 at its published widths, batch
    32 on 2 shards, BatchNorm moments and dropout of the whole batch)
    against their single-device steps (parameters and running statistics
-   within 2e-5).
+   within 2e-5);
+12. ``FCSR_MM_MODE=bf16``, the single-pass bf16 products: (a)
+   ``bgemm_bf16`` against its plain version (the exact products of the
+   same bf16 values summed in fp32) at every signature of the bf16 GSR
+   step's census (dense, matrix-vector, column sums, rank-1; 79
+   launches), two launches bit-equal, timed beside the plain version and
+   ``torch.bmm(a16, b16, out_dtype=torch.float32)`` with and without the
+   casts; the rounding instances ``rank_select_bf16``,
+   ``gather_rows_bf16``, ``scatter_rows_bf16``, ``pool_bwd_pair_bf16``
+   (exact, the logits' adjoint within 1e-5) at every GSR pool and
+   ``add_bias_bf16`` (exact); (b) phase 3's step in the bf16 mode, kernels
+   against plain (``BF16_STEP_TOLS``), 106 launches, its device time as
+   one CUDA graph beside the fp32 step's in turns; (c) the full-width
+   ``fused_adam`` runner (3 folds, 2 epochs) in fp32 and in bf16 from the
+   same weights, ``fused_step`` and a 3-shard mesh in bf16 bit-equal to
+   it, s/epoch and val MAE beside the untrained MAE; (d)
+   ``FCSR_MM_MODE=bf16 python -m fcsr_tpu_torch train gsr --fused`` on
+   phase 5's CSVs in a process of its own, bit-equal to the same command in
+   process; (e) the unfused runner with ``compute_dtype="bf16"`` (1 epoch,
+   beside fp32 unfused); (f) ``utils.probe.require_live_device``.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -228,6 +247,7 @@ WORK_DIR = os.path.join(OUT_DIR, "smoke_csv_path")
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W):
 PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12         # HBM3
 F, LR, HR, KS = 3, 160, 268, (0.9, 0.7, 0.6, 0.5)
 EPOCHS = 2                   # trainer-path epochs, run as two chunks of 1
@@ -253,6 +273,10 @@ GAT_NEW = ("gat_attention", "gat_attention_bwd", "philox_drop_logits",
 # GAT U-Net launches it alone; the keep mask alone is drawn by draw_masks
 # and the keep-rate experiment's counterpart, on no trainer path
 GAT_ONLY = GAT_NEW + ("pool_logits_bwd", "philox_keep_mask")
+# the bf16 mode's kernels (phase 12): the product and the rounding instances
+# of the pool, row and bias kernels; no fp32 path launches them
+BF16_KERNELS = ("bgemm_bf16", "rank_select_bf16", "gather_rows_bf16",
+                "scatter_rows_bf16", "pool_bwd_pair_bf16", "add_bias_bf16")
 
 
 def fail(msg: str):
@@ -294,11 +318,13 @@ def device_ms(fn, reps: int = 20) -> float:
     return graph_ms([fn], reps)[0]
 
 
-def bound(flops: float, nbytes: float, int_clocks: float = 0.0):
-    """(ms, bound_by): the largest of flops / fp32 peak, bytes / HBM and
-    ``int_clocks`` SM clocks of integer issue spread over every SM at its
-    highest clock (``philox_clocks``)."""
-    t_ops = flops / PEAK_FP32_FLOPS
+def bound(flops: float, nbytes: float, int_clocks: float = 0.0,
+          peak_flops: float = PEAK_FP32_FLOPS):
+    """(ms, bound_by): the largest of flops / ``peak_flops`` (fp32 outside
+    the tensor cores unless given), bytes / HBM and ``int_clocks`` SM
+    clocks of integer issue spread over every SM at its highest clock
+    (``philox_clocks``)."""
+    t_ops = flops / peak_flops
     if int_clocks:
         sms, hz = sm_clock()
         t_ops = max(t_ops, int_clocks / (sms * hz))
@@ -1957,7 +1983,7 @@ def run_main_path(dev, data, epochs: int):
     print(f"  val MAE untrained {untrained.tolist()} trained "
           f"{maes.tolist()}")
     counts = {k: c for k, c in counts.items()
-              if k not in TRIU + GAT_ONLY}
+              if k not in TRIU + GAT_ONLY + BF16_KERNELS}
     print(f"  launches on the trainer path: {counts}")
     if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()
             and bool(torch.isfinite(preds).all())):
@@ -2081,7 +2107,8 @@ def run_csv_path(dev, data):
     print(f"  `train gsr --fused` {t_train_cli:.1f} s, `predict` "
           f"{t_predict_cli:.1f} s; launches on the CSV path: {counts}",
           flush=True)
-    counts = {k: c for k, c in counts.items() if k not in GAT_ONLY}
+    counts = {k: c for k, c in counts.items()
+              if k not in GAT_ONLY + BF16_KERNELS}
     missing = [k for k, c in counts.items() if c == 0]
     if missing:
         fail(f"kernels never launched on the CSV path: {missing}")
@@ -5077,6 +5104,511 @@ def run_phase11(dev, data, csv_dir, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: FCSR_MM_MODE=bf16, the single-pass bf16 products
+# ---------------------------------------------------------------------------
+
+# the launches of one GSR step in the bf16 mode
+BF16_STEP_LAUNCHES = {"bgemm_bf16": 79, "rank_select_bf16": 4,
+                      "gather_rows_bf16": 4, "scatter_rows_bf16": 4,
+                      "pool_bwd_pair_bf16": 4, "add_bias_bf16": 1,
+                      "tail_normalize": 1, "tail_normalize_bwd": 1,
+                      "sym_abs_fill": 2, "sym_sign_grad": 2, "l1_term": 3,
+                      "adam_masked": 1}
+# kernels against plain in the bf16 step, relative to max(1, max|plain|):
+# loss, recon, p', m', v'. The fp32 sums of a product take another order
+# than the plain version's, and where a sum lands beside a bf16 rounding
+# edge the next operand rounds the other way: a gradient entry moves by
+# one bf16 step, m' (0.1 g) the most (2.3e-6 on the card's first run)
+BF16_STEP_TOLS = (1e-5, 1e-5, 1e-6, 1e-4, 1e-5)
+
+
+class mm_mode_set:
+    """``core.mm_mode.MODE`` set to ``mode`` inside the block."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        from fcsr_tpu_torch.core import mm_mode
+        self.old, mm_mode.MODE = mm_mode.MODE, self.mode
+
+    def __exit__(self, *exc):
+        from fcsr_tpu_torch.core import mm_mode
+        mm_mode.MODE = self.old
+
+
+def _bf16_library(op_a, op_b):
+    """The library's bf16 product with an fp32 output,
+    ``torch.bmm(a16, b16, out_dtype=torch.float32)``, on the fp32
+    operands (the two casts included) and on operands cast before."""
+    a16, b16 = op_a.to(torch.bfloat16), op_b.to(torch.bfloat16)
+    return (lambda: torch.bmm(op_a.to(torch.bfloat16),
+                              op_b.to(torch.bfloat16),
+                              out_dtype=torch.float32),
+            lambda: torch.bmm(a16, b16, out_dtype=torch.float32))
+
+
+def check_bf16_product(prod, layout, g, dev):
+    """One census signature of the bf16 step replayed on the card:
+    ``bgemm_bf16`` against its plain version (the exact products of the
+    same bf16 values summed in fp32 in another order: within 1e-5 x
+    max(scale, K)), two launches bit-equal, and its time beside the plain
+    version's and the library's bf16 product with an fp32 output, with and
+    without the casts of the operands (the product alone: bias and add
+    have no one-call form there), in CUDA graphs timed in turns. The pool
+    logits' bias (N = 1) is a product's operand, rounded. Returns (kernel,
+    plain, library with casts, library without, bound) ms."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS_BF16 as K
+    from fcsr_tpu_torch.kernels import PLAIN_OPS_BF16 as P
+    from fcsr_tpu_torch.kernels.census import replay
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    ta, tb, F_ = prod.ta, prod.tb, prod.F
+    ops = replay(prod, layout, g, dev)
+    a, b, bias, add, alias = (ops[k] for k in ("a", "b", "bias", "add",
+                                                "alias"))
+    bo = bias is not None and prod.N == 1
+
+    def launch(acc=None):
+        if alias:
+            return K.bgemm(a, b, ta, tb, bias=bias, add=acc, out=acc,
+                           bias_operand=bo)
+        return K.bgemm(a, b, ta, tb, bias=bias, add=add, bias_operand=bo)
+
+    def plain():
+        return P.bgemm(a, b, ta, tb, bias=bias, add=add, bias_operand=bo)
+
+    got = [launch(None if add is None else add.clone()) for _ in range(2)]
+    want = plain()
+    torch.cuda.synchronize()
+    err = max_err(got[0], want)
+    limit = 1e-5 * max(scale_of(want), float(prod.K))
+    if not err <= limit:
+        fail(f"bgemm_bf16 {prod.label()}: max|err| {err:.3e} above "
+             f"{limit:.1e}")
+    if not torch.equal(got[0], got[1]):
+        fail(f"bgemm_bf16 {prod.label()}: two launches differ")
+    op_a = torch.ones(F_, 1, prod.K, device=dev) if a is None else (
+        a.transpose(1, 2) if ta else a)
+    op_b = b.transpose(1, 2) if tb else b
+    lib_cast, lib = _bf16_library(op_a, op_b)
+    acc = None if add is None else add.clone()
+    k_ms, p_ms, lc_ms, l_ms = graph_ms([lambda: launch(acc), plain,
+                                        lib_cast, lib])
+    b_ms, b_by = bound(prod.flops, prod.nbytes, peak_flops=PEAK_BF16_FLOPS)
+    print(f"    bgemm_bf16 {prod.label():34s} kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f}, library {lc_ms:.4f} with the casts / {l_ms:.4f} "
+          f"without, bound {b_ms:.5f} ms ({b_by}), max|err| {err:.2e}, "
+          f"bit-equal", flush=True)
+    return k_ms, p_ms, lc_ms, l_ms, b_ms
+
+
+def check_bf16_products(dev, smi):
+    """Phase 12 (a), the product: every distinct signature of the
+    full-width GSR step's census in the bf16 mode (79 launches: the dense
+    products, the column sums, the pool logits' matrix-vector products and
+    their rank-1 adjoints) by ``check_bf16_product``, summed over the
+    step's launches; then the record: 268 x 268 x 268 + bias at F = 3.
+    Returns the JSON record of ``bgemm_bf16``."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS_BF16 as K
+    from fcsr_tpu_torch.kernels import PLAIN_OPS_BF16 as P
+    from fcsr_tpu_torch.kernels.census import gsr_step_census
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    census = gsr_step_census(dev, ops=K)
+    sigs = census.signatures()
+    print(f"  bgemm_bf16 over the bf16 GSR step's census: "
+          f"{len(census.products)} launches, {len(sigs)} signatures, "
+          f"{census.flops / 1e9:.4f} GFLOP [{smi}]", flush=True)
+    if len(census.products) != BF16_STEP_LAUNCHES["bgemm_bf16"]:
+        fail(f"the bf16 step has {len(census.products)} products")
+    g = torch.Generator(device=dev).manual_seed(3)
+    sums = [0.0] * 5
+    by_class = {}
+    for prod, n in sigs.items():
+        t = check_bf16_product(prod, census.layouts[prod], g, dev)
+        cls = ("column sum" if prod.ones else "matrix-vector"
+               if min(prod.M, prod.N) == 1 else "rank-1" if prod.K <= 1
+               else "dense")
+        row = by_class.setdefault(cls, [0, 0.0, 0.0, 0.0, 0.0, 0.0])
+        row[0] += n
+        for i, v in enumerate(t):
+            sums[i] += n * v
+            row[i + 1] += n * v
+    for cls, (n, k_ms, p_ms, lc_ms, l_ms, b_ms) in by_class.items():
+        print(f"  bgemm_bf16 {cls}: {n} launches, kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f}, library {lc_ms:.4f} / {l_ms:.4f} (with / "
+              f"without the casts), bound {b_ms:.5f} ms", flush=True)
+    print(f"  bf16 GSR step: bgemm_bf16 {sums[0]:.4f} ms over its "
+          f"{len(census.products)} launches, plain {sums[1]:.4f}, library "
+          f"{sums[2]:.4f} with the casts / {sums[3]:.4f} without, bound "
+          f"{sums[4]:.5f} ms [{smi}]", flush=True)
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    a, b = (torch.randn(F, HR, HR, generator=gen).to(dev) for _ in range(2))
+    bias = torch.randn(F, 1, HR, generator=gen).to(dev)
+    got, want = K.bgemm(a, b, bias=bias), P.bgemm(a, b, bias=bias)
+    err = max_err(got, want)
+    if not err <= 1e-5 * max(scale_of(want), HR):
+        fail(f"bgemm_bf16 {HR}^3: max|err| {err:.3e}")
+    lib_cast, lib = _bf16_library(a, b)
+    ms, plain_ms, lc_ms, l_ms = graph_ms([
+        lambda: K.bgemm(a, b, bias=bias), lambda: P.bgemm(a, b, bias=bias),
+        lib_cast, lib])
+    b_ms, b_by = bound(2.0 * F * HR ** 3, 4.0 * F * (3 * HR * HR + HR),
+                       peak_flops=PEAK_BF16_FLOPS)
+    print(f"  bgemm_bf16 record {HR}^3 + bias: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f}, library {lc_ms:.4f} / {l_ms:.4f} (with / "
+          f"without the casts), bound {b_ms:.5f} ms ({b_by}), max|err| "
+          f"{err:.2e} [{smi}]", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lc_ms,
+            "library_ms_no_casts": l_ms, "gsr_step_ms": sums[0],
+            "gsr_step_plain_ms": sums[1], "gsr_step_library_ms": sums[2],
+            "gsr_step_bound_ms": sums[4], "signatures": len(sigs)}
+
+
+def check_bf16_variants(dev, smi):
+    """Phase 12 (a), the rounding instances: at every GSR pool (F = 3,
+    ties and a NaN score) ``rank_select_bf16`` (every output exact, NaN
+    where NaN), ``gather_rows_bf16`` and ``scatter_rows_bf16`` exact,
+    ``pool_bwd_pair_bf16`` (g_d exact, the logits' adjoint within 1e-5:
+    its dot sums rounded products in another order), each bit-equal over
+    two launches; ``add_bias_bf16`` on the step's views exact. Times at
+    the first pool. Returns their JSON records."""
+    from fcsr_tpu_torch.kernels import KERNEL_OPS_BF16 as K
+    from fcsr_tpu_torch.kernels import PLAIN_OPS_BF16 as P
+    from fcsr_tpu_torch.models.fused_step import FlatLayout
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    f4, m = 4.0 * F, HR
+    records = {}
+    for level, (n, k, cols, div) in enumerate(GSR_POOLS):
+        logits = rnd(F, n, scale=100.0)
+        logits[:, 2:8] = logits[:, 9:10]              # a 6-way tie
+        logits[1, 7] = float("nan")
+        d, gx, skip = rnd(F, n, m), rnd(F, n, m), rnd(F, n, m)
+        gp, pre = rnd(F, k, m), rnd(F, k, m)
+        s, idx, vals, slot = K.rank_select(logits, k)
+        cases = [
+            ("rank_select_bf16", lambda: K.rank_select(logits, k, src=d),
+             lambda: P.rank_select(logits, k, src=d), 0.0,
+             float(F * (n * n + k * m)), f4 * (3 * n + 2 * k + 3 * k * m)),
+            ("gather_rows_bf16", lambda: K.gather_rows(gx, idx),
+             lambda: P.gather_rows(gx, idx), 0.0,
+             float(F * k * m), f4 * (2 * k * m + k)),
+            ("scatter_rows_bf16", lambda: K.scatter_rows(gp, slot),
+             lambda: P.scatter_rows(gp, slot), 0.0,
+             float(F * k * m), f4 * (k * m + n * m + n)),
+            ("pool_bwd_pair_bf16",
+             lambda: K.pool_bwd_pair(gp, pre, slot, s, vals, skip),
+             lambda: P.pool_bwd_pair(gp, pre, slot, s, vals, skip),
+             (0.0, 1e-5), 2.0 * F * (2 * k * m + n * m),
+             f4 * (2 * k * m + 2 * n * m + 3 * n + k))]
+        for name, kern, plain, tol, flops, nbytes in cases:
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            if not all(_same(x, y, bits=True) for x, y in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,))):
+                fail(f"{name} at pool {level}: two launches differ")
+            if isinstance(tol, tuple):     # NaN where a score is NaN
+                errs = [_nan_aware_err(x, y) for x, y in zip(got, want)]
+                ok = all(e <= t * scale_of(y[~torch.isnan(y)]) for e, t, y
+                         in zip(errs, tol, want))
+                err = max(errs)
+            elif isinstance(got, tuple):
+                err = max(_nan_aware_err(x, y) for x, y in zip(got, want))
+                ok = all(_same(x, y) for x, y in zip(got, want))
+            else:
+                err = max_err(got, want)
+                ok = err == 0.0
+            if not ok:
+                fail(f"{name} at pool {level} ({n} -> {k}) disagrees with "
+                     f"its plain version (max|err| {err:.3e})")
+            if level == 0:
+                ms, plain_ms = graph_ms([kern, plain])
+                b_ms, b_by = bound(flops, nbytes)
+                records[name] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "library_ms": None}
+                print(f"  {name:20s} pool 0 ({n} -> {k} x {m}): max|err| "
+                      f"{err:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                      f", bound {b_ms:.5f} ms ({b_by}) [{smi}]", flush=True)
+        print(f"  bf16 pool {level} ({n} -> {k}): the four kernels agree "
+              "with their plain versions, bit-equal run to run", flush=True)
+    layout = FlatLayout(LR, HR, len(KS))
+    leaves = layout.views(rnd(F, layout.size))
+    w, bb = leaves["w:start_gcn"], leaves["b:start_gcn"]
+    got, want = K.add_bias(w, bb), P.add_bias(w, bb)
+    err = max_err(got, want)
+    if err != 0.0 or not torch.equal(got, K.add_bias(w, bb)):
+        fail(f"add_bias_bf16 disagrees with its plain version ({err:.3e})")
+    ms, plain_ms = graph_ms([lambda: K.add_bias(w, bb),
+                             lambda: P.add_bias(w, bb)])
+    b_ms, b_by = bound(float(F * LR * m), f4 * (2 * LR * m + m))
+    records["add_bias_bf16"] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": b_ms,
+                                "bound_by": b_by, "library_ms": None}
+    print(f"  add_bias_bf16 ({LR} x {m}, the step's views): exact, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {b_ms:.5f} ms ({b_by})"
+          f" [{smi}]", flush=True)
+    return records
+
+
+def check_bf16_step(dev, step_args, smi):
+    """Phase 12 (b): one full-width fold-batched step (F = 3, phase 3's
+    state, one fold masked) in the bf16 mode on the kernels against the
+    same step on the plain versions; its launches (106: 79 ``bgemm_bf16``,
+    the pool, row and bias kernels' bf16 instances, the tail's and Adam's
+    kernels as in fp32); the masked fold's state bit-unchanged; the bf16
+    and the fp32 step as CUDA graphs timed in turns (fp32, bf16, bf16,
+    fp32), the bf16 step eager and profiled (device time by kernel into
+    ``profile_step_bf16.txt`` in ``OUT_DIR``). Returns the bf16 step's
+    device ms."""
+    from fcsr_tpu_torch.kernels import (KERNEL_OPS_BF16, launch_counts,
+                                        reset_launch_counts)
+    from fcsr_tpu_torch.kernels.census import census_of
+    from fcsr_tpu_torch.models.fused_step import (step_with_ops,
+                                                  train_step_fused,
+                                                  train_step_plain)
+    from fcsr_tpu_torch.utils.timing import graph_ms
+
+    p, m, v = step_args[:3]
+    with mm_mode_set("bf16"):
+        reset_launch_counts()
+        got = train_step_fused(*step_args, device=dev)
+        torch.cuda.synchronize()
+        launched = _nonzero(launch_counts())
+        want = train_step_plain(*step_args)
+    f32 = train_step_fused(*step_args, device=dev)
+    torch.cuda.synchronize()
+    names = ("loss", "recon", "p'", "m'", "v'")
+    for name, a, b, c, tol in zip(names, got, want, f32, BF16_STEP_TOLS):
+        err, limit = max_err(a, b), tol * scale_of(b)
+        print(f"  bf16 step {name:5s} kernels vs plain max|err| {err:.3e} "
+              f"(limit {limit:.1e}); bf16 vs fp32 kernels "
+              f"{max_err(a, c):.3e}", flush=True)
+        if not err <= limit:
+            fail(f"full-width bf16 step: {name} disagrees with the plain "
+                 "path")
+    masked = step_args[6][:, 0] == 0
+    for a, b in ((got[2], p), (got[3], m), (got[4], v)):
+        if not torch.equal(a[masked], b[masked]):
+            fail("bf16 step: the masked fold's state changed")
+    census = census_of(lambda ops: step_with_ops(ops, *step_args, 0.9,
+                                                 0.999, 1e-8),
+                       KERNEL_OPS_BF16)
+    if launched != BF16_STEP_LAUNCHES or census.launches != {
+            "bgemm" if k == "bgemm_bf16" else k.replace("_bf16", ""): c
+            for k, c in BF16_STEP_LAUNCHES.items()}:
+        fail(f"the bf16 step launches {launched} (census "
+             f"{census.launches}), not {BF16_STEP_LAUNCHES}")
+
+    def step32():
+        return train_step_fused(*step_args, device=dev)
+
+    def step16():
+        with mm_mode_set("bf16"):
+            return train_step_fused(*step_args, device=dev)
+
+    a32, a16, b16, b32 = graph_ms([step32, step16, step16, step32], reps=5)
+    with mm_mode_set("bf16"):
+        eager = cuda_ms(step16, reps=5)
+        profile_steps(step16, eager, os.path.join(OUT_DIR,
+                                                  "profile_step_bf16.txt"))
+    b_ms, b_by = bound(census.flops, census.bytes)
+    print(f"  bf16 step: {sum(launched.values())} launches {launched}; "
+          f"{census.flops / 1e9:.4f} GFLOP, {census.bytes / 1e6:.2f} MB; "
+          f"device {a16:.4f} / {b16:.4f} ms as one CUDA graph (fp32 step "
+          f"{a32:.4f} / {b32:.4f} in the same turns), eager {eager:.3f} ms; "
+          f"loss {got[0].tolist()} [{smi}]", flush=True)
+    return (a16 + b16) / 2
+
+
+def run_bf16_runner(dev, data, smi):
+    """Phase 12 (c), the bf16 mode's main path: the full-width
+    ``fused_adam`` GSRFoldRunner (3 folds of the teacher set, 2 epochs) in
+    fp32 and in bf16 from the same weights, then ``fused_step`` and a
+    3-shard mesh of the card in bf16, which must be bit-equal to the bf16
+    ``fused_adam`` run; s/epoch and val MAE beside the untrained MAE.
+    Every bf16 kernel must launch in the bf16 ``fused_adam`` run (106 a
+    step). Returns the bf16 runs' launch counts and the MAEs."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.parallel import virtual_batch_mesh
+
+    folds = kfold_indices(len(data["lr_train"]), 3, seed=42)
+    runs, counts, untrained = {}, {}, None
+    for label, mode, kw, shards in (
+            ("fp32 fused_adam", "bf16x3_concat", dict(fused_adam=True), None),
+            ("bf16 fused_adam", "bf16", dict(fused_adam=True), None),
+            ("bf16 fused_step", "bf16", dict(fused_step=True), None),
+            ("bf16 fused_adam, 3 shards", "bf16", dict(fused_adam=True), 3)):
+        with mm_mode_set(mode):
+            runner = GSRFoldRunner(
+                GSRTrainConfig(epochs=EPOCHS, **kw), data["lr_train"],
+                data["hr_train"], folds, device=dev,
+                mesh=None if shards is None else virtual_batch_mesh(shards,
+                                                                    dev))
+            if untrained is None:
+                untrained, _ = runner.evaluate(runner.flat0)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            p, loss, err = runner.train()
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            c = _nonzero(launch_counts())
+            maes, _ = runner.evaluate()
+        steps = runner.tr_idx.shape[1] * EPOCHS * len(runner.shards)
+        runs[label] = (p.cpu().numpy(), loss, err, maes)
+        print(f"  {label}: {t / EPOCHS:.3f} s/epoch ({1e3 * t / steps:.3f} "
+              f"ms a step), val MAE {maes.tolist()}, {sum(c.values())} "
+              f"launches [{smi}]", flush=True)
+        if not (np.isfinite(loss).all() and np.isfinite(maes).all()):
+            fail(f"{label}: non-finite loss or MAE")
+        if mode == "bf16":
+            if sum(c.values()) != STEP_LAUNCHES * steps:
+                fail(f"{label}: {sum(c.values())} launches in {steps} "
+                     f"steps, not {STEP_LAUNCHES} each")
+            for k, n in c.items():
+                counts[k] = counts.get(k, 0) + n
+        if label == "bf16 fused_adam":
+            missing = [k for k in BF16_KERNELS if not c.get(k)]
+            if missing or c.get("bgemm_f32"):
+                fail(f"the bf16 main path launched {c}")
+    base = runs["bf16 fused_adam"]
+    for label in ("bf16 fused_step", "bf16 fused_adam, 3 shards"):
+        d = max(float(np.abs(a - b).max()) for a, b in zip(base,
+                                                           runs[label]))
+        print(f"  {label} vs bf16 fused_adam: max|d| {d:.3e} (bit-equal "
+              "required)", flush=True)
+        if d != 0.0:
+            fail(f"{label} is not bit-equal to bf16 fused_adam")
+    m32, m16, m0 = (float(np.mean(x)) for x in (
+        runs["fp32 fused_adam"][3], base[3], untrained))
+    print(f"  val MAE after {EPOCHS} epochs: fp32 {m32:.6f}, bf16 {m16:.6f} "
+          f"({m16 / m32 - 1:+.3%}), untrained {m0:.6f} [{smi}]", flush=True)
+    if not m16 < m0:
+        fail("the bf16 runner did not train")
+    return counts
+
+
+def run_bf16_cli(csv_dir, smi):
+    """Phase 12 (d): ``FCSR_MM_MODE=bf16 python -m fcsr_tpu_torch train gsr
+    --fused`` (2 epochs, 3 folds, phase 5's CSVs) in a subprocess, against
+    the same command in process with ``mm_mode.MODE = "bf16"``: fold MAEs
+    and submission.csv bit-equal. Returns the in-process run's launch
+    counts."""
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    argv = ["train", "gsr", "--fused", "--epochs", "2", "--splits", "3",
+            "--data-dir", csv_dir]
+    sub_dir = os.path.join(WORK_DIR, "p12_cli_env")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fcsr_tpu_torch", *argv, "--out-dir",
+         sub_dir], cwd=HERE, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, FCSR_MM_MODE="bf16"))
+    t_sub = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        fail(f"`FCSR_MM_MODE=bf16 python -m fcsr_tpu_torch train gsr "
+             f"--fused` returned {proc.returncode}")
+    sub = json.loads(proc.stdout.strip().splitlines()[0])
+    in_dir = os.path.join(WORK_DIR, "p12_cli_in")
+    with mm_mode_set("bf16"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, report = _cli_json(argv + ["--out-dir", in_dir])
+        torch.cuda.synchronize()
+        t_in = time.perf_counter() - t0
+        counts = _nonzero(launch_counts())
+    if rc != 0:
+        fail(f"`train gsr --fused` in the bf16 mode returned {rc}")
+    same = []
+    for d in (sub_dir, in_dir):
+        with open(os.path.join(d, "submission.csv"), "rb") as f:
+            same.append(f.read())
+    print(f"  `FCSR_MM_MODE=bf16 python -m fcsr_tpu_torch train gsr --fused` "
+          f"{t_sub:.1f} s (a process of its own), in process {t_in:.1f} s; "
+          f"fold MAEs {sub['fold_maes']} / {report['fold_maes']}; "
+          f"submission.csv {'identical' if same[0] == same[1] else 'DIFFERS'}"
+          f"; launches {counts} [{smi}]", flush=True)
+    if sub["fold_maes"] != report["fold_maes"] or same[0] != same[1]:
+        fail("the bf16 command in its own process differs from the same "
+             "command in process")
+    if not counts.get("bgemm_bf16") or counts.get("bgemm_f32"):
+        fail("`train gsr --fused` in the bf16 mode did not run on bgemm_bf16")
+    return counts
+
+
+def run_bf16_unfused(dev, data, smi):
+    """Phase 12 (e): the unfused GSRFoldRunner with
+    ``compute_dtype="bf16"`` at full width, 1 epoch over 3 folds, beside
+    the fp32 unfused run from the same weights: s/epoch, val MAE, and the
+    GSR layer's bf16 x bf16 -> fp32 product on ``bgemm_bf16`` (one launch
+    a fold and step). Returns its launch counts."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    folds = kfold_indices(len(data["lr_train"]), 3, seed=42)
+    out = {}
+    for dtype in ("f32", "bf16"):
+        runner = GSRFoldRunner(GSRTrainConfig(epochs=1, compute_dtype=dtype),
+                               data["lr_train"], data["hr_train"], folds,
+                               device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, loss, _ = runner.train()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        c = _nonzero(launch_counts())
+        maes, _ = runner.evaluate()
+        out[dtype] = (maes, c)
+        print(f"  unfused compute_dtype={dtype!r}: {t:.2f} s/epoch, val MAE "
+              f"{maes.tolist()}, launches {c} [{smi}]", flush=True)
+        if not (np.isfinite(loss).all() and np.isfinite(maes).all()):
+            fail(f"unfused compute_dtype={dtype!r}: non-finite loss or MAE")
+    steps = runner.tr_idx.shape[1]
+    c16 = out["bf16"][1]
+    if c16.get("bgemm_bf16") != 3 * steps:
+        fail(f"unfused bf16: {c16.get('bgemm_bf16')} bgemm_bf16 launches, "
+             f"not {3 * steps}")
+    return c16
+
+
+def run_phase12(dev, data, step_args, csv_dir, smi):
+    """Phase 12: (a) the bf16 kernels against their plain versions, (b) the
+    bf16 step, (c) the bf16 runner, (d) the bf16 command line, (e) the
+    unfused ``compute_dtype="bf16"`` runner, (f) the liveness probe.
+    Returns (JSON records, launch counts)."""
+    from fcsr_tpu_torch.utils.probe import require_live_device
+
+    t0 = time.perf_counter()
+    records = {"bgemm_bf16": check_bf16_products(dev, smi)}
+    records.update(check_bf16_variants(dev, smi))
+    check_bf16_step(dev, step_args, smi)
+    counts = run_bf16_runner(dev, data, smi)
+    for c in (run_bf16_cli(csv_dir, smi), run_bf16_unfused(dev, data, smi)):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+    t1 = time.perf_counter()
+    name = require_live_device(timeout_s=60)
+    print(f"  require_live_device: {name} answered in "
+          f"{time.perf_counter() - t1:.3f} s", flush=True)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return records, counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -5091,6 +5623,8 @@ def main():
     # phase 1: environment and build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (phase 12's unfused bf16 runner) sum in fp32, as XLA's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = smi_line()
     dev = torch.device("cuda")
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
@@ -5160,6 +5694,11 @@ def main():
               "steps", flush=True)
         p11_counts = run_phase11(dev, data, os.path.join(WORK_DIR, "data"),
                                  smi)
+        print("phase 12: FCSR_MM_MODE=bf16, single-pass bf16 products",
+              flush=True)
+        p12_records, p12_counts = run_phase12(
+            dev, data, step_args, os.path.join(WORK_DIR, "data"), smi)
+        records.update(p12_records)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -5175,7 +5714,7 @@ def main():
                    counts, csv_counts, mode_counts, parity_counts,
                    gat_counts, gat_cli_counts, keep_counts,
                    metric_counts, mlp_counts, mlp_cli_counts, p10_counts,
-                   p11_counts))}
+                   p11_counts, p12_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj,
                                           normalize_adj_np, pad_hr_adj,
-                                          symmetrize, unpad)
+                                          symmetric_normalize, symmetrize,
+                                          unpad)
 from fcsr_tpu_torch.core.triu_kernels import (anti_vectorize_normalize,
                                               normalize_adj_batch,
                                               vectorize_colmajor)
@@ -14,6 +15,6 @@ from fcsr_tpu_torch.core.vectorize import (MatrixVectorizer, anti_vectorize,
 __all__ = ["MatrixVectorizer", "anti_vectorize", "anti_vectorize_batch",
            "anti_vectorize_normalize", "fill_diagonal", "normalize_adj",
            "normalize_adj_batch", "normalize_adj_np", "pad_hr_adj",
-           "symmetrize", "triu_indices_colmajor", "triu_indices_rowmajor",
+           "symmetric_normalize", "symmetrize", "triu_indices_colmajor", "triu_indices_rowmajor",
            "unpad", "vec_len", "vectorize", "vectorize_batch",
            "vectorize_colmajor", "vectorize_rowmajor"]

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 __all__ = ["normalize_adj", "normalize_adj_np", "pad_hr_adj", "unpad",
-           "fill_diagonal", "symmetrize"]
+           "fill_diagonal", "symmetric_normalize", "symmetrize"]
 
 
 def normalize_adj_np(mx):
@@ -37,6 +37,13 @@ def normalize_adj(mx: torch.Tensor) -> torch.Tensor:
     mx = mx * r[..., None, :]
     mx = mx.transpose(-1, -2)
     return mx * r[..., None, :]
+
+
+def symmetric_normalize(a: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``D^-1/2 A D^-1/2`` with ``d = rowsum + eps`` (the GAT U-Net's
+    normalisation; no zero-degree guard needed)."""
+    r = (a.sum(dim=-1) + eps).pow(-0.5)
+    return a * r[..., None, :] * r[..., :, None]
 
 
 def fill_diagonal(m: torch.Tensor, value: float) -> torch.Tensor:

@@ -50,13 +50,19 @@ def save_pytree(tree, path: str) -> None:
     _atomic_write(path, lambda f: f.writelines(pieces))
 
 
-def load_pytree(path: str):
-    """The tree of a flax msgpack file (flax's ``msgpack_restore``: nested
-    dicts of numpy arrays; lists and tuples come back as ``{"0": ...}``
-    dicts, since no template restores them)."""
-    from fcsr_tpu_torch.iox.msgpack import msgpack_restore
+def load_pytree(template, path: str = None):
+    """Restore a flax msgpack file as the JAX package's ``load_pytree
+    (template, path)`` does (flax's ``from_bytes``): ``template`` supplies
+    the structure, its dict keys, lists, tuples and namedtuples, and the
+    leaves come back as the stored numpy arrays and scalars.
+    ``load_pytree(path)`` alone returns the raw tree (``msgpack_restore``:
+    nested dicts, lists and tuples as ``{"0": ...}`` dicts)."""
+    from fcsr_tpu_torch.iox.msgpack import from_state_dict, msgpack_restore
+    if path is None:
+        template, path = None, template
     with open(path, "rb") as f:
-        return msgpack_restore(f.read())
+        tree = msgpack_restore(f.read())
+    return tree if template is None else from_state_dict(template, tree)
 
 
 def is_msgpack(path: str) -> bool:

@@ -34,7 +34,7 @@ from typing import Any, List, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["ExtType", "MAX_CHUNK_SIZE", "msgpack_restore",
+__all__ = ["ExtType", "MAX_CHUNK_SIZE", "from_state_dict", "msgpack_restore",
            "msgpack_serialize", "pack_pieces", "to_bytes",
            "to_state_dict"]
 
@@ -261,7 +261,10 @@ def msgpack_serialize(tree, in_place: bool = False) -> bytes:
 
 def to_state_dict(tree):
     """flax's ``to_state_dict`` for plain containers: dict keys as
-    ``str(key)`` in their order, lists and tuples as ``{"0": ...}``."""
+    ``str(key)`` in their order, lists and tuples as ``{"0": ...}``, a
+    namedtuple by its fields."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: to_state_dict(getattr(tree, k)) for k in tree._fields}
     if type(tree) is dict:
         keys = {str(k) for k in tree}
         if len(keys) != len(tree):
@@ -271,6 +274,43 @@ def to_state_dict(tree):
     if type(tree) in (list, tuple):
         return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
     return tree
+
+
+def from_state_dict(target, state, name: str = "."):
+    """flax's ``from_state_dict`` for plain containers: the tree of
+    ``target`` restored from ``state`` (``msgpack_restore``'s nested
+    dicts). A dict takes the template's keys (each must be in ``state``,
+    as ``str(key)``; keys only ``state`` has are dropped), a list or tuple
+    its length (``state`` keys ``"0"``, ``"1"``, ...), a namedtuple its
+    fields; a leaf of the template is replaced by the stored value as it
+    is."""
+    if isinstance(target, tuple) and hasattr(target, "_fields"):
+        if set(state) != set(target._fields):
+            raise ValueError(
+                "The field names of the state dict and the named tuple do "
+                f"not match, got {set(state)} and {set(target._fields)} at "
+                f"path {name}")
+        return type(target)(**{k: from_state_dict(getattr(target, k), v,
+                                                  f"{name}/{k}")
+                               for k, v in state.items()})
+    if type(target) is dict:
+        missing = {str(k) for k in target} - set(state)
+        if missing:
+            raise ValueError(
+                "The target dict keys and state dict keys do not match, "
+                f"target dict contains keys {missing} which are not present "
+                f"in state dict at path {name}")
+        return {k: from_state_dict(v, state[str(k)], f"{name}/{k}")
+                for k, v in target.items()}
+    if type(target) in (list, tuple):
+        if len(state) != len(target):
+            raise ValueError(
+                "The size of the list and the state dict do not match, got "
+                f"{len(target)} and {len(state)} at path {name}")
+        out = [from_state_dict(v, state[str(i)], f"{name}/{i}")
+               for i, v in enumerate(target)]
+        return out if type(target) is list else tuple(out)
+    return state
 
 
 def to_bytes(tree) -> bytes:

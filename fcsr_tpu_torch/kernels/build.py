@@ -2,10 +2,14 @@
 
 Each ``csrc/*.cu`` compiles on its own into a shared library with a plain
 C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``),
-all sources at once in parallel, into ``build/fcsr_tpu_torch/<key>/`` at
-the repository root. ``<key>`` hashes the sources and the flags, so an
-edited source rebuilds and an unchanged one loads what is there. Nothing
-is built at import time: the first kernel launch builds.
+all sources at once in parallel, into ``<cache root>/<key>/``: the root is
+``build/fcsr_tpu_torch/`` at the repository root unless
+``FCSR_KERNEL_CACHE_DIR`` or ``utils.compile_cache.enable_persistent_cache``
+names another, and a fresh directory of this process's own with
+``FCSR_NO_COMPILE_CACHE=1`` (nothing reused). ``<key>`` hashes the sources
+and the flags, so an edited source rebuilds and an unchanged one loads
+what is there. Nothing is built at import time: the first kernel launch
+builds.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build_dir", "load_library", "build_all", "BUILD_INFO"]
+__all__ = ["SOURCES", "build_dir", "cache_root", "load_library", "build_all",
+           "BUILD_INFO"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("bgemm", "rank_select", "tail", "adam", "triu", "gat")
+SOURCES = ("bgemm", "bgemm_bf16", "rank_select", "tail", "adam", "triu",
+           "gat")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,9 +50,29 @@ def _key() -> str:
     return h.hexdigest()
 
 
+# the cache root set by utils.compile_cache.enable_persistent_cache
+CACHE_ROOT = None
+_FRESH = {}
+
+
+def cache_root() -> Path:
+    """Where built libraries are kept: a fresh directory of this process
+    under ``build/fcsr_tpu_torch/nocache/`` with ``FCSR_NO_COMPILE_CACHE=1``,
+    else ``CACHE_ROOT``, ``FCSR_KERNEL_CACHE_DIR`` or
+    ``<repo>/build/fcsr_tpu_torch``, the first that is set."""
+    default = CSRC.parents[2] / "build" / "fcsr_tpu_torch"
+    if os.environ.get("FCSR_NO_COMPILE_CACHE") == "1":
+        if os.getpid() not in _FRESH:
+            _FRESH[os.getpid()] = default / "nocache" / (
+                f"{os.getpid()}-{time.time_ns()}")
+        return _FRESH[os.getpid()]
+    root = CACHE_ROOT or os.environ.get("FCSR_KERNEL_CACHE_DIR")
+    return Path(root) if root else default
+
+
 def build_dir() -> Path:
-    """``<repo>/build/fcsr_tpu_torch/<source hash>``."""
-    return CSRC.parents[2] / "build" / "fcsr_tpu_torch" / _key()
+    """``<cache root>/<source hash>``."""
+    return cache_root() / _key()
 
 
 def _nvcc() -> str:

@@ -85,8 +85,9 @@ def _as_handed(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def product_of(a, b, ta=False, tb=False, bias=None, add=None,
-               out=None) -> Product:
-    """The signature of ``ops.bgemm(a, b, ta, tb, bias, add, out)``."""
+               out=None, bias_operand=False) -> Product:
+    """The signature of ``ops.bgemm(a, b, ta, tb, bias, add, out)`` (or of
+    ``bgemm_bf16``'s)."""
     a, b = _as_handed(a), _as_handed(b)
     K, N = (b.shape[2], b.shape[1]) if tb else (b.shape[1], b.shape[2])
     M = 1 if a is None else (a.shape[2] if ta else a.shape[1])
@@ -100,7 +101,8 @@ def _layout(t: Optional[torch.Tensor]):
                                    int(t.storage_offset()))
 
 
-def _layout_of(a, b, ta=False, tb=False, bias=None, add=None, out=None):
+def _layout_of(a, b, ta=False, tb=False, bias=None, add=None, out=None,
+               bias_operand=False):
     """(shape, stride, storage offset) of the stored ``a`` and ``b``, and
     whether ``add`` is ``out``: enough to replay the call's alignment."""
     return {"a": _layout(_as_handed(a)), "b": _layout(_as_handed(b)),

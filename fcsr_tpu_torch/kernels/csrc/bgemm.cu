@@ -26,6 +26,7 @@
 //   the outputs (coalesced) with k split over 8 warps, summed in warp
 //   order. A square tile would waste 63/64 of itself on these.
 // - K = 1 (rank-1 update plus add): one elementwise pass.
+//   These two live in bgemm_paths.cuh, shared with bgemm_bf16.cu.
 // - Otherwise the dense path: an output tile per block, 32 x 32 (128
 //   threads: two warp groups, each a 4 x 4 register tile per thread over
 //   alternate 4-deep chunks of each K slice, summed in shared memory at
@@ -53,26 +54,13 @@
 // Every variant launches with cudaLaunchKernelExC (capturable in a CUDA
 // graph); dynamic shared memory above 48 KB is enabled once per variant on
 // the first call.
-#include "common.cuh"
+#include "bgemm_paths.cuh"
 
 namespace {
 
 constexpr int BK = 32;      // K slice per pipeline step
 constexpr int STAGES = 3;   // depth of the cp.async ring
 constexpr int PAD = 4;      // floats of padding per shared-memory row
-constexpr int VEC_WARPS = 8;     // warps of the outputs-along-lanes path
-constexpr int DOT_WARPS = 4;     // outputs per block of the warp-per-output path
-
-struct Args {
-  const float* A;
-  const float* B;
-  const float* bias;
-  const float* D;
-  float* C;
-  int M, N, K;
-  long long sA, sB, sBias, sD, sC;
-  int ldA, ldB, ldD, ldC;
-};
 
 // Copy rows [r0, r0 + TR) x cols [c0, c0 + TC) of a stored (rows x cols)
 // operand with row stride ld into shared memory (row stride TC + PAD),
@@ -300,87 +288,6 @@ __global__ void __launch_bounds__(BM * BN / 16 * KG)
   }
 }
 
-// y[i] = sum_k X(i, k) v(k) (+ bias) (+ D) for i < L, per fold; v == nullptr
-// is a vector of ones. ROWC: X(i, k) = X[i * ldX + k], else X[k * ldX + i].
-struct Vec {
-  const float* X;
-  const float* v;
-  const float* bias;
-  const float* D;
-  float* C;
-  long long sX, sv, sBias, sD, sC;
-  int ldX, incv, incBias, incD, incC;
-  int L, K;
-};
-
-__device__ __forceinline__ void vec_store(const Vec& q, int f, int i,
-                                          float s) {
-  if (q.bias) s += q.bias[f * q.sBias + (long long)i * q.incBias];
-  if (q.D) s += q.D[f * q.sD + (long long)i * q.incD];  // D may alias C
-  q.C[f * q.sC + (long long)i * q.incC] = s;
-}
-
-// X along k: one warp per output, lanes along k, a shuffle tree.
-__global__ void __launch_bounds__(32 * DOT_WARPS) gemv_dot(Vec q) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * DOT_WARPS + (threadIdx.x >> 5);
-  const int f = blockIdx.y;
-  if (i >= q.L) return;  // the whole warp
-  const float* __restrict__ x = q.X + f * q.sX + (long long)i * q.ldX;
-  const float* __restrict__ v = q.v ? q.v + f * q.sv : nullptr;
-  float s = 0.f;
-#pragma unroll 4
-  for (int k = lane; k < q.K; k += 32)
-    s = fmaf(x[k], v ? v[(long long)k * q.incv] : 1.f, s);
-  s = warp_sum(s);
-  if (lane == 0) vec_store(q, f, i, s);
-}
-
-// X along the outputs: lanes along i (coalesced), k split over the warps
-// in contiguous ranges, the partial sums added in warp order.
-__global__ void __launch_bounds__(32 * VEC_WARPS) gemv_cols(Vec q) {
-  __shared__ float part[VEC_WARPS][32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int i = blockIdx.x * 32 + lane, f = blockIdx.y;
-  const int k0 = w * q.K / VEC_WARPS, k1 = (w + 1) * q.K / VEC_WARPS;
-  float s = 0.f;
-  if (i < q.L) {
-    const float* __restrict__ x = q.X + f * q.sX + i;
-    const float* __restrict__ v = q.v ? q.v + f * q.sv : nullptr;
-#pragma unroll 8
-    for (int k = k0; k < k1; ++k)
-      s = fmaf(x[(long long)k * q.ldX], v ? v[(long long)k * q.incv] : 1.f,
-               s);
-  }
-  part[w][lane] = s;
-  __syncthreads();
-  if (w == 0 && i < q.L) {
-    float t = part[0][lane];
-#pragma unroll
-    for (int r = 1; r < VEC_WARPS; ++r) t += part[r][lane];
-    vec_store(q, f, i, t);
-  }
-}
-
-// K <= 1: C = op(A) op(B) as an outer product (0 for K = 0) + bias + D.
-__global__ void __launch_bounds__(256) rank1_kernel(Args p, int ta, int tb) {
-  const int f = blockIdx.y;
-  const long long total = (long long)p.M * p.N;
-  const float* Ab = p.A + f * p.sA;
-  const float* Bb = p.B + f * p.sB;
-  for (long long e = blockIdx.x * 256LL + threadIdx.x; e < total;
-       e += (long long)gridDim.x * 256) {
-    const int m = (int)(e / p.N), n = (int)(e % p.N);
-    float c = 0.f;
-    if (p.K == 1)
-      c = (ta ? Ab[m] : Ab[(long long)m * p.ldA]) *
-          (tb ? Bb[(long long)n * p.ldB] : Bb[n]);
-    if (p.bias) c += p.bias[f * p.sBias + n];
-    if (p.D) c += p.D[f * p.sD + (long long)m * p.ldD + n];
-    p.C[f * p.sC + (long long)m * p.ldC + n] = c;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // host side: variants, the plan, the launch
 // ---------------------------------------------------------------------------
@@ -447,16 +354,8 @@ int init_device(int* sms) {
   return 0;
 }
 
-// Path classes of a plan code: cls * 10000 + vecB * 2000 + vecA * 1000 +
-// tile * 10 + S (dense), cls alone for the others.
-enum { DENSE = 0, VEC_DOT = 1, VEC_COLS = 2, RANK1 = 3 };
-
-int path_class(int M, int N, int K, int ta, int tb) {
-  if (M == 1) return tb ? VEC_DOT : VEC_COLS;
-  if (N == 1) return ta ? VEC_COLS : VEC_DOT;
-  if (K <= 1) return RANK1;
-  return DENSE;
-}
+// Plan codes: cls * 10000 + vecB * 2000 + vecA * 1000 + tile * 10 + S
+// (dense), cls alone for the others (bgemm_paths.cuh's path classes).
 
 // Estimated microseconds of a dense launch, fitted to every plan's time
 // at every dense product of the full-width GSR and GAT steps on an H100
@@ -503,51 +402,6 @@ int plan(const Args& p, int batch, int ta, int tb, int sms) {
   return vecB * 2000 + vecA * 1000 + tile * 10 + split;
 }
 
-int launch_vec(const Args& p, int batch, int ta, int tb, cudaStream_t st) {
-  Vec q;
-  q.bias = p.bias;
-  q.sBias = p.sBias;
-  q.D = p.D;
-  q.sD = p.sD;
-  q.C = p.C;
-  q.sC = p.sC;
-  q.K = p.K;
-  bool rowc;
-  if (p.M == 1) {  // y[n] = sum_k a(k) op(B)(k, n)
-    q.L = p.N;
-    q.X = p.B;
-    q.sX = p.sB;
-    q.ldX = p.ldB;
-    rowc = tb;
-    q.v = p.A;  // nullptr: ones
-    q.sv = p.sA;
-    q.incv = ta ? p.ldA : 1;
-    q.incBias = 1;
-    q.incD = 1;
-    q.incC = 1;
-  } else {  // N == 1: y[m] = sum_k op(A)(m, k) b(k)
-    q.L = p.M;
-    q.X = p.A;
-    q.sX = p.sA;
-    q.ldX = p.ldA;
-    rowc = !ta;
-    q.v = p.B;
-    q.sv = p.sB;
-    q.incv = tb ? 1 : p.ldB;
-    q.incBias = 0;
-    q.incD = p.ldD;
-    q.incC = p.ldC;
-  }
-  if (rowc) {
-    dim3 grid((q.L + DOT_WARPS - 1) / DOT_WARPS, batch);
-    gemv_dot<<<grid, 32 * DOT_WARPS, 0, st>>>(q);
-  } else {
-    dim3 grid((q.L + 31) / 32, batch);
-    gemv_cols<<<grid, 32 * VEC_WARPS, 0, st>>>(q);
-  }
-  return (int)cudaGetLastError();
-}
-
 // ``plan_batch`` (0: batch) is the fold count the dense tile and split-K
 // are chosen for: a fold's sums depend on them alone, so a fold sharded
 // over devices takes the order of the unsharded run.
@@ -559,14 +413,7 @@ int launch(const Args& p, int batch, int ta, int tb, int forced,
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   const int cls = path_class(p.M, p.N, p.K, ta, tb);
-  if (cls == VEC_DOT || cls == VEC_COLS) return launch_vec(p, batch, ta, tb, st);
-  if (cls == RANK1) {
-    const long long total = (long long)p.M * p.N;
-    long long blocks = (total + 255) / 256;
-    if (blocks > 512) blocks = 512;
-    rank1_kernel<<<dim3((unsigned)blocks, batch), 256, 0, st>>>(p, ta, tb);
-    return (int)cudaGetLastError();
-  }
+  if (cls != DENSE) return launch_thin<false>(p, batch, ta, tb, cls, st);
   if (p.A == nullptr) return (int)cudaErrorInvalidValue;
   const int code =
       forced >= 0 ? forced
@@ -600,31 +447,6 @@ int launch(const Args& p, int batch, int ta, int tb, int forced,
   return (int)cudaGetLastError();
 }
 
-Args make_args(const float* A, const float* B, const float* bias,
-               const float* D, float* C, int M, int N, int K, long long sA,
-               int ldA, long long sB, int ldB, long long sBias, long long sD,
-               int ldD, long long sC, int ldC) {
-  Args p;
-  p.A = A;
-  p.B = B;
-  p.bias = bias;
-  p.D = D;
-  p.C = C;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.sA = sA;
-  p.ldA = ldA;
-  p.sB = sB;
-  p.ldB = ldB;
-  p.sBias = sBias;
-  p.sD = sD;
-  p.ldD = ldD;
-  p.sC = sC;
-  p.ldC = ldC;
-  return p;
-}
-
 }  // namespace
 
 extern "C" int fcsr_bgemm_f32(const float* A, const float* B,
@@ -635,7 +457,7 @@ extern "C" int fcsr_bgemm_f32(const float* A, const float* B,
                               long long sC, int ldC, int plan_batch,
                               void* stream) {
   const Args p = make_args(A, B, bias, D, C, M, N, K, sA, ldA, sB, ldB, sBias,
-                           sD, ldD, sC, ldC);
+                           sD, ldD, sC, ldC, 0);
   return launch(p, batch, ta, tb, -1, plan_batch, stream);
 }
 
@@ -648,7 +470,7 @@ extern "C" int fcsr_bgemm_f32_plan(const float* A, const float* B, int batch,
   int sms = 0;
   if (init_device(&sms)) return -1;
   const Args p = make_args(A, B, nullptr, nullptr, nullptr, M, N, K, sA, ldA,
-                           sB, ldB, 0, 0, 0, 0, 0);
+                           sB, ldB, 0, 0, 0, 0, 0, 0);
   return plan(p, batch, ta, tb, sms);
 }
 
@@ -663,7 +485,7 @@ extern "C" int fcsr_bgemm_f32_forced(int code, const float* A,
                                      int ldD, long long sC, int ldC,
                                      void* stream) {
   const Args p = make_args(A, B, bias, D, C, M, N, K, sA, ldA, sB, ldB, sBias,
-                           sD, ldD, sC, ldC);
+                           sD, ldD, sC, ldC, 0);
   return launch(p, batch, ta, tb, code % 100, 0, stream);
 }
 

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -18,6 +19,21 @@ namespace cg = cooperative_groups;
 // (zero included), -1 below.
 __device__ __forceinline__ float abs_grad_sign(float x) {
   return x >= 0.f ? 1.f : -1.f;
+}
+
+// x rounded to bf16 (round to nearest even) and back: how the JAX
+// package's single-pass bf16 product (FCSR_MM_MODE=bf16, core/mosaic_mm.py
+// ::mm_bf16) takes each operand. A product of two such values is exact in
+// fp32, so an fp32 sum of them is that mode's product.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x as a kernel's RND instance reads it: bf16-rounded, or as stored.
+template <bool RND>
+__device__ __forceinline__ float rnd_if(float x) {
+  if constexpr (RND) return bf16_round(x);
+  else return x;
 }
 
 // sign(x) with sign(0) = 0 (jnp.sign), for the hand-written L1 adjoint.

@@ -29,6 +29,14 @@
 // warp each with 16-byte accesses. The wrapper plans the
 // launch (ops.rank_select_plan); the C entry refuses a plan the pointers
 // or the card do not allow.
+//
+// Each kernel here also has an RND instance, the `*_bf16` entry points,
+// for FCSR_MM_MODE=bf16: there the JAX package gathers, scatters and adds
+// some biases as one-hot products through core/mosaic_mm.py::mm_bf16,
+// which round the data operand to bf16 (fused_step.py:361-470). The RND
+// instances round what such a product rounds (the gathered or scattered
+// rows, the kept scores, the adjoint's products before their row sum) and
+// nothing else; the fp32 instances are unchanged.
 #include "common.cuh"
 
 #include <stdint.h>
@@ -49,7 +57,19 @@ constexpr int SEL_MAX_SMEM = 48 * 1024;  // no opt-in: at most 16 KB used
 // backward's gather both copy their rows here.
 constexpr int GATHER_BATCH = 4;
 
-template <bool VEC>
+template <bool RND>
+__device__ __forceinline__ float vrnd(float a) {
+  return rnd_if<RND>(a);
+}
+template <bool RND>
+__device__ __forceinline__ float4 vrnd(float4 a) {
+  return make_float4(rnd_if<RND>(a.x), rnd_if<RND>(a.y), rnd_if<RND>(a.z),
+                     rnd_if<RND>(a.w));
+}
+
+// RND: the rows are rounded to bf16 as they are read (and sc, where given,
+// is already).
+template <bool VEC, bool RND>
 __device__ __forceinline__ void gather_band(const float* __restrict__ src,
                                             const int* ix, const float* sc,
                                             float* __restrict__ out,
@@ -67,7 +87,7 @@ __device__ __forceinline__ void gather_band(const float* __restrict__ src,
       V v[GATHER_BATCH];
 #pragma unroll
       for (int u = 0; u < GATHER_BATCH; ++u)
-        if (g0 + 32 * u < nv) v[u] = __ldg(s + g0 + 32 * u);
+        if (g0 + 32 * u < nv) v[u] = vrnd<RND>(__ldg(s + g0 + 32 * u));
 #pragma unroll
       for (int u = 0; u < GATHER_BATCH; ++u) {
         const int g = g0 + 32 * u;
@@ -99,8 +119,10 @@ __device__ __forceinline__ int above(int a, int b, int t) {
 // are -1 too: a pad never outranks a real score and never wins a tie,
 // as ties go to the lower index. Block 0 writes s and slot (n values);
 // block b writes idx and vals for rows [b R, b R + R) and gathers those
-// rows. `lanes` is a power of two: shifts, no division on the way.
-template <bool VEC>
+// rows. `lanes` is a power of two: shifts, no division on the way. RND:
+// vals, the scale of x and the gathered rows pre are rounded to bf16
+// (x = pre * vals is then exact), s stays fp32.
+template <bool VEC, bool RND>
 __global__ void __launch_bounds__(1024)
     rank_select_kernel(const float* __restrict__ logits,
                        const float* __restrict__ src,
@@ -181,7 +203,7 @@ __global__ void __launch_bounds__(1024)
     if (part == 0 && i < n) {
       if (c < k) {
         ix[c] = i;
-        kv[c] = sv[i];
+        kv[c] = rnd_if<RND>(sv[i]);
       }
       if (b == 0) slot[(size_t)f * n + i] = c < k ? c : -1;
     }
@@ -194,7 +216,7 @@ __global__ void __launch_bounds__(1024)
     vals[(size_t)f * k + r] = kv[r];
   }
   if (src)
-    gather_band<VEC>(src + (size_t)f * n * cols, ix, kv,
+    gather_band<VEC, RND>(src + (size_t)f * n * cols, ix, kv,
                      pre + (size_t)f * k * cols, x + (size_t)f * k * cols,
                      r0, r1, cols);
 }
@@ -203,7 +225,7 @@ __global__ void __launch_bounds__(1024)
 // scale, out_scaled = out * scale[f, r]. Grid (bands, F): block b copies
 // rows [b R, b R + R) through gather_band, idx and scale read from device
 // memory.
-template <bool VEC>
+template <bool VEC, bool RND>
 __global__ void gather_rows_kernel(const float* __restrict__ src,
                                    const int* __restrict__ idx,
                                    const float* __restrict__ scale,
@@ -212,7 +234,7 @@ __global__ void gather_rows_kernel(const float* __restrict__ src,
                                    int n_src, int k, int cols, int R) {
   const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(k, r0 + R);
   const size_t fo = (size_t)f * k * cols;
-  gather_band<VEC>(src + (size_t)f * n_src * cols, idx + (size_t)f * k,
+  gather_band<VEC, RND>(src + (size_t)f * n_src * cols, idx + (size_t)f * k,
                    scale ? scale + (size_t)f * k : nullptr, out + fo,
                    out_scaled ? out_scaled + fo : nullptr, r0, r1, cols);
 }
@@ -261,6 +283,24 @@ __device__ __forceinline__ float row_dot(float4 a, float4 b, float acc) {
   acc = __fmaf_rn(a.z, b.z, acc);
   return __fmaf_rn(a.w, b.w, acc);
 }
+// RND: acc + sum of bf16(a b) over the entries in order (the JAX bf16
+// mode rounds g * pre before its row sum, a product with a column of ones)
+template <bool RND>
+__device__ __forceinline__ float row_dot_as(float a, float b, float acc) {
+  if constexpr (RND) return __fadd_rn(acc, bf16_round(__fmul_rn(a, b)));
+  else return row_dot(a, b, acc);
+}
+template <bool RND>
+__device__ __forceinline__ float row_dot_as(float4 a, float4 b, float acc) {
+  if constexpr (RND) {
+    acc = __fadd_rn(acc, bf16_round(__fmul_rn(a.x, b.x)));
+    acc = __fadd_rn(acc, bf16_round(__fmul_rn(a.y, b.y)));
+    acc = __fadd_rn(acc, bf16_round(__fmul_rn(a.z, b.z)));
+    return __fadd_rn(acc, bf16_round(__fmul_rn(a.w, b.w)));
+  } else {
+    return row_dot(a, b, acc);
+  }
+}
 template <class V>
 __device__ __forceinline__ V vzero();
 template <>
@@ -301,8 +341,10 @@ __device__ __forceinline__ float group_sum(float v, int lanes,
 // vector up to 128 lanes, so BATCH = 1 up to rows of 512 floats): every
 // instruction on the path from the slot to the stores counts at these
 // sizes, so each form is compiled with only the code it runs. The loop
-// over rows has the same trip count on every thread (group_sum).
-template <bool VEC, int BATCH, bool SCATTER, bool EXTRA, bool DOT>
+// over rows has the same trip count on every thread (group_sum). RND:
+// the scattered row (scaled, before its addend) and each product of the
+// dot are rounded to bf16, and the dot before it is scaled.
+template <bool VEC, int BATCH, bool SCATTER, bool EXTRA, bool DOT, bool RND>
 __device__ __forceinline__ void rows_band(
     const float* __restrict__ src, const float* __restrict__ pre,
     const int* __restrict__ slot, const float* __restrict__ scale,
@@ -363,14 +405,15 @@ __device__ __forceinline__ void rows_band(
         const int g = g0 + u * lanes;
         if (g >= nv) break;
         if constexpr (DOT)
-          if (kept) acc = row_dot(v[u], w[u], acc);
+          if (kept) acc = row_dot_as<RND>(v[u], w[u], acc);
         if constexpr (SCATTER) {
           if (live) {
             V o = v[u];
-            if constexpr (EXTRA) {
+            if constexpr (EXTRA)
               if (scale && kept) o = vmul(o, sc);
+            o = vrnd<RND>(o);
+            if constexpr (EXTRA)
               if (A) o = vadd(o, a[u]);
-            }
             O[g] = o;
           }
         }
@@ -379,7 +422,7 @@ __device__ __forceinline__ void rows_band(
     if constexpr (DOT) {
       acc = group_sum(acc, lanes, part);
       if (live && l == 0)
-        g_logits[p] = __fmul_rn(__fmul_rn(__fmul_rn(acc, sp),
+        g_logits[p] = __fmul_rn(__fmul_rn(__fmul_rn(rnd_if<RND>(acc), sp),
                                           __fsub_rn(1.f, sp)),
                                 gscale);
     }
@@ -389,7 +432,7 @@ __device__ __forceinline__ void rows_band(
 // Unpooling as a scatter: out[f, p, :] = (slot >= 0 ? src[f, slot, :]
 // (* scale[f, slot]) : 0) (+ add[f, p, :]); scale and add may be null,
 // and are with EXTRA = false (the forward's unpool).
-template <bool VEC, int BATCH, bool EXTRA>
+template <bool VEC, int BATCH, bool EXTRA, bool RND>
 __global__ void __launch_bounds__(ROW_MAX_THREADS)
     scatter_rows_kernel(const float* __restrict__ src,
                         const int* __restrict__ slot,
@@ -399,7 +442,7 @@ __global__ void __launch_bounds__(ROW_MAX_THREADS)
                         int R, int lanes) {
   const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(n, r0 + R);
   const size_t fo = (size_t)f * n * cols;
-  rows_band<VEC, BATCH, true, EXTRA, false>(
+  rows_band<VEC, BATCH, true, EXTRA, false, RND>(
       src + (size_t)f * k * cols, nullptr, slot + (size_t)f * n,
       scale ? scale + (size_t)f * k : nullptr, add ? add + fo : nullptr,
       nullptr, out + fo, nullptr, cols, 1.f, r0, r1, lanes);
@@ -418,7 +461,7 @@ __global__ void __launch_bounds__(ROW_MAX_THREADS)
                            float scale, int R, int lanes) {
   const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(n, r0 + R);
   const size_t fk = (size_t)f * k * cols;
-  rows_band<VEC, BATCH, false, false, true>(
+  rows_band<VEC, BATCH, false, false, true, false>(
       g + fk, pre + fk, slot + (size_t)f * n, nullptr, nullptr,
       s + (size_t)f * n, nullptr, out + (size_t)f * n, cols, scale, r0, r1,
       lanes);
@@ -427,7 +470,7 @@ __global__ void __launch_bounds__(ROW_MAX_THREADS)
 // The GSR backward's pair in one pass over g: g_d[f, p, :] = g[f, slot]
 // * vals[f, slot] + add[f, p, :] (scatter_rows with scale and addend) and
 // g_logits[f, p] (pool_logits_bwd), each kept row of g read once.
-template <bool VEC, int BATCH>
+template <bool VEC, int BATCH, bool RND>
 __global__ void __launch_bounds__(ROW_MAX_THREADS)
     pool_bwd_pair_kernel(const float* __restrict__ g,
                          const float* __restrict__ pre,
@@ -440,7 +483,7 @@ __global__ void __launch_bounds__(ROW_MAX_THREADS)
                          int cols, float scale, int R, int lanes) {
   const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(n, r0 + R);
   const size_t fk = (size_t)f * k * cols, fn = (size_t)f * n * cols;
-  rows_band<VEC, BATCH, true, true, true>(
+  rows_band<VEC, BATCH, true, true, true, RND>(
       g + fk, pre + fk, slot + (size_t)f * n, vals + (size_t)f * k,
       add + fn, s + (size_t)f * n, g_d + fn, g_logits + (size_t)f * n, cols,
       scale, r0, r1, lanes);
@@ -478,10 +521,11 @@ void row_dispatch(bool vec, int batch, Fn&& fn) {
 // (x, y) a group of 4 columns, its bias read once into registers, and
 // every blockDim.y-th row of the block's: one 16-byte load and store per
 // row where x, bias, out and their strides allow (VEC), else four 4-byte
-// ones. 32-bit offsets inside a fold.
+// ones. 32-bit offsets inside a fold. RND: x is rounded to bf16 before
+// the fp32 add (the JAX bf16 mode's start_gcn, eye @ W + b).
 constexpr int ADD_ROWS = 4;
 
-template <bool VEC>
+template <bool VEC, bool RND>
 __global__ void add_bias_kernel(const float* __restrict__ x, long long sx,
                                 const float* __restrict__ bias, long long sb,
                                 float* __restrict__ out, int rows, int cols) {
@@ -495,7 +539,8 @@ __global__ void add_bias_kernel(const float* __restrict__ x, long long sx,
     if constexpr (VEC) {
       const float4 b = *reinterpret_cast<const float4*>(Bf + c);
       for (int i = r0 + threadIdx.y; i < r1; i += blockDim.y) {
-        const float4 v = *reinterpret_cast<const float4*>(X + i * cols + c);
+        const float4 v =
+            vrnd<RND>(*reinterpret_cast<const float4*>(X + i * cols + c));
         *reinterpret_cast<float4*>(O + i * cols + c) =
             make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
       }
@@ -507,7 +552,8 @@ __global__ void add_bias_kernel(const float* __restrict__ x, long long sx,
       for (int i = r0 + threadIdx.y; i < r1; i += blockDim.y) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (j < n) O[i * cols + c + j] = X[i * cols + c + j] + b[j];
+          if (j < n)
+            O[i * cols + c + j] = rnd_if<RND>(X[i * cols + c + j]) + b[j];
       }
     }
   }
@@ -518,12 +564,12 @@ __global__ void add_bias_kernel(const float* __restrict__ x, long long sx,
 // The pool's plan (bands, rows per band, threads, lanes per node, 16-byte
 // rows) comes from the wrapper (ops.rank_select_plan); src = null ranks
 // only. A plan the pointers or the card do not allow is refused.
-extern "C" int fcsr_rank_select(const float* logits, const float* src,
-                                float* s, int* idx, float* vals, int* slot,
-                                float* pre, float* x, int batch, int n, int k,
-                                int cols, float div, int bands, int rows,
-                                int threads, int lanes, int vec,
-                                void* stream) {
+template <bool RND>
+static int rank_select_entry(const float* logits, const float* src, float* s,
+                             int* idx, float* vals, int* slot, float* pre,
+                             float* x, int batch, int n, int k, int cols,
+                             float div, int bands, int rows, int threads,
+                             int lanes, int vec, void* stream) {
   if (batch <= 0) return 0;
   if (k <= 0 || k > n || n > SEL_MAX_N || bands < 1 || rows < 1 ||
       (long long)bands * rows < k || threads < 32 || threads > 1024 ||
@@ -540,24 +586,49 @@ extern "C" int fcsr_rank_select(const float* logits, const float* src,
   const float rdiv = 1.f / div;
   const dim3 grid((unsigned)bands, (unsigned)batch);
   if (vec)
-    rank_select_kernel<true><<<grid, threads, smem, (cudaStream_t)stream>>>(
+    rank_select_kernel<true, RND>
+        <<<grid, threads, smem, (cudaStream_t)stream>>>(
         logits, src, s, idx, vals, slot, pre, x, n, k, cols, rdiv, rows,
         lanes);
   else
-    rank_select_kernel<false><<<grid, threads, smem, (cudaStream_t)stream>>>(
+    rank_select_kernel<false, RND>
+        <<<grid, threads, smem, (cudaStream_t)stream>>>(
         logits, src, s, idx, vals, slot, pre, x, n, k, cols, rdiv, rows,
         lanes);
   return (int)cudaGetLastError();
 }
 
+extern "C" int fcsr_rank_select(const float* logits, const float* src,
+                                float* s, int* idx, float* vals, int* slot,
+                                float* pre, float* x, int batch, int n, int k,
+                                int cols, float div, int bands, int rows,
+                                int threads, int lanes, int vec,
+                                void* stream) {
+  return rank_select_entry<false>(logits, src, s, idx, vals, slot, pre, x,
+                                  batch, n, k, cols, div, bands, rows, threads,
+                                  lanes, vec, stream);
+}
+
+extern "C" int fcsr_rank_select_bf16(const float* logits, const float* src,
+                                     float* s, int* idx, float* vals,
+                                     int* slot, float* pre, float* x,
+                                     int batch, int n, int k, int cols,
+                                     float div, int bands, int rows,
+                                     int threads, int lanes, int vec,
+                                     void* stream) {
+  return rank_select_entry<true>(logits, src, s, idx, vals, slot, pre, x,
+                                 batch, n, k, cols, div, bands, rows, threads,
+                                 lanes, vec, stream);
+}
+
 // The gather's plan (bands, rows per band, threads, 16-byte rows) comes
 // from the wrapper (ops.gather_rows_plan); a plan the pointers do not
 // allow is refused.
-extern "C" int fcsr_gather_rows(const float* src, const int* idx,
-                                const float* scale, float* out,
-                                float* out_scaled, int batch, int n_src,
-                                int k, int cols, int bands, int rows,
-                                int threads, int vec, void* stream) {
+template <bool RND>
+static int gather_rows_entry(const float* src, const int* idx,
+                             const float* scale, float* out, float* out_scaled,
+                             int batch, int n_src, int k, int cols, int bands,
+                             int rows, int threads, int vec, void* stream) {
   if (batch <= 0 || k <= 0 || cols <= 0) return 0;
   if (bands < 1 || rows < 1 || (long long)bands * rows < k || threads < 32 ||
       threads > 1024 || threads % 32 || batch > 65535 ||
@@ -568,12 +639,32 @@ extern "C" int fcsr_gather_rows(const float* src, const int* idx,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)bands, (unsigned)batch);
   if (vec)
-    gather_rows_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+    gather_rows_kernel<true, RND><<<grid, threads, 0, (cudaStream_t)stream>>>(
         src, idx, scale, out, out_scaled, n_src, k, cols, rows);
   else
-    gather_rows_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+    gather_rows_kernel<false, RND><<<grid, threads, 0, (cudaStream_t)stream>>>(
         src, idx, scale, out, out_scaled, n_src, k, cols, rows);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fcsr_gather_rows(const float* src, const int* idx,
+                                const float* scale, float* out,
+                                float* out_scaled, int batch, int n_src, int k,
+                                int cols, int bands, int rows, int threads,
+                                int vec, void* stream) {
+  return gather_rows_entry<false>(src, idx, scale, out, out_scaled, batch,
+                                  n_src, k, cols, bands, rows, threads, vec,
+                                  stream);
+}
+
+extern "C" int fcsr_gather_rows_bf16(const float* src, const int* idx,
+                                     const float* scale, float* out,
+                                     float* out_scaled, int batch, int n_src,
+                                     int k, int cols, int bands, int rows,
+                                     int threads, int vec, void* stream) {
+  return gather_rows_entry<true>(src, idx, scale, out, out_scaled, batch,
+                                 n_src, k, cols, bands, rows, threads, vec,
+                                 stream);
 }
 
 // The row kernels' plan (bands, rows per band, threads, lanes per row,
@@ -596,11 +687,12 @@ static int row_batch(int cols, int lanes, int vec) {
   return (nv + lanes - 1) / lanes;
 }
 
-extern "C" int fcsr_scatter_rows(const float* src, const int* slot,
-                                 const float* scale, const float* add,
-                                 float* out, int batch, int n, int k,
-                                 int cols, int bands, int rows, int threads,
-                                 int lanes, int vec, void* stream) {
+template <bool RND>
+static int scatter_rows_entry(const float* src, const int* slot,
+                              const float* scale, const float* add, float* out,
+                              int batch, int n, int k, int cols, int bands,
+                              int rows, int threads, int lanes, int vec,
+                              void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   if (int err = row_plan_error(batch, n, cols, bands, rows, threads, lanes))
     return err;
@@ -613,13 +705,34 @@ extern "C" int fcsr_scatter_rows(const float* src, const int* slot,
     constexpr bool VEC = decltype(V)::value;
     constexpr int BATCH = decltype(B)::value;
     if (scale || add)
-      scatter_rows_kernel<VEC, BATCH, true><<<grid, threads, 0, st>>>(
+      scatter_rows_kernel<VEC, BATCH, true, RND><<<grid, threads, 0, st>>>(
           src, slot, scale, add, out, n, k, cols, rows, lanes);
     else
-      scatter_rows_kernel<VEC, BATCH, false><<<grid, threads, 0, st>>>(
+      scatter_rows_kernel<VEC, BATCH, false, RND><<<grid, threads, 0, st>>>(
           src, slot, scale, add, out, n, k, cols, rows, lanes);
   });
   return (int)cudaGetLastError();
+}
+
+extern "C" int fcsr_scatter_rows(const float* src, const int* slot,
+                                 const float* scale, const float* add,
+                                 float* out, int batch, int n, int k, int cols,
+                                 int bands, int rows, int threads, int lanes,
+                                 int vec, void* stream) {
+  return scatter_rows_entry<false>(src, slot, scale, add, out, batch, n, k,
+                                   cols, bands, rows, threads, lanes, vec,
+                                   stream);
+}
+
+extern "C" int fcsr_scatter_rows_bf16(const float* src, const int* slot,
+                                      const float* scale, const float* add,
+                                      float* out, int batch, int n, int k,
+                                      int cols, int bands, int rows,
+                                      int threads, int lanes, int vec,
+                                      void* stream) {
+  return scatter_rows_entry<true>(src, slot, scale, add, out, batch, n, k,
+                                  cols, bands, rows, threads, lanes, vec,
+                                  stream);
 }
 
 extern "C" int fcsr_pool_logits_bwd(const float* g, const float* pre,
@@ -643,13 +756,13 @@ extern "C" int fcsr_pool_logits_bwd(const float* g, const float* pre,
   return (int)cudaGetLastError();
 }
 
-extern "C" int fcsr_pool_bwd_pair(const float* g, const float* pre,
-                                  const int* slot, const float* s,
-                                  const float* vals, const float* add,
-                                  float* g_d, float* g_logits, int batch,
-                                  int n, int k, int cols, float scale,
-                                  int bands, int rows, int threads,
-                                  int lanes, int vec, void* stream) {
+template <bool RND>
+static int pool_bwd_pair_entry(const float* g, const float* pre,
+                               const int* slot, const float* s,
+                               const float* vals, const float* add, float* g_d,
+                               float* g_logits, int batch, int n, int k,
+                               int cols, float scale, int bands, int rows,
+                               int threads, int lanes, int vec, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   if (int err = row_plan_error(batch, n, cols, bands, rows, threads, lanes))
     return err;
@@ -659,16 +772,41 @@ extern "C" int fcsr_pool_bwd_pair(const float* g, const float* pre,
   const dim3 grid((unsigned)bands, (unsigned)batch);
   const cudaStream_t st = (cudaStream_t)stream;
   row_dispatch(vec, row_batch(cols, lanes, vec), [&](auto V, auto B) {
-    pool_bwd_pair_kernel<decltype(V)::value, decltype(B)::value>
+    pool_bwd_pair_kernel<decltype(V)::value, decltype(B)::value, RND>
         <<<grid, threads, 0, st>>>(g, pre, slot, s, vals, add, g_d,
                                    g_logits, n, k, cols, scale, rows, lanes);
   });
   return (int)cudaGetLastError();
 }
 
-extern "C" int fcsr_add_bias(const float* x, long long sx, const float* bias,
-                             long long sb, float* out, int batch, int rows,
-                             int cols, void* stream) {
+extern "C" int fcsr_pool_bwd_pair(const float* g, const float* pre,
+                                  const int* slot, const float* s,
+                                  const float* vals, const float* add,
+                                  float* g_d, float* g_logits, int batch,
+                                  int n, int k, int cols, float scale,
+                                  int bands, int rows, int threads, int lanes,
+                                  int vec, void* stream) {
+  return pool_bwd_pair_entry<false>(g, pre, slot, s, vals, add, g_d, g_logits,
+                                    batch, n, k, cols, scale, bands, rows,
+                                    threads, lanes, vec, stream);
+}
+
+extern "C" int fcsr_pool_bwd_pair_bf16(const float* g, const float* pre,
+                                       const int* slot, const float* s,
+                                       const float* vals, const float* add,
+                                       float* g_d, float* g_logits, int batch,
+                                       int n, int k, int cols, float scale,
+                                       int bands, int rows, int threads,
+                                       int lanes, int vec, void* stream) {
+  return pool_bwd_pair_entry<true>(g, pre, slot, s, vals, add, g_d, g_logits,
+                                   batch, n, k, cols, scale, bands, rows,
+                                   threads, lanes, vec, stream);
+}
+
+template <bool RND>
+static int add_bias_entry(const float* x, long long sx, const float* bias,
+                          long long sb, float* out, int batch, int rows,
+                          int cols, void* stream) {
   if ((long long)rows * cols > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const bool vec = cols % 4 == 0 && aligned16(x) && aligned16(bias) &&
                    aligned16(out) &&
@@ -678,10 +816,24 @@ extern "C" int fcsr_add_bias(const float* x, long long sx, const float* bias,
   const int ty = 256 / tx < ADD_ROWS ? 256 / tx : ADD_ROWS;
   const dim3 block(tx, ty), grid((rows + ADD_ROWS - 1) / ADD_ROWS, batch);
   if (vec)
-    add_bias_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+    add_bias_kernel<true, RND><<<grid, block, 0, (cudaStream_t)stream>>>(
         x, sx, bias, sb, out, rows, cols);
   else
-    add_bias_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+    add_bias_kernel<false, RND><<<grid, block, 0, (cudaStream_t)stream>>>(
         x, sx, bias, sb, out, rows, cols);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fcsr_add_bias(const float* x, long long sx, const float* bias,
+                             long long sb, float* out, int batch, int rows,
+                             int cols, void* stream) {
+  return add_bias_entry<false>(x, sx, bias, sb, out, batch, rows, cols,
+                               stream);
+}
+
+extern "C" int fcsr_add_bias_bf16(const float* x, long long sx,
+                                  const float* bias, long long sb, float* out,
+                                  int batch, int rows, int cols,
+                                  void* stream) {
+  return add_bias_entry<true>(x, sx, bias, sb, out, batch, rows, cols, stream);
 }

@@ -7,6 +7,12 @@ which must be the operands' device's) or raises — there is no fallback.
 Each kernel counts its launches (``launch_counts``), so a run can show
 that it went through the kernels.
 
+The GSR step's products follow ``core.mm_mode.MODE`` (``mode_ops``): IEEE
+fp32 (``bgemm_f32``) in the compensated modes, single-pass bf16 products
+(``bgemm_bf16``, with the ``*_bf16`` instances of the pool, row and bias
+kernels, which round what the JAX package's one-hot products round) under
+``FCSR_MM_MODE=bf16``.
+
 All tensors are float32 (int32 for indices). The training-step kernels
 carry a leading fold axis F; shapes use n for a node count entering a
 pooling level, k for the nodes it keeps, m for the feature width. The
@@ -28,7 +34,8 @@ import torch
 
 from fcsr_tpu_torch.kernels.build import load_library
 
-__all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "launch_counts",
+__all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "KERNEL_OPS_BF16",
+           "PLAIN_OPS_BF16", "mode_ops", "launch_counts",
            "bgemm_path", "bgemm_forced", "bgemm_tiles", "plan_folds",
            "reset_launch_counts", "rows_contiguous", "philox_words",
            "bits_to_keep", "gat_attention_math"]
@@ -121,6 +128,9 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("bgemm_f32", "bgemm", "fcsr_bgemm_f32",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _LL, _I, _LL, _I, _LL, _LL, _I, _LL, _I, _I], _STEP),
+    Kernel("bgemm_bf16", "bgemm_bf16", "fcsr_bgemm_bf16",
+           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _LL, _I, _LL, _I, _LL, _LL, _I, _LL, _I, _I, _I], _STEP),
     Kernel("rank_select", "rank_select", "fcsr_rank_select",
            [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I], _STEP),
     Kernel("gather_rows", "rank_select", "fcsr_gather_rows",
@@ -132,6 +142,18 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("pool_bwd_pair", "rank_select", "fcsr_pool_bwd_pair",
            [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5, _STEP),
     Kernel("add_bias", "rank_select", "fcsr_add_bias",
+           [_P, _LL, _P, _LL, _P, _I, _I, _I], _STEP),
+    # FCSR_MM_MODE=bf16: the same kernels rounding what the JAX package's
+    # one-hot products round (rank_select.cu's RND instances)
+    Kernel("rank_select_bf16", "rank_select", "fcsr_rank_select_bf16",
+           [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I], _STEP),
+    Kernel("gather_rows_bf16", "rank_select", "fcsr_gather_rows_bf16",
+           [_P] * 5 + [_I] * 8, _STEP),
+    Kernel("scatter_rows_bf16", "rank_select", "fcsr_scatter_rows_bf16",
+           [_P] * 5 + [_I] * 9, _STEP),
+    Kernel("pool_bwd_pair_bf16", "rank_select", "fcsr_pool_bwd_pair_bf16",
+           [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5, _STEP),
+    Kernel("add_bias_bf16", "rank_select", "fcsr_add_bias_bf16",
            [_P, _LL, _P, _LL, _P, _I, _I, _I], _STEP),
     Kernel("tail_normalize", "tail", "fcsr_tail_normalize",
            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I], _STEP),
@@ -267,11 +289,14 @@ def _take_rows(src, index):
 # bgemm_f32
 # ---------------------------------------------------------------------------
 
-def bgemm_plain(a, b, ta=False, tb=False, bias=None, add=None, out=None):
+def bgemm_plain(a, b, ta=False, tb=False, bias=None, add=None, out=None,
+                bias_operand=False):
     """op(a) @ op(b) [+ bias row] [+ add]; ``a=None`` is a row of ones
     (a column sum of op(b)). One product per fold: a batched product's
     summation order depends on the fold count on the CPU, and a fold's
-    result must not (a fold-sharded run equals the unsharded one)."""
+    result must not (a fold-sharded run equals the unsharded one).
+    ``bias_operand`` (the bias is a product's operand in the JAX package)
+    changes nothing in fp32."""
     B = b.transpose(-1, -2) if tb else b
     if a is None:
         A = torch.ones(B.shape[0], 1, B.shape[1], dtype=B.dtype,
@@ -289,15 +314,50 @@ def bgemm_plain(a, b, ta=False, tb=False, bias=None, add=None, out=None):
     return out
 
 
-def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None):
+def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None,
+          bias_operand=False):
     """Batched fp32 product ``op(a) @ op(b) [+ bias] [+ add]`` over the
     leading fold axis. Operands are (F, rows, cols) with contiguous rows
     and any batch stride; ``a=None`` is a row of ones; ``bias`` is (F, 1, N)
-    or (F, N); ``add`` may be ``out`` (accumulate)."""
+    or (F, N); ``add`` may be ``out`` (accumulate). ``bias_operand`` marks
+    a bias the JAX package adds as a product with a column of ones (the
+    pool logits'): an fp32 product takes it as it is."""
     if not b.is_cuda:
         return bgemm_plain(a, b, ta, tb, bias, add, out)
     out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
     KERNELS["bgemm_f32"](b.device, *args, _PLAN_FOLDS.get())
+    return out
+
+
+def _bf16(x):
+    """``x`` rounded to bf16 (round to nearest even), as fp32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bgemm_bf16_plain(a, b, ta=False, tb=False, bias=None, add=None,
+                     out=None, bias_operand=False):
+    """``bgemm_plain`` over operands rounded to bf16 (and the bias too with
+    ``bias_operand``): the exact products of bf16 values, summed in fp32
+    (TF32 off), then bias and add in fp32."""
+    if bias is not None and bias_operand:
+        bias = _bf16(bias)
+    return bgemm_plain(None if a is None else _bf16(a), _bf16(b), ta, tb,
+                       bias, add, out)
+
+
+def bgemm_bf16(a, b, ta=False, tb=False, bias=None, add=None, out=None,
+               bias_operand=False):
+    """``bgemm`` with single-pass bf16 products (FCSR_MM_MODE=bf16): each
+    operand rounded to bf16, the products summed in fp32 on the tensor
+    cores; bias and add in fp32, the bias rounded too where it is a
+    product's operand in the JAX package (``bias_operand``). The operands
+    are the fp32 tensors ``bgemm`` takes; one tile plan for every fold
+    count, so ``plan_folds`` has nothing to set."""
+    if not b.is_cuda:
+        return bgemm_bf16_plain(a, b, ta, tb, bias, add, out, bias_operand)
+    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+    KERNELS["bgemm_bf16"](b.device, *args, _PLAN_FOLDS.get(),
+                          int(bias_operand and bias is not None))
     return out
 
 
@@ -571,32 +631,40 @@ def pool_scores(logits, div=100.0):
         ..., :n].contiguous()
 
 
-def rank_select_plain(logits, k, div=100.0, src=None):
+def rank_select_plain(logits, k, div=100.0, src=None, rnd=False):
     """(s, idx, vals, slot): s = ``pool_scores(logits, div)`` (F, n); idx
     (F, k) int32 of the top-k scores in descending order with ties to the
     lower index (NaN scores last); vals = s[idx]; slot (F, n) int32 = rank if
     kept else -1. ``div`` is 100 in GSR-Net's pool and 1 in the GAT
     U-Net's. With ``src`` (F, n, m) also (pre, x): pre = src[idx] and
-    x = pre * vals, the pooled rows."""
+    x = pre * vals, the pooled rows. ``rnd``: vals and pre rounded to bf16
+    (the bf16 mode's one-hot products), s as it is."""
     s = pool_scores(logits, div)
     key = torch.where(torch.isnan(s), float("-inf"), s)
     order = torch.sort(key, dim=-1, descending=True, stable=True).indices
     idx = order[:, :k].to(torch.int32)
     vals = torch.gather(s, 1, idx.long())
+    if rnd:
+        vals = _bf16(vals)
     slot = torch.full(s.shape, -1, dtype=torch.int32, device=s.device)
     ranks = torch.arange(k, dtype=torch.int32, device=s.device)
     slot.scatter_(1, idx.long(), ranks.expand(s.shape[0], k).contiguous())
     if src is None:
         return s, idx, vals, slot
-    return (s, idx, vals, slot) + gather_rows_plain(src, idx, vals)
+    return (s, idx, vals, slot) + gather_rows_plain(src, idx, vals, rnd)
 
 
-def rank_select(logits, k, div=100.0, src=None):
+def rank_select_bf16_plain(logits, k, div=100.0, src=None):
+    return rank_select_plain(logits, k, div, src, rnd=True)
+
+
+def rank_select(logits, k, div=100.0, src=None, rnd=False):
     """The pool in one launch (``rank_select_plan``): scores, ranks and,
     given ``src``, the gathered and scaled rows, as ``rank_select_plain``
-    returns them; n up to 1024."""
+    returns them; n up to 1024. ``rnd``: the ``rank_select_bf16``
+    instance."""
     if not logits.is_cuda:
-        return rank_select_plain(logits, k, div, src)
+        return rank_select_plain(logits, k, div, src, rnd)
     _check(logits.device, logits, src)
     _contig(logits, src)
     F, n = logits.shape
@@ -617,7 +685,8 @@ def rank_select(logits, k, div=100.0, src=None):
     if src is not None:
         pre = torch.empty(F, k, cols, dtype=torch.float32, device=dev)
         x = torch.empty_like(pre)
-    KERNELS["rank_select"](logits.device, _ptr(logits),
+    KERNELS["rank_select_bf16" if rnd else "rank_select"](
+        logits.device, _ptr(logits),
                            _ptr(src) if cols else None, _ptr(s), _ptr(idx),
                            _ptr(vals), _ptr(slot), _ptr(pre), _ptr(x), F, n, k,
                            cols, float(div), plan.bands, plan.rows,
@@ -626,19 +695,30 @@ def rank_select(logits, k, div=100.0, src=None):
                                                      pre, x)
 
 
-def gather_rows_plain(src, idx, scale=None):
+def rank_select_bf16(logits, k, div=100.0, src=None):
+    return rank_select(logits, k, div, src, rnd=True)
+
+
+def gather_rows_plain(src, idx, scale=None, rnd=False):
     out = _take_rows(src, idx)
+    if rnd:
+        out = _bf16(out)
     if scale is None:
         return out
     return out, out * scale[..., None]
 
 
-def gather_rows(src, idx, scale=None):
+def gather_rows_bf16_plain(src, idx, scale=None):
+    return gather_rows_plain(src, idx, scale, rnd=True)
+
+
+def gather_rows(src, idx, scale=None, rnd=False):
     """Pooling as a gather: ``src[f, idx[f, r], :]`` (F, k, m); with
     ``scale`` (F, k) also returns the rows scaled by it. One launch of
-    bands of rows, a warp per row (``gather_rows_plan``)."""
+    bands of rows, a warp per row (``gather_rows_plan``). ``rnd``: the
+    rows rounded to bf16 (``gather_rows_bf16``)."""
     if not src.is_cuda:
-        return gather_rows_plain(src, idx, scale)
+        return gather_rows_plain(src, idx, scale, rnd)
     _check(src.device, src, scale)
     _check(src.device, idx, dtype=torch.int32)
     _contig(src, idx, scale)
@@ -647,30 +727,43 @@ def gather_rows(src, idx, scale=None):
     out = torch.empty(F, k, m, dtype=torch.float32, device=src.device)
     scaled = None if scale is None else torch.empty_like(out)
     plan = gather_rows_plan(F, k, m, src.data_ptr() % 16 == 0)
-    KERNELS["gather_rows"](src.device, _ptr(src), _ptr(idx), _ptr(scale),
-                           _ptr(out), _ptr(scaled), F, n, k, m, plan.bands,
-                           plan.rows, plan.threads, int(plan.vec))
+    KERNELS["gather_rows_bf16" if rnd else "gather_rows"](
+        src.device, _ptr(src), _ptr(idx), _ptr(scale), _ptr(out),
+        _ptr(scaled), F, n, k, m, plan.bands, plan.rows, plan.threads,
+        int(plan.vec))
     return out if scale is None else (out, scaled)
 
 
-def scatter_rows_plain(src, slot, scale=None, add=None):
+def gather_rows_bf16(src, idx, scale=None):
+    return gather_rows(src, idx, scale, rnd=True)
+
+
+def scatter_rows_plain(src, slot, scale=None, add=None, rnd=False):
     sel = (slot >= 0)[..., None]
     at = slot.clamp(min=0)
     rows = _take_rows(src, at)
     if scale is not None:
         rows = rows * torch.take_along_dim(scale, at.long(), dim=1)[..., None]
+    if rnd:
+        rows = _bf16(rows)
     out = torch.where(sel, rows, torch.zeros((), dtype=src.dtype,
                                              device=src.device))
     return out if add is None else out + add
 
 
-def scatter_rows(src, slot, scale=None, add=None):
+def scatter_rows_bf16_plain(src, slot, scale=None, add=None):
+    return scatter_rows_plain(src, slot, scale, add, rnd=True)
+
+
+def scatter_rows(src, slot, scale=None, add=None, rnd=False):
     """Unpooling as a scatter: row p of the (F, n, m) result is
     ``src[f, slot[f, p]] * scale[f, slot]`` where ``slot >= 0``, else 0,
     plus ``add[f, p]``. One launch of bands of rows
-    (``scatter_rows_plan``), equal to the plain version bit for bit."""
+    (``scatter_rows_plan``), equal to the plain version bit for bit.
+    ``rnd``: each scattered (scaled) row rounded to bf16 before the
+    addend (``scatter_rows_bf16``)."""
     if not src.is_cuda:
-        return scatter_rows_plain(src, slot, scale, add)
+        return scatter_rows_plain(src, slot, scale, add, rnd)
     _check(src.device, src, scale, add)
     _check(src.device, slot, dtype=torch.int32)
     _contig(src, slot, scale, add)
@@ -678,17 +771,25 @@ def scatter_rows(src, slot, scale=None, add=None):
     n = slot.shape[1]
     out = torch.empty(F, n, m, dtype=torch.float32, device=src.device)
     plan = _row_plan(F, n, m, src, add, out)
-    KERNELS["scatter_rows"](src.device, _ptr(src), _ptr(slot), _ptr(scale),
-                            _ptr(add), _ptr(out), F, n, k, m, plan.bands,
-                            plan.rows, plan.threads, plan.lanes, int(plan.vec))
+    KERNELS["scatter_rows_bf16" if rnd else "scatter_rows"](
+        src.device, _ptr(src), _ptr(slot), _ptr(scale), _ptr(add), _ptr(out),
+        F, n, k, m, plan.bands, plan.rows, plan.threads, plan.lanes,
+        int(plan.vec))
     return out
 
 
-def pool_logits_bwd_plain(g, pre, slot, s, scale=1.0 / 100.0):
-    dot = (g * pre).sum(-1)
+def scatter_rows_bf16(src, slot, scale=None, add=None):
+    return scatter_rows(src, slot, scale, add, rnd=True)
+
+
+def pool_logits_bwd_plain(g, pre, slot, s, scale=1.0 / 100.0, rnd=False):
+    prod = g * pre
+    dot = (_bf16(prod) if rnd else prod).sum(-1)
     g_s = torch.where(slot >= 0,
                       torch.take_along_dim(dot, slot.clamp(min=0).long(), 1),
                       torch.zeros((), dtype=g.dtype, device=g.device))
+    if rnd:
+        g_s = _bf16(g_s)
     return g_s * s * (1.0 - s) * scale
 
 
@@ -723,18 +824,27 @@ def pool_logits_bwd(g, pre, slot, s, scale=1.0 / 100.0):
     return out
 
 
-def pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
-    return (scatter_rows_plain(g, slot, vals, add),
-            pool_logits_bwd_plain(g, pre, slot, s, scale))
+def pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale=1.0 / 100.0,
+                        rnd=False):
+    return (scatter_rows_plain(g, slot, vals, add, rnd),
+            pool_logits_bwd_plain(g, pre, slot, s, scale, rnd))
 
 
-def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
+def pool_bwd_pair_bf16_plain(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
+    return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale, rnd=True)
+
+
+def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0, rnd=False):
     """The GSR backward's two adjoints of a pool level in one launch,
     each kept row of ``g`` read once: (``scatter_rows(g, slot, vals,
     add)``, ``pool_logits_bwd(g, pre, slot, s, scale)``), the first bit
-    for bit and the second with the standalone launch's bits."""
+    for bit and the second with the standalone launch's bits. ``rnd``
+    (``pool_bwd_pair_bf16``): the scaled rows rounded to bf16 before the
+    addend, the dot a sum of bf16-rounded products, rounded before it is
+    scaled, as the JAX package's bf16 one-hot products give them
+    (``fused_step.py:451-460``)."""
     if not g.is_cuda:
-        return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale)
+        return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale, rnd)
     F, n, k, m = _check_pool_bwd(g, pre, slot, s, vals, add)
     if tuple(vals.shape) != (F, k) or tuple(add.shape) != (F, n, m):
         raise ValueError(f"pool_bwd_pair: vals {tuple(vals.shape)}, add "
@@ -743,24 +853,33 @@ def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
     g_d = torch.empty(F, n, m, dtype=torch.float32, device=g.device)
     g_logits = torch.empty(F, n, dtype=torch.float32, device=g.device)
     plan = _row_plan(F, n, m, g, pre, add, g_d)
-    KERNELS["pool_bwd_pair"](g.device, _ptr(g), _ptr(pre), _ptr(slot), _ptr(s),
-                             _ptr(vals), _ptr(add), _ptr(g_d),
-                             _ptr(g_logits), F, n, k, m, float(scale),
-                             plan.bands, plan.rows, plan.threads, plan.lanes,
-                             int(plan.vec))
+    KERNELS["pool_bwd_pair_bf16" if rnd else "pool_bwd_pair"](
+        g.device, _ptr(g), _ptr(pre), _ptr(slot), _ptr(s), _ptr(vals),
+        _ptr(add), _ptr(g_d), _ptr(g_logits), F, n, k, m, float(scale),
+        plan.bands, plan.rows, plan.threads, plan.lanes, int(plan.vec))
     return g_d, g_logits
 
 
-def add_bias_plain(x, bias):
-    return x + bias.reshape(x.shape[0], 1, x.shape[2])
+def pool_bwd_pair_bf16(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
+    return pool_bwd_pair(g, pre, slot, s, vals, add, scale, rnd=True)
 
 
-def add_bias(x, bias):
+def add_bias_plain(x, bias, rnd=False):
+    return (_bf16(x) if rnd else x) + bias.reshape(x.shape[0], 1, x.shape[2])
+
+
+def add_bias_bf16_plain(x, bias):
+    return add_bias_plain(x, bias, rnd=True)
+
+
+def add_bias(x, bias, rnd=False):
     """``x + bias`` row-broadcast: x (F, r, c), bias (F, 1, c); both may
     be views into a flat buffer (16-byte accesses where x, bias and their
-    batch strides are 16-byte aligned, else 4-byte)."""
+    batch strides are 16-byte aligned, else 4-byte). ``rnd``
+    (``add_bias_bf16``): x rounded to bf16 first, the JAX bf16 mode's
+    ``eye @ W + b``."""
     if not x.is_cuda:
-        return add_bias_plain(x, bias)
+        return add_bias_plain(x, bias, rnd)
     _check(x.device, x, bias)
     _rows_contig(x)
     F, r, c = x.shape
@@ -768,9 +887,14 @@ def add_bias(x, bias):
     if bias.stride(2) != 1:
         raise ValueError("bias row must be contiguous")
     out = torch.empty(F, r, c, dtype=torch.float32, device=x.device)
-    KERNELS["add_bias"](x.device, _ptr(x), x.stride(0), _ptr(bias),
-                        bias.stride(0), _ptr(out), F, r, c)
+    KERNELS["add_bias_bf16" if rnd else "add_bias"](
+        x.device, _ptr(x), x.stride(0), _ptr(bias), bias.stride(0), _ptr(out),
+        F, r, c)
     return out
+
+
+def add_bias_bf16(x, bias):
+    return add_bias(x, bias, rnd=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2226,3 +2350,26 @@ KERNEL_OPS = SimpleNamespace(**{name: globals()[name] for name in _OPS})
 # always the plain PyTorch version (the reference the kernels are held to)
 PLAIN_OPS = SimpleNamespace(**{name: globals()[name + "_plain"]
                                for name in _OPS})
+# the GSR step's ops under FCSR_MM_MODE=bf16: single-pass bf16 products
+# and the rounding instances of the pool, row and bias kernels
+_BF16_OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
+             "pool_bwd_pair", "add_bias")
+KERNEL_OPS_BF16 = SimpleNamespace(**dict(
+    vars(KERNEL_OPS), **{name: globals()[name + "_bf16"]
+                         for name in _BF16_OPS}))
+PLAIN_OPS_BF16 = SimpleNamespace(**dict(
+    vars(PLAIN_OPS), **{name: globals()[name + "_bf16_plain"]
+                        for name in _BF16_OPS}))
+
+
+def mode_ops(plain: bool = False) -> SimpleNamespace:
+    """The GSR step's op namespace for ``core.mm_mode.MODE``, read at this
+    call (``ValueError`` for an unknown mode): ``KERNEL_OPS`` in the
+    compensated modes (IEEE fp32 products), ``KERNEL_OPS_BF16`` under
+    ``bf16``; with ``plain`` the plain versions of either. The GAT path
+    does not call it: its products stay fp32 in every mode."""
+    from fcsr_tpu_torch.core import mm_mode
+    bf16 = mm_mode.check_mode() == "bf16"
+    if plain:
+        return PLAIN_OPS_BF16 if bf16 else PLAIN_OPS
+    return KERNEL_OPS_BF16 if bf16 else KERNEL_OPS

@@ -17,9 +17,16 @@ ties to the lower index), so pooling is a gather and unpooling a scatter;
 both are exact, unlike the one-hot matmuls the TPU kernel needed.
 
 The step is written once over an ``ops`` namespace: ``train_step_fused``
-uses ``kernels.KERNEL_OPS`` (kernels for CUDA tensors, the plain version
-for CPU tensors), ``train_step_plain`` always uses ``kernels.PLAIN_OPS``
-(the reference the kernels are held to on the card).
+uses ``kernels.ops.mode_ops()`` (kernels for CUDA tensors, the plain
+version for CPU tensors), ``train_step_plain`` always the plain versions
+(the reference the kernels are held to on the card). The namespace
+follows ``core.mm_mode.MODE``: IEEE fp32 products in the compensated modes
+(``KERNEL_OPS``), single-pass bf16 products and the rounding instances of
+the pool, row and bias kernels under ``FCSR_MM_MODE=bf16``
+(``KERNEL_OPS_BF16``), where the JAX package runs every in-kernel product
+through ``mm_bf16``. The map from each launch to the JAX line it stands
+for is beside ``unet_forward`` and ``unet_backward`` (the tail's in
+``fused_tail.py``).
 
 The JAX package's other fused entry points are the same launches behind
 their own signatures and gradient contracts (``jax.custom_vjp`` there,
@@ -51,8 +58,8 @@ import torch
 from fcsr_tpu_torch.iox.weights import (TAIL_NAMES, leaf_names,
                                         leaf_tensors_to_state,
                                         state_to_leaf_tensors)
-from fcsr_tpu_torch.kernels.ops import (KERNEL_OPS, PLAIN_OPS,
-                                        pool_scores, rows_contiguous)
+from fcsr_tpu_torch.core import mm_mode
+from fcsr_tpu_torch.kernels.ops import mode_ops, pool_scores, rows_contiguous
 from fcsr_tpu_torch.models.fused_tail import _tail_loss, tail_value_and_grad
 from fcsr_tpu_torch.models.gsr import pool_sizes, topk_desc
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, check_on_device
@@ -120,7 +127,22 @@ class FlatLayout:
 def unet_forward(ops, W, B, sizes):
     """U-Net forward on the leaf views ``W``/``B`` (name -> (F, r, c)).
     Returns (net, x0, residuals) with the per-level residuals the
-    backward consumes."""
+    backward consumes.
+
+    Each launch against ``fcsr_tpu/models/fused_step.py::_unet_fwd_math``
+    (what its ``mm`` rounds under ``FCSR_MM_MODE=bf16``, which the
+    ``*_bf16`` ops round too): ``add_bias`` is ``lin(start_gcn, eye)``
+    (:361-364: eye exact, W rounded, b added in fp32); each level's first
+    ``bgemm`` is ``lin(down)`` (:373, x and W rounded, b not), its second
+    the pool logits ``mm(d, w_pool) + mm(ones, b_pool)`` (:379-380, the
+    bias rounded too: ``bias_operand``); ``rank_select`` is the score
+    (fp32, :381-382), ``_topk_projection`` (:383) and the products
+    ``mm(P, s)``, ``mm(P, d)`` (:384-386: kept scores and rows rounded),
+    ``x = pre * ks`` (:387, exact); ``lin(bottom)`` (:390); per level up,
+    ``scatter_rows`` is ``mm(P^T, x)`` (:394, the rows rounded) and the
+    ``bgemm`` ``lin(up) + d`` (:396-397); the last two are ``lin(end_gcn,
+    [x, x0])`` split at hr (:399-400). 3 + 3 L products (15 at L = 4),
+    L pools and L scatters."""
     L = len(sizes)
     bg = ops.bgemm
     x0 = ops.add_bias(W["w:start_gcn"], B["b:start_gcn"])   # I W + b
@@ -129,7 +151,8 @@ def unet_forward(ops, W, B, sizes):
            "pooled": [], "xu": [None] * L}
     for i in range(L):
         d = bg(x, W[f"w:down_gcns_{i}"], bias=B[f"b:down_gcns_{i}"])
-        logits = bg(d, W[f"w:pools_{i}"], bias=B[f"b:pools_{i}"])
+        logits = bg(d, W[f"w:pools_{i}"], bias=B[f"b:pools_{i}"],
+                    bias_operand=True)
         s, idx, vals, slot, pre, x = ops.rank_select(
             logits.view(d.shape[0], -1), sizes[i], src=d)
         for key, val in zip(("d", "s", "idx", "vals", "slot", "pre",
@@ -150,7 +173,25 @@ def unet_forward(ops, W, B, sizes):
 def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start):
     """Hand-written U-Net adjoints (the JAX package's ``_unet_bwd_math``)
     against the forward's residuals; writes every U-Net weight and bias
-    gradient into the views ``GW``/``GB``."""
+    gradient into the views ``GW``/``GB``.
+
+    Each launch against ``fcsr_tpu/models/fused_step.py``: every
+    ``bgemm`` of a weight or input gradient is a product with both
+    operands rounded under bf16; every ``bgemm(None, g)`` is ``colsum(g) =
+    mm(ones, g)`` (:417-418, a column sum of bf16(g)). End (:421-425):
+    dWa, dWb, db, g_x, g_org (+ ct_start, :465-466). Per level up
+    (:431-437): dW_up, db_up, g_xu, and ``gather_rows`` is ``mm(P, g_xu)``
+    (:437, the rows rounded). Bottom (:440-442): dW, db, g_p. Per level
+    down (:446-464): ``pool_bwd_pair`` is ``g_d = mm(P^T, g_p * ks)``
+    (:453, :455, the scaled rows rounded; g_skip added here, :460) and
+    ``g_logits`` from ``g_ks = mm(g_p * pre, ones)`` and ``mm(P^T, g_ks)``
+    (:454, :456: each product g_p * pre rounded before the row sum, the
+    sum rounded) times ``s (1 - s) / 100`` in fp32 (:457); then dW_pool,
+    db_pool (:458-459), the rank-1 ``mm(g_logits, w_pool^T)`` into g_d
+    (:460), dW_down, db_down and g_p (:462-464), at level 0 written as
+    dW_start = g_p + g_org + ct_start (:467-468, unrounded) and db_start
+    (:469). 9 + 9 L products (45 at L = 4; with the forward's 15 and the
+    tail's 19 the step's 79), L pairs and L gathers."""
     L = len(res["d"])
     bg = ops.bgemm
     xf = res["xf"]
@@ -266,7 +307,7 @@ def train_step_fused(p, m, v, u_lr, u_hr, hr, scalars, ks: Sequence[float],
     runs their plain versions."""
     check_on_device("train_step_fused", device, p, m, v, u_lr, u_hr, hr,
                     scalars)
-    return step_with_ops(KERNEL_OPS, p, m, v, u_lr, u_hr, hr, scalars,
+    return step_with_ops(mode_ops(), p, m, v, u_lr, u_hr, hr, scalars,
                          tuple(ks), lr_dim, hr_dim, lmbda, lr, b1, b2, eps)
 
 
@@ -275,7 +316,8 @@ def train_step_plain(p, m, v, u_lr, u_hr, hr, scalars, ks: Sequence[float],
                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     """The same step in plain PyTorch on any device (the reference the
     CUDA kernels are held to)."""
-    return step_with_ops(PLAIN_OPS, p, m, v, u_lr, u_hr, hr, scalars,
+    return step_with_ops(mode_ops(plain=True), p, m, v, u_lr, u_hr, hr,
+                         scalars,
                          tuple(ks), lr_dim, hr_dim, lmbda, lr, b1, b2, eps)
 
 
@@ -306,9 +348,13 @@ def unet_forward_rankselect(net_params, ks: Sequence[float], lr_dim: int,
     2-D leaves or a fold batch. The kept indices carry no gradient; the
     kept scores do. ``idx`` (one (F, k) index tensor per level) replaces
     the selection, so a backward can differentiate the selection a forward
-    made."""
+    made. Under ``FCSR_MM_MODE=bf16`` the products are ``mm_mode.mm``
+    and the one-hot products ``mm_mode.round_through``, differentiable as
+    the JAX package differentiates its ``_unet_fwd_math``."""
     W = net_params
     sizes = pool_sizes(lr_dim, ks)
+    if mm_mode.check_mode() == "bf16":
+        return _unet_forward_bf16(W, sizes, idx)
     L = len(sizes)
     x0 = W["w:start_gcn"] + W["b:start_gcn"]                  # I W + b
     x = x0
@@ -334,6 +380,43 @@ def unet_forward_rankselect(net_params, ks: Sequence[float], lr_dim: int,
              + downs[up])
     net = (torch.matmul(x, W["w:end_gcn_a"])
            + torch.matmul(x0, W["w:end_gcn_b"]) + W["b:end_gcn"])
+    return net, x0
+
+
+def _unet_forward_bf16(W, sizes, idx):
+    """``unet_forward_rankselect`` in the bf16 mode: the JAX package's
+    ``_unet_fwd_math`` (fused_step.py:361-401) with ``mm`` its ``mm_bf16``
+    and each product with a one-hot or ones matrix a ``round_through``
+    (a broadcast bias first expanded, so each element's cotangent is
+    rounded before the rows are summed)."""
+    mm, rt = mm_mode.mm, mm_mode.round_through
+    L = len(sizes)
+    x0 = rt(W["w:start_gcn"]) + W["b:start_gcn"]           # mm(I, W) + b
+    x = x0
+    downs, kept = [], []
+    for i in range(L):
+        d = mm(x, W[f"w:down_gcns_{i}"]) + W[f"b:down_gcns_{i}"]
+        b_pool = W[f"b:pools_{i}"].expand(d.shape[:-1] + (1,))
+        logits = mm(d, W[f"w:pools_{i}"]) + rt(b_pool)
+        scores = pool_scores(logits.squeeze(-1))
+        if idx is None:
+            vals, ix = topk_desc(scores, sizes[i])
+        else:
+            ix = idx[i].long().reshape(scores.shape[:-1] + (sizes[i],))
+            vals = torch.gather(scores, -1, ix)
+        pre = rt(torch.take_along_dim(d, ix[..., None], dim=-2))
+        x = pre * rt(vals)[..., None]
+        downs.append(d)
+        kept.append(ix)
+    x = mm(x, W["w:bottom_gcn"]) + W["b:bottom_gcn"]
+    for i in range(L):
+        up = L - i - 1
+        xu = torch.zeros_like(downs[up]).scatter(
+            -2, kept[up][..., None].expand_as(x), rt(x))
+        x = (mm(xu, W[f"w:up_gcns_{i}"]) + W[f"b:up_gcns_{i}"]
+             + downs[up])
+    w_end = torch.cat([W["w:end_gcn_a"], W["w:end_gcn_b"]], dim=-2)
+    net = mm(torch.cat([x, x0], dim=-1), w_end) + W["b:end_gcn"]
     return net, x0
 
 
@@ -398,7 +481,7 @@ def _unet_grads(leaves, names, x0, res, ct_net, ct_start):
     layout = FlatLayout(lr_dim, hr_dim, len(res["d"]))
     G = layout.views(torch.empty(F, layout.size, dtype=torch.float32,
                                  device=x0.device))
-    unet_backward(KERNEL_OPS, W, G, G, x0, res, ct_net.contiguous(),
+    unet_backward(mode_ops(), W, G, G, x0, res, ct_net.contiguous(),
                   ct_start.contiguous())
     return tuple(G[n] for n in names)
 
@@ -413,7 +496,7 @@ class _UnetFused(torch.autograd.Function):
     def forward(ctx, sizes, keep, *leaves):
         names = leaf_names(len(sizes), tail=False)
         W = dict(zip(names, leaves))
-        net, x0, res = unet_forward(KERNEL_OPS, W, W, sizes)
+        net, x0, res = unet_forward(mode_ops(), W, W, sizes)
         ctx.sizes, ctx.keep, ctx.n_leaves = sizes, keep, len(leaves)
         ctx.save_for_backward(*leaves, *(_pack_res(x0, res) if keep else ()))
         return net, x0
@@ -427,7 +510,7 @@ class _UnetFused(torch.autograd.Function):
             x0, res = _unpack_res(saved[ctx.n_leaves:], len(ctx.sizes))
         else:
             W = dict(zip(names, leaves))
-            _, x0, res = unet_forward(KERNEL_OPS, W, W, ctx.sizes)
+            _, x0, res = unet_forward(mode_ops(), W, W, ctx.sizes)
         return (None, None) + _unet_grads(leaves, names, x0, res, ct_net,
                                           ct_start)
 
@@ -440,7 +523,7 @@ class _UnetFusedFwdOnly(torch.autograd.Function):
     def forward(ctx, ks, sizes, *leaves):
         names = leaf_names(len(sizes), tail=False)
         W = dict(zip(names, leaves))
-        net, x0, res = unet_forward(KERNEL_OPS, W, W, sizes)
+        net, x0, res = unet_forward(mode_ops(), W, W, sizes)
         ctx.ks, ctx.n_leaves = ks, len(leaves)
         ctx.save_for_backward(*leaves, *res["idx"])
         return net, x0
@@ -522,7 +605,7 @@ class _StepLossFused(torch.autograd.Function):
         g = torch.empty(F, layout.size, dtype=torch.float32, device=hr.device)
         loss, recon = (torch.empty(F, dtype=torch.float32, device=hr.device)
                        for _ in range(2))
-        step_value_and_grads(KERNEL_OPS, P, layout.views(g), u_lr, u_hr, hr,
+        step_value_and_grads(mode_ops(), P, layout.views(g), u_lr, u_hr, hr,
                              sizes, lmbda, loss, recon)
         ctx.mark_non_differentiable(recon)
         ctx.save_for_backward(g)
@@ -583,7 +666,7 @@ def step_value_and_grad_fused(params, u_lr, u_hr, hr, ks: Sequence[float],
                                      device=leaves[0].device))
         loss, recon = (torch.empty(F, dtype=torch.float32,
                                    device=leaves[0].device) for _ in range(2))
-        step_value_and_grads(KERNEL_OPS, dict(zip(names, leaves)), G, *data,
+        step_value_and_grads(mode_ops(), dict(zip(names, leaves)), G, *data,
                              pool_sizes(lr_dim, ks), lmbda, loss, recon)
         grads = leaf_tensors_to_state(G)
     if squeeze:

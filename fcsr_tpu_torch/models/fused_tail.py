@@ -9,9 +9,14 @@ fill-diagonal -> zero the diagonal, symmetrize -> (G + G^T) / 2, and the
 transposing ``normalize_adj`` through its row-sum rsqrt.
 
 ``tail_value_and_grad`` is written once over an ``ops`` namespace: with
-``kernels.KERNEL_OPS`` it launches the CUDA kernels for CUDA tensors (the
-training step's path), with ``kernels.PLAIN_OPS`` it is the plain PyTorch
-version. Every tensor carries a leading fold axis F.
+``kernels.ops.mode_ops()`` it launches the CUDA kernels for CUDA tensors
+(the training step's path), with ``mode_ops(plain=True)`` it is the plain
+PyTorch version; both follow ``core.mm_mode.MODE``. Every tensor carries a
+leading fold axis F. Under ``FCSR_MM_MODE=bf16`` each of its 19 products
+is the JAX tail's ``mm`` (``fused_tail.py:51-58``) or one of that ``mm``'s
+ideal adjoints, which the JAX kernel's in-kernel ``value_and_grad`` takes:
+both operands rounded, cotangents included; the elementwise passes stay
+fp32, as there.
 
 ``tail_loss_fused`` is the tail as an entry point of its own (counterpart
 of ``fcsr_tpu/models/fused_tail.py::tail_loss_fused``, a ``custom_vjp``
@@ -28,8 +33,8 @@ import torch
 
 from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj,
                                            symmetrize)
-from fcsr_tpu_torch.kernels.ops import (KERNEL_OPS, PLAIN_OPS,
-                                        rows_contiguous)
+from fcsr_tpu_torch.core import mm_mode
+from fcsr_tpu_torch.kernels.ops import mode_ops, rows_contiguous
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, check_on_device
 
 __all__ = ["tail_value_and_grad", "tail_loss", "tail_loss_grads",
@@ -53,38 +58,41 @@ def tail_value_and_grad(ops, w_gsr, w1, w2, f, u_lr, u_hr, hr, vals,
     """
     m, n = w_gsr.shape[1], w_gsr.shape[2]
     bg = ops.bgemm
-    # forward
-    b_small = bg(w_gsr, u_lr, tb=True)                  # W U^T    (hr, lr)
-    t = bg(b_small, f)                                  # b f      (hr, hr)
-    adj, r = ops.tail_normalize(t)
-    xo = bg(adj, adj, tb=True)                          # adj adj^T
-    z = ops.sym_abs_fill(xo)
-    h1p = bg(z, w1)
-    h1 = bg(adj, h1p)
-    h2p = bg(h1, w2)
-    h2 = bg(adj, h2p)
+    # forward: one mm of fcsr_tpu/models/fused_tail.py each (line)
+    b_small = bg(w_gsr, u_lr, tb=True)                  # W U^T      :51
+    t = bg(b_small, f)                                  # b f        :52
+    adj, r = ops.tail_normalize(t)                      #            :53-54
+    xo = bg(adj, adj, tb=True)                          # adj adj^T  :55
+    z = ops.sym_abs_fill(xo)                            #            :56
+    h1p = bg(z, w1)                                     #            :57
+    h1 = bg(adj, h1p)                                   #            :57
+    h2p = bg(h1, w2)                                    #            :58
+    h2 = bg(adj, h2p)                                   #            :58
     pred = ops.sym_abs_fill(h2)
     g_pred = ops.l1_term(pred, hr, vals, 1, 1.0, 1.0 / (m * m), False)
     g_spec = ops.l1_term(w_gsr, u_hr, vals, 2, 1.0, 1.0 / (m * n), False,
                          loss=loss, recon=recon, with_l1=with_l1)
-    # backward
+    # backward, in-kernel value_and_grad there: each product one of mm's
+    # ideal adjoints (mosaic_mm.py:115-117) of the forward's product on
+    # the line named; where an operand feeds two products, the adjoints'
+    # sum (``add=``, fp32)
     g_h2 = ops.sym_sign_grad(g_pred, h2, 0.5)
-    g_adj = bg(g_h2, h2p, tb=True)
-    g_h2p = bg(adj, g_h2, ta=True)
-    g_w2 = bg(h1, g_h2p, ta=True, out=g_w2)
-    g_h1 = bg(g_h2p, w2, tb=True)
-    g_adj = bg(g_h1, h1p, tb=True, add=g_adj, out=g_adj)
-    g_h1p = bg(adj, g_h1, ta=True)
-    g_w1 = bg(z, g_h1p, ta=True, out=g_w1)
-    g_z = bg(g_h1p, w1, tb=True)
+    g_adj = bg(g_h2, h2p, tb=True)                      # :58
+    g_h2p = bg(adj, g_h2, ta=True)                      # :58
+    g_w2 = bg(h1, g_h2p, ta=True, out=g_w2)             # :58
+    g_h1 = bg(g_h2p, w2, tb=True)                       # :58
+    g_adj = bg(g_h1, h1p, tb=True, add=g_adj, out=g_adj)    # :57
+    g_h1p = bg(adj, g_h1, ta=True)                      # :57
+    g_w1 = bg(z, g_h1p, ta=True, out=g_w1)              # :57
+    g_z = bg(g_h1p, w1, tb=True)                        # :57
     # x_out = adj adj^T: d adj = (G + G^T) adj with G = d x_out; the
     # factor 2 of the symmetric G folds into sym_sign_grad's c = 1
     g_xo2 = ops.sym_sign_grad(g_z, xo, 1.0)
-    g_adj = bg(g_xo2, adj, add=g_adj, out=g_adj)
+    g_adj = bg(g_xo2, adj, add=g_adj, out=g_adj)        # :55 (both)
     g_t = ops.tail_normalize_bwd(g_adj, t, r)
-    g_bs = bg(g_t, f, tb=True)
-    g_f = bg(b_small, g_t, ta=True, add=g_f_add)
-    g_wgsr = bg(g_bs, u_lr, add=g_spec, out=g_wgsr)
+    g_bs = bg(g_t, f, tb=True)                          # :52
+    g_f = bg(b_small, g_t, ta=True, add=g_f_add)        # :52
+    g_wgsr = bg(g_bs, u_lr, add=g_spec, out=g_wgsr)     # :51
     return g_wgsr, g_w1, g_w2, g_f
 
 
@@ -99,7 +107,7 @@ def tail_loss_grads(w_gsr, w1, w2, f, u_lr, u_hr, hr):
     args = _batched(w_gsr, w1, w2, f, u_lr, u_hr, hr)
     vals = torch.zeros(args[0].shape[0], 3, dtype=torch.float32,
                        device=w_gsr.device)
-    grads = tail_value_and_grad(PLAIN_OPS, *args, vals)
+    grads = tail_value_and_grad(mode_ops(plain=True), *args, vals)
     loss, recon = vals[:, 1] + vals[:, 2], vals[:, 1]
     if squeeze:
         return loss[0], recon[0], tuple(g[0] for g in grads)
@@ -113,15 +121,17 @@ def tail_loss(w_gsr, w1, w2, f, u_lr, u_hr, hr):
 
 
 def _tail_loss(w_gsr, w1, w2, f, u_lr, u_hr, hr):
-    """The tail as ordinary differentiable PyTorch (``torch.matmul``), over
-    2-D inputs or a fold batch: (loss, recon), per fold for a batch."""
-    b_small = torch.matmul(w_gsr, u_lr.transpose(-1, -2))
-    f_d = fill_diagonal(torch.matmul(b_small, f).abs(), 1.0)
+    """The tail as ordinary differentiable PyTorch (``mm_mode.mm``:
+    ``torch.matmul`` in the compensated modes), over 2-D inputs or a fold
+    batch: (loss, recon), per fold for a batch."""
+    mm = mm_mode.mm
+    b_small = mm(w_gsr, u_lr.transpose(-1, -2))
+    f_d = fill_diagonal(mm(b_small, f).abs(), 1.0)
     adj = normalize_adj(f_d)
-    x_out = torch.matmul(adj, adj.transpose(-1, -2))
+    x_out = mm(adj, adj.transpose(-1, -2))
     x_out = fill_diagonal(symmetrize(x_out), 1.0).abs()
-    h1 = torch.matmul(adj, torch.matmul(x_out, w1))
-    h2 = torch.matmul(adj, torch.matmul(h1, w2))
+    h1 = mm(adj, mm(x_out, w1))
+    h2 = mm(adj, mm(h1, w2))
     pred = fill_diagonal(symmetrize(h2), 1.0).abs()
     recon = (pred - hr).abs().mean(dim=(-2, -1))
     spectral = (w_gsr - u_hr).abs().mean(dim=(-2, -1))
@@ -148,7 +158,7 @@ class _TailLossFused(torch.autograd.Function):
                            device=w_gsr.device)
         loss = torch.empty(w_gsr.shape[0], dtype=torch.float32,
                            device=w_gsr.device)
-        grads = tail_value_and_grad(KERNEL_OPS, w_gsr, w1, w2, f, u_lr, u_hr,
+        grads = tail_value_and_grad(mode_ops(), w_gsr, w1, w2, f, u_lr, u_hr,
                                     hr, vals, loss=loss, with_l1=False)
         ctx.save_for_backward(*grads)
         return loss

@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from fcsr_tpu_torch.core.normalize import symmetric_normalize
 from fcsr_tpu_torch.iox.weights import gat_dims
 from fcsr_tpu_torch.models.gsr import topk_desc
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -37,13 +38,6 @@ def gat_pool_sizes(n: int, ks: Sequence[float]) -> Tuple[int, ...]:
         n = max(2, int(k * n))
         sizes.append(n)
     return tuple(sizes)
-
-
-def symmetric_normalize(a: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """``D^-1/2 A D^-1/2`` with ``d = rowsum + eps`` (no zero-degree guard
-    needed)."""
-    r = (a.sum(dim=-1) + eps).pow(-0.5)
-    return a * r[..., None, :] * r[..., :, None]
 
 
 def svd_node_features(a_norm: torch.Tensor, dim: int) -> torch.Tensor:

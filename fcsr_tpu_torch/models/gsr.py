@@ -8,6 +8,18 @@ so ``iox/weights.py`` maps JAX parameters onto them directly. Inputs may
 carry leading batch axes: the U-Net branch is subject-independent (its
 input features are the identity and its 'GCN' blocks ignore the
 adjacency), so it runs once and the spectral tail broadcasts over the batch.
+
+With its parameters and inputs cast to bf16 (the fold-parallel runner's
+``compute_dtype="bf16"``, ``train/fast_loop.py``) the model computes what
+the JAX package's ``GSRNet`` computes with bf16 parameters (traced with
+``jax.make_jaxpr`` at 20 -> 32): the U-Net in bf16, every product's and
+every sum's output rounded to bf16 (a product and then its bias, each
+rounded), the pool's score by XLA's bf16 rule (``pool_scores_bf16``) and
+top-k over the bf16 scores; the GSR layer and the GCNs promote their
+operands and compute fp32 products with fp32 outputs
+(``preferred_element_type=float32``): bf16 x bf16 (``W U^T``) on the card
+by the ``bgemm_bf16`` kernel, the rest fp32 products of the promoted
+values. Cotangents follow by autograd: bf16 where the value is bf16.
 """
 
 from __future__ import annotations
@@ -19,11 +31,13 @@ from torch import nn
 
 from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj,
                                            symmetrize)
-from fcsr_tpu_torch.kernels.ops import pool_scores
+from fcsr_tpu_torch.kernels import ops
+from fcsr_tpu_torch.kernels.ops import pool_scores, rows_contiguous
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["GSRLayer", "GraphConvolution", "GCN", "GraphPool", "GraphUnpool",
-           "GraphUnet", "GSRNet", "pool_sizes", "topk_desc"]
+           "GraphUnet", "GSRNet", "pool_sizes", "topk_desc",
+           "pool_scores_bf16", "matmul_f32"]
 
 
 def pool_sizes(n: int, ks: Sequence[float]) -> Tuple[int, ...]:
@@ -46,9 +60,83 @@ def topk_desc(scores: torch.Tensor, k: int):
     return torch.gather(scores, -1, idx), idx
 
 
+_BF16 = torch.bfloat16
+
+
+def _bf16(x):
+    return x.to(_BF16)
+
+
+class _PoolScoresBF16(torch.autograd.Function):
+    """XLA's bf16 ``sigmoid(logits / 100)`` on the CPU, op by op, each
+    result rounded to bf16: q = x / 100, e = exp(-q), d = 1 + e,
+    s = 1 / d; its adjoint ``g s (1 - s) / 100`` likewise (the JAX
+    package's jaxpr: ``mul`` by ``s * (1 - s)``, then ``div`` by 100).
+    Checked against jitted JAX over every finite bf16 value below 3000 in
+    magnitude: equal but where XLA flushes a denormal quotient to zero."""
+
+    @staticmethod
+    def forward(ctx, logits, div):
+        q = logits / div                       # fp32 quotient, rounded
+        s = _bf16(1.0 / _bf16(1.0 + _bf16(torch.exp(-q.float())).float())
+                  .float())
+        ctx.save_for_backward(_bf16(s * _bf16(1.0 - s)))
+        ctx.div = div
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (ds,) = ctx.saved_tensors
+        return (g * ds) / ctx.div, None
+
+
+def pool_scores_bf16(logits, div=100.0):
+    """The pool's scores from bf16 logits, as the JAX package's
+    ``GraphPool`` computes them in bf16 (``_PoolScoresBF16``)."""
+    return _PoolScoresBF16.apply(logits, div)
+
+
+class _ProductF32(torch.autograd.Function):
+    """a @ b of two bf16 operands with an fp32 output (XLA's dot with
+    ``preferred_element_type=float32``): on the card the ``bgemm_bf16``
+    kernel, on the CPU an fp32 product of the bf16 values (exact
+    products, fp32 sums). Adjoints: fp32 products of the fp32 cotangent
+    with the other operand, rounded to bf16 (the transposed dot's output,
+    then the operand's dtype)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if not a.is_cuda:
+            return torch.matmul(a.float(), b.float())
+        out = ops.bgemm_bf16(rows_contiguous(a.float()[None]),
+                             rows_contiguous(b.float()[None]))
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        a, b = ctx.saved_tensors
+        return (_bf16(torch.matmul(ct, b.float().transpose(-1, -2))),
+                _bf16(torch.matmul(a.float().transpose(-1, -2), ct)))
+
+
+def matmul_f32(a, b):
+    """``jnp.matmul(a, b, preferred_element_type=float32)``: fp32 operands
+    as ``torch.matmul``; a bf16 operand beside an fp32 one promoted (its
+    cotangent rounded back to bf16); two 2-D bf16 operands by
+    ``_ProductF32``."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.dtype == _BF16 and b.dtype == _BF16 and a.dim() == b.dim() == 2:
+        return _ProductF32.apply(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
 class _Linear(nn.Linear):
     """nn.Linear with torch's default uniform(-1/sqrt(fan_in), ...) init
-    for weight and bias, drawn from an explicit generator."""
+    for weight and bias, drawn from an explicit generator. In bf16 the
+    product and the bias add are rounded each (XLA's ``dot`` then ``add``;
+    ``F.linear`` would round once)."""
 
     def __init__(self, in_dim, out_dim, generator):
         super().__init__(in_dim, out_dim)
@@ -56,6 +144,11 @@ class _Linear(nn.Linear):
         with torch.no_grad():
             nn.init.uniform_(self.weight, -bound, bound, generator=generator)
             nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+
+    def forward(self, x):
+        if x.dtype == _BF16:
+            return torch.matmul(x, self.weight.transpose(0, 1)) + self.bias
+        return super().forward(x)
 
 
 class GCN(nn.Module):
@@ -80,7 +173,9 @@ class GraphPool(nn.Module):
         self.proj = _Linear(in_dim, 1, generator)
 
     def forward(self, adj, x):
-        scores = pool_scores(self.proj(x).squeeze(-1))
+        logits = self.proj(x).squeeze(-1)
+        scores = (pool_scores_bf16(logits) if logits.dtype == _BF16
+                  else pool_scores(logits))
         values, idx = topk_desc(scores, self.k_out)
         new_x = x[idx, :] * values[:, None]
         new_adj = adj[..., idx, :][..., :, idx]
@@ -157,11 +252,11 @@ class GSRLayer(nn.Module):
     def forward(self, adj_lr, x, u_lr: Optional[torch.Tensor] = None):
         if u_lr is None:
             _, u_lr = torch.linalg.eigh(adj_lr)
-        b_small = torch.matmul(self.weights, u_lr.transpose(-1, -2))
-        f_d = torch.matmul(b_small, x[: self.lr_dim]).abs()
+        b_small = matmul_f32(self.weights, u_lr.transpose(-1, -2))
+        f_d = matmul_f32(b_small, x[: self.lr_dim]).abs()
         f_d = fill_diagonal(f_d, 1.0)
         adj = normalize_adj(f_d)
-        x_out = torch.matmul(adj, adj.transpose(-1, -2))
+        x_out = matmul_f32(adj, adj.transpose(-1, -2))
         x_out = fill_diagonal(symmetrize(x_out), 1.0)
         return adj, x_out.abs()
 
@@ -177,7 +272,7 @@ class GraphConvolution(nn.Module):
             nn.init.xavier_uniform_(self.weight, generator=generator)
 
     def forward(self, x, adj):
-        return torch.matmul(adj, torch.matmul(x, self.weight))
+        return matmul_f32(adj, matmul_f32(x, self.weight))
 
 
 class GSRNet(nn.Module):

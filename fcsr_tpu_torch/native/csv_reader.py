@@ -1,7 +1,8 @@
 """ctypes binding of the native CSV parser (``fast_csv.cpp``).
 
 The shared library is built with ``g++`` at first use into
-``build/fcsr_tpu_torch/native_<source hash>/`` at the repository root (the
+``<cache root>/native_<source hash>/`` (``kernels/build.py::cache_root``:
+``build/fcsr_tpu_torch/`` at the repository root by default, the
 directory the CUDA kernels build into as well), never beside the source.
 Callers guard with ``fast_csv_available()`` and take the numpy parser of
 ``data/io.py`` when there is no compiler.
@@ -31,9 +32,9 @@ _build_failed = False
 def _lib_path() -> Path:
     """The library's path; the directory name embeds the source's hash, so
     an edited source rebuilds instead of loading a stale binary."""
+    from fcsr_tpu_torch.kernels.build import cache_root
     tag = hashlib.blake2b(_SRC.read_bytes(), digest_size=8).hexdigest()
-    return (_SRC.parents[2] / "build" / "fcsr_tpu_torch" / f"native_{tag}"
-            / "libfcsr_csv.so")
+    return cache_root() / f"native_{tag}" / "libfcsr_csv.so"
 
 
 def _build(lib_path: Path) -> bool:

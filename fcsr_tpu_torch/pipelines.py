@@ -34,7 +34,8 @@ from fcsr_tpu_torch.train.fast_loop import (evaluate_gsr_folds,
 from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, init_gat,
                                            precompute_gat_features,
                                            predict_gat, predict_gat_folds,
-                                           predict_gat_folds_mae, train_gat,
+                                           predict_gat_folds_mae,
+                                           stage_lr_cached, train_gat,
                                            train_gat_folds_parallel)
 from fcsr_tpu_torch.models.mlp import SpectralResMLP, SuperResMLP
 from fcsr_tpu_torch.parallel.mesh import batch_mesh
@@ -46,6 +47,7 @@ from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, evaluate_gsr,
 from fcsr_tpu_torch.train.losses import (make_triu_mse_criterion,
                                          pack_triu_targets)
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from fcsr_tpu_torch.utils.transfer import stage_cached
 
 __all__ = ["run_gsr_cv", "run_gsr_cv_fast", "run_mlp_cv", "run_gat_cv",
            "run_gat_cv_fast"]
@@ -247,7 +249,7 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
 def _stage_val(cfg, lr_all, folds, dev):
     """The LR stack and its node features on ``dev``, and the folds'
     validation subjects padded to one length, (F, va_len)."""
-    lr_d = torch.from_numpy(lr_all).to(dev)
+    lr_d = stage_lr_cached(lr_all, dev)
     x_d = torch.from_numpy(precompute_gat_features(lr_all, cfg.dim)).to(dev)
     va_len = max(len(va) for _, va in folds)
     va_idx = np.zeros((len(folds), va_len), np.int64)
@@ -260,7 +262,7 @@ def _fold_maes_on_device(model, cfg, best_vars, lr_all, hr_all, folds, dev):
     """Each fold's validation off-diagonal MAE from one staging of the
     stacks; only (F,) scalars come back."""
     lr_d, x_d, va_idx = _stage_val(cfg, lr_all, folds, dev)
-    hr_d = torch.from_numpy(hr_all).to(dev)
+    hr_d = stage_cached(hr_all, dev)
     maes = predict_gat_folds_mae(model, best_vars, lr_d, x_d, va_idx, hr_d,
                                  [len(va) for _, va in folds])
     return [float(m) for m in maes.cpu().numpy()]

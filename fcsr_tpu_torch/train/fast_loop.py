@@ -16,7 +16,14 @@ The configuration picks the step (``trainer_mode``):
   alone ``unet_fused_fwdonly``, with neither the plain U-Net — joined by
   ``lmbda * L1(net, start)`` in plain PyTorch;
 * no flag: the unfused model (``models/gsr.py::GSRNet``, ``torch.matmul``)
-  under autograd, one fold after the other inside a step.
+  under autograd, one fold after the other inside a step; with
+  ``compute_dtype="bf16"`` its parameters (a bf16 copy of the fp32 master
+  weights), a_norm and u_lr in bf16, as the JAX package's unfused step
+  casts them (``fcsr_tpu/train/fast_loop.py:131-152``): the model then
+  computes what the JAX ``GSRNet`` computes in bf16 (``models/gsr.py``),
+  the loss on fp32, and the gradient reaches the master weights through
+  the cast (bf16 values). The other modes ignore ``compute_dtype``, as
+  there.
 
 All but ``fused_adam`` take the gradient by autograd through the entry
 point's own backward and end in one ``adam_masked`` launch on the flat
@@ -174,14 +181,20 @@ class _FoldShard:
         if self.mode == "unfused":
             state = leaf_tensors_to_state(P)
             a_norm = self._a_norm_steps[s]
+            bf16 = cfg.compute_dtype == "bf16"
+            cast = (lambda t: t.to(torch.bfloat16)) if bf16 else (
+                lambda t: t)
             out = []
             for j in range(self.n_folds):
+                params = {k: cast(t[j]) for k, t in state.items()}
+                a_j = cast(a_norm[j])
                 pred, net, start, _ = torch.func.functional_call(
-                    self._unfused, {k: t[j] for k, t in state.items()},
-                    (a_norm[j],), {"u_lr": u_lr[j], "a_norm": a_norm[j]})
+                    self._unfused, params, (a_j,),
+                    {"u_lr": cast(u_lr[j]), "a_norm": a_j})
                 out.append(gsr_composite_loss(
-                    unpad(pred, cfg.padding), net, start,
-                    state["layer.weights"][j], u_hr[j], hr[j], cfg.lmbda))
+                    unpad(pred.float(), cfg.padding), net.float(),
+                    start.float(), params["layer.weights"].float(),
+                    u_hr[j], hr[j], cfg.lmbda))
             return (torch.stack([loss for loss, _ in out]),
                     torch.stack([err for _, err in out]))
         if self.mode == "fused_tail_unet_bwd":
@@ -257,6 +270,11 @@ class GSRFoldRunner:
         placements = (list(mesh.devices) if mesh is not None
                       else [resolve_device(device)])
         self.device = placements[0]
+        if cfg.compute_dtype == "bf16" and self.mode == "unfused" and any(
+                torch.device(d).type == "cuda" for d in placements):
+            # the bf16 products sum in fp32, as XLA's do
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = False
         # padding folds: every train and validation slot masked, so each
         # is a no-op; the padded count shapes the state
         n_pad = (-self.n_folds) % len(placements)

@@ -49,9 +49,11 @@ from fcsr_tpu_torch.train.losses import (intermediate_recon_loss,
 from fcsr_tpu_torch.utils import host_cache
 from fcsr_tpu_torch.utils.device import (DEFAULT_DEVICE, on_device,
                                          resolve_device)
+from fcsr_tpu_torch.utils.transfer import stage_cached
 
 __all__ = ["GATTrainConfig", "init_gat", "precompute_gat_features",
-           "train_gat", "train_gat_folds_parallel", "adamw_flat_update",
+           "stage_lr_cached", "train_gat", "train_gat_folds_parallel",
+           "adamw_flat_update",
            "predict_gat", "predict_gat_folds", "predict_gat_folds_mae",
            "unet_loss"]
 
@@ -124,6 +126,14 @@ def init_gat(cfg: GATTrainConfig, seed: int = 0, device=DEFAULT_DEVICE):
 
 
 _FEATURE_CACHE: dict = {}
+
+
+def stage_lr_cached(lr_np, device=None):
+    """An LR stack on ``device``, copied once per process and dataset
+    (``utils/transfer.py::stage_cached``): the fold-parallel trainer, its
+    validation and the prediction pass share one copy, as the JAX
+    package's stage it."""
+    return stage_cached(np.ascontiguousarray(lr_np, dtype=np.float32), device)
 
 
 def precompute_gat_features(lr_stack, dim: int) -> np.ndarray:
@@ -224,8 +234,8 @@ class _FoldTrainer:
         self.layout = cfg.layout
         lr_np = np.ascontiguousarray(lr_all, dtype=np.float32)
         hr_np = np.ascontiguousarray(hr_all, dtype=np.float32)
-        self.lr_d = torch.from_numpy(lr_np).to(dev)
-        self.hr_d = torch.from_numpy(hr_np).to(dev)
+        self.lr_d = stage_lr_cached(lr_np, dev)
+        self.hr_d = stage_cached(hr_np, dev)
         self.x_d = torch.from_numpy(
             precompute_gat_features(lr_np, cfg.dim)).to(dev)
         eye = torch.eye(cfg.n_nodes, dtype=torch.float32, device=dev)
@@ -662,7 +672,7 @@ def predict_gat(variables, model: GATGraphUnet, cfg: GATTrainConfig,
     dev = next(model.parameters()).device
     lr_np = np.ascontiguousarray(lr_stack, dtype=np.float32)
     x = torch.from_numpy(precompute_gat_features(lr_np, cfg.dim)).to(dev)
-    lr_d = torch.from_numpy(lr_np).to(dev)
+    lr_d = stage_lr_cached(lr_np, dev)
     state = dict(model.state_dict()) if variables is None \
         else _state_to_device(variables, dev)
     return torch.cat([

@@ -60,15 +60,13 @@ class GSRTrainConfig:
     # the step including the masked Adam update (train_step_fused); takes
     # precedence over every other flag
     fused_adam: bool = False
+    # "bf16": the fold-parallel runner's unfused step in bf16 (parameters,
+    # a_norm and u_lr cast, as the JAX package's); every other trainer
+    # accepts and ignores it, as there
     compute_dtype: str = "f32"
 
     def __post_init__(self):
-        if self.compute_dtype == "bf16":
-            raise NotImplementedError(
-                'compute_dtype="bf16" is not ported: torch rounds a bf16 '
-                "product's output to bf16 where the JAX package keeps f32 "
-                "accumulations, so it needs its own parity study")
-        if self.compute_dtype != "f32":
+        if self.compute_dtype not in ("f32", "bf16"):
             raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got "
                              f"{self.compute_dtype!r}")
 
