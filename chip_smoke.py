@@ -206,14 +206,28 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``bgemm_bf16`` against its plain version (the exact products of the
    same bf16 values summed in fp32) at every signature of the bf16 GSR
    step's census (dense, matrix-vector, column sums, rank-1; 79
-   launches), two launches bit-equal, timed beside the plain version and
+   launches), two launches bit-equal, on the dense path under every
+   (variant, split-K) plan (without split-K the variants bit-equal to
+   each other), timed beside the plain version and
    ``torch.bmm(a16, b16, out_dtype=torch.float32)`` with and without the
-   casts; the rounding instances ``rank_select_bf16``,
-   ``gather_rows_bf16``, ``scatter_rows_bf16``, ``pool_bwd_pair_bf16``
-   (exact, the logits' adjoint within 1e-5) at every GSR pool and
-   ``add_bias_bf16`` (exact); (b) phase 3's step in the bf16 mode, kernels
-   against plain (``BF16_STEP_TOLS``), 106 launches, its device time as
-   one CUDA graph beside the fp32 step's in turns; (c) the full-width
+   casts, eager and by the host's microseconds a call, summed by class;
+   with ``FCSR_BGEMM_BF16_PARENT=<dir>`` (an earlier tree's
+   ``bgemm_bf16.cu`` and the headers it includes) that kernel is built
+   too and timed in the same turns; the rounding instances
+   ``rank_select_bf16``, ``gather_rows_bf16``, ``scatter_rows_bf16``,
+   ``pool_bwd_pair_bf16`` and ``pool_bwd_pair_bf16_ad`` (exact, the
+   logits' adjoint within 1e-5) at every GSR pool and ``add_bias_bf16``
+   (exact); (b) phase 3's step in the bf16 mode, kernels against plain
+   (``BF16_STEP_TOLS``), 106 launches, its device time as one CUDA graph
+   beside the fp32 step's in turns; (b2) ``unet_fused`` and
+   ``step_value_and_grad_fused`` in bf16 (the autodiff-shaped adjoints):
+   at 20 -> 32 the card against the CPU, at full width beside autograd
+   over the plain bf16 version (``check_bf16_ad_entry_points``), the
+   loss entry points #4, #8, #10 timed alone in fp32 and in bf16
+   (``entry_point_times``), and both step graphs under torch.profiler,
+   their kernels and the gaps between them read from the chrome trace by
+   kernel function (``step_graph_gaps``, which also runs against an older
+   tree; ``graph_trace_summary`` reads a saved trace); (c) the full-width
    ``fused_adam`` runner (3 folds, 2 epochs) in fp32 and in bf16 from the
    same weights, ``fused_step`` and a 3-shard mesh in bf16 bit-equal to
    it, s/epoch and val MAE beside the untrained MAE; (d)
@@ -277,6 +291,9 @@ GAT_ONLY = GAT_NEW + ("pool_logits_bwd", "philox_keep_mask")
 # of the pool, row and bias kernels; no fp32 path launches them
 BF16_KERNELS = ("bgemm_bf16", "rank_select_bf16", "gather_rows_bf16",
                 "scatter_rows_bf16", "pool_bwd_pair_bf16", "add_bias_bf16")
+# the bf16 mode's autodiff-shaped pair: only unet_fused and
+# step_value_and_grad_fused launch it (phase 12, check_bf16_ad_entry_points)
+BF16_ONLY = BF16_KERNELS + ("pool_bwd_pair_bf16_ad",)
 
 
 def fail(msg: str):
@@ -1793,11 +1810,12 @@ def check_kernels(dev):
 # phase 3: one full-width fold-batched step, kernels vs plain
 # ---------------------------------------------------------------------------
 
-def check_step(dev, data):
-
+def step_inputs(dev, data):
+    """Arguments of one full-width fold-batched ``train_step_fused`` (F = 3
+    GSRNet weights from seeds 0-2, small Adam moments, the third fold
+    masked) on the first F subjects of ``data``. Calls only public
+    entry points, so it also runs against an older tree of the port."""
     from fcsr_tpu_torch.iox.weights import state_to_flat
-    from fcsr_tpu_torch.models.fused_step import (train_step_fused,
-                                                  train_step_plain)
     from fcsr_tpu_torch.models.gsr import GSRNet
     from fcsr_tpu_torch.train.fast_loop import stage_dataset
     from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig
@@ -1816,7 +1834,16 @@ def check_step(dev, data):
     scal = torch.tensor([[1.0, 1 - 0.9 ** 3, 1 - 0.999 ** 3],
                          [1.0, 1 - 0.9 ** 7, 1 - 0.999 ** 7],
                          [0.0, 1 - 0.9 ** 2, 1 - 0.999 ** 2]], device=dev)
-    args = (p, m, v, u_lr, u_hr, hr, scal, KS, LR, HR, 16.0, 1e-4)
+    return (p, m, v, u_lr, u_hr, hr, scal, KS, LR, HR, 16.0, 1e-4)
+
+
+def check_step(dev, data):
+
+    from fcsr_tpu_torch.models.fused_step import (train_step_fused,
+                                                  train_step_plain)
+
+    args = step_inputs(dev, data)
+    p, m, v, u_lr, u_hr, hr = args[:6]
     got = train_step_fused(*args, device=dev)
     want = train_step_plain(*args)
     torch.cuda.synchronize()
@@ -1983,7 +2010,7 @@ def run_main_path(dev, data, epochs: int):
     print(f"  val MAE untrained {untrained.tolist()} trained "
           f"{maes.tolist()}")
     counts = {k: c for k, c in counts.items()
-              if k not in TRIU + GAT_ONLY + BF16_KERNELS}
+              if k not in TRIU + GAT_ONLY + BF16_ONLY}
     print(f"  launches on the trainer path: {counts}")
     if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()
             and bool(torch.isfinite(preds).all())):
@@ -2108,7 +2135,7 @@ def run_csv_path(dev, data):
           f"{t_predict_cli:.1f} s; launches on the CSV path: {counts}",
           flush=True)
     counts = {k: c for k, c in counts.items()
-              if k not in GAT_ONLY + BF16_KERNELS}
+              if k not in GAT_ONLY + BF16_ONLY}
     missing = [k for k, c in counts.items() if c == 0]
     if missing:
         fail(f"kernels never launched on the CSV path: {missing}")
@@ -5149,19 +5176,89 @@ def _bf16_library(op_a, op_b):
             lambda: torch.bmm(a16, b16, out_dtype=torch.float32))
 
 
-def check_bf16_product(prod, layout, g, dev):
+# FCSR_BGEMM_BF16_PARENT: a directory holding an earlier tree's
+# bgemm_bf16.cu with the headers it includes, built beside this tree's
+# kernel so that phase 12 times the two in turns in one call (unset: this
+# tree's kernel alone)
+PARENT_ENV = "FCSR_BGEMM_BF16_PARENT"
+# the bf16 product's signature classes, in print order
+BF16_CLASSES = ("dense", "matrix-vector", "column sum", "rank-1")
+
+
+def parent_bgemm_bf16():
+    """The earlier ``bgemm_bf16`` that ``FCSR_BGEMM_BF16_PARENT`` names,
+    built with the port's nvcc flags into ``build/``, as a launcher with
+    ``ops.bgemm_bf16``'s arguments (no launch count); None when the
+    variable is unset."""
+    import ctypes
+
+    from fcsr_tpu_torch.kernels.build import NVCC_FLAGS, _nvcc
+    from fcsr_tpu_torch.kernels.ops import KERNELS, _bgemm_args
+
+    src = os.environ.get(PARENT_ENV)
+    if not src:
+        return None
+    lib_path = os.path.join(HERE, "build", "libparent_bgemm_bf16.so")
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", lib_path,
+                           os.path.join(src, "bgemm_bf16.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"the parent bgemm_bf16 does not build:\n{proc.stdout[-3000:]}")
+    fn = ctypes.CDLL(lib_path).fcsr_bgemm_bf16
+    fn.argtypes = list(KERNELS["bgemm_bf16"].argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(a, b, ta=False, tb=False, bias=None, add=None, out=None,
+               bias_operand=False):
+        out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+        err = fn(*args, 0, int(bias_operand and bias is not None),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"the parent bgemm_bf16 failed to launch: error {err}")
+        return out
+    print(f"  parent bgemm_bf16 built from {src}", flush=True)
+    return launch
+
+
+def bf16_class(prod) -> str:
+    return ("column sum" if prod.ones else "matrix-vector"
+            if min(prod.M, prod.N) == 1 else "rank-1" if prod.K <= 1
+            else "dense")
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds to issue one call of ``fn`` (no synchronize
+    inside the window; the queue drained before it)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
+def check_bf16_product(prod, layout, g, dev, parent=None):
     """One census signature of the bf16 step replayed on the card:
     ``bgemm_bf16`` against its plain version (the exact products of the
     same bf16 values summed in fp32 in another order: within 1e-5 x
-    max(scale, K)), two launches bit-equal, and its time beside the plain
-    version's and the library's bf16 product with an fp32 output, with and
+    max(scale, K)), two launches bit-equal, and on the dense path every
+    (tile, split-K) plan the same way (without split-K the tiles bit-equal
+    to each other, and to ``parent`` where given: each output sums the same
+    k16 steps in the same order). Then its time beside the plain
+    version's, the library's bf16 product with an fp32 output with and
     without the casts of the operands (the product alone: bias and add
-    have no one-call form there), in CUDA graphs timed in turns. The pool
-    logits' bias (N = 1) is a product's operand, rounded. Returns (kernel,
-    plain, library with casts, library without, bound) ms."""
+    have no one-call form there) and ``parent``'s, in CUDA graphs timed in
+    turns, and eager (CUDA events over eager calls) with the host's
+    microseconds to issue a call. The pool logits' bias (N = 1) is a
+    product's operand, rounded. Returns a dict of ms by column."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS_BF16 as K
     from fcsr_tpu_torch.kernels import PLAIN_OPS_BF16 as P
     from fcsr_tpu_torch.kernels.census import replay
+    from fcsr_tpu_torch.kernels.ops import bgemm_bf16_forced, bgemm_bf16_tiles
     from fcsr_tpu_torch.utils.timing import graph_ms
 
     ta, tb, F_ = prod.ta, prod.tb, prod.F
@@ -5170,11 +5267,11 @@ def check_bf16_product(prod, layout, g, dev):
                                                 "alias"))
     bo = bias is not None and prod.N == 1
 
-    def launch(acc=None):
+    def launch(acc=None, fn=K.bgemm):
         if alias:
-            return K.bgemm(a, b, ta, tb, bias=bias, add=acc, out=acc,
-                           bias_operand=bo)
-        return K.bgemm(a, b, ta, tb, bias=bias, add=add, bias_operand=bo)
+            return fn(a, b, ta, tb, bias=bias, add=acc, out=acc,
+                      bias_operand=bo)
+        return fn(a, b, ta, tb, bias=bias, add=add, bias_operand=bo)
 
     def plain():
         return P.bgemm(a, b, ta, tb, bias=bias, add=add, bias_operand=bo)
@@ -5189,31 +5286,74 @@ def check_bf16_product(prod, layout, g, dev):
              f"{limit:.1e}")
     if not torch.equal(got[0], got[1]):
         fail(f"bgemm_bf16 {prod.label()}: two launches differ")
+    plans = ""
+    if bf16_class(prod) == "dense":
+        unsplit = None
+        worst = 0.0
+        for t in range(len(bgemm_bf16_tiles())):
+            for s in (1, 2, 4):
+                runs = [bgemm_bf16_forced(t, s, a, b, ta, tb, bias=bias,
+                                          add=add) for _ in range(2)]
+                torch.cuda.synchronize()
+                e = max_err(runs[0], want)
+                worst = max(worst, e)
+                if not (e <= limit and torch.equal(runs[0], runs[1])):
+                    fail(f"bgemm_bf16 {prod.label()} plan {t}/{s}: max|err| "
+                         f"{e:.3e} (limit {limit:.1e}) or two launches "
+                         "differ")
+                if s == 1:
+                    unsplit = runs[0] if unsplit is None else unsplit
+                    if not torch.equal(runs[0], unsplit):
+                        fail(f"bgemm_bf16 {prod.label()}: tile {t} without "
+                             "split-K differs from tile 0")
+        plans = f", every plan within {worst:.2e}"
+        if parent is not None:
+            same = torch.equal(launch(None if add is None else add.clone(),
+                                      parent), unsplit)
+            plans += (", split 1 bit-equal to the parent" if same else
+                      ", split 1 NOT bit-equal to the parent")
     op_a = torch.ones(F_, 1, prod.K, device=dev) if a is None else (
         a.transpose(1, 2) if ta else a)
     op_b = b.transpose(1, 2) if tb else b
     lib_cast, lib = _bf16_library(op_a, op_b)
     acc = None if add is None else add.clone()
-    k_ms, p_ms, lc_ms, l_ms = graph_ms([lambda: launch(acc), plain,
-                                        lib_cast, lib])
-    b_ms, b_by = bound(prod.flops, prod.nbytes, peak_flops=PEAK_BF16_FLOPS)
-    print(f"    bgemm_bf16 {prod.label():34s} kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f}, library {lc_ms:.4f} with the casts / {l_ms:.4f} "
-          f"without, bound {b_ms:.5f} ms ({b_by}), max|err| {err:.2e}, "
-          f"bit-equal", flush=True)
-    return k_ms, p_ms, lc_ms, l_ms, b_ms
+    fns = {"kernel": lambda: launch(acc), "plain": plain,
+           "library": lib_cast, "library_no_casts": lib}
+    if parent is not None:
+        acc_p = None if add is None else add.clone()
+        fns["parent"] = lambda: launch(acc_p, parent)
+    t = dict(zip(fns, graph_ms(list(fns.values()))))
+    t["eager"] = cuda_ms(fns["kernel"])
+    t["host_us"] = host_us(fns["kernel"])
+    if parent is not None:
+        t["parent_eager"] = cuda_ms(fns["parent"])
+        t["parent_host_us"] = host_us(fns["parent"])
+    t["bound"], b_by = bound(prod.flops, prod.nbytes,
+                             peak_flops=PEAK_BF16_FLOPS)
+    par = (f", parent {t['parent']:.4f} (eager {t['parent_eager']:.4f})"
+           if parent is not None else "")
+    print(f"    bgemm_bf16 {prod.label():34s} kernel {t['kernel']:.4f} ms "
+          f"(eager {t['eager']:.4f}, host {t['host_us']:.1f} us){par}, "
+          f"plain {t['plain']:.4f}, library {t['library']:.4f} with the "
+          f"casts / {t['library_no_casts']:.4f} without, bound "
+          f"{t['bound']:.5f} ms ({b_by}), max|err| {err:.2e}, bit-equal"
+          f"{plans}", flush=True)
+    return t
 
 
 def check_bf16_products(dev, smi):
     """Phase 12 (a), the product: every distinct signature of the
     full-width GSR step's census in the bf16 mode (79 launches: the dense
     products, the column sums, the pool logits' matrix-vector products and
-    their rank-1 adjoints) by ``check_bf16_product``, summed over the
-    step's launches; then the record: 268 x 268 x 268 + bias at F = 3.
-    Returns the JSON record of ``bgemm_bf16``."""
+    their rank-1 adjoints) by ``check_bf16_product`` (every plan of the
+    dense ones; the parent kernel of ``FCSR_BGEMM_BF16_PARENT`` timed in
+    the same turns where given), summed over the step's launches by class;
+    then the record: 268 x 268 x 268 + bias at F = 3. Returns the JSON
+    record of ``bgemm_bf16``."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS_BF16 as K
     from fcsr_tpu_torch.kernels import PLAIN_OPS_BF16 as P
     from fcsr_tpu_torch.kernels.census import gsr_step_census
+    from fcsr_tpu_torch.kernels.ops import bgemm_bf16_path
     from fcsr_tpu_torch.utils.timing import graph_ms
 
     census = gsr_step_census(dev, ops=K)
@@ -5223,27 +5363,33 @@ def check_bf16_products(dev, smi):
           f"{census.flops / 1e9:.4f} GFLOP [{smi}]", flush=True)
     if len(census.products) != BF16_STEP_LAUNCHES["bgemm_bf16"]:
         fail(f"the bf16 step has {len(census.products)} products")
+    parent = parent_bgemm_bf16()
     g = torch.Generator(device=dev).manual_seed(3)
-    sums = [0.0] * 5
-    by_class = {}
+    sums, by_class = {}, {}
     for prod, n in sigs.items():
-        t = check_bf16_product(prod, census.layouts[prod], g, dev)
-        cls = ("column sum" if prod.ones else "matrix-vector"
-               if min(prod.M, prod.N) == 1 else "rank-1" if prod.K <= 1
-               else "dense")
-        row = by_class.setdefault(cls, [0, 0.0, 0.0, 0.0, 0.0, 0.0])
-        row[0] += n
-        for i, v in enumerate(t):
-            sums[i] += n * v
-            row[i + 1] += n * v
-    for cls, (n, k_ms, p_ms, lc_ms, l_ms, b_ms) in by_class.items():
-        print(f"  bgemm_bf16 {cls}: {n} launches, kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f}, library {lc_ms:.4f} / {l_ms:.4f} (with / "
-              f"without the casts), bound {b_ms:.5f} ms", flush=True)
-    print(f"  bf16 GSR step: bgemm_bf16 {sums[0]:.4f} ms over its "
-          f"{len(census.products)} launches, plain {sums[1]:.4f}, library "
-          f"{sums[2]:.4f} with the casts / {sums[3]:.4f} without, bound "
-          f"{sums[4]:.5f} ms [{smi}]", flush=True)
+        t = check_bf16_product(prod, census.layouts[prod], g, dev, parent)
+        row = by_class.setdefault(bf16_class(prod), {"launches": 0})
+        row["launches"] += n
+        for k, v in t.items():
+            sums[k] = sums.get(k, 0.0) + n * v
+            row[k] = row.get(k, 0.0) + n * v
+
+    def line(t):
+        par = (f", parent {t['parent']:.4f} (eager {t['parent_eager']:.4f}, "
+               f"host {t['parent_host_us']:.1f} us)" if "parent" in t else "")
+        return (f"kernel {t['kernel']:.4f} ms (eager {t['eager']:.4f}, host "
+                f"{t['host_us']:.1f} us){par}, plain {t['plain']:.4f}, "
+                f"library {t['library']:.4f} / {t['library_no_casts']:.4f} "
+                f"(with / without the casts), bound {t['bound']:.5f} ms")
+    for cls in BF16_CLASSES:
+        print(f"  bgemm_bf16 {cls}: {by_class[cls]['launches']} launches, "
+              f"{line(by_class[cls])}", flush=True)
+    print(f"  bf16 GSR step: bgemm_bf16 over its {len(census.products)} "
+          f"launches: {line(sums)} [{smi}]", flush=True)
+    if parent is not None and not (by_class["dense"]["kernel"]
+                                   < by_class["dense"]["parent"]):
+        print("  NOTE: the dense class is not faster than the parent's",
+              flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     a, b = (torch.randn(F, HR, HR, generator=gen).to(dev) for _ in range(2))
@@ -5258,23 +5404,31 @@ def check_bf16_products(dev, smi):
         lib_cast, lib])
     b_ms, b_by = bound(2.0 * F * HR ** 3, 4.0 * F * (3 * HR * HR + HR),
                        peak_flops=PEAK_BF16_FLOPS)
-    print(f"  bgemm_bf16 record {HR}^3 + bias: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f}, library {lc_ms:.4f} / {l_ms:.4f} (with / "
-          f"without the casts), bound {b_ms:.5f} ms ({b_by}), max|err| "
-          f"{err:.2e} [{smi}]", flush=True)
+    path = bgemm_bf16_path(a, b, bias=bias)
+    print(f"  bgemm_bf16 record {HR}^3 + bias ({path}): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f}, library {lc_ms:.4f} / "
+          f"{l_ms:.4f} (with / without the casts), bound {b_ms:.5f} ms "
+          f"({b_by}), max|err| {err:.2e} [{smi}]", flush=True)
+    dense = by_class["dense"]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lc_ms,
-            "library_ms_no_casts": l_ms, "gsr_step_ms": sums[0],
-            "gsr_step_plain_ms": sums[1], "gsr_step_library_ms": sums[2],
-            "gsr_step_bound_ms": sums[4], "signatures": len(sigs)}
+            "library_ms_no_casts": l_ms, "gsr_step_ms": sums["kernel"],
+            "gsr_step_plain_ms": sums["plain"],
+            "gsr_step_library_ms": sums["library"],
+            "gsr_step_bound_ms": sums["bound"],
+            "gsr_step_dense_ms": dense["kernel"],
+            "gsr_step_dense_parent_ms": dense.get("parent"),
+            "gsr_step_parent_ms": sums.get("parent"),
+            "signatures": len(sigs)}
 
 
 def check_bf16_variants(dev, smi):
     """Phase 12 (a), the rounding instances: at every GSR pool (F = 3,
     ties and a NaN score) ``rank_select_bf16`` (every output exact, NaN
     where NaN), ``gather_rows_bf16`` and ``scatter_rows_bf16`` exact,
-    ``pool_bwd_pair_bf16`` (g_d exact, the logits' adjoint within 1e-5:
-    its dot sums rounded products in another order), each bit-equal over
+    ``pool_bwd_pair_bf16`` and its autodiff-shaped instance
+    ``pool_bwd_pair_bf16_ad`` (g_d exact, the logits' adjoint within 1e-5:
+    its dot sums the products in another order), each bit-equal over
     two launches; ``add_bias_bf16`` on the step's views exact. Times at
     the first pool. Returns their JSON records."""
     from fcsr_tpu_torch.kernels import KERNEL_OPS_BF16 as K
@@ -5309,6 +5463,11 @@ def check_bf16_variants(dev, smi):
             ("pool_bwd_pair_bf16",
              lambda: K.pool_bwd_pair(gp, pre, slot, s, vals, skip),
              lambda: P.pool_bwd_pair(gp, pre, slot, s, vals, skip),
+             (0.0, 1e-5), 2.0 * F * (2 * k * m + n * m),
+             f4 * (2 * k * m + 2 * n * m + 3 * n + k)),
+            ("pool_bwd_pair_bf16_ad",
+             lambda: K.pool_bwd_pair_ad(gp, pre, slot, s, vals, skip),
+             lambda: P.pool_bwd_pair_ad(gp, pre, slot, s, vals, skip),
              (0.0, 1e-5), 2.0 * F * (2 * k * m + n * m),
              f4 * (2 * k * m + 2 * n * m + 3 * n + k))]
         for name, kern, plain, tol, flops, nbytes in cases:
@@ -5430,6 +5589,244 @@ def check_bf16_step(dev, step_args, smi):
           f"{a32:.4f} / {b32:.4f} in the same turns), eager {eager:.3f} ms; "
           f"loss {got[0].tolist()} [{smi}]", flush=True)
     return (a16 + b16) / 2
+
+
+def _ad_entry_points(dev, leaves, data, ks, lr, hr_dim, ct):
+    """(net, start, #5's gradients, loss, recon, #10's gradients) of
+    ``unet_fused`` and ``step_value_and_grad_fused`` in the bf16 mode on
+    ``dev``, from the leaf mapping ``leaves`` (F-batched), the step's data
+    (u_lr, u_hr, hr) and the U-Net's cotangents ``ct``; and the launches
+    of each."""
+    from fcsr_tpu_torch.iox.weights import (leaf_names,
+                                            leaf_tensors_to_state,
+                                            state_to_leaf_tensors)
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.models import fused_step as fs
+
+    net_names = leaf_names(len(ks), tail=False)
+    with mm_mode_set("bf16"):
+        P = {k: t.detach().clone().requires_grad_() for k, t in
+             leaves.items()}
+        reset_launch_counts()
+        net, start = fs.unet_fused({k: P[k] for k in net_names}, ks, lr,
+                                   hr_dim, device=dev)
+        g5 = torch.autograd.grad((net, start), [P[k] for k in net_names], ct)
+        c5 = _nonzero(launch_counts())
+        state = leaf_tensors_to_state({k: t.detach() for k, t in
+                                       leaves.items()})
+        reset_launch_counts()
+        loss, recon, gr = fs.step_value_and_grad_fused(
+            state, *data, ks, lr, hr_dim, hr_dim, 16.0, device=dev)
+        c10 = _nonzero(launch_counts())
+        gl = state_to_leaf_tensors(gr)
+        g10 = [gl[k].reshape(leaves[k].shape) for k in leaf_names(len(ks))]
+    return (net.detach(), start.detach(), g5, loss, recon, g10), (c5, c10)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want| over pairs of tensors (of their own
+    scale each)."""
+    return max(max_err(a.detach().cpu(), b.detach().cpu())
+               / max(float(b.detach().abs().max()), 1e-12)
+               for a, b in zip(got, want))
+
+
+def check_bf16_ad_entry_points(dev, step_args, smi):
+    """Phase 12 (b2): ``unet_fused`` (#5) and ``step_value_and_grad_fused``
+    (#10) in the bf16 mode, whose backward is ``unet_backward(ad=True)``
+    (the adjoints rounded where the JAX kernels' autodiff rounds them).
+    At the CPU tests' size (20 -> 32, ks (0.9, 0.7), F = 2, seeded
+    weights) the kernels against the same entry points on the CPU (their
+    plain versions, held to the JAX package's autodiff in
+    ``tests/test_torch_bf16_step.py``): values and gradients within 1e-5
+    of their scale. At full width (F = 3, phase 3's weights) their
+    distance to autograd over the plain bf16 version
+    (``unet_forward_rankselect`` and ``step_loss_pure`` under the mode:
+    ``mm_mode.mm``'s ideal adjoints, ``round_through``) is printed beside
+    the hand-written adjoints' (``unet_fused_fwdbwd``,
+    ``gsr_step_loss_fused``) and held only to be finite: there the
+    kernels' fp32 sums take other orders than cuBLAS's, and where one
+    lands beside a bf16 rounding edge the next product's operand rounds
+    the other way (2^-8 of a term), which moves #10's gradients by up to
+    2e-2 of a leaf's largest entry (PERF.md). Each backward launches
+    ``pool_bwd_pair_bf16_ad`` once a level and the fp32 column sums
+    (``bgemm_f32``, a = None) for the biases. Returns the launch
+    counts."""
+    from fcsr_tpu_torch.iox.weights import leaf_names
+    from fcsr_tpu_torch.models import fused_step as fs
+
+    counts = {}
+
+    def count(what, c, levels):
+        print(f"  {what} bf16 launches: {c}", flush=True)
+        if c.get("pool_bwd_pair_bf16_ad") != levels or not c.get(
+                "bgemm_f32") or c.get("pool_bwd_pair_bf16"):
+            fail(f"{what} in the bf16 mode did not take the autodiff-shaped "
+                 "adjoints")
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+
+    # the CPU tests' size: the card against the CPU
+    n, m, ks, f2 = 20, 32, (0.9, 0.7), 2
+    rng = np.random.default_rng(12)
+    layout = fs.FlatLayout(n, m, len(ks))
+    flat = torch.from_numpy(rng.normal(0, 0.2, (f2, layout.size)).astype(
+        np.float32))
+    data = [torch.from_numpy(rng.normal(0, s_, shape).astype(np.float32))
+            for s_, shape in ((0.3, (f2, n, n)), (0.3, (f2, m, n)),
+                              (1.0, (f2, m, m)))]
+    ct = [torch.from_numpy(rng.normal(size=(f2, n, m)).astype(np.float32))
+          for _ in range(2)]
+    (want, _), (got, c) = (_ad_entry_points(
+        d, layout.views(flat.to(d)), [t.to(d) for t in data], ks, n, m,
+        tuple(t.to(d) for t in ct)) for d in (torch.device("cpu"), dev))
+    for what, ci in zip(("unet_fused", "step_value_and_grad_fused"), c):
+        count(what, ci, len(ks))
+    for what, sl in (("unet_fused", slice(0, 3)),
+                     ("step_value_and_grad_fused", slice(3, 6))):
+        pairs = [(a, b) for x, y in zip(got[sl], want[sl])
+                 for a, b in (zip(x, y) if isinstance(x, (list, tuple))
+                              else [(x, y)])]
+        err = _rel(*zip(*pairs))
+        print(f"  {what} (bf16, autodiff-shaped adjoints) at 20 -> 32, F = "
+              f"2: card vs CPU {err:.2e} of the scale (limit 1e-5) "
+              f"[{smi}]", flush=True)
+        if not err <= 1e-5:
+            fail(f"{what} in the bf16 mode: the card disagrees with the CPU")
+
+    # full width: against autograd over the plain bf16 version
+    p, _, _, u_lr, u_hr, hr = step_args[:6]
+    layout = fs.FlatLayout(LR, HR, len(KS))
+    names = leaf_names(len(KS))
+    net_names = leaf_names(len(KS), tail=False)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    ct = tuple(torch.randn(F, LR, HR, generator=g).to(dev) for _ in range(2))
+    got, c = _ad_entry_points(dev, layout.views(p), (u_lr, u_hr, hr), KS,
+                              LR, HR, ct)
+    for what, ci in zip(("unet_fused", "step_value_and_grad_fused"), c):
+        count(what, ci, len(KS))
+    with mm_mode_set("bf16"):
+        Q = {k: t.requires_grad_() for k, t in layout.views(p.clone()).items()}
+        want5 = fs.unet_forward_rankselect(Q, KS, LR)
+        g5 = torch.autograd.grad(want5, [Q[k] for k in net_names], ct)
+        hand = fs.unet_fused_fwdbwd({k: Q[k] for k in net_names}, KS, LR, HR,
+                                    device=dev)
+        g7 = torch.autograd.grad(hand, [Q[k] for k in net_names], ct)
+        loss_p, recon_p = fs.step_loss_pure(Q, None, hr, u_lr, u_hr, KS, LR,
+                                            16.0)
+        g10 = torch.autograd.grad(loss_p.sum(), [Q[k] for k in names])
+        loss8, _ = fs.gsr_step_loss_fused(
+            {k: Q[k] for k in net_names}, Q["layer.weights"],
+            Q["gc1.weight"], Q["gc2.weight"], u_lr, u_hr, hr, KS, LR, HR,
+            16.0, device=dev)
+        g8 = torch.autograd.grad(loss8.sum(), [Q[k] for k in names])
+    for what, vals, want, grads, gwant, ref, ref_name in (
+            ("unet_fused", got[:2], want5, got[2], g5, g7,
+             "unet_fused_fwdbwd"),
+            ("step_value_and_grad_fused", got[3:5], (loss_p, recon_p),
+             got[5], g10, g8, "gsr_step_loss_fused")):
+        err, g_err = _rel(vals, want), _rel(grads, gwant)
+        print(f"  {what} (bf16) at full width vs autograd over the plain "
+              f"bf16 version: values {err:.2e}, gradients {g_err:.2e} of a "
+              f"leaf's largest entry; the hand-written adjoints ({ref_name})"
+              f" {_rel(ref, gwant):.2e} [{smi}]", flush=True)
+        if not all(bool(torch.isfinite(t).all()) for t in
+                   list(vals) + list(grads)):
+            fail(f"{what} in the bf16 mode: non-finite values or gradients")
+    return counts
+
+
+def _kernel_name(name: str) -> str:
+    """A trace's kernel name without its namespaces, arguments and
+    template arguments: the kernel's function."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("<")[0].strip()
+
+
+def graph_trace_summary(path, first="add_bias_kernel", label=None):
+    """The kernels of a chrome trace of CUDA graph replays of the GSR
+    step (``step_graph_gaps`` writes them): split into replays at each
+    launch of ``first`` (the step's first kernel) and kept whole where a
+    replay has the most common kernel count; per replay the device span
+    from its first kernel's start to its last one's end, the kernels'
+    summed time and the gaps between them; per kernel function (templates
+    merged) its time and the gaps before it. Prints medians over the
+    replays and returns (span, kernels, gaps, {function: (us, gap us,
+    launches)}). Reads only the file, so it also runs on the CPU over a
+    trace an earlier card run left."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = sorted((e for e in events if e.get("cat") == "kernel"),
+                  key=lambda e: e["ts"])
+    starts = [i for i, e in enumerate(kern) if first in e["name"]]
+    reps = [kern[i:j] for i, j in zip(starts, starts[1:] + [len(kern)])]
+    if not reps:
+        print(f"  {path}: no replay found", flush=True)
+        return None
+    n = statistics.mode(len(r) for r in reps)
+    reps = [r for r in reps if len(r) == n]
+    med = statistics.median
+    spans, busy, gaps, by_fn = [], [], [], {}
+    for r, ks in enumerate(reps):
+        spans.append(ks[-1]["ts"] + ks[-1]["dur"] - ks[0]["ts"])
+        busy.append(sum(e["dur"] for e in ks))
+        gs = [0.0] + [max(0.0, b["ts"] - (a["ts"] + a["dur"]))
+                      for a, b in zip(ks, ks[1:])]
+        gaps.append(sum(gs))
+        for e, gap in zip(ks, gs):
+            row = by_fn.setdefault(_kernel_name(e["name"]),
+                                   [[0.0, 0.0, 0] for _ in reps])[r]
+            row[0] += e["dur"]
+            row[1] += gap
+            row[2] += 1
+    table = {k: (med([x[0] for x in v]), med([x[1] for x in v]), v[0][2])
+             for k, v in by_fn.items()}
+    print(f"  {label or path}: {len(reps)} whole replays of {n} kernels; "
+          f"span {med(spans):.1f} us, kernels {med(busy):.1f} us, gaps "
+          f"{med(gaps):.1f} us (medians)", flush=True)
+    for k, (us, gap, cnt) in sorted(table.items(), key=lambda x: -x[1][0]):
+        print(f"    {k[:40]:40s} {us:7.1f} us in {cnt:3d} launches, gaps "
+              f"before them {gap:5.1f} us", flush=True)
+    return med(spans), med(busy), med(gaps), table
+
+
+def step_graph_gaps(dev, data, smi, tag=""):
+    """The fp32 and the bf16 GSR step (``step_inputs``) each captured as one
+    CUDA graph and replayed 5 times under torch.profiler; each chrome trace
+    (``trace_step_<mode><tag>.json`` in ``OUT_DIR``) read by
+    ``graph_trace_summary``: span, kernels and the gaps between them, by
+    kernel function. Calls only public entry points, so it also runs
+    against an older tree of the port (``tag`` names its traces).
+    Returns {mode: summary}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcsr_tpu_torch.models.fused_step import train_step_fused
+
+    args = step_inputs(dev, data)
+    out = {}
+    for label, mode in (("fp32", "bf16x3_concat"), ("bf16", "bf16")):
+        with mm_mode_set(mode):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    train_step_fused(*args, device=dev)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                train_step_fused(*args, device=dev)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                graph.replay()
+            torch.cuda.synchronize()
+        path = os.path.join(OUT_DIR, f"trace_step_{label}{tag}.json")
+        prof.export_chrome_trace(path)
+        out[label] = graph_trace_summary(
+            path, label=f"{label} step as one CUDA graph{tag} [{smi}]")
+    return out
 
 
 def run_bf16_runner(dev, data, smi):
@@ -5588,16 +5985,27 @@ def run_bf16_unfused(dev, data, smi):
 
 def run_phase12(dev, data, step_args, csv_dir, smi):
     """Phase 12: (a) the bf16 kernels against their plain versions, (b) the
-    bf16 step, (c) the bf16 runner, (d) the bf16 command line, (e) the
-    unfused ``compute_dtype="bf16"`` runner, (f) the liveness probe.
-    Returns (JSON records, launch counts)."""
+    bf16 step, (b2) the autodiff-shaped entry points, the loss entry
+    points timed alone in both modes and the step graphs' gaps, (c) the
+    bf16 runner, (d) the bf16 command line, (e) the unfused
+    ``compute_dtype="bf16"`` runner, (f) the liveness probe. Returns (JSON
+    records, launch counts)."""
     from fcsr_tpu_torch.utils.probe import require_live_device
 
     t0 = time.perf_counter()
     records = {"bgemm_bf16": check_bf16_products(dev, smi)}
     records.update(check_bf16_variants(dev, smi))
     check_bf16_step(dev, step_args, smi)
+    ad_counts = check_bf16_ad_entry_points(dev, step_args, smi)
+    print(f"  the loss entry points alone, fp32 then bf16 [{smi}]:",
+          flush=True)
+    entry_point_times(dev)
+    with mm_mode_set("bf16"):
+        entry_point_times(dev)
+    step_graph_gaps(dev, data, smi)
     counts = run_bf16_runner(dev, data, smi)
+    for k, n in ad_counts.items():
+        counts[k] = counts.get(k, 0) + n
     for c in (run_bf16_cli(csv_dir, smi), run_bf16_unfused(dev, data, smi)):
         for k, n in c.items():
             counts[k] = counts.get(k, 0) + n

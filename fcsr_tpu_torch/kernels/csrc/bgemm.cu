@@ -26,7 +26,8 @@
 //   the outputs (coalesced) with k split over 8 warps, summed in warp
 //   order. A square tile would waste 63/64 of itself on these.
 // - K = 1 (rank-1 update plus add): one elementwise pass.
-//   These two live in bgemm_paths.cuh, shared with bgemm_bf16.cu.
+//   These two live in bgemm_paths.cuh, shared with bgemm_bf16.cu, as do
+//   the dense path's copies (load_tile, vec_ok).
 // - Otherwise the dense path: an output tile per block, 32 x 32 (128
 //   threads: two warp groups, each a 4 x 4 register tile per thread over
 //   alternate 4-deep chunks of each K slice, summed in shared memory at
@@ -61,49 +62,6 @@ namespace {
 constexpr int BK = 32;      // K slice per pipeline step
 constexpr int STAGES = 3;   // depth of the cp.async ring
 constexpr int PAD = 4;      // floats of padding per shared-memory row
-
-// Copy rows [r0, r0 + TR) x cols [c0, c0 + TC) of a stored (rows x cols)
-// operand with row stride ld into shared memory (row stride TC + PAD),
-// zero outside the operand.
-template <int TR, int TC, int THREADS>
-__device__ __forceinline__ void load_tile(float* s, const float* g, int ld,
-                                          int rows, int cols, int r0, int c0,
-                                          int vec) {
-  constexpr int LDS = TC + PAD;
-  if (vec) {
-    constexpr int VPR = TC / 4;
-    constexpr int NV = TR * VPR;
-#pragma unroll
-    for (int it = 0; it < (NV + THREADS - 1) / THREADS; ++it) {
-      const int v = threadIdx.x + it * THREADS;
-      if (NV % THREADS == 0 || v < NV) {
-        const int r = v / VPR, c = (v % VPR) * 4;
-        const int gr = r0 + r, gc = c0 + c;
-        const float* src = g;
-        int bytes = 0;
-        if (gr < rows && gc < cols) {
-          const int left = cols - gc;
-          bytes = 4 * (left < 4 ? left : 4);
-          src = g + (long long)gr * ld + gc;
-        }
-        cp_async16(s + r * LDS + c, src, bytes);
-      }
-    }
-  } else {
-    constexpr int NE = TR * TC;
-#pragma unroll
-    for (int it = 0; it < (NE + THREADS - 1) / THREADS; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      if (NE % THREADS == 0 || e < NE) {
-        const int r = e / TC, c = e % TC;
-        const int gr = r0 + r, gc = c0 + c;
-        const bool in = gr < rows && gc < cols;
-        cp_async4(s + r * LDS + c, in ? g + (long long)gr * ld + gc : g,
-                  in ? 4 : 0);
-      }
-    }
-  }
-}
 
 template <int BM, int BN, bool AK, bool BKM>
 constexpr int smem_floats() {
@@ -152,18 +110,20 @@ __global__ void __launch_bounds__(BM * BN / 16 * KG)
 
   auto load = [&](int buf, int slice) {
     const int k0 = slice * BK;
+    float* as = As + buf * SA;
+    float* bs = Bs + buf * SB;
     if (AK)
-      load_tile<BK, BM, THREADS>(As + buf * SA, Ab, p.ldA, p.K, p.M, k0, m0,
-                                 vecA);
+      load_tile<BK, BM, THREADS, BM + PAD>(as, Ab, p.ldA, p.K, p.M, k0, m0,
+                                           vecA);
     else
-      load_tile<BM, BK, THREADS>(As + buf * SA, Ab, p.ldA, p.M, p.K, m0, k0,
-                                 vecA);
+      load_tile<BM, BK, THREADS, BK + PAD>(as, Ab, p.ldA, p.M, p.K, m0, k0,
+                                           vecA);
     if (BKM)
-      load_tile<BK, BN, THREADS>(Bs + buf * SB, Bb, p.ldB, p.K, p.N, k0, n0,
-                                 vecB);
+      load_tile<BK, BN, THREADS, BN + PAD>(bs, Bb, p.ldB, p.K, p.N, k0, n0,
+                                           vecB);
     else
-      load_tile<BN, BK, THREADS>(Bs + buf * SB, Bb, p.ldB, p.N, p.K, n0, k0,
-                                 vecB);
+      load_tile<BN, BK, THREADS, BK + PAD>(bs, Bb, p.ldB, p.N, p.K, n0, k0,
+                                           vecB);
   };
 
   float acc[4][4];
@@ -385,11 +345,6 @@ void choose_dense(int M, int N, int K, int F, int sms, int* tile,
       }
     }
   }
-}
-
-bool vec_ok(const float* ptr, int ld, int rows, long long stride, int batch) {
-  return ptr != nullptr && ((uintptr_t)ptr & 15) == 0 &&
-         (rows == 1 || (ld & 3) == 0) && (batch == 1 || (stride & 3) == 0);
 }
 
 int plan(const Args& p, int batch, int ta, int tb, int sms) {

@@ -1,8 +1,10 @@
-// The product kernels' shared arguments and their non-dense paths:
-// matrix-vector products (M = 1, column sums when a == nullptr; N = 1)
-// and K <= 1 (rank-1 plus add). bgemm.cu (IEEE fp32) and bgemm_bf16.cu
-// (single-pass bf16 products) both launch them; the RND instances round
-// each operand to bf16 as they load it. A product of two bf16 values is
+// The product kernels' shared arguments, their non-dense paths and the
+// dense paths' operand copies: matrix-vector products (M = 1, column sums
+// when a == nullptr; N = 1) and K <= 1 (rank-1 plus add), and load_tile /
+// vec_ok, which stream a K slice of an operand into shared memory as it
+// is stored. bgemm.cu (IEEE fp32) and bgemm_bf16.cu (single-pass bf16
+// products) both use them; the RND instances round each operand to bf16
+// as they load it. A product of two bf16 values is
 // exact in fp32, so an fp32 FMA chain over rounded operands computes the
 // bf16 mode's function: its products, summed in fp32. bias and D are
 // added in fp32; with `rbias` the bias is rounded too (the pool logits'
@@ -125,6 +127,61 @@ __global__ void __launch_bounds__(256) rank1_kernel(Args p, int ta, int tb) {
     if (p.D) c += p.D[f * p.sD + (long long)m * p.ldD + n];
     p.C[f * p.sC + (long long)m * p.ldC + n] = c;
   }
+}
+
+// Copy rows [r0, r0 + TR) x cols [c0, c0 + TC) of a stored (rows x cols)
+// operand with row stride ld into shared memory (row stride LDS floats),
+// zero outside the operand, by cp.async: 16-byte copies with `vec` (see
+// vec_ok; LDS a multiple of 4), else 4-byte ones. Consecutive threads take
+// consecutive addresses along the stored row, so the reads are coalesced
+// whichever way the product reads the operand.
+template <int TR, int TC, int THREADS, int LDS>
+__device__ __forceinline__ void load_tile(float* s, const float* g, int ld,
+                                          int rows, int cols, int r0, int c0,
+                                          int vec) {
+  if (vec) {
+    constexpr int VPR = TC / 4;
+    constexpr int NV = TR * VPR;
+#pragma unroll
+    for (int it = 0; it < (NV + THREADS - 1) / THREADS; ++it) {
+      const int v = threadIdx.x + it * THREADS;
+      if (NV % THREADS == 0 || v < NV) {
+        const int r = v / VPR, c = (v % VPR) * 4;
+        const int gr = r0 + r, gc = c0 + c;
+        const float* src = g;
+        int bytes = 0;
+        if (gr < rows && gc < cols) {
+          const int left = cols - gc;
+          bytes = 4 * (left < 4 ? left : 4);
+          src = g + (long long)gr * ld + gc;
+        }
+        cp_async16(s + r * LDS + c, src, bytes);
+      }
+    }
+  } else {
+    constexpr int NE = TR * TC;
+#pragma unroll
+    for (int it = 0; it < (NE + THREADS - 1) / THREADS; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      if (NE % THREADS == 0 || e < NE) {
+        const int r = e / TC, c = e % TC;
+        const int gr = r0 + r, gc = c0 + c;
+        const bool in = gr < rows && gc < cols;
+        cp_async4(s + r * LDS + c, in ? g + (long long)gr * ld + gc : g,
+                  in ? 4 : 0);
+      }
+    }
+  }
+}
+
+// Whether a stored operand (base ptr, row stride ld, `rows` rows, batch
+// stride `stride`) allows load_tile's 16-byte copies: the base 16-byte
+// aligned, row and batch strides multiples of 4 floats (a stride of a
+// size-1 axis is never used).
+inline bool vec_ok(const float* ptr, int ld, int rows, long long stride,
+                   int batch) {
+  return ptr != nullptr && ((uintptr_t)ptr & 15) == 0 &&
+         (rows == 1 || (ld & 3) == 0) && (batch == 1 || (stride & 3) == 0);
 }
 
 // Path classes of a launch (bgemm.cu's plan codes: cls * 10000 + ...).

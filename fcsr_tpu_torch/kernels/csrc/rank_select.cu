@@ -36,7 +36,13 @@
 // which round the data operand to bf16 (fused_step.py:361-470). The RND
 // instances round what such a product rounds (the gathered or scattered
 // rows, the kept scores, the adjoint's products before their row sum) and
-// nothing else; the fp32 instances are unchanged.
+// nothing else; the fp32 instances are unchanged. The pair's AD instance
+// (`fcsr_pool_bwd_pair_bf16_ad`) rounds as the JAX package's autodiff of
+// its bf16 forward does (fused_step.py:384-387, differentiated by jax.vjp
+// in its unet_fused and step_value_and_grad_fused kernels): x = pre * ks
+// is an elementwise product there, so the logits' dot sums the unrounded
+// products g * pre, is rounded as the operand of mm(P^T, .), then scaled
+// by the forward's s (1 - s) and 1 / div.
 #include "common.cuh"
 
 #include <stdint.h>
@@ -290,6 +296,17 @@ __device__ __forceinline__ float row_dot_as(float a, float b, float acc) {
   if constexpr (RND) return __fadd_rn(acc, bf16_round(__fmul_rn(a, b)));
   else return row_dot(a, b, acc);
 }
+// AD: acc + sum of the fp32 products a b in order, each rounded to fp32
+// (the JAX bf16 mode's autodiff: an elementwise product, then a row sum)
+__device__ __forceinline__ float row_dot_ad(float a, float b, float acc) {
+  return __fadd_rn(acc, __fmul_rn(a, b));
+}
+__device__ __forceinline__ float row_dot_ad(float4 a, float4 b, float acc) {
+  acc = __fadd_rn(acc, __fmul_rn(a.x, b.x));
+  acc = __fadd_rn(acc, __fmul_rn(a.y, b.y));
+  acc = __fadd_rn(acc, __fmul_rn(a.z, b.z));
+  return __fadd_rn(acc, __fmul_rn(a.w, b.w));
+}
 template <bool RND>
 __device__ __forceinline__ float row_dot_as(float4 a, float4 b, float acc) {
   if constexpr (RND) {
@@ -343,8 +360,11 @@ __device__ __forceinline__ float group_sum(float v, int lanes,
 // sizes, so each form is compiled with only the code it runs. The loop
 // over rows has the same trip count on every thread (group_sum). RND:
 // the scattered row (scaled, before its addend) and each product of the
-// dot are rounded to bf16, and the dot before it is scaled.
-template <bool VEC, int BATCH, bool SCATTER, bool EXTRA, bool DOT, bool RND>
+// dot are rounded to bf16, and the dot before it is scaled. AD (with
+// RND): the dot sums the unrounded products (row_dot_ad), is rounded, and
+// is scaled as dot (s (1 - s)) gscale.
+template <bool VEC, int BATCH, bool SCATTER, bool EXTRA, bool DOT, bool RND,
+          bool AD = false>
 __device__ __forceinline__ void rows_band(
     const float* __restrict__ src, const float* __restrict__ pre,
     const int* __restrict__ slot, const float* __restrict__ scale,
@@ -405,7 +425,9 @@ __device__ __forceinline__ void rows_band(
         const int g = g0 + u * lanes;
         if (g >= nv) break;
         if constexpr (DOT)
-          if (kept) acc = row_dot_as<RND>(v[u], w[u], acc);
+          if (kept)
+            acc = AD ? row_dot_ad(v[u], w[u], acc)
+                     : row_dot_as<RND>(v[u], w[u], acc);
         if constexpr (SCATTER) {
           if (live) {
             V o = v[u];
@@ -421,10 +443,16 @@ __device__ __forceinline__ void rows_band(
     }
     if constexpr (DOT) {
       acc = group_sum(acc, lanes, part);
-      if (live && l == 0)
-        g_logits[p] = __fmul_rn(__fmul_rn(__fmul_rn(rnd_if<RND>(acc), sp),
-                                          __fsub_rn(1.f, sp)),
-                                gscale);
+      if (live && l == 0) {
+        if constexpr (AD)
+          g_logits[p] = __fmul_rn(
+              __fmul_rn(rnd_if<RND>(acc), __fmul_rn(sp, __fsub_rn(1.f, sp))),
+              gscale);
+        else
+          g_logits[p] = __fmul_rn(__fmul_rn(__fmul_rn(rnd_if<RND>(acc), sp),
+                                            __fsub_rn(1.f, sp)),
+                                  gscale);
+      }
     }
   }
 }
@@ -470,7 +498,7 @@ __global__ void __launch_bounds__(ROW_MAX_THREADS)
 // The GSR backward's pair in one pass over g: g_d[f, p, :] = g[f, slot]
 // * vals[f, slot] + add[f, p, :] (scatter_rows with scale and addend) and
 // g_logits[f, p] (pool_logits_bwd), each kept row of g read once.
-template <bool VEC, int BATCH, bool RND>
+template <bool VEC, int BATCH, bool RND, bool AD>
 __global__ void __launch_bounds__(ROW_MAX_THREADS)
     pool_bwd_pair_kernel(const float* __restrict__ g,
                          const float* __restrict__ pre,
@@ -483,7 +511,7 @@ __global__ void __launch_bounds__(ROW_MAX_THREADS)
                          int cols, float scale, int R, int lanes) {
   const int f = blockIdx.y, r0 = blockIdx.x * R, r1 = min(n, r0 + R);
   const size_t fk = (size_t)f * k * cols, fn = (size_t)f * n * cols;
-  rows_band<VEC, BATCH, true, true, true, RND>(
+  rows_band<VEC, BATCH, true, true, true, RND, AD>(
       g + fk, pre + fk, slot + (size_t)f * n, vals + (size_t)f * k,
       add + fn, s + (size_t)f * n, g_d + fn, g_logits + (size_t)f * n, cols,
       scale, r0, r1, lanes);
@@ -756,7 +784,7 @@ extern "C" int fcsr_pool_logits_bwd(const float* g, const float* pre,
   return (int)cudaGetLastError();
 }
 
-template <bool RND>
+template <bool RND, bool AD = false>
 static int pool_bwd_pair_entry(const float* g, const float* pre,
                                const int* slot, const float* s,
                                const float* vals, const float* add, float* g_d,
@@ -772,7 +800,7 @@ static int pool_bwd_pair_entry(const float* g, const float* pre,
   const dim3 grid((unsigned)bands, (unsigned)batch);
   const cudaStream_t st = (cudaStream_t)stream;
   row_dispatch(vec, row_batch(cols, lanes, vec), [&](auto V, auto B) {
-    pool_bwd_pair_kernel<decltype(V)::value, decltype(B)::value, RND>
+    pool_bwd_pair_kernel<decltype(V)::value, decltype(B)::value, RND, AD>
         <<<grid, threads, 0, st>>>(g, pre, slot, s, vals, add, g_d,
                                    g_logits, n, k, cols, scale, rows, lanes);
   });
@@ -801,6 +829,20 @@ extern "C" int fcsr_pool_bwd_pair_bf16(const float* g, const float* pre,
   return pool_bwd_pair_entry<true>(g, pre, slot, s, vals, add, g_d, g_logits,
                                    batch, n, k, cols, scale, bands, rows,
                                    threads, lanes, vec, stream);
+}
+
+extern "C" int fcsr_pool_bwd_pair_bf16_ad(const float* g, const float* pre,
+                                          const int* slot, const float* s,
+                                          const float* vals, const float* add,
+                                          float* g_d, float* g_logits,
+                                          int batch, int n, int k, int cols,
+                                          float scale, int bands, int rows,
+                                          int threads, int lanes, int vec,
+                                          void* stream) {
+  return pool_bwd_pair_entry<true, true>(g, pre, slot, s, vals, add, g_d,
+                                         g_logits, batch, n, k, cols, scale,
+                                         bands, rows, threads, lanes, vec,
+                                         stream);
 }
 
 template <bool RND>

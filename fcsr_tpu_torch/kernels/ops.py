@@ -36,7 +36,8 @@ from fcsr_tpu_torch.kernels.build import load_library
 
 __all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "KERNEL_OPS_BF16",
            "PLAIN_OPS_BF16", "mode_ops", "launch_counts",
-           "bgemm_path", "bgemm_forced", "bgemm_tiles", "plan_folds",
+           "bgemm_path", "bgemm_forced", "bgemm_tiles", "bgemm_bf16_path",
+           "bgemm_bf16_forced", "bgemm_bf16_tiles", "plan_folds",
            "reset_launch_counts", "rows_contiguous", "philox_words",
            "bits_to_keep", "gat_attention_math"]
 
@@ -155,6 +156,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5, _STEP),
     Kernel("add_bias_bf16", "rank_select", "fcsr_add_bias_bf16",
            [_P, _LL, _P, _LL, _P, _I, _I, _I], _STEP),
+    # the pair as the JAX package's autodiff of its bf16 forward rounds it
+    # (unet_fused and step_value_and_grad_fused in the bf16 mode: the
+    # jax.vjp inside unet_fused's backward kernel, and :970's)
+    Kernel("pool_bwd_pair_bf16_ad", "rank_select",
+           "fcsr_pool_bwd_pair_bf16_ad",
+           [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5,
+           "fcsr_tpu/models/fused_step.py:178"),
     Kernel("tail_normalize", "tail", "fcsr_tail_normalize",
            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I], _STEP),
     Kernel("tail_normalize_bwd", "tail", "fcsr_tail_normalize_bwd",
@@ -329,6 +337,18 @@ def bgemm(a, b, ta=False, tb=False, bias=None, add=None, out=None,
     return out
 
 
+def colsum_f32_plain(g, out=None):
+    return bgemm_plain(None, g, out=out)
+
+
+def colsum_f32(g, out=None):
+    """Column sums of ``g`` (F, M, N) in fp32 into (F, 1, N): the fp32
+    product kernel's column-sum path (``bgemm(None, g)``) in every product
+    mode, for the bias gradients the JAX package's autodiff sums
+    unrounded."""
+    return bgemm(None, g, out=out)
+
+
 def _bf16(x):
     """``x`` rounded to bf16 (round to nearest even), as fp32."""
     return x.to(torch.bfloat16).to(torch.float32)
@@ -351,8 +371,10 @@ def bgemm_bf16(a, b, ta=False, tb=False, bias=None, add=None, out=None,
     operand rounded to bf16, the products summed in fp32 on the tensor
     cores; bias and add in fp32, the bias rounded too where it is a
     product's operand in the JAX package (``bias_operand``). The operands
-    are the fp32 tensors ``bgemm`` takes; one tile plan for every fold
-    count, so ``plan_folds`` has nothing to set."""
+    are the fp32 tensors ``bgemm`` takes. The dense path's split-K (which
+    sets a fold's summation order) is planned for the fold count of
+    ``plan_folds`` where one is set, else for the operands' own, so a
+    fold-sharded run keeps the unsharded run's bits."""
     if not b.is_cuda:
         return bgemm_bf16_plain(a, b, ta, tb, bias, add, out, bias_operand)
     out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
@@ -402,57 +424,110 @@ _BGEMM_CLASSES = {1: "vector, a warp per output along k",
                   3: "elementwise rank-1"}
 
 
-# the product kernel's other C entry points (plan, tile table, a launch
-# with the dense plan forced), all returning int
+# the product kernels' other C entry points (plan, tile table, a launch
+# with the dense plan forced), all returning int: ``bgemm.cu``'s
+# (``fcsr_bgemm_f32_*``) and ``bgemm_bf16.cu``'s (``fcsr_bgemm_bf16_*``)
 BGEMM_EXTRA = {
     "fcsr_bgemm_f32_plan": [_P, _P] + [_I] * 6 + [_LL, _I, _LL, _I],
     "fcsr_bgemm_f32_tile": [_I],
     "fcsr_bgemm_f32_forced": [_I] + KERNELS["bgemm_f32"].argtypes[:-1]
     + [_P],
+    "fcsr_bgemm_bf16_plan": [_P, _P] + [_I] * 6 + [_LL, _I, _LL, _I],
+    "fcsr_bgemm_bf16_tile": [_I],
+    "fcsr_bgemm_bf16_forced": [_I] + KERNELS["bgemm_bf16"].argtypes[:-2]
+    + [_I, _P],
 }
 
 
-def _bgemm_lib():
-    lib = load_library("bgemm")
+def _bgemm_lib(kernel="bgemm_f32"):
+    """The library of ``kernel`` with its extra entry points declared."""
+    lib = load_library(KERNELS[kernel].source)
+    prefix = "fcsr_" + kernel + "_"
     for symbol, argtypes in BGEMM_EXTRA.items():
-        getattr(lib, symbol).argtypes = argtypes
-        getattr(lib, symbol).restype = _I
+        if symbol.startswith(prefix):
+            getattr(lib, symbol).argtypes = argtypes
+            getattr(lib, symbol).restype = _I
     return lib
+
+
+def _path(kernel, a, b, ta, tb, bias, add, out):
+    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+    lib = _bgemm_lib(kernel)
+    folds = _PLAN_FOLDS.get() or args[5]
+    code = getattr(lib, f"fcsr_{kernel}_plan")(*args[:2], folds, *args[6:13],
+                                               *args[13:15])
+    if code < 0:
+        raise RuntimeError(f"{kernel}: no CUDA device for the plan")
+    if code // 10000:
+        return _BGEMM_CLASSES[code // 10000], code
+    return None, code
+
+
+def _copies(code):
+    return (f"{16 if code // 1000 % 2 else 4}/"
+            f"{16 if code // 2000 % 2 else 4}-byte copies")
 
 
 def bgemm_path(a, b, ta=False, tb=False, bias=None, add=None, out=None):
     """The path the product kernel takes for these CUDA operands (nothing
-    launches): its shape class, and for the dense path the tile, the
-    split-K cluster size and the copy width of each operand."""
-    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
-    lib = _bgemm_lib()
-    code = lib.fcsr_bgemm_f32_plan(*args[:2], *args[5:13], *args[13:15])
-    if code < 0:
-        raise RuntimeError("bgemm_f32: no CUDA device for the plan")
-    if code // 10000:
-        return _BGEMM_CLASSES[code // 10000]
-    bm, bn, tm, tn, kg = bgemm_tile(lib, (code // 10) % 10)
+    launches; the plan of ``plan_folds`` folds inside that context): its
+    shape class, and for the dense path the tile, the split-K cluster size
+    and the copy width of each operand."""
+    cls, code = _path("bgemm_f32", a, b, ta, tb, bias, add, out)
+    if cls:
+        return cls
+    bm, bn, tm, tn, kg = bgemm_tiles()[(code // 10) % 10]
     return (f"dense {bm}x{bn} ({tm}x{tn} per thread, {kg} warp groups over "
-            f"k), split-K {code % 10}, {16 if code // 1000 % 2 else 4}/"
-            f"{16 if code // 2000 % 2 else 4}-byte copies")
+            f"k), split-K {code % 10}, {_copies(code)}")
 
 
-def bgemm_tile(lib, t):
-    """(bm, bn, tm, tn, kg) of the dense path's tile ``t``, or None past
-    the kernel's table."""
-    code = lib.fcsr_bgemm_f32_tile(t)
-    if code < 0:
-        return None
-    return (code // 1000000, code // 1000 % 1000, code // 100 % 10,
-            code // 10 % 10, code % 10)
+def bgemm_bf16_path(a, b, ta=False, tb=False, bias=None, add=None,
+                    out=None):
+    """``bgemm_path`` of ``bgemm_bf16``."""
+    cls, code = _path("bgemm_bf16", a, b, ta, tb, bias, add, out)
+    if cls:
+        return cls
+    bm, bn, bk, stages = bgemm_bf16_tiles()[(code // 10) % 10]
+    return (f"dense {bm}x{bn} (4 warps of mma.sync m16n8k16, {bk}-deep "
+            f"slices in a {stages}-stage ring), split-K {code % 10}, "
+            f"{_copies(code)}")
+
+
+def _tiles(kernel, decode):
+    lib, tiles = _bgemm_lib(kernel), []
+    tile = getattr(lib, f"fcsr_{kernel}_tile")
+    while tile(len(tiles)) >= 0:
+        tiles.append(decode(tile(len(tiles))))
+    return tiles
 
 
 def bgemm_tiles():
-    """The dense path's tiles as (bm, bn, tm, tn, kg), in table order."""
-    lib, tiles = _bgemm_lib(), []
-    while bgemm_tile(lib, len(tiles)) is not None:
-        tiles.append(bgemm_tile(lib, len(tiles)))
-    return tiles
+    """The fp32 dense path's tiles as (bm, bn, tm, tn, kg), in table
+    order."""
+    return _tiles("bgemm_f32", lambda c: (c // 1000000, c // 1000 % 1000,
+                                          c // 100 % 10, c // 10 % 10,
+                                          c % 10))
+
+
+def bgemm_bf16_tiles():
+    """The bf16 dense path's variants as (bm, bn, slice depth, ring
+    stages), in table order."""
+    return _tiles("bgemm_bf16", lambda c: (c // 1000000, c // 10000 % 100,
+                                           c // 100 % 100, c % 100))
+
+
+def _forced(kernel, tile, split, a, b, ta, tb, bias, add, out, *extra):
+    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
+    stream = torch.cuda.current_stream()
+    if stream.device != b.device:
+        raise RuntimeError(f"{kernel} forced: operands on {b.device}, "
+                           f"current device {stream.device}")
+    err = getattr(_bgemm_lib(kernel), f"fcsr_{kernel}_forced")(
+        tile * 10 + split, *args, *extra, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} (tile {tile}, split {split}) failed "
+                           f"to launch: error {err}")
+    return out
 
 
 def bgemm_forced(tile, split, a, b, ta=False, tb=False, bias=None,
@@ -461,17 +536,14 @@ def bgemm_forced(tile, split, a, b, ta=False, tb=False, bias=None,
     kernel's tile table) and split-K cluster size forced, for measuring
     every plan against the one the kernel picks. Counts no launch; shapes
     that take another path launch as usual."""
-    out, args = _bgemm_args(a, b, ta, tb, bias, add, out)
-    stream = torch.cuda.current_stream()
-    if stream.device != b.device:
-        raise RuntimeError(f"bgemm_forced: operands on {b.device}, current "
-                           f"device {stream.device}")
-    err = _bgemm_lib().fcsr_bgemm_f32_forced(
-        tile * 10 + split, *args, stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bgemm_f32 (tile {tile}, split {split}) failed "
-                           f"to launch: error {err}")
-    return out
+    return _forced("bgemm_f32", tile, split, a, b, ta, tb, bias, add, out)
+
+
+def bgemm_bf16_forced(tile, split, a, b, ta=False, tb=False, bias=None,
+                      add=None, out=None, bias_operand=False):
+    """``bgemm_forced`` of ``bgemm_bf16`` (tiles: ``bgemm_bf16_tiles``)."""
+    return _forced("bgemm_bf16", tile, split, a, b, ta, tb, bias, add, out,
+                   int(bias_operand and bias is not None))
 
 
 # ---------------------------------------------------------------------------
@@ -782,14 +854,17 @@ def scatter_rows_bf16(src, slot, scale=None, add=None):
     return scatter_rows(src, slot, scale, add, rnd=True)
 
 
-def pool_logits_bwd_plain(g, pre, slot, s, scale=1.0 / 100.0, rnd=False):
+def pool_logits_bwd_plain(g, pre, slot, s, scale=1.0 / 100.0, rnd=False,
+                          ad=False):
     prod = g * pre
-    dot = (_bf16(prod) if rnd else prod).sum(-1)
+    dot = (_bf16(prod) if rnd and not ad else prod).sum(-1)
     g_s = torch.where(slot >= 0,
                       torch.take_along_dim(dot, slot.clamp(min=0).long(), 1),
                       torch.zeros((), dtype=g.dtype, device=g.device))
     if rnd:
         g_s = _bf16(g_s)
+    if ad:
+        return g_s * (s * (1.0 - s)) * scale
     return g_s * s * (1.0 - s) * scale
 
 
@@ -825,26 +900,37 @@ def pool_logits_bwd(g, pre, slot, s, scale=1.0 / 100.0):
 
 
 def pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale=1.0 / 100.0,
-                        rnd=False):
+                        rnd=False, ad=False):
     return (scatter_rows_plain(g, slot, vals, add, rnd),
-            pool_logits_bwd_plain(g, pre, slot, s, scale, rnd))
+            pool_logits_bwd_plain(g, pre, slot, s, scale, rnd, ad))
 
 
 def pool_bwd_pair_bf16_plain(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
     return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale, rnd=True)
 
 
-def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0, rnd=False):
+def pool_bwd_pair_bf16_ad_plain(g, pre, slot, s, vals, add,
+                                scale=1.0 / 100.0):
+    return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale, rnd=True,
+                               ad=True)
+
+
+def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0, rnd=False,
+                  ad=False):
     """The GSR backward's two adjoints of a pool level in one launch,
     each kept row of ``g`` read once: (``scatter_rows(g, slot, vals,
     add)``, ``pool_logits_bwd(g, pre, slot, s, scale)``), the first bit
     for bit and the second with the standalone launch's bits. ``rnd``
     (``pool_bwd_pair_bf16``): the scaled rows rounded to bf16 before the
     addend, the dot a sum of bf16-rounded products, rounded before it is
-    scaled, as the JAX package's bf16 one-hot products give them
-    (``fused_step.py:451-460``)."""
+    scaled, as the JAX package's bf16 one-hot products give them in its
+    hand-written adjoints (``fused_step.py:451-460``). ``ad`` with ``rnd``
+    (``pool_bwd_pair_bf16_ad``): the dot as the JAX package's autodiff of
+    its bf16 forward takes it (``fused_step.py:384-387``): a sum of the
+    unrounded products, rounded, then times ``s (1 - s)`` and ``scale``."""
     if not g.is_cuda:
-        return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale, rnd)
+        return pool_bwd_pair_plain(g, pre, slot, s, vals, add, scale, rnd,
+                                   ad)
     F, n, k, m = _check_pool_bwd(g, pre, slot, s, vals, add)
     if tuple(vals.shape) != (F, k) or tuple(add.shape) != (F, n, m):
         raise ValueError(f"pool_bwd_pair: vals {tuple(vals.shape)}, add "
@@ -853,7 +939,8 @@ def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0, rnd=False):
     g_d = torch.empty(F, n, m, dtype=torch.float32, device=g.device)
     g_logits = torch.empty(F, n, dtype=torch.float32, device=g.device)
     plan = _row_plan(F, n, m, g, pre, add, g_d)
-    KERNELS["pool_bwd_pair_bf16" if rnd else "pool_bwd_pair"](
+    name = "pool_bwd_pair" + ("_bf16" if rnd else "") + ("_ad" if ad else "")
+    KERNELS[name](
         g.device, _ptr(g), _ptr(pre), _ptr(slot), _ptr(s), _ptr(vals),
         _ptr(add), _ptr(g_d), _ptr(g_logits), F, n, k, m, float(scale),
         plan.bands, plan.rows, plan.threads, plan.lanes, int(plan.vec))
@@ -862,6 +949,10 @@ def pool_bwd_pair(g, pre, slot, s, vals, add, scale=1.0 / 100.0, rnd=False):
 
 def pool_bwd_pair_bf16(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
     return pool_bwd_pair(g, pre, slot, s, vals, add, scale, rnd=True)
+
+
+def pool_bwd_pair_bf16_ad(g, pre, slot, s, vals, add, scale=1.0 / 100.0):
+    return pool_bwd_pair(g, pre, slot, s, vals, add, scale, rnd=True, ad=True)
 
 
 def add_bias_plain(x, bias, rnd=False):
@@ -2336,10 +2427,10 @@ def adamw_masked(p, m, v, g, scal, vals, b1, b2, eps, wd, inplace=False):
     return p2, m2, v2, loss
 
 
-_OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
-        "pool_logits_bwd", "pool_bwd_pair", "add_bias", "tail_normalize",
-        "tail_normalize_bwd", "sym_abs_fill", "sym_sign_grad", "l1_term",
-        "adam_masked", "anti_vectorize_normalize",
+_OPS = ("bgemm", "colsum_f32", "rank_select", "gather_rows",
+        "scatter_rows", "pool_logits_bwd", "pool_bwd_pair", "add_bias",
+        "tail_normalize", "tail_normalize_bwd", "sym_abs_fill",
+        "sym_sign_grad", "l1_term", "adam_masked", "anti_vectorize_normalize",
         "vectorize_colmajor", "normalize_adj_batch", "gat_attention",
         "gat_attention_bwd", "philox_keep_mask", "philox_drop_logits",
         "philox_drop_outer", "gat_pool_adj",
@@ -2351,15 +2442,18 @@ KERNEL_OPS = SimpleNamespace(**{name: globals()[name] for name in _OPS})
 PLAIN_OPS = SimpleNamespace(**{name: globals()[name + "_plain"]
                                for name in _OPS})
 # the GSR step's ops under FCSR_MM_MODE=bf16: single-pass bf16 products
-# and the rounding instances of the pool, row and bias kernels
+# and the rounding instances of the pool, row and bias kernels, with
+# ``pool_bwd_pair_ad`` the pair of the autodiff-shaped backward
 _BF16_OPS = ("bgemm", "rank_select", "gather_rows", "scatter_rows",
              "pool_bwd_pair", "add_bias")
 KERNEL_OPS_BF16 = SimpleNamespace(**dict(
     vars(KERNEL_OPS), **{name: globals()[name + "_bf16"]
-                         for name in _BF16_OPS}))
+                         for name in _BF16_OPS},
+    pool_bwd_pair_ad=pool_bwd_pair_bf16_ad))
 PLAIN_OPS_BF16 = SimpleNamespace(**dict(
     vars(PLAIN_OPS), **{name: globals()[name + "_bf16_plain"]
-                        for name in _BF16_OPS}))
+                        for name in _BF16_OPS},
+    pool_bwd_pair_ad=pool_bwd_pair_bf16_ad_plain))
 
 
 def mode_ops(plain: bool = False) -> SimpleNamespace:

@@ -49,6 +49,7 @@ model, a leading axis F a fold batch.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -170,7 +171,7 @@ def unet_forward(ops, W, B, sizes):
     return net, x0, res
 
 
-def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start):
+def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start, ad=False):
     """Hand-written U-Net adjoints (the JAX package's ``_unet_bwd_math``)
     against the forward's residuals; writes every U-Net weight and bias
     gradient into the views ``GW``/``GB``.
@@ -191,13 +192,29 @@ def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start):
     (:460), dW_down, db_down and g_p (:462-464), at level 0 written as
     dW_start = g_p + g_org + ct_start (:467-468, unrounded) and db_start
     (:469). 9 + 9 L products (45 at L = 4; with the forward's 15 and the
-    tail's 19 the step's 79), L pairs and L gathers."""
+    tail's 19 the step's 79), L pairs and L gathers.
+
+    ``ad`` (the bf16 mode's ``unet_fused`` and ``step_value_and_grad_fused``,
+    whose JAX kernels differentiate the forward with ``jax.vjp``): the
+    same adjoints rounded where that autodiff rounds them (PERF.md):
+    each bias gradient but the pools' an fp32 column sum of the unrounded
+    cotangent (``colsum_f32``; the pools' bias is a product's operand,
+    :380), the pair's dot a sum of unrounded products (``pool_bwd_pair_ad``,
+    :387), and dW_start = mm(I, g_x0) (:361, rounded), its bias the sum of
+    the unrounded g_x0."""
     L = len(res["d"])
     bg = ops.bgemm
+
+    def bias_grad(g, out):
+        if ad:
+            return ops.colsum_f32(g, out=out)
+        return bg(None, g, out=out)
+
+    pair = ops.pool_bwd_pair_ad if ad else ops.pool_bwd_pair
     xf = res["xf"]
     bg(xf, ct_net, ta=True, out=GW["w:end_gcn_a"])
     bg(x0, ct_net, ta=True, out=GW["w:end_gcn_b"])
-    bg(None, ct_net, out=GB["b:end_gcn"])
+    bias_grad(ct_net, GB["b:end_gcn"])
     g = bg(ct_net, W["w:end_gcn_a"], tb=True)
     g_org = bg(ct_net, W["w:end_gcn_b"], tb=True, add=ct_start)
     g_skip = [None] * L
@@ -205,42 +222,59 @@ def unet_backward(ops, W, GW, GB, x0, res, ct_net, ct_start):
         up = L - i - 1
         g_skip[up] = g
         bg(res["xu"][up], g, ta=True, out=GW[f"w:up_gcns_{i}"])
-        bg(None, g, out=GB[f"b:up_gcns_{i}"])
+        bias_grad(g, GB[f"b:up_gcns_{i}"])
         g_xu = bg(g, W[f"w:up_gcns_{i}"], tb=True)
         g = ops.gather_rows(g_xu, res["idx"][up])
     bg(res["pooled"][L - 1], g, ta=True, out=GW["w:bottom_gcn"])
-    bg(None, g, out=GB["b:bottom_gcn"])
+    bias_grad(g, GB["b:bottom_gcn"])
     g_p = bg(g, W["w:bottom_gcn"], tb=True)
     for i in reversed(range(L)):
         # the unpool of g_p (scaled by the kept scores, plus the skip) and
         # the adjoint to the logits in one launch: both read g_p by slot
-        g_d, g_logits = ops.pool_bwd_pair(g_p, res["pre"][i], res["slot"][i],
-                                          res["s"][i], res["vals"][i],
-                                          g_skip[i])
+        g_d, g_logits = pair(g_p, res["pre"][i], res["slot"][i], res["s"][i],
+                             res["vals"][i], g_skip[i])
         gl = g_logits.view(g_logits.shape[0], -1, 1)
         bg(res["d"][i], gl, ta=True, out=GW[f"w:pools_{i}"])
         bg(None, gl, out=GB[f"b:pools_{i}"])
         g_d = bg(gl, W[f"w:pools_{i}"], tb=True, add=g_d, out=g_d)
         x_in = x0 if i == 0 else res["pooled"][i - 1]
         bg(x_in, g_d, ta=True, out=GW[f"w:down_gcns_{i}"])
-        bg(None, g_d, out=GB[f"b:down_gcns_{i}"])
+        bias_grad(g_d, GB[f"b:down_gcns_{i}"])
         if i > 0:
             g_p = bg(g_d, W[f"w:down_gcns_{i}"], tb=True)
+        elif ad:
+            # g_x0 = g_p + g_org + ct_start; dW_start = mm(I, g_x0)
+            g_x0 = bg(g_d, W[f"w:down_gcns_{i}"], tb=True, add=g_org)
+            ops.colsum_f32(g_x0, out=GB["b:start_gcn"])
+            bg(_identity(x0.shape[0], x0.shape[1], x0.device), g_x0,
+               out=GW["w:start_gcn"])
         else:
             # start_gcn's input is the identity: dW = g_p + g_org + ct_start
             bg(g_d, W[f"w:down_gcns_{i}"], tb=True, add=g_org,
                out=GW["w:start_gcn"])
-    bg(None, GW["w:start_gcn"], out=GB["b:start_gcn"])
+    if not ad:
+        bg(None, GW["w:start_gcn"], out=GB["b:start_gcn"])
+
+
+@functools.lru_cache(maxsize=8)
+def _eye(n: int, device) -> torch.Tensor:
+    return torch.eye(n, dtype=torch.float32, device=device)
+
+
+def _identity(F: int, n: int, device) -> torch.Tensor:
+    """(F, n, n) identity matrices (one, broadcast over the folds)."""
+    return _eye(n, device).expand(F, n, n)
 
 
 def step_value_and_grads(ops, P, G, u_lr, u_hr, hr, sizes, lmbda,
-                         loss=None, recon=None):
+                         loss=None, recon=None, ad=False):
     """Value and every gradient of the step's loss over the op namespace
     ``ops``: U-Net forward, lmbda * L1(net, start), the tail's value and
     gradients, the U-Net adjoints. ``P`` and ``G`` map leaf names to
     (F, r, c) tensors; every gradient is written into its ``G`` tensor.
     With ``loss`` and ``recon`` (F,) the tail's last loss term also writes
-    the step's loss and recon into them (no launch of their own).
+    the step's loss and recon into them (no launch of their own). ``ad``:
+    the U-Net adjoints rounded as autodiff rounds them (``unet_backward``).
     Returns the loss terms (F, 3) = [lmbda * L1, recon, spectral]."""
     w_start = P["w:start_gcn"]
     F, lr_dim, hr_dim = w_start.shape
@@ -254,7 +288,7 @@ def step_value_and_grads(ops, P, G, u_lr, u_hr, hr, sizes, lmbda,
         u_lr, u_hr, hr, vals, g_wgsr=G["layer.weights"],
         g_w1=G["gc1.weight"], g_w2=G["gc2.weight"], g_f_add=g_l1, loss=loss,
         recon=recon)
-    unet_backward(ops, P, G, G, x0, res, ct_net, neg_g_l1)
+    unet_backward(ops, P, G, G, x0, res, ct_net, neg_g_l1, ad)
     return vals
 
 
@@ -473,16 +507,16 @@ def _stage(what, device, params, names, data=()):
     return out[:len(leaves)], out[len(leaves):], squeeze
 
 
-def _unet_grads(leaves, names, x0, res, ct_net, ct_start):
-    """The hand-written adjoints into a fresh flat buffer; returns its leaf
-    views in ``names`` order."""
+def _unet_grads(leaves, names, x0, res, ct_net, ct_start, ad=False):
+    """The hand-written adjoints (``ad``: rounded as autodiff rounds them)
+    into a fresh flat buffer; returns its leaf views in ``names`` order."""
     W = dict(zip(names, leaves))
     F, lr_dim, hr_dim = W["w:start_gcn"].shape
     layout = FlatLayout(lr_dim, hr_dim, len(res["d"]))
     G = layout.views(torch.empty(F, layout.size, dtype=torch.float32,
                                  device=x0.device))
     unet_backward(mode_ops(), W, G, G, x0, res, ct_net.contiguous(),
-                  ct_start.contiguous())
+                  ct_start.contiguous(), ad)
     return tuple(G[n] for n in names)
 
 
@@ -490,7 +524,8 @@ class _UnetFused(torch.autograd.Function):
     """(net, start) by the forward kernels; the backward runs the
     hand-written adjoints against the forward's residuals — kept
     (``unet_fused_fwdbwd``) or, with ``keep=False``, recomputed by
-    launching the forward again (``unet_fused``)."""
+    launching the forward again (``unet_fused``; in the bf16 mode rounded
+    as the JAX kernel's ``jax.vjp`` rounds them)."""
 
     @staticmethod
     def forward(ctx, sizes, keep, *leaves):
@@ -511,8 +546,9 @@ class _UnetFused(torch.autograd.Function):
         else:
             W = dict(zip(names, leaves))
             _, x0, res = unet_forward(mode_ops(), W, W, ctx.sizes)
+        ad = not ctx.keep and mm_mode.check_mode() == "bf16"
         return (None, None) + _unet_grads(leaves, names, x0, res, ct_net,
-                                          ct_start)
+                                          ct_start, ad)
 
 
 class _UnetFusedFwdOnly(torch.autograd.Function):
@@ -571,7 +607,9 @@ def unet_fused(net_params, ks: Sequence[float], lr_dim: int, hr_dim: int,
                device=DEFAULT_DEVICE):
     """As ``unet_fused_fwdbwd`` but keeping only the leaves: the backward
     launches the forward kernels again for the residuals, then the
-    adjoints (the rematerialising backward kernel of the JAX package)."""
+    adjoints (the rematerialising backward kernel of the JAX package,
+    which takes ``jax.vjp`` of its forward: in the bf16 mode the adjoints
+    round where that autodiff rounds, ``unet_backward(ad=True)``)."""
     sizes = pool_sizes(lr_dim, ks)
     return _unet_entry("unet_fused", _UnetFused, (sizes, False), net_params,
                        ks, lr_dim, hr_dim, device)
@@ -650,7 +688,9 @@ def step_value_and_grad_fused(params, u_lr, u_hr, hr, ks: Sequence[float],
     axis); ``grads`` carries the same names and shapes. The same launches
     as ``gsr_step_loss_fused``; the parameters are copied into the
     kernels' layout first, so this is an entry point for checks, not for a
-    training loop."""
+    training loop. The JAX kernel takes ``jax.value_and_grad`` of the
+    step's loss: in the bf16 mode the U-Net adjoints round where that
+    autodiff rounds (``unet_backward(ad=True)``)."""
     if hidden_dim != hr_dim:
         raise ValueError("the fused step needs hidden_dim == hr_dim")
     ks = tuple(ks)
@@ -667,7 +707,8 @@ def step_value_and_grad_fused(params, u_lr, u_hr, hr, ks: Sequence[float],
         loss, recon = (torch.empty(F, dtype=torch.float32,
                                    device=leaves[0].device) for _ in range(2))
         step_value_and_grads(mode_ops(), dict(zip(names, leaves)), G, *data,
-                             pool_sizes(lr_dim, ks), lmbda, loss, recon)
+                             pool_sizes(lr_dim, ks), lmbda, loss, recon,
+                             ad=mm_mode.check_mode() == "bf16")
         grads = leaf_tensors_to_state(G)
     if squeeze:
         return loss[0], recon[0], {k: g[0] for k, g in grads.items()}

@@ -278,10 +278,15 @@ def test_bgemm_plain_against_float64(cls, M, N, K, ta, tb, ones, with_bias,
 
 def test_bgemm_extra_bindings_match_c_signatures():
     """The plan, tile-table and forced-plan entry points of ``bgemm.cu``
-    are declared to ctypes with exactly their C parameters."""
-    src = (Path(__file__).resolve().parents[1] / "fcsr_tpu_torch" / "kernels"
-           / "csrc" / "bgemm.cu").read_text()
+    and ``bgemm_bf16.cu`` are declared to ctypes with exactly their C
+    parameters."""
+    csrc = Path(__file__).resolve().parents[1] / "fcsr_tpu_torch" / "kernels" \
+        / "csrc"
+    assert {s.rsplit("_", 1)[0] for s in BGEMM_EXTRA} == {
+        "fcsr_bgemm_f32", "fcsr_bgemm_bf16"}
     for symbol, argtypes in BGEMM_EXTRA.items():
+        src = (csrc / ("bgemm_bf16.cu" if "_bf16_" in symbol
+                       else "bgemm.cu")).read_text()
         m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", src,
                       re.S)
         assert m, symbol

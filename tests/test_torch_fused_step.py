@@ -312,12 +312,13 @@ def test_kernel_bindings_match_c_signatures():
     on the card, where nothing type-checks the call."""
     csrc = Path(__file__).resolve().parents[1] / "fcsr_tpu_torch" / \
         "kernels" / "csrc"
-    assert len(KERNELS) == 33 and {"anti_vectorize_normalize",
+    assert len(KERNELS) == 34 and {"anti_vectorize_normalize",
                                    "vectorize_colmajor",
                                    "normalize_adj_batch",
                                    "l1_term", "bgemm_bf16",
                                    "rank_select_bf16", "gather_rows_bf16",
                                    "scatter_rows_bf16", "pool_bwd_pair_bf16",
+                                   "pool_bwd_pair_bf16_ad",
                                    "add_bias_bf16"} <= set(KERNELS)
     assert "loss_terms" not in KERNELS    # l1_term writes the loss scalars
     for k in KERNELS.values():

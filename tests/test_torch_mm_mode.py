@@ -26,6 +26,7 @@ import torch
 from fcsr_tpu_torch.core import mm_mode
 from fcsr_tpu_torch.kernels import (KERNEL_OPS, KERNEL_OPS_BF16, KERNELS,
                                     PLAIN_OPS, PLAIN_OPS_BF16, mode_ops)
+from fcsr_tpu_torch.kernels import ops
 from fcsr_tpu_torch.kernels.ops import bgemm_plain
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -151,15 +152,22 @@ def test_mode_comes_from_the_environment_at_import():
 
 
 def test_bf16_namespaces_swap_only_the_rounding_ops():
+    """The bf16 namespaces are the fp32 ones with the rounding ops swapped,
+    plus ``pool_bwd_pair_ad``, the pair of the autodiff-shaped backward
+    (``unet_backward(ad=True)``, bf16 only)."""
     swapped = {"bgemm", "rank_select", "gather_rows", "scatter_rows",
                "pool_bwd_pair", "add_bias"}
     for fp32, bf16 in ((KERNEL_OPS, KERNEL_OPS_BF16),
                        (PLAIN_OPS, PLAIN_OPS_BF16)):
-        assert vars(fp32).keys() == vars(bf16).keys()
+        assert vars(bf16).keys() == vars(fp32).keys() | {"pool_bwd_pair_ad"}
         for name in vars(fp32):
             assert (getattr(fp32, name) is getattr(bf16, name)) == (
                 name not in swapped), name
-    assert {f"{n}_bf16" for n in swapped} <= set(KERNELS)
+    assert KERNEL_OPS_BF16.pool_bwd_pair_ad is ops.pool_bwd_pair_bf16_ad
+    assert PLAIN_OPS_BF16.pool_bwd_pair_ad is \
+        ops.pool_bwd_pair_bf16_ad_plain
+    assert {f"{n}_bf16" for n in swapped} | {"pool_bwd_pair_bf16_ad"} <= set(
+        KERNELS)
 
 
 def _r(x):
@@ -297,6 +305,12 @@ def test_rounding_instances_match_plain_on_card(cuda_device):
     assert torch.equal(K.scatter_rows(gp, slot), P.scatter_rows(gp, slot))
     g_d, g_l = K.pool_bwd_pair(gp, pre, slot, s, vals, skip)
     w_d, w_l = P.pool_bwd_pair(gp, pre, slot, s, vals, skip)
+    assert torch.equal(g_d, w_d)
+    assert float((g_l - w_l).abs().max()) <= 1e-5 * max(
+        1.0, float(w_l.abs().max()))
+    # the autodiff-shaped pair: the same g_d, its own logits' adjoint
+    g_d, g_l = K.pool_bwd_pair_ad(gp, pre, slot, s, vals, skip)
+    w_d, w_l = P.pool_bwd_pair_ad(gp, pre, slot, s, vals, skip)
     assert torch.equal(g_d, w_d)
     assert float((g_l - w_l).abs().max()) <= 1e-5 * max(
         1.0, float(w_l.abs().max()))
