@@ -234,7 +234,23 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``FCSR_MM_MODE=bf16 python -m fcsr_tpu_torch train gsr --fused`` on
    phase 5's CSVs in a process of its own, bit-equal to the same command in
    process; (e) the unfused runner with ``compute_dtype="bf16"`` (1 epoch,
-   beside fp32 unfused); (f) ``utils.probe.require_live_device``.
+   beside fp32 unfused); (f) ``utils.probe.require_live_device``;
+13. ``hidden_dim != hr_dim`` and the JAX fast loop's resume blob: (a)
+   ``tail_loss_fused`` (#4) and ``step_value_and_grad_fused`` (#10) at
+   decoder widths 134 and 536 against autograd over their plain versions
+   (values 1e-5 relative, gradients 1e-4 of their scale, 27 / 105
+   launches), the tail's device ms a call at 268, 134 and 536, every
+   product signature of the two that the 268-wide step lacks checked and
+   timed beside the library call (``check_product``), and at 536 in the
+   bf16 mode #4 on the kernels against its plain version and its new
+   ``bgemm_bf16`` signatures (``check_bf16_product``); (b) the
+   ``fused_tail_unet_bwd`` runner at 536 for 2 epochs and the unfused one
+   at 134 for 1 (s/epoch, ms a step in the loop and on the device,
+   launches a step, val MAE beside the untrained MAE); (c) the 536 run and a ``fused_adam`` run at
+   268, each interrupted after epoch 1 with its ``.msgpack`` blob and
+   resumed by a fresh runner, bit-equal to the straight run, and the
+   encode and decode ms of the 37 MB blob; (d) the ``fused_adam`` and
+   ``fused_step`` runners, #9 and #8 refusing width 134 before any launch.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -6017,6 +6033,393 @@ def run_phase12(dev, data, step_args, csv_dir, smi):
     return records, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: hidden_dim != hr_dim and the JAX fast loop's resume blob
+# ---------------------------------------------------------------------------
+
+# decoder widths beside hr = 268: half and twice it (134 rows are 8-byte,
+# not 16-byte, multiples: the products' 4-byte copy path)
+HIDDEN_WIDTHS = (134, 536)
+TAIL_NAMES = ("layer.weights", "gc1.weight", "gc2.weight")
+
+
+def _hidden_inputs(dev, h):
+    """``_entry_inputs`` at decoder width ``h``: the flat weights of three
+    ``GSRNet(hidden_dim=h)`` inits in the h-wide ``FlatLayout``, the same
+    u_lr, u_hr and hr."""
+    from fcsr_tpu_torch.iox.weights import state_to_flat
+    from fcsr_tpu_torch.models.gsr import GSRNet
+
+    flat = np.stack([state_to_flat({k: v.numpy() for k, v in GSRNet(
+        KS, LR, HR, h, device="cpu", seed=j).state_dict().items()})
+        for j in range(F)])
+    _, u_lr, u_hr, hr = _entry_inputs(dev)
+    return torch.from_numpy(flat).to(dev), u_lr, u_hr, hr
+
+
+def _hidden_censuses(ops, views, f0, u_lr, u_hr, hr, h):
+    """The censuses of #4 (``tail_value_and_grad`` on the trainer's leaf
+    views, as ``tail_loss_fused`` hands them over) and of #10 (the step's
+    value and gradients on the leaves ``step_value_and_grad_fused`` stages
+    from a state_dict) over ``ops``."""
+    from fcsr_tpu_torch.iox.weights import (leaf_names,
+                                            leaf_tensors_to_state,
+                                            state_to_leaf_tensors)
+    from fcsr_tpu_torch.kernels.census import census_of
+    from fcsr_tpu_torch.models import fused_step as fs
+    from fcsr_tpu_torch.models.fused_tail import tail_value_and_grad
+    from fcsr_tpu_torch.models.gsr import pool_sizes
+
+    vals = torch.empty(F, 3, device=hr.device)
+    tail = census_of(lambda o: tail_value_and_grad(
+        o, *[views[k] for k in TAIL_NAMES], f0, u_lr, u_hr, hr, vals), ops)
+    names = leaf_names(len(KS))
+    state = {k: t.contiguous() for k, t in leaf_tensors_to_state(
+        views).items()}
+    leaves, data, _ = fs._stage("census", hr.device,
+                                state_to_leaf_tensors(state), names,
+                                (u_lr, u_hr, hr))
+    layout = fs.FlatLayout(LR, HR, len(KS), h)
+    G = layout.views(torch.empty(F, layout.size, device=hr.device))
+    step = census_of(lambda o: fs.step_value_and_grads(
+        o, dict(zip(names, leaves)), G, *data, pool_sizes(LR, KS), 16.0), ops)
+    return tail, step
+
+
+def check_hidden_entry_points(dev, smi):
+    """Phase 13 (a): #4 (``tail_loss_fused``) and #10
+    (``step_value_and_grad_fused``) at decoder widths 134 and 536 (F = 3,
+    full width) against autograd over their plain versions, as phase 6
+    holds them at 268 (values 1e-5 relative, gradients 1e-4 of the plain
+    gradient's largest entry, 27 / 105 launches); the tail's device ms per
+    call at 268, 134 and 536; every product signature of the two that the
+    268-wide step does not have, checked and timed beside the library call
+    (``check_product``); then at 536 under ``FCSR_MM_MODE=bf16``: #4 on
+    the bf16 kernels against the same launches on their plain versions
+    (the loss within 1e-5 relative; the gradients printed and held finite:
+    a sum that lands beside a bf16 rounding edge rounds the next product's
+    operand the other way, PERF.md) and its new ``bgemm_bf16``
+    signatures (``check_bf16_product``). Returns the JSON line's
+    additions for ``bgemm_f32``."""
+    from fcsr_tpu_torch.core import mm_mode
+    from fcsr_tpu_torch.iox.weights import leaf_tensors_to_state
+    from fcsr_tpu_torch.kernels import (KERNEL_OPS, KERNEL_OPS_BF16,
+                                        PLAIN_OPS_BF16, launch_counts,
+                                        reset_launch_counts)
+    from fcsr_tpu_torch.kernels.census import gsr_step_census
+    from fcsr_tpu_torch.models import fused_step as fs
+    from fcsr_tpu_torch.models.fused_tail import (_tail_loss,
+                                                  tail_loss_fused,
+                                                  tail_value_and_grad)
+
+    ct = torch.tensor([2.5, 1.0, -0.5], device=dev)
+    dims = dict(F=F, lr_dim=LR, hr_dim=HR, ks=KS)
+    # the signatures #4, #10 and the step already have at hidden == hr
+    mode_ops = {"fp32": KERNEL_OPS, "bf16": KERNEL_OPS_BF16}
+    known = {mode: set(gsr_step_census(dev, ops=ops, **dims).signatures())
+             for mode, ops in mode_ops.items()}
+    g = torch.Generator(device=dev).manual_seed(13)
+    timed = {}
+    for h in (HR,) + HIDDEN_WIDTHS:
+        p, u_lr, u_hr, hr = _hidden_inputs(dev, h)
+        layout = fs.FlatLayout(LR, HR, len(KS), h)
+        views = layout.views(p)
+        with torch.no_grad():
+            f0, _ = fs.unet_forward_rankselect(views, KS, LR)
+            tail_args = [views[k] for k in TAIL_NAMES] + [f0, u_lr, u_hr,
+                                                          hr]
+            tail_ms = device_ms(lambda: tail_loss_fused(*tail_args,
+                                                        device=dev), reps=3)
+        if h == HR:
+            print(f"  #4 tail_loss_fused at hidden {h}: {tail_ms:.4f} ms "
+                  f"device a call [{smi}]", flush=True)
+            for mode, prods in known.items():
+                with mm_mode_set("bf16" if mode == "bf16" else mm_mode.MODE), \
+                        torch.no_grad():
+                    for census in _hidden_censuses(mode_ops[mode], views, f0,
+                                                   u_lr, u_hr, hr, h):
+                        prods.update(census.signatures())
+            continue
+
+        def run4(fused):
+            P = {k: t.requires_grad_() for k, t in
+                 layout.views(p.clone()).items() if k in TAIL_NAMES}
+            f = f0.clone().requires_grad_()
+            args = [P[k] for k in TAIL_NAMES] + [f, u_lr, u_hr, hr]
+            loss = (tail_loss_fused(*args, device=dev) if fused
+                    else _tail_loss(*args)[0])
+            grads = torch.autograd.grad((ct * loss).sum(),
+                                        [P[k] for k in TAIL_NAMES] + [f])
+            return loss.detach(), grads
+
+        reset_launch_counts()
+        with torch.no_grad():
+            tail_loss_fused(*tail_args, device=dev)
+        c4 = sum(launch_counts().values())
+        loss, grads = run4(True)
+        w_loss, w_grads = run4(False)
+        torch.cuda.synchronize()
+        v4 = max_err(loss, w_loss) / scale_of(w_loss)
+        g4 = max(max_err(a, b) / max(float(b.abs().max()), 1e-3)
+                 for a, b in zip(grads, w_grads))
+        # #10 over a state_dict of the same weights
+        with torch.no_grad():
+            state = {k: t.contiguous() for k, t in
+                     leaf_tensors_to_state(layout.views(p.clone())).items()}
+
+        def call10():
+            return fs.step_value_and_grad_fused(
+                state, u_lr, u_hr, hr, KS, LR, HR, h, 16.0, device=dev)
+        reset_launch_counts()
+        loss10, recon10, grads10 = call10()
+        c10 = sum(launch_counts().values())
+        P = {k: t.requires_grad_() for k, t in layout.views(p.clone()).items()}
+        w10, w_recon = fs.step_loss_pure(P, None, hr, u_lr, u_hr, KS, LR, 16.0)
+        w_grads10 = leaf_tensors_to_state(dict(zip(P, torch.autograd.grad(
+            w10.sum(), list(P.values())))))
+        torch.cuda.synchronize()
+        v10 = max(max_err(loss10, w10.detach()) / scale_of(w10.detach()),
+                  max_err(recon10, w_recon.detach()))
+        g10 = max(max_err(grads10[k], w) / max(float(w.abs().max()), 1e-3)
+                  for k, w in w_grads10.items())
+        with torch.no_grad():
+            ms10 = device_ms(call10, reps=3)
+        print(f"  hidden {h}: #4 {tail_ms:.4f} ms device a call, {c4} "
+              f"launches, value rel err {v4:.2e} (limit 1e-5), worst "
+              f"gradient err / max {g4:.2e} (limit 1e-4); #10 {ms10:.4f} ms "
+              f"device, {c10} launches, value err {v10:.2e}, gradients "
+              f"{g10:.2e}; gc1 {tuple(grads10['gc1.weight'].shape)} "
+              f"[{smi}]", flush=True)
+        if not (v4 <= 1e-5 and g4 <= 1e-4 and v10 <= 1e-5 and g10 <= 1e-4):
+            fail(f"#4 / #10 at hidden {h} disagree with autograd over their "
+                 "plain versions")
+        if (c4, c10) != (ENTRY_LAUNCHES["tail_loss_fused"],
+                         ENTRY_LAUNCHES["step_value_and_grad_fused"]):
+            fail(f"#4 / #10 at hidden {h} launch {c4} / {c10} kernels")
+        if grads10["gc2.weight"].shape != (F, h, HR):
+            fail(f"#10 at hidden {h}: gc2's gradient is "
+                 f"{tuple(grads10['gc2.weight'].shape)}")
+        # the product signatures the 268-wide step never had
+        with torch.no_grad():
+            for census in _hidden_censuses(KERNEL_OPS, views, f0, u_lr,
+                                           u_hr, hr, h):
+                for prod in census.signatures():
+                    if prod not in known["fp32"] and prod not in timed:
+                        timed[prod] = check_product(
+                            prod, census.layouts[prod], g, dev)
+        if h != max(HIDDEN_WIDTHS):
+            continue
+        # the same tail on the bf16 products
+        with mm_mode_set("bf16"), torch.no_grad():
+            outs = []
+            for ops in (KERNEL_OPS_BF16, PLAIN_OPS_BF16):
+                vals = torch.zeros(F, 3, device=dev)
+                grads = tail_value_and_grad(ops, *tail_args, vals)
+                outs.append((vals[:, 1] + vals[:, 2], grads))
+            torch.cuda.synchronize()
+            v16 = max_err(outs[0][0], outs[1][0]) / scale_of(outs[1][0])
+            g16 = _rel(outs[0][1], outs[1][1])
+            ms16 = device_ms(lambda: tail_loss_fused(*tail_args, device=dev),
+                             reps=3)
+            print(f"  hidden {h}, bf16: #4 {ms16:.4f} ms device a call, "
+                  f"kernels vs plain: loss rel err {v16:.2e} (limit 1e-5), "
+                  f"gradients {g16:.2e} of their scale [{smi}]", flush=True)
+            if not (v16 <= 1e-5 and all(bool(torch.isfinite(t).all())
+                                        for t in outs[0][1])):
+                fail(f"#4 at hidden {h} in bf16 disagrees with its plain "
+                     "version")
+            known16 = known["bf16"]
+            for census in _hidden_censuses(KERNEL_OPS_BF16, views, f0, u_lr,
+                                           u_hr, hr, h):
+                for prod in census.signatures():
+                    if prod not in known16:
+                        known16.add(prod)
+                        check_bf16_product(prod, census.layouts[prod], g, dev)
+    worst = max(k / l for k, l, _ in timed.values())
+    print(f"  bgemm_f32: {len(timed)} signatures new at hidden "
+          f"{HIDDEN_WIDTHS}, checked and timed; worst kernel / library "
+          f"{worst:.2f}x, kernel {sum(k for k, _, _ in timed.values()):.4f} "
+          f"ms, library {sum(l for _, l, _ in timed.values()):.4f} ms, "
+          f"bound {sum(b for _, _, b in timed.values()):.5f} ms over one "
+          f"launch each [{smi}]", flush=True)
+    return {"hidden_signatures": len(timed),
+            "hidden_worst_vs_library": worst}
+
+
+def _train_counted(runner, **kw):
+    """``runner.train(**kw)`` with the launch counts set to 0 just before
+    and read just after: (p, loss, err, seconds, counts)."""
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    p, loss, err = runner.train(**kw)
+    torch.cuda.synchronize()
+    return (p, loss, err, time.perf_counter() - t0,
+            _nonzero(launch_counts()))
+
+
+def _add(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def run_hidden_runners(dev, data, work, smi):
+    """Phase 13 (b) and (c) on the teacher set's 3 folds at full width:
+    the ``fused_tail_unet_bwd`` runner at hidden 536 for 2 epochs and the
+    unfused one at 134 for 1 (s/epoch, ms a step in the loop and on the
+    device as one CUDA graph, launches a step, val MAE beside the
+    untrained MAE); then the 536 run and a
+    ``fused_adam`` run at 268, each interrupted after epoch 1 with its
+    ``.msgpack`` blob (the JAX fast loop's) and resumed by a fresh runner,
+    bit-equal to the straight run; the encode and decode ms of the 268
+    blob. Returns the runs' launch counts."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+    from fcsr_tpu_torch.iox.checkpoint import (load_resume_msgpack,
+                                               save_resume_msgpack)
+    from fcsr_tpu_torch.iox.msgpack import msgpack_restore, pack_pieces
+
+    folds = kfold_indices(len(data["lr_train"]), 3, seed=42)
+    scal = torch.tensor([[1.0, 1 - 0.9, 1 - 0.999]] * len(folds), device=dev)
+    total, straight = {}, {}
+
+    def runner(cfg):
+        return GSRFoldRunner(cfg, data["lr_train"], data["hr_train"], folds,
+                             device=dev)
+
+    narrow, wide = HIDDEN_WIDTHS
+    for mode, h, epochs in (("fused_tail_unet_bwd", wide, EPOCHS),
+                            ("unfused", narrow, 1)):
+        cfg = GSRTrainConfig(epochs=epochs, hidden_dim=h, **MODE_FLAGS[mode])
+        r = runner(cfg)
+        untrained, _ = r.evaluate(r.flat0)
+        p, loss, err, t, c = _train_counted(r)
+        maes, _ = r.evaluate()
+        steps = r.tr_idx.shape[1] * epochs
+        # the step alone, without the host's gaps: one CUDA graph of it
+        p0, m0, v0, _ = r.fresh_state()
+        dev_ms = device_ms(lambda: r._step(p0, m0, v0, 0, scal), reps=3)
+        print(f"  {mode} at hidden {h}: {t / epochs:.3f} s/epoch, "
+              f"{1e3 * t / steps:.3f} ms a step in the loop, {dev_ms:.3f} "
+              f"ms a step on the device, "
+              f"{sum(c.values()) / steps:.1f} launches a step {c}; val MAE "
+              f"{float(np.mean(maes)):.6f} (untrained "
+              f"{float(np.mean(untrained)):.6f}) [{smi}]", flush=True)
+        if not (np.isfinite(loss).all() and np.isfinite(maes).all()):
+            fail(f"{mode} at hidden {h}: non-finite loss or MAE")
+        if sum(c.values()) != MODE_LAUNCHES[mode] * steps or (
+                set(c) != set(MODE_KERNELS[mode])):
+            fail(f"{mode} at hidden {h} launched {c} in {steps} steps")
+        if epochs == EPOCHS and not np.mean(maes) < np.mean(untrained):
+            fail(f"{mode} at hidden {h} did not train")
+        _add(total, c)
+        straight[cfg] = (p, loss, err)
+
+    for mode, h in (("fused_tail_unet_bwd", wide), ("fused_adam", HR)):
+        cfg = GSRTrainConfig(epochs=EPOCHS, hidden_dim=h, **MODE_FLAGS[mode])
+        if cfg not in straight:
+            p, loss, err, _, c = _train_counted(runner(cfg))
+            _add(total, c)
+            straight[cfg] = (p, loss, err)
+        path = os.path.join(work, f"{mode}_{h}.msgpack")
+        first = runner(cfg)
+        state, lh, eh = first._run_chunk(first.fresh_state(), 1)
+        first.save_checkpoint(path, state, 1, lh, eh)
+        p, loss, err, _, c = _train_counted(runner(cfg), checkpoint_path=path,
+                                            checkpoint_every=1)
+        _add(total, c)
+        want = straight[cfg]
+        same = (torch.equal(p, want[0]) and np.array_equal(loss, want[1])
+                and np.array_equal(err, want[2]))
+        print(f"  {mode} at hidden {h}: resumed from the .msgpack blob after "
+              f"epoch 1 by a fresh runner, bit-equal to the straight run: "
+              f"{same}", flush=True)
+        if not same:
+            fail(f"{mode} at hidden {h}: the msgpack resume is not exact")
+    # the full-width blob (3 folds of 1 023 496 parameters, p, m and v)
+    blob = load_resume_msgpack(path)
+    pieces = pack_pieces(blob)
+    raw = b"".join(pieces)
+    enc = min(_wall_ms(lambda: b"".join(pack_pieces(blob)))
+              for _ in range(3))
+    dec = min(_wall_ms(lambda: msgpack_restore(raw)) for _ in range(3))
+    t0 = time.perf_counter()
+    save_resume_msgpack(os.path.join(work, "copy.msgpack"), *blob["state"],
+                        blob["epoch"], blob["fingerprint"], blob["loss_hist"],
+                        blob["err_hist"])
+    write = 1e3 * (time.perf_counter() - t0)
+    print(f"  the 268-wide blob: {len(raw) / 1e6:.2f} MB, encode "
+          f"{enc:.2f} ms, decode {dec:.2f} ms, written to disk in "
+          f"{write:.2f} ms (host) [{smi}]", flush=True)
+    if os.path.getsize(path) != len(raw):
+        fail("the msgpack blob does not re-encode to its own bytes")
+    return total
+
+
+def _wall_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def check_hidden_refusals(dev, data):
+    """Phase 13 (d): ``fused_adam`` and ``fused_step`` runners at hidden
+    134, ``train_step_fused`` (#9) on a 134-wide buffer and
+    ``gsr_step_loss_fused`` (#8) with a 134-wide w1 each raise a
+    ValueError, and no kernel launches."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.models import fused_step as fs
+
+    h = HIDDEN_WIDTHS[0]
+    p, u_lr, u_hr, hr = _hidden_inputs(dev, h)
+    views = fs.FlatLayout(LR, HR, len(KS), h).views(p)
+    net = {k: t for k, t in views.items() if k not in TAIL_NAMES}
+    folds = kfold_indices(len(data["lr_train"]), 3, seed=42)
+    scal = torch.tensor([[1.0, 0.1, 0.001]] * F, device=dev)
+    calls = {
+        "fused_adam runner": lambda: GSRFoldRunner(
+            GSRTrainConfig(hidden_dim=h, fused_adam=True), data["lr_train"],
+            data["hr_train"], folds, device=dev),
+        "fused_step runner": lambda: GSRFoldRunner(
+            GSRTrainConfig(hidden_dim=h, fused_step=True), data["lr_train"],
+            data["hr_train"], folds, device=dev),
+        "train_step_fused": lambda: fs.train_step_fused(
+            p, p.clone(), p.clone(), u_lr, u_hr, hr, scal, KS, LR, HR, 16.0,
+            1e-4, device=dev),
+        "gsr_step_loss_fused": lambda: fs.gsr_step_loss_fused(
+            net, *[views[k] for k in TAIL_NAMES], u_lr, u_hr, hr, KS, LR, HR,
+            16.0, device=dev)}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if "hidden_dim == hr_dim only" not in str(e):
+                fail(f"{name} at hidden {h} raised another error: {e}")
+        else:
+            fail(f"{name} at hidden {h} did not refuse")
+    launched = _nonzero(launch_counts())
+    print(f"  hidden {h}: {', '.join(calls)} refused with a ValueError, "
+          f"launches {launched or 'none'}", flush=True)
+    if launched:
+        fail("a refused whole-step call launched kernels")
+
+
+def run_phase13(dev, data, work, smi):
+    """Phase 13: hidden_dim != hr_dim and the JAX fast loop's resume blob.
+    Returns (JSON line additions for ``bgemm_f32``, launch counts)."""
+    t0 = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    record = check_hidden_entry_points(dev, smi)
+    counts = run_hidden_runners(dev, data, work, smi)
+    check_hidden_refusals(dev, data)
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return record, counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -6107,6 +6510,11 @@ def main():
         p12_records, p12_counts = run_phase12(
             dev, data, step_args, os.path.join(WORK_DIR, "data"), smi)
         records.update(p12_records)
+        print("phase 13: hidden_dim != hr_dim and the JAX fast loop's "
+              "resume blob", flush=True)
+        p13_record, p13_counts = run_phase13(
+            dev, data, os.path.join(WORK_DIR, "p13"), smi)
+        records["bgemm_f32"].update(p13_record)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -6122,7 +6530,7 @@ def main():
                    counts, csv_counts, mode_counts, parity_counts,
                    gat_counts, gat_cli_counts, keep_counts,
                    metric_counts, mlp_counts, mlp_cli_counts, p10_counts,
-                   p11_counts, p12_counts))}
+                   p11_counts, p12_counts, p13_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

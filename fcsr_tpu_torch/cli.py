@@ -79,9 +79,12 @@ def build_parser():
                         "training one model across folds; --fast and "
                         "--fused always start fresh)")
     g.add_argument("--checkpoint", default=None,
-                   help="(--fast / --fused) npz checkpoint file for exact "
-                        "mid-training save/resume; `predict --params` "
-                        "reads it too")
+                   help="(--fast / --fused) checkpoint file for exact "
+                        "mid-training save/resume: the port's npz blob "
+                        "(`predict --params` reads it too), or the JAX "
+                        "package's msgpack resume blob where the file is "
+                        "one or a new path ends in .msgpack (either "
+                        "package resumes the other's run)")
     g.add_argument("--checkpoint-every", type=int, default=None)
     g.add_argument("--fused-tail", action="store_true",
                    help="with --fast: the spectral layer, decoder and loss "
@@ -330,7 +333,8 @@ def main(argv=None):
 
         params = load_params(args.params)
         hr_dim, lr_dim = params["layer.weights"].shape
-        cfg = GSRTrainConfig(lr_dim=lr_dim, hr_dim=hr_dim, hidden_dim=hr_dim)
+        cfg = GSRTrainConfig(lr_dim=lr_dim, hr_dim=hr_dim,
+                             hidden_dim=params["gc1.weight"].shape[1])
         model = GSRNet(cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.hidden_dim,
                        device=args.device)
         data = load_or_synthesize(args.data_dir, seed=args.seed,

@@ -10,9 +10,14 @@ port's own coder, ``iox/msgpack.py``). The port's own files are npz:
   arrays;
 * a trainer *resume blob*: the flat fold-batched ``p``, ``m``, ``v``, the
   per-fold step counts ``t``, ``epoch``, the run ``fingerprint``, both
-  histories, and the leaf dims ``lr_dim``, ``hr_dim``, ``n_levels`` that
-  make the file self-describing (``train/fast_loop.py`` writes and reads
-  it).
+  histories, and the leaf dims ``lr_dim``, ``hr_dim``, ``n_levels``,
+  ``hidden_dim`` that make the file self-describing (``train/fast_loop.py``
+  writes and reads it; a blob without ``hidden_dim`` is at ``hr_dim``).
+
+The JAX fast loop's own resume blob is msgpack
+(``fcsr_tpu/train/fast_loop.py:546-553``): ``save_resume_msgpack`` /
+``load_resume_msgpack`` write and read it, p, m and v in that loop's
+ravel order (``iox/weights.py::flax_ravel_index``).
 
 Every write goes to a temporary file and is installed by an atomic
 replace, so an interrupted write never leaves a partial checkpoint.
@@ -26,7 +31,10 @@ from typing import Dict, Mapping
 import numpy as np
 
 __all__ = ["save_arrays", "load_arrays", "save_state", "load_state",
-           "load_params", "save_pytree", "load_pytree", "is_msgpack"]
+           "load_params", "save_pytree", "load_pytree", "is_msgpack",
+           "save_resume_msgpack", "load_resume_msgpack"]
+
+RESUME_KEYS = ("state", "epoch", "fingerprint", "loss_hist", "err_hist")
 
 
 def _atomic_write(path: str, write) -> None:
@@ -78,6 +86,34 @@ def is_msgpack(path: str) -> bool:
                      "file")
 
 
+def save_resume_msgpack(path: str, p, m, v, t, epoch: int,
+                        fingerprint: str, loss_hist, err_hist) -> None:
+    """Atomically write the JAX fast loop's resume blob, flax's
+    ``msgpack_serialize`` of ``{"state": [p, m, v, t], "epoch",
+    "fingerprint", "loss_hist", "err_hist"}`` (keys sorted, as flax writes
+    them): p, m, v (F, P) float32 in that loop's ravel order, t (F,)
+    float32 step counts, the histories (real folds, epochs) float32."""
+    from fcsr_tpu_torch.iox.msgpack import pack_pieces
+    blob = {"state": [np.asarray(x, np.float32) for x in (p, m, v, t)],
+            "epoch": int(epoch), "fingerprint": str(fingerprint),
+            "loss_hist": np.asarray(loss_hist, np.float32),
+            "err_hist": np.asarray(err_hist, np.float32)}
+    pieces = pack_pieces(blob)
+    _atomic_write(path, lambda f: f.writelines(pieces))
+
+
+def load_resume_msgpack(path: str) -> dict:
+    """The JAX fast loop's resume blob at ``path``, decoded: ``state`` the
+    list [p, m, v, t] of numpy arrays, ``epoch`` an int, ``fingerprint`` a
+    str, the histories arrays."""
+    blob = load_pytree(path)
+    if not isinstance(blob, dict) or any(k not in blob for k in RESUME_KEYS):
+        held = sorted(blob) if isinstance(blob, dict) else type(blob).__name__
+        raise ValueError(f"{path} is not a resume blob of the JAX fast loop "
+                         f"(it holds {held}, not {sorted(RESUME_KEYS)})")
+    return blob
+
+
 def load_arrays(path: str) -> Dict[str, np.ndarray]:
     with np.load(path, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
@@ -119,5 +155,6 @@ def load_params(path: str) -> Dict[str, np.ndarray]:
     if "fingerprint" not in blob:
         return load_state(path)
     layout = FlatLayout(int(blob["lr_dim"]), int(blob["hr_dim"]),
-                        int(blob["n_levels"]))
+                        int(blob["n_levels"]),
+                        int(blob.get("hidden_dim", blob["hr_dim"])))
     return flat_to_state(blob["p"][-1], layout.shapes)

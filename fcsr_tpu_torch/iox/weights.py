@@ -20,19 +20,27 @@ trainer use):
 * the training kernels' leaf order (``models/fused_step.py::leaf_specs``):
   15 Linear kernels as (in, out) with ``end_gcn`` split into its two
   (hr, hr) halves, then 15 biases staged (1, out), then the tail's
-  ``layer.weights``, ``gc1.weight``, ``gc2.weight``; flattened leaf after
-  leaf into one (P,) vector per fold.
+  ``layer.weights``, ``gc1.weight`` (hr, h), ``gc2.weight`` (h, hr);
+  flattened leaf after leaf into one (P,) vector per fold.
+
+The JAX fast loop keeps p, m and v as ``ravel_pytree`` of the flax
+variables: the same leaves, each C-order, in ``jax.tree_util``'s sorted-key
+order. ``flax_ravel_index`` maps that vector to the kernels' flat order
+(whole leaves moved, ``end_gcn``'s kernel in its two halves), for any
+hidden width h.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+import functools
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
 __all__ = ["lin_names", "leaf_names", "flax_to_state", "state_to_flax",
            "state_to_leaves", "leaves_to_state", "leaves_to_flat",
            "flat_to_leaves", "state_to_flat", "flat_to_state",
+           "flax_ravel_index", "flat_from_flax_ravel", "flat_to_flax_ravel",
            "state_to_leaf_tensors", "leaf_tensors_to_state", "TAIL_NAMES",
            "gat_dims", "gat_layer_specs", "gat_leaf_names",
            "gat_leaf_shapes", "gat_flax_to_state", "gat_state_to_flax",
@@ -167,6 +175,72 @@ def state_to_flat(state: Mapping[str, np.ndarray]) -> np.ndarray:
 
 def flat_to_state(flat: np.ndarray, shapes) -> Dict[str, np.ndarray]:
     return leaves_to_state(flat_to_leaves(flat, shapes))
+
+
+def _flax_leaf_shapes(lr_dim: int, hr_dim: int, n_levels: int,
+                      hidden_dim: int) -> Dict[tuple, tuple]:
+    """Path in the flax variables -> shape, for every GSR-Net leaf."""
+    n, m, h = lr_dim, hr_dim, hidden_dim
+    out = {("params", "layer", "weights"): (m, n),
+           ("params", "gc1", "weight"): (m, h),
+           ("params", "gc2", "weight"): (h, m)}
+    for mod in lin_names(n_levels):
+        rows = n if mod == "start_gcn" else 2 * m if mod == "end_gcn" else m
+        cols = 1 if mod.startswith("pools_") else m
+        out[("params", "net", mod, "proj", "kernel")] = (rows, cols)
+        out[("params", "net", mod, "proj", "bias")] = (cols,)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def flax_ravel_index(lr_dim: int, hr_dim: int, n_levels: int,
+                     hidden_dim: Optional[int] = None) -> np.ndarray:
+    """(P,) int64, read-only: ``flat = ravel[..., idx]`` takes a vector of
+    the JAX fast loop (``ravel_pytree`` of the flax variables: leaves in
+    sorted-key order, each C-order) to the kernels' flat order
+    (``leaf_names``, hidden width ``hidden_dim``, default ``hr_dim``).
+    Dense kernels are (in, out) and biases (out,) on both sides, so each
+    leaf moves whole; ``end_gcn``'s (2 hr, hr) kernel as its two halves."""
+    h = hr_dim if hidden_dim is None else hidden_dim
+    shapes = _flax_leaf_shapes(lr_dim, hr_dim, n_levels, h)
+    start, off = {}, 0
+    for path in sorted(shapes):           # jax.tree_util's dict order
+        start[path] = off
+        off += int(np.prod(shapes[path]))
+
+    def take(path, lo=0, hi=None):
+        hi = int(np.prod(shapes[path])) if hi is None else hi
+        return np.arange(start[path] + lo, start[path] + hi, dtype=np.int64)
+
+    net = [("params", "net", mod, "proj") for mod in lin_names(n_levels)]
+    half = hr_dim * hr_dim
+    idx = np.concatenate(
+        [take(p + ("kernel",)) for p in net[:-1]]
+        + [take(net[-1] + ("kernel",), 0, half),
+           take(net[-1] + ("kernel",), half, 2 * half)]
+        + [take(p + ("bias",)) for p in net]
+        + [take(("params",) + k) for k in (("layer", "weights"),
+                                           ("gc1", "weight"),
+                                           ("gc2", "weight"))])
+    idx.setflags(write=False)
+    return idx
+
+
+def flat_from_flax_ravel(x, lr_dim: int, hr_dim: int, n_levels: int,
+                         hidden_dim: Optional[int] = None) -> np.ndarray:
+    """(..., P) vectors of the JAX fast loop (its p, m or v) in the
+    kernels' flat order."""
+    idx = flax_ravel_index(lr_dim, hr_dim, n_levels, hidden_dim)
+    return np.ascontiguousarray(np.asarray(x)[..., idx])
+
+
+def flat_to_flax_ravel(x, lr_dim: int, hr_dim: int, n_levels: int,
+                       hidden_dim: Optional[int] = None) -> np.ndarray:
+    """Inverse of ``flat_from_flax_ravel``."""
+    x = np.asarray(x)
+    out = np.empty_like(x)
+    out[..., flax_ravel_index(lr_dim, hr_dim, n_levels, hidden_dim)] = x
+    return out
 
 
 def state_to_leaf_tensors(state: Mapping[str, "torch.Tensor"]):

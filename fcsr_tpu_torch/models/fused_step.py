@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,16 +70,22 @@ __all__ = ["leaf_specs", "FlatLayout", "unet_forward", "unet_backward",
            "train_step_plain", "adam_scalars", "unet_forward_rankselect",
            "step_loss_pure", "unet_fused", "unet_fused_fwdonly",
            "unet_fused_fwdbwd", "gsr_step_loss_fused",
-           "step_value_and_grad_fused"]
+           "step_value_and_grad_fused", "HIDDEN_REFUSAL"]
 
 
-def leaf_specs(lr_dim: int, hr_dim: int, n_levels: int
+def leaf_specs(lr_dim: int, hr_dim: int, n_levels: int,
+               hidden_dim: Optional[int] = None
                ) -> List[Tuple[str, Tuple[int, int]]]:
     """(name, shape) of the training kernels' 34 leaves (at 4 levels), in
     the JAX kernel's order (``_unet_leaf_shapes(tail=True)``): Linear
     kernels as (in, out) with ``end_gcn`` split in halves, biases staged
-    (1, out), then the tail's w_gsr, w1, w2."""
+    (1, out), then the tail's w_gsr (hr, lr), w1 (hr, h) and w2 (h, hr),
+    h = ``hidden_dim`` (default ``hr_dim``, the only width the JAX
+    kernels' out-shapes take)."""
     n, m = lr_dim, hr_dim
+    h = m if hidden_dim is None else hidden_dim
+    tail = {"layer.weights": (m, n), "gc1.weight": (m, h),
+            "gc2.weight": (h, m)}
 
     def shape(name):
         kind, _, module = name.partition(":")
@@ -88,21 +94,29 @@ def leaf_specs(lr_dim: int, hr_dim: int, n_levels: int
             return (n, m) if module == "start_gcn" else (m, 1 if pool else m)
         if kind == "b":
             return (1, 1 if pool else m)
-        return (m, n) if name == "layer.weights" else (m, m)
+        return tail[name]
 
     return [(name, shape(name)) for name in leaf_names(n_levels)]
 
 
 @dataclass(frozen=True)
 class FlatLayout:
-    """Offsets of the kernel leaves in one flat (P,) vector per fold."""
+    """Offsets of the kernel leaves in one flat (P,) vector per fold;
+    ``hidden_dim`` (None: ``hr_dim``) is the decoder's width, gc1's
+    columns and gc2's rows."""
     lr_dim: int
     hr_dim: int
     n_levels: int
+    hidden_dim: Optional[int] = None
+
+    def __post_init__(self):
+        if self.hidden_dim is None:
+            object.__setattr__(self, "hidden_dim", self.hr_dim)
 
     @property
     def specs(self):
-        return leaf_specs(self.lr_dim, self.hr_dim, self.n_levels)
+        return leaf_specs(self.lr_dim, self.hr_dim, self.n_levels,
+                          self.hidden_dim)
 
     @property
     def shapes(self):
@@ -298,6 +312,10 @@ def step_with_ops(ops, p, m, v, u_lr, u_hr, hr, scalars, ks, lr_dim,
     docstring); arguments as ``train_step_fused``."""
     F = p.shape[0]
     layout = FlatLayout(lr_dim, hr_dim, len(ks))
+    if p.dim() != 2 or p.shape[1] != layout.size:
+        raise ValueError(
+            f"p has shape {tuple(p.shape)}, the step's layout (F, "
+            f"{layout.size}): {HIDDEN_REFUSAL}")
     for name, t in (("m", m), ("v", v)):
         if t.shape != p.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, p has "
@@ -312,6 +330,16 @@ def step_with_ops(ops, p, m, v, u_lr, u_hr, hr, scalars, ks, lr_dim,
     p2, m2, v2, loss, recon = ops.adam_masked(p, m, v, g, scalars, vals, lr,
                                               b1, b2, eps)
     return loss, recon, p2, m2, v2
+
+
+# why the step with its Adam update (#9) and the step's loss (#8) take
+# only hidden_dim == hr_dim, as the JAX package's kernels do
+HIDDEN_REFUSAL = (
+    "the whole-step kernels take the decoder at hidden_dim == hr_dim only: "
+    "the JAX package's fix the tail's gradients d w1 / d w2 at (hr, hr) "
+    "(fcsr_tpu/models/fused_step.py:344-347) and fail at any other width. "
+    "tail_loss_fused, step_value_and_grad_fused and the fused_tail trainer "
+    "modes take any hidden_dim")
 
 
 def _check_data(F, lr_dim, hr_dim, u_lr, u_hr, hr):
@@ -338,7 +366,8 @@ def train_step_fused(p, m, v, u_lr, u_hr, hr, scalars, ks: Sequence[float],
 
     On ``device="cuda"`` (the default) every tensor must be on the card
     and the step launches only the hand-written kernels; ``device="cpu"``
-    runs their plain versions."""
+    runs their plain versions. w1 and w2 are (hr, hr): a buffer of another
+    hidden width is refused before any launch (``HIDDEN_REFUSAL``)."""
     check_on_device("train_step_fused", device, p, m, v, u_lr, u_hr, hr,
                     scalars)
     return step_with_ops(mode_ops(), p, m, v, u_lr, u_hr, hr, scalars,
@@ -666,9 +695,15 @@ def gsr_step_loss_fused(net_params, w_gsr, w1, w2, u_lr, u_hr, hr,
     without its Adam launch). Differentiable in (net_params, w_gsr, w1,
     w2); u_lr, u_hr and hr are data; ``recon`` is a metric and carries no
     gradient. 2-D inputs give scalars, a fold batch one value per fold.
+    w1 and w2 are (hr, hr): another hidden width is refused before any
+    launch (``HIDDEN_REFUSAL``).
 
     On ``device="cuda"`` (the default) every tensor must be on the card;
     ``device="cpu"`` runs the kernels' plain versions."""
+    square = (hr_dim, hr_dim)
+    if w1.shape[-2:] != square or w2.shape[-2:] != square:
+        raise ValueError(f"gsr_step_loss_fused: w1 is {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)}: {HIDDEN_REFUSAL}")
     ks = tuple(ks)
     params = dict(net_params)
     params.update(zip(TAIL_NAMES, (w_gsr, w1, w2)))
@@ -690,9 +725,14 @@ def step_value_and_grad_fused(params, u_lr, u_hr, hr, ks: Sequence[float],
     kernels' layout first, so this is an entry point for checks, not for a
     training loop. The JAX kernel takes ``jax.value_and_grad`` of the
     step's loss: in the bf16 mode the U-Net adjoints round where that
-    autodiff rounds (``unet_backward(ad=True)``)."""
-    if hidden_dim != hr_dim:
-        raise ValueError("the fused step needs hidden_dim == hr_dim")
+    autodiff rounds (``unet_backward(ad=True)``). Any ``hidden_dim``: it
+    must be ``gc1.weight``'s width, and the gradients take the
+    parameters' shapes, as the JAX kernel's do."""
+    width = params["gc1.weight"].shape[-1]
+    if hidden_dim != width:
+        raise ValueError(f"step_value_and_grad_fused: hidden_dim is "
+                         f"{hidden_dim}, gc1.weight is "
+                         f"{tuple(params['gc1.weight'].shape)}")
     ks = tuple(ks)
     names = leaf_names(len(ks))
     with torch.no_grad():
@@ -701,7 +741,7 @@ def step_value_and_grad_fused(params, u_lr, u_hr, hr, ks: Sequence[float],
             state_to_leaf_tensors(params), names, (u_lr, u_hr, hr))
         F = leaves[0].shape[0]
         _check_data(F, lr_dim, hr_dim, *data)
-        layout = FlatLayout(lr_dim, hr_dim, len(ks))
+        layout = FlatLayout(lr_dim, hr_dim, len(ks), hidden_dim)
         G = layout.views(torch.empty(F, layout.size, dtype=torch.float32,
                                      device=leaves[0].device))
         loss, recon = (torch.empty(F, dtype=torch.float32,

@@ -45,7 +45,9 @@ def tail_value_and_grad(ops, w_gsr, w1, w2, f, u_lr, u_hr, hr, vals,
                         g_wgsr=None, g_w1=None, g_w2=None, g_f_add=None,
                         loss=None, recon=None, with_l1=True):
     """Tail forward and backward over (F, ...) tensors: w_gsr (hr, lr),
-    w1/w2 (hr, hr), f (lr, hr), u_lr (lr, lr), u_hr (hr, lr), hr (hr, hr).
+    w1 (hr, h), w2 (h, hr) at any hidden width h (the JAX kernel takes
+    ``hidden = w1.shape[1]``), f (lr, hr), u_lr (lr, lr), u_hr (hr, lr),
+    hr (hr, hr).
 
     Writes the fold's recon and spectral terms into ``vals[:, 1]`` and
     ``vals[:, 2]`` ((F, 3) float32) and the weight gradients into

@@ -37,8 +37,18 @@ u_lr, u_hr, hr of each fold's sample) is gathered once at staging into
 planned on the host.
 
 With a checkpoint path the chunked state (p, m, v, step counts, epoch,
-histories) is written as an ``.npz`` resume blob between chunks and a later
-run of the same configuration, folds and data resumes from it exactly.
+histories) is written as a resume blob between chunks and a later run of
+the same configuration, folds and data resumes from it exactly. The blob
+is the port's ``.npz``, or the JAX fast loop's msgpack blob where the file
+at the path already is one or the path is new and ends in ``.msgpack``
+(``checkpoint_format``): p, m and v in that loop's ravel order and its
+fingerprint (``jax_fingerprint``), so either package resumes the other's
+run.
+
+The decoder's hidden width ``cfg.hidden_dim`` may differ from ``hr_dim``
+in the unfused and the three ``fused_tail`` modes, as in the JAX package;
+``fused_step`` and ``fused_adam`` refuse it before staging, as the JAX
+kernels fail there (``models.fused_step.HIDDEN_REFUSAL``).
 
 With a ``mesh`` (``parallel/mesh.py``) the fold axis is sharded over its
 placements, the production multi-device path: the folds are padded to a
@@ -63,11 +73,15 @@ import torch
 
 from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj_np,
                                            unpad)
-from fcsr_tpu_torch.iox.checkpoint import load_arrays, save_arrays
-from fcsr_tpu_torch.iox.weights import (flat_to_state,
+from fcsr_tpu_torch.iox.checkpoint import (is_msgpack, load_arrays,
+                                           load_resume_msgpack, save_arrays,
+                                           save_resume_msgpack)
+from fcsr_tpu_torch.iox.weights import (flat_from_flax_ravel, flat_to_state,
+                                        flat_to_flax_ravel,
                                         leaf_tensors_to_state, state_to_flat)
 from fcsr_tpu_torch.kernels.ops import KERNEL_OPS, plan_folds
-from fcsr_tpu_torch.models.fused_step import (FlatLayout, adam_scalars,
+from fcsr_tpu_torch.models.fused_step import (HIDDEN_REFUSAL, FlatLayout,
+                                              adam_scalars,
                                               gsr_step_loss_fused,
                                               train_step_fused,
                                               unet_forward_rankselect,
@@ -80,8 +94,9 @@ from fcsr_tpu_torch.train.losses import gsr_composite_loss
 from fcsr_tpu_torch.utils.device import (DEFAULT_DEVICE, on_device,
                                          resolve_device)
 
-__all__ = ["adam_flat_update", "trainer_mode", "stage_dataset",
-           "GSRFoldRunner", "train_gsr_folds_parallel", "evaluate_gsr_folds"]
+__all__ = ["adam_flat_update", "trainer_mode", "checkpoint_format",
+           "stage_dataset", "GSRFoldRunner", "train_gsr_folds_parallel",
+           "evaluate_gsr_folds"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -113,6 +128,15 @@ def trainer_mode(cfg: GSRTrainConfig) -> str:
                     else "fused_tail_unet")
         return "fused_tail"
     return "unfused"
+
+
+def checkpoint_format(path: str) -> str:
+    """The resume blob's format at ``path``: "msgpack" (the JAX fast
+    loop's) where the file is one, or where there is no file and the path
+    ends in ``.msgpack``; else "npz" (the port's)."""
+    if os.path.exists(path):
+        return "msgpack" if is_msgpack(path) else "npz"
+    return "msgpack" if path.endswith(".msgpack") else "npz"
 
 
 def _pad_plans(folds, which: int, pad_to: int = None):
@@ -260,9 +284,11 @@ class GSRFoldRunner:
                 "padding != 0 is not supported by the fused kernel paths "
                 "(fused_step/fused_tail/fused_adam); use the unfused "
                 "trainer (all fused flags False) for padded configs")
-        if cfg.hidden_dim != cfg.hr_dim:
-            raise ValueError("the fold-parallel trainer's flat layout needs "
-                             "hidden_dim == hr_dim")
+        if cfg.hidden_dim != cfg.hr_dim and self.mode in ("fused_step",
+                                                         "fused_adam"):
+            raise ValueError(f"trainer mode {self.mode} at hidden_dim "
+                             f"{cfg.hidden_dim} != hr_dim {cfg.hr_dim}: "
+                             f"{HIDDEN_REFUSAL}")
         self.cfg = cfg
         self.folds = folds
         self.n_folds = len(folds)
@@ -279,7 +305,8 @@ class GSRFoldRunner:
         # is a no-op; the padded count shapes the state
         n_pad = (-self.n_folds) % len(placements)
         self._n_total = self.n_folds + n_pad
-        self.layout = FlatLayout(cfg.lr_dim, cfg.hr_dim, len(cfg.ks))
+        self.layout = FlatLayout(cfg.lr_dim, cfg.hr_dim, len(cfg.ks),
+                                 cfg.hidden_dim)
         self.data = stage_dataset(cfg, lr_all, hr_all, self.device)
         pad_folds = list(folds) + [(np.zeros(1, np.int32),) * 2] * n_pad
         self.tr_idx, self.tr_valid = _pad_plans(pad_folds, 0)
@@ -300,6 +327,8 @@ class GSRFoldRunner:
         self.flat0 = flat0.to(self.device).contiguous()
         self.flat_trained = None
         self.fingerprint = self._fingerprint(lr_all, hr_all, flat0)
+        self.jax_fingerprint = self._jax_fingerprint(lr_all, hr_all,
+                                                     init_seed)
         staged = {self.device: self.data}
         per = self._n_total // len(placements)
         self.shards = []
@@ -321,10 +350,26 @@ class GSRFoldRunner:
         h.update(repr(self.cfg).encode())
         if self._n_total != self.n_folds:
             h.update(repr(self._n_total).encode())
+        return self._hash_plan(h, (lr_all, hr_all, flat0))
+
+    def _jax_fingerprint(self, lr_all, hr_all, init_seed) -> str:
+        """The JAX runner's fingerprint (``fcsr_tpu/train/fast_loop.py:
+        402-420``), which its msgpack blobs carry: config, ``init_seed``
+        (not the initial weights), the padded fold count, fold plan and
+        dataset content. The configs' reprs are equal field for field."""
+        h = hashlib.blake2b(digest_size=8)
+        h.update(repr(self.cfg).encode())
+        h.update(repr(init_seed).encode())
+        h.update(repr(self._n_total).encode())
+        return self._hash_plan(h, (lr_all, hr_all))
+
+    def _hash_plan(self, h, arrays) -> str:
+        """``h`` over the fold plan (int64 bytes) and then each array
+        (float32 shape and bytes); its hex digest."""
         for tr, va in self.folds:
             h.update(np.asarray(tr, np.int64).tobytes())
             h.update(np.asarray(va, np.int64).tobytes())
-        for a in (lr_all, hr_all, flat0):
+        for a in arrays:
             a = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
             h.update(str(a.shape).encode())
             h.update(a.tobytes())
@@ -412,35 +457,61 @@ class GSRFoldRunner:
         state = (self._state(ps), self._state(ms), self._state(vs), t)
         return state, epoch_means(losses), epoch_means(errs)
 
-    def save_checkpoint(self, path: str, state, epoch: int, loss_hist,
-                        err_hist) -> None:
-        """Write the resume blob of ``state`` (the whole padded fold stack)
-        after ``epoch`` epochs; the histories are the real folds'."""
-        p, m, v = (self._gather(x).cpu().numpy() for x in state[:3])
-        save_arrays(path, p=p, m=m, v=v, t=np.asarray(state[3], np.float32),
-                    epoch=np.int64(epoch),
-                    fingerprint=np.str_(self.fingerprint),
-                    loss_hist=np.asarray(loss_hist, np.float32)[
-                        :self.n_folds],
-                    err_hist=np.asarray(err_hist, np.float32)[:self.n_folds],
-                    lr_dim=np.int64(self.layout.lr_dim),
-                    hr_dim=np.int64(self.layout.hr_dim),
-                    n_levels=np.int64(self.layout.n_levels))
+    def _dims(self):
+        lay = self.layout
+        return lay.lr_dim, lay.hr_dim, lay.n_levels, lay.hidden_dim
 
-    def _restore(self, path: str):
+    def save_checkpoint(self, path: str, state, epoch: int, loss_hist,
+                        err_hist, fmt: str = None) -> None:
+        """Write the resume blob of ``state`` (the whole padded fold stack)
+        after ``epoch`` epochs; the histories are the real folds'. ``fmt``
+        "npz" or "msgpack" (default: ``checkpoint_format(path)``)."""
+        p, m, v = (self._gather(x).cpu().numpy() for x in state[:3])
+        t = np.asarray(state[3], np.float32)
+        loss_hist = np.asarray(loss_hist, np.float32)[:self.n_folds]
+        err_hist = np.asarray(err_hist, np.float32)[:self.n_folds]
+        if (fmt or checkpoint_format(path)) == "msgpack":
+            p, m, v = (flat_to_flax_ravel(x, *self._dims())
+                       for x in (p, m, v))
+            save_resume_msgpack(path, p, m, v, t, epoch,
+                                self.jax_fingerprint, loss_hist, err_hist)
+            return
+        lr_dim, hr_dim, n_levels, hidden_dim = self._dims()
+        save_arrays(path, p=p, m=m, v=v, t=t, epoch=np.int64(epoch),
+                    fingerprint=np.str_(self.fingerprint),
+                    loss_hist=loss_hist, err_hist=err_hist,
+                    lr_dim=np.int64(lr_dim), hr_dim=np.int64(hr_dim),
+                    n_levels=np.int64(n_levels),
+                    hidden_dim=np.int64(hidden_dim))
+
+    def _restore(self, path: str, fmt: str):
         """(state, epochs done, loss_hist, err_hist) from this run's blob
-        at ``path``, or None after discarding another run's."""
-        blob = load_arrays(path)
-        if (str(blob.get("fingerprint")) == self.fingerprint
-                and int(blob["epoch"]) <= self.cfg.epochs):
-            state = tuple(self._state(self._split(blob[k]))
-                          for k in ("p", "m", "v")) + (blob["t"],)
-            return (state, int(blob["epoch"]), blob["loss_hist"],
-                    blob["err_hist"])
+        at ``path`` (``fmt`` "npz" or "msgpack"), or None after discarding
+        another run's with the warning of the package that writes it."""
+        if fmt == "msgpack":
+            blob = load_resume_msgpack(path)
+            ok = blob["fingerprint"] == self.jax_fingerprint
+            what = "config/folds/dataset"
+        else:
+            blob = load_arrays(path)
+            ok = str(blob.get("fingerprint")) == self.fingerprint
+            what = "config/folds/dataset/mesh"
+        if ok and int(blob["epoch"]) <= self.cfg.epochs:
+            if fmt == "msgpack":
+                p, m, v, t = blob["state"]
+                p, m, v = (flat_from_flax_ravel(x, *self._dims())
+                           for x in (p, m, v))
+            else:
+                p, m, v, t = (blob[k] for k in ("p", "m", "v", "t"))
+            state = tuple(self._state(self._split(x)) for x in (p, m, v)) \
+                + (np.asarray(t, np.float32),)
+            return (state, int(blob["epoch"]),
+                    np.asarray(blob["loss_hist"], np.float32),
+                    np.asarray(blob["err_hist"], np.float32))
         warnings.warn(
-            f"checkpoint {path} is from a different run (config/folds/"
-            "dataset/mesh fingerprint mismatch) — discarding it and "
-            "training from scratch")
+            f"checkpoint {path} is from a different run ({what} "
+            "fingerprint mismatch) — discarding it and training from "
+            "scratch")
         os.remove(path)
         return None
 
@@ -455,16 +526,19 @@ class GSRFoldRunner:
         ``checkpoint_every`` epochs (default ``chunk_epochs``, else a tenth
         of the run) and the run resumes from the file if it holds this
         run's fingerprint; another run's file is discarded with a
-        warning."""
+        warning. The file's format is ``checkpoint_format``'s, fixed when
+        the run starts."""
         chunk = chunk_epochs or self.cfg.epochs
+        fmt = None
         if checkpoint_path is not None:
             chunk = checkpoint_every or chunk_epochs or \
                 max(1, self.cfg.epochs // 10)
+            fmt = checkpoint_format(checkpoint_path)
         state = self.fresh_state()
         losses, errs = [], []
         done = 0
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
-            restored = self._restore(checkpoint_path)
+            restored = self._restore(checkpoint_path, fmt)
             if restored is not None:
                 state, done, lh, eh = restored
                 losses, errs = [lh], [eh]
@@ -477,7 +551,7 @@ class GSRFoldRunner:
             if checkpoint_path is not None:
                 self.save_checkpoint(checkpoint_path, state, done,
                                      np.concatenate(losses, axis=1),
-                                     np.concatenate(errs, axis=1))
+                                     np.concatenate(errs, axis=1), fmt)
         self.flat_trained = state[0]
         return (self._gather(state[0])[:self.n_folds],
                 np.concatenate(losses, axis=1).astype(np.float32),

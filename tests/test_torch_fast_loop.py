@@ -95,10 +95,13 @@ def test_runner_refusals():
     # without a fused flag the runner is the unfused trainer, no refusal
     assert GSRFoldRunner(GSRTrainConfig(**TINY), lr, hr, folds,
                          device="cpu").mode == "unfused"
-    with pytest.raises(ValueError, match="hidden_dim == hr_dim"):
-        GSRFoldRunner(GSRTrainConfig(lr_dim=20, hr_dim=32, hidden_dim=16,
-                                     ks=TINY["ks"]), lr, hr, folds,
-                      device="cpu")
+    # a decoder narrower than hr_dim trains in the unfused mode (the
+    # fused_tail modes too), as in the JAX package
+    narrow = GSRFoldRunner(GSRTrainConfig(lr_dim=20, hr_dim=32,
+                                          hidden_dim=16, ks=TINY["ks"]),
+                           lr, hr, folds, device="cpu")
+    assert narrow.mode == "unfused" and narrow.layout.hidden_dim == 16
+    assert dict(narrow.layout.specs)["gc1.weight"] == (32, 16)
     r = GSRFoldRunner(GSRTrainConfig(epochs=1, fused_adam=True, **TINY), lr,
                       hr, folds, device="cpu")
     with pytest.raises(RuntimeError, match="before train"):

@@ -395,7 +395,8 @@ def test_step_value_and_grad_fused_matches_jax(rng, batched):
             g = grads[k][j] if batched else grads[k]
             assert g.shape == state[k].shape[1 if batched else 0:]
             _close_scaled(g.numpy(), w, 3e-4, k)
-    with pytest.raises(ValueError, match="hidden_dim"):
+    # any hidden width, but it must be gc1.weight's
+    with pytest.raises(ValueError, match="hidden_dim is 33, gc1.weight"):
         step_value_and_grad_fused(state, *[_pick(a, batched) for a in data],
                                   KS, N, M, M + 1, CFG.lmbda, device="cpu")
 
