@@ -68,9 +68,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    launches; the GAT step's of phase 7 into ``profile_gat_step.txt``);
 4. drives the trainer path: the seeded 167-subject teacher dataset, 3
    folds, ``GSRFoldRunner(GSRTrainConfig(fused_adam=True))`` at full width
-   for 2 epochs (two ``chunk_epochs=1`` launches) and ``evaluate()``, with
-   every step kernel's launch count read from that run; and a tiny 2-fold
-   run on the card against the same run on the host;
+   for 2 epochs (two ``chunk_epochs=1`` launches, each epoch one replay of
+   the epoch's CUDA graph, its capture's seconds printed) and
+   ``evaluate()``, with every step kernel's launch count read from that
+   run (counted through the replays); and a tiny 2-fold run on the card
+   against the same run on the host; the phase's peak device memory;
 5. drives the CSV-to-submission path at full width through the command
    line: the teacher set written as the three Kaggle CSVs (NaN cells
    included), ``train gsr --fused`` (2 epochs, 3 folds, a checkpoint) and
@@ -89,11 +91,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    times per call (``entry_point_times``, which also times an older
    tree); one epoch over 3 folds of ``GSRFoldRunner`` in each mode
    (unfused, ``fused_tail``, ``+ fused_unet``, ``+ fused_unet_bwd``,
-   ``fused_step``) with the launch counts of each run (``MODE_LAUNCHES``
-   a step), ``fused_step`` bit-equal to
-   ``fused_adam`` from the same weights; and the parity trainer
-   (``train gsr`` with no flag, 2 folds x 1 epoch) through the command
-   line on phase 5's CSVs;
+   ``fused_step``) through its epoch graph, with the launch counts of
+   each run through the replays (``MODE_LAUNCHES`` a step), ``fused_step``
+   bit-equal to ``fused_adam`` from the same weights; and the parity
+   trainer (``train gsr`` with no flag, 2 folds x 1 epoch) through the
+   command line on phase 5's CSVs; the phase's peak device memory;
 7. drives the GAT U-Net family at its shipped width (n = 160, m = 268,
    dim 16, ks (0.5, 0.5, 0.5), 4 / 2 heads, F = 3): each of its eleven
    kernels against its plain version at every shape the step uses, at
@@ -135,10 +137,12 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    its profile (83 launches); the fused validation forward (37 launches, no
    ``gather_rows``, 3 ``scatter_rows``) and its profile
    (``profile_gat_val.txt``);
-   ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3 folds, 2 epochs at drop_p = 0.01, the launch counts of
-   that run), one epoch fused against one unfused; and ``train gat --fast
-   --fused``, ``--fast`` and the per-fold trainer through the command line
-   on phase 5's CSVs, each column-major submission parsed back;
+   ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3
+   folds, 2 epochs at drop_p = 0.01, its epoch and validation graphs
+   replayed, the launch counts of that run), one epoch fused (graphed)
+   against one unfused (from Python); and ``train gat --fast --fused``,
+   ``--fast`` and the per-fold trainer through the command line on phase
+   5's CSVs, each column-major submission parsed back;
 8. drives the metric suite (``evalx``) on the card: phase 4's fold stacks
    (``evaluate_gsr_folds(pull_preds=True)``, 3 folds of 55-56 pairs at
    268 nodes), fold 0 in float64 and float32 (the precisions agree
@@ -194,8 +198,9 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    and submission.csv bit-equal to the runs without ``--multichip``; the
    full-width ``fused_adam`` GSRFoldRunner on a 3-shard (F = 1 a shard)
    and a 2-shard mesh (3 folds padded to 4) of the one card against the
-   F = 3 run (bit-equal: the shards' products are planned for the 3 real
-   folds; 106 launches a shard step, s/epoch of each); ``make_sharded_batch_step`` (full width, batch
+   F = 3 run, a graph per shard (bit-equal: the shards' products are
+   planned for the 3 real folds; 106 launches a shard step through the
+   replays, s/epoch of each); ``make_sharded_batch_step`` (full width, batch
    8 on 4 shards) under an NCCL process group of one process started by
    ``maybe_initialize_distributed`` on 127.0.0.1, and
    ``make_sharded_generic_step`` (MLP v2 at its published widths, batch
@@ -250,7 +255,22 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    268, each interrupted after epoch 1 with its ``.msgpack`` blob and
    resumed by a fresh runner, bit-equal to the straight run, and the
    encode and decode ms of the 37 MB blob; (d) the ``fused_adam`` and
-   ``fused_step`` runners, #9 and #8 refusing width 134 before any launch.
+   ``fused_step`` runners, #9 and #8 refusing width 134 before any launch;
+14. the chunk programs as CUDA graphs, at full width: (a) every GSR
+   trainer mode (1 epoch; ``fused_adam`` and ``fused_step`` 2, in fp32
+   and in bf16) through its epoch graphs twice (s/epoch with and without
+   the capture) and then step by step from Python on the same runner,
+   bit for bit, with the same launches counted
+   through the replays (``MODE_LAUNCHES`` a step), the capture's
+   warm-up, capture and instantiate seconds, and ``fused_step`` bit-equal
+   to ``fused_adam``; (b) ``fused_adam`` s/epoch through the graph and
+   from Python, 3 passes each in turns; (c) 3- and 2-shard meshes of the
+   card, a graph per shard, bit-equal to the unsharded run, s/epoch with
+   and without the capture; (d) a ``.msgpack`` resume into the same
+   runner's captured buffers, bit-equal; (e) the fused GAT trainer (2
+   epochs, drop_p 0.01, device control) through its epoch and validation
+   graphs against a trainer from Python, bit for bit, then 3 timed passes
+   of each in turns; the phase's peak device memory.
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -2019,7 +2039,8 @@ def run_main_path(dev, data, epochs: int):
     steps = runner.tr_idx.shape[1] * epochs
     print(f"  stage {t_stage:.2f} s; train {t_train:.2f} s = "
           f"{t_train / epochs:.3f} s/epoch, {1e3 * t_train / steps:.3f} "
-          f"ms/step ({steps} fold-batched steps)")
+          f"ms/step ({steps} fold-batched steps) through the epoch graph, "
+          f"its capture included ({capture_note(runner)})")
     for j in range(len(folds)):
         print(f"  fold {j} loss {loss_hist[j].tolist()} "
               f"recon {err_hist[j].tolist()}")
@@ -2037,6 +2058,7 @@ def run_main_path(dev, data, epochs: int):
     if missing:
         fail(f"kernels never launched on the trainer path: {missing}")
     _, fold_outs = evaluate_gsr_folds(cfg, runner, pull_preds=True)
+    runner.release_graphs()
     return counts, fold_outs
 
 
@@ -2601,13 +2623,15 @@ def run_trainer_modes(dev, data):
         p0, m0, v0, _ = runner.fresh_state()
         dev_ms = device_ms(lambda: runner._step(p0, m0, v0, 0, scal), reps=3)
         print(f"  {mode:20s} {t_train:.3f} s/epoch, "
-              f"{1e3 * t_train / steps:.3f} ms/step in the loop, "
+              f"{1e3 * t_train / steps:.3f} ms/step in the loop (the epoch "
+              f"graph, {capture_note(runner)}), "
               f"{dev_ms:.3f} ms/step device; loss "
               f"{loss_hist[:, 0].tolist()} recon {err_hist[:, 0].tolist()} "
               f"val MAE {maes.tolist()}; {sum(counts.values()) / steps:.1f} "
               f"launches/step {per_step}", flush=True)
         if not (np.isfinite(loss_hist).all() and np.isfinite(maes).all()):
             fail(f"{mode}: non-finite loss or MAE")
+        runner.release_graphs()
         if sum(counts.values()) != MODE_LAUNCHES[mode] * steps:
             fail(f"{mode}: {sum(counts.values())} launches in {steps} "
                  f"steps, not {MODE_LAUNCHES[mode]} a step")
@@ -3985,10 +4009,14 @@ def run_gat_trainer(dev, data):
         n_val = sum(launch_counts().values())
         res[mode] = (tr_loss.cpu().numpy(), vloss.cpu().numpy(),
                      vmae.cpu().numpy())
+        graphed = f", the graphs' {capture_note(tr)} included" \
+            if tr._graphs else ""
+        tr.release_graphs()
         print(f"  {mode:8s} epoch {t_epoch:.3f} s = "
               f"{1e3 * t_epoch / steps:.3f} ms/step in the loop "
               f"({n_step / steps:.1f} own-kernel launches/step); validation "
-              f"pass {1e3 * t_val:.2f} ms ({n_val} own-kernel launches); "
+              f"pass {1e3 * t_val:.2f} ms ({n_val} own-kernel launches"
+              f"{graphed}); "
               f"train {res[mode][0].tolist()} val {res[mode][1].tolist()} "
               f"val MAE {res[mode][2].tolist()}", flush=True)
     d = [float(np.abs(a - b).max()) for a, b in zip(res["fused"],
@@ -5013,8 +5041,10 @@ def run_sharded_runner(dev, data, smi):
         label = "unsharded F = 3" if shards is None else \
             f"{shards} shards x F = {runner.shards[0].n_folds}"
         print(f"  fused_adam runner, {label}: {t / EPOCHS:.3f} s/epoch "
-              f"({1e3 * t / steps:.3f} ms a shard step), val MAE "
-              f"{maes.tolist()} [{smi}]", flush=True)
+              f"({1e3 * t / steps:.3f} ms a shard step; the epoch graphs, "
+              f"{capture_note(runner)}), val MAE {maes.tolist()} [{smi}]",
+              flush=True)
+        runner.release_graphs()
         if shards is not None:
             for k, v in c.items():
                 counts[k] = counts.get(k, 0) + v
@@ -6420,6 +6450,263 @@ def run_phase13(dev, data, work, smi):
     return record, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the chunk programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (label, FCSR_MM_MODE, trainer mode, epochs) of the graph-against-eager
+# runs: every GSR mode in fp32, the two whole-step modes in bf16 too
+GRAPH_RUNS = tuple(
+    (mode, "bf16x3_concat", mode,
+     EPOCHS if mode in ("fused_adam", "fused_step") else 1)
+    for mode in ("fused_adam", "fused_step", "fused_tail_unet_bwd",
+                 "fused_tail_unet", "fused_tail", "unfused")) + tuple(
+    (f"bf16 {mode}", "bf16", mode, EPOCHS)
+    for mode in ("fused_adam", "fused_step"))
+GRAPH_PASSES = 3        # timed passes each of graph and eager, in turns
+
+
+def captured_graphs(trainer) -> list:
+    """The CUDA graphs a GSR runner or a GAT trainer holds (every shard's)."""
+    graphs = []
+    for part in getattr(trainer, "shards", None) or [trainer]:
+        held = [part.graph] if hasattr(part, "graph") else \
+            list(part._graphs.values())
+        graphs.extend(g for g in held if g is not None)
+    return graphs
+
+
+def capture_note(trainer) -> str:
+    graphs = captured_graphs(trainer)
+    warm, cap, inst = (sum(getattr(g, a) for g in graphs)
+                       for a in ("warm_s", "capture_s", "instantiate_s"))
+    return (f"{len(graphs)} graph(s): warm-up {warm:.3f} s, capture "
+            f"{cap:.3f} s, instantiate {inst:.3f} s")
+
+
+def peak_note() -> str:
+    return (f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+            f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+            "reserved")
+
+
+def _same_train(a, b) -> bool:
+    return (torch.equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            and np.array_equal(a[2], b[2]))
+
+
+def check_graph_modes(dev, data, smi):
+    """Phase 14 (a): each of ``GRAPH_RUNS`` at full width (3 folds of the
+    teacher set) through its epoch graphs twice (the second ``train()``
+    without the capture) and then, on the same runner, step by step from
+    Python (``_stay_eager``): parameters and histories bit for bit, the
+    launches counted through the replays equal to the
+    eager run's and to ``MODE_LAUNCHES`` a step; ``fused_step`` bit-equal
+    to ``fused_adam`` in both product modes. Returns (the runs, the fp32
+    ``fused_adam`` runner, the graph runs' launch counts)."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+
+    folds = kfold_indices(len(data["lr_train"]), 3, seed=42)
+    runs, total, keep = {}, {}, None
+    for label, mm, mode, epochs in GRAPH_RUNS:
+        with mm_mode_set(mm):
+            runner = GSRFoldRunner(
+                GSRTrainConfig(epochs=epochs, **MODE_FLAGS[mode]),
+                data["lr_train"], data["hr_train"], folds, device=dev)
+            *graphed, t_g, c_g = _train_counted(runner)
+            note = capture_note(runner)
+            *again, t_a, _ = _train_counted(runner)
+            runner._stay_eager()
+            *eager, t_e, c_e = _train_counted(runner)
+        steps = runner.tr_idx.shape[1] * epochs
+        same = _same_train(graphed, eager) and _same_train(again, eager)
+        print(f"  {label:20s} graph {t_g / epochs:.3f} s/epoch with its "
+              f"capture ({note}), {t_a / epochs:.4f} in a second train() "
+              f"without it, eager {t_e / epochs:.3f} s/epoch; "
+              f"{sum(c_g.values()) / steps:.1f} launches a step counted "
+              f"through the replays (eager {sum(c_e.values()) / steps:.1f}"
+              f"); graph == eager bit for bit (both graphed runs): {same} "
+              f"[{smi}]", flush=True)
+        if not same:
+            fail(f"{label}: the graphed run is not bit-equal to the eager "
+                 "run")
+        if c_g != c_e or sum(c_g.values()) != MODE_LAUNCHES[mode] * steps:
+            fail(f"{label}: {c_g} launches through the replays, {c_e} "
+                 f"eager, in {steps} steps")
+        _add(total, c_g)
+        runs[label] = graphed
+        if label == "fused_adam":
+            keep = runner
+            keep._stay_eager(False)
+        else:
+            runner.release_graphs()
+    for a, b in (("fused_step", "fused_adam"),
+                 ("bf16 fused_step", "bf16 fused_adam")):
+        same = _same_train(runs[a], runs[b])
+        print(f"  {a} == {b} bit for bit through the graphs: {same}",
+              flush=True)
+        if not same:
+            fail(f"{a} is not bit-equal to {b}")
+    return runs, keep, total
+
+
+def graph_eager_passes(label, run_graph, run_eager, epochs, smi):
+    """``GRAPH_PASSES`` timed passes each of ``run_graph`` and
+    ``run_eager`` (each ``epochs`` epochs), in turns: their s/epoch."""
+    times = {"graph": [], "eager": []}
+    for _ in range(GRAPH_PASSES):
+        for kind, run in (("graph", run_graph), ("eager", run_eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / epochs)
+    g, e = times["graph"], times["eager"]
+    print(f"  {label}: s/epoch in {GRAPH_PASSES} passes each, in turns: "
+          f"graph {[round(x, 4) for x in g]} (spread "
+          f"{max(g) / min(g) - 1:.1%}), eager {[round(x, 4) for x in e]} "
+          f"(spread {max(e) / min(e) - 1:.1%}); eager / graph "
+          f"{statistics.median(e) / statistics.median(g):.1f}x [{smi}]",
+          flush=True)
+    return times
+
+
+def check_graph_meshes(dev, data, want, smi):
+    """Phase 14 (c): the fp32 ``fused_adam`` runner on 3- and 2-shard
+    meshes of the card (a graph per shard, each shard's replay issued
+    before any is waited on): bit-equal to the unsharded graphed run
+    ``want``, 106 launches a shard step through the replays; s/epoch with
+    the capture and in a second run without it. Returns their counts."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+    from fcsr_tpu_torch.parallel import virtual_batch_mesh
+
+    folds = kfold_indices(len(data["lr_train"]), 3, seed=42)
+    total = {}
+    for shards in (3, 2):
+        runner = GSRFoldRunner(GSRTrainConfig(epochs=EPOCHS, fused_adam=True),
+                               data["lr_train"], data["hr_train"], folds,
+                               device=dev,
+                               mesh=virtual_batch_mesh(shards, dev))
+        *got, t1, c = _train_counted(runner)
+        *again, t2, _ = _train_counted(runner)
+        steps = runner.tr_idx.shape[1] * EPOCHS * shards
+        same = _same_train(got, want) and _same_train(again, want)
+        print(f"  {shards} shards x F = {runner.shards[0].n_folds}: "
+              f"{t1 / EPOCHS:.3f} s/epoch with the capture "
+              f"({capture_note(runner)}), {t2 / EPOCHS:.4f} without; "
+              f"{sum(c.values()) / steps:.1f} launches a shard step; "
+              f"bit-equal to unsharded: {same} [{smi}]", flush=True)
+        if not same:
+            fail(f"the {shards}-shard graphed runner is not bit-equal to the "
+                 "unsharded one")
+        if sum(c.values()) != STEP_LAUNCHES * steps:
+            fail(f"{shards} shards: {sum(c.values())} launches in {steps} "
+                 "shard steps")
+        _add(total, c)
+        runner.release_graphs()
+    return total
+
+
+def check_graph_resume(runner, want, work):
+    """Phase 14 (d): epoch 1 of the fp32 ``fused_adam`` runner written as
+    the JAX fast loop's ``.msgpack`` blob, then resumed by the same runner
+    (the state copied into the buffers its graphs read): bit-equal to the
+    straight graphed run. Returns the resumed run's counts."""
+    path = os.path.join(work, "p14_fused_adam.msgpack")
+    state, lh, eh = runner._run_chunk(runner.fresh_state(), 1)
+    runner.save_checkpoint(path, state, 1, lh, eh)
+    *got, _, counts = _train_counted(runner, checkpoint_path=path,
+                                     checkpoint_every=1)
+    same = _same_train(got, want)
+    print(f"  fused_adam resumed from its .msgpack blob after epoch 1 "
+          f"into its captured buffers: bit-equal to the straight run: "
+          f"{same}", flush=True)
+    if not same:
+        fail("the graphed msgpack resume is not exact")
+    return counts
+
+
+def check_gat_graphs(dev, data, smi):
+    """Phase 14 (e): the fused GAT trainer (the shipped config, drop_p
+    0.01, 3 folds) for 2 epochs under device control through its epoch
+    and validation graphs, against a trainer of the same seed step by
+    step from Python: best states and histories bit for bit, the same
+    launches (83 a step and 111 a validation pass) counted through the
+    replays; then s/epoch of both in passes. Returns the graphed run's
+    counts."""
+    from fcsr_tpu_torch import kfold_indices
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, _FoldTrainer,
+                                               _run_device_control)
+
+    lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
+    hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
+    folds = kfold_indices(len(lr_all), 3, seed=42)
+    cfg = GATTrainConfig(epochs=EPOCHS, fused_step=True)
+    trainers, res = {}, {}
+    for kind in ("graph", "eager"):
+        tr = _FoldTrainer(cfg, lr_all, hr_all, folds, 42, dev, fused=True)
+        if kind == "eager":
+            tr._stay_eager()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        best, hists = _run_device_control(tr, cfg, False, 25)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        res[kind] = (np.stack(best), hists, t, _nonzero(launch_counts()))
+        trainers[kind] = tr
+    steps = trainers["graph"].tr_len
+    want = EPOCHS * (GAT_STEP_LAUNCHES * steps + GAT_VAL_LAUNCHES * 3)
+    same = (np.array_equal(res["graph"][0], res["eager"][0])
+            and res["graph"][1] == res["eager"][1])
+    n = [sum(res[k][3].values()) for k in ("graph", "eager")]
+    print(f"  GAT fused, drop_p {cfg.drop_p}, {EPOCHS} epochs: graph "
+          f"{res['graph'][2] / EPOCHS:.3f} s/epoch with its captures "
+          f"({capture_note(trainers['graph'])}), eager "
+          f"{res['eager'][2] / EPOCHS:.3f}; launches {n[0]} through the "
+          f"replays, {n[1]} eager ({want} wanted); graph == eager bit for "
+          f"bit: {same} [{smi}]", flush=True)
+    if not same:
+        fail("the graphed GAT trainer is not bit-equal to the eager one")
+    if n != [want, want] or res["graph"][3] != res["eager"][3]:
+        fail(f"GAT launches {res['graph'][3]} / {res['eager'][3]}")
+    graph_eager_passes(
+        "GAT fused", lambda: _run_device_control(trainers["graph"], cfg,
+                                                 False, 25),
+        lambda: _run_device_control(trainers["eager"], cfg, False, 25),
+        EPOCHS, smi)
+    trainers["graph"].release_graphs()
+    return res["graph"][3]
+
+
+def run_phase14(dev, data, work, smi):
+    """Phase 14: the chunk programs as CUDA graphs at full width. Returns
+    the graphed runs' launch counts."""
+    t0 = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    runs, runner, counts = check_graph_modes(dev, data, smi)
+    want = runs["fused_adam"]
+
+    def graph_pass():
+        runner._stay_eager(False)
+        runner.train()
+
+    def eager_pass():
+        runner._stay_eager()
+        runner.train()
+    graph_eager_passes("fused_adam", graph_pass, eager_pass, EPOCHS, smi)
+    runner._stay_eager(False)
+    _add(counts, check_graph_meshes(dev, data, want, smi))
+    _add(counts, check_graph_resume(runner, want, work))
+    runner.release_graphs()
+    _add(counts, check_gat_graphs(dev, data, smi))
+    print(f"  phase 14: {peak_note()} [{smi}]", flush=True)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -6467,8 +6754,10 @@ def main():
         {f"{k}_kernel": c for k, c in STEP_POOL_LAUNCHES.items()},
         "GSR step")
     print("phase 4: trainer path", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     counts, fold_outs = run_main_path(dev, data, EPOCHS)
     check_tiny_trainer(dev, data)
+    print(f"  phase 4: {peak_note()} [{smi}]", flush=True)
     print("phase 5: Kaggle CSVs to submission.csv through the command line",
           flush=True)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -6476,9 +6765,11 @@ def main():
         csv_counts = run_csv_path(dev, data)
         print("phase 6: fused entry points and every other trainer mode",
               flush=True)
+        torch.cuda.reset_peak_memory_stats()
         check_entry_points(dev, step_args)
         mode_counts = run_trainer_modes(dev, data)
         parity_counts = run_parity_cli(dev, os.path.join(WORK_DIR, "data"))
+        print(f"  phase 6: {peak_note()} [{smi}]", flush=True)
         print("phase 7: the GAT U-Net family", flush=True)
         records.update(check_gat_kernels(dev))
         keep_counts = run_keep_rate(dev)
@@ -6503,8 +6794,10 @@ def main():
         p10_counts = run_phase10(dev, data, os.path.join(WORK_DIR, "p10"))
         print("phase 11: the fold-sharded trainers and the data-parallel "
               "steps", flush=True)
+        torch.cuda.reset_peak_memory_stats()
         p11_counts = run_phase11(dev, data, os.path.join(WORK_DIR, "data"),
                                  smi)
+        print(f"  phase 11: {peak_note()} [{smi}]", flush=True)
         print("phase 12: FCSR_MM_MODE=bf16, single-pass bf16 products",
               flush=True)
         p12_records, p12_counts = run_phase12(
@@ -6515,6 +6808,9 @@ def main():
         p13_record, p13_counts = run_phase13(
             dev, data, os.path.join(WORK_DIR, "p13"), smi)
         records["bgemm_f32"].update(p13_record)
+        print("phase 14: the chunk programs as CUDA graphs", flush=True)
+        p14_counts = run_phase14(dev, data, os.path.join(WORK_DIR, "p14"),
+                                 smi)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -6530,7 +6826,7 @@ def main():
                    counts, csv_counts, mode_counts, parity_counts,
                    gat_counts, gat_cli_counts, keep_counts,
                    metric_counts, mlp_counts, mlp_cli_counts, p10_counts,
-                   p11_counts, p12_counts, p13_counts))}
+                   p11_counts, p12_counts, p13_counts, p14_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -39,7 +39,8 @@ __all__ = ["KERNELS", "KERNEL_OPS", "PLAIN_OPS", "KERNEL_OPS_BF16",
            "bgemm_path", "bgemm_forced", "bgemm_tiles", "bgemm_bf16_path",
            "bgemm_bf16_forced", "bgemm_bf16_tiles", "plan_folds",
            "reset_launch_counts", "rows_contiguous", "philox_words",
-           "bits_to_keep", "gat_attention_math"]
+           "bits_to_keep", "gat_attention_math", "add_launches",
+           "recorded_launches"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -224,6 +225,30 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the kernels' counts: a
+    replayed CUDA graph's launches, which no wrapper call counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Record the launches made inside into the yielded dict (kernel name
+    -> launches, those launched at least once) and leave every count as it
+    was on entry: a CUDA graph capture's wrapper calls launch nothing until
+    the graph replays (``add_launches``)."""
+    before = launch_counts()
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        for name, k in KERNELS.items():
+            if k.launches != before[name]:
+                made[name] = k.launches - before[name]
+            k.launches = before[name]
 
 
 # ---------------------------------------------------------------------------

@@ -55,10 +55,22 @@ placements, the production multi-device path: the folds are padded to a
 multiple of the mesh size with fully masked no-op folds, and each
 placement runs its contiguous block of folds as the runner above does on
 one device (its own staged data, its own step, under its own device),
-shard after shard within each step, its kernels planned as for the real
+shard after shard within each epoch, its kernels planned as for the real
 fold count (``ops.plan_folds``), so every fold is bit-equal to the
 unsharded run. No collective is needed. Histories, MAEs and parameters
 come back for the real folds only.
+
+An epoch is one program per shard, as the JAX runner's chunk is one
+compiled scan over epochs of a scan over samples
+(``fcsr_tpu/train/fast_loop.py:193-268``): the S slots' steps over static
+buffers (p, m, v, the epoch's (S, F, 3) Adam scalars, the (S, F) loss and
+recon). On the card it is captured once per runner as a CUDA graph
+(``train/epoch_graph.py``) under the shard's device and fold plan, and
+replayed once an epoch, each shard's replay issued before any is waited
+on; on the CPU the same program runs step by step. Nothing else chooses
+between the two: a capture that fails raises, naming the mode. A state
+given to a chunk (``fresh_state``, a restored blob, a second ``train``)
+is copied into the captured buffers, never put in their place.
 """
 
 from __future__ import annotations
@@ -89,6 +101,7 @@ from fcsr_tpu_torch.models.fused_step import (HIDDEN_REFUSAL, FlatLayout,
                                               unet_fused_fwdonly)
 from fcsr_tpu_torch.models.fused_tail import tail_loss_fused
 from fcsr_tpu_torch.models.gsr import GSRNet
+from fcsr_tpu_torch.train.epoch_graph import EpochGraph
 from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig, precompute_spectral
 from fcsr_tpu_torch.train.losses import gsr_composite_loss
 from fcsr_tpu_torch.utils.device import (DEFAULT_DEVICE, on_device,
@@ -99,6 +112,8 @@ __all__ = ["adam_flat_update", "trainer_mode", "checkpoint_format",
            "evaluate_gsr_folds"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# the slots the warm-up before an epoch's capture runs on scratch buffers
+_WARM_SLOTS = 2
 
 
 def adam_flat_update(g, m, v, t, lr, b1=B1, b2=B2, eps=EPS):
@@ -169,8 +184,8 @@ def stage_dataset(cfg: GSRTrainConfig, lr_all, hr_all, device):
 
 class _FoldShard:
     """One placement's contiguous block of folds ``[lo, hi)``: its per-step
-    (S, F, ...) data stacks on its device and the step of the runner's
-    mode over (F, P) buffers."""
+    (S, F, ...) data stacks on its device, the step of the runner's mode
+    over (F, P) buffers, and its epoch program over static buffers."""
 
     def __init__(self, runner: "GSRFoldRunner", lo: int, hi: int, device,
                  data):
@@ -191,6 +206,18 @@ class _FoldShard:
         self._unfused = runner._model(device=device) if unfused else None
         self._no_vals = torch.zeros(self.n_folds, 3, dtype=torch.float32,
                                     device=device)
+        # the epoch program's static buffers (a graph reads and writes
+        # fixed addresses): the state, the epoch's Adam scalars, the
+        # per-step loss and recon
+        S, F = plan.shape[0], self.n_folds
+
+        def zeros(*shape):
+            return torch.zeros(*shape, dtype=torch.float32, device=device)
+        self.bufs = dict(p=zeros(F, self.layout.size),
+                         m=zeros(F, self.layout.size),
+                         v=zeros(F, self.layout.size), scal=zeros(S, F, 3),
+                         loss=zeros(S, F), err=zeros(S, F))
+        self.graph = None
 
     def loss(self, P, s: int):
         """(loss, err), each (F,), of step ``s`` for the leaf mapping ``P``
@@ -258,6 +285,45 @@ class _FoldShard:
                                                B2, EPS)
         ok = scal[:, 0]
         return loss.detach() * ok, err.detach() * ok, p, m, v
+
+    def epoch(self, b: dict, slots: range) -> None:
+        """The epoch program: the steps of ``slots`` over the buffers ``b``
+        (``bufs``' keys), each from the last one's p, m and v with the
+        scalars ``b["scal"][s]``; their loss and recon land in
+        ``b["loss"][s]`` and ``b["err"][s]``, the last p, m and v in
+        ``b``'s (the steps return fresh tensors)."""
+        p, m, v = b["p"], b["m"], b["v"]
+        losses, errs = [], []
+        for s in slots:
+            loss, err, p, m, v = self.step(p, m, v, s, b["scal"][s])
+            losses.append(loss)
+            errs.append(err)
+        for name, x in (("p", p), ("m", m), ("v", v)):
+            b[name].copy_(x)
+        torch.stack(losses, out=b["loss"][slots.start:slots.stop])
+        torch.stack(errs, out=b["err"][slots.start:slots.stop])
+
+    def run_epoch(self, eager: bool) -> None:
+        """One epoch over ``bufs``: on the card the replay of its graph
+        (captured at the first epoch, after a warm-up of ``_WARM_SLOTS``
+        steps on scratch copies of the buffers), on the CPU or ``eager``
+        the program itself, step by step from Python."""
+        slots = range(self.bufs["loss"].shape[0])
+        if eager or self.device.type != "cuda":
+            self.epoch(self.bufs, slots)
+            return
+        if self.graph is None:
+            scratch = {k: t.clone() for k, t in self.bufs.items()}
+            self.graph = EpochGraph(
+                f"the {self.mode} epoch of folds {self.lo}-{self.hi - 1}",
+                self.device, lambda: self.epoch(self.bufs, slots),
+                lambda: self.epoch(scratch, slots[:_WARM_SLOTS]))
+        self.graph.replay()
+
+    def release_graph(self) -> None:
+        if self.graph is not None:
+            self.graph.release()
+        self.graph = None
 
 
 class GSRFoldRunner:
@@ -339,6 +405,7 @@ class GSRFoldRunner:
                 self.shards.append(_FoldShard(self, i * per, (i + 1) * per,
                                               dev, staged[dev]))
         self._staged = staged
+        self._eager = False
 
     def _fingerprint(self, lr_all, hr_all, flat0) -> str:
         """Hash of config + fold plan + initial weights + dataset content
@@ -417,45 +484,73 @@ class GSRFoldRunner:
                 np.zeros(self._n_total, np.float32))
 
     def _step(self, p, m, v, s: int, scal):
-        """One fold-batched step of a one-device runner (its only shard)."""
+        """One fold-batched step of a one-device runner (its only shard),
+        from Python: the eager yardstick of a step."""
         with on_device(self.device):
             return self.shards[0].step(p, m, v, s, scal)
 
+    def _stay_eager(self, eager: bool = True) -> None:
+        """Run every later epoch step by step from Python on the card too
+        (``eager=False``: through the graphs again): the yardstick the
+        graphs are held to, bit for bit."""
+        self._eager = eager
+
+    def release_graphs(self) -> None:
+        """Free the shards' captured epochs and their memory; a later
+        epoch captures them again."""
+        for sh in self.shards:
+            with on_device(sh.device):
+                sh.release_graph()
+
     def _run_chunk(self, state, epochs: int):
-        ps, ms, vs = (self._blocks(x) for x in state[:3])
+        """``epochs`` epochs from ``state``: (state after them, loss and
+        recon epoch means (F_total, epochs)). The state is copied into the
+        shards' static buffers and the one returned is a copy of them;
+        each epoch copies its slice of the chunk's Adam scalars in, runs
+        each shard's epoch (on the card one replay of its graph, every
+        shard's issued before any is waited on) and copies the per-step
+        loss and recon into the chunk's history on the device, read once
+        at the end."""
         t = state[3]
         n_steps = self.tr_idx.shape[1]
         scal = np.empty((epochs, n_steps, self._n_total, 3), np.float32)
         for e in range(epochs):
             for s in range(n_steps):
                 scal[e, s], t = adam_scalars(t, self.tr_valid[:, s], B1, B2)
-        scals = [torch.from_numpy(scal[:, :, sh.lo:sh.hi].copy()).to(
-            sh.device) for sh in self.shards]
-        losses = [[] for _ in self.shards]
-        errs = [[] for _ in self.shards]
+        hists = []
+        for i, sh in enumerate(self.shards):
+            with on_device(sh.device):
+                for name, x in zip("pmv", state[:3]):
+                    sh.bufs[name].copy_(self._blocks(x)[i])
+                hists.append((torch.from_numpy(
+                    scal[:, :, sh.lo:sh.hi].copy()).to(sh.device),
+                    torch.empty(epochs, 2, n_steps, sh.n_folds,
+                                device=sh.device)))
         for e in range(epochs):
-            for s in range(n_steps):
-                for i, sh in enumerate(self.shards):
-                    # each shard's launches planned as for the unsharded
-                    # run's folds: a fold's bits are that run's
-                    with on_device(sh.device), plan_folds(self.n_folds):
-                        loss, err, ps[i], ms[i], vs[i] = sh.step(
-                            ps[i], ms[i], vs[i], s, scals[i][e, s])
-                    losses[i].append(loss)
-                    errs[i].append(err)
+            for sh, (table, hist) in zip(self.shards, hists):
+                # each shard's launches planned as for the unsharded
+                # run's folds: a fold's bits are that run's
+                with on_device(sh.device), plan_folds(self.n_folds):
+                    sh.bufs["scal"].copy_(table[e])
+                    sh.run_epoch(self._eager)
+                    hist[e, 0].copy_(sh.bufs["loss"])
+                    hist[e, 1].copy_(sh.bufs["err"])
         denom = np.maximum(self.tr_valid.sum(axis=1), 1.0)
+        # (epochs, 2, S, F_total); each fold's steps summed along a
+        # contiguous row, so its sum does not depend on how many folds lie
+        # beside it
+        steps = np.concatenate([h.cpu().numpy() for _, h in hists], axis=3)
 
-        def epoch_means(per_shard):
-            # each fold's steps summed along a contiguous row, so its sum
-            # does not depend on how many folds lie beside it
-            steps = np.concatenate([torch.stack(xs).cpu().numpy()
-                                    for xs in per_shard], axis=1)
+        def epoch_means(k):
+            per = steps[:, k].reshape(epochs * n_steps, -1)
             sums = np.ascontiguousarray(
-                steps.T.reshape(-1, epochs, n_steps)).sum(axis=2)
+                per.T.reshape(-1, epochs, n_steps)).sum(axis=2)
             return sums / denom[:, None]
 
-        state = (self._state(ps), self._state(ms), self._state(vs), t)
-        return state, epoch_means(losses), epoch_means(errs)
+        state = tuple(self._state([sh.bufs[name].clone()
+                                   for sh in self.shards])
+                      for name in "pmv") + (t,)
+        return state, epoch_means(0), epoch_means(1)
 
     def _dims(self):
         lay = self.layout
@@ -621,6 +716,7 @@ def train_gsr_folds_parallel(cfg: GSRTrainConfig, lr_all, hr_all, folds,
                            flat0=flat0, device=device, mesh=mesh)
     _, loss_hist, err_hist = runner.train(
         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
+    runner.release_graphs()
     return (runner._model(device=runner.device), runner.params_per_fold(),
             loss_hist, err_hist, runner)
 

@@ -22,6 +22,19 @@ too; the unfused module draws its masks from a generator per shard).
 With ``drop_p > 0`` the card's generator is not the JAX package's, so
 trajectories are stochastically equivalent only; at ``drop_p = 0`` every
 mode agrees with its JAX counterpart (tested).
+
+With the fused step an epoch is one program per shard, as the JAX
+trainer's ``run_chunk`` is one compiled scan (``fcsr_tpu/train/
+gat_loop.py:499-541``): the step scalars from the step counts, then the
+epoch's steps over static buffers (p, m, v, t, the (L, F) order and
+validity, each fold's lr and active flag, the (L, F, 2) seed table), the
+subjects gathered on the device from the order; the fused validation
+forwards are a second program. On the card each is captured once per
+trainer as a CUDA graph (``train/epoch_graph.py``) and replayed once an
+epoch, each shard's issued before any is waited on; on the CPU the same
+programs run step by step. The host still draws each epoch's order and
+seeds from the same generators in the same sequence and copies them into
+the buffers. The unfused step runs from Python on the card too.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from fcsr_tpu_torch.models.fused_gat import (ADAM_B1, ADAM_B2, GATLayout,
                                              gat_train_step_fused,
                                              gat_val_fused)
 from fcsr_tpu_torch.models.gat_unet import GATGraphUnet, symmetric_normalize
+from fcsr_tpu_torch.train.epoch_graph import EpochGraph, upload as _upload
 from fcsr_tpu_torch.train.generic_loop import PlateauScheduler
 from fcsr_tpu_torch.train.losses import (intermediate_recon_loss,
                                          offdiag_mse_loss)
@@ -58,6 +72,7 @@ __all__ = ["GATTrainConfig", "init_gat", "precompute_gat_features",
            "unet_loss"]
 
 STOP_LR = 1e-5   # a fold stops once its learning rate has decayed below
+_WARM_STEPS = 2  # steps the warm-up before an epoch's capture runs
 _PREDICT_BATCH = 64     # subjects per forward of predict_gat (bounds the
                         # (batch, n, n, heads) attention tensors)
 
@@ -80,7 +95,8 @@ class GATTrainConfig:
     intermediate_losses: bool = True
     weight_decay: float = 0.01
     # shapes the JAX package's compiled scan only; kept so that configs
-    # carry over, without effect here (the step loop is a Python loop)
+    # carry over, without effect here (on the card the fused step's epoch
+    # is one CUDA graph, the unfused step's a Python loop)
     scan_unroll: int = 1
     # run each training step (forward, backward, masked AdamW) on the
     # hand-written CUDA kernels in the fold-parallel trainer. Same math as
@@ -220,16 +236,17 @@ def _state_to_device(variables, dev):
 
 class _FoldTrainer:
     """State and the two device programs (one epoch of steps, one
-    validation pass) of the fold-parallel trainer. Under a mesh it holds
-    one placement's block of folds: ``fold_lo`` is its first fold's index
-    (fold j's host generator is seeded ``seed + j``) and ``tr_len`` the
-    whole run's steps per epoch."""
+    validation pass) of the fold-parallel trainer, over static buffers
+    (``bufs``), graphed on the card with the fused step. Under a mesh it
+    holds one placement's block of folds: ``fold_lo`` is its first fold's
+    index (fold j's host generator is seeded ``seed + j``) and ``tr_len``
+    the whole run's steps per epoch."""
 
     def __init__(self, cfg: GATTrainConfig, lr_all, hr_all, folds, seed: int,
                  device, flat0=None, fused: bool = False, fold_lo: int = 0,
                  tr_len: int = None):
         _check_widths(cfg.dim, tuple(cfg.ks), cfg.heads)
-        self.cfg, self.fused = cfg, fused
+        self.cfg, self.fused, self.fold_lo = cfg, fused, fold_lo
         self.dev = dev = resolve_device(device)
         self.layout = cfg.layout
         lr_np = np.ascontiguousarray(lr_all, dtype=np.float32)
@@ -250,18 +267,48 @@ class _FoldTrainer:
         if flat0.shape != (F, self.layout.size):
             raise ValueError(f"flat0 has shape {flat0.shape}, expected "
                              f"{(F, self.layout.size)}")
-        self.p = torch.from_numpy(flat0).to(dev)
-        self.m = torch.zeros_like(self.p)
-        self.v = torch.zeros_like(self.p)
-        self.t = torch.zeros(F, dtype=torch.float32, device=dev)
         self.tr_sets = [np.asarray(tr, dtype=np.int32) for tr, _ in folds]
         self.va_sets = [torch.from_numpy(np.asarray(va, dtype=np.int64)
                                          ).to(dev) for _, va in folds]
-        self.tr_len = tr_len or max(max(len(s) for s in self.tr_sets), 1)
+        self.tr_len = L = tr_len or max(max(len(s) for s in self.tr_sets),
+                                        1)
         self.rngs = [np.random.default_rng(seed + fold_lo + j)
                      for j in range(F)]
         self.seed_rng = np.random.default_rng([seed, 0x5EED])
         self.active0 = np.ones(F, np.float32)
+
+        # the programs' static buffers (a graph reads and writes fixed
+        # addresses): the state (p, m, v, step counts t), an epoch's inputs
+        # (the (L, F) order and validity, each fold's lr and active flag,
+        # the (L, F, 2) seed table) and the outputs
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(*shape, dtype=dtype, device=dev)
+        p = torch.from_numpy(flat0).to(dev)
+        self.bufs = dict(
+            p=p, m=torch.zeros_like(p), v=torch.zeros_like(p), t=zeros(F),
+            order=zeros(L, F, dtype=torch.int64), valid=zeros(L, F),
+            lr=zeros(F), active=zeros(F),
+            seeds=zeros(L, F, 2, dtype=torch.int32)
+            if fused and cfg.drop_p > 0 else None,
+            loss=zeros(F), vloss=zeros(F), vmae=zeros(F))
+        self._graphs = {}
+        self._eager = False
+
+    @property
+    def p(self):
+        return self.bufs["p"]
+
+    @property
+    def m(self):
+        return self.bufs["m"]
+
+    @property
+    def v(self):
+        return self.bufs["v"]
+
+    @property
+    def t(self):
+        return self.bufs["t"]
 
     def draw_epoch_plan(self):
         """One epoch's per-fold shuffled, padded index plan, from each
@@ -274,11 +321,11 @@ class _FoldTrainer:
                 valid[j, :len(s)] = 1.0
         return order, valid
 
-    def _unfused_step(self, i, scal):
+    def _unfused_step(self, p0, m, v, i, scal):
         """Autograd over the module, fold by fold, then the literal flat
         AdamW, masked by ok."""
         cfg = self.cfg
-        p = self.p.detach().requires_grad_()
+        p = p0.detach().requires_grad_()
         views = self.layout.views(p)
         losses = []
         for f in range(self.n_folds):
@@ -293,10 +340,10 @@ class _FoldTrainer:
         (g,) = torch.autograd.grad(loss.sum(), p)
         ok, lr = scal[:, 0:1], scal[:, 1:2]
         step, m_new, v_new = adamw_flat_update(
-            g, self.p, self.m, self.v, scal[:, 2:3], lr, wd=cfg.weight_decay)
+            g, p0, m, v, scal[:, 2:3], lr, wd=cfg.weight_decay)
         on = ok > 0
-        return (loss.detach(), self.p - ok * step,
-                torch.where(on, m_new, self.m), torch.where(on, v_new, self.v))
+        return (loss.detach(), p0 - ok * step, torch.where(on, m_new, m),
+                torch.where(on, v_new, v))
 
     def draw_seeds(self):
         """One epoch's dropout seed table, (tr_len, F, 2) int32, or None
@@ -306,49 +353,89 @@ class _FoldTrainer:
             return None
         return _seed_table(self.seed_rng, self.tr_len, self.n_folds)
 
-    def epoch_plan(self, order, valid, lr_t, active_t, seeds):
-        """The device tensors of one epoch: the (L, F) sample order, the
-        (L, F, 4) step scalars, the seed table and the step counts."""
-        dev = self.dev
-        order_d = torch.from_numpy(np.ascontiguousarray(order.T)).to(
-            dev).long()                                          # (L, F)
-        ok = torch.from_numpy(np.ascontiguousarray(valid.T)).to(dev) \
-            * active_t
-        t_new = self.t + torch.cumsum(ok, dim=0)
+    def load_epoch(self, order, valid, lr_t, active_t, seeds=None):
+        """Copy one epoch's inputs into the static buffers without waiting
+        on the device: the (F, L) host ``order`` and ``valid``, the (F,)
+        device tensors ``lr_t`` and ``active_t``, the seed table (or
+        None)."""
+        b = self.bufs
+        _upload(b["order"], np.ascontiguousarray(order.T, np.int64))
+        _upload(b["valid"], np.ascontiguousarray(valid.T, np.float32))
+        b["lr"].copy_(lr_t)
+        b["active"].copy_(active_t)
+        if seeds is not None:
+            _upload(b["seeds"], np.ascontiguousarray(seeds, np.int32))
+
+    def epoch_step(self, p, m, v, i, scal, seeds):
+        """One fold-batched step on the subjects ``i`` (F,): (loss, p', m',
+        v')."""
+        cfg = self.cfg
+        if self.fused:
+            return gat_train_step_fused(
+                p, m, v, self.a0_d[i], self.x_d[i], self.hr_d[i], scal,
+                seeds, drop_p=cfg.drop_p, wd=cfg.weight_decay,
+                device=self.dev, **cfg.kernel_kwargs)
+        return self._unfused_step(p, m, v, i, scal)
+
+    def _epoch_program(self, b: dict, n_steps: int = None) -> None:
+        """The epoch program over the buffers ``b`` (``bufs``' keys): the
+        step scalars from the step counts, validity, lr and active flags,
+        ``n_steps`` (default ``tr_len``) fold-batched steps in the order
+        ``b["order"]``, p, m, v and t advanced in place, each fold's mean
+        training loss into ``b["loss"]``."""
+        ok = b["valid"] * b["active"]                            # (L, F)
+        t_new = b["t"] + torch.cumsum(ok, dim=0)
         te = t_new.clamp(min=1.0)
+        lr = b["lr"].expand_as(ok)
         if self.fused:
             # [ok, lr, 1 - b1^t, 1 - b2^t] per step and fold
-            scal = torch.stack([ok, lr_t.expand_as(ok), 1.0 - ADAM_B1 ** te,
+            scal = torch.stack([ok, lr, 1.0 - ADAM_B1 ** te,
                                 1.0 - ADAM_B2 ** te], dim=-1).contiguous()
         else:
-            scal = torch.stack([ok, lr_t.expand_as(ok), te], dim=-1)
-        seeds = None if seeds is None else torch.from_numpy(
-            np.ascontiguousarray(seeds)).to(dev)
-        return order_d, ok, t_new, scal, seeds, []
-
-    def epoch_step(self, plan, s: int):
-        """Step ``s`` of the epoch ``plan`` over every fold."""
-        cfg = self.cfg
-        order_d, _, _, scal, seeds, losses = plan
-        i = order_d[s]
-        if self.fused:
-            loss, self.p, self.m, self.v = gat_train_step_fused(
-                self.p, self.m, self.v, self.a0_d[i], self.x_d[i],
-                self.hr_d[i], scal[s], None if seeds is None else seeds[s],
-                drop_p=cfg.drop_p, wd=cfg.weight_decay, device=self.dev,
-                **cfg.kernel_kwargs)
-        else:
-            loss, self.p, self.m, self.v = self._unfused_step(i, scal[s])
-        losses.append(loss)
-
-    def epoch_end(self, plan):
-        """Each fold's mean training loss over the finished ``plan``."""
-        _, ok, t_new, _, _, losses = plan
-        self.t = t_new[-1]
+            scal = torch.stack([ok, lr, te], dim=-1)
+        seeds = b["seeds"]
+        p, m, v = b["p"], b["m"], b["v"]
+        losses = []
+        for s in range(self.tr_len if n_steps is None else n_steps):
+            loss, p, m, v = self.epoch_step(
+                p, m, v, b["order"][s], scal[s],
+                None if seeds is None else seeds[s])
+            losses.append(loss)
+        for name, x in (("p", p), ("m", m), ("v", v), ("t", t_new[-1])):
+            b[name].copy_(x)
         # each fold's steps summed along a contiguous row: the sum does not
         # depend on how many folds lie beside it
+        ok = ok[:len(losses)]
         total = (torch.stack(losses) * ok).T.contiguous().sum(1)
-        return total / ok.sum(0).clamp(min=1.0)
+        torch.div(total, ok.sum(0).clamp(min=1.0), out=b["loss"])
+
+    def _val_program(self, b: dict) -> None:
+        vloss, vmae = self._validate(b["p"])
+        b["vloss"].copy_(vloss)
+        b["vmae"].copy_(vmae)
+
+    def _run(self, name: str, program, graphed: bool, **warm) -> None:
+        """``program(bufs)``: on the card and ``graphed``, the replay of
+        its graph (captured at first use after a warm-up on scratch copies
+        of the buffers), else the program itself."""
+        if not graphed or self._eager or self.dev.type != "cuda":
+            program(self.bufs)
+            return
+        graph = self._graphs.get(name)
+        if graph is None:
+            scratch = {k: None if x is None else x.clone()
+                       for k, x in self.bufs.items()}
+            graph = self._graphs[name] = EpochGraph(
+                f"the fused GAT {name} (folds {self.fold_lo}-"
+                f"{self.fold_lo + self.n_folds - 1})", self.dev,
+                lambda: program(self.bufs), lambda: program(scratch, **warm))
+        graph.replay()
+
+    def run_epoch(self) -> None:
+        """One epoch over the loaded inputs (``load_epoch``): the fused
+        step's graph on the card, the unfused step from Python."""
+        self._run("epoch", self._epoch_program, self.fused,
+                  n_steps=min(_WARM_STEPS, self.tr_len))
 
     def epoch(self, order, valid, lr_t, active_t, seeds=None):
         """One epoch over every fold: ``tr_len`` fold-batched steps.
@@ -357,33 +444,34 @@ class _FoldTrainer:
         each fold's mean training loss (F,). Nothing is read back to the
         host."""
         with on_device(self.dev):
-            plan = self.epoch_plan(order, valid, lr_t, active_t,
-                                   self.draw_seeds() if seeds is None
-                                   else seeds)
-            for s in range(self.tr_len):
-                self.epoch_step(plan, s)
-            return self.epoch_end(plan)
+            self.load_epoch(order, valid, lr_t, active_t,
+                            self.draw_seeds() if seeds is None else seeds)
+            self.run_epoch()
+            return self.bufs["loss"].clone()
 
     @torch.no_grad()
     def validate(self):
         """Each fold's mean validation loss and off-diagonal MAE, (F,)
-        tensors on the device: one batch of subjects per fold."""
+        tensors on the device: one batch of subjects per fold (the fused
+        forwards as one graph on the card)."""
         with on_device(self.dev):
-            return self._validate()
+            self._run("validation", self._val_program,
+                      self.fused and self.cfg.fused_val)
+            return self.bufs["vloss"].clone(), self.bufs["vmae"].clone()
 
-    def _validate(self):
+    def _validate(self, p):
         cfg = self.cfg
         vloss, vmae = [], []
         views = None if self.fused and cfg.fused_val \
-            else self.layout.views(self.p)
+            else self.layout.views(p)
         for f, idx in enumerate(self.va_sets):
             if idx.numel() == 0:
-                vloss.append(self.p.new_zeros(()))
-                vmae.append(self.p.new_zeros(()))
+                vloss.append(p.new_zeros(()))
+                vmae.append(p.new_zeros(()))
                 continue
             if views is None:
                 loss, mae = gat_val_fused(
-                    self.p[f:f + 1], self.a0_d[idx], self.x_d[idx],
+                    p[f:f + 1], self.a0_d[idx], self.x_d[idx],
                     self.hr_d[idx], device=self.dev, **cfg.kernel_kwargs)
             else:
                 state = gat_leaf_tensors_to_state(
@@ -397,6 +485,19 @@ class _FoldTrainer:
             vmae.append(mae.mean())
         return torch.stack(vloss), torch.stack(vmae)
 
+    def _stay_eager(self, eager: bool = True) -> None:
+        """Run every later epoch and validation pass from Python on the
+        card too (``eager=False``: through the graphs again): the
+        yardstick the graphs are held to, bit for bit."""
+        self._eager = eager
+
+    def release_graphs(self) -> None:
+        """Free the captured programs and their memory."""
+        with on_device(self.dev):
+            for graph in self._graphs.values():
+                graph.release()
+        self._graphs = {}
+
     def states(self, flat: np.ndarray):
         shapes = self.layout.shapes
         return [gat_flat_to_state(row, shapes) for row in flat]
@@ -406,8 +507,8 @@ class _ShardedTrainer:
     """The fold-parallel trainer with its fold axis sharded over a mesh:
     the folds padded to a multiple of the mesh size with empty no-op folds
     (inactive from the start), each placement a ``_FoldTrainer`` over its
-    contiguous block, the steps of an epoch run shard after shard under
-    each shard's device and planned as for the real folds
+    contiguous block, each epoch run shard after shard under each
+    shard's device and planned as for the real folds
     (``ops.plan_folds``). It has ``_FoldTrainer``'s interface over the
     padded folds, with the per-fold tensors on the first placement. The
     dropout seed table is drawn once per epoch, for the real folds, and
@@ -465,27 +566,28 @@ class _ShardedTrainer:
             seeds = np.zeros((self.tr_len, self.n_folds, 2), np.int32)
             seeds[:, :self.n_real] = _seed_table(self.seed_rng, self.tr_len,
                                                  self.n_real)
-        plans = []
+        # every shard's epoch issued before any is waited on
         for sh, f in self._slices():
-            with on_device(sh.dev):
-                plans.append(sh.epoch_plan(
-                    order[f], valid[f], lr_t[f].to(sh.dev),
-                    active_t[f].to(sh.dev),
-                    None if seeds is None else seeds[:, f]))
-        for s in range(self.tr_len):
-            for sh, plan in zip(self.shards, plans):
-                with on_device(sh.dev), plan_folds(self.n_real):
-                    sh.epoch_step(plan, s)
-        out = []
-        for sh, plan in zip(self.shards, plans):
-            with on_device(sh.dev):
-                out.append(sh.epoch_end(plan).to(self.dev))
-        return torch.cat(out)
+            with on_device(sh.dev), plan_folds(self.n_real):
+                sh.load_epoch(order[f], valid[f], lr_t[f].to(sh.dev),
+                              active_t[f].to(sh.dev),
+                              None if seeds is None else seeds[:, f])
+                sh.run_epoch()
+        return torch.cat([sh.bufs["loss"].to(self.dev)
+                          for sh in self.shards])
 
     def validate(self):
         parts = [sh.validate() for sh in self.shards]
         return tuple(torch.cat([x[k].to(self.dev) for x in parts])
                      for k in range(2))
+
+    def _stay_eager(self, eager: bool = True) -> None:
+        for sh in self.shards:
+            sh._stay_eager(eager)
+
+    def release_graphs(self) -> None:
+        for sh in self.shards:
+            sh.release_graphs()
 
     def states(self, flat: np.ndarray):
         return self.shards[0].states(flat)
@@ -628,6 +730,7 @@ def train_gat_folds_parallel(cfg: GATTrainConfig, lr_all, hr_all, folds,
     else:
         best, hists = _run_device_control(tr, cfg, verbose,
                                           max(1, int(control_chunk_epochs)))
+    tr.release_graphs()
     n = len(folds)
     return tr.model, tr.states(np.stack(best[:n])), hists[:n]
 
@@ -652,10 +755,9 @@ def train_gat(model: GATGraphUnet, opt_state, cfg: GATTrainConfig, lr_train,
                                for k, t in model.state_dict().items()})[None]
     tr = _FoldTrainer(cfg, lr_all, hr_all, folds, seed, dev, flat0=flat0,
                       fused=False)
-    tr.m = opt_state["m"].to(dev).reshape(1, -1).clone()
-    tr.v = opt_state["v"].to(dev).reshape(1, -1).clone()
-    tr.t = torch.full((1,), float(opt_state["t"]), dtype=torch.float32,
-                      device=dev)
+    tr.m.copy_(opt_state["m"].reshape(1, -1))
+    tr.v.copy_(opt_state["v"].reshape(1, -1))
+    tr.t.fill_(float(opt_state["t"]))
     best, hists = _run_host_control(tr, cfg, verbose)
     variables = tr.states(np.stack(best))[0]
     model.load_state_dict(_state_to_device(variables, dev))
