@@ -94,8 +94,9 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    ``fused_step``) through its epoch graph, with the launch counts of
    each run through the replays (``MODE_LAUNCHES`` a step), ``fused_step``
    bit-equal to ``fused_adam`` from the same weights; and the parity
-   trainer (``train gsr`` with no flag, 2 folds x 1 epoch) through the
-   command line on phase 5's CSVs; the phase's peak device memory;
+   trainer (``train gsr`` with no flag, 2 folds x 1 epoch, an epoch graph
+   per fold) through the command line on phase 5's CSVs; the phase's peak
+   device memory;
 7. drives the GAT U-Net family at its shipped width (n = 160, m = 268,
    dim 16, ks (0.5, 0.5, 0.5), 4 / 2 heads, F = 3): each of its eleven
    kernels against its plain version at every shape the step uses, at
@@ -139,10 +140,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    (``profile_gat_val.txt``);
    ``train_gat_folds_parallel(fused_step=True)`` on the teacher set (3
    folds, 2 epochs at drop_p = 0.01, its epoch and validation graphs
-   replayed, the launch counts of that run), one epoch fused (graphed)
-   against one unfused (from Python); and ``train gat --fast --fused``,
+   replayed, the launch counts of that run), one epoch fused against one
+   unfused, each through its graphs; and ``train gat --fast --fused``,
    ``--fast`` and the per-fold trainer through the command line on phase
-   5's CSVs, each column-major submission parsed back;
+   5's CSVs (every one through its epoch and validation graphs), each
+   column-major submission parsed back;
 8. drives the metric suite (``evalx``) on the card: phase 4's fold stacks
    (``evaluate_gsr_folds(pull_preds=True)``, 3 folds of 55-56 pairs at
    268 nodes), fold 0 in float64 and float32 (the precisions agree
@@ -170,9 +172,11 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    1), then both steps at F = 3 eager, as one CUDA graph and profiled
    (``check_mlp_steps``; ``profile_mlp_v2.txt``, ``profile_mlp_v1.txt``);
    the slice's main path, ``run_mlp_cv`` for the shipped 100 epochs on the
-   teacher set (one ``adamw_masked`` launch a step, the test predictions'
-   matrix scatter), its MAEs beside the untrained model's and the mean
-   target's; and ``train mlp`` and ``train mlp --variant v1 --epochs 2``
+   teacher set through its epoch and validation graphs (one
+   ``adamw_masked`` launch a step counted through the replays, the test
+   predictions' matrix scatter), its MAEs beside the untrained model's
+   and the mean target's; and ``train mlp`` and ``train mlp --variant v1
+   --epochs 2``
    on phase 5's CSVs, each column-major submission parsed back, with
    v1's peak device memory;
 10. the JAX package's files and the last modules: decodes the JAX
@@ -270,7 +274,22 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    runner's captured buffers, bit-equal; (e) the fused GAT trainer (2
    epochs, drop_p 0.01, device control) through its epoch and validation
    graphs against a trainer from Python, bit for bit, then 3 timed passes
-   of each in turns; the phase's peak device memory.
+   of each in turns; the phase's peak device memory;
+15. the last three chunk programs as CUDA graphs, at full width, each
+   against the same trainer from Python (``_stay_eager``) bit for bit,
+   with the launches counted through the replays, the graphs' nodes,
+   warm-up, capture and instantiate seconds, the device ms a step (an
+   epoch graph's replay by CUDA events over its steps), s/epoch through
+   the graph and from Python in passes in turns and the peak device
+   memory: (a) the unfused GAT trainer (the shipped config, drop_p 0.01,
+   3 folds), 2 epochs under device control and 1 more under host control,
+   the dropout generator's state after each run equal; (b) ``run_mlp_cv``
+   with its defaults for 2 epochs (v2) and with ``variant="v1"`` for 1,
+   one ``adamw_masked`` a step; (c) the parity trainer
+   (``train_gsr_fold``, the first fold, 2 epochs, capturable Adam) and
+   its distance from the same run with a non-capturable Adam from
+   Python, and its epoch alone as one graph (``parity_epoch_ms``);
+   ``step_graph_ms`` gives every trainer's epoch graph alone (run alone).
 
 Any failure exits non-zero before the result. The last three lines are the
 per-kernel JSON record, the card's name and power limit, and
@@ -6477,10 +6496,16 @@ def captured_graphs(trainer) -> list:
 
 
 def capture_note(trainer) -> str:
-    graphs = captured_graphs(trainer)
+    return graphs_note(captured_graphs(trainer))
+
+
+def graphs_note(graphs) -> str:
+    """The graphs' count, nodes and warm-up / capture / instantiate
+    seconds."""
     warm, cap, inst = (sum(getattr(g, a) for g in graphs)
                        for a in ("warm_s", "capture_s", "instantiate_s"))
-    return (f"{len(graphs)} graph(s): warm-up {warm:.3f} s, capture "
+    return (f"{len(graphs)} graph(s), {sum(g.nodes for g in graphs)} nodes "
+            f"{[g.nodes for g in graphs]}: warm-up {warm:.3f} s, capture "
             f"{cap:.3f} s, instantiate {inst:.3f} s")
 
 
@@ -6550,19 +6575,22 @@ def check_graph_modes(dev, data, smi):
     return runs, keep, total
 
 
-def graph_eager_passes(label, run_graph, run_eager, epochs, smi):
-    """``GRAPH_PASSES`` timed passes each of ``run_graph`` and
-    ``run_eager`` (each ``epochs`` epochs), in turns: their s/epoch."""
+def graph_eager_passes(label, run_graph, run_eager, epochs, smi,
+                       eager_passes: int = GRAPH_PASSES):
+    """``GRAPH_PASSES`` timed passes of ``run_graph`` and ``eager_passes``
+    of ``run_eager`` (each ``epochs`` epochs), in turns: their s/epoch."""
     times = {"graph": [], "eager": []}
-    for _ in range(GRAPH_PASSES):
+    for i in range(GRAPH_PASSES):
         for kind, run in (("graph", run_graph), ("eager", run_eager)):
+            if kind == "eager" and i >= eager_passes:
+                continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             times[kind].append((time.perf_counter() - t0) / epochs)
     g, e = times["graph"], times["eager"]
-    print(f"  {label}: s/epoch in {GRAPH_PASSES} passes each, in turns: "
+    print(f"  {label}: s/epoch in {len(g)} / {len(e)} passes, in turns: "
           f"graph {[round(x, 4) for x in g]} (spread "
           f"{max(g) / min(g) - 1:.1%}), eager {[round(x, 4) for x in e]} "
           f"(spread {max(e) / min(e) - 1:.1%}); eager / graph "
@@ -6707,6 +6735,397 @@ def run_phase14(dev, data, work, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the last three chunk programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+PARITY_FOLD = 0         # the parity trainer's fold (of 3) in phase 15
+
+
+class _TrainerHook:
+    """Inside: every ``cls`` built runs from Python on the card
+    (``_stay_eager``) if ``eager``, and every ``EpochGraph`` built is kept
+    in ``graphs`` (a trainer may release its graphs before it returns)."""
+
+    def __init__(self, cls, eager: bool):
+        self.cls, self.eager, self.graphs = cls, eager, []
+
+    def __enter__(self):
+        from fcsr_tpu_torch.train.epoch_graph import EpochGraph
+
+        self._inits = (self.cls.__init__, EpochGraph.__init__)
+        init, graph_init = self._inits
+        hook = self
+
+        def trainer(obj, *a, **kw):
+            init(obj, *a, **kw)
+            if hook.eager:
+                obj._stay_eager()
+
+        def graph(obj, *a, **kw):
+            graph_init(obj, *a, **kw)
+            hook.graphs.append(obj)
+        self.cls.__init__, EpochGraph.__init__ = trainer, graph
+        return self
+
+    def __exit__(self, *exc):
+        from fcsr_tpu_torch.train.epoch_graph import EpochGraph
+
+        self.cls.__init__, EpochGraph.__init__ = self._inits
+        return False
+
+
+def trainer_graph(trainer, name: str = "epoch"):
+    """The trainer's captured ``name`` graph; fails where there is none."""
+    graph = trainer._graphs.get(name)
+    if graph is None:
+        fail(f"{type(trainer).__module__}: no {name} graph was captured")
+    return graph
+
+
+def replay_ms(graph, steps: int, reps: int = 3) -> float:
+    """Device ms a step of an epoch graph: the median of ``reps`` replays
+    (one launch each, so the events time the device) by CUDA events, over
+    its ``steps``. The replays advance the trainer's state and count no
+    launch."""
+    if graph is None:
+        return float("nan")
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        graph.graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times) / steps
+
+
+def _gat_setup(data):
+    from fcsr_tpu_torch import kfold_indices
+
+    lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
+    hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
+    return lr_all, hr_all, kfold_indices(len(lr_all), 3, seed=42)
+
+
+def _parity_setup(data):
+    """The parity trainer's fold: its (lr, hr) stacks and their spectra."""
+    from fcsr_tpu_torch import kfold_indices
+    from fcsr_tpu_torch.train.gsr_loop import precompute_spectral
+
+    lr_all = np.asarray(data["lr_train"], np.float32)
+    hr_all = np.asarray(data["hr_train"], np.float32)
+    tr = kfold_indices(len(lr_all), 3, seed=42)[PARITY_FOLD][0]
+    lr, hr = lr_all[tr], hr_all[tr]
+    return lr, hr, precompute_spectral(lr, hr, lr_dim=LR)
+
+
+def parity_epoch_ms(dev, lr, hr, spectral):
+    """The parity trainer's epoch (``make_train_fn``'s program over the
+    fold's stacks, capturable Adam from ``init_gsr``) as one CUDA graph:
+    (device ms a step, nodes a step)."""
+    from fcsr_tpu_torch.train.epoch_graph import EpochGraph
+    from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, init_gsr,
+                                               make_train_fn)
+
+    cfg = GSRTrainConfig()
+    model, opt = init_gsr(cfg, seed=0, device=dev)
+    pt = make_train_fn(model, opt, cfg)
+    stacks = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+              for a in (lr, hr, *spectral)]
+    res = torch.zeros(2, len(lr), device=dev)
+    g = EpochGraph("the parity GSR-Net epoch", dev,
+                   lambda: pt._epoch(stacks, res[0], res[1]),
+                   lambda: pt._warm(stacks, 2))
+    out = (replay_ms(g, len(lr)), g.nodes / len(lr))
+    g.release()
+    return out
+
+
+def step_graph_ms(dev, data, smi):
+    """Phase 15 (0): each trainer's epoch as one CUDA graph, its device ms
+    a step (``replay_ms``) and its nodes a step: the unfused GAT epoch
+    (drop_p 0.01, 3 folds), the MLP v2 and v1 epochs (3 folds, batches
+    32, 32, 32, 16) and the parity epoch (the first fold, capturable
+    Adam). Returns {trainer: ms a step}."""
+    from fcsr_tpu_torch.train.gat_loop import GATTrainConfig, _FoldTrainer
+
+    out = {}
+    lr_all, hr_all, folds = _gat_setup(data)
+    tr = _FoldTrainer(GATTrainConfig(), lr_all, hr_all, folds, 42, dev)
+    tr.epoch(*tr.draw_epoch_plan(), torch.full((3,), 1e-3, device=dev),
+             torch.ones(3, device=dev))
+    g = trainer_graph(tr)
+    out["GAT unfused"] = (replay_ms(g, tr.tr_len),
+                          getattr(g, "nodes", 0) / tr.tr_len)
+    tr.release_graphs()
+    for variant in ("v2", "v1"):
+        tr = _mlp_setup(variant, data, 3, dev)
+        perms = np.stack([np.random.default_rng(j).permutation(tr.n)
+                          for j in range(3)])
+        tr.epoch(perms, torch.full((3,), 0.01, device=dev),
+                 torch.ones(3, device=dev))
+        g = trainer_graph(tr)
+        steps = len(tr.batches)
+        out[f"MLP {variant}"] = (replay_ms(g, steps),
+                                 getattr(g, "nodes", 0) / steps)
+        tr.release_graphs()
+        del tr, g
+        torch.cuda.empty_cache()
+    out["parity"] = parity_epoch_ms(dev, *_parity_setup(data))
+    for k, (ms, nodes) in out.items():
+        print(f"  {k} epoch as one graph: {ms:.3f} ms a step on the device, "
+              f"{nodes:.0f} nodes a step [{smi}]", flush=True)
+    return {k: ms for k, (ms, _) in out.items()}
+
+
+def check_gat_unfused_graphs(dev, data, smi):
+    """Phase 15 (a): the unfused GAT trainer (the shipped config: drop_p
+    0.01, 3 folds) through its epoch and validation graphs, 2 epochs under
+    device control then 1 more under host control, against a trainer of
+    the same seed from Python: best states, histories and the dropout
+    generator's state bit for bit, the same (own-kernel) launches; then
+    s/epoch in passes (eager: 1) and the device ms a step."""
+    from dataclasses import replace
+
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.train.gat_loop import (GATTrainConfig, _FoldTrainer,
+                                               _run_device_control,
+                                               _run_host_control)
+
+    lr_all, hr_all, folds = _gat_setup(data)
+    cfg = GATTrainConfig(epochs=EPOCHS)
+    one = replace(cfg, epochs=1)
+    if cfg.fused_step or cfg.drop_p != 0.01:
+        fail(f"the shipped GAT config is not the unfused one: {cfg}")
+    trainers, res = {}, {}
+    for kind in ("graph", "eager"):
+        torch.cuda.reset_peak_memory_stats()
+        tr = _FoldTrainer(cfg, lr_all, hr_all, folds, 42, dev)
+        if kind == "eager":
+            tr._stay_eager()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        best, hists = _run_device_control(tr, cfg, False, 25)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        best_h, hists_h = _run_host_control(tr, one, False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res[kind] = ((np.stack(best), hists, np.stack(best_h), hists_h,
+                      tr.gen.get_state()), t1 - t0, t2 - t1,
+                     _nonzero(launch_counts()), peak_note())
+        trainers[kind] = tr
+    (got, t_dev, t_host, counts, peak), want = res["graph"], res["eager"][0]
+    same = [np.array_equal(got[0], want[0]) and got[1] == want[1],
+            np.array_equal(got[2], want[2]) and got[3] == want[3],
+            torch.equal(got[4], want[4])]
+    tr = trainers["graph"]
+    print(f"  GAT unfused, drop_p {cfg.drop_p}, 3 folds x {tr.tr_len} "
+          f"steps: graph {t_dev / EPOCHS:.3f} s/epoch under device control "
+          f"with its captures ({capture_note(tr)}), {t_host:.3f} s for 1 "
+          f"more under host control; eager {res['eager'][1] / EPOCHS:.3f} "
+          f"and {res['eager'][2]:.3f}; own-kernel launches {counts} through "
+          f"the replays, {res['eager'][3]} eager; graph == eager bit for "
+          f"bit (device control, host control, generator): {same}; {peak} "
+          f"(eager: {res['eager'][4]}) [{smi}]", flush=True)
+    if not all(same):
+        fail("the graphed unfused GAT trainer is not bit-equal to the eager "
+             "one")
+    if counts != res["eager"][3]:
+        fail(f"unfused GAT launches {counts} / {res['eager'][3]}")
+    graph_eager_passes("GAT unfused (1 epoch a pass, device control)",
+                       lambda: _run_device_control(tr, one, False, 25),
+                       lambda: _run_device_control(trainers["eager"], one,
+                                                   False, 25), 1, smi,
+                       eager_passes=1)
+    ms = replay_ms(trainer_graph(tr), tr.tr_len)
+    val_ms = replay_ms(trainer_graph(tr, "validation"), 1)
+    print(f"  GAT unfused: {ms:.3f} ms a step on the device (the epoch "
+          f"graph's replay), {val_ms:.3f} ms a validation pass [{smi}]",
+          flush=True)
+    tr.release_graphs()
+    return counts
+
+
+def _mlp_result(result):
+    """What phase 15 compares of a ``run_mlp_cv`` result, without a copy
+    of v1's best state: histories, MAEs, each best leaf's fingerprint and
+    the test predictions."""
+    return (result["histories"], result["fold_maes"],
+            [_fingerprint(v) for v in result["variables"].values()],
+            result["test_preds"].clone())
+
+
+def check_mlp_graphs(dev, data, smi):
+    """Phase 15 (b): ``run_mlp_cv`` with its defaults for 2 epochs (v2)
+    and ``variant="v1"`` for 1, through the epoch and validation graphs
+    and with every trainer from Python: histories, MAEs, best states (by
+    ``_fingerprint``) and test predictions bit for bit, one
+    ``adamw_masked`` a step through the replays as eagerly; peak memory;
+    then s/epoch of a trainer of the same config in passes and its
+    device ms a step. Returns the graphed runs' counts."""
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.pipelines import run_mlp_cv
+    from fcsr_tpu_torch.train import generic_loop
+
+    total = {}
+    for variant, epochs in (("v2", EPOCHS), ("v1", 1)):
+        res = {}
+        for kind in ("graph", "eager"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with _TrainerHook(generic_loop._FoldTrainer,
+                              kind == "eager") as hook:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                result = run_mlp_cv(data, num_epochs=epochs, variant=variant,
+                                    device=dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter() - t0
+            res[kind] = (_mlp_result(result), t, result["timings"]["train"],
+                         _nonzero(launch_counts()), peak_note(), hook.graphs)
+            del result
+        (got, t, t_train, counts, peak, graphs), want = (res["graph"],
+                                                         res["eager"][0])
+        same = [got[0] == want[0], got[1] == want[1],
+                all(_same_fingerprint(a, b) for a, b in zip(got[2], want[2])),
+                torch.equal(got[3], want[3])]
+        steps = 4 * epochs
+        print(f"  MLP {variant} run_mlp_cv, {epochs} epoch(s): {t:.2f} s "
+              f"(train {t_train:.3f}, {t_train / epochs:.4f} s/epoch with "
+              f"its captures: {graphs_note(graphs)}); eager "
+              f"{res['eager'][1]:.2f}"
+              f" s (train {res['eager'][2] / epochs:.4f} s/epoch); launches "
+              f"{counts} through the replays, {res['eager'][3]} eager; graph"
+              f" == eager bit for bit (histories, MAEs, best state, test "
+              f"predictions): {same}; graph {peak}, eager {res['eager'][4]} "
+              f"[{smi}]", flush=True)
+        if not all(same):
+            fail(f"MLP {variant}: the graphed run is not bit-equal to the "
+                 "eager one")
+        if counts != res["eager"][3] or counts.get("adamw_masked") != steps:
+            fail(f"MLP {variant}: launches {counts} / {res['eager'][3]}, "
+                 f"not one adamw_masked in each of {steps} steps")
+        _add(total, counts)
+        del res, got, want, graphs
+        torch.cuda.empty_cache()
+
+        tr = _mlp_setup(variant, data, 3, dev)
+        rngs = [np.random.default_rng(42 + j) for j in range(3)]
+
+        def run(eager, tr=tr, rngs=rngs, epochs=epochs):
+            tr._stay_eager(eager)
+            generic_loop._device_control(tr, rngs, epochs, 0.01,
+                                         lambda e: True, 10, 1e-4, 0.1,
+                                         1e-5, 25)
+        run(False)                      # the capture, untimed
+        graph_eager_passes(f"MLP {variant} trainer ({epochs} epoch(s) a "
+                           "pass, device control)", lambda: run(False),
+                           lambda: run(True), epochs, smi)
+        tr._stay_eager(False)
+        ms = replay_ms(trainer_graph(tr), len(tr.batches))
+        print(f"  MLP {variant}: {ms:.3f} ms a step on the device (the epoch"
+              f" graph's replay, batches {[b - a for a, b in tr.batches]}) "
+              f"[{smi}]", flush=True)
+        tr.release_graphs()
+        del tr, run
+        torch.cuda.empty_cache()
+    return total
+
+
+def check_parity_graphs(dev, data, smi):
+    """Phase 15 (c): the parity trainer (``train_gsr_fold``, the first
+    fold, 2 epochs, capturable Adam from ``init_gsr``) through its epoch
+    graph against the same trainer from Python: parameters, histories and
+    Adam's state bit for bit; its distance from the same run with a
+    non-capturable Adam from Python; s/epoch in passes; peak memory."""
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.train import gsr_loop
+
+    lr, hr, spectral = _parity_setup(data)
+    cfg = gsr_loop.GSRTrainConfig(epochs=EPOCHS)
+    res = {}
+    for kind in ("graph", "eager"):
+        torch.cuda.reset_peak_memory_stats()
+        model, opt = gsr_loop.init_gsr(cfg, seed=0, device=dev)
+        with _TrainerHook(gsr_loop._ParityTrainer, kind == "eager") as hook:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = gsr_loop.train_gsr_fold(model, opt, cfg, lr, hr,
+                                           spectral=spectral)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        res[kind] = ([x.detach().clone() for x in model.parameters()]
+                     + [x.clone() for st in opt.state.values()
+                        for x in st.values()], hist, t,
+                     _nonzero(launch_counts()), peak_note(), hook.graphs)
+    (got, hist, t, counts, peak, graphs), want = res["graph"], res["eager"]
+    same = (all(torch.equal(a, b) for a, b in zip(got, want[0]))
+            and all(np.array_equal(hist[k], want[1][k]) for k in hist))
+    # Adam without capturable=True (its bias correction in
+    # Python floats), from Python
+    model, opt = gsr_loop.init_gsr(cfg, seed=0, device=dev)
+    pt = gsr_loop.make_train_fn(model, opt, cfg)
+    pt.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                                    betas=(0.9, 0.999), eps=1e-8)
+    pt._stay_eager()
+    stacks = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+              for a in (lr, hr, *spectral)]
+    old = pt(*stacks)[0].cpu().numpy()
+    d_p = max(max_err(a, b.detach()) / max(scale_of(b.detach()), 1e-30)
+              for a, b in zip(got, model.parameters()))
+    d_loss = float(np.abs(old - hist["loss"]).max())
+    print(f"  parity trainer ({len(lr)} subjects, {EPOCHS} epochs): graph "
+          f"{t / EPOCHS:.3f} s/epoch with its capture ({graphs_note(graphs)})"
+          f", eager {want[2] / EPOCHS:.3f}; own-kernel launches {counts} / "
+          f"{want[3]}; graph == eager bit for bit (parameters, Adam's state,"
+          f" histories): {same}; graph {peak}, eager {want[4]}; capturable "
+          f"Adam against Adam without it: max|d epoch loss| "
+          f"{d_loss:.2e} (loss {hist['loss'].tolist()}), max|d param| / "
+          f"scale {d_p:.2e} [{smi}]", flush=True)
+    if not same:
+        fail("the graphed parity trainer is not bit-equal to the eager one")
+    if counts != want[3]:
+        fail(f"parity launches {counts} / {want[3]}")
+    one = gsr_loop.GSRTrainConfig(epochs=1)
+    captures = []
+
+    def run(eager):
+        model, opt = gsr_loop.init_gsr(one, seed=0, device=dev)
+        with _TrainerHook(gsr_loop._ParityTrainer, eager) as hook:
+            gsr_loop.train_gsr_fold(model, opt, one, lr, hr,
+                                    spectral=spectral)
+        captures.extend(sum(getattr(g, a) for a in (
+            "warm_s", "capture_s", "instantiate_s")) for g in hook.graphs)
+    times = graph_eager_passes(
+        "parity trainer (1 epoch a pass, a capture in each graph pass)",
+        lambda: run(False), lambda: run(True), 1, smi)
+    ms, nodes = parity_epoch_ms(dev, lr, hr, spectral)
+    print(f"  parity trainer: graph passes without their captures "
+          f"{[round(t - c, 4) for t, c in zip(times['graph'], captures)]}"
+          f" s/epoch (captures {[round(c, 3) for c in captures]} s); "
+          f"{ms:.3f} ms a step on the device (the epoch as one graph, "
+          f"{nodes:.0f} nodes a step) [{smi}]", flush=True)
+    return counts
+
+
+def run_phase15(dev, data, smi):
+    """Phase 15: the unfused GAT, MLP and parity trainers through their
+    epoch graphs at full width. Returns the graphed runs' launch counts."""
+    t0 = time.perf_counter()
+    counts = check_gat_unfused_graphs(dev, data, smi)
+    _add(counts, check_mlp_graphs(dev, data, smi))
+    torch.cuda.reset_peak_memory_stats()
+    _add(counts, check_parity_graphs(dev, data, smi))
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
@@ -6811,6 +7230,9 @@ def main():
         print("phase 14: the chunk programs as CUDA graphs", flush=True)
         p14_counts = run_phase14(dev, data, os.path.join(WORK_DIR, "p14"),
                                  smi)
+        print("phase 15: the last three chunk programs as CUDA graphs",
+              flush=True)
+        p15_counts = run_phase15(dev, data, smi)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -6826,7 +7248,8 @@ def main():
                    counts, csv_counts, mode_counts, parity_counts,
                    gat_counts, gat_cli_counts, keep_counts,
                    metric_counts, mlp_counts, mlp_cli_counts, p10_counts,
-                   p11_counts, p12_counts, p13_counts, p14_counts))}
+                   p11_counts, p12_counts, p13_counts, p14_counts,
+                   p15_counts))}
         rec.update(records.get(name, {}))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -23,18 +23,21 @@ With ``drop_p > 0`` the card's generator is not the JAX package's, so
 trajectories are stochastically equivalent only; at ``drop_p = 0`` every
 mode agrees with its JAX counterpart (tested).
 
-With the fused step an epoch is one program per shard, as the JAX
-trainer's ``run_chunk`` is one compiled scan (``fcsr_tpu/train/
-gat_loop.py:499-541``): the step scalars from the step counts, then the
-epoch's steps over static buffers (p, m, v, t, the (L, F) order and
-validity, each fold's lr and active flag, the (L, F, 2) seed table), the
-subjects gathered on the device from the order; the fused validation
-forwards are a second program. On the card each is captured once per
-trainer as a CUDA graph (``train/epoch_graph.py``) and replayed once an
-epoch, each shard's issued before any is waited on; on the CPU the same
-programs run step by step. The host still draws each epoch's order and
-seeds from the same generators in the same sequence and copies them into
-the buffers. The unfused step runs from Python on the card too.
+An epoch is one program per shard, fused step or not, as the JAX
+trainer's ``run_chunk`` is one compiled scan of either step (``fcsr_tpu/
+train/gat_loop.py:408-447``, ``:499-541``): the step scalars from the
+step counts, then the epoch's steps over static buffers (p, m, v, t, the
+(L, F) order and validity, each fold's lr and active flag, the (L, F, 2)
+seed table of the fused step), the subjects gathered on the device from
+the order; the validation forwards (fused or the module's, as
+``val_all``, ``:450-491``) are a second program. On the card each is
+captured once per trainer as a CUDA graph (``train/epoch_graph.py``) and
+replayed once an epoch, each shard's issued before any is waited on; the
+unfused step's dropout draws from the shard's ``torch.Generator``, which
+each graph registers, so a replay draws what the eager epoch draws and
+leaves the generator where it leaves it. On the CPU the same programs run
+step by step. The host still draws each epoch's order and seeds from the
+same generators in the same sequence and copies them into the buffers.
 """
 
 from __future__ import annotations
@@ -95,8 +98,8 @@ class GATTrainConfig:
     intermediate_losses: bool = True
     weight_decay: float = 0.01
     # shapes the JAX package's compiled scan only; kept so that configs
-    # carry over, without effect here (on the card the fused step's epoch
-    # is one CUDA graph, the unfused step's a Python loop)
+    # carry over, without effect here (on the card an epoch of either step
+    # is one CUDA graph)
     scan_unroll: int = 1
     # run each training step (forward, backward, masked AdamW) on the
     # hand-written CUDA kernels in the fold-parallel trainer. Same math as
@@ -237,7 +240,7 @@ def _state_to_device(variables, dev):
 class _FoldTrainer:
     """State and the two device programs (one epoch of steps, one
     validation pass) of the fold-parallel trainer, over static buffers
-    (``bufs``), graphed on the card with the fused step. Under a mesh it
+    (``bufs``), each one CUDA graph on the card. Under a mesh it
     holds one placement's block of folds: ``fold_lo`` is its first fold's
     index (fold j's host generator is seeded ``seed + j``) and ``tr_len``
     the whole run's steps per epoch."""
@@ -327,14 +330,16 @@ class _FoldTrainer:
         cfg = self.cfg
         p = p0.detach().requires_grad_()
         views = self.layout.views(p)
+        # the folds' subjects gathered by the index tensor at once: indexing
+        # by one of its entries would read it back to the host
+        lr_i, x_i, hr_i = self.lr_d[i], self.x_d[i], self.hr_d[i]
         losses = []
         for f in range(self.n_folds):
             state = gat_leaf_tensors_to_state(
                 {k: v[f] for k, v in views.items()})
             pred, a_hist, a_recon = functional_call(
-                self.model, state, (self.lr_d[i[f]], self.x_d[i[f]]),
-                {"train": True})
-            losses.append(unet_loss(pred, self.hr_d[i[f]], a_hist, a_recon,
+                self.model, state, (lr_i[f], x_i[f]), {"train": True})
+            losses.append(unet_loss(pred, hr_i[f], a_hist, a_recon,
                                     cfg.intermediate_losses))
         loss = torch.stack(losses)
         (g,) = torch.autograd.grad(loss.sum(), p)
@@ -414,11 +419,12 @@ class _FoldTrainer:
         b["vloss"].copy_(vloss)
         b["vmae"].copy_(vmae)
 
-    def _run(self, name: str, program, graphed: bool, **warm) -> None:
-        """``program(bufs)``: on the card and ``graphed``, the replay of
-        its graph (captured at first use after a warm-up on scratch copies
-        of the buffers), else the program itself."""
-        if not graphed or self._eager or self.dev.type != "cuda":
+    def _run(self, name: str, program, **warm) -> None:
+        """``program(bufs)``: on the card the replay of its graph (captured
+        at first use after a warm-up on scratch copies of the buffers, the
+        dropout generator set back after it), on the CPU the program
+        itself."""
+        if self._eager or self.dev.type != "cuda":
             program(self.bufs)
             return
         graph = self._graphs.get(name)
@@ -426,15 +432,15 @@ class _FoldTrainer:
             scratch = {k: None if x is None else x.clone()
                        for k, x in self.bufs.items()}
             graph = self._graphs[name] = EpochGraph(
-                f"the fused GAT {name} (folds {self.fold_lo}-"
-                f"{self.fold_lo + self.n_folds - 1})", self.dev,
-                lambda: program(self.bufs), lambda: program(scratch, **warm))
+                f"the {'fused' if self.fused else 'unfused'} GAT {name} "
+                f"(folds {self.fold_lo}-{self.fold_lo + self.n_folds - 1})",
+                self.dev, lambda: program(self.bufs),
+                lambda: program(scratch, **warm), generators=(self.gen,))
         graph.replay()
 
     def run_epoch(self) -> None:
-        """One epoch over the loaded inputs (``load_epoch``): the fused
-        step's graph on the card, the unfused step from Python."""
-        self._run("epoch", self._epoch_program, self.fused,
+        """One epoch over the loaded inputs (``load_epoch``)."""
+        self._run("epoch", self._epoch_program,
                   n_steps=min(_WARM_STEPS, self.tr_len))
 
     def epoch(self, order, valid, lr_t, active_t, seeds=None):
@@ -452,11 +458,10 @@ class _FoldTrainer:
     @torch.no_grad()
     def validate(self):
         """Each fold's mean validation loss and off-diagonal MAE, (F,)
-        tensors on the device: one batch of subjects per fold (the fused
-        forwards as one graph on the card)."""
+        tensors on the device: one batch of subjects per fold, the fused
+        forwards or the module's."""
         with on_device(self.dev):
-            self._run("validation", self._val_program,
-                      self.fused and self.cfg.fused_val)
+            self._run("validation", self._val_program)
             return self.bufs["vloss"].clone(), self.bufs["vmae"].clone()
 
     def _validate(self, p):
@@ -740,7 +745,8 @@ def train_gat(model: GATGraphUnet, opt_state, cfg: GATTrainConfig, lr_train,
               verbose: bool = False):
     """One fold's full training run with per-epoch validation, plateau
     decay, best-state restore and early stop at lr < 1e-5, under host
-    control, by autograd over the module (never the fused step). Starts
+    control, by autograd over the module (never the fused step), its
+    epoch and validation pass each one CUDA graph on the card. Starts
     from ``model``'s weights and ``opt_state`` (``init_gat``), on the
     model's device; loads the best weights into ``model``. Returns (best
     state_dict as numpy arrays, opt_state, {"train", "val", "lr"})."""

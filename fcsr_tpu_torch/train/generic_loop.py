@@ -17,6 +17,19 @@ folds' parameters). An epoch is the full batches of a per-fold shuffle and
 then the ragged remainder as its own step, so BatchNorm sees the reference
 loader's batches; its training loss is the mean of its batch losses.
 
+An epoch is one program over static buffers (the (F, n) sample order,
+each fold's lr and active flag, the (steps, F) batch losses), as the JAX
+package's ``train_epoch_full`` is one compiled scan
+(``fcsr_tpu/train/generic_loop.py:116-131``), and a validation pass a
+second one (the (F,) losses). On the card each is captured once per
+trainer as a CUDA graph (``train/epoch_graph.py``; the validation graph
+in the epoch graph's memory pool) and replayed once an epoch; on the CPU
+the same programs run step by step. The warm-up before a capture runs on
+the live state with every step masked (``active`` 0), which leaves p, m,
+v, the step counts and the statistics as they were (v1 at full width has
+no room for scratch copies), and the dropout generator is set back after
+it and registered with the graph.
+
 Control runs on the device by default: the plateau scheduler, the best
 state (parameters and statistics) and the early-stop mask are float32
 tensors, with one host read per ``control_chunk_epochs`` epochs;
@@ -39,6 +52,7 @@ import torch
 
 from fcsr_tpu_torch.iox.weights import mlp_leaves_to_state, mlp_state_to_flat
 from fcsr_tpu_torch.kernels.ops import KERNEL_OPS
+from fcsr_tpu_torch.train.epoch_graph import EpochGraph, upload as _upload
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["PlateauScheduler", "TrainState", "mse_criterion", "train_model",
@@ -132,9 +146,10 @@ def _flat_buffers(model, variables, n_folds: int, dev, stacked: bool = True):
 
 class _FoldTrainer:
     """The state of F folds trained together and the step, epoch and
-    validation passes over it. ``ops`` picks the update's op namespace
-    (``KERNEL_OPS``: the kernel for CUDA tensors, the plain version for CPU
-    ones)."""
+    validation passes over it, the two passes programs over static buffers
+    (``bufs``), each one CUDA graph on the card. ``ops`` picks the
+    update's op namespace (``KERNEL_OPS``: the kernel for CUDA tensors,
+    the plain version for CPU ones)."""
 
     def __init__(self, model, p, s, x_tr, y_tr, x_va, y_va, seed: int,
                  batch_size: int, criterion: Callable, clip_norm: float,
@@ -160,6 +175,22 @@ class _FoldTrainer:
         self.clip_norm, self.wd = float(clip_norm), float(weight_decay)
         self.gen = torch.Generator(device=dev).manual_seed(int(seed))
         self.ops = KERNEL_OPS
+        # an epoch's batches: the full ones, then the ragged remainder
+        bs = batch_size
+        self.batches = [(b * bs, (b + 1) * bs) for b in range(self.n // bs)]
+        if self.n % bs:
+            self.batches.append((self.n - self.n % bs, self.n))
+
+        # the programs' static buffers (a graph reads and writes fixed
+        # addresses) beside the state: an epoch's (F, n) sample order, each
+        # fold's lr and active flag, the outputs
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(*shape, dtype=dtype, device=dev)
+        self.bufs = dict(order=zeros(F, self.n, dtype=torch.int64),
+                         lr=zeros(F), active=zeros(F),
+                         loss=zeros(len(self.batches), F), vloss=zeros(F))
+        self._graphs = {}
+        self._eager = False
 
     def step(self, idx, ok, lr):
         """One step of every fold on its samples ``idx`` (F, B) (long, on
@@ -196,25 +227,71 @@ class _FoldTrainer:
                         self.s, out=self.s)
         return loss
 
+    def _epoch_program(self, b: dict) -> None:
+        """The epoch program over the buffers ``b`` (``bufs``' keys): a step
+        per batch of ``b["order"]`` with ``b["active"]`` and ``b["lr"]``,
+        the state updated in place, the batch losses into ``b["loss"]``."""
+        torch.stack([self.step(b["order"][:, lo:hi], b["active"], b["lr"])
+                     for lo, hi in self.batches], out=b["loss"])
+
+    def _val_program(self, b: dict) -> None:
+        pred, _ = self.model.fold_forward(self.pv, self.sv, self.x_va, False)
+        b["vloss"].copy_(self.crit(pred, self.y_va))
+
+    def _run(self, name: str, program) -> None:
+        """``program(bufs)``: on the card the replay of its graph (captured
+        at first use after a warm-up with every step masked, the dropout
+        generator set back after it; validation in the epoch graph's
+        pool), on the CPU the program itself."""
+        if self._eager or self.dev.type != "cuda":
+            program(self.bufs)
+            return
+        graph = self._graphs.get(name)
+        if graph is None:
+            masked = self.masked_bufs()
+            epoch = self._graphs.get("epoch")
+            graph = self._graphs[name] = EpochGraph(
+                f"the MLP {name} ({self.F} folds)", self.dev,
+                lambda: program(self.bufs), lambda: program(masked),
+                generators=(self.gen,),
+                pool=None if epoch is None else epoch.graph.pool())
+        graph.replay()
+
+    def masked_bufs(self) -> dict:
+        """The warm-up's buffers: ``bufs`` with every fold inactive (each
+        step masked) and scratch outputs."""
+        b = self.bufs
+        return dict(b, active=torch.zeros_like(b["active"]),
+                    loss=b["loss"].clone(), vloss=b["vloss"].clone())
+
     def epoch(self, perms, lr, active):
         """One epoch of every fold: ``perms`` (F, n) sample orders (host
         ints), ``lr`` and ``active`` (F,) float32 on the device. Returns
         the (steps, F) batch losses on the device."""
-        order = torch.from_numpy(np.ascontiguousarray(perms)).to(
-            self.dev).long()
-        bs = self.batch_size
-        n_full = self.n // bs
-        losses = [self.step(order[:, b * bs:(b + 1) * bs], active, lr)
-                  for b in range(n_full)]
-        if self.n % bs:
-            losses.append(self.step(order[:, n_full * bs:], active, lr))
-        return torch.stack(losses)
+        b = self.bufs
+        _upload(b["order"], np.ascontiguousarray(perms, dtype=np.int64))
+        b["lr"].copy_(lr)
+        b["active"].copy_(active)
+        self._run("epoch", self._epoch_program)
+        return b["loss"].clone()
 
     @torch.no_grad()
     def validate(self):
         """Each fold's validation loss, (F,) on the device."""
-        pred, _ = self.model.fold_forward(self.pv, self.sv, self.x_va, False)
-        return self.crit(pred, self.y_va)
+        self._run("validation", self._val_program)
+        return self.bufs["vloss"].clone()
+
+    def _stay_eager(self, eager: bool = True) -> None:
+        """Run every later epoch and validation pass from Python on the
+        card too (``eager=False``: through the graphs again): the
+        yardstick the graphs are held to, bit for bit."""
+        self._eager = eager
+
+    def release_graphs(self) -> None:
+        """Free the captured programs and their memory."""
+        for graph in self._graphs.values():
+            graph.release()
+        self._graphs = {}
 
 
 def _log_epochs(hists, flags, lr0, verbose, logger):
@@ -387,6 +464,7 @@ def train_model(model, variables, lr_train, hr_train, lr_val, hr_val,
             plateau_factor, min_lr_stop, max(1, int(control_chunk_epochs)))
         if verbose or logger is not None:
             _log_epochs(hists, flags, lr, verbose, logger)
+    tr.release_graphs()
     return (*hists, fold_state(model, bp, bs, 0))
 
 
@@ -425,6 +503,7 @@ def train_model_folds(model, variables_stack, lr_train_f, hr_train_f,
         tr, rngs, num_epochs, lr, _validate_flag(validate_every, num_epochs),
         patience, plateau_threshold, plateau_factor, min_lr_stop,
         max(1, int(control_chunk_epochs)))
+    tr.release_graphs()
     del tr
     results = [(*h, fold_state(model, bp, bs, j)) for j, h in enumerate(hists)]
     return (results, (bp, bs)) if return_stacked else results

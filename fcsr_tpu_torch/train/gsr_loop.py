@@ -9,6 +9,17 @@ order each epoch. It is the unfused model (``torch.matmul``) under
 autograd; the fold-parallel trainers are in ``train/fast_loop.py``. Where
 the JAX package returns new parameters and optimizer state, the port
 updates the model and the optimizer in place.
+
+Where the JAX package jits the whole run (``fcsr_tpu/train/gsr_loop.py:
+179-216``), an epoch over a fold's subjects is one program over the
+stacks the trainer is handed: on the card one CUDA graph
+(``train/epoch_graph.py``), captured at the call's first epoch and
+released at its end (a fold of another size is another program), on the
+CPU the same program step by step. A graph needs an optimizer that keeps
+its step count on the card: ``init_gsr`` builds Adam with
+``capturable=True`` on a CUDA device (its bias correction in float32 on
+the card, as optax computes it), and the trainer refuses any other
+optimizer there.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 from fcsr_tpu_torch.core.normalize import normalize_adj_np, unpad
 from fcsr_tpu_torch.core.triu_kernels import normalize_adj_batch
 from fcsr_tpu_torch.models.gsr import GSRNet
+from fcsr_tpu_torch.train.epoch_graph import EpochGraph
 from fcsr_tpu_torch.train.losses import gsr_composite_loss
 from fcsr_tpu_torch.utils import host_cache
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE
@@ -78,10 +90,13 @@ class GSRTrainConfig:
 def init_gsr(cfg: GSRTrainConfig, seed: int = 0, device=DEFAULT_DEVICE):
     """(model, optimizer): a GSR-Net initialised from ``seed`` on
     ``device`` and the reference's optimizer, Adam with b1 = 0.9,
-    b2 = 0.999, eps = 1e-8."""
+    b2 = 0.999, eps = 1e-8; on a CUDA device ``capturable`` (its step
+    count on the card), which the parity trainer's epoch graph needs."""
     model = cfg.model(device=device, seed=seed)
+    cuda = next(model.parameters()).is_cuda
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 capturable=cuda)
     return model, optimizer
 
 
@@ -118,38 +133,133 @@ def precompute_spectral(lr_stack, hr_stack, lr_dim: int = 160,
     return u_lr, u_hr_reduced
 
 
+_WARM_STEPS = 2  # subjects the warm-up before an epoch's capture trains
+
+
+def _check_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Refuse an optimizer the parity trainer's epoch graph cannot hold:
+    on the card it must be ``torch.optim.Adam`` or ``AdamW`` built with
+    ``capturable=True`` (whose state the warm-up before a capture can set
+    back to its initial zeros)."""
+    if type(optimizer) in (torch.optim.Adam, torch.optim.AdamW) and all(
+            g.get("capturable") for g in optimizer.param_groups):
+        return
+    raise ValueError(
+        f"the parity trainer replays each epoch as one CUDA graph on the "
+        f"card and cannot hold a {type(optimizer).__name__} without "
+        f"capturable=True there; build it as torch.optim.Adam(model."
+        f"parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, "
+        f"capturable=True), as init_gsr does on a CUDA device")
+
+
+class _ParityTrainer:
+    """``make_train_fn``'s trainer: ``cfg.epochs`` replays of the epoch
+    program (one step per subject in order) over the stacks it is
+    called with. ``graph`` keeps the last call's capture (released) for
+    its launches and seconds."""
+
+    def __init__(self, model: GSRNet, optimizer: torch.optim.Optimizer,
+                 cfg: GSRTrainConfig, per_step: bool):
+        self.model, self.optimizer = model, optimizer
+        self.cfg, self.per_step = cfg, per_step
+        self.dev = next(model.parameters()).device
+        if self.dev.type == "cuda":
+            _check_capturable(optimizer)
+        self.graph = None
+        self._eager = False
+
+    def _epoch(self, stacks, loss_out, err_out, n_steps: int = None):
+        """The epoch program: one Adam step per subject of ``stacks`` (the
+        first ``n_steps``), the steps' loss and error into ``loss_out`` and
+        ``err_out``."""
+        model, optimizer, cfg = self.model, self.optimizer, self.cfg
+        lr_stack, hr_stack, u_lr, u_hr_red = stacks
+        losses, errs = [], []
+        for i in range(len(lr_stack) if n_steps is None else n_steps):
+            pred, net_outs, start_outs, _ = model(lr_stack[i], u_lr=u_lr[i])
+            loss, err = gsr_composite_loss(
+                unpad(pred, cfg.padding), net_outs, start_outs,
+                model.layer.weights, u_hr_red[i], hr_stack[i], cfg.lmbda)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+            errs.append(err.detach())
+        torch.stack(losses, out=loss_out)
+        torch.stack(errs, out=err_out)
+
+    def _warm(self, stacks, n_steps: int):
+        """``n_steps`` steps on the live model and optimizer, then both set
+        back: the parameters and any earlier state copied back in place,
+        the state the steps made (Adam's and AdamW's first step makes it)
+        zeroed, as their first step finds it."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        saved = [p.detach().clone() for p in params]
+        state = {p: {k: v.clone() for k, v in self.optimizer.state[p].items()
+                     if torch.is_tensor(v)}
+                 for p in params if p in self.optimizer.state}
+        scratch = torch.empty(2, n_steps, device=self.dev)
+        self._epoch(stacks, scratch[0], scratch[1], n_steps)
+        with torch.no_grad():
+            for p, x in zip(params, saved):
+                p.copy_(x)
+                p.grad = None
+            for p in params:
+                for k, v in self.optimizer.state[p].items():
+                    if not torch.is_tensor(v):
+                        continue
+                    if p in state:
+                        v.copy_(state[p][k])
+                    else:
+                        v.zero_()
+
+    def __call__(self, lr_stack, hr_stack, u_lr, u_hr_red):
+        cfg, dev = self.cfg, self.dev
+        stacks = (lr_stack, hr_stack, u_lr, u_hr_red)
+        n = lr_stack.shape[0]
+        loss_hist = torch.zeros(cfg.epochs, n, device=dev)
+        err_hist = torch.zeros(cfg.epochs, n, device=dev)
+        out = torch.zeros(2, n, device=dev)        # the program's outputs
+        graph = None
+        try:
+            for e in range(cfg.epochs):
+                if self._eager or dev.type != "cuda":
+                    self._epoch(stacks, out[0], out[1])
+                else:
+                    if graph is None:
+                        graph = self.graph = EpochGraph(
+                            f"the parity GSR-Net epoch ({n} subjects)", dev,
+                            lambda: self._epoch(stacks, out[0], out[1]),
+                            lambda: self._warm(stacks, min(_WARM_STEPS, n)))
+                    graph.replay()
+                loss_hist[e].copy_(out[0])
+                err_hist[e].copy_(out[1])
+        finally:
+            if graph is not None:
+                graph.release()
+        if self.per_step:
+            return loss_hist, err_hist
+        return loss_hist.mean(1), err_hist.mean(1)
+
+    def _stay_eager(self, eager: bool = True) -> None:
+        """Run every later epoch from Python on the card too
+        (``eager=False``: through a graph again): the yardstick the graph
+        is held to, bit for bit."""
+        self._eager = eager
+
+
 def make_train_fn(model: GSRNet, optimizer: torch.optim.Optimizer,
                   cfg: GSRTrainConfig, per_step: bool = False):
     """The whole-run trainer ``train_fn(lr_stack, hr_stack, u_lr,
     u_hr_red)``: ``cfg.epochs`` passes over the subjects in their given
     order, one Adam step per subject — the reference's sequential update
-    order. It updates ``model`` and ``optimizer`` in place and returns
-    (loss_hist, err_hist) as tensors on the model's device: per-epoch
-    means (epochs,), or with ``per_step`` every step's values (epochs,
-    n_subjects)."""
-
-    def train_fn(lr_stack, hr_stack, u_lr, u_hr_red):
-        n = lr_stack.shape[0]
-        losses, errs = [], []
-        for _ in range(cfg.epochs):
-            for i in range(n):
-                pred, net_outs, start_outs, _ = model(lr_stack[i],
-                                                      u_lr=u_lr[i])
-                loss, err = gsr_composite_loss(
-                    unpad(pred, cfg.padding), net_outs, start_outs,
-                    model.layer.weights, u_hr_red[i], hr_stack[i], cfg.lmbda)
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                optimizer.step()
-                losses.append(loss.detach())
-                errs.append(err.detach())
-        loss_hist = torch.stack(losses).view(cfg.epochs, n)
-        err_hist = torch.stack(errs).view(cfg.epochs, n)
-        if per_step:
-            return loss_hist, err_hist
-        return loss_hist.mean(1), err_hist.mean(1)
-
-    return train_fn
+    order — each pass one CUDA graph on the card. It updates ``model`` and
+    ``optimizer`` in place and returns (loss_hist, err_hist) as tensors on
+    the model's device: per-epoch means (epochs,), or with ``per_step``
+    every step's values (epochs, n_subjects). On the card ``optimizer``
+    must be capturable (``_check_capturable``, ``init_gsr``): else this
+    raises a ``ValueError``."""
+    return _ParityTrainer(model, optimizer, cfg, per_step)
 
 
 def train_gsr_fold(model: GSRNet, optimizer: torch.optim.Optimizer,
