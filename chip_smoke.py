@@ -71,8 +71,13 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    for 2 epochs (two ``chunk_epochs=1`` launches, each epoch one replay of
    the epoch's CUDA graph, its capture's seconds printed) and
    ``evaluate()``, with every step kernel's launch count read from that
-   run (counted through the replays); and a tiny 2-fold run on the card
-   against the same run on the host; the phase's peak device memory;
+   run (counted through the replays), and ``evaluate()``'s ms and
+   synchronising calls a call (``evaluate_times``: 3 folds in one
+   vmapped forward); a tiny 2-fold run on the card against the same run
+   on the host; the folds as one vmapped call at 20 -> 32 nodes (the
+   unfused GSR step in fp32 and bf16, ``evaluate``, the unfused GAT step
+   and validation) on the card against the CPU (``check_fold_batched``,
+   ``BATCHED_TOL``); the phase's peak device memory;
 5. drives the CSV-to-submission path at full width through the command
    line: the teacher set written as the three Kaggle CSVs (NaN cells
    included), ``train gsr --fused`` (2 epochs, 3 folds, a checkpoint) and
@@ -281,14 +286,21 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    warm-up, capture and instantiate seconds, the device ms a step (an
    epoch graph's replay by CUDA events over its steps), s/epoch through
    the graph and from Python in passes in turns and the peak device
-   memory: (a) the unfused GAT trainer (the shipped config, drop_p 0.01,
+   memory: (0) the unfused GAT step, the folds one vmapped call, at
+   F = 1 and F = 3: nodes and device ms a step, the capture's seconds,
+   s/epoch through the graph and eager, F = 3's nodes a step within 10%
+   of F = 1's (``gat_unfused_fold_counts``); (a) the unfused GAT trainer
+   (the shipped config, drop_p 0.01,
    3 folds), 2 epochs under device control and 1 more under host control,
    the dropout generator's state after each run equal; (b) ``run_mlp_cv``
    with its defaults for 2 epochs (v2) and with ``variant="v1"`` for 1,
    one ``adamw_masked`` a step; (c) the parity trainer
-   (``train_gsr_fold``, the first fold, 2 epochs, capturable Adam) and
-   its distance from the same run with a non-capturable Adam from
-   Python, and its epoch alone as one graph (``parity_epoch_ms``);
+   (``train_gsr_fold``, the first fold, 2 epochs, ``OptaxAdam``) and
+   its distance from the same run with torch's Adam, with and without
+   ``capturable``, from Python, and its epoch alone as one graph
+   (``parity_epoch_ms``); then at 20 -> 32 nodes on the card against the
+   CPU, steps within 1e-5 and parameters within 1e-6
+   (``check_parity_tiny``);
    ``step_graph_ms`` gives every trainer's epoch graph alone (run alone).
 
 Any failure exits non-zero before the result. The last three lines are the
@@ -2054,6 +2066,7 @@ def run_main_path(dev, data, epochs: int):
     counts = launch_counts()
     maes, preds = runner.evaluate()
     torch.cuda.synchronize()
+    evaluate_times(runner)
 
     steps = runner.tr_idx.shape[1] * epochs
     print(f"  stage {t_stage:.2f} s; train {t_train:.2f} s = "
@@ -2079,6 +2092,102 @@ def run_main_path(dev, data, epochs: int):
     _, fold_outs = evaluate_gsr_folds(cfg, runner, pull_preds=True)
     runner.release_graphs()
     return counts, fold_outs
+
+
+def evaluate_times(runner, reps: int = 5):
+    """Phase 4: ``GSRFoldRunner.evaluate`` at full width (3 folds, one
+    forward vmapped over them on the padded validation plan): ms a call,
+    warm, by the host clock around a synchronised call, and the
+    synchronising calls one call makes (torch's sync debug mode)."""
+    import warnings
+
+    runner.evaluate()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.evaluate()
+        torch.cuda.synchronize()
+        times.append(round(1e3 * (time.perf_counter() - t0), 3))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner.evaluate()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("Synchronization debug mode is a prototype
+    # feature ...") is not a synchronisation
+    syncs = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+             for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"  evaluate() at full width ({runner.n_folds} folds x "
+          f"{runner.va_idx.shape[1]} validation slots, one vmapped forward): "
+          f"{times} ms a call, {len(syncs)} synchronising call(s) a call "
+          f"{syncs} [{smi_line()}]", flush=True)
+
+
+# the batched calls at 20 -> 32 nodes, card against CPU: fp32 to this
+# fraction of each quantity's scale (sums in other orders); bf16 to the
+# bf16 runner's 1e-3 (a product's bf16 rounding may flip)
+BATCHED_TOL = {"f32": 1e-5, "bf16": 1e-3}
+
+
+def check_fold_batched(dev, data):
+    """Phase 4: the folds as one vmapped call at 20 -> 32 nodes (F = 3),
+    on the card against the same call on the CPU from the same weights:
+    the unfused GSR step's loss, error and gradients in fp32 and in bf16
+    (the bf16 product W U^T on ``bgemm_bf16``, the folds its batch axis),
+    ``evaluate``'s MAEs and predictions, the unfused GAT step's losses and
+    gradient (drop_p 0) and its validation (``BATCHED_TOL``)."""
+    from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
+    from fcsr_tpu_torch.kernels.ops import plan_folds
+    from fcsr_tpu_torch.train import gat_loop
+
+    lr = data["lr_train"][:9, :20, :20].copy()
+    hr = data["hr_train"][:9, :32, :32].copy()
+    folds = kfold_indices(9, 3, seed=42)
+    worst = {}
+    for dtype in ("f32", "bf16"):
+        outs = {}
+        for d in ("cpu", dev):
+            cfg = GSRTrainConfig(epochs=1, compute_dtype=dtype, lr_dim=20,
+                                 hr_dim=32, hidden_dim=32, ks=(0.9, 0.7))
+            r = GSRFoldRunner(cfg, lr, hr, folds, device=d)
+            P = {k: t.requires_grad_()
+                 for k, t in r.layout.views(r.flat0.clone()).items()}
+            with plan_folds(3):
+                loss, err = r.shards[0].loss(P, 0)
+            grads = torch.autograd.grad(loss.sum(), list(P.values()))
+            maes, preds = r.evaluate(r.flat0)
+            outs[str(d)] = [loss.detach(), err.detach(), *grads,
+                            torch.from_numpy(maes), preds]
+        worst[f"GSR {dtype}"] = (max(
+            max_err(a, b.cpu()) / max(scale_of(a), 1e-30)
+            for a, b in zip(outs["cpu"], outs[str(dev)])),
+            BATCHED_TOL[dtype])
+    cfg = gat_loop.GATTrainConfig(epochs=1, drop_p=0.0, ks=(0.5, 0.5),
+                                  n_nodes=20, m_nodes=32, dim=4, heads=2)
+    outs = {}
+    for d in ("cpu", dev):
+        tr = gat_loop._FoldTrainer(cfg, lr, hr, folds, 42, d)
+        i = torch.tensor([0, 2, 5], device=d)
+        scal = torch.tensor([[1.0, 1e-3, 1.0]] * 3, device=d)
+        p0 = tr.p.clone()
+        loss, _, m1, _ = tr._unfused_step(p0, torch.zeros_like(p0),
+                                          torch.zeros_like(p0), i, scal)
+        with torch.no_grad():
+            outs[str(d)] = [loss, m1, *tr._validate(p0)]
+    worst["GAT f32"] = (max(max_err(a, b.cpu()) / max(scale_of(a), 1e-30)
+                            for a, b in zip(outs["cpu"], outs[str(dev)])),
+                        BATCHED_TOL["f32"])
+    print("  the folds as one vmapped call, 20 -> 32 nodes, card vs CPU, "
+          "max|diff| / scale (limit): " + "; ".join(
+              f"{k} {e:.2e} ({t:g})" for k, (e, t) in worst.items()),
+          flush=True)
+    bad = [k for k, (e, t) in worst.items() if not e <= t]
+    if bad:
+        fail(f"the batched calls on the card disagree with the CPU: {bad}")
 
 
 def check_tiny_trainer(dev, data):
@@ -6017,7 +6126,7 @@ def run_bf16_unfused(dev, data, smi):
     ``compute_dtype="bf16"`` at full width, 1 epoch over 3 folds, beside
     the fp32 unfused run from the same weights: s/epoch, val MAE, and the
     GSR layer's bf16 x bf16 -> fp32 product on ``bgemm_bf16`` (one launch
-    a fold and step). Returns its launch counts."""
+    a step, the folds its batch axis). Returns its launch counts."""
     from fcsr_tpu_torch import GSRFoldRunner, GSRTrainConfig, kfold_indices
     from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
 
@@ -6042,9 +6151,9 @@ def run_bf16_unfused(dev, data, smi):
             fail(f"unfused compute_dtype={dtype!r}: non-finite loss or MAE")
     steps = runner.tr_idx.shape[1]
     c16 = out["bf16"][1]
-    if c16.get("bgemm_bf16") != 3 * steps:
+    if c16.get("bgemm_bf16") != steps:
         fail(f"unfused bf16: {c16.get('bgemm_bf16')} bgemm_bf16 launches, "
-             f"not {3 * steps}")
+             f"not one a step ({steps})")
     return c16
 
 
@@ -6823,7 +6932,7 @@ def _parity_setup(data):
 
 def parity_epoch_ms(dev, lr, hr, spectral):
     """The parity trainer's epoch (``make_train_fn``'s program over the
-    fold's stacks, capturable Adam from ``init_gsr``) as one CUDA graph:
+    fold's stacks, ``OptaxAdam`` from ``init_gsr``) as one CUDA graph:
     (device ms a step, nodes a step)."""
     from fcsr_tpu_torch.train.epoch_graph import EpochGraph
     from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, init_gsr,
@@ -6847,8 +6956,8 @@ def step_graph_ms(dev, data, smi):
     """Phase 15 (0): each trainer's epoch as one CUDA graph, its device ms
     a step (``replay_ms``) and its nodes a step: the unfused GAT epoch
     (drop_p 0.01, 3 folds), the MLP v2 and v1 epochs (3 folds, batches
-    32, 32, 32, 16) and the parity epoch (the first fold, capturable
-    Adam). Returns {trainer: ms a step}."""
+    32, 32, 32, 16) and the parity epoch (the first fold, ``OptaxAdam``).
+    Returns {trainer: ms a step}."""
     from fcsr_tpu_torch.train.gat_loop import GATTrainConfig, _FoldTrainer
 
     out = {}
@@ -7037,12 +7146,91 @@ def check_mlp_graphs(dev, data, smi):
     return total
 
 
+def gat_unfused_fold_counts(dev, data, smi):
+    """Phase 15 (0): the unfused GAT step, the folds one vmapped call, at
+    F = 1 and F = 3 (the shipped config, drop_p 0.01, the first F folds):
+    its epoch graph's nodes and device ms a step, the graph's warm-up /
+    capture / instantiate seconds, and s/epoch through the graph and
+    eager in passes. F = 3's nodes a step must stay within 10% of F = 1's:
+    the fold axis runs inside each launch, not beside it. Returns the
+    graphs' launch counts (none of the port's own)."""
+    from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from fcsr_tpu_torch.train.gat_loop import GATTrainConfig, _FoldTrainer
+
+    lr_all, hr_all, folds = _gat_setup(data)
+    nodes, counts = {}, {}
+    for n in (1, 3):
+        pair = [_FoldTrainer(GATTrainConfig(), lr_all, hr_all, folds[:n], 42,
+                             dev) for _ in range(2)]
+        pair[1]._stay_eager()
+        lr_t = torch.full((n,), 1e-3, device=dev)
+        active = torch.ones(n, device=dev)
+
+        def run(tr):
+            tr.epoch(*tr.draw_epoch_plan(), lr_t, active)
+        reset_launch_counts()
+        run(pair[0])                                 # warm-up and capture
+        torch.cuda.synchronize()
+        _add(counts, _nonzero(launch_counts()))
+        g = trainer_graph(pair[0])
+        steps = pair[0].tr_len
+        nodes[n] = g.nodes / steps
+        ms = replay_ms(g, steps)
+        print(f"  GAT unfused, F = {n}: {nodes[n]:.0f} nodes a step, "
+              f"{ms:.3f} ms a step on the device (the epoch graph's "
+              f"replay, {steps} steps), {graphs_note([g])} [{smi}]",
+              flush=True)
+        graph_eager_passes(f"GAT unfused, F = {n} (1 epoch a pass)",
+                           lambda: run(pair[0]), lambda: run(pair[1]), 1,
+                           smi, eager_passes=1)
+        for tr in pair:
+            tr.release_graphs()
+    ratio = nodes[3] / nodes[1]
+    print(f"  GAT unfused nodes a step, F = 3 / F = 1: {ratio:.3f} (limit "
+          f"1.1)", flush=True)
+    if not ratio <= 1.1:
+        fail(f"the unfused GAT step's graph grows with the fold count: "
+             f"{nodes}")
+    return counts
+
+
+def check_parity_tiny(dev, smi):
+    """Phase 15 (c'): the parity trainer at 20 -> 32 nodes (2 epochs of 4
+    subjects, ``OptaxAdam`` from ``init_gsr``), on the card through its
+    epoch graph against the same run on the CPU: every step's loss and
+    error within 1e-5, the parameters within 1e-6 (the CPU run's
+    tolerances against the JAX package)."""
+    from fcsr_tpu_torch.data import synthesize_teacher_connectomes
+    from fcsr_tpu_torch.train import gsr_loop
+
+    lr, hr = synthesize_teacher_connectomes(4, lr_dim=20, hr_dim=32, seed=2)
+    cfg = gsr_loop.GSRTrainConfig(epochs=2, lr_dim=20, hr_dim=32,
+                                  hidden_dim=32, ks=(0.9, 0.7))
+    spectral = gsr_loop.precompute_spectral(lr, hr, lr_dim=20)
+    runs = []
+    for d in ("cpu", dev):
+        model, opt = gsr_loop.init_gsr(cfg, 0, d)
+        stacks = [torch.from_numpy(np.asarray(a, np.float32)).to(d)
+                  for a in (lr, hr, *spectral)]
+        runs.append(([h.cpu() for h in gsr_loop.make_train_fn(
+            model, opt, cfg, per_step=True)(*stacks)],
+            [t.detach().cpu() for t in model.parameters()]))
+    d_loss = max_err(runs[0][0], runs[1][0])
+    d_p = max_err(runs[0][1], runs[1][1])
+    print(f"  parity trainer at 20 -> 32, card (graph) vs CPU: max|d step "
+          f"loss / error| {d_loss:.2e} (limit 1e-5), max|d param| "
+          f"{d_p:.2e} (limit 1e-6) [{smi}]", flush=True)
+    if not (d_loss <= 1e-5 and d_p <= 1e-6):
+        fail("the parity trainer on the card disagrees with the CPU run")
+
+
 def check_parity_graphs(dev, data, smi):
     """Phase 15 (c): the parity trainer (``train_gsr_fold``, the first
-    fold, 2 epochs, capturable Adam from ``init_gsr``) through its epoch
+    fold, 2 epochs, ``OptaxAdam`` from ``init_gsr``) through its epoch
     graph against the same trainer from Python: parameters, histories and
     Adam's state bit for bit; its distance from the same run with a
-    non-capturable Adam from Python; s/epoch in passes; peak memory."""
+    torch's Adam (with and without ``capturable``) from Python; s/epoch in
+    passes; peak memory."""
     from fcsr_tpu_torch.kernels import launch_counts, reset_launch_counts
     from fcsr_tpu_torch.train import gsr_loop
 
@@ -7067,27 +7255,33 @@ def check_parity_graphs(dev, data, smi):
     (got, hist, t, counts, peak, graphs), want = res["graph"], res["eager"]
     same = (all(torch.equal(a, b) for a, b in zip(got, want[0]))
             and all(np.array_equal(hist[k], want[1][k]) for k in hist))
-    # Adam without capturable=True (its bias correction in
-    # Python floats), from Python
-    model, opt = gsr_loop.init_gsr(cfg, seed=0, device=dev)
-    pt = gsr_loop.make_train_fn(model, opt, cfg)
-    pt.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                                    betas=(0.9, 0.999), eps=1e-8)
-    pt._stay_eager()
+    # the same run with torch's Adam, without capturable=True (its bias
+    # correction in Python floats) and with it, from Python
     stacks = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
               for a in (lr, hr, *spectral)]
-    old = pt(*stacks)[0].cpu().numpy()
-    d_p = max(max_err(a, b.detach()) / max(scale_of(b.detach()), 1e-30)
-              for a, b in zip(got, model.parameters()))
-    d_loss = float(np.abs(old - hist["loss"]).max())
+    dist = []
+    for capturable in (False, True):
+        model, opt = gsr_loop.init_gsr(cfg, seed=0, device=dev)
+        pt = gsr_loop.make_train_fn(model, opt, cfg)
+        # past the card's check: this run stays eager
+        pt.optimizer = torch.optim.Adam(
+            model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+            capturable=capturable)
+        pt._stay_eager()
+        old = pt(*stacks)[0].cpu().numpy()
+        dist.append(
+            f"torch Adam{' capturable' if capturable else ''}: max|d epoch "
+            f"loss| {float(np.abs(old - hist['loss']).max()):.2e}, max|d "
+            f"param| / scale " + format(max(
+                max_err(a, b.detach()) / max(scale_of(b.detach()), 1e-30)
+                for a, b in zip(got, model.parameters())), ".2e"))
     print(f"  parity trainer ({len(lr)} subjects, {EPOCHS} epochs): graph "
           f"{t / EPOCHS:.3f} s/epoch with its capture ({graphs_note(graphs)})"
           f", eager {want[2] / EPOCHS:.3f}; own-kernel launches {counts} / "
           f"{want[3]}; graph == eager bit for bit (parameters, Adam's state,"
-          f" histories): {same}; graph {peak}, eager {want[4]}; capturable "
-          f"Adam against Adam without it: max|d epoch loss| "
-          f"{d_loss:.2e} (loss {hist['loss'].tolist()}), max|d param| / "
-          f"scale {d_p:.2e} [{smi}]", flush=True)
+          f" histories): {same}; graph {peak}, eager {want[4]}; OptaxAdam "
+          f"(loss {hist['loss'].tolist()}) against {'; '.join(dist)} "
+          f"[{smi}]", flush=True)
     if not same:
         fail("the graphed parity trainer is not bit-equal to the eager one")
     if counts != want[3]:
@@ -7118,10 +7312,12 @@ def run_phase15(dev, data, smi):
     """Phase 15: the unfused GAT, MLP and parity trainers through their
     epoch graphs at full width. Returns the graphed runs' launch counts."""
     t0 = time.perf_counter()
-    counts = check_gat_unfused_graphs(dev, data, smi)
+    counts = gat_unfused_fold_counts(dev, data, smi)
+    _add(counts, check_gat_unfused_graphs(dev, data, smi))
     _add(counts, check_mlp_graphs(dev, data, smi))
     torch.cuda.reset_peak_memory_stats()
     _add(counts, check_parity_graphs(dev, data, smi))
+    check_parity_tiny(dev, smi)
     print(f"  phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
     return counts
 
@@ -7176,6 +7372,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     counts, fold_outs = run_main_path(dev, data, EPOCHS)
     check_tiny_trainer(dev, data)
+    check_fold_batched(dev, data)
     print(f"  phase 4: {peak_note()} [{smi}]", flush=True)
     print("phase 5: Kaggle CSVs to submission.csv through the command line",
           flush=True)

@@ -75,14 +75,18 @@ class _PoolScoresBF16(torch.autograd.Function):
     Checked against jitted JAX over every finite bf16 value below 3000 in
     magnitude: equal but where XLA flushes a denormal quotient to zero."""
 
+    generate_vmap_rule = True   # elementwise: a fold axis passes through
+
     @staticmethod
-    def forward(ctx, logits, div):
+    def forward(logits, div):
         q = logits / div                       # fp32 quotient, rounded
-        s = _bf16(1.0 / _bf16(1.0 + _bf16(torch.exp(-q.float())).float())
-                  .float())
+        return _bf16(1.0 / _bf16(1.0 + _bf16(torch.exp(-q.float())).float())
+                     .float())
+
+    @staticmethod
+    def setup_context(ctx, inputs, s):
         ctx.save_for_backward(_bf16(s * _bf16(1.0 - s)))
-        ctx.div = div
-        return s
+        ctx.div = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
@@ -98,20 +102,37 @@ def pool_scores_bf16(logits, div=100.0):
 
 class _ProductF32(torch.autograd.Function):
     """a @ b of two bf16 operands with an fp32 output (XLA's dot with
-    ``preferred_element_type=float32``): on the card the ``bgemm_bf16``
-    kernel, on the CPU an fp32 product of the bf16 values (exact
-    products, fp32 sums). Adjoints: fp32 products of the fp32 cotangent
-    with the other operand, rounded to bf16 (the transposed dot's output,
-    then the operand's dtype)."""
+    ``preferred_element_type=float32``), 2-D or with a leading fold axis
+    on both: on the card the ``bgemm_bf16`` kernel, the folds its batch
+    axis (planned for ``ops.plan_folds``' count where one is set), on the
+    CPU an fp32 product of the bf16 values (exact products, fp32 sums).
+    Under ``torch.func.vmap`` the batched operands reach it as one such
+    call (``vmap``). Adjoints: fp32 products of the fp32 cotangent with
+    the other operand, rounded to bf16 (the transposed dot's output, then
+    the operand's dtype)."""
 
     @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
+    def forward(a, b):
         if not a.is_cuda:
             return torch.matmul(a.float(), b.float())
-        out = ops.bgemm_bf16(rows_contiguous(a.float()[None]),
-                             rows_contiguous(b.float()[None]))
-        return out[0]
+        if a.dim() == 2:
+            return ops.bgemm_bf16(rows_contiguous(a.float()[None]),
+                                  rows_contiguous(b.float()[None]))[0]
+        return ops.bgemm_bf16(rows_contiguous(a.float()),
+                              rows_contiguous(b.float()))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b):
+        def folds_first(x, dim):
+            if dim is None:
+                return x.expand(info.batch_size, *x.shape)
+            return x.movedim(dim, 0)
+        return _ProductF32.apply(folds_first(a, in_dims[0]),
+                                 folds_first(b, in_dims[1])), 0
 
     @staticmethod
     def backward(ctx, ct):

@@ -28,6 +28,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.func import vmap
 
 from fcsr_tpu_torch.core.normalize import unpad
 from fcsr_tpu_torch.models.mlp import sharded_batch
@@ -231,16 +232,15 @@ def make_sharded_batch_step(model, optimizer: torch.optim.Optimizer,
         total = _batch_total(lr_s)
 
         def shard(i):
+            # the shard's subjects in one forward (the U-Net, which does
+            # not see them, once), each subject's composite loss vmapped
+            # over them, as the JAX step vmaps its per-subject loss
             m = reps.modules[i]
-            loss, err = 0.0, 0.0
-            for j in range(lr_s[i].shape[0]):
-                pred, net_outs, start_outs, _ = m(lr_s[i][j],
-                                                  u_lr=ul_s[i][j])
-                lj, ej = gsr_composite_loss(
-                    unpad(pred, padding), net_outs, start_outs,
-                    m.layer.weights, uh_s[i][j], hr_s[i][j], lmbda)
-                loss, err = loss + lj, err + ej
-            return loss / total, err.detach() / total
+            pred, net_outs, start_outs, _ = m(lr_s[i], u_lr=ul_s[i])
+            loss, err = vmap(lambda p, u_hr, hr: gsr_composite_loss(
+                unpad(p, padding), net_outs, start_outs, m.layer.weights,
+                u_hr, hr, lmbda))(pred, uh_s[i], hr_s[i])
+            return loss.sum() / total, err.detach().sum() / total
 
         return _update(reps, optimizer, _run_shards(mesh, shard))
 

@@ -16,7 +16,8 @@ The configuration picks the step (``trainer_mode``):
   alone ``unet_fused_fwdonly``, with neither the plain U-Net — joined by
   ``lmbda * L1(net, start)`` in plain PyTorch;
 * no flag: the unfused model (``models/gsr.py::GSRNet``, ``torch.matmul``)
-  under autograd, one fold after the other inside a step; with
+  under autograd, every fold in one call of ``torch.func.vmap`` over
+  ``functional_call`` (the JAX runner vmaps its fold program); with
   ``compute_dtype="bf16"`` its parameters (a bf16 copy of the fp32 master
   weights), a_norm and u_lr in bf16, as the JAX package's unfused step
   casts them (``fcsr_tpu/train/fast_loop.py:131-152``): the model then
@@ -82,6 +83,7 @@ from typing import List
 
 import numpy as np
 import torch
+from torch.func import functional_call, vmap
 
 from fcsr_tpu_torch.core.normalize import (fill_diagonal, normalize_adj_np,
                                            unpad)
@@ -200,10 +202,15 @@ class _FoldShard:
         a_norm, hr, u_lr, u_hr = data
         self._steps = tuple(x[plan] for x in (u_lr, u_hr, hr))
         # only the unfused model is handed the adjacency (and ignores it);
-        # the folds' parameters are swapped into one module per call
-        unfused = self.mode == "unfused"
-        self._a_norm_steps = a_norm[plan] if unfused else None
-        self._unfused = runner._model(device=device) if unfused else None
+        # the folds' parameters are swapped into one module per call (the
+        # unfused step's and every mode's evaluation)
+        self._a_norm_steps = a_norm[plan] if self.mode == "unfused" \
+            else None
+        self._module = runner._model(device=device)
+        # the evaluation's padded (F, V) validation plan and its weights
+        self._va_idx = torch.from_numpy(
+            runner.va_idx[lo:hi].astype(np.int64)).to(device)
+        self._va_valid = torch.from_numpy(runner.va_valid[lo:hi]).to(device)
         self._no_vals = torch.zeros(self.n_folds, 3, dtype=torch.float32,
                                     device=device)
         # the epoch program's static buffers (a graph reads and writes
@@ -230,24 +237,12 @@ class _FoldShard:
                 u_lr, u_hr, hr, cfg.ks, cfg.lr_dim, cfg.hr_dim, cfg.lmbda,
                 device=self.device)
         if self.mode == "unfused":
-            state = leaf_tensors_to_state(P)
-            a_norm = self._a_norm_steps[s]
-            bf16 = cfg.compute_dtype == "bf16"
-            cast = (lambda t: t.to(torch.bfloat16)) if bf16 else (
-                lambda t: t)
-            out = []
-            for j in range(self.n_folds):
-                params = {k: cast(t[j]) for k, t in state.items()}
-                a_j = cast(a_norm[j])
-                pred, net, start, _ = torch.func.functional_call(
-                    self._unfused, params, (a_j,),
-                    {"u_lr": cast(u_lr[j]), "a_norm": a_j})
-                out.append(gsr_composite_loss(
-                    unpad(pred.float(), cfg.padding), net.float(),
-                    start.float(), params["layer.weights"].float(),
-                    u_hr[j], hr[j], cfg.lmbda))
-            return (torch.stack([loss for loss, _ in out]),
-                    torch.stack([err for _, err in out]))
+            cast = (lambda t: t.to(torch.bfloat16)) \
+                if cfg.compute_dtype == "bf16" else (lambda t: t)
+            params = {k: cast(t) for k, t in
+                      leaf_tensors_to_state(P).items()}
+            return vmap(self._unfused_loss)(
+                params, cast(self._a_norm_steps[s]), cast(u_lr), u_hr, hr)
         if self.mode == "fused_tail_unet_bwd":
             net, start = unet_fused_fwdbwd(P, cfg.ks, cfg.lr_dim, cfg.hr_dim,
                                            device=self.device)
@@ -263,6 +258,39 @@ class _FoldShard:
         # reconstruction error = tail minus the spectral term
         err = tail - (w - u_hr).abs().mean(dim=(1, 2))
         return loss, err
+
+    def _unfused_loss(self, params, a_norm, u_lr, u_hr, hr):
+        """One fold's (loss, err) of the unfused model, its parameters and
+        inputs cast as the mode casts them; ``loss`` maps it over the
+        folds with ``torch.func.vmap``, as the JAX runner vmaps its
+        ``fold_train``."""
+        pred, net, start, _ = functional_call(
+            self._module, params, (a_norm,),
+            {"u_lr": u_lr, "a_norm": a_norm})
+        return gsr_composite_loss(
+            unpad(pred.float(), self.cfg.padding), net.float(), start.float(),
+            params["layer.weights"].float(), u_hr, hr, self.cfg.lmbda)
+
+    def _predict(self, params, a_norm, u_lr):
+        return functional_call(self._module, params, (a_norm,),
+                               {"u_lr": u_lr, "a_norm": a_norm})[0]
+
+    @torch.no_grad()
+    def evaluate(self, flat, data):
+        """(MAE (F,), predictions (F, V, hr, hr)) of the shard's first F
+        folds, their parameters the rows of ``flat`` (F, P), over the
+        staged ``data``: on the padded (F, V) validation plan with its
+        weights, one forward vmapped over the folds (the parameters views
+        of ``flat``), as the JAX runner's ``eval_all``; a subject's MAE is
+        against its label with the diagonal set to 1, a fold's the
+        weighted mean of its subjects'."""
+        a_norm, hr, u_lr, _ = data
+        idx, valid = self._va_idx[:len(flat)], self._va_valid[:len(flat)]
+        params = leaf_tensors_to_state(self.layout.views(flat.contiguous()))
+        pred = unpad(vmap(self._predict)(params, a_norm[idx], u_lr[idx]),
+                     self.cfg.padding)
+        per = (pred - fill_diagonal(hr[idx], 1.0)).abs().mean(dim=(-2, -1))
+        return (per * valid).sum(1) / valid.sum(1).clamp(min=1.0), pred
 
     def step(self, p, m, v, s: int, scal):
         """One fold-batched step on sample slot ``s``: (loss, err, p', m',
@@ -656,41 +684,29 @@ class GSRFoldRunner:
         """Validation MAE per real fold (the label's diagonal set to 1),
         and their (F, V, hr, hr) predictions over the padded val plan, on
         the first placement. ``flat`` is a fold stack (real or padded
-        folds) or a state's per-shard blocks; each fold is evaluated on
-        its shard's placement."""
+        folds) or a state's per-shard blocks. Each shard evaluates its
+        real folds in one forward on its placement (``_FoldShard.
+        evaluate``) and its MAEs are read once."""
         if flat is None:
             if self.flat_trained is None:
                 raise RuntimeError(
                     "GSRFoldRunner.evaluate() called before train(); pass "
                     "params explicitly (e.g. runner.flat0) or train first")
             flat = self.flat_trained
-        flat = self._gather(flat)
-        models = {}
+        blocks = self._blocks(flat)
         maes, preds = [], []
-        for sh in self.shards:
-            a_norm, hr, u_lr, _ = self._staged[sh.device]
-            for j in range(sh.lo, min(sh.hi, self.n_folds)):
-                with on_device(sh.device):
-                    if sh.device not in models:
-                        models[sh.device] = self._model(device=sh.device)
-                    model = models[sh.device]
-                    state = flat_to_state(flat[j].detach().cpu().numpy(),
-                                          self.layout.shapes)
-                    model.load_state_dict({k: torch.from_numpy(a)
-                                           for k, a in state.items()})
-                    idx = torch.from_numpy(
-                        self.va_idx[j].astype(np.int64)).to(sh.device)
-                    with torch.no_grad():
-                        pred = unpad(model(a_norm[idx], u_lr=u_lr[idx],
-                                           a_norm=a_norm[idx])[0],
-                                     self.cfg.padding)
-                    gt = fill_diagonal(hr[idx], 1.0)
-                    per = (pred - gt).abs().mean(dim=(1, 2))
-                    valid = torch.from_numpy(self.va_valid[j]).to(sh.device)
-                    maes.append(float((per * valid).sum())
-                                / max(float(valid.sum()), 1.0))
-                preds.append(pred.to(self.device))
-        return np.asarray(maes, np.float32), torch.stack(preds)
+        for i, sh in enumerate(self.shards):
+            n = min(sh.hi, self.n_folds) - sh.lo
+            if n <= 0:
+                continue
+            block = blocks[i][:n] if len(blocks) == len(self.shards) > 1 \
+                else blocks[0][sh.lo:sh.lo + n]
+            with on_device(sh.device):
+                mae, pred = sh.evaluate(block.detach().to(sh.device),
+                                        self._staged[sh.device])
+                maes.append(mae.cpu().numpy())
+            preds.append(pred.to(self.device))
+        return np.concatenate(maes).astype(np.float32), torch.cat(preds)
 
     def params_per_fold(self) -> List[dict]:
         """The trained parameters of each real fold as a state_dict of

@@ -9,7 +9,9 @@ fold sizes, each fold has its own plateau-decayed learning rate, step count
 and early-stop flag. With ``cfg.fused_step`` the step runs on the
 hand-written CUDA kernels (``models/fused_gat.py``), and with
 ``cfg.fused_val`` the validation forwards do too; otherwise the step is
-autograd over the ``GATGraphUnet`` module and a literal flat AdamW.
+autograd over the ``GATGraphUnet`` module, every fold in one call of
+``torch.func.vmap`` over ``functional_call`` (the JAX trainer vmaps its
+fold programs), and a literal flat AdamW.
 
 The control loop (plateau scheduler, best-state snapshot, early stop at
 lr < 1e-5) runs on the device by default, in float32 tensors with one
@@ -48,7 +50,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.func import functional_call
+from torch.func import functional_call, vmap
 
 from fcsr_tpu_torch.iox.weights import (gat_flat_to_state,
                                         gat_leaf_tensors_to_state,
@@ -232,6 +234,19 @@ def _seed_table(rng, steps: int, folds: int) -> np.ndarray:
                         dtype=np.int64).astype(np.int32)
 
 
+def _pad_val_plan(sets):
+    """(F, V) int64 subject indices and float32 weights of ragged
+    validation sets, each padded with subject 0 at weight 0 (V at least
+    1)."""
+    V = max([len(s) for s in sets] + [1])
+    idx = np.zeros((len(sets), V), np.int64)
+    valid = np.zeros((len(sets), V), np.float32)
+    for j, s in enumerate(sets):
+        idx[j, :len(s)] = np.asarray(s, np.int64)
+        valid[j, :len(s)] = 1.0
+    return idx, valid
+
+
 def _state_to_device(variables, dev):
     return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32).to(dev)
             for k, v in variables.items()}
@@ -273,6 +288,11 @@ class _FoldTrainer:
         self.tr_sets = [np.asarray(tr, dtype=np.int32) for tr, _ in folds]
         self.va_sets = [torch.from_numpy(np.asarray(va, dtype=np.int64)
                                          ).to(dev) for _, va in folds]
+        # the unfused validation's padded (F, V) plan and its weights, as
+        # the JAX trainer's val_all takes them
+        va_idx, va_valid = _pad_val_plan([va for _, va in folds])
+        self.va_idx = torch.from_numpy(va_idx).to(dev)
+        self.va_valid = torch.from_numpy(va_valid).to(dev)
         self.tr_len = L = tr_len or max(max(len(s) for s in self.tr_sets),
                                         1)
         self.rngs = [np.random.default_rng(seed + fold_lo + j)
@@ -324,24 +344,27 @@ class _FoldTrainer:
                 valid[j, :len(s)] = 1.0
         return order, valid
 
+    def _sample_loss(self, state, lr, x, hr, train: bool = True):
+        """One fold's loss of the module over its subjects (a leading
+        subject axis gives one per subject), and its prediction; the
+        trainer maps it over the folds with ``torch.func.vmap``, as the
+        JAX trainer vmaps its fold programs."""
+        pred, a_hist, a_recon = functional_call(
+            self.model, gat_leaf_tensors_to_state(state), (lr, x),
+            {"train": train})
+        return unet_loss(pred, hr, a_hist, a_recon,
+                         self.cfg.intermediate_losses), pred
+
     def _unfused_step(self, p0, m, v, i, scal):
-        """Autograd over the module, fold by fold, then the literal flat
-        AdamW, masked by ok."""
+        """Autograd over the module, every fold in one vmapped call (each
+        fold's dropout masks drawn apart from the generator), then the
+        literal flat AdamW, masked by ok."""
         cfg = self.cfg
         p = p0.detach().requires_grad_()
-        views = self.layout.views(p)
         # the folds' subjects gathered by the index tensor at once: indexing
         # by one of its entries would read it back to the host
-        lr_i, x_i, hr_i = self.lr_d[i], self.x_d[i], self.hr_d[i]
-        losses = []
-        for f in range(self.n_folds):
-            state = gat_leaf_tensors_to_state(
-                {k: v[f] for k, v in views.items()})
-            pred, a_hist, a_recon = functional_call(
-                self.model, state, (lr_i[f], x_i[f]), {"train": True})
-            losses.append(unet_loss(pred, hr_i[f], a_hist, a_recon,
-                                    cfg.intermediate_losses))
-        loss = torch.stack(losses)
+        loss, _ = vmap(self._sample_loss, randomness="different")(
+            self.layout.views(p), self.lr_d[i], self.x_d[i], self.hr_d[i])
         (g,) = torch.autograd.grad(loss.sum(), p)
         ok, lr = scal[:, 0:1], scal[:, 1:2]
         step, m_new, v_new = adamw_flat_update(
@@ -465,27 +488,29 @@ class _FoldTrainer:
             return self.bufs["vloss"].clone(), self.bufs["vmae"].clone()
 
     def _validate(self, p):
+        """Each fold's mean validation loss and off-diagonal MAE: the fused
+        forwards fold by fold over its own subjects, or the module's over
+        the padded (F, V) plan in one call vmapped over the folds, the
+        padding weighted out (``val_all``)."""
         cfg = self.cfg
+        if not (self.fused and cfg.fused_val):
+            idx, w = self.va_idx, self.va_valid
+            hr = self.hr_d[idx]
+            loss, pred = vmap(self._sample_loss, in_dims=(0, 0, 0, 0, None))(
+                self.layout.views(p), self.lr_d[idx], self.x_d[idx], hr,
+                False)
+            denom = w.sum(1).clamp(min=1.0)
+            return ((loss * w).sum(1) / denom,
+                    (_offdiag_mae_all(pred, hr) * w).sum(1) / denom)
         vloss, vmae = [], []
-        views = None if self.fused and cfg.fused_val \
-            else self.layout.views(p)
         for f, idx in enumerate(self.va_sets):
             if idx.numel() == 0:
                 vloss.append(p.new_zeros(()))
                 vmae.append(p.new_zeros(()))
                 continue
-            if views is None:
-                loss, mae = gat_val_fused(
-                    p[f:f + 1], self.a0_d[idx], self.x_d[idx],
-                    self.hr_d[idx], device=self.dev, **cfg.kernel_kwargs)
-            else:
-                state = gat_leaf_tensors_to_state(
-                    {k: v[f] for k, v in views.items()})
-                pred, a_hist, a_recon = functional_call(
-                    self.model, state, (self.lr_d[idx], self.x_d[idx]))
-                loss = unet_loss(pred, self.hr_d[idx], a_hist, a_recon,
-                                 cfg.intermediate_losses)
-                mae = _offdiag_mae_all(pred, self.hr_d[idx])
+            loss, mae = gat_val_fused(
+                p[f:f + 1], self.a0_d[idx], self.x_d[idx], self.hr_d[idx],
+                device=self.dev, **cfg.kernel_kwargs)
             vloss.append(loss.mean())
             vmae.append(mae.mean())
         return torch.stack(vloss), torch.stack(vmae)
@@ -793,13 +818,15 @@ def predict_gat(variables, model: GATGraphUnet, cfg: GATTrainConfig,
 def predict_gat_folds(model: GATGraphUnet, best_vars, lr_d, x_d, va_idx):
     """Every fold's validation predictions, (F, va_len, m, m): fold j's
     weights on the subjects ``va_idx[j]`` (ragged folds padded by the
-    caller) of the staged stacks ``lr_d`` / ``x_d``."""
+    caller) of the staged stacks ``lr_d`` / ``x_d``, in one forward
+    vmapped over the folds' stacked weights, as the JAX package's one
+    program."""
     dev = lr_d.device
     idx = torch.as_tensor(np.asarray(va_idx), dtype=torch.long, device=dev)
-    return torch.stack([
-        functional_call(model, _state_to_device(v, dev),
-                        (lr_d[idx[j]], x_d[idx[j]]))[0]
-        for j, v in enumerate(best_vars)])
+    states = [_state_to_device(v, dev) for v in best_vars]
+    stacked = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+    return vmap(lambda st, lr, x: functional_call(model, st, (lr, x))[0])(
+        stacked, lr_d[idx], x_d[idx])
 
 
 @torch.no_grad()

@@ -3,12 +3,13 @@ parity trainer and batched inference / validation (counterparts of
 ``fcsr_tpu/train/gsr_loop.py``).
 
 The parity trainer (``init_gsr``, ``make_train_fn``, ``train_gsr_fold``)
-replicates the reference's update order exactly: one model, one
-``torch.optim.Adam``, one optimizer step per subject, subjects in fixed
-order each epoch. It is the unfused model (``torch.matmul``) under
-autograd; the fold-parallel trainers are in ``train/fast_loop.py``. Where
-the JAX package returns new parameters and optimizer state, the port
-updates the model and the optimizer in place.
+replicates the reference's update order exactly: one model, one Adam
+(``OptaxAdam``: ``optax.adam``'s float32 operations in their order), one
+optimizer step per subject, subjects in fixed order each epoch. It is the
+unfused model (``torch.matmul``) under autograd; the fold-parallel
+trainers are in ``train/fast_loop.py``. Where the JAX package returns new
+parameters and optimizer state, the port updates the model and the
+optimizer in place.
 
 Where the JAX package jits the whole run (``fcsr_tpu/train/gsr_loop.py:
 179-216``), an epoch over a fold's subjects is one program over the
@@ -16,10 +17,11 @@ stacks the trainer is handed: on the card one CUDA graph
 (``train/epoch_graph.py``), captured at the call's first epoch and
 released at its end (a fold of another size is another program), on the
 CPU the same program step by step. A graph needs an optimizer that keeps
-its step count on the card: ``init_gsr`` builds Adam with
-``capturable=True`` on a CUDA device (its bias correction in float32 on
-the card, as optax computes it), and the trainer refuses any other
-optimizer there.
+its step count on the card: ``init_gsr`` builds ``OptaxAdam`` (its step
+count a tensor on the parameters' device, its bias correction in float32
+as optax's) on every device, and the trainer refuses on the card any
+optimizer but it and ``torch.optim.Adam`` / ``AdamW`` with
+``capturable=True``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from fcsr_tpu_torch.train.losses import gsr_composite_loss
 from fcsr_tpu_torch.utils import host_cache
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE
 
-__all__ = ["GSRTrainConfig", "init_gsr", "precompute_spectral",
+__all__ = ["GSRTrainConfig", "OptaxAdam", "init_gsr", "precompute_spectral",
            "make_train_fn", "train_gsr_fold", "predict_gsr", "evaluate_gsr"]
 
 
@@ -87,17 +89,79 @@ class GSRTrainConfig:
                       hidden_dim=self.hidden_dim, device=device, seed=seed)
 
 
+class OptaxAdam(torch.optim.Optimizer):
+    """``optax.adam`` in its own order of operations, in float32, with its
+    step count on the parameters' device (so an epoch of its steps is
+    capturable as a CUDA graph: no host read, no per-step Python scalar):
+
+        t += 1;  mu = fma(1 - b1, g, b1 mu);  nu = fma(1 - b2, g^2, b2 nu)
+        p = fma(mu / ((1 - b1^t) (sqrt(nu / (1 - b2^t)) + eps)), -lr, p)
+
+    with ``1 - b^t`` in float32, as XLA compiles ``optax.adam`` on the CPU
+    (its update ``mu_hat / (sqrt(nu_hat) + eps)``, the two divisions
+    joined, each multiply-add fused). ``torch.optim.Adam`` orders them
+    otherwise (its moments by ``lerp``, its capturable step by rescaled
+    eps). The same code runs on the CPU and on the card, each operation
+    over all of a group's tensors at once (``torch._foreach_*``). State:
+    ``exp_avg`` and ``exp_avg_sq`` per parameter, and one ``step`` (a
+    float32 scalar tensor) per group, as optax keeps one count per tree:
+    the same tensor in each of its parameters' state, the first's read."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdam.step takes no closure")
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            lr, eps = group["lr"], group["eps"]
+            b1, b2 = group["betas"]
+            first = self.state[group["params"][0]]
+            if not first:
+                t = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+                for p in group["params"]:
+                    self.state[p].update(step=t, exp_avg=torch.zeros_like(p),
+                                         exp_avg_sq=torch.zeros_like(p))
+            t = first["step"]
+            ms = [self.state[p]["exp_avg"] for p in ps]
+            vs = [self.state[p]["exp_avg_sq"] for p in ps]
+            gs = [p.grad for p in ps]
+            t.add_(1.0)
+            # a + alpha b is one fused multiply-add on the card and in
+            # torch's vectorised CPU kernels, as XLA fuses optax's
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, gs, alpha=1 - b1)
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, torch._foreach_mul(gs, gs), alpha=1 - b2)
+            bc1 = 1.0 - torch.pow(b1, t)
+            bc2 = 1.0 - torch.pow(b2, t)
+            den = _sqrt_rn(torch._foreach_div(vs, bc2))
+            torch._foreach_add_(den, eps)
+            torch._foreach_mul_(den, bc1)
+            torch._foreach_add_(ps, torch._foreach_div(ms, den), alpha=-lr)
+
+
+def _sqrt_rn(xs):
+    """Correctly rounded float32 square roots of ``xs``, as XLA's: CUDA's
+    are; torch's vectorised CPU ones are not always, so the CPU takes them
+    in float64 (exact before the one rounding to float32)."""
+    if xs[0].is_cuda:
+        return torch._foreach_sqrt(xs)
+    return [x.double().sqrt_().float() for x in xs]
+
+
 def init_gsr(cfg: GSRTrainConfig, seed: int = 0, device=DEFAULT_DEVICE):
     """(model, optimizer): a GSR-Net initialised from ``seed`` on
-    ``device`` and the reference's optimizer, Adam with b1 = 0.9,
-    b2 = 0.999, eps = 1e-8; on a CUDA device ``capturable`` (its step
-    count on the card), which the parity trainer's epoch graph needs."""
+    ``device`` and the reference's optimizer over its parameters,
+    ``optax.adam`` (b1 = 0.9, b2 = 0.999, eps = 1e-8) as ``OptaxAdam``
+    computes it on every device."""
     model = cfg.model(device=device, seed=seed)
-    cuda = next(model.parameters()).is_cuda
-    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                                 betas=(0.9, 0.999), eps=1e-8,
-                                 capturable=cuda)
-    return model, optimizer
+    return model, OptaxAdam(model.parameters(), lr=cfg.lr)
 
 
 def precompute_spectral(lr_stack, hr_stack, lr_dim: int = 160,
@@ -138,18 +202,20 @@ _WARM_STEPS = 2  # subjects the warm-up before an epoch's capture trains
 
 def _check_capturable(optimizer: torch.optim.Optimizer) -> None:
     """Refuse an optimizer the parity trainer's epoch graph cannot hold:
-    on the card it must be ``torch.optim.Adam`` or ``AdamW`` built with
-    ``capturable=True`` (whose state the warm-up before a capture can set
-    back to its initial zeros)."""
-    if type(optimizer) in (torch.optim.Adam, torch.optim.AdamW) and all(
-            g.get("capturable") for g in optimizer.param_groups):
+    on the card it must be ``OptaxAdam`` or ``torch.optim.Adam`` /
+    ``AdamW`` built with ``capturable=True`` (each keeps its step count on
+    the card, and its state the warm-up before a capture can set back to
+    its initial zeros)."""
+    if type(optimizer) is OptaxAdam or (
+            type(optimizer) in (torch.optim.Adam, torch.optim.AdamW)
+            and all(g.get("capturable") for g in optimizer.param_groups)):
         return
     raise ValueError(
         f"the parity trainer replays each epoch as one CUDA graph on the "
         f"card and cannot hold a {type(optimizer).__name__} without "
-        f"capturable=True there; build it as torch.optim.Adam(model."
-        f"parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, "
-        f"capturable=True), as init_gsr does on a CUDA device")
+        f"capturable=True there; build it as OptaxAdam(model.parameters(), "
+        f"lr=cfg.lr), as init_gsr does, or as torch.optim.Adam(..., "
+        f"capturable=True)")
 
 
 class _ParityTrainer:

@@ -369,20 +369,22 @@ def test_parity_epochs_in_two_calls_and_after_a_warm_up():
 
 
 def test_card_path_refuses_a_non_capturable_optimizer():
-    """The check the card path makes before it trains: Adam or AdamW with
-    ``capturable=True`` passes, Adam without it or another optimizer is
-    refused with a ValueError that says how to build one; ``init_gsr``
-    keeps today's optimizer on the CPU, which trains there."""
+    """The check the card path makes before it trains: ``OptaxAdam``, and
+    Adam or AdamW with ``capturable=True``, pass; Adam without it or
+    another optimizer is refused with a ValueError that says how to build
+    one; ``init_gsr`` builds the card's optimizer (``OptaxAdam``) on the
+    CPU too, and the CPU trains with any optimizer."""
     model = GSRTrainConfig(**GSR_TINY).model(device="cpu")
     params = list(model.parameters())
     for opt in (torch.optim.Adam(params, capturable=True),
-                torch.optim.AdamW(params, capturable=True)):
+                torch.optim.AdamW(params, capturable=True),
+                gsr_loop.OptaxAdam(params, lr=1e-4)):
         gsr_loop._check_capturable(opt)
     for opt in (torch.optim.Adam(params), torch.optim.SGD(params, lr=0.1)):
         with pytest.raises(ValueError, match="capturable=True"):
             gsr_loop._check_capturable(opt)
     _, opt = gsr_loop.init_gsr(GSRTrainConfig(**GSR_TINY), device="cpu")
-    assert opt.param_groups[0]["capturable"] is False
+    assert type(opt) is gsr_loop.OptaxAdam
     gsr_loop.make_train_fn(model, torch.optim.Adam(params),
                            GSRTrainConfig(**GSR_TINY))
 
@@ -463,7 +465,7 @@ def test_mlp_graph_equals_eager_on_card(mlp_data, variant):
 
 @pytest.mark.cuda
 def test_parity_graph_equals_eager_on_card():
-    """The parity trainer (capturable Adam from ``init_gsr``) through its
+    """The parity trainer (``OptaxAdam`` from ``init_gsr``) through its
     epoch graph against the same trainer from Python, 2 epochs: per-step
     histories and parameters bit for bit; a non-capturable Adam is refused
     before anything trains."""
@@ -473,7 +475,7 @@ def test_parity_graph_equals_eager_on_card():
     runs = []
     for eager in (False, True):
         model, opt = gsr_loop.init_gsr(cfg, seed=3, device="cuda")
-        assert opt.param_groups[0]["capturable"]
+        assert type(opt) is gsr_loop.OptaxAdam
         train_fn = gsr_loop.make_train_fn(model, opt, cfg, True)
         if eager:
             train_fn._stay_eager()

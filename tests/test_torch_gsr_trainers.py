@@ -15,17 +15,22 @@ import dataclasses
 import json
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from fcsr_tpu.pipelines import run_gsr_cv as j_run_gsr_cv
-from fcsr_tpu.train import GSRTrainConfig as JConfig
-from fcsr_tpu.train import init_gsr as j_init_gsr
-from fcsr_tpu.train import precompute_spectral as j_spectral
-from fcsr_tpu.train.fast_loop import GSRFoldRunner as JRunner
-from fcsr_tpu.train.gsr_loop import make_train_fn as j_make_train_fn
+try:
+    import jax
+
+    from fcsr_tpu.pipelines import run_gsr_cv as j_run_gsr_cv
+    from fcsr_tpu.train import GSRTrainConfig as JConfig
+    from fcsr_tpu.train import init_gsr as j_init_gsr
+    from fcsr_tpu.train import precompute_spectral as j_spectral
+    from fcsr_tpu.train.fast_loop import GSRFoldRunner as JRunner
+    from fcsr_tpu.train.gsr_loop import make_train_fn as j_make_train_fn
+except ImportError:     # the card's machine: only the cuda tests run there
+    jax = None
+
 from fcsr_tpu_torch import cli, pipelines
 from fcsr_tpu_torch.data import (kfold_indices,
                                  synthesize_teacher_connectomes,
@@ -35,6 +40,7 @@ from fcsr_tpu_torch.iox.weights import flax_to_state, state_to_flat
 from fcsr_tpu_torch.train import (GSRFoldRunner, GSRTrainConfig, init_gsr,
                                   make_train_fn, precompute_spectral,
                                   train_gsr_fold, trainer_mode)
+from fcsr_tpu_torch.train.gsr_loop import OptaxAdam
 
 KS = (0.9, 0.7)
 TINY = dict(lr_dim=20, hr_dim=32, hidden_dim=32, ks=KS)
@@ -269,6 +275,148 @@ def test_parity_trainer_equals_the_unfused_fold_runner():
         flat = state_to_flat({k: t.numpy()
                               for k, t in model.state_dict().items()})
         np.testing.assert_allclose(p[j].numpy(), flat, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the card's optimizer against optax (C6)
+# ---------------------------------------------------------------------------
+
+# the card's OptaxAdam against the optax order: its pow of the step count
+# is CUDA's powf (within 2 ulps), the rest is the CPU's operations
+ADAM_ULPS = {"p": 1, "m": 1, "v": 1}
+
+
+def _adam_optax_order(p, grads, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """``optax.adam``'s updates in float32 as XLA compiles them on the CPU
+    (its HLO after fusion): mu = fma(1 - b1, g, b1 mu) and nu likewise,
+    the bias corrections ``1 - b**t`` in float32, ``(mu / bc1) / (sqrt(nu
+    / bc2) + eps)`` rewritten as ``mu / (bc1 (sqrt(nu / bc2) + eps))``,
+    and p = fma(that, -lr, p); a fused multiply-add is its exact sum in
+    float64 rounded once to float32. Returns every step's (p, mu, nu)."""
+    f32, f64 = np.float32, np.float64
+    m, v, out = np.zeros_like(p), np.zeros_like(p), []
+    for t, g in enumerate(grads, 1):
+        m = (f64(f32(1 - b1)) * g + f64(f32(b1) * m)).astype(f32)
+        v = (f64(f32(1 - b2)) * (g * g) + f64(f32(b2) * v)).astype(f32)
+        bc1 = f32(1) - f32(b1) ** f32(t)
+        bc2 = f32(1) - f32(b2) ** f32(t)
+        u = m / (bc1 * (np.sqrt(v / bc2) + f32(eps)))
+        p = (f64(u) * f64(f32(-lr)) + f64(p)).astype(f32)
+        out.append((p, m, v))
+    return out
+
+
+def _adam_case(steps=20, lr=1e-2):
+    """Parameters away from 0 and gradients of a fixed sign per entry
+    (nothing cancels, so each value's ulps measure its rounding), 3
+    tensors."""
+    rng = np.random.default_rng(26)
+    shapes = [(32, 20), (32, 32), (1, 32)]
+    ps = [(rng.uniform(0.5, 2.0, s) * rng.choice([-1, 1], s))
+          .astype(np.float32) for s in shapes]
+    signs = [rng.choice([-1, 1], s) for s in shapes]
+    grads = [[(sg * np.exp(rng.normal(0, 1, sg.shape)) * 1e-2)
+              .astype(np.float32) for sg in signs] for _ in range(steps)]
+    return ps, grads, lr
+
+
+def _ulps(x, ref):
+    return float(np.max(np.abs(x.astype(np.float64) - ref)
+                        / np.spacing(np.abs(ref))))
+
+
+def test_optax_order_reference_is_optax():
+    """The float32 copy the card's optimizer is held to equals
+    ``optax.adam`` on the CPU bit for bit, 20 steps."""
+    import optax
+    jnp = jax.numpy
+    ps, grads, lr = _adam_case()
+    tx = optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8)
+    params = [jnp.asarray(p) for p in ps]
+    state = tx.init(params)
+
+    @jax.jit
+    def step(params, state, g):
+        u, state = tx.update(g, state, params)
+        return optax.apply_updates(params, u), state
+    for t, g in enumerate(grads):
+        params, state = step(params, state, [jnp.asarray(x) for x in g])
+        for k, p in enumerate(ps):
+            want = _adam_optax_order(p, [gs[k] for gs in grads[:t + 1]],
+                                     lr)[-1]
+            got = (params[k], state[0].mu[k], state[0].nu[k])
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def _drive_adam(device, ulps):
+    """``OptaxAdam`` on ``device`` for ``_adam_case``'s 20 steps: after
+    every step p, mu and nu within ``ulps`` of the optax order."""
+    ps, grads, lr = _adam_case()
+    params = [torch.nn.Parameter(torch.from_numpy(p).to(device)) for p in ps]
+    opt = OptaxAdam(params, lr=lr)
+    want = [_adam_optax_order(p, [gs[k] for gs in grads], lr)
+            for k, p in enumerate(ps)]
+    for t, g in enumerate(grads):
+        for p, x in zip(params, g):
+            p.grad = torch.from_numpy(x).to(device)
+        opt.step()
+        for k, p in enumerate(params):
+            st = opt.state[p]
+            got = {"p": p.detach(), "m": st["exp_avg"], "v": st["exp_avg_sq"]}
+            for name, ref in zip("pmv", want[k][t]):
+                err = _ulps(got[name].cpu().numpy(), ref)
+                assert err <= ulps[name], (t, k, name, err)
+    assert float(opt.state[params[0]]["step"]) == len(grads)
+
+
+def test_port_adam_is_optax_on_the_cpu():
+    """``OptaxAdam`` (``init_gsr``'s optimizer) on the CPU: bit for bit
+    the optax order, which ``test_optax_order_reference_is_optax`` holds
+    to ``optax.adam``."""
+    _drive_adam("cpu", {"p": 0, "m": 0, "v": 0})
+
+
+@pytest.mark.cuda
+def test_card_adam_matches_optax_order():
+    """The card's optimizer (``OptaxAdam``, ``init_gsr``'s; its step count
+    on the card) for 20 steps of fixed random gradients on 3 tensors:
+    after every step p, mu and nu within ``ADAM_ULPS`` of the
+    optax-ordered float32 updates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the optimizer's card run")
+    _drive_adam("cuda", ADAM_ULPS)
+
+
+@pytest.mark.cuda
+def test_card_parity_trainer_matches_the_cpu_run():
+    """The parity trainer at the tiny size (2 epochs of 4 subjects), on
+    the card through its epoch graph with ``OptaxAdam``,
+    against the same run on the CPU: every step's loss and error within
+    1e-5, the parameters within 1e-6 (the CPU run's tolerances against
+    the JAX package)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the epoch graph runs on the card "
+                    "only")
+    lr, hr = _data(4)
+    cfg = GSRTrainConfig(epochs=2, **TINY)
+    u_lr, u_hr = precompute_spectral(lr, hr, lr_dim=20)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model, optimizer = init_gsr(cfg, 0, dev)
+        stacks = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                  for a in (lr, hr, u_lr, u_hr)]
+        train_fn = make_train_fn(model, optimizer, cfg, per_step=True)
+        loss, err = train_fn(*stacks)
+        assert (train_fn.graph is not None) == (dev == "cuda")
+        runs.append((loss.cpu().numpy(), err.cpu().numpy(),
+                     {k: t.cpu().numpy()
+                      for k, t in model.state_dict().items()}))
+    (l0, e0, s0), (l1, e1, s1) = runs
+    np.testing.assert_allclose(l1, l0, atol=1e-5)
+    np.testing.assert_allclose(e1, e0, atol=1e-5)
+    for k, t in s0.items():
+        np.testing.assert_allclose(s1[k], t, atol=1e-6, err_msg=k)
 
 
 @pytest.fixture(scope="module")
