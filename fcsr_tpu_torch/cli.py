@@ -20,7 +20,9 @@ are not in ``--data-dir``. ``--full-metrics`` scores every fold with the
 metric suite into ``<out-dir>/eval_metrics.json``; ``--eval-backend
 networkx`` and ``evaluate --backend networkx`` need the networkx package.
 ``--multichip`` (implies ``--fast``) shards the folds over the local cards.
-No flag is dropped silently.
+No flag is dropped silently. With ``FCSR_TRACE_DIR`` set, ``train`` and
+``predict`` write a ``torch.profiler`` Chrome trace there, the run's spans
+(``fcsr.<name>``, ``utils/profiling.py``) in it.
 """
 
 from __future__ import annotations
@@ -257,7 +259,15 @@ def _train_mlp(args):
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.cmd in ("train", "predict"):
+        # FCSR_TRACE_DIR: a Chrome trace of the command, its spans in it
+        from fcsr_tpu_torch.utils.profiling import trace_if_enabled
+        with trace_if_enabled():
+            return _run(args)
+    return _run(args)
 
+
+def _run(args):
     if args.cmd == "train" and args.family == "gat":
         return _train_gat(args)
     if args.cmd == "train" and args.family == "mlp":
@@ -330,6 +340,7 @@ def main(argv=None):
         from fcsr_tpu_torch.iox import load_params, save_prediction
         from fcsr_tpu_torch.models import GSRNet
         from fcsr_tpu_torch.train import GSRTrainConfig, predict_gsr
+        from fcsr_tpu_torch.utils import profiling
 
         params = load_params(args.params)
         hr_dim, lr_dim = params["layer.weights"].shape
@@ -339,7 +350,8 @@ def main(argv=None):
                        device=args.device)
         data = load_or_synthesize(args.data_dir, seed=args.seed,
                                   device=args.device)
-        preds = predict_gsr(params, model, cfg, data["lr_test"])
+        with profiling.span("test_predict"):
+            preds = predict_gsr(params, model, cfg, data["lr_test"])
         save_prediction(preds, args.out, ordering=args.ordering)
         print(f"submission written: {args.out} "
               f"({preds.shape[0]} subjects, {args.ordering})")

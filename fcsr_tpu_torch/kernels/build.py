@@ -33,7 +33,8 @@ SOURCES = ("bgemm", "bgemm_bf16", "rank_select", "tail", "adam", "triu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# filled by build_all: seconds spent, per-source ptxas reports
+# filled by build_all: per-source ptxas reports (chip_smoke.py writes
+# them to ptxas.log)
 BUILD_INFO: Dict[str, object] = {}
 
 _LOCK = threading.Lock()
@@ -94,7 +95,6 @@ def build_all() -> Dict[str, Path]:
     if not todo:
         return libs
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     procs = {}
     for name in todo:
         tmp = out_dir / f"libfcsr_{name}.so.tmp{os.getpid()}"
@@ -110,7 +110,6 @@ def build_all() -> Dict[str, Path]:
             failures.append(f"--- {name}.cu (rc {proc.returncode})\n{log}")
             continue
         os.replace(tmp, libs[name])
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["ptxas"] = reports
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))

@@ -19,7 +19,6 @@ shard the fold axis over the first ``min(cards, splits)`` cards
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,6 +45,7 @@ from fcsr_tpu_torch.train.gsr_loop import (GSRTrainConfig, evaluate_gsr,
                                            predict_gsr, train_gsr_fold)
 from fcsr_tpu_torch.train.losses import (make_triu_mse_criterion,
                                          pack_triu_targets)
+from fcsr_tpu_torch.utils import profiling
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from fcsr_tpu_torch.utils.transfer import stage_cached
 
@@ -63,6 +63,33 @@ def _fold_mesh(multichip: bool, splits: int, device):
         return batch_mesh([dev])
     return batch_mesh([torch.device("cuda", i) for i in
                        range(min(torch.cuda.device_count(), splits))])
+
+
+def _run_device(device):
+    """The card a run's phases are timed on by events, or None (the CPU,
+    or no card visible: the entry raises on its own there)."""
+    dev = torch.device(device)
+    return dev if dev.type == "cuda" and torch.cuda.is_available() else None
+
+
+PHASES = ("stage", "train", "fold_eval", "test_predict")
+
+
+def _stage_and_train():
+    """The phases ``stage`` and ``train`` of a fast entry, for its
+    fold-parallel trainer to enter around its construction and its
+    training."""
+    return profiling.phase("stage"), profiling.phase("train")
+
+
+def _phase_timings(timer, legacy: str) -> Dict[str, float]:
+    """A fast entry's ``timings``: the host seconds of its phases and of
+    its graphs' captures, and the fold evaluation again under the name
+    the entry has always given it (``legacy``)."""
+    rep = timer.report()
+    out = {k: rep.get(k, 0.0) for k in PHASES + ("capture",)}
+    out[legacy] = out["fold_eval"]
+    return out
 
 
 def _check_eval_backend(eval_backend: str, full_metrics: bool):
@@ -122,36 +149,33 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
     ``multichip=True`` shards the fold axis over the local cards (every
     fold's math unchanged)."""
     _check_eval_backend(eval_backend, full_metrics)
-    mesh = _fold_mesh(multichip, splits, device)
-
-    cfg = cfg or GSRTrainConfig(fused_adam=True)
-    lr_all = np.asarray(data["lr_train"], dtype=np.float32)
-    hr_all = np.asarray(data["hr_train"], dtype=np.float32)
-    cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
-    folds = kfold_indices(len(lr_all), splits, seed=seed)
-
-    t0 = time.perf_counter()
-    model, params_per_fold, loss_hist, err_hist, runner = \
-        train_gsr_folds_parallel(cfg, lr_all, hr_all, folds,
-                                 init_seed=init_seed,
-                                 checkpoint_path=checkpoint_path,
-                                 checkpoint_every=checkpoint_every,
-                                 flat0=flat0, device=device, mesh=mesh)
-    t_train = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    fold_maes, fold_outs = evaluate_gsr_folds(cfg, runner,
-                                              pull_preds=full_metrics)
-    t_eval = time.perf_counter() - t0
-
-    fold_metrics = []
-    if full_metrics:
-        fold_metrics = _fold_metrics(fold_outs, eval_backend, False, device)
-
-    test_preds = None
-    if data.get("lr_test") is not None:
-        test_preds = predict_gsr(params_per_fold[-1], model, cfg,
-                                 data["lr_test"])
+    with profiling.cv_run("run_gsr_cv_fast", _run_device(device)) as timer:
+        mesh = _fold_mesh(multichip, splits, device)
+        cfg = cfg or GSRTrainConfig(fused_adam=True)
+        lr_all = np.asarray(data["lr_train"], dtype=np.float32)
+        hr_all = np.asarray(data["hr_train"], dtype=np.float32)
+        cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
+        folds = kfold_indices(len(lr_all), splits, seed=seed)
+        model, params_per_fold, loss_hist, err_hist, runner = \
+            train_gsr_folds_parallel(cfg, lr_all, hr_all, folds,
+                                     init_seed=init_seed,
+                                     checkpoint_path=checkpoint_path,
+                                     checkpoint_every=checkpoint_every,
+                                     flat0=flat0, device=device, mesh=mesh,
+                                     phases=_stage_and_train())
+        with profiling.phase("fold_eval"):
+            fold_maes, fold_outs = evaluate_gsr_folds(
+                cfg, runner, pull_preds=full_metrics)
+        fold_metrics = []
+        if full_metrics:
+            with profiling.span("fold_metrics"):
+                fold_metrics = _fold_metrics(fold_outs, eval_backend, False,
+                                             device)
+        test_preds = None
+        with profiling.phase("test_predict"):
+            if data.get("lr_test") is not None:
+                test_preds = predict_gsr(params_per_fold[-1], model, cfg,
+                                         data["lr_test"])
 
     return {
         "fold_maes": fold_maes,
@@ -164,7 +188,7 @@ def run_gsr_cv_fast(data: Dict[str, np.ndarray],
         "cfg": cfg,
         "test_preds": test_preds,
         "loss_hist": loss_hist,
-        "timings": {"train": t_train, "eval": t_eval},
+        "timings": _phase_timings(timer, "eval"),
         "n_train_steps": sum(len(tr) for tr, _ in folds) * cfg.epochs,
         "n_eval_forwards": sum(len(va) for _, va in folds),
     }
@@ -191,45 +215,44 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
     tensor on ``device``, or None without ``lr_test``), ``timings`` and the
     step / forward counts."""
     _check_eval_backend(eval_backend, full_metrics)
+    with profiling.cv_run("run_gsr_cv") as timer:
+        cfg = cfg or GSRTrainConfig()
+        lr_all = np.asarray(data["lr_train"], dtype=np.float32)
+        hr_all = np.asarray(data["hr_train"], dtype=np.float32)
+        cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
+        folds = kfold_indices(len(lr_all), splits, seed=seed)
+        model, optimizer = init_gsr(cfg, init_seed, device)
 
-    cfg = cfg or GSRTrainConfig()
-    lr_all = np.asarray(data["lr_train"], dtype=np.float32)
-    hr_all = np.asarray(data["hr_train"], dtype=np.float32)
-    cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
-    folds = kfold_indices(len(lr_all), splits, seed=seed)
-    model, optimizer = init_gsr(cfg, init_seed, device)
+        # every spectral precompute in one batched shot (the folds take
+        # slices)
+        with profiling.span("stage"):
+            u_lr_all, u_hr_all = precompute_spectral(lr_all, hr_all,
+                                                     lr_dim=cfg.lr_dim,
+                                                     padding=cfg.padding)
 
-    # every spectral precompute in one batched shot (the folds take slices)
-    t0 = time.perf_counter()
-    u_lr_all, u_hr_all = precompute_spectral(lr_all, hr_all,
-                                             lr_dim=cfg.lr_dim,
-                                             padding=cfg.padding)
-    t_spectral = time.perf_counter() - t0
+        fold_maes, fold_metrics = [], []
+        for j, (tr, va) in enumerate(folds):
+            if reset_per_fold:
+                model, optimizer = init_gsr(cfg, init_seed + j, device)
+            with profiling.span("train"):
+                train_gsr_fold(model, optimizer, cfg, lr_all[tr], hr_all[tr],
+                               spectral=(u_lr_all[tr], u_hr_all[tr]),
+                               verbose=verbose)
+            with profiling.span("fold_eval"):
+                mae, preds, gts = evaluate_gsr(None, model, cfg, lr_all[va],
+                                               hr_all[va], verbose=verbose)
+                fold_maes.append(mae)
+                if full_metrics:
+                    fold_metrics.append(print_metrics(
+                        gts, preds, fold_i=j, backend=eval_backend,
+                        write_file=False, verbose=verbose, device=device))
 
-    fold_maes, fold_metrics = [], []
-    t_train = t_eval = 0.0
-    for j, (tr, va) in enumerate(folds):
-        if reset_per_fold:
-            model, optimizer = init_gsr(cfg, init_seed + j, device)
-        t0 = time.perf_counter()
-        train_gsr_fold(model, optimizer, cfg, lr_all[tr], hr_all[tr],
-                       spectral=(u_lr_all[tr], u_hr_all[tr]),
-                       verbose=verbose)
-        t_train += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        mae, preds, gts = evaluate_gsr(None, model, cfg, lr_all[va],
-                                       hr_all[va], verbose=verbose)
-        fold_maes.append(mae)
-        if full_metrics:
-            fold_metrics.append(print_metrics(
-                gts, preds, fold_i=j, backend=eval_backend, write_file=False,
-                verbose=verbose, device=device))
-        t_eval += time.perf_counter() - t0
+        test_preds = None
+        with profiling.span("test_predict"):
+            if data.get("lr_test") is not None:
+                test_preds = predict_gsr(None, model, cfg, data["lr_test"])
 
-    test_preds = None
-    if data.get("lr_test") is not None:
-        test_preds = predict_gsr(None, model, cfg, data["lr_test"])
-
+    rep = timer.report()
     return {
         "fold_maes": fold_maes,
         "mean_mae": float(np.mean(fold_maes)),
@@ -239,8 +262,8 @@ def run_gsr_cv(data: Dict[str, np.ndarray],
         "model": model,
         "cfg": cfg,
         "test_preds": test_preds,
-        "timings": {"spectral": t_spectral, "train": t_train,
-                    "eval": t_eval},
+        "timings": {"spectral": rep["stage"], "train": rep.get("train", 0.0),
+                    "eval": rep.get("fold_eval", 0.0)},
         "n_train_steps": sum(len(tr) for tr, _ in folds) * cfg.epochs,
         "n_eval_forwards": sum(len(va) for _, va in folds),
     }
@@ -332,83 +355,86 @@ def run_mlp_cv(data: Dict[str, np.ndarray], k_folds: int = 3,
     fold's train / val / lr lists), ``test_preds`` (a tensor on
     ``device``, or None without ``lr_test``) and ``timings``."""
     _check_eval_backend(eval_backend, full_metrics)
-    dev = resolve_device(device)
-    lr_all = np.asarray(data["lr_train"], dtype=np.float32)
-    hr_all = np.asarray(data["hr_train"], dtype=np.float32)
-    n_in, n_out = lr_all.shape[-1], hr_all.shape[-1]
-    folds = contiguous_window_folds(len(lr_all), k_folds, p_val, seed=seed)
-    if variant == "v1":
-        model = SuperResMLP(n_in * n_in, n_out * n_out, hidden or 10000,
-                            max(1, n_layers), device="meta")
-        model_train = model
-        x_all, y_all = lr_all, hr_all
-        criterion = mse_criterion
-    elif variant == "v2":
-        hidden = hidden or (n_in + n_out) // 2
-        model = SpectralResMLP(n_in, n_out, hidden, n_layers, device="meta")
-        model_train = SpectralResMLP(n_in, n_out, hidden, n_layers,
-                                     output="vector", device="meta")
-        r_in, c_in = triu_indices_rowmajor(n_in)
-        x_all = lr_all[:, r_in, c_in]                # (N, L_in)
-        y_all = pack_triu_targets(hr_all)            # (N, L_out + n)
-        criterion = make_triu_mse_criterion(n_out)
-    else:
-        raise ValueError(f"unknown MLP variant: {variant!r}")
-    seeds = [seed + j for j in range(len(folds))]
-    if flat0 is None:
-        p0, s0 = model.init_flat(seeds, dev)
-    else:
-        p0, s0 = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            dev) for a in flat0)
-    kw = dict(num_epochs=num_epochs, lr=lr, batch_size=batch_size,
-              criterion=criterion, device=dev)
+    with profiling.cv_run("run_mlp_cv") as timer:
+        dev = resolve_device(device)
+        lr_all = np.asarray(data["lr_train"], dtype=np.float32)
+        hr_all = np.asarray(data["hr_train"], dtype=np.float32)
+        n_in, n_out = lr_all.shape[-1], hr_all.shape[-1]
+        folds = contiguous_window_folds(len(lr_all), k_folds, p_val,
+                                        seed=seed)
+        if variant == "v1":
+            model = SuperResMLP(n_in * n_in, n_out * n_out, hidden or 10000,
+                                max(1, n_layers), device="meta")
+            model_train = model
+            x_all, y_all = lr_all, hr_all
+            criterion = mse_criterion
+        elif variant == "v2":
+            hidden = hidden or (n_in + n_out) // 2
+            model = SpectralResMLP(n_in, n_out, hidden, n_layers,
+                                   device="meta")
+            model_train = SpectralResMLP(n_in, n_out, hidden, n_layers,
+                                         output="vector", device="meta")
+            r_in, c_in = triu_indices_rowmajor(n_in)
+            x_all = lr_all[:, r_in, c_in]                # (N, L_in)
+            y_all = pack_triu_targets(hr_all)            # (N, L_out + n)
+            criterion = make_triu_mse_criterion(n_out)
+        else:
+            raise ValueError(f"unknown MLP variant: {variant!r}")
+        seeds = [seed + j for j in range(len(folds))]
+        with profiling.span("stage"):
+            if flat0 is None:
+                p0, s0 = model.init_flat(seeds, dev)
+            else:
+                p0, s0 = (torch.from_numpy(np.ascontiguousarray(
+                    a, np.float32)).to(dev) for a in flat0)
+        kw = dict(num_epochs=num_epochs, lr=lr, batch_size=batch_size,
+                  criterion=criterion, device=dev)
 
-    t0 = time.perf_counter()
-    sizes = {(len(tr), len(va)) for tr, va in folds}
-    if fold_parallel and not verbose and len(sizes) == 1 and len(folds) > 1:
-        tr_idx = np.stack([tr for tr, _ in folds])
-        va_idx = np.stack([va for _, va in folds])
-        results = train_model_folds(
-            model_train, (p0, s0), x_all[tr_idx], y_all[tr_idx],
-            x_all[va_idx], y_all[va_idx], seeds=seeds, **kw)
-    else:
-        results = [train_model(model_train, (p0[j], s0[j]), x_all[tr],
-                               y_all[tr], x_all[va], y_all[va],
-                               seed=seeds[j], verbose=verbose, **kw)
-                   for j, (tr, va) in enumerate(folds)]
-    del p0, s0
-    t_train = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    maes, fold_outs = [], []
-    for (tr, va), (*_, best) in zip(folds, results):
-        x_va = torch.from_numpy(np.ascontiguousarray(x_all[va])).to(dev)
-        y_va = torch.from_numpy(np.ascontiguousarray(y_all[va])).to(dev)
-        maes.append(_mlp_fold_mae(variant, model_train.predict(best, x_va),
-                                  y_va))
-        if full_metrics:
-            fold_outs.append((model.predict(best, x_va).cpu().numpy(),
-                              hr_all[va]))
-    fold_maes = [float(m) for m in torch.stack(maes).cpu().numpy()]
-    fold_metrics = (_fold_metrics(fold_outs, eval_backend, verbose, dev)
-                    if full_metrics else [])
-    t_eval = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    best = results[-1][3]
-    test_preds = None
-    if data.get("lr_test") is not None:
-        lr_test = np.asarray(data["lr_test"], dtype=np.float32)
-        x_test = lr_test if variant == "v1" else lr_test[:, r_in, c_in]
-        test_preds = model.predict(best, torch.from_numpy(
-            np.ascontiguousarray(x_test)).to(dev))
-    t_predict = time.perf_counter() - t0
+        with profiling.span("train"):
+            sizes = {(len(tr), len(va)) for tr, va in folds}
+            if fold_parallel and not verbose and len(sizes) == 1 \
+                    and len(folds) > 1:
+                tr_idx = np.stack([tr for tr, _ in folds])
+                va_idx = np.stack([va for _, va in folds])
+                results = train_model_folds(
+                    model_train, (p0, s0), x_all[tr_idx], y_all[tr_idx],
+                    x_all[va_idx], y_all[va_idx], seeds=seeds, **kw)
+            else:
+                results = [train_model(model_train, (p0[j], s0[j]),
+                                       x_all[tr], y_all[tr], x_all[va],
+                                       y_all[va], seed=seeds[j],
+                                       verbose=verbose, **kw)
+                           for j, (tr, va) in enumerate(folds)]
+            del p0, s0
+        with profiling.span("fold_eval"):
+            maes, fold_outs = [], []
+            for (tr, va), (*_, best) in zip(folds, results):
+                x_va, y_va = (torch.from_numpy(np.ascontiguousarray(
+                    a[va])).to(dev) for a in (x_all, y_all))
+                maes.append(_mlp_fold_mae(
+                    variant, model_train.predict(best, x_va), y_va))
+                if full_metrics:
+                    fold_outs.append((
+                        model.predict(best, x_va).cpu().numpy(), hr_all[va]))
+            fold_maes = [float(m) for m in torch.stack(maes).cpu().numpy()]
+            fold_metrics = (_fold_metrics(fold_outs, eval_backend, verbose,
+                                          dev) if full_metrics else [])
+        with profiling.span("test_predict"):
+            best = results[-1][3]
+            test_preds = None
+            if data.get("lr_test") is not None:
+                lr_test = np.asarray(data["lr_test"], dtype=np.float32)
+                x_test = lr_test if variant == "v1" \
+                    else lr_test[:, r_in, c_in]
+                test_preds = model.predict(best, torch.from_numpy(
+                    np.ascontiguousarray(x_test)).to(dev))
+    rep = timer.report()
     return {"model": model, "variables": best, "fold_metrics": fold_metrics,
             "fold_maes": fold_maes, "mean_mae": float(np.mean(fold_maes)),
             "histories": [tuple(r[:3]) for r in results],
             "test_preds": test_preds,
-            "timings": {"train": t_train, "eval": t_eval,
-                        "predict": t_predict}}
+            "timings": {"train": rep["train"], "eval": rep["fold_eval"],
+                        "predict": rep["test_predict"]}}
 
 
 def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
@@ -426,39 +452,41 @@ def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,
     ``full_metrics``, else empty), ``histories``, ``test_preds`` (a tensor
     on ``device``, or None without ``lr_test``), ``timings``."""
     _check_eval_backend(eval_backend, full_metrics)
-    dev = resolve_device(device)
-    cfg = cfg or GATTrainConfig()
-    lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
-    hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
-    cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
-    folds = kfold_indices(len(lr_all), splits, seed=seed)
+    with profiling.cv_run("run_gat_cv") as timer:
+        dev = resolve_device(device)
+        cfg = cfg or GATTrainConfig()
+        lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
+        hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
+        cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
+        folds = kfold_indices(len(lr_all), splits, seed=seed)
 
-    histories, best_vars = [], []
-    model = None
-    t0 = time.perf_counter()
-    for j, (tr, va) in enumerate(folds):
-        model, opt = init_gat(cfg, seed + j, dev)
-        variables, opt, hist = train_gat(model, opt, cfg, lr_all[tr],
-                                         hr_all[tr], lr_all[va], hr_all[va],
-                                         seed=seed + j, verbose=verbose)
-        histories.append(hist)
-        best_vars.append(variables)
-    t_train = time.perf_counter() - t0
+        histories, best_vars = [], []
+        model = None
+        with profiling.span("train"):
+            for j, (tr, va) in enumerate(folds):
+                model, opt = init_gat(cfg, seed + j, dev)
+                variables, opt, hist = train_gat(
+                    model, opt, cfg, lr_all[tr], hr_all[tr], lr_all[va],
+                    hr_all[va], seed=seed + j, verbose=verbose)
+                histories.append(hist)
+                best_vars.append(variables)
 
-    t0 = time.perf_counter()
-    fold_maes, fold_metrics = _gat_fold_eval(
-        model, cfg, best_vars, lr_all, hr_all, folds, dev, full_metrics,
-        eval_backend, verbose)
-    t_predict = time.perf_counter() - t0
-    test_preds = None
-    if data.get("lr_test") is not None:
-        test_preds = predict_gat(best_vars[-1], model, cfg, data["lr_test"])
+        with profiling.span("fold_eval"):
+            fold_maes, fold_metrics = _gat_fold_eval(
+                model, cfg, best_vars, lr_all, hr_all, folds, dev,
+                full_metrics, eval_backend, verbose)
+        test_preds = None
+        with profiling.span("test_predict"):
+            if data.get("lr_test") is not None:
+                test_preds = predict_gat(best_vars[-1], model, cfg,
+                                         data["lr_test"])
+    rep = timer.report()
     return {"model": model, "variables": best_vars[-1],
             "variables_per_fold": best_vars, "cfg": cfg,
             "fold_maes": fold_maes, "mean_mae": float(np.mean(fold_maes)),
             "fold_metrics": fold_metrics, "histories": histories,
             "test_preds": test_preds,
-            "timings": {"train": t_train, "predict": t_predict}}
+            "timings": {"train": rep["train"], "predict": rep["fold_eval"]}}
 
 
 def run_gat_cv_fast(data: Dict[str, np.ndarray],
@@ -477,30 +505,29 @@ def run_gat_cv_fast(data: Dict[str, np.ndarray],
     shards the fold axis over the local cards (on-device control)."""
     _check_eval_backend(eval_backend, full_metrics)
     dev = resolve_device(device)
-    mesh = _fold_mesh(multichip, splits, dev)
-    cfg = cfg or GATTrainConfig()
-    lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
-    hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
-    cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
-    folds = kfold_indices(len(lr_all), splits, seed=seed)
-
-    t0 = time.perf_counter()
-    model, best_vars, histories = train_gat_folds_parallel(
-        cfg, lr_all, hr_all, folds, seed=seed, verbose=verbose,
-        host_control=host_control, mesh=mesh, flat0=flat0, device=dev)
-    t_train = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    fold_maes, fold_metrics = _gat_fold_eval(
-        model, cfg, best_vars, lr_all, hr_all, folds, dev, full_metrics,
-        eval_backend, verbose)
-    t_predict = time.perf_counter() - t0
-    test_preds = None
-    if data.get("lr_test") is not None:
-        test_preds = predict_gat(best_vars[-1], model, cfg, data["lr_test"])
+    with profiling.cv_run("run_gat_cv_fast", _run_device(dev)) as timer:
+        mesh = _fold_mesh(multichip, splits, dev)
+        cfg = cfg or GATTrainConfig()
+        lr_all = np.ascontiguousarray(data["lr_train"], dtype=np.float32)
+        hr_all = np.ascontiguousarray(data["hr_train"], dtype=np.float32)
+        cfg = _fit_cfg_to_data(cfg, lr_all, hr_all)
+        folds = kfold_indices(len(lr_all), splits, seed=seed)
+        model, best_vars, histories = train_gat_folds_parallel(
+            cfg, lr_all, hr_all, folds, seed=seed, verbose=verbose,
+            host_control=host_control, mesh=mesh, flat0=flat0, device=dev,
+            phases=_stage_and_train())
+        with profiling.phase("fold_eval"):
+            fold_maes, fold_metrics = _gat_fold_eval(
+                model, cfg, best_vars, lr_all, hr_all, folds, dev,
+                full_metrics, eval_backend, verbose)
+        test_preds = None
+        with profiling.phase("test_predict"):
+            if data.get("lr_test") is not None:
+                test_preds = predict_gat(best_vars[-1], model, cfg,
+                                         data["lr_test"])
     return {"model": model, "variables": best_vars[-1],
             "variables_per_fold": best_vars, "cfg": cfg,
             "fold_maes": fold_maes, "mean_mae": float(np.mean(fold_maes)),
             "fold_metrics": fold_metrics, "histories": histories,
             "test_preds": test_preds,
-            "timings": {"train": t_train, "predict": t_predict}}
+            "timings": _phase_timings(timer, "predict")}

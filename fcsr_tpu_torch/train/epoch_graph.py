@@ -20,7 +20,9 @@ what the eager epoch draws from their state and leaves them where the
 eager epoch leaves them. Both leave the kernels' launch counts as they
 were; each replay adds the launches the capture recorded
 (``kernels/ops.py::recorded_launches``), so ``launch_counts()`` reads a
-replayed epoch as the launches it makes.
+replayed epoch as the launches it makes. In a run (``utils/profiling.py``)
+the capture is the span ``capture`` (``capture.warm``, ``capture.record``,
+``capture.instantiate``).
 
 There is no fallback: a capture that fails raises, naming its program,
 and a capture under ``utils/debug.py::eager_debug`` (a synchronize after
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from fcsr_tpu_torch.kernels import ops
+from fcsr_tpu_torch.utils import profiling
 
 __all__ = ["EpochGraph", "upload", "warm_up"]
 
@@ -69,26 +72,30 @@ class EpochGraph:
         # kept after the capture so that its nodes can be counted
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with ops.recorded_launches():
+            with ops.recorded_launches(), profiling.span("capture"):
                 t0 = time.perf_counter()
-                stream.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(stream):
-                    warm_up(warm, gens)
-                stream.synchronize()
-                # the warm-up's temporaries go back to the card before the
-                # capture takes its own pool (the MLP v1 state leaves no
-                # room for both)
-                torch.cuda.empty_cache()
-                for g in gens:
-                    self.graph.register_generator_state(g)
+                with profiling.span("capture.warm"):
+                    stream.wait_stream(
+                        torch.cuda.current_stream(self.device))
+                    with torch.cuda.stream(stream):
+                        warm_up(warm, gens)
+                    stream.synchronize()
+                    # the warm-up's temporaries go back to the card before
+                    # the capture takes its own pool (the MLP v1 state
+                    # leaves no room for both)
+                    torch.cuda.empty_cache()
+                    for g in gens:
+                        self.graph.register_generator_state(g)
                 t1 = time.perf_counter()
-                with ops.recorded_launches() as made:
+                with profiling.span("capture.record"), \
+                        ops.recorded_launches() as made:
                     with torch.cuda.graph(self.graph, pool=pool,
                                           stream=stream):
                         program()
                 t2 = time.perf_counter()
                 self.nodes = _node_count(self.graph)
-                self.graph.instantiate()
+                with profiling.span("capture.instantiate"):
+                    self.graph.instantiate()
                 t3 = time.perf_counter()
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {what} failed: "

@@ -76,6 +76,7 @@ is copied into the captured buffers, never put in their place.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import warnings
@@ -106,6 +107,7 @@ from fcsr_tpu_torch.models.gsr import GSRNet
 from fcsr_tpu_torch.train.epoch_graph import EpochGraph
 from fcsr_tpu_torch.train.gsr_loop import GSRTrainConfig, precompute_spectral
 from fcsr_tpu_torch.train.losses import gsr_composite_loss
+from fcsr_tpu_torch.utils import profiling
 from fcsr_tpu_torch.utils.device import (DEFAULT_DEVICE, on_device,
                                          resolve_device)
 
@@ -331,21 +333,26 @@ class _FoldShard:
         torch.stack(losses, out=b["loss"][slots.start:slots.stop])
         torch.stack(errs, out=b["err"][slots.start:slots.stop])
 
+    def prepare(self, eager: bool) -> None:
+        """Capture the epoch's graph where ``run_epoch`` replays one (on
+        the card, not ``eager``) and none is there yet, after a warm-up of
+        ``_WARM_SLOTS`` steps on scratch copies of the buffers."""
+        if eager or self.device.type != "cuda" or self.graph is not None:
+            return
+        slots = range(self.bufs["loss"].shape[0])
+        scratch = {k: t.clone() for k, t in self.bufs.items()}
+        self.graph = EpochGraph(
+            f"the {self.mode} epoch of folds {self.lo}-{self.hi - 1}",
+            self.device, lambda: self.epoch(self.bufs, slots),
+            lambda: self.epoch(scratch, slots[:_WARM_SLOTS]))
+
     def run_epoch(self, eager: bool) -> None:
         """One epoch over ``bufs``: on the card the replay of its graph
-        (captured at the first epoch, after a warm-up of ``_WARM_SLOTS``
-        steps on scratch copies of the buffers), on the CPU or ``eager``
-        the program itself, step by step from Python."""
-        slots = range(self.bufs["loss"].shape[0])
+        (captured by ``prepare``), on the CPU or ``eager`` the program
+        itself, step by step from Python."""
         if eager or self.device.type != "cuda":
-            self.epoch(self.bufs, slots)
+            self.epoch(self.bufs, range(self.bufs["loss"].shape[0]))
             return
-        if self.graph is None:
-            scratch = {k: t.clone() for k, t in self.bufs.items()}
-            self.graph = EpochGraph(
-                f"the {self.mode} epoch of folds {self.lo}-{self.hi - 1}",
-                self.device, lambda: self.epoch(self.bufs, slots),
-                lambda: self.epoch(scratch, slots[:_WARM_SLOTS]))
         self.graph.replay()
 
     def release_graph(self) -> None:
@@ -538,36 +545,54 @@ class GSRFoldRunner:
         each shard's epoch (on the card one replay of its graph, every
         shard's issued before any is waited on) and copies the per-step
         loss and recon into the chunk's history on the device, read once
-        at the end."""
+        at the end. In a run (``utils/profiling.py``) its steps are spans
+        and each shard's stream gets a timing event at every epoch
+        boundary, read after the history."""
         t = state[3]
         n_steps = self.tr_idx.shape[1]
-        scal = np.empty((epochs, n_steps, self._n_total, 3), np.float32)
-        for e in range(epochs):
-            for s in range(n_steps):
-                scal[e, s], t = adam_scalars(t, self.tr_valid[:, s], B1, B2)
+        with profiling.span("plan"):
+            scal = np.empty((epochs, n_steps, self._n_total, 3), np.float32)
+            for e in range(epochs):
+                for s in range(n_steps):
+                    scal[e, s], t = adam_scalars(t, self.tr_valid[:, s], B1,
+                                                 B2)
         hists = []
-        for i, sh in enumerate(self.shards):
-            with on_device(sh.device):
-                for name, x in zip("pmv", state[:3]):
-                    sh.bufs[name].copy_(self._blocks(x)[i])
-                hists.append((torch.from_numpy(
-                    scal[:, :, sh.lo:sh.hi].copy()).to(sh.device),
-                    torch.empty(epochs, 2, n_steps, sh.n_folds,
-                                device=sh.device)))
-        for e in range(epochs):
-            for sh, (table, hist) in zip(self.shards, hists):
-                # each shard's launches planned as for the unsharded
-                # run's folds: a fold's bits are that run's
+        with profiling.span("load_state"):
+            for i, sh in enumerate(self.shards):
+                with on_device(sh.device):
+                    for name, x in zip("pmv", state[:3]):
+                        sh.bufs[name].copy_(self._blocks(x)[i])
+                    hists.append((torch.from_numpy(
+                        scal[:, :, sh.lo:sh.hi].copy()).to(sh.device),
+                        torch.empty(epochs, 2, n_steps, sh.n_folds,
+                                    device=sh.device)))
+        clock = profiling.epoch_clock([sh.device for sh in self.shards])
+        with profiling.span("epochs"):
+            # each shard's launches planned as for the unsharded run's
+            # folds: a fold's bits are that run's. Every graph is captured
+            # before the first boundary: an epoch's time is its own.
+            for sh, (table, _) in zip(self.shards, hists):
                 with on_device(sh.device), plan_folds(self.n_folds):
-                    sh.bufs["scal"].copy_(table[e])
-                    sh.run_epoch(self._eager)
-                    hist[e, 0].copy_(sh.bufs["loss"])
-                    hist[e, 1].copy_(sh.bufs["err"])
+                    sh.bufs["scal"].copy_(table[0])
+                    sh.prepare(self._eager)
+            clock.mark()
+            for e in range(epochs):
+                for sh, (table, hist) in zip(self.shards, hists):
+                    with on_device(sh.device), plan_folds(self.n_folds):
+                        if e:
+                            sh.bufs["scal"].copy_(table[e])
+                        sh.run_epoch(self._eager)
+                        hist[e, 0].copy_(sh.bufs["loss"])
+                        hist[e, 1].copy_(sh.bufs["err"])
+                clock.mark()
+        with profiling.span("history_read"):
+            # (epochs, 2, S, F_total); each fold's steps summed along a
+            # contiguous row, so its sum does not depend on how many folds
+            # lie beside it
+            steps = np.concatenate([h.cpu().numpy() for _, h in hists],
+                                   axis=3)
+            clock.close()
         denom = np.maximum(self.tr_valid.sum(axis=1), 1.0)
-        # (epochs, 2, S, F_total); each fold's steps summed along a
-        # contiguous row, so its sum does not depend on how many folds lie
-        # beside it
-        steps = np.concatenate([h.cpu().numpy() for _, h in hists], axis=3)
 
         def epoch_means(k):
             per = steps[:, k].reshape(epochs * n_steps, -1)
@@ -575,9 +600,10 @@ class GSRFoldRunner:
                 per.T.reshape(-1, epochs, n_steps)).sum(axis=2)
             return sums / denom[:, None]
 
-        state = tuple(self._state([sh.bufs[name].clone()
-                                   for sh in self.shards])
-                      for name in "pmv") + (t,)
+        with profiling.span("state_out"):
+            state = tuple(self._state([sh.bufs[name].clone()
+                                       for sh in self.shards])
+                          for name in "pmv") + (t,)
         return state, epoch_means(0), epoch_means(1)
 
     def _dims(self):
@@ -720,21 +746,29 @@ def train_gsr_folds_parallel(cfg: GSRTrainConfig, lr_all, hr_all, folds,
                              init_seed: int = 0,
                              checkpoint_path: str = None,
                              checkpoint_every: int = None, flat0=None,
-                             device=DEFAULT_DEVICE, mesh=None):
+                             device=DEFAULT_DEVICE, mesh=None,
+                             phases=None):
     """Train one fresh GSR-Net per fold, all folds together (with ``mesh``
     the folds sharded over its placements). Returns (model, per-fold
     state_dict list, loss_hist (F, epochs), err_hist (F, epochs), runner),
     for the real folds; the runner keeps the staged data on the device
     for the evaluation that follows, and ``model`` is a GSRNet of the
     run's shape on the run's (first) device to load any fold's state
-    into."""
-    runner = GSRFoldRunner(cfg, lr_all, hr_all, folds, init_seed=init_seed,
-                           flat0=flat0, device=device, mesh=mesh)
-    _, loss_hist, err_hist = runner.train(
-        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
-    runner.release_graphs()
-    return (runner._model(device=runner.device), runner.params_per_fold(),
-            loss_hist, err_hist, runner)
+    into. ``phases``: two context managers, entered around the runner's
+    construction and around the training (a pipeline's phases)."""
+    stage, train = phases or (contextlib.nullcontext(),) * 2
+    with stage:
+        runner = GSRFoldRunner(cfg, lr_all, hr_all, folds,
+                               init_seed=init_seed, flat0=flat0,
+                               device=device, mesh=mesh)
+    with train:
+        _, loss_hist, err_hist = runner.train(
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every)
+        runner.release_graphs()
+        model = runner._model(device=runner.device)
+        params = runner.params_per_fold()
+    return model, params, loss_hist, err_hist, runner
 
 
 def evaluate_gsr_folds(cfg: GSRTrainConfig, runner: GSRFoldRunner,

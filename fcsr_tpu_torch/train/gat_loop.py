@@ -44,6 +44,7 @@ same generators in the same sequence and copies them into the buffers.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 from dataclasses import dataclass
 from typing import Tuple
@@ -65,7 +66,7 @@ from fcsr_tpu_torch.train.epoch_graph import EpochGraph, upload as _upload
 from fcsr_tpu_torch.train.generic_loop import PlateauScheduler
 from fcsr_tpu_torch.train.losses import (intermediate_recon_loss,
                                          offdiag_mse_loss)
-from fcsr_tpu_torch.utils import host_cache
+from fcsr_tpu_torch.utils import host_cache, profiling
 from fcsr_tpu_torch.utils.device import (DEFAULT_DEVICE, on_device,
                                          resolve_device)
 from fcsr_tpu_torch.utils.transfer import stage_cached
@@ -318,6 +319,10 @@ class _FoldTrainer:
         self._eager = False
 
     @property
+    def devices(self):
+        return [self.dev]
+
+    @property
     def p(self):
         return self.bufs["p"]
 
@@ -442,14 +447,10 @@ class _FoldTrainer:
         b["vloss"].copy_(vloss)
         b["vmae"].copy_(vmae)
 
-    def _run(self, name: str, program, **warm) -> None:
-        """``program(bufs)``: on the card the replay of its graph (captured
-        at first use after a warm-up on scratch copies of the buffers, the
-        dropout generator set back after it), on the CPU the program
-        itself."""
-        if self._eager or self.dev.type != "cuda":
-            program(self.bufs)
-            return
+    def _graph(self, name: str, program, **warm) -> EpochGraph:
+        """The graph of ``program(bufs)``, captured at first use after a
+        warm-up on scratch copies of the buffers (the dropout generator
+        set back after it)."""
         graph = self._graphs.get(name)
         if graph is None:
             scratch = {k: None if x is None else x.clone()
@@ -459,12 +460,47 @@ class _FoldTrainer:
                 f"(folds {self.fold_lo}-{self.fold_lo + self.n_folds - 1})",
                 self.dev, lambda: program(self.bufs),
                 lambda: program(scratch, **warm), generators=(self.gen,))
-        graph.replay()
+        return graph
+
+    def _run(self, name: str, program, **warm) -> None:
+        """``program(bufs)``: on the card the replay of its graph, on the
+        CPU the program itself."""
+        if self._eager or self.dev.type != "cuda":
+            program(self.bufs)
+            return
+        self._graph(name, program, **warm).replay()
+
+    def prepare(self, plan: int = 0) -> None:
+        """Capture the epoch and the validation program before the first
+        epoch, where the card replays them (not ``_stay_eager``): the
+        epoch's launches planned for ``plan`` folds (``ops.plan_folds``;
+        0: the trainer's own), as its replays run."""
+        if self._eager or self.dev.type != "cuda":
+            return
+        with on_device(self.dev):
+            with plan_folds(plan):
+                self._graph("epoch", self._epoch_program,
+                            n_steps=min(_WARM_STEPS, self.tr_len))
+            with torch.no_grad():
+                self._graph("validation", self._val_program)
 
     def run_epoch(self) -> None:
         """One epoch over the loaded inputs (``load_epoch``)."""
         self._run("epoch", self._epoch_program,
                   n_steps=min(_WARM_STEPS, self.tr_len))
+
+    def begin_epoch(self, order, valid, lr_t, active_t, seeds=None):
+        """Load one epoch's inputs (``load_epoch``; ``seeds`` default:
+        drawn here)."""
+        with on_device(self.dev):
+            self.load_epoch(order, valid, lr_t, active_t,
+                            self.draw_seeds() if seeds is None else seeds)
+
+    def end_epoch(self):
+        """Run the loaded epoch; each fold's mean training loss (F,)."""
+        with on_device(self.dev):
+            self.run_epoch()
+            return self.bufs["loss"].clone()
 
     def epoch(self, order, valid, lr_t, active_t, seeds=None):
         """One epoch over every fold: ``tr_len`` fold-batched steps.
@@ -472,11 +508,8 @@ class _FoldTrainer:
         ``seeds`` the epoch's seed table (default: drawn here). Returns
         each fold's mean training loss (F,). Nothing is read back to the
         host."""
-        with on_device(self.dev):
-            self.load_epoch(order, valid, lr_t, active_t,
-                            self.draw_seeds() if seeds is None else seeds)
-            self.run_epoch()
-            return self.bufs["loss"].clone()
+        self.begin_epoch(order, valid, lr_t, active_t, seeds)
+        return self.end_epoch()
 
     @torch.no_grad()
     def validate(self):
@@ -576,6 +609,10 @@ class _ShardedTrainer:
         self.active0 = (np.arange(F) < self.n_real).astype(np.float32)
 
     @property
+    def devices(self):
+        return [sh.dev for sh in self.shards]
+
+    @property
     def p(self):
         return torch.cat([sh.p.to(self.dev) for sh in self.shards])
 
@@ -590,21 +627,33 @@ class _ShardedTrainer:
         return (np.concatenate([o for o, _ in plans]),
                 np.concatenate([v for _, v in plans]))
 
-    def epoch(self, order, valid, lr_t, active_t):
+    def prepare(self) -> None:
+        for sh in self.shards:
+            sh.prepare(self.n_real)
+
+    def begin_epoch(self, order, valid, lr_t, active_t):
         seeds = None
         if self.fused and self.cfg.drop_p > 0:
             seeds = np.zeros((self.tr_len, self.n_folds, 2), np.int32)
             seeds[:, :self.n_real] = _seed_table(self.seed_rng, self.tr_len,
                                                  self.n_real)
-        # every shard's epoch issued before any is waited on
         for sh, f in self._slices():
             with on_device(sh.dev), plan_folds(self.n_real):
                 sh.load_epoch(order[f], valid[f], lr_t[f].to(sh.dev),
                               active_t[f].to(sh.dev),
                               None if seeds is None else seeds[:, f])
+
+    def end_epoch(self):
+        # every shard's epoch issued before any is waited on
+        for sh in self.shards:
+            with on_device(sh.dev), plan_folds(self.n_real):
                 sh.run_epoch()
         return torch.cat([sh.bufs["loss"].to(self.dev)
                           for sh in self.shards])
+
+    def epoch(self, order, valid, lr_t, active_t):
+        self.begin_epoch(order, valid, lr_t, active_t)
+        return self.end_epoch()
 
     def validate(self):
         parts = [sh.validate() for sh in self.shards]
@@ -674,7 +723,13 @@ def _run_device_control(tr: _FoldTrainer, cfg: GATTrainConfig, verbose: bool,
                         chunk_epochs: int):
     """Scheduler, best state and early stop as float32 tensors on the
     device, the scheduler's exact logic vectorized over the folds; one host
-    read per chunk of epochs (have all folds stopped?) and one at the end."""
+    read per chunk of epochs (have all folds stopped?) and one at the end.
+    Both programs are captured before the first epoch. In a run
+    (``utils/profiling.py``) each epoch is the spans ``plan`` and
+    ``epoch``, with a timing event on each device after the chunk's first
+    ``plan`` and after each epoch, read after the chunk's
+    ``control_read``; the run counts the real folds' epochs run and
+    those they trained in (``fold_epochs_run``, ``fold_epochs_active``)."""
     F, dev = tr.n_folds, tr.dev
     thr, patience, factor = (cfg.plateau_threshold, cfg.patience,
                              cfg.plateau_factor)
@@ -687,41 +742,58 @@ def _run_device_control(tr: _FoldTrainer, cfg: GATTrainConfig, verbose: bool,
     bflat = tr.p.clone()
     parts = []
     done = 0
+    tr.prepare()
     while done < cfg.epochs:
         chunk = min(chunk_epochs, cfg.epochs - done)
-        for _ in range(chunk):
-            order, valid = tr.draw_epoch_plan()
-            tr_loss = tr.epoch(order, valid, lr, active)
-            vloss, _ = tr.validate()
-            act = active > 0
-            is_better = vloss < sbest * (1.0 - thr)
-            sbest2 = torch.where(is_better, vloss, sbest)
-            nbad2 = torch.where(is_better, torch.zeros_like(nbad), nbad + 1)
-            decay = nbad2 > patience
-            lr2 = torch.where(decay, lr * factor, lr)
-            nbad2 = torch.where(decay, torch.zeros_like(nbad), nbad2)
-            sbest = torch.where(act, sbest2, sbest)
-            nbad = torch.where(act, nbad2, nbad)
-            lr2 = torch.where(act, lr2, lr)
-            improved = act & (vloss < bval)
-            bval = torch.where(improved, vloss, bval)
-            bflat = torch.where(improved[:, None], tr.p, bflat)
-            # ``active`` at the epoch's START: exactly the epochs the host
-            # loop records for the fold
-            parts.append(torch.stack([tr_loss, vloss, lr2, active]))
-            active = torch.where(act & (lr2 < stop_lr),
-                                 torch.zeros_like(active), active)
-            lr = lr2
+        clock = profiling.epoch_clock(tr.devices)
+        for i in range(chunk):
+            with profiling.span("plan"):
+                order, valid = tr.draw_epoch_plan()
+                tr.begin_epoch(order, valid, lr, active)
+            if i == 0:
+                # after the chunk's first plan: the card waits on the host
+                # between the last control read and here
+                clock.mark()
+            with profiling.span("epoch"):
+                tr_loss = tr.end_epoch()
+                vloss, _ = tr.validate()
+                act = active > 0
+                is_better = vloss < sbest * (1.0 - thr)
+                sbest2 = torch.where(is_better, vloss, sbest)
+                nbad2 = torch.where(is_better, torch.zeros_like(nbad),
+                                    nbad + 1)
+                decay = nbad2 > patience
+                lr2 = torch.where(decay, lr * factor, lr)
+                nbad2 = torch.where(decay, torch.zeros_like(nbad), nbad2)
+                sbest = torch.where(act, sbest2, sbest)
+                nbad = torch.where(act, nbad2, nbad)
+                lr2 = torch.where(act, lr2, lr)
+                improved = act & (vloss < bval)
+                bval = torch.where(improved, vloss, bval)
+                bflat = torch.where(improved[:, None], tr.p, bflat)
+                # ``active`` at the epoch's START: exactly the epochs the
+                # host loop records for the fold
+                parts.append(torch.stack([tr_loss, vloss, lr2, active]))
+                active = torch.where(act & (lr2 < stop_lr),
+                                     torch.zeros_like(active), active)
+                lr = lr2
+            clock.mark()
         done += chunk
-        still_active = float(active.max())
+        with profiling.span("control_read"):
+            still_active = float(active.max())
+        clock.close()
         if verbose:
             print(f"epochs {done}: active={still_active > 0}")
         if still_active == 0.0:
             break
-    hist = torch.stack(parts).cpu().numpy() if parts \
-        else np.zeros((0, 4, F), np.float32)              # (E, 4, F)
-    bval_np, bflat_np = bval.cpu().numpy(), bflat.cpu().numpy()
-    final_np = tr.p.cpu().numpy()
+    with profiling.span("history_read"):
+        hist = torch.stack(parts).cpu().numpy() if parts \
+            else np.zeros((0, 4, F), np.float32)              # (E, 4, F)
+        bval_np, bflat_np = bval.cpu().numpy(), bflat.cpu().numpy()
+        final_np = tr.p.cpu().numpy()
+    real = tr.active0 > 0
+    profiling.count("fold_epochs_run", len(hist) * int(real.sum()))
+    profiling.count("fold_epochs_active", int((hist[:, 3, real] > 0).sum()))
     hists, best = [], []
     for j in range(F):
         on = hist[:, 3, j] > 0
@@ -737,7 +809,8 @@ def train_gat_folds_parallel(cfg: GATTrainConfig, lr_all, hr_all, folds,
                              seed: int = 42, verbose: bool = False,
                              host_control: bool = False,
                              control_chunk_epochs: int = 25, mesh=None,
-                             flat0=None, device=DEFAULT_DEVICE):
+                             flat0=None, device=DEFAULT_DEVICE,
+                             phases=None):
     """All CV folds trained together (see the module docstring), with the
     single-fold ``train_gat`` semantics per fold and per-fold seeds
     ``seed + j``. ``flat0`` (F, P) optionally gives the folds' initial
@@ -745,24 +818,30 @@ def train_gat_folds_parallel(cfg: GATTrainConfig, lr_all, hr_all, folds,
     per fold). ``mesh`` (``parallel/mesh.py``) shards the fold axis over
     its placements (``_ShardedTrainer``; on-device control only), in place
     of ``device``. Returns (model, best state_dict per fold as numpy
-    arrays, histories), for the real folds."""
-    if mesh is not None:
+    arrays, histories), for the real folds. ``phases``: two context
+    managers, entered around the trainer's construction and around the
+    training (a pipeline's phases)."""
+    if mesh is not None and host_control:
+        raise ValueError("mesh= requires on-device control "
+                         "(host_control=False)")
+    stage, train = phases or (contextlib.nullcontext(),) * 2
+    with stage:
+        if mesh is not None:
+            tr = _ShardedTrainer(cfg, lr_all, hr_all, folds, seed, mesh,
+                                 flat0=flat0, fused=cfg.fused_step)
+        else:
+            tr = _FoldTrainer(cfg, lr_all, hr_all, folds, seed, device,
+                              flat0=flat0, fused=cfg.fused_step)
+    with train:
         if host_control:
-            raise ValueError("mesh= requires on-device control "
-                             "(host_control=False)")
-        tr = _ShardedTrainer(cfg, lr_all, hr_all, folds, seed, mesh,
-                             flat0=flat0, fused=cfg.fused_step)
-    else:
-        tr = _FoldTrainer(cfg, lr_all, hr_all, folds, seed, device,
-                          flat0=flat0, fused=cfg.fused_step)
-    if host_control:
-        best, hists = _run_host_control(tr, cfg, verbose)
-    else:
-        best, hists = _run_device_control(tr, cfg, verbose,
-                                          max(1, int(control_chunk_epochs)))
-    tr.release_graphs()
-    n = len(folds)
-    return tr.model, tr.states(np.stack(best[:n])), hists[:n]
+            best, hists = _run_host_control(tr, cfg, verbose)
+        else:
+            best, hists = _run_device_control(
+                tr, cfg, verbose, max(1, int(control_chunk_epochs)))
+        tr.release_graphs()
+        n = len(folds)
+        states = tr.states(np.stack(best[:n]))
+    return tr.model, states, hists[:n]
 
 
 def train_gat(model: GATGraphUnet, opt_state, cfg: GATTrainConfig, lr_train,
