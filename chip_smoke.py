@@ -284,7 +284,8 @@ It builds the port's CUDA kernels from ``fcsr_tpu_torch/kernels/csrc``
    against the same trainer from Python (``_stay_eager``) bit for bit,
    with the launches counted through the replays, the graphs' nodes,
    warm-up, capture and instantiate seconds, the device ms a step (an
-   epoch graph's replay by CUDA events over its steps), s/epoch through
+   epoch graph's replay by CUDA events over its steps, the GAT step
+   graph's one replay), s/epoch through
    the graph and from Python in passes in turns and the peak device
    memory: (0) the unfused GAT step, the folds one vmapped call, at
    F = 1 and F = 3: nodes and device ms a step, the capture's seconds,
@@ -6953,8 +6954,8 @@ def parity_epoch_ms(dev, lr, hr, spectral):
 
 
 def step_graph_ms(dev, data, smi):
-    """Phase 15 (0): each trainer's epoch as one CUDA graph, its device ms
-    a step (``replay_ms``) and its nodes a step: the unfused GAT epoch
+    """Phase 15 (0): each trainer's graph, its device ms a step
+    (``replay_ms``) and its nodes a step: the unfused GAT step's graph
     (drop_p 0.01, 3 folds), the MLP v2 and v1 epochs (3 folds, batches
     32, 32, 32, 16) and the parity epoch (the first fold, ``OptaxAdam``).
     Returns {trainer: ms a step}."""
@@ -6965,9 +6966,8 @@ def step_graph_ms(dev, data, smi):
     tr = _FoldTrainer(GATTrainConfig(), lr_all, hr_all, folds, 42, dev)
     tr.epoch(*tr.draw_epoch_plan(), torch.full((3,), 1e-3, device=dev),
              torch.ones(3, device=dev))
-    g = trainer_graph(tr)
-    out["GAT unfused"] = (replay_ms(g, tr.tr_len),
-                          getattr(g, "nodes", 0) / tr.tr_len)
+    g = trainer_graph(tr, "step")
+    out["GAT unfused"] = (replay_ms(g, 1), getattr(g, "nodes", 0))
     tr.release_graphs()
     for variant in ("v2", "v1"):
         tr = _mlp_setup(variant, data, 3, dev)
@@ -6984,7 +6984,7 @@ def step_graph_ms(dev, data, smi):
         torch.cuda.empty_cache()
     out["parity"] = parity_epoch_ms(dev, *_parity_setup(data))
     for k, (ms, nodes) in out.items():
-        print(f"  {k} epoch as one graph: {ms:.3f} ms a step on the device, "
+        print(f"  {k} graph: {ms:.3f} ms a step on the device, "
               f"{nodes:.0f} nodes a step [{smi}]", flush=True)
     return {k: ms for k, (ms, _) in out.items()}
 
@@ -7050,9 +7050,9 @@ def check_gat_unfused_graphs(dev, data, smi):
                        lambda: _run_device_control(trainers["eager"], one,
                                                    False, 25), 1, smi,
                        eager_passes=1)
-    ms = replay_ms(trainer_graph(tr), tr.tr_len)
+    ms = replay_ms(trainer_graph(tr, "step"), 1)
     val_ms = replay_ms(trainer_graph(tr, "validation"), 1)
-    print(f"  GAT unfused: {ms:.3f} ms a step on the device (the epoch "
+    print(f"  GAT unfused: {ms:.3f} ms a step on the device (the step "
           f"graph's replay), {val_ms:.3f} ms a validation pass [{smi}]",
           flush=True)
     tr.release_graphs()
@@ -7149,7 +7149,7 @@ def check_mlp_graphs(dev, data, smi):
 def gat_unfused_fold_counts(dev, data, smi):
     """Phase 15 (0): the unfused GAT step, the folds one vmapped call, at
     F = 1 and F = 3 (the shipped config, drop_p 0.01, the first F folds):
-    its epoch graph's nodes and device ms a step, the graph's warm-up /
+    its step graph's nodes and device ms a step, the graph's warm-up /
     capture / instantiate seconds, and s/epoch through the graph and
     eager in passes. F = 3's nodes a step must stay within 10% of F = 1's:
     the fold axis runs inside each launch, not beside it. Returns the
@@ -7172,13 +7172,12 @@ def gat_unfused_fold_counts(dev, data, smi):
         run(pair[0])                                 # warm-up and capture
         torch.cuda.synchronize()
         _add(counts, _nonzero(launch_counts()))
-        g = trainer_graph(pair[0])
-        steps = pair[0].tr_len
-        nodes[n] = g.nodes / steps
-        ms = replay_ms(g, steps)
+        g = trainer_graph(pair[0], "step")
+        nodes[n] = g.nodes
+        ms = replay_ms(g, 1)
         print(f"  GAT unfused, F = {n}: {nodes[n]:.0f} nodes a step, "
-              f"{ms:.3f} ms a step on the device (the epoch graph's "
-              f"replay, {steps} steps), {graphs_note([g])} [{smi}]",
+              f"{ms:.3f} ms a step on the device (the step graph's "
+              f"replay), {graphs_note([g])} [{smi}]",
               flush=True)
         graph_eager_passes(f"GAT unfused, F = {n} (1 epoch a pass)",
                            lambda: run(pair[0]), lambda: run(pair[1]), 1,

@@ -25,21 +25,26 @@ With ``drop_p > 0`` the card's generator is not the JAX package's, so
 trajectories are stochastically equivalent only; at ``drop_p = 0`` every
 mode agrees with its JAX counterpart (tested).
 
-An epoch is one program per shard, fused step or not, as the JAX
-trainer's ``run_chunk`` is one compiled scan of either step (``fcsr_tpu/
-train/gat_loop.py:408-447``, ``:499-541``): the step scalars from the
-step counts, then the epoch's steps over static buffers (p, m, v, t, the
-(L, F) order and validity, each fold's lr and active flag, the (L, F, 2)
-seed table of the fused step), the subjects gathered on the device from
-the order; the validation forwards (fused or the module's, as
-``val_all``, ``:450-491``) are a second program. On the card each is
-captured once per trainer as a CUDA graph (``train/epoch_graph.py``) and
-replayed once an epoch, each shard's issued before any is waited on; the
-unfused step's dropout draws from the shard's ``torch.Generator``, which
-each graph registers, so a replay draws what the eager epoch draws and
-leaves the generator where it leaves it. On the CPU the same programs run
-step by step. The host still draws each epoch's order and seeds from the
-same generators in the same sequence and copies them into the buffers.
+An epoch runs over static buffers (p, m, v, t, the (L, F) order and
+validity, each fold's lr and active flag, the (L, F, 2) seed table of the
+fused step), fused step or not, as the JAX trainer's ``run_chunk`` is one
+compiled scan of either step (``fcsr_tpu/train/gat_loop.py:408-447``,
+``:499-541``), in three programs: the head (the step scalars of all L
+steps from the step counts, the step slot set to 0), the step (one
+fold-batched step: its subjects, scalars and seeds read from row ``slot``
+on the device, its loss into row ``slot``, p, m, v written back, the slot
+advanced), run L times, and the tail (the step counts and each fold's
+mean loss). The validation forwards (fused or the module's, as
+``val_all``, ``:450-491``) are a fourth program. On the card the step
+and the validation are each captured once per trainer as a CUDA graph
+(``train/epoch_graph.py``), the step replayed L times an epoch between
+the head and the tail, each shard's epoch issued before any is waited on;
+the unfused step's dropout draws from the shard's ``torch.Generator``,
+which each graph registers, so replay k draws what step k of the eager
+epoch draws and leaves the generator where it leaves it. On the CPU the
+same programs run from Python. The host still draws each epoch's order
+and seeds from the same generators in the same sequence and copies them
+into the buffers.
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ __all__ = ["GATTrainConfig", "init_gat", "precompute_gat_features",
            "unet_loss"]
 
 STOP_LR = 1e-5   # a fold stops once its learning rate has decayed below
-_WARM_STEPS = 2  # steps the warm-up before an epoch's capture runs
+_WARM_STEPS = 2  # steps the warm-up before the step's capture runs
 _PREDICT_BATCH = 64     # subjects per forward of predict_gat (bounds the
                         # (batch, n, n, heads) attention tensors)
 
@@ -254,9 +259,10 @@ def _state_to_device(variables, dev):
 
 
 class _FoldTrainer:
-    """State and the two device programs (one epoch of steps, one
+    """State and the device programs (an epoch's head, step and tail, one
     validation pass) of the fold-parallel trainer, over static buffers
-    (``bufs``), each one CUDA graph on the card. Under a mesh it
+    (``bufs``), the step and the validation each one CUDA graph on the
+    card. Under a mesh it
     holds one placement's block of folds: ``fold_lo`` is its first fold's
     index (fold j's host generator is seeded ``seed + j``) and ``tr_len``
     the whole run's steps per epoch."""
@@ -304,7 +310,10 @@ class _FoldTrainer:
         # the programs' static buffers (a graph reads and writes fixed
         # addresses): the state (p, m, v, step counts t), an epoch's inputs
         # (the (L, F) order and validity, each fold's lr and active flag,
-        # the (L, F, 2) seed table) and the outputs
+        # the (L, F, 2) seed table), what the head hands the steps and the
+        # tail (each step's ok and scalars, the step counts after the
+        # epoch, the step slot) and the outputs (each step's losses, each
+        # fold's mean loss, the validation's)
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(*shape, dtype=dtype, device=dev)
         p = torch.from_numpy(flat0).to(dev)
@@ -314,7 +323,10 @@ class _FoldTrainer:
             lr=zeros(F), active=zeros(F),
             seeds=zeros(L, F, 2, dtype=torch.int32)
             if fused and cfg.drop_p > 0 else None,
-            loss=zeros(F), vloss=zeros(F), vmae=zeros(F))
+            ok=zeros(L, F), scal=zeros(L, F, 4 if fused else 3),
+            t_end=zeros(F), slot=zeros(1, dtype=torch.int64),
+            losses=zeros(L, F), loss=zeros(F), vloss=zeros(F),
+            vmae=zeros(F))
         self._graphs = {}
         self._eager = False
 
@@ -410,12 +422,11 @@ class _FoldTrainer:
                 device=self.dev, **cfg.kernel_kwargs)
         return self._unfused_step(p, m, v, i, scal)
 
-    def _epoch_program(self, b: dict, n_steps: int = None) -> None:
-        """The epoch program over the buffers ``b`` (``bufs``' keys): the
-        step scalars from the step counts, validity, lr and active flags,
-        ``n_steps`` (default ``tr_len``) fold-batched steps in the order
-        ``b["order"]``, p, m, v and t advanced in place, each fold's mean
-        training loss into ``b["loss"]``."""
+    def _head(self, b: dict) -> None:
+        """The epoch's head over the buffers ``b`` (``bufs``' keys): each
+        step's ok and scalars from the step counts, validity, lr and
+        active flags, the step counts after the epoch, the slot set to the
+        first step."""
         ok = b["valid"] * b["active"]                            # (L, F)
         t_new = b["t"] + torch.cumsum(ok, dim=0)
         te = t_new.clamp(min=1.0)
@@ -423,71 +434,109 @@ class _FoldTrainer:
         if self.fused:
             # [ok, lr, 1 - b1^t, 1 - b2^t] per step and fold
             scal = torch.stack([ok, lr, 1.0 - ADAM_B1 ** te,
-                                1.0 - ADAM_B2 ** te], dim=-1).contiguous()
+                                1.0 - ADAM_B2 ** te], dim=-1)
         else:
             scal = torch.stack([ok, lr, te], dim=-1)
-        seeds = b["seeds"]
-        p, m, v = b["p"], b["m"], b["v"]
-        losses = []
-        for s in range(self.tr_len if n_steps is None else n_steps):
-            loss, p, m, v = self.epoch_step(
-                p, m, v, b["order"][s], scal[s],
-                None if seeds is None else seeds[s])
-            losses.append(loss)
-        for name, x in (("p", p), ("m", m), ("v", v), ("t", t_new[-1])):
+        for name, x in (("ok", ok), ("scal", scal), ("t_end", t_new[-1])):
             b[name].copy_(x)
+        b["slot"].zero_()
+
+    def _step_program(self, b: dict) -> None:
+        """One fold-batched step of the epoch, the one in row ``b["slot"]``
+        (read on the device): its subjects, scalars and seeds from that
+        row, its loss into that row of ``b["losses"]``, p, m and v advanced
+        in place, the slot advanced (modulo the steps: a replay past the
+        epoch's end reads its first row again, never outside the table)."""
+        k, seeds = b["slot"], b["seeds"]
+        loss, p, m, v = self.epoch_step(
+            b["p"], b["m"], b["v"], b["order"].index_select(0, k)[0],
+            b["scal"].index_select(0, k)[0],
+            None if seeds is None else seeds.index_select(0, k)[0])
+        b["losses"].index_copy_(0, k, loss[None])
+        for name, x in (("p", p), ("m", m), ("v", v)):
+            b[name].copy_(x)
+        k.add_(1).remainder_(self.tr_len)
+
+    def _tail(self, b: dict) -> None:
+        """The epoch's tail: the step counts advanced, each fold's mean
+        training loss into ``b["loss"]``."""
+        b["t"].copy_(b["t_end"])
+        ok = b["ok"]
         # each fold's steps summed along a contiguous row: the sum does not
         # depend on how many folds lie beside it
-        ok = ok[:len(losses)]
-        total = (torch.stack(losses) * ok).T.contiguous().sum(1)
+        total = (b["losses"] * ok).T.contiguous().sum(1)
         torch.div(total, ok.sum(0).clamp(min=1.0), out=b["loss"])
+
+    def _epoch_program(self, b: dict, n_steps: int = None) -> None:
+        """The epoch from Python over the buffers ``b``: the head,
+        ``n_steps`` (default ``tr_len``) steps, the tail."""
+        self._head(b)
+        for _ in range(self.tr_len if n_steps is None else n_steps):
+            self._step_program(b)
+        self._tail(b)
 
     def _val_program(self, b: dict) -> None:
         vloss, vmae = self._validate(b["p"])
         b["vloss"].copy_(vloss)
         b["vmae"].copy_(vmae)
 
-    def _graph(self, name: str, program, **warm) -> EpochGraph:
-        """The graph of ``program(bufs)``, captured at first use after a
-        warm-up on scratch copies of the buffers (the dropout generator
-        set back after it)."""
+    def _graph(self, name: str, what: str, program, warm) -> EpochGraph:
+        """The graph of ``program(bufs)`` (``what`` names it in errors),
+        captured at first use after ``warm`` on scratch copies of the
+        buffers (the dropout generator set back after it)."""
         graph = self._graphs.get(name)
         if graph is None:
             scratch = {k: None if x is None else x.clone()
                        for k, x in self.bufs.items()}
             graph = self._graphs[name] = EpochGraph(
-                f"the {'fused' if self.fused else 'unfused'} GAT {name} "
+                f"the {'fused' if self.fused else 'unfused'} GAT {what} "
                 f"(folds {self.fold_lo}-{self.fold_lo + self.n_folds - 1})",
                 self.dev, lambda: program(self.bufs),
-                lambda: program(scratch, **warm), generators=(self.gen,))
+                lambda: warm(scratch), generators=(self.gen,))
         return graph
 
-    def _run(self, name: str, program, **warm) -> None:
-        """``program(bufs)``: on the card the replay of its graph, on the
-        CPU the program itself."""
-        if self._eager or self.dev.type != "cuda":
-            program(self.bufs)
-            return
-        self._graph(name, program, **warm).replay()
+    def _step_graph(self) -> EpochGraph:
+        """The step's graph; its warm-up is the head, ``_WARM_STEPS``
+        steps and the tail."""
+        return self._graph(
+            "step", "epoch's step", self._step_program,
+            lambda b: self._epoch_program(b, min(_WARM_STEPS, self.tr_len)))
+
+    def _val_graph(self) -> EpochGraph:
+        return self._graph("validation", "validation", self._val_program,
+                           self._val_program)
+
+    def _on_card(self) -> bool:
+        """Whether the programs replay as graphs (not ``_stay_eager``)."""
+        return not self._eager and self.dev.type == "cuda"
 
     def prepare(self, plan: int = 0) -> None:
-        """Capture the epoch and the validation program before the first
+        """Capture the step and the validation program before the first
         epoch, where the card replays them (not ``_stay_eager``): the
-        epoch's launches planned for ``plan`` folds (``ops.plan_folds``;
+        step's launches planned for ``plan`` folds (``ops.plan_folds``;
         0: the trainer's own), as its replays run."""
-        if self._eager or self.dev.type != "cuda":
+        if not self._on_card():
             return
         with on_device(self.dev):
             with plan_folds(plan):
-                self._graph("epoch", self._epoch_program,
-                            n_steps=min(_WARM_STEPS, self.tr_len))
+                self._step_graph()
             with torch.no_grad():
-                self._graph("validation", self._val_program)
+                self._val_graph()
 
     def run_epoch(self) -> None:
-        """One epoch over the loaded inputs (``load_epoch``)."""
-        self._run("epoch", self._epoch_program,
-                  n_steps=min(_WARM_STEPS, self.tr_len))
+        """One epoch over the loaded inputs (``load_epoch``): on the card
+        the head, ``tr_len`` replays of the step's graph (counted in the
+        run as ``gat_step_replays``) and the tail; on the CPU the same
+        programs from Python."""
+        if not self._on_card():
+            self._epoch_program(self.bufs)
+            return
+        step = self._step_graph()
+        self._head(self.bufs)
+        for _ in range(self.tr_len):
+            step.replay()
+        self._tail(self.bufs)
+        profiling.count("gat_step_replays", self.tr_len)
 
     def begin_epoch(self, order, valid, lr_t, active_t, seeds=None):
         """Load one epoch's inputs (``load_epoch``; ``seeds`` default:
@@ -517,7 +566,10 @@ class _FoldTrainer:
         tensors on the device: one batch of subjects per fold, the fused
         forwards or the module's."""
         with on_device(self.dev):
-            self._run("validation", self._val_program)
+            if self._on_card():
+                self._val_graph().replay()
+            else:
+                self._val_program(self.bufs)
             return self.bufs["vloss"].clone(), self.bufs["vmae"].clone()
 
     def _validate(self, p):

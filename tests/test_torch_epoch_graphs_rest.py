@@ -1,13 +1,16 @@
 """The last three trainers' epoch programs over static buffers, at the tiny
-size (20 -> 32 nodes): the unfused GAT trainer (``train/gat_loop.py``,
-2 levels), the MLP trainer (``train/generic_loop.py``, narrow widths) and
-the GSR parity trainer (``train/gsr_loop.py::make_train_fn``).
+size (20 -> 32 nodes): the GAT trainer (``train/gat_loop.py``, 2 levels,
+its epoch a head, one step program run once a step with its row read on
+the device, and a tail), the MLP trainer (``train/generic_loop.py``,
+narrow widths) and the GSR parity trainer
+(``train/gsr_loop.py::make_train_fn``).
 
 On the CPU each program runs step by step, the path every CPU test takes:
 here each is held bit for bit to the loop it replaced, written out below
-(the per-step GAT epoch, the MLP epoch that uploaded its order and called
-``step`` from Python, the parity trainer's nested loop), under both
-controls, on 2 CPU shards, chunked and run twice. The warm-ups before a
+(the GAT epoch with each step's row indexed from the host, the MLP epoch
+that uploaded its order and called ``step`` from Python, the parity
+trainer's nested loop), under both controls, on 2 CPU shards, chunked and
+run twice. The warm-ups before a
 capture (the MLP's masked epoch, the parity trainer's steps set back)
 leave the state and the generator as they were, and the card path's
 check refuses a non-capturable optimizer; neither needs a card. On the
@@ -49,18 +52,27 @@ def _data(n, seed):
 # ---------------------------------------------------------------------------
 
 def _gat_per_step_run_epoch(self):
-    """The unfused GAT epoch as the trainer ran it from Python: the step
-    scalars, each autograd step threaded through p, m, v, then the folds'
-    mean losses, read from and written to the loaded buffers."""
+    """The GAT epoch as the trainer ran it from Python before its step was
+    a program of its own: the step scalars, each step (fused or autograd)
+    threaded through p, m, v with its subjects, scalars and seeds indexed
+    from the host, then the folds' mean losses, read from and written to
+    the loaded buffers."""
     b = self.bufs
     ok = b["valid"] * b["active"]
     t_new = b["t"] + torch.cumsum(ok, dim=0)
-    scal = torch.stack([ok, b["lr"].expand_as(ok), t_new.clamp(min=1.0)],
-                       dim=-1)
+    te = t_new.clamp(min=1.0)
+    lr = b["lr"].expand_as(ok)
+    if self.fused:
+        scal = torch.stack([ok, lr, 1.0 - 0.9 ** te, 1.0 - 0.999 ** te],
+                           dim=-1).contiguous()
+    else:
+        scal = torch.stack([ok, lr, te], dim=-1)
+    seeds = b["seeds"]
     p, m, v = b["p"], b["m"], b["v"]
     losses = []
     for s in range(self.tr_len):
-        loss, p, m, v = self._unfused_step(p, m, v, b["order"][s], scal[s])
+        loss, p, m, v = self.epoch_step(p, m, v, b["order"][s], scal[s],
+                                        None if seeds is None else seeds[s])
         losses.append(loss)
     for name, x in (("p", p), ("m", m), ("v", v), ("t", t_new[-1])):
         b[name].copy_(x)
@@ -73,9 +85,10 @@ def _gat_python_validate(self):
     return self._validate(self.p)
 
 
-def _gat_runs(drop_p, device="cpu", **kw):
+def _gat_runs(drop_p, device="cpu", fused=False, **kw):
     lr, hr = _data(10, 3)
-    cfg = gat_loop.GATTrainConfig(epochs=2, drop_p=drop_p, **GAT_TINY)
+    cfg = gat_loop.GATTrainConfig(epochs=2, drop_p=drop_p, fused_step=fused,
+                                  **GAT_TINY)
     return gat_loop.train_gat_folds_parallel(
         cfg, lr, hr, kfold_indices(10, 3, seed=42), seed=42, device=device,
         **kw)
@@ -90,22 +103,56 @@ def _same_gat(a, b):
 
 
 @pytest.mark.parametrize("control", ["device", "host", "2 shards"])
-@pytest.mark.parametrize("drop_p", [0.0, 0.01])
+@pytest.mark.parametrize("drop_p,fused", [
+    pytest.param(0.0, False, id="0.0"), pytest.param(0.01, False, id="0.01"),
+    pytest.param(0.0, True, id="0.0-fused"),
+    pytest.param(0.01, True, id="0.01-fused")])
 def test_gat_unfused_programs_equal_the_python_loop(monkeypatch, drop_p,
-                                                    control):
+                                                    fused, control):
     """``train_gat_folds_parallel`` with the unfused step (the shipped
-    default), 2 epochs, through its epoch and validation programs against
-    the same run with each epoch and validation pass from Python, under
-    device control, host control and on 2 CPU shards (3 folds padded to
-    4): best states and histories bit for bit."""
+    default) or the fused one, 2 epochs, through its programs (the head,
+    the step with its slot read on the device, the tail, the validation)
+    against the same run with each epoch stepped from Python and each
+    validation pass from Python, under device control, host control and
+    on 2 CPU shards (3 folds padded to 4; ragged folds, so masked padding
+    steps): best states and histories bit for bit."""
     kw = {"device": {}, "host": dict(host_control=True),
           "2 shards": dict(mesh=virtual_batch_mesh(2, "cpu"))}[control]
-    got = _gat_runs(drop_p, **kw)
+    got = _gat_runs(drop_p, fused=fused, **kw)
     monkeypatch.setattr(gat_loop._FoldTrainer, "run_epoch",
                         _gat_per_step_run_epoch)
     monkeypatch.setattr(gat_loop._FoldTrainer, "validate",
                         _gat_python_validate)
-    _same_gat(got, _gat_runs(drop_p, **kw))
+    _same_gat(got, _gat_runs(drop_p, fused=fused, **kw))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_gat_epochs_back_to_back_reset_the_slot(fused):
+    """Two epochs of one trainer back to back (a lower lr and fold 2
+    stopped in the second), the slot left off the first row between them:
+    each epoch equal to the Python loop from the same state, order and
+    seeds, and the slot back at the first row after each."""
+    lr, hr = _data(10, 3)
+    cfg = gat_loop.GATTrainConfig(epochs=2, drop_p=0.01, fused_step=fused,
+                                  **GAT_TINY)
+    folds = kfold_indices(10, 3, seed=42)
+    got, want = (gat_loop._FoldTrainer(cfg, lr, hr, folds, 42, "cpu",
+                                       fused=fused) for _ in range(2))
+    for lr_e, active in ((1e-3, [1.0, 1.0, 1.0]), (1e-4, [1.0, 1.0, 0.0])):
+        order, valid = got.draw_epoch_plan()
+        want.draw_epoch_plan()
+        seeds = got.draw_seeds()
+        args = (torch.full((3,), lr_e), torch.tensor(active))
+        loss = got.epoch(order, valid, *args, seeds)
+        want.load_epoch(order, valid, *args, seeds)
+        _gat_per_step_run_epoch(want)
+        assert torch.equal(loss, want.bufs["loss"])
+        for k in ("p", "m", "v", "t"):
+            assert torch.equal(got.bufs[k], want.bufs[k]), k
+        assert int(got.bufs["slot"]) == 0
+        got.bufs["slot"].fill_(3)
+        if not fused:
+            assert torch.equal(got.gen.get_state(), want.gen.get_state())
 
 
 def test_gat_unfused_chunked_and_repeated_equal_a_fresh_run():
@@ -399,34 +446,84 @@ def _need_card():
 
 
 @pytest.mark.cuda
-def test_gat_unfused_graph_equals_eager_on_card():
-    """The unfused GAT trainer at drop_p 0.01 through its epoch and
-    validation graphs against the same trainer from Python, 2 epochs from
-    the same state: losses, parameters, dropout draws (the generator's
-    state after each epoch) bit for bit."""
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_gat_unfused_graph_equals_eager_on_card(fused):
+    """The GAT trainer (the unfused step, or the fused one) at drop_p 0.01
+    through its step and validation graphs against the same trainer from
+    Python, 3 epochs from the same state: losses, parameters and dropout
+    draws (the generator's state after each epoch) bit for bit; the step
+    graph replayed once a step of each epoch (``gat_step_replays``), and
+    its nodes one step's launches and at most 16 more (the slot's reads
+    and advance, the loss row, the copies back), whatever ``tr_len``."""
     _need_card()
+    from fcsr_tpu_torch.train.epoch_graph import EpochGraph
+    from fcsr_tpu_torch.utils import profiling
+
     lr, hr = _data(10, 3)
-    cfg = gat_loop.GATTrainConfig(epochs=2, drop_p=0.01, **GAT_TINY)
+    cfg = gat_loop.GATTrainConfig(epochs=3, drop_p=0.01, fused_step=fused,
+                                  **GAT_TINY)
+    folds = kfold_indices(10, 3, seed=42)
     runs = []
     for eager in (False, True):
-        tr = gat_loop._FoldTrainer(cfg, lr, hr, kfold_indices(10, 3, seed=42),
-                                   42, "cuda")
+        tr = gat_loop._FoldTrainer(cfg, lr, hr, folds, 42, "cuda",
+                                   fused=fused)
         if eager:
             tr._stay_eager()
         lr_t = torch.full((3,), 1e-3, device="cuda")
         active = torch.ones(3, device="cuda")
         out, gens = [], []
-        for _ in range(2):
-            out.append(tr.epoch(*tr.draw_epoch_plan(), lr_t, active))
-            out.extend(tr.validate())
-            gens.append(tr.gen.get_state())
+        with profiling.cv_run("test_gat_step_graph"):
+            for _ in range(3):
+                out.append(tr.epoch(*tr.draw_epoch_plan(), lr_t, active))
+                out.extend(tr.validate())
+                out.append(tr.p.clone())
+                gens.append(tr.gen.get_state())
+        counters = profiling.recent_runs()[-1]["counters"]
+        assert counters.get("gat_step_replays", 0) == \
+            (0 if eager else 3 * tr.tr_len)
         assert bool(tr._graphs) != eager
-        runs.append(([x.cpu() for x in out] + [tr.p.cpu()], gens))
+        runs.append(([x.cpu() for x in out], gens))
+        if not eager:
+            step_nodes = tr._graphs["step"].nodes
         tr.release_graphs()
     for a, b in zip(runs[0][0], runs[1][0]):
         assert torch.equal(a, b)
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+    # one step alone (the step entry point on fixed operands) as a graph
+    tr = gat_loop._FoldTrainer(cfg, lr, hr, folds, 42, "cuda", fused=fused)
+    args = (tr.p.clone(), tr.m.clone(), tr.v.clone(),
+            torch.tensor([0, 1, 2], device="cuda"),
+            torch.tensor([[1.0, 1e-3, 0.1, 0.001] if fused else
+                          [1.0, 1e-3, 1.0]] * 3, device="cuda"),
+            None if tr.bufs["seeds"] is None else tr.bufs["seeds"][0].clone())
+    bare = EpochGraph("one GAT step", "cuda", lambda: tr.epoch_step(*args),
+                      lambda: tr.epoch_step(*args), generators=(tr.gen,))
+    assert bare.nodes <= step_nodes <= bare.nodes + 16, \
+        (bare.nodes, step_nodes, tr.tr_len)
+    bare.release()
+
+
+@pytest.mark.cuda
+def test_gat_run_records_its_graphs_capture_seconds_on_card(monkeypatch):
+    """A GAT run makes its graphs through ``gat_loop.EpochGraph`` (the
+    name a benchmark's recorder stands in for, as
+    ``h100_bench/harness.py::_GraphSpy`` does): a recording subclass sees
+    the step's and the validation's graphs, each with capture seconds
+    above 0."""
+    _need_card()
+    made = []
+
+    class Recorded(gat_loop.EpochGraph):
+        def __init__(self, what, *args, **kwargs):
+            super().__init__(what, *args, **kwargs)
+            made.append((what, self.warm_s, self.capture_s,
+                         self.instantiate_s))
+    monkeypatch.setattr(gat_loop, "EpochGraph", Recorded)
+    _gat_runs(0.01, device="cuda")
+    assert sorted(w.split(" (")[0] for w, *_ in made) == [
+        "the unfused GAT epoch's step", "the unfused GAT validation"]
+    assert all(cap > 0 for _, _, cap, _ in made)
 
 
 @pytest.mark.cuda

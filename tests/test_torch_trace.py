@@ -299,8 +299,9 @@ def test_epoch_events_and_capture_counters_on_card(data, monkeypatch):
 @pytest.mark.cuda
 def test_gat_times_each_epoch_it_runs_on_card(data):
     """Two control chunks of GAT: one device time an epoch run (the
-    chunk's first mark after its first plan), and the fold-epochs run are
-    the epochs times the folds."""
+    chunk's first mark after its first plan), the fold-epochs run are the
+    epochs times the folds, and the step graph's replays the epochs times
+    the steps."""
     _need_card()
     cfg = dataclasses.replace(GAT_CFG, epochs=4)
     with profiling.cv_run("test_gat_chunks"):
@@ -311,6 +312,8 @@ def test_gat_times_each_epoch_it_runs_on_card(data):
     rec = profiling.recent_runs()[-1]
     assert len(rec["epoch_s"]) == 4 and min(rec["epoch_s"]) > 0
     assert rec["counters"]["fold_epochs_run"] == 4 * 2
+    # the step graph replayed once a step: 4 epochs of 4 steps
+    assert rec["counters"]["gat_step_replays"] == 4 * 4
     assert sum(s["name"] == "control_read" for s in rec["spans"]) == 2
 
 
