@@ -350,63 +350,73 @@ def run_mlp_cv(data: Dict[str, np.ndarray], k_folds: int = 3,
     Returns ``model`` (the prediction model's configuration, on the meta
     device: its weights are ``variables``, for ``model.predict``),
     ``variables`` (the last fold's best state_dict, tensors on
-    ``device``), ``fold_metrics`` (each fold's metric dict with
-    ``full_metrics``), ``fold_maes``, ``mean_mae``, ``histories`` (each
-    fold's train / val / lr lists), ``test_preds`` (a tensor on
-    ``device``, or None without ``lr_test``) and ``timings``."""
+    ``device``), ``variables_per_fold`` (every fold's), ``fold_metrics``
+    (each fold's metric dict with ``full_metrics``), ``fold_maes``,
+    ``mean_mae``, ``histories`` (each fold's train / val / lr lists),
+    ``test_preds`` (a tensor on ``device``, or None without ``lr_test``)
+    and ``timings`` (the fast entries' phases and ``capture``, with the
+    fold evaluation also as ``eval`` and the test predictions as
+    ``predict``)."""
     _check_eval_backend(eval_backend, full_metrics)
-    with profiling.cv_run("run_mlp_cv") as timer:
-        dev = resolve_device(device)
-        lr_all = np.asarray(data["lr_train"], dtype=np.float32)
-        hr_all = np.asarray(data["hr_train"], dtype=np.float32)
-        n_in, n_out = lr_all.shape[-1], hr_all.shape[-1]
-        folds = contiguous_window_folds(len(lr_all), k_folds, p_val,
-                                        seed=seed)
-        if variant == "v1":
-            model = SuperResMLP(n_in * n_in, n_out * n_out, hidden or 10000,
-                                max(1, n_layers), device="meta")
-            model_train = model
-            x_all, y_all = lr_all, hr_all
-            criterion = mse_criterion
-        elif variant == "v2":
-            hidden = hidden or (n_in + n_out) // 2
-            model = SpectralResMLP(n_in, n_out, hidden, n_layers,
-                                   device="meta")
-            model_train = SpectralResMLP(n_in, n_out, hidden, n_layers,
-                                         output="vector", device="meta")
-            r_in, c_in = triu_indices_rowmajor(n_in)
-            x_all = lr_all[:, r_in, c_in]                # (N, L_in)
-            y_all = pack_triu_targets(hr_all)            # (N, L_out + n)
-            criterion = make_triu_mse_criterion(n_out)
-        else:
-            raise ValueError(f"unknown MLP variant: {variant!r}")
-        seeds = [seed + j for j in range(len(folds))]
-        with profiling.span("stage"):
+    dev = resolve_device(device)
+    with profiling.cv_run("run_mlp_cv", _run_device(dev)) as timer:
+        with profiling.phase("stage"):
+            lr_all = np.asarray(data["lr_train"], dtype=np.float32)
+            hr_all = np.asarray(data["hr_train"], dtype=np.float32)
+            n_in, n_out = lr_all.shape[-1], hr_all.shape[-1]
+            folds = contiguous_window_folds(len(lr_all), k_folds, p_val,
+                                            seed=seed)
+            if variant == "v1":
+                model = SuperResMLP(n_in * n_in, n_out * n_out,
+                                    hidden or 10000, max(1, n_layers),
+                                    device="meta")
+                model_train = model
+                x_all, y_all = lr_all, hr_all
+                criterion = mse_criterion
+            elif variant == "v2":
+                hidden = hidden or (n_in + n_out) // 2
+                model = SpectralResMLP(n_in, n_out, hidden, n_layers,
+                                       device="meta")
+                model_train = SpectralResMLP(n_in, n_out, hidden, n_layers,
+                                             output="vector", device="meta")
+                r_in, c_in = triu_indices_rowmajor(n_in)
+                x_all = lr_all[:, r_in, c_in]                # (N, L_in)
+                y_all = pack_triu_targets(hr_all)            # (N, L_out + n)
+                criterion = make_triu_mse_criterion(n_out)
+            else:
+                raise ValueError(f"unknown MLP variant: {variant!r}")
+            seeds = [seed + j for j in range(len(folds))]
             if flat0 is None:
                 p0, s0 = model.init_flat(seeds, dev)
             else:
                 p0, s0 = (torch.from_numpy(np.ascontiguousarray(
                     a, np.float32)).to(dev) for a in flat0)
+            sizes = {(len(tr), len(va)) for tr, va in folds}
+            together = fold_parallel and not verbose and len(sizes) == 1 \
+                and len(folds) > 1
+            if together:
+                tr_idx = np.stack([tr for tr, _ in folds])
+                va_idx = np.stack([va for _, va in folds])
+                stacks = (x_all[tr_idx], y_all[tr_idx], x_all[va_idx],
+                          y_all[va_idx])
         kw = dict(num_epochs=num_epochs, lr=lr, batch_size=batch_size,
                   criterion=criterion, device=dev)
 
-        with profiling.span("train"):
-            sizes = {(len(tr), len(va)) for tr, va in folds}
-            if fold_parallel and not verbose and len(sizes) == 1 \
-                    and len(folds) > 1:
-                tr_idx = np.stack([tr for tr, _ in folds])
-                va_idx = np.stack([va for _, va in folds])
-                results = train_model_folds(
-                    model_train, (p0, s0), x_all[tr_idx], y_all[tr_idx],
-                    x_all[va_idx], y_all[va_idx], seeds=seeds, **kw)
-            else:
+        if together:
+            # the stacks' upload and the trainer's buffers are staging
+            results = train_model_folds(model_train, (p0, s0), *stacks,
+                                        seeds=seeds,
+                                        phases=_stage_and_train(), **kw)
+            del stacks
+        else:
+            with profiling.phase("train"):
                 results = [train_model(model_train, (p0[j], s0[j]),
                                        x_all[tr], y_all[tr], x_all[va],
                                        y_all[va], seed=seeds[j],
                                        verbose=verbose, **kw)
                            for j, (tr, va) in enumerate(folds)]
-            del p0, s0
-        with profiling.span("fold_eval"):
+        del p0, s0
+        with profiling.phase("fold_eval"):
             maes, fold_outs = [], []
             for (tr, va), (*_, best) in zip(folds, results):
                 x_va, y_va = (torch.from_numpy(np.ascontiguousarray(
@@ -419,7 +429,7 @@ def run_mlp_cv(data: Dict[str, np.ndarray], k_folds: int = 3,
             fold_maes = [float(m) for m in torch.stack(maes).cpu().numpy()]
             fold_metrics = (_fold_metrics(fold_outs, eval_backend, verbose,
                                           dev) if full_metrics else [])
-        with profiling.span("test_predict"):
+        with profiling.phase("test_predict"):
             best = results[-1][3]
             test_preds = None
             if data.get("lr_test") is not None:
@@ -428,13 +438,14 @@ def run_mlp_cv(data: Dict[str, np.ndarray], k_folds: int = 3,
                     else lr_test[:, r_in, c_in]
                 test_preds = model.predict(best, torch.from_numpy(
                     np.ascontiguousarray(x_test)).to(dev))
-    rep = timer.report()
-    return {"model": model, "variables": best, "fold_metrics": fold_metrics,
+    timings = _phase_timings(timer, "eval")
+    timings["predict"] = timings["test_predict"]
+    return {"model": model, "variables": best,
+            "variables_per_fold": [r[3] for r in results],
+            "fold_metrics": fold_metrics,
             "fold_maes": fold_maes, "mean_mae": float(np.mean(fold_maes)),
             "histories": [tuple(r[:3]) for r in results],
-            "test_preds": test_preds,
-            "timings": {"train": rep["train"], "eval": rep["fold_eval"],
-                        "predict": rep["test_predict"]}}
+            "test_preds": test_preds, "timings": timings}
 
 
 def run_gat_cv(data: Dict[str, np.ndarray], splits: int = 3, seed: int = 42,

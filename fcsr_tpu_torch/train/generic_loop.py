@@ -33,7 +33,13 @@ it and registered with the graph.
 Control runs on the device by default: the plateau scheduler, the best
 state (parameters and statistics) and the early-stop mask are float32
 tensors, with one host read per ``control_chunk_epochs`` epochs;
-``host_control=True`` keeps the per-epoch host loop in Python floats. The
+``host_control=True`` keeps the per-epoch host loop in Python floats. In
+a run (``utils/profiling.py``) both loops are the spans ``plan`` (the
+host's permutations), ``epoch`` (an epoch's enqueue and its control ops),
+``control_read`` (the chunk's read; an epoch's on the host loop) and, on
+the device, ``history_read``, with a timing event at each epoch boundary
+of a chunk and the counters ``fold_epochs_run`` / ``fold_epochs_active``
+(the fold-epochs run, and those a fold trained in). The
 shuffle plans come from ``np.random.default_rng(seed)`` in the JAX
 package's sequence. Dropout masks come from a ``torch.Generator`` seeded
 with the run's (first) seed, not from JAX's threefry keys: at dropout > 0
@@ -43,6 +49,7 @@ agree with it run for run (tested).
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from dataclasses import dataclass
 from typing import Callable
@@ -53,6 +60,7 @@ import torch
 from fcsr_tpu_torch.iox.weights import mlp_leaves_to_state, mlp_state_to_flat
 from fcsr_tpu_torch.kernels.ops import KERNEL_OPS
 from fcsr_tpu_torch.train.epoch_graph import EpochGraph, upload as _upload
+from fcsr_tpu_torch.utils import profiling
 from fcsr_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["PlateauScheduler", "TrainState", "mse_criterion", "train_model",
@@ -331,38 +339,50 @@ def _device_control(tr: _FoldTrainer, rngs, num_epochs, lr0, validate_flag,
     done = 0
     while done < num_epochs:
         chunk = min(chunk_epochs, num_epochs - done)
-        perms = np.stack([np.stack([rng.permutation(tr.n)
-                                    for _ in range(chunk)]) for rng in rngs])
+        clock = profiling.epoch_clock([dev])
+        with profiling.span("plan"):
+            perms = np.stack([np.stack([rng.permutation(tr.n)
+                                        for _ in range(chunk)])
+                              for rng in rngs])
+        clock.mark()
         for e in range(chunk):
-            do_val = validate_flag(done + e)
-            tr_loss = tr.epoch(perms[:, e], lr, active).mean(0)
-            vloss = tr.validate() if do_val else inf
-            upd = (active > 0) & do_val
-            is_better = vloss < sbest * (1.0 - thr)
-            sbest2 = torch.where(is_better, vloss, sbest)
-            nbad2 = torch.where(is_better, 0, nbad + 1)
-            decay = nbad2 > patience
-            lr2 = torch.where(decay, lr * factor, lr)
-            nbad2 = torch.where(decay, 0, nbad2)
-            sbest = torch.where(upd, sbest2, sbest)
-            nbad = torch.where(upd, nbad2, nbad)
-            lr2 = torch.where(upd, lr2, lr)
-            improved = upd & (vloss < bval)
-            bval = torch.where(improved, vloss, bval)
-            torch.where(improved[:, None], tr.p, bp, out=bp)
-            torch.where(improved[:, None], tr.s, bs, out=bs)
-            # ``active`` at the epoch's start: the epochs the fold ran
-            parts.append(torch.stack([tr_loss, vloss, lr2, active]))
-            active = torch.where(upd & (lr2 < stop_lr), 0.0, active)
-            lr = lr2
-            flags.append(do_val)
+            with profiling.span("epoch"):
+                do_val = validate_flag(done + e)
+                tr_loss = tr.epoch(perms[:, e], lr, active).mean(0)
+                vloss = tr.validate() if do_val else inf
+                upd = (active > 0) & do_val
+                is_better = vloss < sbest * (1.0 - thr)
+                sbest2 = torch.where(is_better, vloss, sbest)
+                nbad2 = torch.where(is_better, 0, nbad + 1)
+                decay = nbad2 > patience
+                lr2 = torch.where(decay, lr * factor, lr)
+                nbad2 = torch.where(decay, 0, nbad2)
+                sbest = torch.where(upd, sbest2, sbest)
+                nbad = torch.where(upd, nbad2, nbad)
+                lr2 = torch.where(upd, lr2, lr)
+                improved = upd & (vloss < bval)
+                bval = torch.where(improved, vloss, bval)
+                torch.where(improved[:, None], tr.p, bp, out=bp)
+                torch.where(improved[:, None], tr.s, bs, out=bs)
+                # ``active`` at the epoch's start: the epochs the fold ran
+                parts.append(torch.stack([tr_loss, vloss, lr2, active]))
+                active = torch.where(upd & (lr2 < stop_lr), 0.0, active)
+                lr = lr2
+                flags.append(do_val)
+            clock.mark()
         done += chunk
-        if float(active.max()) == 0.0:          # one read per chunk
+        with profiling.span("control_read"):
+            still_active = float(active.max())  # one read per chunk
+        clock.close()
+        if still_active == 0.0:
             break
     finite = torch.isfinite(bval)[:, None]
     torch.where(finite, bp, tr.p, out=bp)
     torch.where(finite, bs, tr.s, out=bs)
-    hist = torch.stack(parts).cpu().numpy()     # (epochs, 4, F)
+    with profiling.span("history_read"):
+        hist = torch.stack(parts).cpu().numpy()     # (epochs, 4, F)
+    profiling.count("fold_epochs_run", hist.shape[0] * F)
+    profiling.count("fold_epochs_active", int((hist[:, 3] > 0).sum()))
     flags = np.asarray(flags, dtype=bool)
     hists = []
     for j in range(F):
@@ -389,13 +409,22 @@ def _host_control(tr: _FoldTrainer, rng, num_epochs, lr0, validate_flag,
     bp = bs = None
     vloss = None
     for epoch in range(num_epochs):
-        perm = rng.permutation(tr.n)
-        validate = validate_flag(epoch)
-        lr_t = torch.full((1,), cur_lr, dtype=torch.float32, device=dev)
-        losses = tr.epoch(perm[None], lr_t, one)[:, 0]
-        if validate:
-            losses = torch.cat([losses, tr.validate()])
-        packed = losses.cpu().numpy()           # one read per epoch
+        clock = profiling.epoch_clock([dev])
+        with profiling.span("plan"):
+            perm = rng.permutation(tr.n)
+        clock.mark()
+        with profiling.span("epoch"):
+            validate = validate_flag(epoch)
+            lr_t = torch.full((1,), cur_lr, dtype=torch.float32, device=dev)
+            losses = tr.epoch(perm[None], lr_t, one)[:, 0]
+            if validate:
+                losses = torch.cat([losses, tr.validate()])
+        clock.mark()
+        with profiling.span("control_read"):
+            packed = losses.cpu().numpy()       # one read per epoch
+        clock.close()
+        profiling.count("fold_epochs_run")
+        profiling.count("fold_epochs_active")
         n_steps = len(packed) - int(validate)
         train_hist.append(float(np.mean(packed[:n_steps].tolist())))
         if validate:
@@ -478,7 +507,8 @@ def train_model_folds(model, variables_stack, lr_train_f, hr_train_f,
                       criterion: Callable = mse_criterion,
                       min_lr_stop: float = 1e-5,
                       control_chunk_epochs: int = 25,
-                      return_stacked: bool = False, device=DEFAULT_DEVICE):
+                      return_stacked: bool = False, device=DEFAULT_DEVICE,
+                      phases=None):
     """Train F folds of one model configuration together under on-device
     control: ``variables_stack`` is a state_dict mapping whose leaves carry
     a leading fold axis, or a flat (p (F, P), s (F, S)) pair (tensors on
@@ -491,19 +521,24 @@ def train_model_folds(model, variables_stack, lr_train_f, hr_train_f,
     Returns F ``(train_hist, val_hist, lr_hist, best_variables)`` tuples
     (state_dicts of views into the selected stack); with
     ``return_stacked`` also the selected (p, s) stack: ``(results, (p,
-    s))``."""
+    s))``. ``phases``: two context managers, entered around the trainer's
+    construction and around the training (a pipeline's phases)."""
     dev = resolve_device(device)
     F = len(seeds)
-    p, s = _flat_buffers(model, variables_stack, F, dev)
-    tr = _FoldTrainer(model, p, s, lr_train_f, hr_train_f, lr_val_f,
-                      hr_val_f, seeds[0], batch_size, criterion, clip_norm,
-                      weight_decay, dev)
+    stage, train = phases or (contextlib.nullcontext(),) * 2
+    with stage:
+        p, s = _flat_buffers(model, variables_stack, F, dev)
+        tr = _FoldTrainer(model, p, s, lr_train_f, hr_train_f, lr_val_f,
+                          hr_val_f, seeds[0], batch_size, criterion,
+                          clip_norm, weight_decay, dev)
     rngs = [np.random.default_rng(sd) for sd in seeds]
-    hists, _, bp, bs = _device_control(
-        tr, rngs, num_epochs, lr, _validate_flag(validate_every, num_epochs),
-        patience, plateau_threshold, plateau_factor, min_lr_stop,
-        max(1, int(control_chunk_epochs)))
-    tr.release_graphs()
+    with train:
+        hists, _, bp, bs = _device_control(
+            tr, rngs, num_epochs, lr,
+            _validate_flag(validate_every, num_epochs), patience,
+            plateau_threshold, plateau_factor, min_lr_stop,
+            max(1, int(control_chunk_epochs)))
+        tr.release_graphs()
     del tr
     results = [(*h, fold_state(model, bp, bs, j)) for j, h in enumerate(hists)]
     return (results, (bp, bs)) if return_stacked else results

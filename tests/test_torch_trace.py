@@ -1,9 +1,10 @@
 """The port's spans and counters (``fcsr_tpu_torch/utils/profiling.py``):
 one record per CV run with the ``cv_run`` tree under one naming, the
 ``timings`` keys, the ``fcsr.*`` ranges in a ``torch.profiler`` trace,
-nothing outside a run, the bounded list of runs, GAT's fold-epoch
-counters. On the card (``cuda``-marked): the epoch boundary events, the
-capture span against the graph's own counters, and no host wait added."""
+nothing outside a run, the bounded list of runs, GAT's and the MLP
+trainer's fold-epoch counters and loop spans. On the card
+(``cuda``-marked): the epoch boundary events, the capture span against
+the graph's own counters, and no host wait added."""
 
 import contextlib
 import dataclasses
@@ -27,6 +28,7 @@ GAT_CFG = GATTrainConfig(ks=(0.5, 0.5), n_nodes=20, m_nodes=32, dim=4,
 PHASES = {"stage", "train", "fold_eval", "test_predict"}
 GSR_LOOP = {"plan", "load_state", "epochs", "history_read", "state_out"}
 GAT_LOOP = {"plan", "epoch", "control_read", "history_read"}
+MLP_KW = dict(k_folds=2, num_epochs=3, batch_size=2, hidden=6)
 
 
 @pytest.fixture(scope="module")
@@ -239,6 +241,85 @@ def test_gat_counts_its_useful_fold_epochs(data):
     assert c["fold_epochs_run"] == 6 * 2 > trained
 
 
+def test_mlp_run_leaves_one_record_with_the_phase_tree(data):
+    """``run_mlp_cv`` names its phases as the fast entries do, its control
+    loop as GAT's: a plan per chunk, an epoch span per epoch, one read per
+    chunk and one of the history."""
+    res, rec = _one_run(lambda: pipelines.run_mlp_cv(data, **MLP_KW,
+                                                     device="cpu"))
+    _check_tree(rec, "run_mlp_cv", GAT_LOOP)
+    count = {n: sum(s["name"] == n for s in rec["spans"]) for n in GAT_LOOP}
+    assert count == {"plan": 1, "epoch": 3, "control_read": 1,
+                     "history_read": 1}
+    # staging is two spans: the pipeline's own and the trainer's
+    # construction inside train_model_folds
+    assert sum(s["name"] == "stage" for s in rec["spans"]) == 2
+
+
+def test_mlp_timings_keep_their_keys_and_gain_the_phases(data):
+    res, rec = _one_run(lambda: pipelines.run_mlp_cv(data, **MLP_KW,
+                                                     device="cpu"))
+    t = res["timings"]
+    assert set(t) == PHASES | {"capture", "eval", "predict"}
+    assert t["eval"] == t["fold_eval"] and t["predict"] == t["test_predict"]
+    assert t["capture"] == 0.0                 # nothing is captured here
+    for name in PHASES:
+        assert t[name] == pytest.approx(rec["phases"][name])
+    assert len(res["variables_per_fold"]) == 2
+    assert res["variables_per_fold"][-1] is res["variables"]
+
+
+def test_mlp_counts_its_fold_epochs(data, monkeypatch):
+    """Device control: the fold-epochs run are the epochs run times the
+    folds, those active the histories' epochs; a fold that stops early
+    runs masked to the chunk's end."""
+    from fcsr_tpu_torch.train import generic_loop
+    seen = []
+
+    def validate(tr):
+        # fold 0 improves every epoch, fold 1 never after its first
+        seen.append(1)
+        return torch.tensor([1.0 / len(seen), 1.0])
+    real = generic_loop._device_control
+
+    def control(tr, rngs, epochs, lr0, flag, patience, *rest):
+        # patience 0: fold 1's rate falls tenfold an epoch to the stop
+        return real(tr, rngs, epochs, lr0, flag, 0, *rest)
+    monkeypatch.setattr(generic_loop._FoldTrainer, "validate", validate)
+    monkeypatch.setattr(generic_loop, "_device_control", control)
+    res, rec = _one_run(lambda: pipelines.run_mlp_cv(
+        data, **dict(MLP_KW, num_epochs=8), device="cpu"))
+    c = rec["counters"]
+    epochs = [len(h[0]) for h in res["histories"]]
+    assert epochs[0] == 8 > epochs[1]
+    assert c["fold_epochs_active"] == sum(epochs)
+    assert c["fold_epochs_run"] == 8 * 2
+
+
+def test_mlp_host_control_names_its_epochs_alike(data):
+    """``train_model(host_control=True)`` in a run: per epoch a plan, an
+    epoch and a control read; one fold-epoch run and active an epoch."""
+    from fcsr_tpu_torch.models.mlp import SpectralResMLP
+    from fcsr_tpu_torch.train.generic_loop import train_model
+    from fcsr_tpu_torch.train.losses import (make_triu_mse_criterion,
+                                             pack_triu_targets)
+    model = SpectralResMLP(20, 32, 6, 0, output="vector", device="meta")
+    p, s = model.init_flat([0], "cpu")
+    r, c = np.triu_indices(20, 1)
+    x, y = data["lr_train"][:, r, c], pack_triu_targets(data["hr_train"])
+    with profiling.cv_run("test_mlp_host"):
+        hists = train_model(model, (p[0], s[0]), x[:5], y[:5], x[5:], y[5:],
+                            num_epochs=2, batch_size=2,
+                            criterion=make_triu_mse_criterion(32),
+                            host_control=True, device="cpu")
+    rec = profiling.recent_runs()[-1]
+    count = {n: sum(s["name"] == n for s in rec["spans"])
+             for n in ("plan", "epoch", "control_read")}
+    assert count == {"plan": 2, "epoch": 2, "control_read": 2}
+    assert len(hists[0]) == 2
+    assert rec["counters"] == {"fold_epochs_run": 2, "fold_epochs_active": 2}
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -318,14 +399,35 @@ def test_gat_times_each_epoch_it_runs_on_card(data):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["run_gsr_cv_fast", "run_gat_cv_fast"])
+def test_mlp_times_each_epoch_and_its_captures_on_card(data):
+    """An MLP run on the card: one device time an epoch, the fold-epochs
+    run, and two captures (the epoch and the validation graphs) whose
+    spans' seconds are the run's ``capture`` timing."""
+    _need_card()
+    res, rec = _one_run(lambda: pipelines.run_mlp_cv(
+        data, **dict(MLP_KW, num_epochs=4), device="cuda"))
+    assert len(rec["epoch_s"]) == 4 and min(rec["epoch_s"]) > 0
+    assert rec["counters"]["fold_epochs_run"] == 4 * 2
+    assert sum(s["name"] == "capture" for s in rec["spans"]) == 2
+    assert res["timings"]["capture"] == pytest.approx(
+        rec["phases"]["capture"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["run_gsr_cv_fast", "run_gat_cv_fast",
+                                   "run_mlp_cv"])
 def test_spans_add_no_host_wait_on_card(data, monkeypatch, entry):
     """The host waits of one CV run (synchronize calls, reads to the host)
     with the spans, counters and events, and with all of them replaced by
     nothing: the same counts."""
     _need_card()
-    cfg = GSR_CFG if entry == "run_gsr_cv_fast" else GAT_CFG
-    run = getattr(pipelines, entry)
+    if entry == "run_mlp_cv":
+        def run(data, cfg, splits, device):
+            return pipelines.run_mlp_cv(data, **MLP_KW, device=device)
+        cfg = None
+    else:
+        cfg = GSR_CFG if entry == "run_gsr_cv_fast" else GAT_CFG
+        run = getattr(pipelines, entry)
     calls = []
 
     def counted(owner, name):
